@@ -30,6 +30,7 @@ setup(
             "unicore-tpu-router = unicore_tpu_cli.router:cli_main",
             "unicore-tpu-lint = unicore_tpu_cli.lint:main",
             "unicore-tpu-trace = unicore_tpu_cli.trace:main",
+            "unicore-tpu-torch-serve = unicore_tpu_torch.cli.serve:cli_main",
         ],
     },
     python_requires=">=3.9",

@@ -72,3 +72,8 @@ def pytest_configure(config):
         "slow: subprocess/e2e tests excluded from the tier-1 run "
         "(python -m pytest -m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels); skipped without one, "
+        "decided inside a fixture",
+    )
