@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``unicore_tpu_torch``) on one NVIDIA
-card: the quickest proof that the port builds, is right and serves on the
-GPU.  Run it from the root of a checkout::
+card: the quickest proof that the port builds, is right, trains and serves
+on the GPU.  Run it from the root of a checkout::
 
     python3 chip_smoke.py
 
@@ -11,27 +11,47 @@ result line):
 1. device — the card's name and ``nvidia-smi`` name/power limit;
 2. build — every ``unicore_tpu_torch/csrc/*.cu`` with nvcc (sm_90a), with
    each kernel's registers, shared memory and spills from ``-Xptxas -v``;
-3. kernels — each kernel's wrapper on card tensors at the serve path's
+3. kernels — each kernel's wrapper on card tensors at the main paths'
    shapes against its plain PyTorch version on the same inputs (max abs
-   error vs a stated tolerance), then its time (CUDA events, warmed, 100
-   launches), the plain version's, one PyTorch library call's, and the
-   least time the card could take (bytes over 3.35 TB/s or operations over
-   the type's peak rate, whichever is larger);
-4. the slice — a full-width BERT-base checkpoint (12 layers, 768 wide, 12
-   heads, max_seq_len 512) with weights from a fixed seed and a ~30k-symbol
-   dictionary, served by ``python -m unicore_tpu_torch.cli.serve --device
-   cuda`` (batch 8, buckets 128/256/384/512); requests of every bucket, some
-   concurrent; per-batch kernel launches read from ``/stats`` (12 attention,
-   26 norm); two 128-bucket answers held against the same checkpoint run in
-   this process on the CPU through the plain versions; SIGTERM → drain →
-   exit 0;
+   error vs a stated tolerance): the attention forward (dropout 0 and 0.1,
+   its Philox mask read off the card and held bit for bit against the
+   plain mask, keep rate within 5 sigma), the attention backward (dq, dk,
+   dv, dbias vs autograd of the plain version, dropout 0 and 0.1), the
+   LayerNorm/RMSNorm forward with its statistics, dx and dw/db.  Each with
+   its time per call (CUDA events, warmed, the median of 5 repeats of
+   ``iters`` calls, with the min-max spread) and its device time (the
+   kernels' own durations from ``torch.profiler``, without the host's time
+   between calls), the same two for the plain version and for one PyTorch
+   library call (a backward timed alone on a retained autograd graph), and
+   the least time the card could take (bytes over 3.35 TB/s or operations
+   over the type's peak rate, whichever is larger);
+4a. training — ``python -m unicore_tpu_torch.cli.train --device cuda`` on a
+   full-width BERT-base (12 layers, 768 wide, 12 heads, max_seq_len 512;
+   weights from ``--seed``) over an indexed corpus written from a seed
+   (a ~30k-word dictionary, documents of 380-510 words so batches fill the
+   384 and 512 buckets), ``--seq-pad-multiple 128``, batch 8,
+   ``--update-freq 2``, Adam, clip 1.0, polynomial decay with warmup, the
+   arch's own dropouts; kernel launches per micro-batch read from the CLI's
+   stats line (12 attention forward + 12 backward, 26 norm forward + 26 dx
+   + 26 dw/db), every loss finite and the last losses below the first;
+4b. card against CPU — one training path (BERT-base widths at 2 layers,
+   L=256, attention dropout 0.1, other dropouts 0) in this process, on the
+   card (kernels) and on the CPU (plain versions) from the same weights and
+   batches: per-update loss 1e-4 relative, gradient norm 1e-3 relative,
+   parameters within 2*lr*steps, no launch in the CPU run;
+4. serving — the checkpoint 4a wrote, served by ``python -m
+   unicore_tpu_torch.cli.serve --device cuda`` (batch 8, buckets
+   128/256/384/512); requests of every bucket, some concurrent; per-batch
+   kernel launches read from ``/stats`` (12 attention, 26 norm); two
+   128-bucket answers held against the same checkpoint run in this process
+   on the CPU; SIGTERM -> drain -> exit 0;
 5. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3-4 on the CPU at a tiny size through the
-plain versions (no card, no kernels, no result line) to check the script's
-own control flow.
+``--cpu-rehearsal`` runs phases 3, 4a, 4b and 4 on the CPU at ``bert_tiny``
+through the plain versions (no card, no kernels, no result line) to check
+the script's own control flow.
 """
 
 import argparse
@@ -57,18 +77,27 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 #: max-abs-error tolerances, kernel vs plain version on the same inputs:
 #: fp32 differs only in summation order; bf16 may round last-bit fp32
 #: differences to neighbouring bf16 values (one ulp is 2**-8 below 1 and
-#: 2**-4 below 16 in magnitude)
+#: 2**-4 below 16 in magnitude).  Gradients are held relative to the
+#: reference's largest magnitude (at least 1): the attention backward adds
+#: dk, dv and dbias by atomics in an order that changes from run to run, and
+#: in bf16 rounds pd and ds to bf16 before its products.
 TOL = {
     "attention": {"float32": 2e-5, "bfloat16": 2e-2},
     "norm": {"float32": 1e-5, "bfloat16": 6.25e-2},
+    "attention_grad": {"float32": 1e-4, "bfloat16": 5e-2},
+    "norm_grad": {"float32": 1e-5, "bfloat16": 6.25e-2},
 }
-REPLACES = {
-    "fullrow_attention_fwd": "unicore_tpu/ops/attention_fullrow.py:110",
-    "fused_norm_fwd": "unicore_tpu/ops/fused_norm.py:56",
-}
-SOURCES = {
-    "fullrow_attention_fwd": "unicore_tpu_torch/csrc/attention_fullrow.cu",
-    "fused_norm_fwd": "unicore_tpu_torch/csrc/fused_norm.cu",
+KERNELS = {
+    "fullrow_attention_fwd": ("unicore_tpu/ops/attention_fullrow.py:110",
+                              "unicore_tpu_torch/csrc/attention_fullrow.cu"),
+    "fullrow_attention_bwd": ("unicore_tpu/ops/attention_fullrow.py:205",
+                              "unicore_tpu_torch/csrc/attention_fullrow.cu"),
+    "fused_norm_fwd": ("unicore_tpu/ops/fused_norm.py:56",
+                       "unicore_tpu_torch/csrc/fused_norm.cu"),
+    "fused_norm_dx": ("unicore_tpu/ops/fused_norm.py:140",
+                      "unicore_tpu_torch/csrc/fused_norm.cu"),
+    "fused_norm_dwdb": ("unicore_tpu/ops/fused_norm.py:157",
+                        "unicore_tpu_torch/csrc/fused_norm.cu"),
 }
 
 
@@ -90,29 +119,77 @@ def nvidia_smi():
     )
 
 
+def dtype_name(dtype):
+    return str(dtype).split(".")[1]
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, device, iters=100, warm=10):
-    """Mean milliseconds per call: CUDA events around ``iters`` warmed calls
-    on the card; the host clock on the CPU rehearsal."""
+def time_ms(torch, fn, device, iters=100, warm=10, repeats=5):
+    """(median, [min, max]) milliseconds per call over ``repeats`` runs of
+    ``iters`` warmed calls: CUDA events on the card, the host clock on the
+    CPU rehearsal."""
     for _ in range(warm):
         fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
+    runs = []
+    for _ in range(repeats):
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            runs.append((time.perf_counter() - t0) * 1e3 / iters)
+            continue
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(iters):
             fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
-    torch.cuda.synchronize(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize(device)
-    return start.elapsed_time(end) / iters
+        end.record()
+        torch.cuda.synchronize(device)
+        runs.append(start.elapsed_time(end) / iters)
+    runs.sort()
+    return runs[len(runs) // 2], [runs[0], runs[-1]]
+
+
+def device_ms(torch, fn, iters=20):
+    """Milliseconds of device work per call: the durations of the CUDA
+    kernels and memsets the calls launch, summed by ``torch.profiler``
+    (CUPTI) over ``iters`` warmed calls.  CUDA events around back-to-back
+    calls also count the host's time between launches, which is most of a
+    call of a few microseconds.  None where the profiler saw no device
+    work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def timed(res, key, torch, fn, device, iters):
+    """res[key], res[<key>_spread]: ms per call by :func:`time_ms`; on the
+    card also res[<key with device_ms>]: :func:`device_ms`."""
+    res[key], res[key.replace("ms", "ms_spread")] = time_ms(torch, fn, device, iters)
+    res[key.replace("ms", "device_ms")] = (
+        device_ms(torch, fn) if device.type == "cuda" else None)
+
+
+def backward_call(torch, fwd, leaves, grad_out):
+    """A backward alone through autograd: one forward, then the backward
+    repeated on the retained graph.  (Forward + backward minus forward
+    subtracts two noisy times, and came out negative for the plain
+    version, whose Philox runs as many small integer kernels.)"""
+    out = fwd()
+    return lambda: torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -121,53 +198,147 @@ def bound_ms(nbytes, flops, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_attention(torch, device, B, H, L, D, dtype, iters):
-    import torch.nn.functional as F
+def rel_err(got, ref):
+    """max |got - ref| and the scale max(1, max |ref|) it is held against."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, max(1.0, ref.float().abs().max().item())
 
-    from unicore_tpu_torch.ops import attention_fullrow as fr
 
-    g = torch.Generator(device=device).manual_seed(L)
+def attention_inputs(torch, device, B, H, L, D, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
     q = (torch.randn(B, H, L, D, generator=g, device=device) * D ** -0.5).to(dtype)
     k = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
     v = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
+    do = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
     bias = torch.randn(1, H, L, L, generator=g, device=device)
     lens = torch.linspace(L, L // 3, B, device=device).long()
     lens[-1] = 0  # a fully-masked row, like the serve engine's fill rows
     mask = (torch.arange(L, device=device)[None, :] >= lens[:, None]).to(torch.int32)
-
-    out = fr.fullrow_attention(q, k, v, bias=bias, kv_padding_mask=mask)
-    ref = fr.fullrow_attention_plain(q, k, v, bias, mask)
-    err = (out.float() - ref.float()).abs().max().item()
-    masked_row_zero = out[-1].abs().max().item() == 0.0
-    tol = TOL["attention"][str(dtype).split(".")[1]]
-    name = f"attention B={B} H={H} L={L} D={D} {dtype}"
-    if not (err <= tol and masked_row_zero and math.isfinite(err)):
-        raise AssertionError(
-            f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
-            f"fully-masked row zero: {masked_row_zero}"
-        )
     # the library yardstick: SDPA with a float mask and no fully-masked row
     lens_lib = lens.clone()
     lens_lib[-1] = L // 3
     keymask = torch.arange(L, device=device)[None, :] >= lens_lib[:, None]
     attn_mask = (bias + torch.where(keymask, float("-inf"), 0.0)[:, None, None, :]).to(dtype)
-    res = {
-        "shape": [B, H, L, D], "dtype": str(dtype).split(".")[1],
-        "max_abs_err": err, "tolerance": tol,
-        "ms": time_ms(torch, lambda: fr.fullrow_attention(
-            q, k, v, bias=bias, kv_padding_mask=mask), device, iters),
-        "plain_ms": time_ms(torch, lambda: fr.fullrow_attention_plain(
-            q, k, v, bias, mask), device, iters),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, scale=1.0), device, iters),
-    }
-    itemsize = q.element_size()
-    nbytes = 4 * B * H * L * D * itemsize + bias.numel() * 4 + mask.numel() * 4
-    res["bound_ms"], res["bound_by"] = bound_ms(
-        nbytes, 4 * B * H * L * L * D, res["dtype"]
-    )
+    return q, k, v, do, bias, mask, attn_mask
+
+
+def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234):
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import attention_fullrow as fr
+
+    q, k, v, _, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
+                                                         dtype, L)
+    call = lambda: fr.fullrow_attention(  # noqa: E731
+        q, k, v, bias=bias, kv_padding_mask=mask, dropout_rate=rate,
+        dropout_seed=seed)
+    plain = lambda: fr.fullrow_attention_plain(q, k, v, bias, mask, 1.0, rate, seed)  # noqa: E731
+    out = call()
+    err = (out.float() - plain().float()).abs().max().item()
+    masked_row_zero = out[-1].abs().max().item() == 0.0
+    tol = TOL["attention"][dtype_name(dtype)]
+    name = f"attention fwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+    if not (err <= tol and masked_row_zero and math.isfinite(err)):
+        raise AssertionError(
+            f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
+            f"fully-masked row zero: {masked_row_zero}"
+        )
+    res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
+           "max_abs_err": err, "tolerance": tol}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask, scale=1.0, dropout_p=rate), device, iters)
+    nbytes = 4 * B * H * L * D * q.element_size() + bias.numel() * 4 + mask.numel() * 4
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4 * B * H * L * L * D,
+                                                res["dtype"])
     log(f"{name}: {json.dumps(res)}")
     return res
+
+
+def check_dropout_mask(torch, device, B, H, rate, seed):
+    """q = k = 0 makes every kept probability 1/L scaled, and v = I makes the
+    output the dropped probability row itself: the kernel's keep mask,
+    read off the card, against the plain Philox mask bit for bit, and its
+    keep rate within 5 binomial sigmas of 1 - rate."""
+    from unicore_tpu_torch.ops import attention_fullrow as fr
+
+    L = 128
+    z = torch.zeros(B, H, L, L, device=device)
+    eye = torch.eye(L, device=device).expand(B, H, L, L).contiguous()
+    kernel_keep = fr.fullrow_attention(z, z, eye, dropout_rate=rate,
+                                       dropout_seed=seed) != 0
+    plain_keep = fr.philox_keep_plain(B, H, L, L, seed, rate, device=device)
+    keep_rate = kernel_keep.float().mean().item()
+    sigma = math.sqrt(rate * (1 - rate) / kernel_keep.numel())
+    res = {"shape": [B, H, L, L], "mask_equal": bool(torch.equal(kernel_keep, plain_keep)),
+           "keep_rate": keep_rate, "expected": 1 - rate, "sigma": sigma}
+    log(f"attention dropout mask: {json.dumps(res)}")
+    if not res["mask_equal"] or abs(keep_rate - (1 - rate)) > 5 * sigma:
+        raise AssertionError(f"dropout mask check failed: {res}")
+    return res
+
+
+def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321):
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import attention_fullrow as fr
+
+    q, k, v, do, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
+                                                          dtype, L + 1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+
+    def public_grads():  # the training path: the autograd Function
+        out = fr.fullrow_attention(*leaves[:3], bias=leaves[3], kv_padding_mask=mask,
+                                   dropout_rate=rate, dropout_seed=seed)
+        return torch.autograd.grad(out, leaves, do)
+
+    got = public_grads()
+    ref = torch.autograd.grad(
+        fr.fullrow_attention_plain(*leaves[:3], leaves[3], mask, 1.0, rate, seed),
+        leaves, do)
+    tol = TOL["attention_grad"][dtype_name(dtype)]
+    name = f"attention bwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+    errs = {}
+    for gname, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        err, scale = rel_err(g, r)
+        errs[gname] = err
+        if not (err <= tol * scale and math.isfinite(err)):
+            raise AssertionError(f"{name}: {gname} max abs err {err} "
+                                 f"(tol {tol} x {scale})")
+    # the backward kernel alone on the card (its launch, with the zeroed
+    # fp32 sums it adds into); the whole autograd backward on the CPU
+    kernel = ((lambda: fr._launch_bwd(q, k, v, bias, mask, do, 1.0, rate, seed, True))
+              if device.type == "cuda" else public_grads)
+    res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
+           "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+           "tolerance": f"{tol} x max(1, max|ref|)"}
+    timed(res, "ms", torch, kernel, device, iters)
+    slow_iters = max(iters // 4, 2)
+    timed(res, "plain_ms", torch, backward_call(
+        torch, lambda: fr.fullrow_attention_plain(*leaves[:3], leaves[3], mask, 1.0,
+                                                  rate, seed),
+        leaves, do), device, slow_iters)
+    lib_mask = attn_mask.clone().requires_grad_(True)
+    timed(res, "library_ms", torch, backward_call(
+        torch, lambda: F.scaled_dot_product_attention(
+            *leaves[:3], attn_mask=lib_mask, scale=1.0, dropout_p=rate),
+        leaves[:3] + [lib_mask], do), device, slow_iters)
+    item = q.element_size()
+    nbytes = (7 * B * H * L * D * item + 2 * bias.numel() * 4 + mask.numel() * 4)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 10 * B * H * L * L * D,
+                                                res["dtype"])
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
+def norm_inputs(torch, device, N, D, dtype):
+    g = torch.Generator(device=device).manual_seed(N + D)
+    x = (torch.randn(N, D, generator=g, device=device) * 2 + 0.5).to(dtype)
+    dy = torch.randn(N, D, generator=g, device=device).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=device)
+    b = 0.1 * torch.randn(D, generator=g, device=device)
+    return x, dy, w, b
 
 
 def check_norm(torch, device, N, D, dtype, rms, iters):
@@ -175,33 +346,289 @@ def check_norm(torch, device, N, D, dtype, rms, iters):
 
     from unicore_tpu_torch.ops import fused_norm as fn
 
-    g = torch.Generator(device=device).manual_seed(N + D)
-    x = (torch.randn(N, D, generator=g, device=device) * 2 + 0.5).to(dtype)
-    w = 1 + 0.1 * torch.randn(D, generator=g, device=device)
-    b = 0.1 * torch.randn(D, generator=g, device=device)
+    x, _, w, b = norm_inputs(torch, device, N, D, dtype)
+    eps = 1e-6 if rms else 1e-5
+    bb = None if rms else b
+    name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
+    call = lambda: fn._fused_norm(x, w, bb, eps, rms)  # noqa: E731
+    plain = lambda: fn.fused_norm_plain(x, w, bb, eps, rms)  # noqa: E731
     if rms:
-        call = lambda: fn.fused_rms_norm(x, w)  # noqa: E731
-        plain = lambda: fn.fused_norm_plain(x, w, None, 1e-6, True)  # noqa: E731
-        lib = (lambda: F.rms_norm(x, (D,), w.to(dtype), 1e-6)) if hasattr(F, "rms_norm") else None  # noqa: E731
+        lib = (lambda: F.rms_norm(x, (D,), w.to(dtype), eps)) if hasattr(F, "rms_norm") else None  # noqa: E731
     else:
-        call = lambda: fn.fused_layer_norm(x, w, b)  # noqa: E731
-        plain = lambda: fn.fused_norm_plain(x, w, b, 1e-5, False)  # noqa: E731
-        lib = lambda: F.layer_norm(x, (D,), w.to(dtype), b.to(dtype), 1e-5)  # noqa: E731
+        lib = lambda: F.layer_norm(x, (D,), w.to(dtype), b.to(dtype), eps)  # noqa: E731
     err = (call().float() - plain().float()).abs().max().item()
-    tol = TOL["norm"][str(dtype).split(".")[1]]
-    name = f"{'rms' if rms else 'layer'}_norm N={N} D={D} {dtype}"
-    if not (err <= tol and math.isfinite(err)):
-        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
-    res = {
-        "shape": [N, D], "dtype": str(dtype).split(".")[1], "rms": rms,
-        "max_abs_err": err, "tolerance": tol,
-        "ms": time_ms(torch, call, device, iters),
-        "plain_ms": time_ms(torch, plain, device, iters),
-        "library_ms": None if lib is None else time_ms(torch, lib, device, iters),
-    }
+    # the training forward's statistics against fp32 plain statistics
+    stat_err = 0.0
+    if device.type == "cuda":
+        _, mean, rstd = fn._launch_fwd(x, w, bb, eps, rms, True, name_fn)
+        xf = x.float()
+        ref_mean = torch.zeros_like(mean) if rms else xf.mean(-1)
+        ref_var = (xf - ref_mean[:, None]).square().mean(-1)
+        for got, ref in ((mean, ref_mean), (rstd, torch.rsqrt(ref_var + eps))):
+            err_s, scale = rel_err(got, ref)
+            stat_err = max(stat_err, err_s / scale)
+    tol = TOL["norm"][dtype_name(dtype)]
+    name = f"{'rms' if rms else 'layer'}_norm fwd N={N} D={D} {dtype}"
+    if not (err <= tol and stat_err <= 1e-5 and math.isfinite(err)):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
+                             f"statistics err {stat_err} (tol 1e-5)")
+    res = {"shape": [N, D], "dtype": dtype_name(dtype), "rms": rms,
+           "max_abs_err": err, "tolerance": tol, "stats_rel_err": stat_err}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters)
+    if lib is None:
+        res["library_ms"] = res["library_ms_spread"] = res["library_device_ms"] = None
+    else:
+        timed(res, "library_ms", torch, lib, device, iters)
     nbytes = 2 * N * D * x.element_size() + D * 4 * (1 if rms else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * N * D, "float32")
     log(f"{name}: {json.dumps(res)}")
+    return res
+
+
+def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
+    """dx and dw/db kernels against autograd of the plain version.  Their
+    plain and library times are the whole backward (dx, dw and db
+    together), as autograd computes it."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import fused_norm as fn
+
+    x, dy, w, b = norm_inputs(torch, device, N, D, dtype)
+    eps = 1e-6 if rms else 1e-5
+    name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
+    leaves = [t.clone().requires_grad_(True) for t in ((x, w) if rms else (x, w, b))]
+
+    def plain_fwd():
+        return fn.fused_norm_plain(leaves[0], leaves[1], None if rms else leaves[2], eps, rms)
+
+    def public_grads():  # the training path: the autograd Function
+        return torch.autograd.grad(
+            fn._fused_norm(leaves[0], leaves[1], None if rms else leaves[2], eps, rms),
+            leaves, dy)
+
+    ref = torch.autograd.grad(plain_fwd(), leaves, dy)
+    got = public_grads()
+    if device.type == "cuda":  # each kernel alone on the card
+        _, mean, rstd = fn._launch_fwd(x, w, None if rms else b, eps, rms, True, name_fn)
+        dx_call = lambda: fn._launch_dx(x, w, mean, rstd, dy, rms, name_fn)  # noqa: E731
+        dwdb_call = lambda: fn._launch_dwdb(x, mean, rstd, dy, not rms, name_fn)  # noqa: E731
+    else:
+        dx_call = dwdb_call = public_grads
+    tol = TOL["norm_grad"][dtype_name(dtype)]
+    out = {}
+    for kname, pairs in (("fused_norm_dx", [("dx", got[0], ref[0])]),
+                         ("fused_norm_dwdb", list(zip(("dw", "db"), got[1:], ref[1:])))):
+        errs = {}
+        for gname, g, r in pairs:
+            err, scale = rel_err(g, r)
+            if not (err <= tol * scale and math.isfinite(err)):
+                raise AssertionError(f"{kname} N={N} D={D} {dtype} rms={rms}: {gname} "
+                                     f"max abs err {err} (tol {tol} x {scale})")
+            errs[gname] = err
+        out[kname] = {"shape": [N, D], "dtype": dtype_name(dtype), "rms": rms,
+                      "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
+                      "tolerance": f"{tol} x max(1, max|ref|)"}
+
+    both = {}
+    timed(both, "plain_ms", torch, backward_call(torch, plain_fwd, leaves, dy),
+          device, iters)
+    if rms and not hasattr(F, "rms_norm"):
+        both.update(library_ms=None, library_ms_spread=None, library_device_ms=None)
+    else:
+        lw = w.to(dtype).clone().requires_grad_(True)
+        lb = b.to(dtype).clone().requires_grad_(True)
+        lx = x.clone().requires_grad_(True)
+        timed(both, "library_ms", torch, backward_call(
+            torch,
+            (lambda: F.rms_norm(lx, (D,), lw, eps)) if rms else
+            (lambda: F.layer_norm(lx, (D,), lw, lb, eps)),
+            [lx, lw] if rms else [lx, lw, lb], dy), device, iters)
+    item = x.element_size()
+    for kname, call, nbytes, flops in (
+        ("fused_norm_dx", dx_call, 3 * N * D * item + 2 * N * 4 + D * 4, 10 * N * D),
+        ("fused_norm_dwdb", dwdb_call,
+         2 * N * D * item + 2 * N * 4 + D * 4 * (1 if rms else 2), 4 * N * D),
+    ):
+        res = out[kname]
+        timed(res, "ms", torch, call, device, iters)
+        res.update(both)
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "float32")
+        log(f"{kname} N={N} D={D} {dtype} rms={rms}: {json.dumps(res)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: training, a subprocess of the train CLI
+# ---------------------------------------------------------------------------
+
+def write_corpus(cfg):
+    """dict.txt (one symbol per line, as WordPiece reads it) and an indexed
+    train split of documents drawn from a seed."""
+    import numpy as np
+
+    from unicore_tpu_torch.data import make_builder
+
+    data = WORK / "data"
+    data.mkdir(parents=True, exist_ok=True)
+    words = [f"w{i}" for i in range(cfg["symbols"])]
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    (data / "dict.txt").write_text("\n".join(vocab) + "\n")
+    rng = np.random.default_rng(cfg["seed"])
+    # Zipf-like word frequencies, as in text, so a few updates can learn them
+    freq = 1.0 / np.arange(10, len(words) + 10)
+    builder = make_builder(str(data / "train"))
+    lo, hi = cfg["doc_words"]
+    for _ in range(cfg["docs"]):
+        n = int(rng.integers(lo, hi + 1))
+        picks = rng.choice(len(words), size=n, p=freq / freq.sum())
+        builder.add_item(" ".join(words[i] for i in picks))
+    builder.finalize()
+    return data
+
+
+def train_argv(cfg, data, save_dir, device):
+    t = cfg["train"]
+    return [
+        str(data), "--device", device, "--task", "bert", "--loss", "masked_lm",
+        "--arch", cfg["arch"], "--optimizer", "adam", "--adam-betas", "(0.9, 0.98)",
+        "--adam-eps", "1e-6", "--weight-decay", "1e-4", "--clip-norm", "1.0",
+        "--lr-scheduler", "polynomial_decay", "--lr", str(t["lr"]),
+        "--warmup-updates", str(t["warmup"]), "--total-num-update", str(t["updates"]),
+        "--max-update", str(t["updates"]), "--batch-size", str(cfg["batch"]),
+        "--update-freq", str(t["update_freq"]), "--seq-pad-multiple", "128",
+        "--log-interval", "1", "--log-format", "simple", "--num-workers", "0",
+        "--save-dir", str(save_dir), "--seed", str(cfg["seed"] + 1),
+    ]
+
+
+def drive_training(cfg, data, card, smi):
+    save_dir = WORK / "train_ckpt"
+    log_path = WORK / "train.log"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    argv = [sys.executable, "-m", "unicore_tpu_torch.cli.train",
+            *train_argv(cfg, data, save_dir, cfg["device"].type)]
+    t0 = time.monotonic()
+    with open(log_path, "w") as f:
+        proc = subprocess.run(argv, stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                              env=env, timeout=cfg["train"]["timeout_s"])
+    text = log_path.read_text()
+    if proc.returncode != 0:
+        raise RuntimeError(f"train CLI exited {proc.returncode}:\n{text[-6000:]}")
+    lines = [ln for ln in text.splitlines() if ln.startswith("TRAIN stats ")]
+    if not lines:
+        raise AssertionError(f"no TRAIN stats line:\n{text[-6000:]}")
+    stats = json.loads(lines[-1][len("TRAIN stats "):])
+    for ln in text.splitlines():
+        if "| update " in ln:
+            log("train " + ln.split(" | ", 3)[-1])
+    losses = stats["loss_per_update"]
+    micro = stats["micro_batches"]
+    launches = stats["kernel_launches"]
+    want = cfg["train"]["per_micro_batch"]
+    log(f"training: {stats['updates']} updates, {micro} micro-batches in "
+        f"{time.monotonic() - t0:.1f}s; launches {launches} (want per "
+        f"micro-batch {want})")
+    if stats["updates"] != cfg["train"]["updates"]:
+        raise AssertionError(f"{stats['updates']} updates, want {cfg['train']['updates']}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 5 mean {first}, last 5 mean {last}")
+    if cfg["device"].type == "cuda":
+        for k, n in want.items():
+            if launches.get(k) != n * micro:
+                raise AssertionError(f"{k}: {launches.get(k)} launches for {micro} "
+                                     f"micro-batches, want {n} per micro-batch")
+    elif sum(launches.values()):
+        raise AssertionError(f"the CPU rehearsal launched kernels: {launches}")
+    train = {
+        "arch": cfg["arch"], "updates": stats["updates"], "micro_batches": micro,
+        "batch": cfg["batch"], "update_freq": cfg["train"]["update_freq"],
+        "loss_first5_mean": first, "loss_last5_mean": last,
+        "median_step_ms": stats["median_step_ms"], "tokens_per_s": stats["tokens_per_s"],
+        "tokens": stats["tokens"], "peak_memory_bytes": stats["peak_memory_bytes"],
+        "step_ms": stats["step_ms"], "card": card, "nvidia_smi": smi,
+    }
+    print("train " + json.dumps(train), flush=True)
+    return save_dir / "checkpoint_last.pt", launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: one training path on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def drive_card_vs_cpu(torch, cfg, data):
+    import copy
+
+    import numpy as np
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.losses import LOSS_REGISTRY
+    from unicore_tpu_torch.models.bert import BertModel
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.tasks.bert import BertTask
+    from unicore_tpu_torch.trainer import Trainer
+
+    c = cfg["card_vs_cpu"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(),
+        train_argv(cfg, data, WORK / "unused", "cpu")
+        + ["--update-freq", "2", "--max-update", str(c["updates"]),
+           "--total-num-update", str(c["updates"]), "--warmup-updates", "1"])
+    task = BertTask.setup_task(args)
+    vocab, pad = len(task.dictionary), task.dictionary.pad()
+    model = BertModel(
+        vocab_size=vocab, padding_idx=pad, encoder_layers=2,
+        encoder_embed_dim=args.encoder_embed_dim,
+        encoder_ffn_embed_dim=args.encoder_ffn_embed_dim,
+        encoder_attention_heads=args.encoder_attention_heads,
+        max_seq_len=args.max_seq_len, dropout=0.0, emb_dropout=0.0,
+        attention_dropout=0.1, generator=torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(11)
+    B, L = cfg["batch"], c["seq_len"]
+    samples = []
+    for _ in range(2 * c["updates"]):
+        lens = rng.integers(L // 2, L + 1, B)
+        src = rng.integers(5, vocab, (B, L))
+        src[np.arange(L)[None, :] >= lens[:, None]] = pad
+        tgt = np.where((rng.random((B, L)) < 0.15) & (src != pad), src, pad)
+        samples.append({"net_input": {"src_tokens": src}, "target": tgt})
+
+    def run(device):
+        tr = Trainer(args, task, copy.deepcopy(model), LOSS_REGISTRY["masked_lm"](task),
+                     device)
+        tr.begin_epoch(1)
+        gnorms = [tr.train_step(samples[2 * i:2 * i + 2]) for i in range(c["updates"])]
+        params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+        return tr.update_losses, gnorms, params
+
+    _kernels.reset_launch_counts()
+    card = run(cfg["device"])
+    card_launches = _kernels.launch_counts()
+    _kernels.reset_launch_counts()
+    cpu = run(torch.device("cpu"))
+    cpu_launches = _kernels.launch_counts()
+    res = {"losses_card": card[0], "losses_cpu": cpu[0], "gnorm_card": card[1],
+           "gnorm_cpu": cpu[1], "card_launches": card_launches}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    param_err = max((card[2][n] - cpu[2][n]).abs().max().item() for n in cpu[2])
+    param_tol = 2 * args.lr[0] * c["updates"]
+    res.update(loss_rel=loss_rel, gnorm_rel=gnorm_rel, param_max_abs_diff=param_err,
+               param_tol=param_tol)
+    log(f"card vs CPU: {json.dumps(res)}")
+    if sum(cpu_launches.values()):
+        raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
+    if cfg["device"].type == "cuda" and not all(
+            card_launches.get(k, 0) > 0 for k in KERNELS):
+        raise AssertionError(f"the card run missed a kernel: {card_launches}")
+    if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= param_tol):
+        raise AssertionError(f"card and CPU disagree: loss {loss_rel} (1e-4 rel), "
+                             f"gnorm {gnorm_rel} (1e-3 rel), params {param_err} "
+                             f"({param_tol} abs)")
     return res
 
 
@@ -218,28 +645,6 @@ def http(method, url, payload=None, timeout=120.0):
             return r.status, json.loads(r.read())
     except urllib.error.HTTPError as err:
         return err.code, json.loads(err.read())
-
-
-def write_checkpoint(torch, cfg):
-    from unicore_tpu_torch import checkpoint_utils
-    from unicore_tpu_torch.models import ARCH_CONFIG_REGISTRY
-    from unicore_tpu_torch.tasks.bert import BertTask
-
-    data = WORK / "data"
-    data.mkdir(parents=True, exist_ok=True)
-    words = ["[CLS]", "[PAD]", "[SEP]", "[UNK]"] + [
-        f"w{i}" for i in range(cfg["symbols"])
-    ]
-    (data / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
-    args = argparse.Namespace(task="bert", arch=cfg["arch"], data=str(data), seed=1)
-    ARCH_CONFIG_REGISTRY[cfg["arch"]](args)
-    task = BertTask.setup_task(args)
-    gen = torch.Generator(device=cfg["device"]).manual_seed(0)
-    model = task.build_model(args, device=cfg["device"], generator=gen)
-    path = WORK / "checkpoint.pt"
-    checkpoint_utils.save_checkpoint(str(path), args, model.state_dict())
-    del model
-    return path, task
 
 
 def cpu_reference(torch, path, rows, bucket, pad_idx):
@@ -307,22 +712,23 @@ class Server:
         self._log.close()
 
 
-def drive_slice(torch, cfg, card, smi):
+def drive_slice(torch, cfg, path, card, smi):
     import numpy as np
 
+    from unicore_tpu_torch import checkpoint_utils, tasks
     from unicore_tpu_torch.ops import _kernels
 
     t0 = time.monotonic()
-    path, task = write_checkpoint(torch, cfg)
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+    task = tasks.setup_task(state["args"])
     vocab, pad = len(task.dictionary), task.dictionary.pad()
-    log(f"checkpoint {cfg['arch']} vocab {vocab} written in "
-        f"{time.monotonic() - t0:.1f}s")
+    del state
     server = Server(path, cfg)
     try:
         server.wait_ready(cfg["ready_budget_s"])
         log(f"server ready at {server.base} after {time.monotonic() - t0:.1f}s")
         rng = np.random.default_rng(cfg["seed"])
-        reqs = [rng.integers(4, vocab, size=n).tolist() for n in cfg["lengths"]]
+        reqs = [rng.integers(5, vocab, size=n).tolist() for n in cfg["lengths"]]
         _kernels.reset_launch_counts()
         code, before = http("GET", server.base + "/stats")
         assert code == 200, before
@@ -396,7 +802,7 @@ def drive_slice(torch, cfg, card, smi):
             "client_p50_ms": float(np.percentile(lat, 50)),
             "client_p99_ms": float(np.percentile(lat, 99)),
             "server_p50_ms": after.get("p50_ms"), "server_p99_ms": after.get("p99_ms"),
-            "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+            "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
         }
         print("serve " + json.dumps(serve), flush=True)
         return launches
@@ -408,9 +814,18 @@ def drive_slice(torch, cfg, card, smi):
 
 CHIP = {
     "attention": [(8, 12, 512, 64), (8, 12, 128, 64)],
+    "attention_bwd": [(8, 12, 512, 64), (8, 12, 128, 64)],
     "norm": [(4096, 768), (4097, 1024)],
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
+    "docs": 400, "doc_words": (380, 510),
+    "train": {"updates": 20, "update_freq": 2, "lr": 1e-4, "warmup": 5,
+              "timeout_s": 600,
+              "per_micro_batch": {"fullrow_attention_fwd": 12,
+                                  "fullrow_attention_bwd": 12,
+                                  "fused_norm_fwd": 26, "fused_norm_dx": 26,
+                                  "fused_norm_dwdb": 26}},
+    "card_vs_cpu": {"updates": 3, "seq_len": 256},
     # every bucket of 128/256/384/512 at both of its edges, plus a few more
     "lengths": [1, 17, 64, 100, 128, 129, 200, 256, 257, 300, 384, 385,
                 450, 500, 511, 512, 33, 77, 222, 333],
@@ -419,9 +834,18 @@ CHIP = {
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
+    "attention_bwd": [(2, 2, 128, 16)],
     "norm": [(33, 64)],
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
+    "docs": 48, "doc_words": (60, 126),
+    "train": {"updates": 10, "update_freq": 2, "lr": 1e-3, "warmup": 2,
+              "timeout_s": 300,
+              "per_micro_batch": {"fullrow_attention_fwd": 2,
+                                  "fullrow_attention_bwd": 2,
+                                  "fused_norm_fwd": 6, "fused_norm_dx": 6,
+                                  "fused_norm_dwdb": 6}},
+    "card_vs_cpu": {"updates": 2, "seq_len": 128},
     "lengths": [1, 20, 32, 33, 64, 96, 97, 128],
     "ready_budget_s": 120,
     "per_batch": {"fullrow_attention_fwd": 2, "fused_norm_fwd": 6},
@@ -431,7 +855,7 @@ REHEARSAL = {
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3-4 on the CPU at a tiny size, no card")
+                        help="phases 3, 4a, 4b and 4 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -449,6 +873,7 @@ def main(argv=None):
     cfg = dict(REHEARSAL if opts.cpu_rehearsal else CHIP)
     cfg["device"] = torch.device("cpu") if opts.cpu_rehearsal else torch.device("cuda", 0)
     WORK.mkdir(parents=True, exist_ok=True)
+    started = time.monotonic()
 
     # 1. device
     card = "cpu" if opts.cpu_rehearsal else torch.cuda.get_device_name(0)
@@ -468,40 +893,70 @@ def main(argv=None):
             if any(s in line for s in ("Compiling entry", "Used", "spill", "==")):
                 log("ptxas " + line.strip())
 
-    # 3. kernels against their plain versions
-    checks = {"fullrow_attention_fwd": [], "fused_norm_fwd": []}
+    # 3. kernels against their plain versions; the first entry of each
+    # kernel is the training path's shape, fp32
+    checks = {name: [] for name in KERNELS}
     dtypes = [torch.float32, torch.bfloat16]
+    dev, iters = cfg["device"], cfg["iters"]
+    checks["fullrow_attention_fwd"].append(
+        check_attention(torch, dev, *cfg["attention"][0], torch.float32, iters, rate=0.1))
     for shape in cfg["attention"]:
         for dt in dtypes:
-            checks["fullrow_attention_fwd"].append(
-                check_attention(torch, cfg["device"], *shape, dt, cfg["iters"]))
+            checks["fullrow_attention_fwd"].append(check_attention(torch, dev, *shape, dt, iters))
+    mask_check = check_dropout_mask(torch, dev, cfg["attention"][0][0],
+                                    cfg["attention"][0][1], 0.1, 2024)
+    for shape in cfg["attention_bwd"]:
+        for rate in (0.1, 0.0):
+            for dt in dtypes:
+                checks["fullrow_attention_bwd"].append(
+                    check_attention_bwd(torch, dev, *shape, dt, iters, rate))
     for shape in cfg["norm"]:
         for dt in dtypes:
             for rms in (False, True):
-                checks["fused_norm_fwd"].append(
-                    check_norm(torch, cfg["device"], *shape, dt, rms, cfg["iters"]))
+                checks["fused_norm_fwd"].append(check_norm(torch, dev, *shape, dt, rms, iters))
+                for kname, res in check_norm_bwd(torch, dev, *shape, dt, rms, iters).items():
+                    checks[kname].append(res)
+    log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
-    # 4. the slice
-    launches = drive_slice(torch, cfg, card, smi)
+    # 4a. training through the CLI; 4b. card against CPU; 4. serving
+    data = write_corpus(cfg)
+    ckpt, train_launches = drive_training(cfg, data, card, smi)
+    log(f"phase 4a done at {time.monotonic() - started:.0f}s")
+    drive_card_vs_cpu(torch, cfg, data)
+    log(f"phase 4b done at {time.monotonic() - started:.0f}s")
+    serve_launches = drive_slice(torch, cfg, ckpt, card, smi)
+    log(f"phase 4 done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 5. result lines: each kernel at the serve path's shape (fp32; the
-    # first attention / LayerNorm entry), with every check beside it
+    # 5. result lines: each kernel at the training path's shape (fp32, the
+    # first check of each) with every check beside it; ``launches`` is the
+    # training run's count (the main path of this slice), the serve run's
+    # beside it
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches.get(name, 0),
+        replaces, source = KERNELS[name]
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": train_launches.get(name, 0),
+            "launches_by_path": {"train": train_launches.get(name, 0),
+                                 "serve": serve_launches.get(name, 0)},
             "max_abs_err": main_row["max_abs_err"],
-            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "ms": main_row["ms"], "ms_spread": main_row["ms_spread"],
+            "device_ms": main_row["device_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "plain_device_ms": main_row["plain_device_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
+            "library_device_ms": main_row["library_device_ms"],
             "shape": main_row["shape"], "dtype": main_row["dtype"],
             "checks": rows,
-        })
+        }
+        if name == "fullrow_attention_fwd":
+            row["dropout_mask_check"] = mask_check
+        kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

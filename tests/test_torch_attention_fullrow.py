@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from unicore_tpu.modules import multihead_attention as jax_mha
@@ -93,8 +94,8 @@ def test_plain_matches_jax(pallas_interpret, L, D, bias_heads):
 
 def test_wrapper_refusals():
     q = torch.zeros(1, 1, 128, 16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        port_fr.fullrow_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout rate"):
+        port_fr.fullrow_attention(q, q, q, dropout_rate=1.0)
     with pytest.raises(port_fr.KernelGeometryError):
         port_fr.fullrow_attention(torch.zeros(1, 1, 130, 16), q, q)
     with pytest.raises(port_fr.KernelGeometryError):
@@ -178,3 +179,107 @@ def test_softmax_kernel_gate_matches_jax():
             j = jax_sdp.pallas_plan(shape, jdt, None, _j(ext)) is not None
             p = port_sd.kernel_would_run(shape, dt, None, _t(ext))
             assert p == j, (shape, extra, dt)
+
+
+GRAD_TOL = 1e-5  # error over the reference's largest magnitude (at least 1)
+
+
+def _rel(got, ref):
+    ref = np.asarray(ref)
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("L,bias_heads", [(128, 3), (128, 1), (256, 3), (256, None)])
+def test_plain_gradients_match_jax_grad(pallas_interpret, L, bias_heads):
+    """dq, dk, dv and dbias of the port's plain path (autograd) against
+    ``jax.grad`` of the JAX full-row kernels in interpret mode (their
+    custom VJP runs the fused ``_bwd_kernel``), with a per-head (1,H,L,L)
+    or shared (1,1,L,L) bias and a key mask holding a fully-masked row,
+    dropout 0, fp32: the model of tests/test_attention_fullrow.py:74-104."""
+    B, H, D = 2, 3, 32
+    q, k, v, bias, mask = _inputs(B, H, L, D, bias_heads, seed=L + 5)
+    do = np.random.default_rng(L).standard_normal((B, H, L, D)).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in ((q, k, v) if bias is None else (q, k, v, bias))]
+    out = port_fr.fullrow_attention(*leaves[:3], bias=leaves[3] if bias is not None else None,
+                                    kv_padding_mask=_t(mask), sm_scale=0.8)
+    out.backward(torch.from_numpy(do))
+
+    def f(q, k, v, b=None):
+        o = jax_fr.fullrow_attention(q, k, v, bias=b, kv_padding_mask=_j(mask),
+                                     sm_scale=0.8)
+        return jnp.sum(o * jnp.asarray(do))
+
+    argnums = (0, 1, 2) if bias is None else (0, 1, 2, 3)
+    ref = jax.grad(f, argnums=argnums)(*[_j(a) for a in
+                                         ((q, k, v) if bias is None else (q, k, v, bias))])
+    for name, leaf, r in zip(("dq", "dk", "dv", "dbias"), leaves, ref):
+        assert leaf.grad.shape == tuple(r.shape), name
+        assert _rel(leaf.grad.numpy(), r) < GRAD_TOL, name
+
+
+def test_philox_matches_known_answers():
+    """The plain Philox4x32-10 (the same function as csrc/common.cuh) on
+    Random123's published known-answer vectors."""
+    kat = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+         (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in kat:
+        got = port_fr.philox4x32_10(*(torch.tensor([c]) for c in ctr), *key)
+        assert tuple(int(w) for w in got) == want
+
+
+def test_philox_mask_seeds_and_keep_rate():
+    """Same seed, same mask; another seed, another mask; the keep rate
+    within 5 binomial sigmas of 1 - rate; the threshold rule of the TPU
+    kernels' ``_keep_mask``."""
+    B, H, L, rate = 2, 3, 128, 0.1
+    a = port_fr.philox_keep_plain(B, H, L, L, 11, rate)
+    assert torch.equal(a, port_fr.philox_keep_plain(B, H, L, L, 11, rate))
+    b = port_fr.philox_keep_plain(B, H, L, L, 12, rate)
+    assert not torch.equal(a, b)
+    n = a.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    for m in (a, b):
+        assert abs(m.float().mean().item() - (1 - rate)) < 5 * sigma
+    assert port_fr.dropout_threshold(rate) == int(rate * 2 ** 32)
+    assert port_fr.dropout_threshold(1.0) == 2 ** 32 - 1
+    assert port_fr.philox_keep_plain(1, 1, 4, 8, 3, 0.0).all()
+
+
+def test_dropout_gradient_is_analytic_under_regenerated_mask():
+    """With dropout, autograd of the plain path equals the analytic
+    backward of ``_bwd_kernel`` under the mask regenerated from the seed:
+    di = rowsum(pd * dp), ds = p * (dp_keep - di) zeroed on masked keys,
+    dv = pd^T do, dq = s ds k, dk = s ds^T q, dbias = sum_b ds."""
+    B, H, L, D, rate, seed, scale = 2, 3, 128, 16, 0.2, 99, 0.7
+    q, k, v, bias, mask = _inputs(B, H, L, D, H, seed=3)
+    do = np.random.default_rng(4).standard_normal((B, H, L, D)).astype(np.float32)
+    leaves = [torch.from_numpy(a).double().requires_grad_(True) for a in (q, k, v, bias)]
+    out = port_fr.fullrow_attention_plain(
+        *[t.float() for t in leaves[:3]], leaves[3].float(), _t(mask), scale,
+        rate, seed)
+    out.backward(torch.from_numpy(do))
+
+    qf, kf, vf, bf = (torch.from_numpy(a).double() for a in (q, k, v, bias))
+    kvm = torch.from_numpy(mask != 0)[:, None, None, :]
+    s = torch.where(kvm, -1e30, qf @ kf.transpose(-1, -2) * scale + bf)
+    p = torch.where(kvm, 0.0, torch.softmax(s, -1))
+    p = torch.where(p.sum(-1, keepdim=True) > 0, p, 0.0)
+    keep = port_fr.philox_keep_plain(B, H, L, L, seed, rate)
+    assert 0.75 < keep.double().mean() < 0.85
+    inv = 1.0 / (1.0 - rate)
+    pd = torch.where(keep, p * inv, 0.0)
+    dp = torch.from_numpy(do).double() @ vf.transpose(-1, -2)
+    dp_keep = torch.where(keep, dp * inv, 0.0)
+    di = (pd * dp).sum(-1, keepdim=True)
+    ds = torch.where(kvm, 0.0, p * (dp_keep - di))
+    analytic = [scale * ds @ kf, scale * ds.transpose(-1, -2) @ qf,
+                pd.transpose(-1, -2) @ torch.from_numpy(do).double(),
+                ds.sum(0, keepdim=True)]
+    for name, leaf, r in zip(("dq", "dk", "dv", "dbias"), leaves, analytic):
+        assert _rel(leaf.grad.numpy(), r.numpy()) < 1e-5, name

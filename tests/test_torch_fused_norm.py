@@ -137,3 +137,31 @@ def test_empty_and_guarded_inputs():
 def test_jax_reference_is_cpu():
     """The comparisons above run the JAX side on the CPU."""
     assert jax.default_backend() == "cpu"
+
+
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("rows,dim", [(7, 64), (33, 96), (128, 256)])
+def test_plain_gradients_match_jax_grad(pallas_interpret, rms, rows, dim):
+    """dx, dw (and db) of the port's plain path (autograd) against
+    ``jax.grad`` of the JAX kernels in interpret mode (their custom VJP
+    runs ``_ln_dx_kernel`` and ``_ln_dwdb_kernel``), fp32, as
+    tests/test_fused_norm.py takes them: the gradient of sum(y^2), error
+    over the largest magnitude (at least 1) within 1e-5."""
+    x, w, b = _inputs(rows, dim, seed=rows + dim)
+    eps = 1e-6 if rms else 1e-5
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_(True) for a in (x, w, b))
+    if rms:
+        port_fn.fused_rms_norm(xt, wt, eps).square().sum().backward()
+        got = [xt.grad, wt.grad]
+        ref = jax.grad(lambda x, w: jnp.sum(jax_fn.fused_rms_norm(x, w, eps) ** 2),
+                       argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    else:
+        port_fn.fused_layer_norm(xt, wt, bt, eps).square().sum().backward()
+        got = [xt.grad, wt.grad, bt.grad]
+        ref = jax.grad(
+            lambda x, w, b: jnp.sum(jax_fn.fused_layer_norm(x, w, b, eps) ** 2),
+            argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    for name, g, r in zip(("dx", "dw", "db"), got, ref):
+        r = np.asarray(r)
+        scale = max(1.0, float(np.abs(r).max()))
+        assert float(np.abs(g.numpy() - r).max()) / scale < 1e-5, name

@@ -11,7 +11,8 @@ its wrapper.  A wrapper runs the plain version only for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises.
 
 Ported so far: BERT masked-LM serving, ``unicore-tpu-torch-serve``
-(``python -m unicore_tpu_torch.cli.serve``).
+(``python -m unicore_tpu_torch.cli.serve``), and BERT masked-LM training,
+``unicore-tpu-torch-train`` (``python -m unicore_tpu_torch.cli.train``).
 """
 
 __version__ = "0.0.1"

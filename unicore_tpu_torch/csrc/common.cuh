@@ -1,6 +1,9 @@
-// Shared helpers of the port's CUDA kernels: fp32 <-> storage-type casts
-// and warp reductions.  Every kernel computes in fp32 whatever it stores.
+// Shared helpers of the port's CUDA kernels: fp32 <-> storage-type casts,
+// warp reductions and the Philox generator of the attention dropout.
+// Every kernel computes in fp32 whatever it stores.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -20,6 +23,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
+// x rounded to T and back: what a product in T sees of an fp32 value
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -30,6 +38,29 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as
+// 1, 2, 3", SC'11): ten rounds of the 4x32 bijection on the counter, the
+// key bumped by the Weyl constants between rounds.  The attention dropout
+// keys it on the int32 seed and counts (key column / 4, query row, head,
+// batch), so every pass regenerates the same bits and nothing is stored.
+// `philox_keep_plain` in ops/attention_fullrow.py computes the same bits in
+// torch integer ops.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      k0 += kW0;
+      k1 += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
+    const uint32_t hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
 }
 
 }  // namespace unicore

@@ -4,8 +4,9 @@ Learned positional embeddings added to token embeddings, then the
 rel-pos-bias TransformerEncoder, then the LM head whose output projection
 is tied to the token embedding.  Positions count pad positions too
 (``embed_positions(arange(L))``), and the padding mask is
-``src_tokens == padding_idx``.  The classification head, the masked-position
-gather of training and the mixture-of-experts archs are not ported yet.
+``src_tokens == padding_idx``.  Training projects only the masked positions
+(``masked_positions``).  The classification head and the
+mixture-of-experts archs are not ported yet.
 """
 
 from typing import Optional
@@ -146,8 +147,12 @@ class BertModel(BaseUnicoreModel):
             generator=generator,
         )
 
-    def forward(self, src_tokens):
-        """Logits (B, L, vocab) for ``src_tokens`` (B, L)."""
+    def forward(self, src_tokens, masked_positions=None, rng=None):
+        """Logits (B, L, vocab) for ``src_tokens`` (B, L).  With
+        ``masked_positions`` (B, M) the LM head projects only those
+        positions, giving (B, M, vocab) — the JAX model's static-shape
+        masked gather.  Dropout in training draws from ``rng`` (a
+        :class:`DropoutRng`)."""
         padding_mask = src_tokens == self.padding_idx
         seq_len = src_tokens.shape[1]
         x = self.embed_tokens(src_tokens)
@@ -156,7 +161,11 @@ class BertModel(BaseUnicoreModel):
             torch.arange(seq_len, device=src_tokens.device)
         )
         x = x + pos[None, :, :]
-        x = self.sentence_encoder(x, padding_mask=padding_mask)
+        x = self.sentence_encoder(x, padding_mask=padding_mask, rng=rng)
+        if masked_positions is not None:
+            x = torch.gather(
+                x, 1, masked_positions[:, :, None].expand(-1, -1, x.shape[-1])
+            )
         return self.lm_head(x, self.embed_tokens.weight)
 
 

@@ -1,3 +1,4 @@
+from .dropout import DropoutRng
 from .layer_norm import LayerNorm, RMSNorm, configure_fused_norm
 from .multihead_attention import SelfMultiheadAttention
 from .transformer_encoder import (
@@ -9,6 +10,7 @@ from .transformer_encoder import (
 )
 
 __all__ = [
+    "DropoutRng",
     "LayerNorm",
     "RMSNorm",
     "SelfMultiheadAttention",

@@ -119,7 +119,7 @@ def _flash_pad_waste_ok(tgt_len, src_len):
 
 
 def _flash_grouped(q, k, v, bias, kvm, Lq, Lk, dropout_rate=0.0,
-                   try_fullrow=False):
+                   dropout_seed=0, try_fullrow=False):
     """Pad (N, H, L, hd) operands to the kernels' 128 tiles and run the
     full-row kernel when its gate accepts the shape and ``try_fullrow``.
     Any other shape belongs to the JAX package's online flash kernel,
@@ -147,6 +147,7 @@ def _flash_grouped(q, k, v, bias, kvm, Lq, Lk, dropout_rate=0.0,
             q.contiguous(), k.contiguous(), v.contiguous(),
             bias=bias, kv_padding_mask=kvm, dropout_rate=dropout_rate,
             sm_scale=1.0,  # q is pre-scaled
+            dropout_seed=dropout_seed,
         )[:, :, :Lq]
     raise NotImplementedError(
         f"attention over q {tuple(q.shape)} / k {tuple(k.shape)} with bias "
@@ -173,8 +174,10 @@ def _flash_ok(tgt_len, src_len, head_dim, dtype):
     return True, None
 
 
-def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train):
-    """Shared core: pick the kernel route or the fused-softmax route."""
+def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
+            rng=None):
+    """Shared core: pick the kernel route or the fused-softmax route.
+    ``rng`` (a :class:`DropoutRng`) draws the kernel's dropout seed."""
     bsz, num_heads, tgt_len, head_dim = q.shape
     src_len = k.shape[2]
 
@@ -196,13 +199,22 @@ def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train):
                 "materialization"
             )
         if attn_bias is None or bias_min is not None:
+            seed = 0
+            if eff_dropout > 0.0:
+                if rng is None:
+                    raise ValueError(
+                        "attention dropout in training needs an explicit "
+                        "DropoutRng (seed, update, micro-batch)"
+                    )
+                seed = rng.kernel_seed()
             kmask = (
                 None if key_padding_mask is None
                 else key_padding_mask.to(torch.int32)
             )
             return _flash_grouped(
                 q, k, v, bias_min, kmask, tgt_len, src_len,
-                dropout_rate=eff_dropout, try_fullrow=True,
+                dropout_rate=eff_dropout, dropout_seed=seed,
+                try_fullrow=True,
             )
 
     # fused-softmax path (materializes the attention matrix)
@@ -236,10 +248,12 @@ class SelfMultiheadAttention(nn.Module):
         query,
         key_padding_mask: Optional[torch.Tensor] = None,
         attn_bias: Optional[torch.Tensor] = None,
+        rng=None,
     ):
         """Self-attention over ``query`` (B, L, E); ``key_padding_mask``
         (B, L) nonzero = padding; ``attn_bias`` any layout
-        ``_bias_to_bhll`` accepts.  Dropout follows ``self.training``."""
+        ``_bias_to_bhll`` accepts.  Dropout follows ``self.training`` and
+        draws from ``rng`` (a :class:`DropoutRng`)."""
         bsz, tgt_len, embed_dim = query.shape
         assert embed_dim == self.embed_dim
         q, k, v = self.in_proj(query).chunk(3, dim=-1)
@@ -248,5 +262,5 @@ class SelfMultiheadAttention(nn.Module):
         k = _split_heads(k, self.num_heads)
         v = _split_heads(v, self.num_heads)
         o = _attend(q, k, v, key_padding_mask, attn_bias, self.dropout,
-                    self.training)
+                    self.training, rng)
         return self.out_proj(_merge_heads(o))

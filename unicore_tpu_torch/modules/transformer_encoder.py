@@ -6,7 +6,9 @@
 - the rel-pos bias stays (H, L, L) and broadcasts over the batch inside the
   attention op instead of being repeated per batch row;
 - BERT init (normal 0.02, zero bias) is :func:`init_bert_params`, drawn
-  from a ``torch.Generator``.
+  from a ``torch.Generator``;
+- dropout in training draws from the :class:`DropoutRng` passed to
+  ``forward``, never from the global generator.
 
 The JAX package's pipeline, mixture-of-experts, remat, sequence-parallel
 and quantized variants are not ported yet.
@@ -17,10 +19,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from unicore_tpu_torch import utils
+from .dropout import dropout
 from .layer_norm import LayerNorm
 from .multihead_attention import SelfMultiheadAttention
 
@@ -105,12 +107,14 @@ class TransformerEncoderLayer(nn.Module):
         x,
         attn_bias: Optional[torch.Tensor] = None,
         padding_mask: Optional[torch.Tensor] = None,
+        rng=None,
     ):
         residual = x
         if not self.post_ln:
             x = self.self_attn_layer_norm(x)
-        x = self.self_attn(x, key_padding_mask=padding_mask, attn_bias=attn_bias)
-        x = F.dropout(x, self.dropout, self.training)
+        x = self.self_attn(x, key_padding_mask=padding_mask, attn_bias=attn_bias,
+                           rng=rng)
+        x = dropout(x, self.dropout, self.training, rng)
         x = residual + x
         if self.post_ln:
             x = self.self_attn_layer_norm(x)
@@ -119,9 +123,9 @@ class TransformerEncoderLayer(nn.Module):
         if not self.post_ln:
             x = self.final_layer_norm(x)
         x = self.activation_fn(self.fc1(x))
-        x = F.dropout(x, self.activation_dropout, self.training)
+        x = dropout(x, self.activation_dropout, self.training, rng)
         x = self.fc2(x)
-        x = F.dropout(x, self.dropout, self.training)
+        x = dropout(x, self.dropout, self.training, rng)
         x = residual + x
         if self.post_ln:
             x = self.final_layer_norm(x)
@@ -196,10 +200,11 @@ class TransformerEncoder(nn.Module):
         emb: torch.Tensor,
         attn_mask: Optional[torch.Tensor] = None,
         padding_mask: Optional[torch.Tensor] = None,
+        rng=None,
     ) -> torch.Tensor:
         seq_len = emb.shape[1]
         x = self.emb_layer_norm(emb)
-        x = F.dropout(x, self.emb_dropout, self.training)
+        x = dropout(x, self.emb_dropout, self.training, rng)
 
         # account for padding while computing the representation
         if padding_mask is not None:
@@ -217,7 +222,7 @@ class TransformerEncoder(nn.Module):
         # routes apply it internally (the kernel as an in-kernel mask, the
         # fused route as an additive minimum)
         for layer in self.layers:
-            x = layer(x, attn_bias, padding_mask)
+            x = layer(x, attn_bias, padding_mask, rng)
 
         if not self.post_ln:
             x = self.final_layer_norm(x)

@@ -146,12 +146,22 @@ def build() -> Path:
 
 def _bind(lib) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    u = ctypes.c_uint
     lib.unicore_fullrow_attention_fwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, f, i, p,
+        p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, u, f, i, p,
     ]
-    lib.unicore_fullrow_attention_fwd.restype = i
-    lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, ll, i, f, i, i, p]
-    lib.unicore_fused_norm_fwd.restype = i
+    lib.unicore_fullrow_attention_bwd.argtypes = [
+        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, u, f, i, p,
+    ]
+    lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, p]
+    lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    lib.unicore_fused_norm_dwdb.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+    for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
+               "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
+               "unicore_fused_norm_dwdb"):
+        getattr(lib, fn).restype = i
+    lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
+    lib.unicore_fused_norm_dwdb_scratch.restype = ll
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p
 
@@ -178,6 +188,11 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> Optional[int]:
+    """A tensor's data pointer for a C entry point; None for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def require_cuda(name: str, *tensors) -> None:

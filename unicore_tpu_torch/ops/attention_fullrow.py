@@ -1,14 +1,27 @@
-"""Full-row attention for moderate sequence lengths (L <= 1024)
-(counterpart of ``unicore_tpu/ops/attention_fullrow.py``; this slice ports
-the forward, whose TPU kernel is ``_fwd_kernel``).
+"""Full-row attention for moderate sequence lengths (L <= 1024), forward and
+fused backward (counterpart of ``unicore_tpu/ops/attention_fullrow.py``,
+whose TPU kernels are ``_fwd_kernel`` and ``_bwd_kernel``).
 
-:func:`fullrow_attention` computes softmax(q k^T * scale + bias, key mask) v
-with q, k, v in (B, H, L, D) and the one-shot full-row softmax, where a
-fully-masked row gives zeros.  A CPU tensor goes through
-:func:`fullrow_attention_plain`, the same function in plain PyTorch with
-the same casts; a CUDA tensor goes through the hand-written kernel
-``csrc/attention_fullrow.cu`` — or raises.  There is no fallback between
-the two.
+:func:`fullrow_attention` computes softmax(q k^T * scale + bias, key mask),
+dropped out, times v, with q, k, v in (B, H, L, D) and the one-shot
+full-row softmax, where a fully-masked row gives zeros.  A CPU tensor goes
+through :func:`fullrow_attention_plain`, the same function in plain PyTorch
+with the same casts, whose gradient autograd takes; a CUDA tensor goes
+through the hand-written kernels of ``csrc/attention_fullrow.cu`` — or
+raises.  There is no fallback between the two.
+
+On a CUDA tensor the call is a :class:`torch.autograd.Function`, as the JAX
+package's ``jax.custom_vjp``: its residuals are the inputs and the dropout
+seed, no probabilities are saved, and the backward kernel recomputes p and
+regenerates the dropout mask to produce dq, dk, dv and dbias in one pass.
+
+Dropout keeps a probability when its Philox4x32-10 bits, keyed on the int32
+seed and counted from (key column / 4, query row, head, batch), are at
+least ``min(int(rate * 2**32), 2**32 - 1)``, and scales kept values by
+``1 / (1 - rate)`` — the TPU kernels' rule on another generator (the TPU's
+own bits cannot be reproduced off the TPU).  :func:`philox_keep_plain`
+computes the same bits in torch integer ops, so kernel and plain version
+drop the same probabilities.
 
 :func:`supported` is the JAX package's gate copied verbatim, budget
 arithmetic included, so both packages route every shape to the same
@@ -29,6 +42,12 @@ NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _kernels.counter("fullrow_attention_fwd")
+BWD_LAUNCHES = _kernels.counter("fullrow_attention_bwd")
+
+# Philox4x32-10 constants (Random123; csrc/common.cuh)
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_U32 = 0xFFFFFFFF
 
 
 class KernelGeometryError(ValueError):
@@ -55,6 +74,51 @@ def supported(Lq, Lk, D, bias_batch, has_bias=None) -> bool:
     )
 
 
+def dropout_threshold(rate: float) -> int:
+    """The uint32 keep threshold of the TPU kernels' ``_keep_mask``."""
+    return min(int(rate * (2 ** 32)), 2 ** 32 - 1)
+
+
+def _mulhilo(a, m: int):
+    """(hi, lo) 32-bit halves of ``a * m`` for int64 lanes ``a`` < 2**32
+    and a 32-bit constant ``m``, without overflowing int64: ``m`` is split
+    into 16-bit halves so no partial product reaches 2**49."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    t = p_lo + ((p_hi & 0xFFFF) << 16)
+    return (p_hi >> 16) + (t >> 32), t & _U32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on int64 tensors holding uint32 counter words (they
+    broadcast against each other) and a 64-bit key as two ints: the four
+    uint32 output words, as ``csrc/common.cuh`` computes them."""
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _U32, (k1 + _W1) & _U32
+        hi0, lo0 = _mulhilo(c0, _M0)
+        hi1, lo1 = _mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_keep_plain(B: int, H: int, Lq: int, Lk: int, seed: int,
+                      rate: float, device=None) -> torch.Tensor:
+    """The kernels' dropout keep mask (B, H, Lq, Lk) bool, computed with
+    torch int64 ops (lanes masked to 32 bits): the Philox4x32-10 bits of
+    the counter (col // 4, row, h, b), word col % 4, key (seed, 0)."""
+    if Lk % 4:
+        raise ValueError(f"the dropout counter needs Lk % 4 == 0, got {Lk}")
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
+    words = philox4x32_10(
+        ar(Lk // 4).view(1, 1, 1, -1), ar(Lq).view(1, 1, -1, 1),
+        ar(H).view(1, -1, 1, 1), ar(B).view(-1, 1, 1, 1), int(seed) & _U32, 0,
+    )
+    thr, shape = dropout_threshold(rate), (B, H, Lq, Lk // 4)
+    keep = torch.stack([(w >= thr).expand(shape) for w in words], dim=-1)
+    return keep.reshape(B, H, Lq, Lk)
+
+
 def _softmax_row(s, kvm):
     """One-shot fp32 softmax over the last dim; fully-masked rows -> zeros
     (the TPU kernel's ``_softmax_row``)."""
@@ -69,19 +133,25 @@ def _softmax_row(s, kvm):
 
 
 def fullrow_attention_plain(q, k, v, bias=None, kv_mask=None,
-                            sm_scale: float = 1.0):
-    """The kernel's function in plain PyTorch.  ``bias`` (1, 1|H, Lq, Lk),
-    ``kv_mask`` (B, Lk) int, nonzero = masked out."""
+                            sm_scale: float = 1.0, dropout_rate: float = 0.0,
+                            seed: int = 0):
+    """The kernel's function in plain PyTorch (autograd gives its
+    gradient).  ``bias`` (1, 1|H, Lq, Lk), ``kv_mask`` (B, Lk) int,
+    nonzero = masked out; dropout by :func:`philox_keep_plain`."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if bias is not None:
         s = s + bias.float()
     kvm = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
     p = _softmax_row(s, kvm)
+    if dropout_rate > 0.0:
+        B, H, Lq, Lk = p.shape
+        keep = philox_keep_plain(B, H, Lq, Lk, seed, dropout_rate, p.device)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
 
 
-def _launch(q, k, v, bias, kv_mask, sm_scale):
+def _check(q, k, v, bias, kv_mask):
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -103,19 +173,69 @@ def _launch(q, k, v, bias, kv_mask, sm_scale):
                 f"{kv_mask.dtype} {tuple(kv_mask.shape)}"
             )
     _kernels.require_cuda("fullrow_attention", q, k, v, bias, kv_mask)
+
+
+def _dropout_args(rate: float, seed: int):
+    """(on, seed, threshold, scale) as the C entry points take them."""
+    if rate == 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(seed), dropout_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed):
+    B, H, Lq, D = q.shape
     o = torch.empty_like(q)
-    lib = _kernels.library()
-    rc = lib.unicore_fullrow_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if kv_mask is None else kv_mask.data_ptr(),
-        o.data_ptr(), B, H, Lq, Lk, D,
+    rc = _kernels.library().unicore_fullrow_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
+        _kernels.ptr(kv_mask), o.data_ptr(), B, H, Lq, k.shape[2], D,
         1 if bias is None else bias.shape[1], float(sm_scale),
-        _DTYPES[q.dtype], _kernels.stream_handle(q.device),
+        *_dropout_args(rate, seed), _DTYPES[q.dtype],
+        _kernels.stream_handle(q.device),
     )
     _kernels.check(rc, "fullrow_attention")
     LAUNCHES.add()
     return o
+
+
+def _launch_bwd(q, k, v, bias, kv_mask, do, sm_scale, rate, seed, want_db):
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    dev = q.device
+    dq = torch.empty_like(q)
+    # dk, dv, dbias are sums over query tiles, added in fp32
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    db = torch.zeros(bias.shape, dtype=torch.float32, device=dev) if want_db else None
+    rc = _kernels.library().unicore_fullrow_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
+        _kernels.ptr(kv_mask), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _kernels.ptr(db), B, H, Lq, Lk, D,
+        1 if bias is None else bias.shape[1], float(sm_scale),
+        *_dropout_args(rate, seed), _DTYPES[q.dtype], _kernels.stream_handle(dev),
+    )
+    _kernels.check(rc, "fullrow_attention backward")
+    BWD_LAUNCHES.add()
+    return dq, dk.to(k.dtype), dv.to(v.dtype), db
+
+
+class _FullrowAttention(torch.autograd.Function):
+    """The kernels with their gradient; residuals are the inputs and the
+    seed, as the JAX ``_fullrow_fwd`` keeps them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kv_mask, sm_scale, rate, seed):
+        ctx.save_for_backward(q, k, v, bias, kv_mask)
+        ctx.sm_scale, ctx.rate, ctx.seed = sm_scale, rate, seed
+        return _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, kv_mask = ctx.saved_tensors
+        dq, dk, dv, db = _launch_bwd(
+            q, k, v, bias, kv_mask, do.to(q.dtype).contiguous(), ctx.sm_scale,
+            ctx.rate, ctx.seed, bias is not None and ctx.needs_input_grad[3],
+        )
+        return dq, dk, dv, db, None, None, None, None
 
 
 def fullrow_attention(
@@ -126,12 +246,14 @@ def fullrow_attention(
     kv_padding_mask: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
     sm_scale: float = 1.0,
+    dropout_seed: int = 0,
 ) -> torch.Tensor:
-    """softmax(q k^T * scale + bias, mask) v with q, k, v in (B, H, L, D).
+    """dropout(softmax(q k^T * scale + bias, mask)) v, q, k, v (B, H, L, D).
 
     Requirements (checked by ``supported``): Lq, Lk multiples of 128 and
     <= 1024, D <= 128, bias batch dim 1.  ``bias``: (1|omitted, 1|H, Lq,
-    Lk) additive.  ``kv_padding_mask``: (B, Lk), nonzero = masked out."""
+    Lk) additive.  ``kv_padding_mask``: (B, Lk), nonzero = masked out.
+    ``dropout_seed``: the int32 that keys the dropout mask."""
     if bias is not None:
         if bias.ndim == 3:
             bias = bias[None]
@@ -149,18 +271,19 @@ def fullrow_attention(
             "D <= 128, bias batch 1, and a group=1 footprint inside the "
             "budget — such shapes go to flash attention"
         )
-    if dropout_rate != 0.0:
-        raise NotImplementedError(
-            "fullrow_attention with dropout: the in-kernel dropout of "
-            "unicore_tpu/ops/attention_fullrow.py _fwd_kernel is not ported "
-            "yet (it comes with the backward kernel in the training slice)"
-        )
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"fullrow_attention: dropout rate {dropout_rate} "
+                         "outside [0, 1)")
     if kv_padding_mask is not None:
         kv_padding_mask = kv_padding_mask.to(torch.int32)
     if q.device.type == "cpu":
-        return fullrow_attention_plain(q, k, v, bias, kv_padding_mask, sm_scale)
+        return fullrow_attention_plain(q, k, v, bias, kv_padding_mask, sm_scale,
+                                       dropout_rate, dropout_seed)
     if bias is not None:
         bias = bias.contiguous()
     if kv_padding_mask is not None:
         kv_padding_mask = kv_padding_mask.contiguous()
-    return _launch(q, k, v, bias, kv_padding_mask, sm_scale)
+    _check(q, k, v, bias, kv_padding_mask)
+    return _FullrowAttention.apply(q, k, v, bias, kv_padding_mask,
+                                   float(sm_scale), float(dropout_rate),
+                                   int(dropout_seed))

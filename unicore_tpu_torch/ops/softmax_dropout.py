@@ -1,6 +1,7 @@
 """Fused softmax(+mask)(+bias)(+dropout) (counterpart of
-``unicore_tpu/ops/softmax_dropout.py``; this slice ports the eval path:
-training dropout raises ``NotImplementedError``).
+``unicore_tpu/ops/softmax_dropout.py``; the eval path is ported: training
+dropout, whose TPU kernel is the Evoformer slice's, raises
+``NotImplementedError``).
 
 The JAX package dispatches between a jnp composition and a Pallas kernel
 (``ops/softmax_dropout_pallas.py``): on a TPU, mode ``auto`` takes the
@@ -124,8 +125,11 @@ def softmax_dropout(
     is not ported yet."""
     if is_training and dropout_prob > 0.0:
         raise NotImplementedError(
-            "softmax_dropout with training dropout is not ported yet (it "
-            "comes with the training slice)"
+            "softmax_dropout with training dropout is not ported yet: its "
+            "TPU kernel (unicore_tpu/ops/softmax_dropout_pallas.py "
+            "_fwd_kernel) comes with the Evoformer slice; pad sequences to "
+            "128 (--seq-pad-multiple 128) to train through the full-row "
+            "attention kernel"
         )
     if input.device.type != "cpu" and kernel_would_run(
         input.shape, input.dtype, mask, bias

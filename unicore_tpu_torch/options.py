@@ -1,5 +1,6 @@
-"""Command-line options (counterpart of ``unicore_tpu/options.py``; this
-slice ports the serving parser and ``add_model_args``)."""
+"""Command-line options (counterpart of ``unicore_tpu/options.py``: the
+serving parser, the training parser and its two-phase
+``parse_args_and_arch``)."""
 
 import argparse
 
@@ -93,3 +94,118 @@ def add_model_args(parser):
                        choices=ARCH_MODEL_REGISTRY.keys(),
                        help="model architecture")
     return group
+
+
+def _eval_str_list(x, type=float):
+    if x is None:
+        return None
+    if isinstance(x, str):
+        x = [v for v in x.strip("()[] ").split(",") if v.strip()]
+    try:
+        return [type(v) for v in x]
+    except TypeError:
+        return [type(x)]
+
+
+def get_training_parser():
+    """Parser for ``unicore-tpu-torch-train``: the JAX CLI's flag names for
+    what the port's trainer does.  Task, loss, optimizer, lr-scheduler and
+    architecture flags join in :func:`parse_args_and_arch`."""
+    from unicore_tpu_torch.losses import LOSS_REGISTRY
+    from unicore_tpu_torch.optim import OPTIMIZER_REGISTRY
+    from unicore_tpu_torch.optim.lr_scheduler import LR_SCHEDULER_REGISTRY
+    from unicore_tpu_torch.tasks import TASK_REGISTRY
+
+    parser = argparse.ArgumentParser(
+        description="unicore-tpu-torch-train: train a model on an NVIDIA GPU "
+        "(PyTorch/CUDA port of unicore-tpu-train)",
+        allow_abbrev=False,
+    )
+    parser.add_argument("--seed", type=int, default=1, metavar="N",
+                        help="seed of the weights, the data order, the "
+                             "masking and the dropout")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="where the model trains: 'cuda' (default) needs "
+                             "a visible CUDA card and exits non-zero without "
+                             "one; 'cpu' runs the kernels' plain versions")
+    parser.add_argument("--log-interval", type=int, default=100, metavar="N",
+                        help="log progress every N updates")
+    parser.add_argument("--log-format", default="simple", choices=["simple"],
+                        help="log format")
+    parser.add_argument("--fused-norm", default="auto",
+                        choices=["auto", "on", "off"],
+                        help="LayerNorm/RMSNorm path: 'auto' and 'on' run "
+                             "the CUDA kernels for CUDA tensors (their plain "
+                             "versions on the CPU), 'off' the module's plain "
+                             "composition")
+    parser.add_argument("--task", default="bert", choices=TASK_REGISTRY.keys())
+    parser.add_argument("--loss", default="masked_lm", choices=LOSS_REGISTRY.keys())
+    parser.add_argument("--optimizer", default="adam",
+                        choices=OPTIMIZER_REGISTRY.keys())
+    parser.add_argument("--lr-scheduler", default="polynomial_decay",
+                        choices=LR_SCHEDULER_REGISTRY.keys())
+
+    group = parser.add_argument_group("dataset_data_loading")
+    group.add_argument("--batch-size", "--max-sentences", type=int, metavar="N",
+                       help="maximum number of sentences in a batch")
+    group.add_argument("--num-workers", default=0, type=int, choices=[0],
+                       help="data loader processes: batches load on the "
+                            "training thread (only 0)")
+    group.add_argument("--train-subset", default="train", metavar="SPLIT",
+                       help="data subset to use for training")
+
+    group = parser.add_argument_group("optimization")
+    group.add_argument("--max-epoch", default=0, type=int, metavar="N",
+                       help="force stop training at specified epoch")
+    group.add_argument("--max-update", default=0, type=int, metavar="N",
+                       help="force stop training at specified update")
+    group.add_argument("--clip-norm", default=0.0, type=float, metavar="NORM",
+                       help="clip threshold of gradients")
+    group.add_argument("--update-freq", default="1",
+                       type=lambda uf: _eval_str_list(uf, type=int),
+                       metavar="N1,N2,...,N_K",
+                       help="update parameters every N_i batches, when in epoch i")
+    group.add_argument("--lr", default="0.25", type=_eval_str_list,
+                       metavar="LR_1,LR_2,...,LR_N",
+                       help="learning rate for the first N epochs")
+
+    group = parser.add_argument_group("checkpoint")
+    group.add_argument("--save-dir", metavar="DIR", default="checkpoints",
+                       help="path to save checkpoints")
+    group.add_argument("--tmp-save-dir", metavar="DIR", default="./",
+                       help="accepted for the JAX CLI's scripts; each "
+                            "checkpoint is written to a temporary name in "
+                            "--save-dir and renamed into place")
+    group.add_argument("--save-interval-updates", type=int, default=0,
+                       metavar="N", help="save a checkpoint every N updates")
+    group.add_argument("--keep-interval-updates", type=int, default=-1,
+                       metavar="N", help="keep the last N interval checkpoints")
+
+    add_model_args(parser)
+    return parser
+
+
+def parse_args_and_arch(parser, input_args=None):
+    """Two-phase parse: the first finds the task, loss, optimizer,
+    lr-scheduler and architecture; their flags join the parser; the second
+    parses everything and the architecture fills its defaults."""
+    from unicore_tpu_torch.losses import LOSS_REGISTRY
+    from unicore_tpu_torch.models import ARCH_CONFIG_REGISTRY, ARCH_MODEL_REGISTRY
+    from unicore_tpu_torch.optim import OPTIMIZER_REGISTRY
+    from unicore_tpu_torch.optim.lr_scheduler import LR_SCHEDULER_REGISTRY
+    from unicore_tpu_torch.tasks import TASK_REGISTRY
+
+    args, _ = parser.parse_known_args(input_args)
+    if getattr(args, "arch", None) is None:
+        parser.error("--arch is required")
+    ARCH_MODEL_REGISTRY[args.arch].add_args(
+        parser.add_argument_group("Model-specific configuration",
+                                  argument_default=argparse.SUPPRESS)
+    )
+    for registry, key in ((TASK_REGISTRY, args.task), (LOSS_REGISTRY, args.loss),
+                          (OPTIMIZER_REGISTRY, args.optimizer),
+                          (LR_SCHEDULER_REGISTRY, args.lr_scheduler)):
+        registry[key].add_args(parser)
+    args = parser.parse_args(input_args)
+    ARCH_CONFIG_REGISTRY[args.arch](args)
+    return args
