@@ -283,3 +283,46 @@ def test_dropout_gradient_is_analytic_under_regenerated_mask():
                 ds.sum(0, keepdim=True)]
     for name, leaf, r in zip(("dq", "dk", "dv", "dbias"), leaves, analytic):
         assert _rel(leaf.grad.numpy(), r.numpy()) < 1e-5, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias_heads", [3, 1])
+def test_plain_backward_matches_jax_bwd_kernel(pallas_interpret, dtype, bias_heads):
+    """``fullrow_attention_bwd_plain``, the backward kernel's function with
+    its bf16 roundings (the plain version chip_smoke.py holds the CUDA
+    backward against), against ``jax.grad`` of the JAX kernels in interpret
+    mode, whose custom VJP runs ``_bwd_kernel``; at fp32 also against
+    autograd of the plain forward.  Tolerance per element: 1e-5 of the
+    reference's largest magnitude (at least 1; fp32 summation order), plus
+    for bf16 ``bwd_rounding_slack`` (pd and ds may round to neighbouring
+    bf16 values) and 2**-6 of the element (two bf16 ulps) where a side
+    stores it in bf16."""
+    B, H, L, D, scale = 2, 3, 128, 32, 0.8
+    q, k, v, bias, mask = _inputs(B, H, L, D, bias_heads, seed=bias_heads + 40)
+    do = np.random.default_rng(9).standard_normal((B, H, L, D)).astype(np.float32)
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    got = port_fr.fullrow_attention_bwd_plain(tq, tk, tv, _t(bias), _t(mask), tdo, scale)
+    slack = list(port_fr.bwd_rounding_slack(tq, tk, tv, _t(bias), _t(mask), tdo, scale))
+
+    def f(q, k, v, b):
+        o = jax_fr.fullrow_attention(q, k, v, bias=b, kv_padding_mask=_j(mask),
+                                     sm_scale=scale)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(do).astype(jdt).astype(jnp.float32))
+
+    refs = [[np.asarray(r.astype(jnp.float32)) for r in jax.grad(f, argnums=(0, 1, 2, 3))(
+        *[jnp.asarray(a).astype(jdt) for a in (q, k, v)], _j(bias))]]
+    if dtype == "float32":
+        leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv, _t(bias))]
+        out = port_fr.fullrow_attention_plain(*leaves[:3], leaves[3], _t(mask), scale)
+        refs.append([r.numpy() for r in torch.autograd.grad(out, leaves, tdo)])
+    for ref in refs:
+        for name, g, r, s in zip(("dq", "dk", "dv", "dbias"), got, ref, slack + [0.0]):
+            r = torch.from_numpy(r.copy())
+            assert tuple(g.shape) == tuple(r.shape), name
+            tol = 1e-5 * max(1.0, r.abs().max().item()) + s
+            if dtype == "bfloat16" and name != "dbias":
+                tol = tol + 2.0 ** -6 * r.abs()
+            err = (g.float() - r).abs()
+            assert (err <= tol).all(), (name, (err / tol).max().item())

@@ -5,8 +5,8 @@
    tests/test_torch_train_data.py), all dropouts 0: three updates at
    ``--update-freq 2`` through the JAX ``Trainer`` in-process and through
    the port's ``Trainer``.  Per-update loss within 1e-4 relative;
-   parameters within ``2 * lr * steps`` absolute (Adam's normalised step
-   turns a sign flip of a near-zero gradient into a whole lr step).
+   parameters within 1e-5 absolute: the two agree to about 1e-7, while an
+   update skipped or misapplied moves a weight by up to the lr, 1e-3.
 2. ``python -m unicore_tpu_torch.cli.train --device cpu`` for 4 updates,
    then ``python -m unicore_tpu_torch.cli.serve --device cpu`` loads the
    checkpoint it wrote and answers one ``/v1/infer``; without a card and
@@ -111,7 +111,7 @@ def test_trainer_matches_jax(tmp_path):
     assert sum(_kernels.launch_counts().values()) == 0  # CPU: plain versions
 
     ref = checkpoint_utils.from_jax_params(jax.device_get(jax_tr._state["params"]))
-    tol = 2 * LR * STEPS
+    tol = 1e-5
     moved = 0
     for name, p in model.named_parameters():
         diff = (p.detach() - ref[name]).abs().max().item()

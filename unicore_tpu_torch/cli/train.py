@@ -84,7 +84,6 @@ def main(args, device) -> dict:
 
     from unicore_tpu_torch import tasks
     from unicore_tpu_torch.logging import metrics
-    from unicore_tpu_torch.modules.layer_norm import configure_fused_norm
     from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.trainer import Trainer
 
@@ -93,7 +92,6 @@ def main(args, device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.seed)
     metrics.reset()
-    configure_fused_norm(args.fused_norm)
     os.makedirs(args.save_dir, exist_ok=True)
     logger.info(args)
 

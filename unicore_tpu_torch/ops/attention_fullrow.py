@@ -14,6 +14,8 @@ On a CUDA tensor the call is a :class:`torch.autograd.Function`, as the JAX
 package's ``jax.custom_vjp``: its residuals are the inputs and the dropout
 seed, no probabilities are saved, and the backward kernel recomputes p and
 regenerates the dropout mask to produce dq, dk, dv and dbias in one pass.
+:func:`fullrow_attention_bwd_plain` is that backward in plain PyTorch, with
+the kernel's bf16 roundings, for holding the kernel against it.
 
 Dropout keeps a probability when its Philox4x32-10 bits, keyed on the int32
 seed and counted from (key column / 4, query row, head, batch), are at
@@ -151,6 +153,72 @@ def fullrow_attention_plain(q, k, v, bias=None, kv_mask=None,
     return o.to(q.dtype)
 
 
+def bwd_plain_terms(q, k, v, bias, kv_mask, do, sm_scale: float = 1.0,
+                    dropout_rate: float = 0.0, seed: int = 0):
+    """The backward kernel's intermediates in plain PyTorch: (pd, ds32,
+    ds).  p and dp are fp32; ``ds32 = p * (dp_keep - rowsum(pd * dp))``,
+    zeroed on masked keys, is what dbias sums; ``pd`` (the dropped p) and
+    ``ds`` are rounded to the inputs' type, as they enter the products."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    kvm = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
+    p = _softmax_row(s, kvm)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    pd = p
+    if dropout_rate > 0.0:
+        B, H, Lq, Lk = p.shape
+        keep = philox_keep_plain(B, H, Lq, Lk, seed, dropout_rate, p.device)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds32 = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if kvm is not None:
+        ds32 = torch.where(kvm, 0.0, ds32)
+    return pd.to(q.dtype).float(), ds32, ds32.to(q.dtype).float()
+
+
+def fullrow_attention_bwd_plain(q, k, v, bias, kv_mask, do, sm_scale: float = 1.0,
+                                dropout_rate: float = 0.0, seed: int = 0):
+    """The backward kernel's function in plain PyTorch: (dq in q's type;
+    dk, dv and dbias as the fp32 sums the kernel adds before it casts dk
+    and dv).  For bf16 inputs, pd and ds are rounded to bf16 before their
+    products, as in the TPU ``_bwd_kernel``; autograd of
+    :func:`fullrow_attention_plain` rounds dp instead, through its cast of
+    p.  At fp32 the two are the same function."""
+    pd, ds32, ds = bwd_plain_terms(q, k, v, bias, kv_mask, do, sm_scale,
+                                   dropout_rate, seed)
+    dq = (sm_scale * torch.matmul(ds, k.float())).to(q.dtype)
+    dk = sm_scale * torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(pd.transpose(-1, -2), do.float())
+    db = None
+    if bias is not None:
+        db = ds32.sum(0, keepdim=True)
+        if bias.shape[1] == 1:
+            db = db.sum(1, keepdim=True)
+    return dq, dk, dv, db
+
+
+def bwd_rounding_slack(q, k, v, bias, kv_mask, do, sm_scale: float = 1.0,
+                       dropout_rate: float = 0.0, seed: int = 0):
+    """Per element of (dq, dk, dv) before their cast: how far the
+    roundings of pd and ds to bf16 can move it between two computations of
+    :func:`fullrow_attention_bwd_plain`'s function whose fp32 values differ
+    in the last bits (the kernel and its plain version).  Each rounding
+    may land one bf16 ulp (at most 2**-7 of the magnitude) apart, so an
+    element may move by 2**-7 times the magnitude sum of its product terms.
+    Zero for fp32 inputs, which round nothing."""
+    if q.dtype != torch.bfloat16:
+        return (0.0, 0.0, 0.0)
+    pd, _, ds = bwd_plain_terms(q, k, v, bias, kv_mask, do, sm_scale,
+                                dropout_rate, seed)
+    ulp = 2.0 ** -7
+    return (ulp * sm_scale * torch.matmul(ds.abs(), k.float().abs()),
+            ulp * sm_scale * torch.matmul(ds.abs().transpose(-1, -2), q.float().abs()),
+            ulp * torch.matmul(pd.abs().transpose(-1, -2), do.float().abs()))
+
+
 def _check(q, k, v, bias, kv_mask):
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
@@ -215,7 +283,7 @@ def _launch_bwd(q, k, v, bias, kv_mask, do, sm_scale, rate, seed, want_db):
     )
     _kernels.check(rc, "fullrow_attention backward")
     BWD_LAUNCHES.add()
-    return dq, dk.to(k.dtype), dv.to(v.dtype), db
+    return dq, dk, dv, db
 
 
 class _FullrowAttention(torch.autograd.Function):
@@ -235,7 +303,7 @@ class _FullrowAttention(torch.autograd.Function):
             q, k, v, bias, kv_mask, do.to(q.dtype).contiguous(), ctx.sm_scale,
             ctx.rate, ctx.seed, bias is not None and ctx.needs_input_grad[3],
         )
-        return dq, dk, dv, db, None, None, None, None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), db, None, None, None, None
 
 
 def fullrow_attention(

@@ -132,12 +132,6 @@ def get_training_parser():
                         help="log progress every N updates")
     parser.add_argument("--log-format", default="simple", choices=["simple"],
                         help="log format")
-    parser.add_argument("--fused-norm", default="auto",
-                        choices=["auto", "on", "off"],
-                        help="LayerNorm/RMSNorm path: 'auto' and 'on' run "
-                             "the CUDA kernels for CUDA tensors (their plain "
-                             "versions on the CPU), 'off' the module's plain "
-                             "composition")
     parser.add_argument("--task", default="bert", choices=TASK_REGISTRY.keys())
     parser.add_argument("--loss", default="masked_lm", choices=LOSS_REGISTRY.keys())
     parser.add_argument("--optimizer", default="adam",
