@@ -47,13 +47,35 @@ result line):
    kernel launches read from ``/stats`` (12 attention, 26 norm); two
    128-bucket answers held against the same checkpoint run in this process
    on the CPU; SIGTERM -> drain -> exit 0;
-5. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+5a. Uni-Mol training — ``python -m unicore_tpu_torch.cli.train --task
+   unimol --arch unimol --device cuda`` (15 layers, 512 wide, 64 heads, FFN
+   2048, 128 Gaussian kernels; weights from ``--seed``) over an indexed
+   corpus of pocket-sized conformers (119-126 atoms, so every micro-batch
+   pads to L=128) written from a seed, batch 16, ``--update-freq 1``, 20
+   updates, the example script's Adam (0.9, 0.99), eps 1e-6, wd 1e-4, clip
+   1.0, polynomial decay from 1e-4 with warmup; launches per micro-batch
+   read from its stats line (15 softmax_dropout forward + 15 backward, 35
+   norm forward + 35 dx + 35 dw/db, no full-row attention), every
+   micro-batch 128 long, every loss finite and the last below the first;
+5b. Uni-Mol card against CPU — full widths at 2 layers, L=128, batch 4,
+   attention dropout 0.1 (Philox on both sides), other dropouts 0, 3
+   updates from the same weights and batches: the BERT path's limits (loss
+   1e-4 relative, gradient norm 1e-3 relative, parameters 1e-5 absolute),
+   no launch in the CPU run;
+6. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
+Phase 3 also holds the softmax(+dropout) kernels against
+``softmax_dropout_plain``: Uni-Mol's (16 * 64, 128, 128) fp32 at rate 0.1,
+L=256 and 512, bf16, a ``bcast`` and a ``tile`` extra with their
+gradients, rows holding -inf, and the keep mask read off the card bit for
+bit against ``philox_keep_plain``; and the norms at D=64 over
+16 * 128**2 rows, the width of Uni-Mol's head norms.
+
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3, 4a, 4b and 4 on the CPU at ``bert_tiny``
-through the plain versions (no card, no kernels, no result line) to check
-the script's own control flow.
+``--cpu-rehearsal`` runs phases 3, 4a, 4b, 4, 5a and 5b on the CPU at
+``bert_tiny`` and ``unimol_tiny`` through the plain versions (no card, no
+kernels, no result line) to check the script's own control flow.
 """
 
 import argparse
@@ -88,24 +110,36 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 #: (BF16_ULPS of it) for an output stored in bf16, and for the attention
 #: backward in bf16 ``bwd_rounding_slack``: pd and ds round to bf16 before
 #: their products, and may land one ulp apart on the two sides.
+#: Softmax(+dropout) forward, per element: 1e-6 absolute (probabilities;
+#: summation order and exp's last bits), plus two bf16 ulps of the element
+#: (BF16_ULPS of it) in bf16, where the cast of p and of the dropped
+#: quotient may each land on a neighbouring value.
 TOL = {
     "attention": {"float32": 2e-5, "bfloat16": 2e-2},
     "norm": {"float32": 1e-5, "bfloat16": 6.25e-2},
+    "softmax": 1e-6,
     "attention_grad": 1e-4,
     "norm_grad": 1e-5,
+    "softmax_grad": 1e-5,
 }
 BF16_ULPS = 2.0 ** -6
+#: kernel -> (the TPU kernel it replaces, its source, the main path whose
+#: launches the result line reports as ``launches``)
 KERNELS = {
     "fullrow_attention_fwd": ("unicore_tpu/ops/attention_fullrow.py:110",
-                              "unicore_tpu_torch/csrc/attention_fullrow.cu"),
+                              "unicore_tpu_torch/csrc/attention_fullrow.cu", "train"),
     "fullrow_attention_bwd": ("unicore_tpu/ops/attention_fullrow.py:205",
-                              "unicore_tpu_torch/csrc/attention_fullrow.cu"),
+                              "unicore_tpu_torch/csrc/attention_fullrow.cu", "train"),
     "fused_norm_fwd": ("unicore_tpu/ops/fused_norm.py:56",
-                       "unicore_tpu_torch/csrc/fused_norm.cu"),
+                       "unicore_tpu_torch/csrc/fused_norm.cu", "train"),
     "fused_norm_dx": ("unicore_tpu/ops/fused_norm.py:140",
-                      "unicore_tpu_torch/csrc/fused_norm.cu"),
+                      "unicore_tpu_torch/csrc/fused_norm.cu", "train"),
     "fused_norm_dwdb": ("unicore_tpu/ops/fused_norm.py:157",
-                        "unicore_tpu_torch/csrc/fused_norm.cu"),
+                        "unicore_tpu_torch/csrc/fused_norm.cu", "train"),
+    "softmax_dropout_fwd": ("unicore_tpu/ops/softmax_dropout_pallas.py:223",
+                            "unicore_tpu_torch/csrc/softmax_dropout.cu", "unimol_train"),
+    "softmax_dropout_bwd": ("unicore_tpu/ops/softmax_dropout_pallas.py:234",
+                            "unicore_tpu_torch/csrc/softmax_dropout.cu", "unimol_train"),
 }
 
 
@@ -499,6 +533,140 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
     return out
 
 
+def softmax_inputs(torch, device, c, dtype, seed):
+    """x, mask, bias, dy for one softmax check ``c``: x ~ 2 N(0, 1) in
+    ``dtype``; with ``neg_inf`` the last 40 columns -inf (padded keys, as
+    Uni-Mol's pair bias holds them); a 0/-1e9 mask and an N(0, 1) bias,
+    fp32, in the shapes the check names."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (2 * torch.randn(c["shape"], generator=g, device=device)).to(dtype)
+    if c.get("neg_inf"):
+        x[..., -40:] = float("-inf")
+    mask = bias = None
+    if c.get("mask"):
+        mask = torch.where(torch.rand(c["mask"], generator=g, device=device) < 0.2,
+                           -1e9, 0.0)
+    if c.get("bias"):
+        bias = torch.randn(c["bias"], generator=g, device=device)
+    dy = torch.randn(c["shape"], generator=g, device=device).to(dtype)
+    return x, mask, bias, dy
+
+
+def check_softmax(torch, device, c, dtype, iters, seed=1234):
+    """The softmax(+dropout) forward and backward kernels against
+    ``softmax_dropout_plain`` (autograd for the backward in fp32; in bf16
+    ``softmax_dropout_bwd_plain``, which keeps dp in fp32 as the kernel
+    does), with every extra's gradient.  Returns (forward row, backward
+    row)."""
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    rate = c["rate"]
+    x, mask, bias, dy = softmax_inputs(torch, device, c, dtype, len(c["shape"]) + c["shape"][-1])
+    extras = [t for t in (mask, bias) if t is not None]
+    plans = [sd.plan_extra(tuple(t.shape), tuple(x.shape)) for t in extras]
+    name = (f"softmax_dropout {tuple(c['shape'])} {dtype} rate={rate} mask="
+            f"{c.get('mask')} bias={c.get('bias')} neg_inf={bool(c.get('neg_inf'))}")
+    on_card = device.type == "cuda"
+    fwd = sd.softmax_dropout_kernel if on_card else sd.softmax_dropout_plain
+
+    def run(f):
+        leaves = [t.clone().requires_grad_(True) for t in [x] + extras]
+        it = iter(leaves[1:])
+        m = next(it) if mask is not None else None
+        b = next(it) if bias is not None else None
+        out = f(leaves[0], rate, m, b, seed)
+        return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+    out, grads = run(fwd)
+    ref_out, ref_grads = run(sd.softmax_dropout_plain)
+    tol = TOL["softmax"] + (BF16_ULPS * ref_out.float().abs() if dtype == torch.bfloat16 else 0.0)
+    err_el = (out.float() - ref_out.float()).abs()
+    err = err_el.max().item()
+    zero_cols = (not c.get("neg_inf")) or out[..., -40:].abs().max().item() == 0.0
+    if not (bool((err_el <= tol).all()) and math.isfinite(err) and zero_cols):
+        raise AssertionError(f"{name}: forward max abs err {err}, -inf columns zero: "
+                             f"{zero_cols}")
+    if dtype == torch.bfloat16:
+        ds = sd.softmax_dropout_bwd_plain(x, mask, bias, dy, rate, seed)
+        ref_grads = [ds] + [sd._grad_reduce(ds, p, t) for p, t in zip(plans, extras)]
+        if not on_card:  # no kernel: the rehearsal holds it against itself
+            grads = ref_grads
+    errs, ratios = {}, {}
+    gnames = ["dx"] + ["dmask"] * (mask is not None) + ["dbias"] * (bias is not None)
+    for gname, g, r in zip(gnames, grads, ref_grads):
+        errs[gname], ratios[gname] = grad_check(torch, f"{name}: {gname}", g, r,
+                                                TOL["softmax_grad"])
+    base = {"shape": list(c["shape"]), "dtype": dtype_name(dtype), "dropout": rate,
+            "mask": c.get("mask"), "bias": c.get("bias"),
+            "neg_inf": bool(c.get("neg_inf"))}
+    f_res = dict(base, max_abs_err=err,
+                 tolerance=f"{TOL['softmax']}" + (f" + {BF16_ULPS} x |ref|"
+                                                  if dtype == torch.bfloat16 else ""))
+    b_res = dict(base, max_abs_err=max(errs.values()), max_abs_err_by_grad=errs,
+                 max_err_over_tol=max(ratios.values()),
+                 tolerance=grad_tolerance(TOL["softmax_grad"], dtype))
+    n, item = x.numel(), x.element_size()
+    extra_bytes = sum(t.numel() * t.element_size() for t in extras)
+
+    def call_fwd():
+        with torch.no_grad():
+            return fwd(x, rate, mask, bias, seed)
+
+    def call_plain():
+        with torch.no_grad():
+            return sd.softmax_dropout_plain(x, rate, mask, bias, seed)
+
+    slow_iters = max(iters // 4, 2)
+    timed(f_res, "ms", torch, call_fwd, device, iters)
+    timed(f_res, "plain_ms", torch, call_plain, device, slow_iters)
+    # no single PyTorch call takes softmax and dropout: torch.softmax at rate 0
+    timed(f_res, "library_ms", torch, lambda: torch.softmax(x, -1), device, iters)
+    f_res["bound_ms"], f_res["bound_by"] = bound_ms(2 * n * item + extra_bytes, 5 * n,
+                                                    "float32")
+    # the backward kernel alone on the card; the whole autograd backward on
+    # the CPU
+    all_plans = tuple(None if t is None else sd.plan_extra(tuple(t.shape), tuple(x.shape))
+                      for t in (mask, bias))
+    kernel_bwd = ((lambda: sd._launch_bwd(x, mask, bias, all_plans, dy, rate, seed))
+                  if on_card else (lambda: run(sd.softmax_dropout_plain)))
+    timed(b_res, "ms", torch, kernel_bwd, device, iters)
+    leaves = [t.clone().requires_grad_(True) for t in [x] + extras]
+    it = iter(leaves[1:])
+    lm = next(it) if mask is not None else None
+    lb = next(it) if bias is not None else None
+    timed(b_res, "plain_ms", torch, backward_call(
+        torch, lambda: sd.softmax_dropout_plain(leaves[0], rate, lm, lb, seed), leaves, dy),
+        device, slow_iters)
+    lx = x.clone().requires_grad_(True)
+    timed(b_res, "library_ms", torch, backward_call(
+        torch, lambda: torch.softmax(lx, -1), [lx], dy), device, slow_iters)
+    b_res["bound_ms"], b_res["bound_by"] = bound_ms(2 * n * item + 4 * n + extra_bytes,
+                                                    8 * n, "float32")
+    log(f"{name} fwd: {json.dumps(f_res)}")
+    log(f"{name} bwd: {json.dumps(b_res)}")
+    return f_res, b_res
+
+
+def check_softmax_mask(torch, device, R, M, L, rate, seed):
+    """x = 0 makes every kept value 1/L scaled: the kernel's keep mask read
+    off the card against ``philox_keep_plain(1, R, M, L)`` bit for bit, and
+    its keep rate within 5 binomial sigmas of 1 - rate."""
+    from unicore_tpu_torch.ops import attention_fullrow as fr
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    fwd = sd.softmax_dropout_kernel if device.type == "cuda" else sd.softmax_dropout_plain
+    kernel_keep = fwd(torch.zeros(R, M, L, device=device), rate, seed=seed) != 0
+    plain_keep = fr.philox_keep_plain(1, R, M, L, seed, rate, device=device).view(R, M, L)
+    keep_rate = kernel_keep.float().mean().item()
+    sigma = math.sqrt(rate * (1 - rate) / kernel_keep.numel())
+    res = {"shape": [R, M, L], "mask_equal": bool(torch.equal(kernel_keep, plain_keep)),
+           "keep_rate": keep_rate, "expected": 1 - rate, "sigma": sigma}
+    log(f"softmax_dropout mask: {json.dumps(res)}")
+    if not res["mask_equal"] or abs(keep_rate - (1 - rate)) > 5 * sigma:
+        raise AssertionError(f"softmax_dropout mask check failed: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4a: training, a subprocess of the train CLI
 # ---------------------------------------------------------------------------
@@ -543,58 +711,72 @@ def train_argv(cfg, data, save_dir, device):
     ]
 
 
-def drive_training(cfg, data, card, smi):
-    save_dir = WORK / "train_ckpt"
-    log_path = WORK / "train.log"
+def run_train_cli(tag, argv, device, t, timeout_s):
+    """``python -m unicore_tpu_torch.cli.train`` with ``argv``: its stats
+    line, checked -- the update count, every loss finite, the mean of the
+    last five below the first five, and the launches per micro-batch
+    (``t["per_micro_batch"]``; none at all on the CPU rehearsal)."""
+    log_path = WORK / f"{tag}.log"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    argv = [sys.executable, "-m", "unicore_tpu_torch.cli.train",
-            *train_argv(cfg, data, save_dir, cfg["device"].type)]
     t0 = time.monotonic()
     with open(log_path, "w") as f:
-        proc = subprocess.run(argv, stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
-                              env=env, timeout=cfg["train"]["timeout_s"])
+        proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
+                              stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                              env=env, timeout=timeout_s)
     text = log_path.read_text()
     if proc.returncode != 0:
-        raise RuntimeError(f"train CLI exited {proc.returncode}:\n{text[-6000:]}")
+        raise RuntimeError(f"{tag}: train CLI exited {proc.returncode}:\n{text[-6000:]}")
     lines = [ln for ln in text.splitlines() if ln.startswith("TRAIN stats ")]
     if not lines:
-        raise AssertionError(f"no TRAIN stats line:\n{text[-6000:]}")
+        raise AssertionError(f"{tag}: no TRAIN stats line:\n{text[-6000:]}")
     stats = json.loads(lines[-1][len("TRAIN stats "):])
     for ln in text.splitlines():
         if "| update " in ln:
-            log("train " + ln.split(" | ", 3)[-1])
+            log(f"{tag} " + ln.split(" | ", 3)[-1])
     losses = stats["loss_per_update"]
     micro = stats["micro_batches"]
     launches = stats["kernel_launches"]
-    want = cfg["train"]["per_micro_batch"]
-    log(f"training: {stats['updates']} updates, {micro} micro-batches in "
+    want = t["per_micro_batch"]
+    log(f"{tag}: {stats['updates']} updates, {micro} micro-batches in "
         f"{time.monotonic() - t0:.1f}s; launches {launches} (want per "
         f"micro-batch {want})")
-    if stats["updates"] != cfg["train"]["updates"]:
-        raise AssertionError(f"{stats['updates']} updates, want {cfg['train']['updates']}")
+    if stats["updates"] != t["updates"]:
+        raise AssertionError(f"{tag}: {stats['updates']} updates, want {t['updates']}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{tag}: non-finite loss: {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     if not last < first:
-        raise AssertionError(f"loss did not fall: first 5 mean {first}, last 5 mean {last}")
-    if cfg["device"].type == "cuda":
+        raise AssertionError(f"{tag}: loss did not fall: first 5 mean {first}, "
+                             f"last 5 mean {last}")
+    if device.type == "cuda":
         for k, n in want.items():
             if launches.get(k) != n * micro:
-                raise AssertionError(f"{k}: {launches.get(k)} launches for {micro} "
-                                     f"micro-batches, want {n} per micro-batch")
+                raise AssertionError(f"{tag}: {k}: {launches.get(k)} launches for "
+                                     f"{micro} micro-batches, want {n} per micro-batch")
     elif sum(launches.values()):
-        raise AssertionError(f"the CPU rehearsal launched kernels: {launches}")
+        raise AssertionError(f"{tag}: the CPU rehearsal launched kernels: {launches}")
+    stats["loss_first5_mean"], stats["loss_last5_mean"] = first, last
+    return stats
+
+
+def drive_training(cfg, data, card, smi):
+    save_dir = WORK / "train_ckpt"
+    t = cfg["train"]
+    stats = run_train_cli("train", train_argv(cfg, data, save_dir, cfg["device"].type),
+                          cfg["device"], t, t["timeout_s"])
     train = {
-        "arch": cfg["arch"], "updates": stats["updates"], "micro_batches": micro,
-        "batch": cfg["batch"], "update_freq": cfg["train"]["update_freq"],
-        "loss_first5_mean": first, "loss_last5_mean": last,
+        "arch": cfg["arch"], "updates": stats["updates"],
+        "micro_batches": stats["micro_batches"], "batch": cfg["batch"],
+        "update_freq": t["update_freq"],
+        "loss_first5_mean": stats["loss_first5_mean"],
+        "loss_last5_mean": stats["loss_last5_mean"],
         "median_step_ms": stats["median_step_ms"], "tokens_per_s": stats["tokens_per_s"],
         "tokens": stats["tokens"], "peak_memory_bytes": stats["peak_memory_bytes"],
         "step_ms": stats["step_ms"], "card": card, "nvidia_smi": smi,
     }
     print("train " + json.dumps(train), flush=True)
-    return save_dir / "checkpoint_last.pt", launches
+    return save_dir / "checkpoint_last.pt", stats["kernel_launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -664,12 +846,156 @@ def drive_card_vs_cpu(torch, cfg, data):
     if sum(cpu_launches.values()):
         raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
     if cfg["device"].type == "cuda" and not all(
-            card_launches.get(k, 0) > 0 for k in KERNELS):
+            card_launches.get(k, 0) > 0 for k, v in KERNELS.items() if v[2] == "train"):
         raise AssertionError(f"the card run missed a kernel: {card_launches}")
     if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= param_tol):
         raise AssertionError(f"card and CPU disagree: loss {loss_rel} (1e-4 rel), "
                              f"gnorm {gnorm_rel} (1e-3 rel), params {param_err} "
                              f"({param_tol} abs)")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 5a and 5b: Uni-Mol training
+# ---------------------------------------------------------------------------
+
+ATOMS = ["C", "N", "O", "S", "H", "F", "Cl", "Br", "P"]
+
+
+def write_conformers(u):
+    """dict.txt (the Uni-Mol example's atom symbols) and an indexed train
+    split of conformers drawn from a seed: ``u["atoms"]`` atoms each, with
+    the example's element frequencies, at Gaussian positions (4 A spread)
+    as in a protein pocket."""
+    import numpy as np
+
+    from unicore_tpu_torch.data import make_builder
+
+    data = WORK / "unimol_data"
+    data.mkdir(parents=True, exist_ok=True)
+    (data / "dict.txt").write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + ATOMS)
+                                  + "\n")
+    rng = np.random.default_rng(u["seed"])
+    p = np.asarray([0.4, 0.1, 0.12, 0.03, 0.25, 0.04, 0.03, 0.01, 0.02])
+    builder = make_builder(str(data / "train"))
+    lo, hi = u["atoms"]
+    for _ in range(u["conformers"]):
+        n = int(rng.integers(lo, hi + 1))
+        builder.add_item({"atoms": list(rng.choice(ATOMS, size=n, p=p)),
+                          "coordinates": (rng.standard_normal((n, 3)) * 4.0)
+                          .astype(np.float32)})
+    builder.finalize()
+    return data
+
+
+def unimol_argv(u, data, save_dir, device):
+    t = u["train"]
+    return [
+        str(data), "--device", device, "--task", "unimol", "--loss", "unimol",
+        "--arch", u["arch"], "--optimizer", "adam", "--adam-betas", "(0.9, 0.99)",
+        "--adam-eps", "1e-6", "--weight-decay", "1e-4", "--clip-norm", "1.0",
+        "--lr-scheduler", "polynomial_decay", "--lr", str(t["lr"]),
+        "--warmup-updates", str(t["warmup"]), "--total-num-update", str(t["updates"]),
+        "--max-update", str(t["updates"]), "--batch-size", str(u["batch"]),
+        "--update-freq", "1", "--log-interval", "1", "--log-format", "simple",
+        "--num-workers", "0", "--save-dir", str(save_dir), "--seed", str(u["seed"] + 1),
+        *u["extra_args"],
+    ]
+
+
+def drive_unimol_training(cfg, data, card, smi):
+    u = cfg["unimol"]
+    t = u["train"]
+    stats = run_train_cli("unimol_train",
+                          unimol_argv(u, data, WORK / "unimol_ckpt", cfg["device"].type),
+                          cfg["device"], t, t["timeout_s"])
+    lengths = stats["micro_batch_lengths"]
+    if set(lengths) != {u["length"]}:
+        raise AssertionError(f"unimol_train: micro-batch lengths {lengths}, want all "
+                             f"{u['length']}")
+    micro, seconds = stats["micro_batches"], sum(stats["step_ms"]) / 1e3
+    atoms = stats["tokens"] - 2 * u["batch"] * micro  # less BOS/EOS per molecule
+    train = {
+        "arch": u["arch"], "updates": stats["updates"], "micro_batches": micro,
+        "batch": u["batch"], "update_freq": 1, "micro_batch_lengths": sorted(set(lengths)),
+        "loss_first5_mean": stats["loss_first5_mean"],
+        "loss_last5_mean": stats["loss_last5_mean"],
+        "median_step_ms": stats["median_step_ms"], "atoms": atoms,
+        "atoms_per_s": atoms / seconds, "tokens_per_s": stats["tokens_per_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"], "step_ms": stats["step_ms"],
+        "loss_per_update": stats["loss_per_update"], "card": card, "nvidia_smi": smi,
+    }
+    print("unimol_train " + json.dumps(train), flush=True)
+    return stats["kernel_launches"]
+
+
+def drive_unimol_card_vs_cpu(torch, cfg, data):
+    """One Uni-Mol training path (full widths at 2 layers, attention dropout
+    0.1, other dropouts 0) on the card and on the CPU from the same weights
+    and batches."""
+    import copy
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.losses.unimol import UniMolLoss
+    from unicore_tpu_torch.models.unimol import UniMolModel
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.tasks.unimol import UniMolTask
+    from unicore_tpu_torch.trainer import Trainer
+
+    u, c = cfg["unimol"], cfg["unimol"]["card_vs_cpu"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(),
+        unimol_argv(u, data, WORK / "unused", "cpu")
+        + ["--batch-size", str(c["batch"]), "--max-update", str(c["updates"]),
+           "--total-num-update", str(c["updates"]), "--warmup-updates", "1"])
+    task = UniMolTask.setup_task(args)
+    task.load_dataset("train")
+    itr = task.get_batch_iterator(task.dataset("train"), batch_size=c["batch"],
+                                  seed=args.seed)
+    samples = list(itr.next_epoch_itr(shuffle=True))[: c["updates"]]
+    model = UniMolModel(
+        vocab_size=len(task.dictionary), padding_idx=task.dictionary.pad(),
+        encoder_layers=2, encoder_embed_dim=args.encoder_embed_dim,
+        encoder_ffn_embed_dim=args.encoder_ffn_embed_dim,
+        encoder_attention_heads=args.encoder_attention_heads,
+        gaussian_kernels=args.gaussian_kernels,
+        dropout=0.0, emb_dropout=0.0, attention_dropout=0.1, activation_dropout=0.0,
+        masked_token_loss=args.masked_token_loss, masked_coord_loss=args.masked_coord_loss,
+        masked_dist_loss=args.masked_dist_loss, generator=torch.Generator().manual_seed(7))
+
+    def run(device):
+        tr = Trainer(args, task, copy.deepcopy(model), UniMolLoss(task), device)
+        tr.begin_epoch(1)
+        gnorms = [tr.train_step([s]) for s in samples]
+        params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+        return tr.update_losses, gnorms, params, tr.micro_batch_lengths
+
+    _kernels.reset_launch_counts()
+    card = run(cfg["device"])
+    card_launches = _kernels.launch_counts()
+    _kernels.reset_launch_counts()
+    cpu = run(torch.device("cpu"))
+    cpu_launches = _kernels.launch_counts()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    param_err = max((card[2][n] - cpu[2][n]).abs().max().item() for n in cpu[2])
+    res = {"losses_card": card[0], "losses_cpu": cpu[0], "gnorm_card": card[1],
+           "gnorm_cpu": cpu[1], "micro_batch_lengths": card[3],
+           "card_launches": card_launches, "loss_rel": loss_rel, "gnorm_rel": gnorm_rel,
+           "param_max_abs_diff": param_err, "param_tol": c["param_tol"]}
+    log(f"unimol card vs CPU: {json.dumps(res)}")
+    if sum(cpu_launches.values()):
+        raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
+    if set(card[3]) != {u["length"]}:
+        raise AssertionError(f"micro-batch lengths {card[3]}, want all {u['length']}")
+    if cfg["device"].type == "cuda" and not all(
+            card_launches.get(k, 0) > 0 for k in u["train"]["per_micro_batch"]
+            if u["train"]["per_micro_batch"][k]):
+        raise AssertionError(f"the card run missed a kernel: {card_launches}")
+    if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= c["param_tol"]):
+        raise AssertionError(f"Uni-Mol card and CPU disagree: loss {loss_rel} (1e-4 rel), "
+                             f"gnorm {gnorm_rel} (1e-3 rel), params {param_err} "
+                             f"({c['param_tol']} abs)")
     return res
 
 
@@ -858,7 +1184,20 @@ CHIP = {
     # and the serving path's smallest, 128
     "attention": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
     "attention_bwd": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
-    "norm": [(4096, 768), (4097, 1024)],
+    # Uni-Mol's head norms: D = 64 over B * L**2 rows
+    "norm": [(4096, 768), (4097, 1024), (16 * 128 * 128, 64)],
+    # Uni-Mol's micro-batch (16 x 64 heads, L = 128) first, fp32 then bf16
+    "softmax": [
+        {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "float32"},
+        {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "bfloat16"},
+        {"shape": (4, 64, 256, 256), "rate": 0.1, "dtype": "float32"},
+        {"shape": (2, 64, 512, 512), "rate": 0.1, "dtype": "float32"},
+        {"shape": (4, 8, 128, 256), "mask": (4, 1, 1, 256), "bias": (1, 8, 128, 256),
+         "rate": 0.1, "dtype": "float32"},
+        {"shape": (6, 64, 384), "bias": (2, 64, 384), "rate": 0.1, "dtype": "float32"},
+        {"shape": (16, 64, 128, 128), "neg_inf": True, "rate": 0.1, "dtype": "float32"},
+    ],
+    "softmax_mask": (16 * 64, 128, 128),
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
     "docs": 400, "doc_words": (380, 510),
@@ -874,11 +1213,32 @@ CHIP = {
                 450, 500, 511, 512, 33, 77, 222, 333],
     "ready_budget_s": 600,
     "per_batch": {"fullrow_attention_fwd": 12, "fused_norm_fwd": 26},
+    # 15 layers: one fused softmax each; norms: 2 per layer, the embedding,
+    # final, head (over heads), LM-head and distance-head norms
+    "unimol": {"arch": "unimol", "batch": 16, "seed": 3, "atoms": (119, 126),
+               "conformers": 320, "length": 128, "extra_args": [],
+               "train": {"updates": 20, "lr": 1e-4, "warmup": 5, "timeout_s": 600,
+                         "per_micro_batch": {"softmax_dropout_fwd": 15,
+                                             "softmax_dropout_bwd": 15,
+                                             "fused_norm_fwd": 35, "fused_norm_dx": 35,
+                                             "fused_norm_dwdb": 35,
+                                             "fullrow_attention_fwd": 0,
+                                             "fullrow_attention_bwd": 0}},
+               "card_vs_cpu": {"updates": 3, "batch": 4, "param_tol": 1e-5}},
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
     "attention_bwd": [(2, 2, 128, 16)],
     "norm": [(33, 64)],
+    "softmax": [
+        {"shape": (2, 4, 16, 128), "rate": 0.1, "dtype": "float32"},
+        {"shape": (2, 4, 16, 128), "rate": 0.1, "dtype": "bfloat16"},
+        {"shape": (2, 8, 256), "mask": (2, 1, 256), "bias": (1, 8, 256), "rate": 0.1,
+         "dtype": "float32"},
+        {"shape": (6, 8, 128), "bias": (2, 8, 128), "rate": 0.1, "dtype": "float32"},
+        {"shape": (2, 4, 16, 128), "neg_inf": True, "rate": 0.1, "dtype": "float32"},
+    ],
+    "softmax_mask": (8, 16, 128),
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
     "docs": 48, "doc_words": (60, 126),
@@ -892,13 +1252,22 @@ REHEARSAL = {
     "lengths": [1, 20, 32, 33, 64, 96, 97, 128],
     "ready_budget_s": 120,
     "per_batch": {"fullrow_attention_fwd": 2, "fused_norm_fwd": 6},
+    "unimol": {"arch": "unimol_tiny", "batch": 4, "seed": 3, "atoms": (119, 126),
+               "conformers": 40, "length": 128, "extra_args": ["--max-seq-len", "256"],
+               "train": {"updates": 10, "lr": 1e-3, "warmup": 2, "timeout_s": 300,
+                         "per_micro_batch": {"softmax_dropout_fwd": 2,
+                                             "softmax_dropout_bwd": 2,
+                                             "fused_norm_fwd": 9, "fused_norm_dx": 9,
+                                             "fused_norm_dwdb": 9}},
+               "card_vs_cpu": {"updates": 2, "batch": 4, "param_tol": 1e-5}},
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3, 4a, 4b and 4 on the CPU at a tiny size, no card")
+                        help="phases 3, 4a, 4b, 4, 5a and 5b on the CPU at a tiny "
+                             "size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -959,6 +1328,11 @@ def main(argv=None):
                 checks["fused_norm_fwd"].append(check_norm(torch, dev, *shape, dt, rms, iters))
                 for kname, res in check_norm_bwd(torch, dev, *shape, dt, rms, iters).items():
                     checks[kname].append(res)
+    for c in cfg["softmax"]:
+        f_res, b_res = check_softmax(torch, dev, c, getattr(torch, c["dtype"]), iters)
+        checks["softmax_dropout_fwd"].append(f_res)
+        checks["softmax_dropout_bwd"].append(b_res)
+    softmax_mask = check_softmax_mask(torch, dev, *cfg["softmax_mask"], 0.1, 2025)
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
@@ -969,23 +1343,32 @@ def main(argv=None):
     log(f"phase 4b done at {time.monotonic() - started:.0f}s")
     serve_launches = drive_slice(torch, cfg, ckpt, card, smi)
     log(f"phase 4 done at {time.monotonic() - started:.0f}s")
+
+    # 5a. Uni-Mol training through the CLI; 5b. card against CPU
+    um_data = write_conformers(cfg["unimol"])
+    unimol_launches = drive_unimol_training(cfg, um_data, card, smi)
+    log(f"phase 5a done at {time.monotonic() - started:.0f}s")
+    drive_unimol_card_vs_cpu(torch, cfg, um_data)
+    log(f"phase 5b done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 5. result lines: each kernel at the training path's shape (fp32, the
+    # 6. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
-    # training run's count (the main path of this slice), the serve run's
-    # beside it
+    # count of the training run its slice ported it for (BERT for the
+    # attention and norm kernels, Uni-Mol for the fused softmax), every
+    # path's beside it
+    by_path = {"train": train_launches, "serve": serve_launches,
+               "unimol_train": unimol_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]
-        replaces, source = KERNELS[name]
+        replaces, source, path = KERNELS[name]
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": train_launches.get(name, 0),
-            "launches_by_path": {"train": train_launches.get(name, 0),
-                                 "serve": serve_launches.get(name, 0)},
+            "launches": by_path[path].get(name, 0), "launches_path": path,
+            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
             "max_abs_err": main_row["max_abs_err"],
             "ms": main_row["ms"], "ms_spread": main_row["ms_spread"],
             "device_ms": main_row["device_ms"],
@@ -999,6 +1382,8 @@ def main(argv=None):
         }
         if name == "fullrow_attention_fwd":
             row["dropout_mask_check"] = mask_check
+        if name == "softmax_dropout_fwd":
+            row["dropout_mask_check"] = softmax_mask
         kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,10 @@
 shapes the chip smoke does not reach (no bias, a shared bias, no mask,
 Lq != Lk, head dims 8/12/16/128, 1024 key rows — the most shared memory
 the kernels ask for inside the ``supported()`` gate; norm widths 8 to 8192
-and tiny row counts), forward and backward, with and without dropout,
-plus the wrappers' refusals and a tiny BERT on the card against the same
-weights on the CPU, its outputs and every parameter's gradient.
+and tiny row counts; softmax rows of 128 to 8192 with every extra layout),
+forward and backward, with and without dropout, plus the wrappers'
+refusals and a tiny BERT and a tiny Uni-Mol on the card against the same
+weights on the CPU, their outputs and every parameter's gradient.
 
 Marked ``gpu``: each test takes the ``cuda`` fixture, which skips without a
 card, so on the CPU every test here is skipped.  On a machine with a card
@@ -18,11 +19,17 @@ order; bf16 2e-2 (attention) / 6.25e-2 (norm) — last-bit fp32 differences
 may round to neighbouring bf16 values (one ulp is 2**-4 below 16).  BERT
 logits: 1e-4 absolute, card vs CPU in fp32 with TF32 off.
 
+Softmax(+dropout): fp32 1e-6 absolute (probabilities, summation order
+and exp's last bits); bf16 that plus two bf16 ulps of the element (2**-6
+of it: the cast of p, and of the dropped quotient, may each land on a
+neighbouring bf16 value).
+
 Gradients, kernel vs autograd of the plain version (for the attention
 backward in bf16, vs ``fullrow_attention_bwd_plain``, which rounds pd and
-ds as the kernel does), per element as chip_smoke.py holds them: 1e-4
-(attention) / 1e-5 (norm) of the reference's largest magnitude (at least
-1) — dk, dv and dbias are sums of per-tile partials added by atomics in
+ds as the kernel does; for the softmax backward in bf16, vs
+``softmax_dropout_bwd_plain``, which keeps dp in fp32 as the kernel does),
+per element as chip_smoke.py holds them: 1e-4 (attention) / 1e-5 (norm,
+softmax) of the reference's largest magnitude (at least 1) — dk, dv and dbias are sums of per-tile partials added by atomics in
 an order that changes from run to run — plus two bf16 ulps of the
 element (2**-6 of it) where the output is stored in bf16, plus for the
 attention backward in bf16 ``bwd_rounding_slack`` (pd and ds may round to
@@ -37,14 +44,16 @@ from unicore_tpu_torch.models.bert import BertModel
 from unicore_tpu_torch.ops import _kernels
 from unicore_tpu_torch.ops import attention_fullrow as fr
 from unicore_tpu_torch.ops import fused_norm as fn
+from unicore_tpu_torch.ops import softmax_dropout as sd
 
 pytestmark = pytest.mark.gpu
 
 TOL = {
     "attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
     "norm": {torch.float32: 1e-5, torch.bfloat16: 6.25e-2},
+    "softmax": 1e-6,
 }
-GRAD_TOL = {"attention": 1e-4, "norm": 1e-5}
+GRAD_TOL = {"attention": 1e-4, "norm": 1e-5, "softmax": 1e-5}
 BF16_ULPS = 2.0 ** -6
 
 
@@ -300,5 +309,157 @@ def test_tiny_bert_gradients_on_card_match_cpu(cuda, post_ln):
     assert fn.DX_LAUNCHES.count == fn.LAUNCHES.count == (6 if post_ln else 7)
     for name, g in got.items():
         assert g is not None, f"{name}: no gradient on the card"
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, ref[name]) <= 1e-4, name
+
+
+def _softmax_case(cuda, shape, mask_shape, bias_shape, dtype, seed, neg_inf=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    if neg_inf:  # padded keys: whole -inf columns, as in Uni-Mol's pair bias
+        x[..., shape[-1] - 40:] = float("-inf")
+    mask = (None if mask_shape is None else
+            torch.where(torch.rand(mask_shape, generator=g, device=cuda) < 0.2, -1e9, 0.0))
+    bias = None if bias_shape is None else torch.randn(bias_shape, generator=g, device=cuda)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x, mask, bias, dy
+
+
+@pytest.mark.parametrize(
+    "shape,mask_shape,bias_shape,dtype,rate,neg_inf",
+    [
+        ((64, 128, 128), None, None, torch.float32, 0.1, False),
+        ((2, 8, 64, 128), None, None, torch.float32, 0.1, True),
+        ((2, 4, 16, 256), (2, 1, 1, 256), (1, 4, 16, 256), torch.float32, 0.1, False),
+        ((6, 16, 384), None, (2, 16, 384), torch.float32, 0.0, False),  # tile
+        ((2, 3, 4, 8, 512), (1, 3, 1, 1, 512), (2, 1, 4, 8, 512), torch.float32, 0.1,
+         False),  # the Evoformer's mixed per-dim broadcast
+        ((4, 8, 1024), None, (8, 1024), torch.float32, 0.1, False),
+        ((2, 8, 1152), (2, 1, 1152), None, torch.float32, 0.1, False),  # block rows
+        ((1, 8, 8192), None, (1, 8, 8192), torch.float32, 0.2, False),
+        ((16, 64, 128), None, None, torch.bfloat16, 0.1, True),
+        ((2, 4, 8, 2048), (2, 1, 1, 2048), (1, 4, 8, 2048), torch.bfloat16, 0.1, False),
+        ((8192, 8, 128), None, None, torch.float32, 0.1, False),  # many rows
+    ],
+)
+def test_softmax_dropout_kernels_match_plain(cuda, shape, mask_shape, bias_shape, dtype,
+                                             rate, neg_inf):
+    x, mask, bias, dy = _softmax_case(cuda, shape, mask_shape, bias_shape, dtype,
+                                      seed=shape[-1] + len(shape), neg_inf=neg_inf)
+    seed = 4321
+
+    def run(fwd):
+        leaves = [t.clone().requires_grad_(True) for t in (x, mask, bias) if t is not None]
+        it = iter(leaves[1:])
+        m = next(it) if mask is not None else None
+        b = next(it) if bias is not None else None
+        out = fwd(leaves[0], rate, m, b, seed)
+        return out.detach(), torch.autograd.grad(out, leaves, dy)
+
+    _kernels.reset_launch_counts()
+    out, grads = run(sd.softmax_dropout_kernel)
+    assert sd.FWD_LAUNCHES.count == 1 and sd.BWD_LAUNCHES.count == 1
+    ref_out, ref_grads = run(sd.softmax_dropout_plain)
+    assert out.dtype == dtype and out.shape == x.shape
+    tol = TOL["softmax"] + (2.0 ** -6 * ref_out.float().abs() if dtype == torch.bfloat16 else 0)
+    err = (out.float() - ref_out.float()).abs()
+    assert bool((err <= tol).all()), err.max().item()
+    if dtype == torch.bfloat16:  # the kernel's backward keeps dp in fp32
+        ds = sd.softmax_dropout_bwd_plain(x, mask, bias, dy, rate, seed)
+        plans = [sd.plan_extra(tuple(t.shape), tuple(x.shape)) for t in (mask, bias)
+                 if t is not None]
+        ref_grads = [ds] + [sd._grad_reduce(ds, p, t) for p, t in
+                            zip(plans, [t for t in (mask, bias) if t is not None])]
+    for got, ref in zip(grads, ref_grads):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        ratio = _grad_over_tol(got, ref, GRAD_TOL["softmax"])
+        assert ratio <= 1.0, ratio
+    if neg_inf:
+        assert out[..., -40:].abs().max().item() == 0.0
+        assert grads[0][..., -40:].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("L", [128, 640, 2048])
+def test_softmax_dropout_mask_is_philox(cuda, L):
+    """x = 0 makes every kept value 1/L scaled: the kernel's mask read off
+    the card equals ``philox_keep_plain(1, R, M, L)`` bit for bit."""
+    R, M, rate, seed = 6, 16, 0.1, 99
+    out = sd.softmax_dropout_kernel(torch.zeros(R, M, L, device=cuda), rate, seed=seed)
+    keep = fr.philox_keep_plain(1, R, M, L, seed, rate, device=cuda).view(R, M, L)
+    assert torch.equal(out != 0, keep)
+    other = sd.softmax_dropout_kernel(torch.zeros(R, M, L, device=cuda), rate, seed=seed + 1)
+    assert not torch.equal(out != 0, other != 0)
+
+
+def test_softmax_dropout_routing_and_refusals(cuda):
+    from unicore_tpu_torch.modules import DropoutRng
+
+    x = torch.randn(2, 4, 16, 128, device=cuda)
+    _kernels.reset_launch_counts()
+    sd.softmax_dropout(x, 0.1, True, rng=DropoutRng(1, cuda, 0, 0))
+    sd.softmax_dropout(x, 0.1, False)
+    assert sd.FWD_LAUNCHES.count == 2
+    # not a kernel shape: the plain composition, no launch
+    y = sd.softmax_dropout(torch.randn(2, 4, 16, 100, device=cuda), 0.1, True,
+                           rng=DropoutRng(1, cuda, 0, 0))
+    assert y.is_cuda and sd.FWD_LAUNCHES.count == 2
+    with pytest.raises(ValueError, match="refused"):
+        sd.softmax_dropout_kernel(x.half())
+    with pytest.raises(ValueError, match="refused"):
+        sd.softmax_dropout_kernel(torch.zeros(2, 8, 100, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sd.softmax_dropout_kernel(x, bias=torch.zeros(1, 4, 16, 128))
+    with pytest.raises(ValueError, match="dropout rate"):
+        sd.softmax_dropout_kernel(x, 1.0)
+    assert sd.FWD_LAUNCHES.count == 2
+
+
+def test_tiny_unimol_gradients_on_card_match_cpu(cuda):
+    """A 2-layer Uni-Mol at L = 128 with padded rows and attention dropout
+    0.1 (Philox on both sides): loss and every parameter's gradient on the
+    card equal the CPU plain path's, through 2 softmax_dropout forward and
+    backward launches and 9 of each norm kernel."""
+    from unicore_tpu_torch.losses.unimol import UniMolLoss
+    from unicore_tpu_torch.models.unimol import UniMolModel
+    from unicore_tpu_torch.modules import DropoutRng
+    from argparse import Namespace
+
+    gen = torch.Generator().manual_seed(2)
+    V, B, L = 14, 3, 128
+    model = UniMolModel(vocab_size=V, padding_idx=0, encoder_layers=2,
+                        encoder_embed_dim=64, encoder_ffn_embed_dim=128,
+                        encoder_attention_heads=8, gaussian_kernels=32, dropout=0.0,
+                        emb_dropout=0.0, attention_dropout=0.1, masked_coord_loss=5.0,
+                        masked_dist_loss=10.0, generator=gen).train()
+    tok = torch.randint(4, V, (B, L), generator=gen)
+    tok[1, 90:] = 0
+    tok[2, 40:] = 0
+    coord = torch.randn(B, L, 3, generator=gen).cumsum(1)
+    dist = (coord[:, :, None] - coord[:, None]).square().sum(-1).add(1e-12).sqrt()
+    tgt = torch.where((torch.rand(B, L, generator=gen) < 0.15) & (tok != 0), tok, 0)
+    sample = {"net_input": {"src_tokens": tok, "src_coord": coord, "src_distance": dist,
+                            "src_edge_type": tok[:, :, None] * V + tok[:, None, :]},
+              "target": {"tokens_target": tgt, "coord_target": coord,
+                         "distance_target": dist}}
+
+    class Task:
+        dictionary = Namespace(pad=lambda: 0)
+        args = Namespace()
+
+    def run(device):
+        model.to(device).zero_grad()
+        dev_sample = {k: {n: t.to(device) for n, t in v.items()} for k, v in sample.items()}
+        loss, _, _ = UniMolLoss(Task)(model, dev_sample, rng=DropoutRng(7, device, 0, 0))
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().clone()
+                             for n, p in model.named_parameters()}
+
+    ref_loss, ref = run(torch.device("cpu"))
+    _kernels.reset_launch_counts()
+    loss, got = run(cuda)
+    assert sd.FWD_LAUNCHES.count == sd.BWD_LAUNCHES.count == 2
+    assert fn.LAUNCHES.count == fn.DX_LAUNCHES.count == fn.DWDB_LAUNCHES.count == 9
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in got.items():
         assert torch.isfinite(g).all(), name
         assert _rel_err(g, ref[name]) <= 1e-4, name

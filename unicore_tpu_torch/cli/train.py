@@ -9,8 +9,10 @@ logs loss, lr and gnorm.  It writes ``checkpoint_last.pt`` in
 ``--save-dir`` at the end (and ``checkpoint_{epoch}_{update}.pt`` every
 ``--save-interval-updates``), a checkpoint ``unicore-tpu-torch-serve``
 loads.  The last line it prints is ``TRAIN stats {json}``: updates,
-micro-batches, per-update losses, step times, tokens/s, peak device memory
-and the launch count of every kernel.
+micro-batches and the padded length of each, per-update losses (the
+summed loss over the summed sample size, in bits), step times, real
+(non-pad) tokens/s, peak device memory and the launch count of every
+kernel.
 
 ``--device cuda`` (the default) needs a visible CUDA card and exits 76
 naming the missing card; ``--device cpu`` is the explicit CPU run (the
@@ -126,6 +128,7 @@ def main(args, device) -> dict:
     stats = {
         "updates": trainer.get_num_updates(),
         "micro_batches": trainer.micro_batches,
+        "micro_batch_lengths": trainer.micro_batch_lengths,
         "loss_per_update": trainer.update_losses,
         "step_ms": trainer.step_ms,
         "median_step_ms": float(np.median(steady)),

@@ -5,7 +5,7 @@ from .indexed_dataset import IndexedPickleDataset, make_builder
 from .lru_cache_dataset import LRUCacheDataset
 from .mask_tokens_dataset import MaskTokensDataset
 from .nested_dictionary_dataset import NestedDictionaryDataset
-from .pad_dataset import PadDataset, RightPadDataset
+from .pad_dataset import PadDataset, RightPadDataset, RightPadDataset2D
 from .sort_dataset import EpochShuffleDataset
 from .unicore_dataset import UnicoreDataset
 
@@ -21,6 +21,7 @@ __all__ = [
     "NestedDictionaryDataset",
     "PadDataset",
     "RightPadDataset",
+    "RightPadDataset2D",
     "UnicoreDataset",
     "make_builder",
 ]

@@ -89,6 +89,35 @@ def collate_tokens(
     return res
 
 
+def collate_tokens_2d(
+    values: List[np.ndarray],
+    pad_idx,
+    left_pad=False,
+    pad_to_length=None,
+    pad_to_multiple=1,
+    pad_to_buckets=None,
+):
+    """Convert a list of 2d (L x L) arrays into a padded square 3d array:
+    the pairwise features of Uni-Mol.  The width rounds as
+    :func:`collate_tokens`'s does.  (The JAX package may take a native
+    library here; it gives these values.)"""
+    values = [np.asarray(v) for v in values]
+    size = max(v.shape[0] for v in values)
+    size = size if pad_to_length is None else max(size, pad_to_length)
+    size = pad_to_multiple_size(size, pad_to_multiple)
+    if pad_to_buckets:
+        size = bucket_for(size, pad_to_buckets) or size
+    res = np.full(
+        (len(values), size, size) + values[0].shape[2:], pad_idx, dtype=values[0].dtype
+    )
+    for i, v in enumerate(values):
+        if left_pad:
+            res[i, size - v.shape[0]:, size - v.shape[1]:] = v
+        else:
+            res[i, : v.shape[0], : v.shape[1]] = v
+    return res
+
+
 def default_collate(samples):
     """Stack/convert a list of samples (numpy arrays, dicts, lists, scalars)."""
     first = samples[0]

@@ -8,6 +8,7 @@ from .transformer_encoder import (
     make_rp_bucket,
     relative_position_bucket,
 )
+from .transformer_encoder_with_pair import TransformerEncoderWithPair
 
 __all__ = [
     "DropoutRng",
@@ -16,6 +17,7 @@ __all__ = [
     "SelfMultiheadAttention",
     "TransformerEncoder",
     "TransformerEncoderLayer",
+    "TransformerEncoderWithPair",
     "configure_fused_norm",
     "init_bert_params",
     "make_rp_bucket",

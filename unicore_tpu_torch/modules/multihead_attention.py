@@ -12,9 +12,17 @@ routes exactly as the JAX package routes on a TPU:
   kernel is not ported yet, and nothing falls back to plain code.
 - **fused-softmax route** (everything else): the attention matrix is
   materialized and ``ops/softmax_dropout.py`` takes the softmax.
+- **return_attn route** (Uni-Mol's pair encoder, JAX :414-443): the
+  pre-softmax weights are a model output, so the fused-softmax route runs
+  whatever the shape: key padding masked with the fp32 minimum first, then
+  the pair bias added, then ``softmax_dropout`` with no extra; it returns
+  (output, weights, probabilities).  From the pair encoder's second layer
+  on the bias itself holds the fp32 minimum at padded keys, so their sum is
+  -inf there; the softmax gives 0 for it and its gradient 0, as in the JAX
+  package.
 
-The JAX package's ``return_attn`` consumers, its sequence-parallel (ring,
-Ulysses), quantized and incremental-decode routes are not ported yet.
+The JAX package's sequence-parallel (ring, Ulysses), quantized and
+incremental-decode routes are not ported yet.
 """
 
 import logging
@@ -175,9 +183,10 @@ def _flash_ok(tgt_len, src_len, head_dim, dtype):
 
 
 def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
-            rng=None):
+            rng=None, return_attn=False):
     """Shared core: pick the kernel route or the fused-softmax route.
-    ``rng`` (a :class:`DropoutRng`) draws the kernel's dropout seed."""
+    ``rng`` (a :class:`DropoutRng`) draws the dropout.  Returns the output,
+    or with ``return_attn`` (output, pre-softmax weights, probabilities)."""
     bsz, num_heads, tgt_len, head_dim = q.shape
     src_len = k.shape[2]
 
@@ -186,9 +195,12 @@ def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
 
     eff_dropout = dropout_rate if train else 0.0
 
-    shapes_ok, reason = _flash_ok(tgt_len, src_len, head_dim, q.dtype)
-    if not shapes_ok:
-        _warn_flash_fallback(reason)
+    if return_attn:
+        shapes_ok = False
+    else:
+        shapes_ok, reason = _flash_ok(tgt_len, src_len, head_dim, q.dtype)
+        if not shapes_ok:
+            _warn_flash_fallback(reason)
     if shapes_ok:
         bias_min = _bias_min_broadcast(
             attn_bias, bsz, num_heads, tgt_len, src_len
@@ -225,9 +237,15 @@ def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
             torch.finfo(torch.float32).min,
         )
     bias4 = _bias_to_bhll(attn_bias, bsz, num_heads, tgt_len, src_len)
+    if not return_attn:
+        attn = softmax_dropout(attn_weights, eff_dropout, is_training=train,
+                               bias=bias4, rng=rng)
+        return torch.einsum("bhqk,bhkd->bhqd", attn, v)
+    if bias4 is not None:
+        attn_weights = attn_weights + bias4
     attn = softmax_dropout(attn_weights, eff_dropout, is_training=train,
-                           bias=bias4)
-    return torch.einsum("bhqk,bhkd->bhqd", attn, v)
+                           rng=rng, inplace=False)
+    return torch.einsum("bhqk,bhkd->bhqd", attn, v), attn_weights, attn
 
 
 class SelfMultiheadAttention(nn.Module):
@@ -249,11 +267,14 @@ class SelfMultiheadAttention(nn.Module):
         key_padding_mask: Optional[torch.Tensor] = None,
         attn_bias: Optional[torch.Tensor] = None,
         rng=None,
+        return_attn: bool = False,
     ):
         """Self-attention over ``query`` (B, L, E); ``key_padding_mask``
         (B, L) nonzero = padding; ``attn_bias`` any layout
         ``_bias_to_bhll`` accepts.  Dropout follows ``self.training`` and
-        draws from ``rng`` (a :class:`DropoutRng`)."""
+        draws from ``rng`` (a :class:`DropoutRng`).  With ``return_attn``
+        it returns (output, pre-softmax weights, probabilities), the
+        latter two (B, H, L, L)."""
         bsz, tgt_len, embed_dim = query.shape
         assert embed_dim == self.embed_dim
         q, k, v = self.in_proj(query).chunk(3, dim=-1)
@@ -262,5 +283,8 @@ class SelfMultiheadAttention(nn.Module):
         k = _split_heads(k, self.num_heads)
         v = _split_heads(v, self.num_heads)
         o = _attend(q, k, v, key_padding_mask, attn_bias, self.dropout,
-                    self.training, rng)
+                    self.training, rng, return_attn)
+        if return_attn:
+            o, attn_weights, attn_probs = o
+            return self.out_proj(_merge_heads(o)), attn_weights, attn_probs
         return self.out_proj(_merge_heads(o))

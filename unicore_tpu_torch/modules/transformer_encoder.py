@@ -108,12 +108,17 @@ class TransformerEncoderLayer(nn.Module):
         attn_bias: Optional[torch.Tensor] = None,
         padding_mask: Optional[torch.Tensor] = None,
         rng=None,
+        return_attn: bool = False,
     ):
+        """The layer's output; with ``return_attn`` (output, the attention's
+        pre-softmax weights, its probabilities)."""
         residual = x
         if not self.post_ln:
             x = self.self_attn_layer_norm(x)
         x = self.self_attn(x, key_padding_mask=padding_mask, attn_bias=attn_bias,
-                           rng=rng)
+                           rng=rng, return_attn=return_attn)
+        if return_attn:
+            x, attn_weights, attn_probs = x
         x = dropout(x, self.dropout, self.training, rng)
         x = residual + x
         if self.post_ln:
@@ -129,6 +134,8 @@ class TransformerEncoderLayer(nn.Module):
         x = residual + x
         if self.post_ln:
             x = self.final_layer_norm(x)
+        if return_attn:
+            return x, attn_weights, attn_probs
         return x
 
 

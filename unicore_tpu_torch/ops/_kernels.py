@@ -156,9 +156,17 @@ def _bind(lib) -> None:
     lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, p]
     lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
     lib.unicore_fused_norm_dwdb.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+    desc = ctypes.POINTER(ll)  # an extra's index map (csrc/softmax_dropout.cu)
+    lib.unicore_softmax_dropout_fwd.argtypes = [
+        p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,
+    ]
+    lib.unicore_softmax_dropout_bwd.argtypes = [
+        p, p, desc, p, desc, p, p, ll, i, i, i, u, u, f, i, p,
+    ]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
-               "unicore_fused_norm_dwdb"):
+               "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
+               "unicore_softmax_dropout_bwd"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll

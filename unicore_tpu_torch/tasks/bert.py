@@ -3,7 +3,8 @@
 Pipeline: raw text in the native indexed shards -> WordPiece tokenize ->
 BERT masking -> right-pad to ``--seq-pad-multiple`` -> nested-dict
 batches; the train split reshuffles every epoch, deterministically in
-(seed, epoch).  The JAX package's LMDB input and length buckets are not
+(seed, epoch).  :func:`open_text_dataset` opens a split for this task and
+Uni-Mol's.  The JAX package's LMDB input and length buckets are not
 ported."""
 
 import logging
@@ -22,6 +23,19 @@ from unicore_tpu_torch.tasks import register_task
 from unicore_tpu_torch.tasks.unicore_task import UnicoreTask
 
 logger = logging.getLogger(__name__)
+
+
+def open_text_dataset(split_path_base):
+    """Open the native ``{base}.bin/.idx`` shard.  The JAX package also
+    reads ``{base}.lmdb``; that input is not ported and raises."""
+    if os.path.exists(split_path_base + ".idx"):
+        return IndexedPickleDataset(split_path_base)
+    if os.path.exists(split_path_base + ".lmdb"):
+        raise NotImplementedError(
+            f"{split_path_base}.lmdb: LMDB input is not ported yet; convert "
+            "it to the indexed shard format (scripts/convert_lmdb.py)"
+        )
+    raise FileNotFoundError(f"no dataset found at {split_path_base}.(idx|lmdb)")
 
 
 @register_task("bert")
@@ -69,7 +83,7 @@ class BertTask(UnicoreTask):
     def load_dataset(self, split, **kwargs):
         a = self.args
         tokens = BertTokenizeDataset(
-            IndexedPickleDataset(os.path.join(a.data, split)),
+            open_text_dataset(os.path.join(a.data, split)),
             self.dictionary_path,
             max_seq_len=a.max_seq_len,
         )

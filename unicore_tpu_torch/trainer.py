@@ -63,6 +63,7 @@ class Trainer(object):
         self._num_updates = 0
         self.micro_batches = 0
         self.tokens = 0
+        self.micro_batch_lengths: List[int] = []
         self.step_ms: List[float] = []
         self.update_losses: List[float] = []
 
@@ -120,7 +121,9 @@ class Trainer(object):
         sample_size = torch.zeros((), dtype=torch.float32, device=self.device)
         logging_outputs = []
         for i, sample in enumerate(samples):
-            self.tokens += int((np.asarray(sample["net_input"]["src_tokens"]) != pad).sum())
+            src = np.asarray(sample["net_input"]["src_tokens"])
+            self.tokens += int((src != pad).sum())
+            self.micro_batch_lengths.append(int(src.shape[1]))
             ss, log = self._forward_backward(_to_device(sample, self.device), i)
             sample_size = sample_size + ss
             logging_outputs.append(log)
