@@ -72,7 +72,9 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
     - an embedding table ``embedding`` becomes ``weight``;
     - ``layers_{i}`` becomes ``layers.{i}``;
     - every other leaf (LayerNorm ``weight``/``bias``, dense ``bias``,
-      ``lm_head.bias``) keeps its name.
+      ``lm_head.bias``, Uni-Mol's ``gbf.means``/``gbf.stds``) keeps its
+      name; Uni-Mol's ``gbf.mul``/``gbf.bias`` are embeddings (one column
+      per edge type), so their ``embedding`` becomes ``weight``.
     """
     params = variables["params"] if "params" in variables else variables
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
