@@ -62,20 +62,49 @@ result line):
    updates from the same weights and batches: the BERT path's limits (loss
    1e-4 relative, gradient norm 1e-3 relative, parameters 1e-5 absolute),
    no launch in the CPU run;
-6. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+6a. Evoformer training — ``python -m unicore_tpu_torch.cli.train --task
+   msa_pretrain --loss masked_msa --arch evoformer --device cuda`` (12
+   blocks, msa 256 / 8 heads, pair 128 / 4 heads, head dim 32, dropout
+   0.1; weights from ``--seed``) over an indexed corpus of MSAs written from
+   a seed (targets of 249-256 residues with 40-64 homolog rows, so every
+   micro-batch is L=256 and the 32-row subsample runs), batch 1,
+   ``--update-freq 2``, 20 updates, the example script's Adam (0.9, 0.999),
+   eps 1e-8, wd 1e-4, clip 1.0, polynomial decay from 1e-3 with warmup;
+   launches per micro-batch from its stats line (36 flash forwards and 34
+   of each flash backward kernel: the last block's pair updates do not
+   reach the loss; 145 norm forwards, 137 dx and dw/db; no full-row or
+   softmax launch), every loss finite and the last below the first; then
+   one update of the same configuration in this process under
+   ``torch.profiler``: device time by kernel group and the idle share;
+6b. Evoformer card against CPU — full widths at 2 blocks, L=128, 16 rows,
+   batch 2 (a grouped bias, Bb = 2), dropout 0, 3 updates from the same
+   weights (the seed's, every one moved by a seeded 0.05 N(0, 1) so the
+   zero-init projections pass gradient from the first update) and batches,
+   the optimizer of 4b and 5b (lr 1e-4, eps 1e-6): the BERT path's limits,
+   no launch in the CPU run;
+7. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
 ``softmax_dropout_plain``: Uni-Mol's (16 * 64, 128, 128) fp32 at rate 0.1,
 L=256 and 512, bf16, a ``bcast`` and a ``tile`` extra with their
 gradients, rows holding -inf, and the keep mask read off the card bit for
-bit against ``philox_keep_plain``; and the norms at D=64 over
-16 * 128**2 rows, the width of Uni-Mol's head norms.
+bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
+rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
+D=128; and the four flash kernels (forward with its lse, dq, dk/dv,
+dbias) against ``flash_attention_plain`` in fp32 and bf16 at the
+Evoformer's triangle (2 * 256, 4, 256, 32) and MSA-row (2 * 32, 8, 256,
+32) shapes with a grouped (2, H, 256, 256) bias, a shared (1, 1) bias,
+and BERT's (2, 12, 1152, 64) at dropout 0.1 (past the full-row gate),
+each with a fully masked key row, and the flash keep mask read off the
+card bit for bit; the library yardstick there is one
+``scaled_dot_product_attention`` with the bias expanded into its mask.
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3, 4a, 4b, 4, 5a and 5b on the CPU at
-``bert_tiny`` and ``unimol_tiny`` through the plain versions (no card, no
-kernels, no result line) to check the script's own control flow.
+``--cpu-rehearsal`` runs phases 3, 4a, 4b, 4, 5a, 5b, 6a and 6b on the CPU
+at ``bert_tiny``, ``unimol_tiny`` and an Evoformer whose attentions take
+the flash route through the plain versions (no card, no kernels, no result
+line) to check the script's own control flow.
 """
 
 import argparse
@@ -140,6 +169,14 @@ KERNELS = {
                             "unicore_tpu_torch/csrc/softmax_dropout.cu", "unimol_train"),
     "softmax_dropout_bwd": ("unicore_tpu/ops/softmax_dropout_pallas.py:234",
                             "unicore_tpu_torch/csrc/softmax_dropout.cu", "unimol_train"),
+    "flash_attention_fwd": ("unicore_tpu/ops/flash_attention.py:93",
+                            "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
+    "flash_attention_dq": ("unicore_tpu/ops/flash_attention.py:311",
+                           "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
+    "flash_attention_dkv": ("unicore_tpu/ops/flash_attention.py:341",
+                            "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
+    "flash_attention_db": ("unicore_tpu/ops/flash_attention.py:387",
+                           "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
 }
 
 
@@ -667,6 +704,173 @@ def check_softmax_mask(torch, device, R, M, L, rate, seed):
     return res
 
 
+def flash_inputs(torch, device, c, dtype, seed):
+    """q, k, v, do, the grouped bias, the key mask (its last row masks every
+    key, as a padded residue's row does) and SDPA's float mask (bias
+    expanded to the batch plus -inf at masked keys, no fully masked row:
+    SDPA gives NaN there) for one flash check ``c``."""
+    B, H, L, D = c["shape"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn(B, H, L, D, generator=g, device=device) * D ** -0.5).to(dtype)
+    k = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
+    v = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
+    do = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
+    bias = None if c.get("bias") is None else torch.randn(c["bias"], generator=g, device=device)
+    lens = torch.linspace(L, L // 3, B, device=device).long()
+    lens[-1] = 0
+    mask = (torch.arange(L, device=device)[None, :] >= lens[:, None]).to(torch.int32)
+    lens[-1] = L // 3
+    lib = torch.where(torch.arange(L, device=device)[None, :] >= lens[:, None],
+                      float("-inf"), 0.0)[:, None, None, :]
+    if bias is not None:
+        lib = lib + bias.repeat_interleave(B // bias.shape[0], dim=0)
+    return q, k, v, do, bias, mask, lib.to(dtype)
+
+
+def check_flash(torch, device, c, dtype, iters, seed=4321):
+    """The four flash kernels against ``flash_attention_plain``: the forward
+    and its lse, then dq, dk, dv and dbias (fp32: against autograd of the
+    plain version; bf16: against ``flash_attention_bwd_plain`` from the
+    kernel's own output and lse, which rounds ds and the dropped p as the
+    kernels do).  Returns {kernel name: result row}."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, D = c["shape"]
+    rate = c.get("rate", 0.0)
+    q, k, v, do, bias, mask, lib = flash_inputs(torch, device, c, dtype, L + D)
+    name = (f"flash {c['name']} B={B} H={H} L={L} D={D} bias={c.get('bias')} {dtype} "
+            f"dropout={rate}")
+    on_card = device.type == "cuda"
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias) if t is not None]
+    lb = leaves[3] if bias is not None else None
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
+
+    def public(*ls):
+        return fa.flash_attention(ls[0], ls[1], ls[2], bias=ls[3] if len(ls) > 3 else None,
+                                  kv_padding_mask=mask, **kw)
+
+    def plain(*ls):
+        return fa.flash_attention_plain(ls[0], ls[1], ls[2], ls[3] if len(ls) > 3 else None,
+                                        mask, 1.0, rate, seed)
+
+    out = public(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, bias, mask, 1.0, rate, seed)
+    lse = fa._launch_fwd(q, k, v, bias, mask, 1.0, rate, seed)[1] if on_card else ref_lse
+    err = (out.float() - ref_out.float()).abs().max().item()
+    live = ref_lse > -1e29
+    lse_err = (lse - ref_lse)[live].abs().max().item() if bool(live.any()) else 0.0
+    zero_row = out[-1].abs().max().item() == 0.0 and got[0][-1].abs().max().item() == 0.0
+    tol = TOL["attention"][dtype_name(dtype)]
+    if not (err <= tol and lse_err <= 1e-4 and bool((lse[~live] <= -1e29).all())
+            and zero_row and math.isfinite(err)):
+        raise AssertionError(f"{name}: forward max abs err {err} (tol {tol}), lse err "
+                             f"{lse_err} (tol 1e-4), fully masked row zero: {zero_row}")
+    if dtype == torch.bfloat16:
+        args = (q, k, v, bias, mask, out.detach(), lse, do, 1.0, rate, seed)
+        ref = fa.flash_attention_bwd_plain(*args)
+        slack = [*fa.bwd_rounding_slack(*args), 0.0]
+        if not on_card:  # no kernel: the rehearsal holds it against itself
+            got = ref
+    else:
+        ref = torch.autograd.grad(plain(*leaves), leaves, do)
+        slack = [0.0] * 4
+    errs, ratios = {}, {}
+    for gname, g, r, s in zip(("dq", "dk", "dv", "dbias"), got, ref, slack):
+        errs[gname], ratios[gname] = grad_check(torch, f"{name}: {gname}", g, r,
+                                                TOL["attention_grad"], s)
+    base = {"shape": [B, H, L, D], "bias": c.get("bias"), "dtype": dtype_name(dtype),
+            "dropout": rate, "case": c["name"]}
+    rows = {"flash_attention_fwd": dict(base, max_abs_err=err, lse_max_abs_err=lse_err,
+                                        tolerance=tol)}
+    for kname, gnames in (("flash_attention_dq", ["dq"]),
+                          ("flash_attention_dkv", ["dk", "dv"]),
+                          ("flash_attention_db", ["dbias"] if bias is not None else [])):
+        if gnames:
+            rows[kname] = dict(base, max_abs_err=max(errs[n] for n in gnames),
+                               max_abs_err_by_grad={n: errs[n] for n in gnames},
+                               max_err_over_tol=max(ratios[n] for n in gnames),
+                               tolerance=grad_tolerance(TOL["attention_grad"], dtype))
+
+    # times: the forward through the public call; each backward kernel
+    # alone on the card (the whole autograd backward on the CPU); plain and
+    # library: the forward, and the whole backward for every backward kernel
+    slow_iters = max(iters // 4, 2)
+    f_res = rows["flash_attention_fwd"]
+    timed(f_res, "ms", torch, lambda: public(q, k, v, *([bias] if bias is not None else [])),
+          device, iters)
+    timed(f_res, "plain_ms", torch, lambda: plain(q, k, v, *([bias] if bias is not None else [])),
+          device, slow_iters)
+    timed(f_res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=lib, scale=1.0, dropout_p=rate), device, iters)
+    both = {}
+    timed(both, "plain_ms", torch, backward_call(torch, lambda: plain(*leaves), leaves, do),
+          device, slow_iters)
+    lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lib)]
+    timed(both, "library_ms", torch, backward_call(
+        torch, lambda: F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
+                                                      scale=1.0, dropout_p=rate),
+        lib_leaves, do), device, slow_iters)
+    di = (out.detach().float() * do.float()).sum(-1)
+    bwd_args = (q, k, v, bias, mask, lse, di, do, 1.0, rate, seed)
+    launch = {"flash_attention_dq": fa._launch_dq, "flash_attention_dkv": fa._launch_dkv,
+              "flash_attention_db": fa._launch_db}
+    # bounds: q, k, v, do, out read or written once (item bytes), lse and di
+    # (4 bytes a row), the bias and the mask read once, dbias written once
+    item, bhld, bhl = q.element_size(), B * H * L * D, B * H * L
+    bias_bytes = 0 if bias is None else bias.numel() * 4
+    extra = bias_bytes + mask.numel() * 4
+    prod = 2 * B * H * L * L * D  # operations of one (L x L) by D product
+    f_res["bound_ms"], f_res["bound_by"] = bound_ms(4 * bhld * item + 4 * bhl + extra,
+                                                    2 * prod, f_res["dtype"])
+    sizes = {"flash_attention_dq": (5 * bhld * item + 8 * bhl + extra, 3 * prod),
+             "flash_attention_dkv": (6 * bhld * item + 8 * bhl + extra, 4 * prod),
+             "flash_attention_db": (4 * bhld * item + 8 * bhl + extra + bias_bytes,
+                                    2 * prod)}
+    for kname in ("flash_attention_dq", "flash_attention_dkv", "flash_attention_db"):
+        if kname not in rows:
+            continue
+        res = rows[kname]
+        call = ((lambda fn=launch[kname]: fn(*bwd_args)) if on_card
+                else (lambda: torch.autograd.grad(public(*leaves), leaves, do)))
+        timed(res, "ms", torch, call, device, iters)
+        res.update(both)
+        res["bound_ms"], res["bound_by"] = bound_ms(*sizes[kname], res["dtype"])
+    for kname, res in rows.items():
+        log(f"{name} {kname}: {json.dumps(res)}")
+    return rows
+
+
+def check_flash_mask(torch, device, B, H, L, D, rate, seed):
+    """q = k = 0 makes every kept probability 1/L scaled; v the one-hot
+    columns c0 .. c0 + D - 1 makes the output those columns of the dropped
+    probability row: the kernel's keep mask, read off the card in L / D
+    calls, against ``philox_keep_plain`` bit for bit, and its keep rate
+    within 5 binomial sigmas of 1 - rate."""
+    from unicore_tpu_torch.ops import attention_fullrow as fr
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    z = torch.zeros(B, H, L, D, device=device)
+    kernel_keep = torch.empty(B, H, L, L, dtype=torch.bool, device=device)
+    for c0 in range(0, L, D):
+        onehot = torch.zeros(L, D, device=device)
+        onehot[c0:c0 + D] = torch.eye(D, device=device)
+        out = fa.flash_attention(z, z, onehot.expand(B, H, L, D).contiguous(),
+                                 dropout_rate=rate, dropout_seed=seed)
+        kernel_keep[..., c0:c0 + D] = out != 0
+    plain_keep = fr.philox_keep_plain(B, H, L, L, seed, rate, device=device)
+    keep_rate = kernel_keep.float().mean().item()
+    sigma = math.sqrt(rate * (1 - rate) / kernel_keep.numel())
+    res = {"shape": [B, H, L, L], "mask_equal": bool(torch.equal(kernel_keep, plain_keep)),
+           "keep_rate": keep_rate, "expected": 1 - rate, "sigma": sigma}
+    log(f"flash dropout mask: {json.dumps(res)}")
+    if not res["mask_equal"] or abs(keep_rate - (1 - rate)) > 5 * sigma:
+        raise AssertionError(f"flash dropout mask check failed: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4a: training, a subprocess of the train CLI
 # ---------------------------------------------------------------------------
@@ -1000,6 +1204,233 @@ def drive_unimol_card_vs_cpu(torch, cfg, data):
 
 
 # ---------------------------------------------------------------------------
+# phases 6a and 6b: Evoformer masked-MSA pretraining
+# ---------------------------------------------------------------------------
+
+AA = list("ACDEFGHIKLMNPQRSTVWY") + ["-"]
+
+
+def write_msas(e, tag):
+    """dict.txt (the Evoformer example's alphabet) and an indexed train split
+    of MSAs drawn from a seed, as examples/evoformer/make_example_data.py
+    makes them: a target of ``e["residues"]`` residues and ``e["rows"]``
+    homologs with point mutations and gaps."""
+    import numpy as np
+
+    from unicore_tpu_torch.data import make_builder
+
+    data = WORK / tag
+    data.mkdir(parents=True, exist_ok=True)
+    specials = ["[CLS]", "[PAD]", "[SEP]", "[UNK]"]
+    (data / "dict.txt").write_text("\n".join(specials + AA) + "\n")
+    rng = np.random.default_rng(e["seed"])
+    builder = make_builder(str(data / "train"))
+    for _ in range(e["msas"]):
+        L = int(rng.integers(e["residues"][0], e["residues"][1] + 1))
+        R = int(rng.integers(e["rows"][0], e["rows"][1] + 1))
+        target = rng.integers(0, 20, size=L)
+        rows = [target]
+        for _ in range(R - 1):
+            row = target.copy()
+            pos = rng.choice(L, size=int(rng.integers(0, L // 3)), replace=False)
+            row[pos] = rng.integers(0, 21, size=len(pos))  # may be a gap
+            rows.append(row)
+        builder.add_item({"msa": (np.stack(rows) + len(specials)).astype(np.int16)})
+    builder.finalize()
+    return data
+
+
+def evoformer_argv(e, data, save_dir, device):
+    t = e["train"]
+    return [
+        str(data), "--device", device, "--task", "msa_pretrain", "--loss", "masked_msa",
+        "--arch", e["arch"], "--optimizer", "adam", "--adam-betas", "(0.9, 0.999)",
+        "--adam-eps", "1e-8", "--weight-decay", "1e-4", "--clip-norm", "1.0",
+        "--lr-scheduler", "polynomial_decay", "--lr", str(t["lr"]),
+        "--warmup-updates", str(t["warmup"]), "--total-num-update", str(t["updates"]),
+        "--max-update", str(t["updates"]), "--batch-size", str(e["batch"]),
+        "--update-freq", str(t["update_freq"]), "--max-msa-rows", str(e["max_rows"]),
+        "--log-interval", "1", "--log-format", "simple", "--num-workers", "0",
+        "--save-dir", str(save_dir), "--seed", str(e["seed"] + 1), *e["extra_args"],
+    ]
+
+
+def drive_evoformer_training(torch, cfg, data, card, smi):
+    e = cfg["evoformer"]
+    t = e["train"]
+    stats = run_train_cli("evoformer_train",
+                          evoformer_argv(e, data, WORK / "evoformer_ckpt", cfg["device"].type),
+                          cfg["device"], t, t["timeout_s"])
+    lengths = stats["micro_batch_lengths"]
+    if set(lengths) != {e["length"]}:
+        raise AssertionError(f"evoformer_train: micro-batch lengths {lengths}, want all "
+                             f"{e['length']}")
+    train = {
+        "arch": e["arch"], "extra_args": e["extra_args"], "updates": stats["updates"],
+        "micro_batches": stats["micro_batches"], "batch": e["batch"],
+        "update_freq": t["update_freq"], "max_msa_rows": e["max_rows"],
+        "micro_batch_lengths": sorted(set(lengths)),
+        "loss_first5_mean": stats["loss_first5_mean"],
+        "loss_last5_mean": stats["loss_last5_mean"],
+        "median_step_ms": stats["median_step_ms"], "samples_per_s": stats["samples_per_s"],
+        "msa_tokens": stats["tokens"], "msa_tokens_per_s": stats["tokens_per_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"], "step_ms": stats["step_ms"],
+        "loss_per_update": stats["loss_per_update"], "card": card, "nvidia_smi": smi,
+    }
+    print("evoformer_train " + json.dumps(train), flush=True)
+    if cfg["device"].type == "cuda":
+        profile_evoformer_update(torch, cfg, data, card, smi)
+    return stats["kernel_launches"]
+
+
+#: device kernels by name, for the step's time split
+KERNEL_GROUPS = (("flash_attention", ("flash_",)), ("fused_norm", ("fused_norm",)),
+                 ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "splitk")),
+                 ("elementwise_and_reductions", ("elementwise", "vectorized", "reduce",
+                                                 "Reduce", "index", "Index", "scatter",
+                                                 "gather", "copy", "cat", "softmax",
+                                                 "Softmax", "foreach", "fill")))
+
+
+def profile_evoformer_update(torch, cfg, data, card, smi):
+    """One update of 6a's configuration (2 micro-batches, full width, its
+    optimizer) in this process, after a warm-up update: its wall time, then
+    the same update again under ``torch.profiler`` for the device time of
+    the kernels by group; the idle share is the part of the unprofiled
+    wall time the device time does not fill."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.losses.masked_msa import MaskedMSALoss
+    from unicore_tpu_torch.tasks.msa_pretrain import MSAPretrainTask
+    from unicore_tpu_torch.trainer import Trainer
+
+    e = cfg["evoformer"]
+    dev = cfg["device"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(), evoformer_argv(e, data, WORK / "unused", "cuda"))
+    task = MSAPretrainTask.setup_task(args)
+    task.load_dataset("train")
+    itr = task.get_batch_iterator(task.dataset("train"), batch_size=e["batch"],
+                                  seed=args.seed)
+    samples = list(itr.next_epoch_itr(shuffle=True))[:4]
+    model = task.build_model(args, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(args.seed))
+    tr = Trainer(args, task, model, MaskedMSALoss(task), dev)
+    tr.begin_epoch(1)
+    tr.train_step(samples[:2])  # warm-up
+    # the wall time of an update without the profiler (whose host-side
+    # recording of every op stretches the traced update several times)
+    tr.train_step(samples[2:])
+    wall_us = tr.step_ms[-1] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(samples[2:])
+        torch.cuda.synchronize()
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)),
+                    "other")
+        groups[name] += ev.self_device_time_total
+        top.append((ev.self_device_time_total, ev.key[:90], ev.count))
+    busy = sum(groups.values())
+    top.sort(reverse=True)
+    res = {"update_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+           "device_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
+           "top_kernels": [{"name": n, "device_ms": t / 1e3, "calls": c}
+                           for t, n, c in top[:12]],
+           "profiled": "one update (2 micro-batches) after a warm-up update and an "
+                       "unprofiled timing of the same update, in-process",
+           "card": card, "nvidia_smi": smi}
+    print("evoformer_profile " + json.dumps(res), flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+def drive_evoformer_card_vs_cpu(torch, cfg, data):
+    """One Evoformer training path (full widths at 2 blocks, dropout 0) on
+    the card and on the CPU from the same weights and batches, with the
+    optimizer of phases 4b and 5b (lr 1e-4, eps 1e-6).  At 6a's lr 1e-3 and
+    eps 1e-8 Adam turns gradient elements at fp32 noise level -- the bias
+    of ``ln_z`` before the pair-bias projection, whose true gradient is 0
+    (a constant added to a score row leaves the softmax as it is), and
+    ReLU units at the edge of activity -- into steps the size of the lr, and
+    the devices then differ by more than the parameter limit."""
+    import copy
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.losses.masked_msa import MaskedMSALoss
+    from unicore_tpu_torch.models.evoformer_model import EvoformerModel
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.tasks.msa_pretrain import MSAPretrainTask
+    from unicore_tpu_torch.trainer import Trainer
+
+    e, c = cfg["evoformer"], cfg["evoformer"]["card_vs_cpu"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(),
+        evoformer_argv(e, data, WORK / "unused", "cpu")
+        + ["--batch-size", str(c["batch"]), "--max-update", str(c["updates"]),
+           "--total-num-update", str(c["updates"]), "--warmup-updates", "1",
+           "--update-freq", "1", "--max-msa-rows", str(c["max_rows"]),
+           "--max-seq-len", str(c["length"]), "--lr", "1e-4", "--adam-eps", "1e-6"])
+    task = MSAPretrainTask.setup_task(args)
+    task.load_dataset("train")
+    itr = task.get_batch_iterator(task.dataset("train"), batch_size=c["batch"],
+                                  seed=args.seed)
+    samples = list(itr.next_epoch_itr(shuffle=True))[: c["updates"]]
+    model = EvoformerModel(
+        vocab_size=len(task.dictionary), padding_idx=task.dictionary.pad(),
+        num_blocks=c["blocks"], msa_dim=args.msa_dim, pair_dim=args.pair_dim,
+        msa_heads=args.msa_heads, pair_heads=args.pair_heads, dropout=0.0,
+        max_seq_len=args.max_seq_len, generator=torch.Generator().manual_seed(7))
+    with torch.no_grad():  # move the AF2 zero-init projections and gates, so
+        gen = torch.Generator().manual_seed(8)  # every path has gradient at once
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+
+    def run(device):
+        tr = Trainer(args, task, copy.deepcopy(model), MaskedMSALoss(task), device)
+        tr.begin_epoch(1)
+        gnorms = [tr.train_step([s]) for s in samples]
+        params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+        return tr.update_losses, gnorms, params, tr.micro_batch_lengths
+
+    _kernels.reset_launch_counts()
+    card = run(cfg["device"])
+    card_launches = _kernels.launch_counts()
+    _kernels.reset_launch_counts()
+    cpu = run(torch.device("cpu"))
+    cpu_launches = _kernels.launch_counts()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    param_err = max((card[2][n] - cpu[2][n]).abs().max().item() for n in cpu[2])
+    res = {"losses_card": card[0], "losses_cpu": cpu[0], "gnorm_card": card[1],
+           "gnorm_cpu": cpu[1], "micro_batch_lengths": card[3], "batch": c["batch"],
+           "blocks": c["blocks"], "card_launches": card_launches, "loss_rel": loss_rel,
+           "gnorm_rel": gnorm_rel, "param_max_abs_diff": param_err,
+           "param_tol": c["param_tol"]}
+    log(f"evoformer card vs CPU: {json.dumps(res)}")
+    if sum(cpu_launches.values()):
+        raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
+    if set(card[3]) != {c["length"]}:
+        raise AssertionError(f"micro-batch lengths {card[3]}, want all {c['length']}")
+    if cfg["device"].type == "cuda" and not all(
+            card_launches.get(k, 0) > 0 for k, v in KERNELS.items()
+            if v[2] == "evoformer_train"):
+        raise AssertionError(f"the card run missed a flash kernel: {card_launches}")
+    if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= c["param_tol"]):
+        raise AssertionError(f"Evoformer card and CPU disagree: loss {loss_rel} (1e-4 rel), "
+                             f"gnorm {gnorm_rel} (1e-3 rel), params {param_err} "
+                             f"({c['param_tol']} abs)")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the served slice
 # ---------------------------------------------------------------------------
 
@@ -1184,8 +1615,10 @@ CHIP = {
     # and the serving path's smallest, 128
     "attention": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
     "attention_bwd": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
-    # Uni-Mol's head norms: D = 64 over B * L**2 rows
-    "norm": [(4096, 768), (4097, 1024), (16 * 128 * 128, 64)],
+    # Uni-Mol's head norms: D = 64 over B * L**2 rows; the Evoformer's msa
+    # (32 rows x 256 residues, D = 256) and pair (256**2 rows, D = 128) norms
+    "norm": [(4096, 768), (4097, 1024), (16 * 128 * 128, 64), (32 * 256, 256),
+             (256 * 256, 128)],
     # Uni-Mol's micro-batch (16 x 64 heads, L = 128) first, fp32 then bf16
     "softmax": [
         {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "float32"},
@@ -1198,6 +1631,18 @@ CHIP = {
         {"shape": (16, 64, 128, 128), "neg_inf": True, "rate": 0.1, "dtype": "float32"},
     ],
     "softmax_mask": (16 * 64, 128, 128),
+    # the Evoformer's attentions at batch 2 (so the bias is grouped, Bb = 2):
+    # triangle (the lead rows of the pair, 24 of the 36 calls a micro-batch)
+    # first, then MSA-row; a shared bias (Bb = Hb = 1); and a BERT shape the
+    # full-row gate refuses (1152 rows), with dropout
+    "flash": [
+        {"name": "triangle", "shape": (2 * 256, 4, 256, 32), "bias": (2, 4, 256, 256)},
+        {"name": "msa_row", "shape": (2 * 32, 8, 256, 32), "bias": (2, 8, 256, 256)},
+        {"name": "shared_bias", "shape": (8, 4, 256, 32), "bias": (1, 1, 256, 256)},
+        {"name": "bert_router", "shape": (2, 12, 1152, 64), "bias": (1, 12, 1152, 1152),
+         "rate": 0.1},
+    ],
+    "flash_mask": (2, 12, 1152, 64),
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
     "docs": 400, "doc_words": (380, 510),
@@ -1225,6 +1670,31 @@ CHIP = {
                                              "fullrow_attention_fwd": 0,
                                              "fullrow_attention_bwd": 0}},
                "card_vs_cpu": {"updates": 3, "batch": 4, "param_tol": 1e-5}},
+    # the full `evoformer` arch (12 blocks, msa 256 / 8 heads, pair 128 / 4
+    # heads, dropout 0.1) at batch 1 (Uni-Fold's per-card batch; the port has
+    # no remat) and 32 MSA rows; targets of 249-256 residues pad every
+    # micro-batch to L = 256.  Flash: 3 forwards a block; the last block's
+    # pair updates do not reach the loss, so 34 of each backward kernel.
+    # Norms: 12 a block and the final one; 8 of the last block's have no
+    # backward.  The MSA column attention (over 32 rows) runs the plain
+    # composition, as the JAX package runs jnp there.
+    "evoformer": {"arch": "evoformer", "batch": 1, "seed": 4, "msas": 48,
+                  "residues": (249, 256), "rows": (40, 64), "max_rows": 32, "length": 256,
+                  "extra_args": [],
+                  "train": {"updates": 20, "update_freq": 2, "lr": 1e-3, "warmup": 5,
+                            "timeout_s": 900,
+                            "per_micro_batch": {"flash_attention_fwd": 36,
+                                                "flash_attention_dq": 34,
+                                                "flash_attention_dkv": 34,
+                                                "flash_attention_db": 34,
+                                                "fused_norm_fwd": 145, "fused_norm_dx": 137,
+                                                "fused_norm_dwdb": 137,
+                                                "fullrow_attention_fwd": 0,
+                                                "fullrow_attention_bwd": 0,
+                                                "softmax_dropout_fwd": 0,
+                                                "softmax_dropout_bwd": 0}},
+                  "card_vs_cpu": {"updates": 3, "batch": 2, "blocks": 2, "length": 128,
+                                  "max_rows": 16, "param_tol": 1e-5}},
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -1239,6 +1709,13 @@ REHEARSAL = {
         {"shape": (2, 4, 16, 128), "neg_inf": True, "rate": 0.1, "dtype": "float32"},
     ],
     "softmax_mask": (8, 16, 128),
+    "flash": [
+        {"name": "triangle", "shape": (16, 2, 128, 16), "bias": (2, 2, 128, 128)},
+        {"name": "shared_bias", "shape": (4, 2, 128, 16), "bias": (1, 1, 128, 128)},
+        {"name": "bert_router", "shape": (2, 2, 256, 16), "bias": (1, 2, 256, 256),
+         "rate": 0.1},
+    ],
+    "flash_mask": (1, 2, 256, 16),
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
     "docs": 48, "doc_words": (60, 126),
@@ -1260,14 +1737,31 @@ REHEARSAL = {
                                              "fused_norm_fwd": 9, "fused_norm_dx": 9,
                                              "fused_norm_dwdb": 9}},
                "card_vs_cpu": {"updates": 2, "batch": 4, "param_tol": 1e-5}},
+    # a width whose MSA-row and triangle attentions take the flash route
+    # (head dims 8, L = 120 padded to 128)
+    "evoformer": {"arch": "evoformer", "batch": 1, "seed": 4, "msas": 24,
+                  "residues": (113, 120), "rows": (10, 14), "max_rows": 8, "length": 120,
+                  "extra_args": ["--num-blocks", "1", "--msa-dim", "64", "--msa-heads", "8",
+                                 "--pair-dim", "32", "--pair-heads", "4",
+                                 "--max-seq-len", "128"],
+                  "train": {"updates": 10, "update_freq": 2, "lr": 1e-3, "warmup": 2,
+                            "timeout_s": 600,
+                            "per_micro_batch": {"flash_attention_fwd": 3,
+                                                "flash_attention_dq": 1,
+                                                "flash_attention_dkv": 1,
+                                                "flash_attention_db": 1,
+                                                "fused_norm_fwd": 13, "fused_norm_dx": 5,
+                                                "fused_norm_dwdb": 5}},
+                  "card_vs_cpu": {"updates": 2, "batch": 2, "blocks": 2, "length": 112,
+                                  "max_rows": 8, "param_tol": 1e-5}},
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3, 4a, 4b, 4, 5a and 5b on the CPU at a tiny "
-                             "size, no card")
+                        help="phases 3, 4a, 4b, 4, 5a, 5b, 6a and 6b on the CPU at a "
+                             "tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -1333,6 +1827,11 @@ def main(argv=None):
         checks["softmax_dropout_fwd"].append(f_res)
         checks["softmax_dropout_bwd"].append(b_res)
     softmax_mask = check_softmax_mask(torch, dev, *cfg["softmax_mask"], 0.1, 2025)
+    for c in cfg["flash"]:
+        for dt in dtypes:
+            for kname, res in check_flash(torch, dev, c, dt, iters).items():
+                checks[kname].append(res)
+    flash_mask = check_flash_mask(torch, dev, *cfg["flash_mask"], 0.1, 2026)
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
@@ -1350,17 +1849,24 @@ def main(argv=None):
     log(f"phase 5a done at {time.monotonic() - started:.0f}s")
     drive_unimol_card_vs_cpu(torch, cfg, um_data)
     log(f"phase 5b done at {time.monotonic() - started:.0f}s")
+
+    # 6a. Evoformer training through the CLI; 6b. card against CPU
+    evo_data = write_msas(cfg["evoformer"], "evoformer_data")
+    evoformer_launches = drive_evoformer_training(torch, cfg, evo_data, card, smi)
+    log(f"phase 6a done at {time.monotonic() - started:.0f}s")
+    drive_evoformer_card_vs_cpu(torch, cfg, evo_data)
+    log(f"phase 6b done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 6. result lines: each kernel at its main path's shape (fp32, the
+    # 7. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the training run its slice ported it for (BERT for the
-    # attention and norm kernels, Uni-Mol for the fused softmax), every
-    # path's beside it
+    # attention and norm kernels, Uni-Mol for the fused softmax, the
+    # Evoformer for the flash kernels), every path's beside it
     by_path = {"train": train_launches, "serve": serve_launches,
-               "unimol_train": unimol_launches}
+               "unimol_train": unimol_launches, "evoformer_train": evoformer_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]
@@ -1384,6 +1890,8 @@ def main(argv=None):
             row["dropout_mask_check"] = mask_check
         if name == "softmax_dropout_fwd":
             row["dropout_mask_check"] = softmax_mask
+        if name == "flash_attention_fwd":
+            row["dropout_mask_check"] = flash_mask
         kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

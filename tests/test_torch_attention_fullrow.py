@@ -155,15 +155,20 @@ def test_attend_routes_match_jax(pallas_interpret, L, route):
 
 
 def test_attend_refuses_unported_flash_shapes():
-    """Rows over 1024 and per-batch biases go to the JAX package's online
-    flash kernel, which is not ported: the port raises, naming it."""
-    q = torch.zeros(1, 1, 1152, 8)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        port_mha._attend(q, q, q, None, None, 0.0, False)
-    q = torch.zeros(2, 2, 128, 8)
-    per_batch = torch.zeros(2, 2, 128, 128)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        port_mha._attend(q, q, q, None, per_batch, 0.0, False)
+    """Rows over 1024 and per-batch biases, which the full-row gate refuses,
+    go to the online flash kernel, as in the JAX package (before it was
+    ported the router raised for them): the router's answer is the flash
+    attention's plain version on the same inputs, to the bit."""
+    from unicore_tpu_torch.ops import flash_attention as port_fa
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 1, 1152, 8, generator=g)
+    got = port_mha._attend(q, q, q, None, None, 0.0, False)
+    assert torch.equal(got, port_fa.flash_attention_plain(q, q, q))
+    q = torch.randn(2, 2, 128, 8, generator=g)
+    per_batch = torch.randn(2, 2, 128, 128, generator=g)
+    got = port_mha._attend(q, q, q, None, per_batch, 0.0, False)
+    assert torch.equal(got, port_fa.flash_attention_plain(q, q, q, per_batch))
 
 
 def test_softmax_kernel_gate_matches_jax():

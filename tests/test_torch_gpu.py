@@ -3,8 +3,11 @@ shapes the chip smoke does not reach (no bias, a shared bias, no mask,
 Lq != Lk, head dims 8/12/16/128, 1024 key rows — the most shared memory
 the kernels ask for inside the ``supported()`` gate; norm widths 8 to 8192
 and tiny row counts; softmax rows of 128 to 8192 with every extra layout),
-forward and backward, with and without dropout, plus the wrappers'
-refusals and a tiny BERT and a tiny Uni-Mol on the card against the same
+forward and backward, with and without dropout; the four flash kernels
+(forward, dq, dk/dv, dbias) with every bias grouping, head dims 24 to 128,
+1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
+the dbias sum's repeatability; plus the wrappers' refusals and a tiny BERT,
+a tiny Uni-Mol and a 2-block Evoformer on the card against the same
 weights on the CPU, their outputs and every parameter's gradient.
 
 Marked ``gpu``: each test takes the ``cuda`` fixture, which skips without a
@@ -28,9 +31,11 @@ Gradients, kernel vs autograd of the plain version (for the attention
 backward in bf16, vs ``fullrow_attention_bwd_plain``, which rounds pd and
 ds as the kernel does; for the softmax backward in bf16, vs
 ``softmax_dropout_bwd_plain``, which keeps dp in fp32 as the kernel does),
-per element as chip_smoke.py holds them: 1e-4 (attention) / 1e-5 (norm,
-softmax) of the reference's largest magnitude (at least 1) — dk, dv and dbias are sums of per-tile partials added by atomics in
-an order that changes from run to run — plus two bf16 ulps of the
+per element as chip_smoke.py holds them: 1e-4 (attention, full-row and
+flash) / 1e-5 (norm, softmax) of the reference's largest magnitude (at
+least 1) — the full-row dk, dv and dbias are sums of per-tile partials
+added by atomics in an order that changes from run to run, the flash
+backward recomputes p from the forward's lse — plus two bf16 ulps of the
 element (2**-6 of it) where the output is stored in bf16, plus for the
 attention backward in bf16 ``bwd_rounding_slack`` (pd and ds may round to
 neighbouring bf16 values).  BERT gradients: 1e-4 relative to each
@@ -460,6 +465,167 @@ def test_tiny_unimol_gradients_on_card_match_cpu(cuda):
     assert sd.FWD_LAUNCHES.count == sd.BWD_LAUNCHES.count == 2
     assert fn.LAUNCHES.count == fn.DX_LAUNCHES.count == fn.DWDB_LAUNCHES.count == 9
     assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for name, g in got.items():
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, ref[name]) <= 1e-4, name
+
+
+def _flash_inputs(device, B, H, Lq, Lk, D, bias_shape, masked, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn(B, H, Lq, D, generator=g, device=device) * D ** -0.5).to(dtype)
+    k, v = (torch.randn(B, H, Lk, D, generator=g, device=device).to(dtype) for _ in range(2))
+    do = torch.randn(B, H, Lq, D, generator=g, device=device).to(dtype)
+    bias = None if bias_shape is None else torch.randn(bias_shape, generator=g, device=device)
+    mask = None
+    if masked:
+        lens = torch.linspace(Lk, Lk // 3, B, device=device).long()
+        lens[-1] = 0  # a fully masked row
+        mask = (torch.arange(Lk, device=device)[None] >= lens[:, None]).to(torch.int32)
+    return q, k, v, do, bias, mask
+
+
+@pytest.mark.parametrize(
+    "B,H,Lq,Lk,D,bias_shape,masked,dropout,dtype",
+    [
+        (4, 2, 128, 128, 32, (1, 2, 128, 128), True, 0.0, torch.float32),
+        (4, 2, 256, 256, 32, (2, 1, 256, 256), True, 0.0, torch.float32),  # grouped, Hb 1
+        (3, 2, 128, 384, 64, (3, 2, 128, 384), False, 0.1, torch.float32),  # per batch
+        (2, 2, 128, 128, 24, None, True, 0.0, torch.float32),  # D not a multiple of 16
+        (2, 1, 256, 128, 128, (1, 1, 256, 128), True, 0.1, torch.float32),
+        (2, 2, 1152, 1152, 64, None, True, 0.1, torch.float32),  # past the full-row gate
+        (4, 2, 256, 256, 32, (2, 2, 256, 256), True, 0.0, torch.bfloat16),
+        (2, 2, 128, 256, 128, (1, 1, 128, 256), False, 0.1, torch.bfloat16),
+    ],
+)
+def test_flash_kernels_match_plain(cuda, B, H, Lq, Lk, D, bias_shape, masked, dropout,
+                                   dtype):
+    """The four flash kernels (forward, dq, dk/dv, dbias) through the
+    autograd Function against the plain version on the same card inputs:
+    fp32 vs autograd of ``flash_attention_plain``; bf16 vs
+    ``flash_attention_bwd_plain`` from the kernel's own output and lse."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias, mask = _flash_inputs(cuda, B, H, Lq, Lk, D, bias_shape, masked,
+                                            dtype, seed=Lq + D)
+    kw = dict(sm_scale=0.7, dropout_rate=dropout, dropout_seed=99)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias) if t is not None]
+    _kernels.reset_launch_counts()
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3] if bias is not None else None,
+                             kv_padding_mask=mask, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    counts = (fa.FWD_LAUNCHES.count, fa.DQ_LAUNCHES.count, fa.DKV_LAUNCHES.count,
+              fa.DB_LAUNCHES.count)
+    assert counts == (1, 1, 1, int(bias is not None)), counts
+    ref_out, lse = fa.flash_attention_fwd_plain(q, k, v, bias, mask, 0.7, dropout, 99)
+    assert (out.float() - ref_out.float()).abs().max().item() <= \
+        TOL["attention"][dtype] * max(1.0, ref_out.float().abs().max().item())
+    _, klse = fa._launch_fwd(q, k, v, bias, mask, 0.7, dropout, 99)
+    live = lse > -1e29
+    assert (klse - lse)[live].abs().max().item() <= 1e-4 and bool((klse[~live] <= -1e29).all())
+    if masked:
+        assert out[-1].abs().max().item() == 0.0 and grads[0][-1].abs().max().item() == 0.0
+    slack = [0.0] * 4
+    if dtype == torch.bfloat16:
+        args = (q, k, v, bias, mask, out.detach(), klse, do, 0.7, dropout, 99)
+        ref_grads = fa.flash_attention_bwd_plain(*args)
+        slack = [*fa.bwd_rounding_slack(*args), 0.0]
+    else:
+        rl = [t.clone().requires_grad_(True) for t in (q, k, v, bias) if t is not None]
+        ref_grads = torch.autograd.grad(
+            fa.flash_attention_plain(*rl[:3], rl[3] if bias is not None else None, mask,
+                                     0.7, dropout, 99), rl, do)
+    for name, got, ref, s in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads, slack):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
+        assert ratio <= 1.0, (name, ratio)
+
+
+def test_flash_dropout_mask_is_the_fullrow_one(cuda):
+    """q = k = 0 and v = I: the flash kernel's output is its dropped
+    probability row, and its mask equals the full-row kernel's and the
+    plain Philox mask bit for bit; the dbias partial sums repeat to the bit."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    B, H, L, rate, seed = 2, 3, 128, 0.1, 77
+    z = torch.zeros(B, H, L, L, device=cuda)
+    eye = torch.eye(L, device=cuda).expand(B, H, L, L).contiguous()
+    out = fa.flash_attention(z, z, eye, dropout_rate=rate, dropout_seed=seed)
+    keep = fr.philox_keep_plain(B, H, L, L, seed, rate, device=cuda)
+    assert torch.equal(out != 0, keep)
+    assert torch.equal(out != 0, fr.fullrow_attention(z, z, eye, dropout_rate=rate,
+                                                      dropout_seed=seed) != 0)
+    q, k, v, do, bias, mask = _flash_inputs(cuda, 8, 2, 128, 128, 32, (1, 2, 128, 128),
+                                            True, torch.float32, seed=5)
+    _, lse = fa._launch_fwd(q, k, v, bias, mask, 1.0, 0.0, 0)
+    di = torch.randn(8, 2, 128, device=cuda)
+    a = fa._launch_db(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0)
+    b = fa._launch_db(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0)
+    assert torch.equal(a, b)
+
+
+def test_flash_refusals(cuda):
+    """A CUDA call launches the kernels or raises: CPU tensors mixed in,
+    fp16, a bias that is not fp32."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros(2, 2, 128, 32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 128, 128))
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bias must be fp32"):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 128, 128, device=cuda).half())
+
+
+def test_tiny_evoformer_gradients_on_card_match_cpu(cuda):
+    """A 2-block Evoformer whose MSA-row and triangle attentions take the
+    flash route (msa 64 / 8 heads, pair 32 / 4, L = 128 with padded
+    residues, batch 2 so the bias is grouped), dropout 0 (the row-wise
+    dropout's Bernoulli draws differ between devices): loss and every
+    parameter's gradient on the card equal the CPU's.  Launches: 6 flash
+    forwards (3 per block) and 25 norm forwards (12 per block and the final
+    norm); the last block's pair updates (its two triangle attentions and
+    eight of its norms) do not reach the masked-MSA loss, so autograd runs
+    4 of each flash backward kernel and 17 norm backwards."""
+    from unicore_tpu_torch.losses.masked_msa import MaskedMSALoss
+    from unicore_tpu_torch.models.evoformer_model import EvoformerModel
+    from unicore_tpu_torch.ops import flash_attention as fa
+    from argparse import Namespace
+
+    gen = torch.Generator().manual_seed(4)
+    model = EvoformerModel(vocab_size=26, padding_idx=1, num_blocks=2, msa_dim=64,
+                           pair_dim=32, msa_heads=8, pair_heads=4, dropout=0.0,
+                           max_seq_len=128, generator=gen)
+    with torch.no_grad():  # move the zero-init projections so every path has gradient
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    model.train()
+    src = torch.randint(4, 25, (2, 8, 128), generator=gen)
+    src[1, :, 110:] = 1
+    src[0, 6:] = 1
+    tgt = torch.where(torch.rand(src.shape, generator=gen) < 0.15, src, 1)
+
+    class Task:
+        dictionary = Namespace(pad=lambda: 1)
+        args = Namespace()
+
+    def run(device):
+        model.to(device).zero_grad()
+        sample = {"net_input": {"src_msa": src.to(device)}, "target": tgt.to(device)}
+        loss, _, _ = MaskedMSALoss(Task)(model, sample)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().clone()
+                             for n, p in model.named_parameters() if p.grad is not None}
+
+    ref_loss, ref = run(torch.device("cpu"))
+    _kernels.reset_launch_counts()
+    loss, got = run(cuda)
+    assert (fa.FWD_LAUNCHES.count, fa.DQ_LAUNCHES.count, fa.DKV_LAUNCHES.count,
+            fa.DB_LAUNCHES.count) == (6, 4, 4, 4)
+    assert fn.LAUNCHES.count == 25 and fn.DX_LAUNCHES.count == fn.DWDB_LAUNCHES.count == 17
+    assert fr.LAUNCHES.count == 0
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    assert set(got) == set(ref)
     for name, g in got.items():
         assert torch.isfinite(g).all(), name
         assert _rel_err(g, ref[name]) <= 1e-4, name

@@ -74,7 +74,9 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
     - every other leaf (LayerNorm ``weight``/``bias``, dense ``bias``,
       ``lm_head.bias``, Uni-Mol's ``gbf.means``/``gbf.stds``) keeps its
       name; Uni-Mol's ``gbf.mul``/``gbf.bias`` are embeddings (one column
-      per edge type), so their ``embedding`` becomes ``weight``.
+      per edge type), so their ``embedding`` becomes ``weight``;
+    - the Evoformer's ``block_{i}`` modules keep their names (the port
+      names its blocks so), as do its ``nn.Embed`` tables' owners.
     """
     params = variables["params"] if "params" in variables else variables
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()

@@ -11,8 +11,8 @@ logs loss, lr and gnorm.  It writes ``checkpoint_last.pt`` in
 loads.  The last line it prints is ``TRAIN stats {json}``: updates,
 micro-batches and the padded length of each, per-update losses (the
 summed loss over the summed sample size, in bits), step times, real
-(non-pad) tokens/s, peak device memory and the launch count of every
-kernel.
+(non-pad) tokens/s (MSA tokens for the Evoformer), samples/s, peak device
+memory and the launch count of every kernel.
 
 ``--device cuda`` (the default) needs a visible CUDA card and exits 76
 naming the missing card; ``--device cpu`` is the explicit CPU run (the
@@ -134,6 +134,8 @@ def main(args, device) -> dict:
         "median_step_ms": float(np.median(steady)),
         "tokens": trainer.tokens,
         "tokens_per_s": trainer.tokens / (sum(trainer.step_ms) / 1e3),
+        "samples": trainer.samples,
+        "samples_per_s": trainer.samples / (sum(trainer.step_ms) / 1e3),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
         "kernel_launches": _kernels.launch_counts(),

@@ -69,21 +69,6 @@ constexpr int kTileK = 64;        // key / value rows per shared tile
 constexpr int kFwdTileQ = 32;     // query rows per forward block
 constexpr float kNegInf = -1e30f; // NEG_INF of ops/flash_attention.py
 
-struct Dropout {
-  int on;
-  uint32_t seed;
-  uint32_t threshold;  // keep when bits >= threshold
-  float scale;         // 1 / (1 - rate)
-};
-
-// keep bits (bit w for key column c0 + w) of four neighbouring columns
-__device__ __forceinline__ uint32_t keep4(const Dropout& dr, int b, int h, int row, int c0) {
-  const uint4 r = philox4x32_10(
-      make_uint4((uint32_t)(c0 >> 2), (uint32_t)row, (uint32_t)h, (uint32_t)b), dr.seed, 0u);
-  return (uint32_t)(r.x >= dr.threshold) | ((uint32_t)(r.y >= dr.threshold) << 1) |
-         ((uint32_t)(r.z >= dr.threshold) << 2) | ((uint32_t)(r.w >= dr.threshold) << 3);
-}
-
 __host__ __device__ __forceinline__ int pad4(int D) { return (D + 3) & ~3; }
 
 // Copy `rows` rows of a row-major (rows, D) tile into shared memory with row
@@ -406,10 +391,6 @@ fullrow_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 bool bad_geometry(int B, int H, int Lq, int Lk, int D, int tq) {
   return B <= 0 || H <= 0 || B > 65535 || H > 65535 || Lq <= 0 || Lk <= 0 ||
          Lq % tq != 0 || Lk % kTileK != 0 || Lk > 1024 || D <= 0 || D > 128;
-}
-
-Dropout make_dropout(int on, int seed, unsigned threshold, float scale) {
-  return Dropout{on, (uint32_t)seed, threshold, scale};
 }
 
 template <typename T>

@@ -63,4 +63,26 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
+// The attention kernels' dropout (full-row and flash): keep a probability
+// when its Philox bits are >= threshold, scale kept ones by 1 / (1 - rate).
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t threshold;  // keep when bits >= threshold
+  float scale;         // 1 / (1 - rate)
+};
+
+inline Dropout make_dropout(int on, int seed, unsigned threshold, float scale) {
+  return Dropout{on, (uint32_t)seed, threshold, scale};
+}
+
+// keep bits (bit w for key column c0 + w, c0 a multiple of 4) of one query
+// row: one Philox call on the counter (c0 / 4, row, head, batch)
+__device__ __forceinline__ uint32_t keep4(const Dropout& dr, int b, int h, int row, int c0) {
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)(c0 >> 2), (uint32_t)row, (uint32_t)h, (uint32_t)b), dr.seed, 0u);
+  return (uint32_t)(r.x >= dr.threshold) | ((uint32_t)(r.y >= dr.threshold) << 1) |
+         ((uint32_t)(r.z >= dr.threshold) << 2) | ((uint32_t)(r.w >= dr.threshold) << 3);
+}
+
 }  // namespace unicore

@@ -17,7 +17,10 @@ from torch import nn
 
 from unicore_tpu_torch import utils
 from unicore_tpu_torch.models import register_model, register_model_architecture
-from unicore_tpu_torch.models.unicore_model import BaseUnicoreModel
+from unicore_tpu_torch.models.unicore_model import (
+    BaseUnicoreModel,
+    refuse_unported_parallelism,
+)
 from unicore_tpu_torch.modules import (
     LayerNorm,
     TransformerEncoder,
@@ -121,6 +124,7 @@ class BertModel(BaseUnicoreModel):
     @classmethod
     def build_model(cls, args, task, device=None, generator=None):
         base_architecture(args)
+        refuse_unported_parallelism(args, "BERT")
         if (getattr(args, "num_classes", -1) or -1) > 0:
             raise NotImplementedError(
                 "the BERT classification head is not ported yet"

@@ -21,3 +21,18 @@ class BaseUnicoreModel(nn.Module):
     def build_model(cls, args, task):
         """Build a new model instance."""
         raise NotImplementedError("Model must implement the build_model method")
+
+
+def refuse_unported_parallelism(args, model: str) -> None:
+    """Raise for ``--pipeline-parallel-size`` / ``--seq-parallel-size`` > 1
+    and a ``--remat-policy`` other than 'none': the JAX package's
+    pipelined, sequence-parallel and rematerialised stacks of ``model`` are
+    not ported."""
+    if getattr(args, "pipeline_parallel_size", 1) > 1 or \
+            getattr(args, "seq_parallel_size", 1) > 1:
+        raise NotImplementedError(
+            f"pipeline and sequence parallelism of {model} are not ported yet")
+    if getattr(args, "remat_policy", None) not in (None, "none"):
+        raise NotImplementedError(
+            f"activation rematerialisation (--remat-policy) of {model} is not "
+            "ported yet")

@@ -22,7 +22,10 @@ from torch import nn
 
 from unicore_tpu_torch import utils
 from unicore_tpu_torch.models import register_model, register_model_architecture
-from unicore_tpu_torch.models.unicore_model import BaseUnicoreModel
+from unicore_tpu_torch.models.unicore_model import (
+    BaseUnicoreModel,
+    refuse_unported_parallelism,
+)
 from unicore_tpu_torch.modules import (
     LayerNorm,
     TransformerEncoderWithPair,
@@ -182,11 +185,7 @@ class UniMolModel(BaseUnicoreModel):
     @classmethod
     def build_model(cls, args, task, device=None, generator=None):
         unimol_base_architecture(args)
-        if getattr(args, "pipeline_parallel_size", 1) > 1 or \
-                getattr(args, "seq_parallel_size", 1) > 1:
-            raise NotImplementedError(
-                "pipeline and sequence parallelism of Uni-Mol are not ported yet"
-            )
+        refuse_unported_parallelism(args, "Uni-Mol")
         return cls(
             vocab_size=len(task.dictionary),
             padding_idx=task.dictionary.pad(),

@@ -33,9 +33,13 @@ class DropoutRng:
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.host))
 
 
-def dropout(x: torch.Tensor, p: float, training: bool, rng) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, training: bool, rng,
+            broadcast_dims=()) -> torch.Tensor:
     """Inverted dropout of ``x`` at rate ``p`` with the mask drawn from
-    ``rng.device``; the identity outside training or at ``p == 0``."""
+    ``rng.device``; the identity outside training or at ``p == 0``.
+    ``broadcast_dims``: dims of ``x`` that share one mask -- it is drawn for
+    ``x``'s shape with those dims set to 1, then broadcast (flax
+    ``nn.Dropout(broadcast_dims=...)``; the Evoformer's row-wise dropout)."""
     if not training or p == 0.0:
         return x
     if rng is None:
@@ -43,5 +47,11 @@ def dropout(x: torch.Tensor, p: float, training: bool, rng) -> torch.Tensor:
             "dropout in training needs an explicit DropoutRng (seed, update, "
             "micro-batch); the port never draws from the global generator"
         )
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=rng.device)
+    if broadcast_dims:
+        shared = {b % x.ndim for b in broadcast_dims}
+        shape = [1 if d in shared else n for d, n in enumerate(x.shape)]
+        keep = torch.empty(shape, dtype=x.dtype, device=x.device)
+    else:
+        keep = torch.empty_like(x)
+    keep.bernoulli_(1.0 - p, generator=rng.device)
     return x * keep * (1.0 / (1.0 - p))

@@ -59,7 +59,8 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         if _use_kernel():
-            return fused_layer_norm(x, self.weight, self.bias, eps=self.eps)
+            # the kernel reads rows in place: a transposed view is copied
+            return fused_layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)

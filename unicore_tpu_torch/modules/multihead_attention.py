@@ -7,9 +7,8 @@ routes exactly as the JAX package routes on a TPU:
 - **kernel route** (lengths within the pad-waste limit, head dim a
   multiple of 8, fp32/bf16): pad to 128 and run
   ``ops/attention_fullrow.py`` when its ``supported()`` gate accepts the
-  shape.  Shapes the JAX package would send to its online flash kernel
-  (rows over 1024, per-batch bias) raise ``NotImplementedError``: that
-  kernel is not ported yet, and nothing falls back to plain code.
+  shape, else ``ops/flash_attention.py`` (rows over 1024, a per-batch
+  bias), as the JAX package's ``_flash_grouped`` routes them.
 - **fused-softmax route** (everything else): the attention matrix is
   materialized and ``ops/softmax_dropout.py`` takes the softmax.
 - **return_attn route** (Uni-Mol's pair encoder, JAX :414-443): the
@@ -36,6 +35,7 @@ from unicore_tpu_torch.ops.attention_fullrow import (
     fullrow_attention,
     supported as _fullrow_supported,
 )
+from unicore_tpu_torch.ops.flash_attention import flash_attention
 from unicore_tpu_torch.ops.softmax_dropout import softmax_dropout
 
 logger = logging.getLogger(__name__)
@@ -129,12 +129,13 @@ def _flash_pad_waste_ok(tgt_len, src_len):
 def _flash_grouped(q, k, v, bias, kvm, Lq, Lk, dropout_rate=0.0,
                    dropout_seed=0, try_fullrow=False):
     """Pad (N, H, L, hd) operands to the kernels' 128 tiles and run the
-    full-row kernel when its gate accepts the shape and ``try_fullrow``.
-    Any other shape belongs to the JAX package's online flash kernel,
-    which is not ported yet.
+    full-row kernel when ``try_fullrow`` and its gate accepts the shape,
+    else the grouped flash kernel: padded keys mask out, padded query rows
+    slice off.  The one copy of the padding contract, shared by this
+    module's router and the Evoformer's ``GatedAttention``.
 
-    ``kvm``: (N, Lk) int, nonzero = masked OUT; ``bias``: (G, 1|H, Lq, Lk)
-    or None."""
+    ``kvm``: (N, Lk) int, nonzero = masked OUT; ``bias``: grouped
+    (G, 1|H, Lq, Lk) with N % G == 0, or None."""
     N = q.shape[0]
     pad_q, pad_k = _flash_pad(Lq, Lk)
     if pad_q or pad_k:
@@ -147,23 +148,21 @@ def _flash_grouped(q, k, v, bias, kvm, Lq, Lk, dropout_rate=0.0,
             kvm = F.pad(kvm, (0, pad_k), value=1)
         if bias is not None:
             bias = F.pad(bias, (0, pad_k, 0, pad_q))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if try_fullrow and _fullrow_supported(
         Lq + pad_q, Lk + pad_k, q.shape[-1],
         None if bias is None else bias.shape[0],
     ):
         return fullrow_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            bias=bias, kv_padding_mask=kvm, dropout_rate=dropout_rate,
+            q, k, v, bias=bias, kv_padding_mask=kvm, dropout_rate=dropout_rate,
             sm_scale=1.0,  # q is pre-scaled
             dropout_seed=dropout_seed,
         )[:, :, :Lq]
-    raise NotImplementedError(
-        f"attention over q {tuple(q.shape)} / k {tuple(k.shape)} with bias "
-        f"{None if bias is None else tuple(bias.shape)}: the JAX package "
-        "runs this shape in its online flash kernel "
-        "(unicore_tpu/ops/flash_attention.py _fwd_kernel), which is not "
-        "ported yet"
-    )
+    return flash_attention(
+        q, k, v, bias=bias, kv_padding_mask=kvm, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed,
+        sm_scale=1.0,  # q is pre-scaled
+    )[:, :, :Lq]
 
 
 def _flash_ok(tgt_len, src_len, head_dim, dtype):

@@ -163,13 +163,24 @@ def _bind(lib) -> None:
     lib.unicore_softmax_dropout_bwd.argtypes = [
         p, p, desc, p, desc, p, p, ll, i, i, i, u, u, f, i, p,
     ]
+    # csrc/flash_attention.cu: tensors, then (B, H, Lq, Lk, D, Bb, Hb),
+    # sm_scale, the dropout (on, seed, threshold, scale), dtype, stream
+    geom = [i] * 7 + [f, i, i, u, f, i, p]
+    lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + geom
+    lib.unicore_flash_attention_dq.argtypes = [p] * 9 + geom
+    lib.unicore_flash_attention_dkv.argtypes = [p] * 10 + geom
+    lib.unicore_flash_attention_db.argtypes = [p] * 10 + geom
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
                "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
-               "unicore_softmax_dropout_bwd"):
+               "unicore_softmax_dropout_bwd", "unicore_flash_attention_fwd",
+               "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
+               "unicore_flash_attention_db"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll
+    lib.unicore_flash_attention_db_scratch.argtypes = [i] * 5
+    lib.unicore_flash_attention_db_scratch.restype = ll
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p
 

@@ -213,34 +213,41 @@ def bwd_rounding_slack(q, k, v, bias, kv_mask, do, sm_scale: float = 1.0,
         return (0.0, 0.0, 0.0)
     pd, _, ds = bwd_plain_terms(q, k, v, bias, kv_mask, do, sm_scale,
                                 dropout_rate, seed)
+    return rounding_slack(q, k, do, pd, ds, sm_scale)
+
+
+def rounding_slack(q, k, do, pd, ds, sm_scale: float):
+    """(dq, dk, dv) slack of one bf16 ulp (2**-7) of each product term, from
+    the backward's rounded ``pd`` and ``ds`` (the flash backward's too)."""
     ulp = 2.0 ** -7
     return (ulp * sm_scale * torch.matmul(ds.abs(), k.float().abs()),
             ulp * sm_scale * torch.matmul(ds.abs().transpose(-1, -2), q.float().abs()),
             ulp * torch.matmul(pd.abs().transpose(-1, -2), do.float().abs()))
 
 
-def _check(q, k, v, bias, kv_mask):
+def _check(q, k, v, bias, kv_mask, name="fullrow_attention"):
+    """The C entry points' contract (the flash wrapper's too), else raise."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"fullrow_attention: q/k/v must share one of fp32/bf16, got "
+            f"{name}: q/k/v must share one of fp32/bf16, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if tuple(k.shape) != (B, H, Lk, D) or tuple(v.shape) != (B, H, Lk, D):
         raise ValueError(
-            f"fullrow_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do "
+            f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do "
             f"not match q {tuple(q.shape)}"
         )
     if bias is not None and bias.dtype != torch.float32:
-        raise ValueError(f"fullrow_attention: bias must be fp32, got {bias.dtype}")
+        raise ValueError(f"{name}: bias must be fp32, got {bias.dtype}")
     if kv_mask is not None:
         if kv_mask.dtype != torch.int32 or tuple(kv_mask.shape) != (B, Lk):
             raise ValueError(
-                f"fullrow_attention: key mask must be int32 ({B}, {Lk}), got "
+                f"{name}: key mask must be int32 ({B}, {Lk}), got "
                 f"{kv_mask.dtype} {tuple(kv_mask.shape)}"
             )
-    _kernels.require_cuda("fullrow_attention", q, k, v, bias, kv_mask)
+    _kernels.require_cuda(name, q, k, v, bias, kv_mask)
 
 
 def _dropout_args(rate: float, seed: int):

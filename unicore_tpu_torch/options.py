@@ -162,6 +162,18 @@ def get_training_parser():
     group.add_argument("--lr", default="0.25", type=_eval_str_list,
                        metavar="LR_1,LR_2,...,LR_N",
                        help="learning rate for the first N epochs")
+    group.add_argument("--remat-policy", default=None,
+                       choices=["none", "all", "dots", "save-anything-pjit"],
+                       help="activation rematerialisation: accepted for the "
+                            "JAX CLI's scripts; only 'none' is ported")
+
+    group = parser.add_argument_group("distributed_training")
+    group.add_argument("--pipeline-parallel-size", type=int, default=1, metavar="N",
+                       help="pipeline stages: accepted for the JAX CLI's "
+                            "scripts; only 1 is ported")
+    group.add_argument("--seq-parallel-size", type=int, default=1, metavar="N",
+                       help="sequence-parallel shards: accepted for the JAX "
+                            "CLI's scripts; only 1 is ported")
 
     group = parser.add_argument_group("checkpoint")
     group.add_argument("--save-dir", metavar="DIR", default="checkpoints",

@@ -42,6 +42,12 @@ def _to_device(sample, device):
     return torch.as_tensor(np.asarray(sample)).to(device, non_blocking=True)
 
 
+def _token_array(net_input):
+    """The micro-batch's token ids: ``src_tokens`` (B, L), or the Evoformer's
+    ``src_msa`` (B, R, L)."""
+    return net_input["src_tokens"] if "src_tokens" in net_input else net_input["src_msa"]
+
+
 class Trainer(object):
     def __init__(self, args, task, model, loss, device):
         self.args = args
@@ -63,6 +69,7 @@ class Trainer(object):
         self._num_updates = 0
         self.micro_batches = 0
         self.tokens = 0
+        self.samples = 0
         self.micro_batch_lengths: List[int] = []
         self.step_ms: List[float] = []
         self.update_losses: List[float] = []
@@ -121,9 +128,10 @@ class Trainer(object):
         sample_size = torch.zeros((), dtype=torch.float32, device=self.device)
         logging_outputs = []
         for i, sample in enumerate(samples):
-            src = np.asarray(sample["net_input"]["src_tokens"])
+            src = np.asarray(_token_array(sample["net_input"]))
             self.tokens += int((src != pad).sum())
-            self.micro_batch_lengths.append(int(src.shape[1]))
+            self.samples += int(src.shape[0])
+            self.micro_batch_lengths.append(int(src.shape[-1]))
             ss, log = self._forward_backward(_to_device(sample, self.device), i)
             sample_size = sample_size + ss
             logging_outputs.append(log)
