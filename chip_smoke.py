@@ -92,10 +92,10 @@ gradients, rows holding -inf, and the keep mask read off the card bit for
 bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
 rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
 D=128; and the four flash kernels (forward with its lse, dq, dk/dv,
-dbias) against ``flash_attention_plain`` in fp32 and bf16 at the
-Evoformer's triangle (2 * 256, 4, 256, 32) and MSA-row (2 * 32, 8, 256,
-32) shapes with a grouped (2, H, 256, 256) bias, a shared (1, 1) bias,
-and BERT's (2, 12, 1152, 64) at dropout 0.1 (past the full-row gate),
+dbias) against ``flash_attention_plain`` in fp32 and bf16 at phase 6a's
+triangle (256, 4, 256, 32) and MSA-row (32, 8, 256, 32) shapes with their
+(1, H, 256, 256) bias, the same at batch 2 with a grouped (2, H, 256, 256)
+bias, a shared (1, 1) bias, and BERT's (2, 12, 1152, 64) at dropout 0.1 (past the full-row gate),
 each with a fully masked key row, and the flash keep mask read off the
 card bit for bit; the library yardstick there is one
 ``scaled_dot_product_attention`` with the bias expanded into its mask.
@@ -1631,13 +1631,17 @@ CHIP = {
         {"shape": (16, 64, 128, 128), "neg_inf": True, "rate": 0.1, "dtype": "float32"},
     ],
     "softmax_mask": (16 * 64, 128, 128),
-    # the Evoformer's attentions at batch 2 (so the bias is grouped, Bb = 2):
+    # the Evoformer's attentions at phase 6a's batch 1 (one bias slab shared
+    # by every lead row, R = 256 or 32: dbias takes its chunked plan):
     # triangle (the lead rows of the pair, 24 of the 36 calls a micro-batch)
-    # first, then MSA-row; a shared bias (Bb = Hb = 1); and a BERT shape the
+    # first, then MSA-row; the same at batch 2 (a grouped bias, Bb = 2, as
+    # in phase 6b); a shared bias (Bb = Hb = 1); and a BERT shape the
     # full-row gate refuses (1152 rows), with dropout
     "flash": [
-        {"name": "triangle", "shape": (2 * 256, 4, 256, 32), "bias": (2, 4, 256, 256)},
-        {"name": "msa_row", "shape": (2 * 32, 8, 256, 32), "bias": (2, 8, 256, 256)},
+        {"name": "triangle", "shape": (256, 4, 256, 32), "bias": (1, 4, 256, 256)},
+        {"name": "msa_row", "shape": (32, 8, 256, 32), "bias": (1, 8, 256, 256)},
+        {"name": "triangle_b2", "shape": (2 * 256, 4, 256, 32), "bias": (2, 4, 256, 256)},
+        {"name": "msa_row_b2", "shape": (2 * 32, 8, 256, 32), "bias": (2, 8, 256, 256)},
         {"name": "shared_bias", "shape": (8, 4, 256, 32), "bias": (1, 1, 256, 256)},
         {"name": "bert_router", "shape": (2, 12, 1152, 64), "bias": (1, 12, 1152, 1152),
          "rate": 0.1},
@@ -1710,7 +1714,8 @@ REHEARSAL = {
     ],
     "softmax_mask": (8, 16, 128),
     "flash": [
-        {"name": "triangle", "shape": (16, 2, 128, 16), "bias": (2, 2, 128, 128)},
+        {"name": "triangle", "shape": (16, 2, 128, 16), "bias": (1, 2, 128, 128)},
+        {"name": "triangle_b2", "shape": (16, 2, 128, 16), "bias": (2, 2, 128, 128)},
         {"name": "shared_bias", "shape": (4, 2, 128, 16), "bias": (1, 1, 128, 128)},
         {"name": "bert_router", "shape": (2, 2, 256, 16), "bias": (1, 2, 256, 256),
          "rate": 0.1},

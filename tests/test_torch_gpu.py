@@ -487,6 +487,12 @@ def _flash_inputs(device, B, H, Lq, Lk, D, bias_shape, masked, dtype, seed):
 @pytest.mark.parametrize(
     "B,H,Lq,Lk,D,bias_shape,masked,dropout,dtype",
     [
+        # the Evoformer's batch-1 triangle and MSA-row attentions: one slab
+        # for 256 / 32 lead rows (dbias splits them into chunks)
+        (256, 4, 256, 256, 32, (1, 4, 256, 256), True, 0.0, torch.float32),
+        (32, 8, 256, 256, 32, (1, 8, 256, 256), True, 0.0, torch.float32),
+        (256, 4, 256, 256, 32, (1, 4, 256, 256), True, 0.0, torch.bfloat16),
+        (32, 8, 256, 256, 32, (1, 8, 256, 256), True, 0.0, torch.bfloat16),
         (4, 2, 128, 128, 32, (1, 2, 128, 128), True, 0.0, torch.float32),
         (4, 2, 256, 256, 32, (2, 1, 256, 256), True, 0.0, torch.float32),  # grouped, Hb 1
         (3, 2, 128, 384, 64, (3, 2, 128, 384), False, 0.1, torch.float32),  # per batch

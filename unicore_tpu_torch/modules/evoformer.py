@@ -59,10 +59,10 @@ class GatedAttention(nn.Module):
     slab); ``kv_mask`` (*B, Lk), 1 = valid."""
 
     def __init__(self, embed_dim: int, num_heads: int, gating: bool = True,
-                 use_flash: bool = True, device=None):
+                 device=None):
         super().__init__()
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.gating, self.use_flash = gating, use_flash
+        self.gating = gating
         self.q_proj = nn.Linear(embed_dim, embed_dim, bias=False, device=device)
         self.k_proj = nn.Linear(embed_dim, embed_dim, bias=False, device=device)
         self.v_proj = nn.Linear(embed_dim, embed_dim, bias=False, device=device)
@@ -90,7 +90,7 @@ class GatedAttention(nn.Module):
 
         q, k, v = split(q, Lq), split(k, Lk), split(v, Lk)  # (*B, H, L, hd)
         N = math.prod(lead)
-        if self.use_flash and _flash_ok(N, Lq, Lk, head_dim, q.dtype, bias):
+        if _flash_ok(N, Lq, Lk, head_dim, q.dtype, bias):
             kvm = None
             if kv_mask is not None:  # the kernel's mask: nonzero = masked out
                 kvm = 1 - kv_mask.reshape(N, Lk).to(torch.int32)
@@ -124,14 +124,12 @@ class MSARowAttentionWithPairBias(nn.Module):
     """Attention along the residue dim of each MSA row, biased by the pair
     representation: all R rows of sample b share bias slab b."""
 
-    def __init__(self, embed_dim: int, pair_dim: int, num_heads: int,
-                 use_flash: bool = True, device=None):
+    def __init__(self, embed_dim: int, pair_dim: int, num_heads: int, device=None):
         super().__init__()
         self.ln_m = LayerNorm(embed_dim, device=device)
         self.ln_z = LayerNorm(pair_dim, device=device)
         self.pair_bias = nn.Linear(pair_dim, num_heads, bias=False, device=device)
-        self.attn = GatedAttention(embed_dim, num_heads, use_flash=use_flash,
-                                   device=device)
+        self.attn = GatedAttention(embed_dim, num_heads, device=device)
 
     def forward(self, msa, pair, msa_mask=None):
         # msa (B, R, L, D_m); pair (B, L, L, D_z)
@@ -143,12 +141,10 @@ class MSARowAttentionWithPairBias(nn.Module):
 class MSAColumnAttention(nn.Module):
     """Attention along the row dim of each MSA column."""
 
-    def __init__(self, embed_dim: int, num_heads: int, use_flash: bool = True,
-                 device=None):
+    def __init__(self, embed_dim: int, num_heads: int, device=None):
         super().__init__()
         self.ln_m = LayerNorm(embed_dim, device=device)
-        self.attn = GatedAttention(embed_dim, num_heads, use_flash=use_flash,
-                                   device=device)
+        self.attn = GatedAttention(embed_dim, num_heads, device=device)
 
     def forward(self, msa, msa_mask=None):
         mt = self.ln_m(msa).transpose(1, 2)  # (B, L, R, D)
@@ -220,13 +216,12 @@ class TriangleAttention(nn.Module):
     matrix b shares bias slab b."""
 
     def __init__(self, pair_dim: int, num_heads: int, starting: bool = True,
-                 use_flash: bool = True, device=None):
+                 device=None):
         super().__init__()
         self.starting = starting
         self.ln = LayerNorm(pair_dim, device=device)
         self.tri_bias = nn.Linear(pair_dim, num_heads, bias=False, device=device)
-        self.attn = GatedAttention(pair_dim, num_heads, use_flash=use_flash,
-                                   device=device)
+        self.attn = GatedAttention(pair_dim, num_heads, device=device)
 
     def forward(self, pair, pair_mask=None):
         z = self.ln(pair if self.starting else pair.transpose(1, 2))
@@ -253,22 +248,20 @@ class Transition(nn.Module):
 
 class EvoformerIteration(nn.Module):
     def __init__(self, msa_dim: int = 256, pair_dim: int = 128, msa_heads: int = 8,
-                 pair_heads: int = 4, dropout: float = 0.1, use_flash: bool = True,
-                 device=None):
+                 pair_heads: int = 4, dropout: float = 0.1, device=None):
         super().__init__()
         self.dropout = dropout
         self.msa_row_attn = MSARowAttentionWithPairBias(
-            msa_dim, pair_dim, msa_heads, use_flash=use_flash, device=device)
-        self.msa_col_attn = MSAColumnAttention(msa_dim, msa_heads, use_flash=use_flash,
-                                               device=device)
+            msa_dim, pair_dim, msa_heads, device=device)
+        self.msa_col_attn = MSAColumnAttention(msa_dim, msa_heads, device=device)
         self.msa_transition = Transition(msa_dim, device=device)
         self.outer_product_mean = OuterProductMean(msa_dim, pair_dim, device=device)
         self.tri_mul_out = TriangleMultiplication(pair_dim, outgoing=True, device=device)
         self.tri_mul_in = TriangleMultiplication(pair_dim, outgoing=False, device=device)
         self.tri_attn_start = TriangleAttention(pair_dim, pair_heads, starting=True,
-                                                use_flash=use_flash, device=device)
+                                                device=device)
         self.tri_attn_end = TriangleAttention(pair_dim, pair_heads, starting=False,
-                                              use_flash=use_flash, device=device)
+                                              device=device)
         self.pair_transition = Transition(pair_dim, device=device)
 
     def forward(self, msa, pair, msa_mask=None, pair_mask=None, rng=None):

@@ -140,6 +140,9 @@ class MSAPretrainTask(UnicoreTask):
         logger.info(f"dictionary: {len(dictionary)} types")
         return cls(args, dictionary)
 
+    def token_array(self, sample):
+        return sample["net_input"]["src_msa"]  # (B, R, L)
+
     def load_dataset(self, split, **kwargs):
         raw = open_text_dataset(os.path.join(self.args.data, split))
         masked = MSASampleDataset(

@@ -84,6 +84,11 @@ class UnicoreTask(object):
         """Hook at the beginning of each epoch."""
         pass
 
+    def token_array(self, sample):
+        """The micro-batch's token ids, whose last dim is its padded length
+        (the trainer counts non-pad tokens, samples and lengths from it)."""
+        return sample["net_input"]["src_tokens"]
+
     def reduce_metrics(self, logging_outputs, loss, split="train"):
         """Aggregate the micro-batches' logging outputs into metrics."""
         from unicore_tpu_torch.logging import metrics

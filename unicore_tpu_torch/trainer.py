@@ -42,12 +42,6 @@ def _to_device(sample, device):
     return torch.as_tensor(np.asarray(sample)).to(device, non_blocking=True)
 
 
-def _token_array(net_input):
-    """The micro-batch's token ids: ``src_tokens`` (B, L), or the Evoformer's
-    ``src_msa`` (B, R, L)."""
-    return net_input["src_tokens"] if "src_tokens" in net_input else net_input["src_msa"]
-
-
 class Trainer(object):
     def __init__(self, args, task, model, loss, device):
         self.args = args
@@ -128,7 +122,7 @@ class Trainer(object):
         sample_size = torch.zeros((), dtype=torch.float32, device=self.device)
         logging_outputs = []
         for i, sample in enumerate(samples):
-            src = np.asarray(_token_array(sample["net_input"]))
+            src = np.asarray(self.task.token_array(sample))
             self.tokens += int((src != pad).sum())
             self.samples += int(src.shape[0])
             self.micro_batch_lengths.append(int(src.shape[-1]))
