@@ -82,7 +82,24 @@ result line):
    zero-init projections pass gradient from the first update) and batches,
    the optimizer of 4b and 5b (lr 1e-4, eps 1e-6): the BERT path's limits,
    no launch in the CPU run;
-7. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+7. decode serving — a full-width ``transformer_lm`` checkpoint (6 layers,
+   768 wide, 12 heads, FFN 3072, max_seq_len 512, rel-pos bias, tied LM
+   head) on phase 4a's dictionary, weights from a seed, served by ``python
+   -m unicore_tpu_torch.cli.serve --device cuda`` (prefill batch 8, decode
+   batch 8, cache buckets 128/256/384/512, 512 pages of 32 rows): 24
+   ``/v1/generate`` requests of 20-470-token prompts, the first half one at
+   a time and the rest concurrently, 32 new tokens each; from ``/stats``
+   exactly 6 decode-attention launches per decode step, 6 full-row forwards
+   per prefill batch, 14 norm forwards per dispatch and nothing else; two
+   served generations held against the CPU teacher-forced (the served
+   token is the CPU's argmax wherever its top-2 gap exceeds 1e-3); in this
+   process on the card, prefill plus 16 decode steps of a bucket-128 batch
+   against the full causal forward within 1e-4; a second server with
+   ``--decode-kv int8`` (8 requests, the same launch arithmetic); 20
+   decode steps at batch 8 in bucket 512 under ``torch.profiler``
+   (``decode_profile``: device ms by kernel group, idle share); each
+   server drains on SIGTERM and exits 0;
+8. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
@@ -98,13 +115,18 @@ triangle (256, 4, 256, 32) and MSA-row (32, 8, 256, 32) shapes with their
 bias, a shared (1, 1) bias, and BERT's (2, 12, 1152, 64) at dropout 0.1 (past the full-row gate),
 each with a fully masked key row, and the flash keep mask read off the
 card bit for bit; the library yardstick there is one
-``scaled_dot_product_attention`` with the bias expanded into its mask.
+``scaled_dot_product_attention`` with the bias expanded into its mask.  It
+also holds the decode attention against ``decode_attention_plain`` at phase
+7's step (8, 12, 512, 64) in fp32 and bf16, with int8 KV, with mixed
+positions and junk rows past them, and at the 128 bucket; its yardstick is
+SDPA over the single query row with the bias row and the dead rows in a
+float mask (int8: the dequant, then SDPA).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3, 4a, 4b, 4, 5a, 5b, 6a and 6b on the CPU
-at ``bert_tiny``, ``unimol_tiny`` and an Evoformer whose attentions take
-the flash route through the plain versions (no card, no kernels, no result
-line) to check the script's own control flow.
+``--cpu-rehearsal`` runs phases 3 to 7 on the CPU at ``bert_tiny``,
+``unimol_tiny``, an Evoformer whose attentions take the flash route and
+``transformer_lm_tiny``, through the plain versions (no card, no kernels,
+no profile, no result line) to check the script's own control flow.
 """
 
 import argparse
@@ -150,6 +172,8 @@ TOL = {
     "attention_grad": 1e-4,
     "norm_grad": 1e-5,
     "softmax_grad": 1e-5,
+    "decode": 1e-5,
+    "decode_bf16_ulps": 2 * 2.0 ** -7,
 }
 BF16_ULPS = 2.0 ** -6
 #: kernel -> (the TPU kernel it replaces, its source, the main path whose
@@ -177,6 +201,8 @@ KERNELS = {
                             "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
     "flash_attention_db": ("unicore_tpu/ops/flash_attention.py:387",
                            "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
+    "decode_attention": ("unicore_tpu/ops/decode_attention.py:98",
+                         "unicore_tpu_torch/csrc/decode_attention.cu", "decode_serve"),
 }
 
 
@@ -871,6 +897,90 @@ def check_flash_mask(torch, device, B, H, L, D, rate, seed):
     return res
 
 
+def decode_inputs(torch, device, c, seed):
+    """q (B, H, D) pre-scaled, caches (B, H, L, D), positions, a bias row and,
+    for int8 caches, their (H, D) scales.  Every position is L - 1 unless
+    ``mixed`` (0 .. L - 1 over the batch, with junk past each position: K
+    +1e6 / V -1e6, int8 +127 / -127).  Also the live rows over the batch."""
+    B, H, L, D = c["shape"]
+    dtype = getattr(torch, c["dtype"])
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = (torch.randn(B, H, D, generator=g, device=device) * D ** -0.5).to(dtype)
+    k = torch.randn(B, H, L, D, generator=g, device=device)
+    v = torch.randn(B, H, L, D, generator=g, device=device)
+    bias = torch.randn(B, H, L, generator=g, device=device)
+    if c.get("mixed"):
+        pos = torch.linspace(0, L - 1, B, device=device).to(torch.int32)
+    else:
+        pos = torch.full((B,), L - 1, dtype=torch.int32, device=device)
+    live = torch.arange(L, device=device)[None, None, :, None] <= pos[:, None, None, None].long()
+    scales = {}
+    if c.get("int8"):
+        ks = k.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        vs = v.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        k = torch.where(live, torch.round(k / ks[None, :, None]).clamp(-127, 127),
+                        127.0).to(torch.int8)
+        v = torch.where(live, torch.round(v / vs[None, :, None]).clamp(-127, 127),
+                        -127.0).to(torch.int8)
+        scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        k = torch.where(live, k, 1e6).to(dtype)
+        v = torch.where(live, v, -1e6).to(dtype)
+    return q, k, v, pos, bias, scales, int(pos.long().sum().item()) + B
+
+
+def check_decode(torch, device, c, iters, seed=5150):
+    """The decode attention against ``decode_attention_plain`` on the same
+    inputs.  Its library yardstick is one ``scaled_dot_product_attention``
+    over the (B, H, 1, D) query with the bias row and the dead rows folded
+    into a float mask (int8: the dequant multiplies, then SDPA -- no one
+    PyTorch call fuses the dequant into the read).  The bound counts what
+    the kernel must move: q and out, every live K and V row with its bias
+    entry, the positions and the scales."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    B, H, L, D = c["shape"]
+    q, k, v, pos, bias, scales, live_rows = decode_inputs(torch, device, c, seed)
+    call = lambda: da.decode_attention(q, k, v, pos, bias=bias, **scales)  # noqa: E731
+    plain = lambda: da.decode_attention_plain(q, k, v, pos, bias=bias, **scales)  # noqa: E731
+    dead = torch.arange(L, device=device)[None, None, None, :] > pos.long()[:, None, None, None]
+    mask = (bias[:, :, None] + torch.where(dead, float("-inf"), 0.0)).to(q.dtype)
+    if scales:
+        def lib():
+            kf = (k.float() * scales["k_scale"][None, :, None]).to(q.dtype)
+            vf = (v.float() * scales["v_scale"][None, :, None]).to(q.dtype)
+            return F.scaled_dot_product_attention(q[:, :, None], kf, vf, attn_mask=mask,
+                                                  scale=1.0)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q[:, :, None], k, v, attn_mask=mask, scale=1.0)
+    out, ref = call(), plain()
+    err_t = (out.float() - ref.float()).abs()
+    err = err_t.max().item()
+    if q.dtype == torch.bfloat16:
+        tol = f"{TOL['decode_bf16_ulps']} x |ref| + 1e-6"
+        ok = bool((err_t <= TOL["decode_bf16_ulps"] * ref.float().abs() + 1e-6).all())
+    else:
+        tol = TOL["decode"]
+        ok = err <= tol
+    name = f"decode {c['name']} B={B} H={H} L={L} D={D} {c['dtype']}"
+    if not (ok and math.isfinite(err) and out.float().abs().max().item() < 100):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
+    res = {"name": c["name"], "shape": [B, H, L, D], "dtype": c["dtype"],
+           "kv": "int8" if scales else c["dtype"], "live_rows": live_rows,
+           "max_abs_err": err, "tolerance": tol}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "library_ms", torch, lib, device, iters)
+    nbytes = (2 * q.numel() * q.element_size() + 4 * B
+              + live_rows * H * (2 * D * k.element_size() + 4) + 8 * H * D * bool(scales))
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4 * live_rows * H * D, "float32")
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4a: training, a subprocess of the train CLI
 # ---------------------------------------------------------------------------
@@ -1465,16 +1575,20 @@ def cpu_reference(torch, path, rows, bucket, pad_idx):
 
 
 class Server:
-    def __init__(self, path, cfg):
-        self.log_path = WORK / "serve.log"
+    """``python -m unicore_tpu_torch.cli.serve`` on ``path``: batch size
+    and buckets from ``argv`` (the BERT serving path's by default)."""
+
+    def __init__(self, path, cfg, argv=None, name="serve"):
+        self.log_path = WORK / f"{name}.log"
         self._log = open(self.log_path, "w")
         env = dict(os.environ)
         env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        if argv is None:
+            argv = ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets", "4"]
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "unicore_tpu_torch.cli.serve",
-             "--path", str(path), "--device", cfg["device"].type,
-             "--port", "0", "--serve-batch-size", str(cfg["batch"]),
-             "--serve-buckets", "4", "--default-deadline-ms", "120000",
+             "--path", str(path), "--device", cfg["device"].type, "--port", "0",
+             *argv, "--default-deadline-ms", "120000",
              "--max-deadline-ms", "120000", "--drain-deadline", "120"],
             stdout=self._log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
         )
@@ -1609,6 +1723,323 @@ def drive_slice(torch, cfg, path, card, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: incremental-decode serving of the causal LM
+# ---------------------------------------------------------------------------
+
+def write_lm_checkpoint(torch, cfg, data):
+    """A ``transformer_lm`` checkpoint at its arch's widths and depth, on
+    phase 4a's dictionary (``task='causal_lm'``), its weights the JAX init
+    distributions drawn from a seed: embeddings and dense kernels N(0, 0.02),
+    biases 0, LayerNorms 1 and 0.  Returns (path, vocab size, pad, eos)."""
+    from argparse import Namespace
+
+    from unicore_tpu_torch import checkpoint_utils, tasks
+    from unicore_tpu_torch.models import ARCH_CONFIG_REGISTRY
+
+    d = cfg["decode"]
+    args = Namespace(task="causal_lm", arch=d["arch"], data=str(data), seed=d["seed"])
+    ARCH_CONFIG_REGISTRY[d["arch"]](args)
+    task = tasks.setup_task(args)
+    model = task.build_model(args, generator=torch.Generator().manual_seed(d["seed"]))
+    path = WORK / "lm.pt"
+    checkpoint_utils.save_checkpoint(str(path), args, model.state_dict())
+    log(f"wrote {d['arch']} ({sum(p.numel() for p in model.parameters())} parameters, "
+        f"vocab {len(task.dictionary)}) to {path}")
+    return path, len(task.dictionary), task.dictionary.pad(), task.dictionary.eos()
+
+
+def load_lm(torch, path, device):
+    from unicore_tpu_torch import checkpoint_utils, tasks
+
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+    model = tasks.setup_task(state["args"]).build_model(state["args"])
+    model.load_state_dict(state["model"])
+    return model.to(device).eval()
+
+
+def decode_launch_check(cfg, before, after):
+    """The server's launches between two ``/stats`` reads against the decode
+    arithmetic: per decode step one decode attention a layer; per prefill
+    batch one full-row attention forward a layer; per dispatch (either) two
+    norm forwards a layer plus the embedding and final norms; no other
+    launch (no backward, no flash or softmax kernel).  On the CPU: none."""
+    layers = cfg["decode"]["layers"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    prefills = after["prefill_batches"] - before["prefill_batches"]
+    launches = {k: n - before["kernel_launches"].get(k, 0)
+                for k, n in after["kernel_launches"].items()}
+    want = {"decode_attention": layers * steps, "fullrow_attention_fwd": layers * prefills,
+            "fused_norm_fwd": (2 * layers + 2) * (steps + prefills)}
+    if cfg["device"].type != "cuda":
+        want = {}
+    for k in set(launches) | set(want):
+        if launches.get(k, 0) != want.get(k, 0):
+            raise AssertionError(
+                f"{k}: {launches.get(k, 0)} launches for {steps} decode steps and "
+                f"{prefills} prefill batches, want {want.get(k, 0)} ({launches})")
+    return steps, prefills, launches
+
+
+def teacher_forced_check(torch, model, prompt, served, gap):
+    """One served generation against the same checkpoint on the CPU, teacher
+    forced: prefill the prompt, then decode over the served tokens.  At
+    every step whose CPU top-2 logit gap exceeds ``gap`` the served token
+    must be the CPU's argmax.  Returns the number of steps so checked."""
+    P = len(prompt)
+    with torch.inference_mode():
+        logits, (k, v) = model.prefill(torch.tensor([prompt]))
+        rows = [logits[0, -1]]
+        nl, _, H, _, D = k.shape
+        kc = torch.zeros(nl, 1, H, P + len(served), D)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :, :P], vc[:, :, :, :P] = k, v
+        for i, tok in enumerate(served[:-1]):
+            lg, (kr, vr) = model.decode_step(torch.tensor([tok]), (kc, vc),
+                                             torch.tensor([P + i], dtype=torch.int32))
+            kc[:, :, :, P + i], vc[:, :, :, P + i] = kr, vr
+            rows.append(lg[0])
+    checked = 0
+    for i, (row, tok) in enumerate(zip(rows, served)):
+        top2 = row.topk(2).values
+        if (top2[0] - top2[1]).item() > gap:
+            checked += 1
+            if int(row.argmax()) != tok:
+                raise AssertionError(
+                    f"served token {i} of a {P}-token prompt is {tok}, the CPU's "
+                    f"argmax {int(row.argmax())} (top-2 gap {(top2[0] - top2[1]).item()})")
+    return checked
+
+
+def drive_decode_serving(torch, cfg, path, lm, card, smi, kv):
+    """``python -m unicore_tpu_torch.cli.serve`` on the LM checkpoint:
+    ``/v1/generate`` requests (the first half one at a time, the rest
+    concurrently) with their launch arithmetic from ``/stats``; with fp32
+    KV two served generations held against the CPU; SIGTERM drains and
+    exits 0.  Prints the ``decode_serve`` (``decode_serve_int8``) line and
+    returns the server's launches."""
+    import threading
+
+    import numpy as np
+
+    from unicore_tpu_torch.serve.kv_cache import bucket_for
+
+    d = cfg["decode"]
+    vocab, eos = lm["vocab"], lm["eos"]
+    lengths = d["lengths"] if kv == "fp32" else d["lengths"][: d["int8_requests"]]
+    t0 = time.monotonic()
+    server = Server(path, cfg, [
+        "--serve-batch-size", str(d["prefill_batch"]),
+        "--decode-batch-size", str(d["decode_batch"]), "--serve-buckets", "4",
+        "--cache-pages", str(d["cache_pages"]), "--max-new-tokens", str(d["max_new"]),
+        "--decode-kv", kv], name=f"decode_serve_{kv}")
+    try:
+        server.wait_ready(d["ready_budget_s"])
+        log(f"decode server ({kv} KV) ready at {server.base} after "
+            f"{time.monotonic() - t0:.1f}s")
+        rng = np.random.default_rng(d["seed"])
+        prompts = [rng.integers(5, vocab, size=n).tolist() for n in lengths]
+        code, before = http("GET", server.base + "/stats")
+        assert code == 200, before
+        edges = before["buckets"]
+        occupancy = [before["cache_page_occupancy"]]
+        done = threading.Event()
+
+        def send(toks):
+            t = time.monotonic()
+            code, body = http("POST", server.base + "/v1/generate",
+                              {"tokens": toks, "max_new_tokens": d["max_new"]})
+            return code, body, (time.monotonic() - t) * 1e3
+
+        def watch():  # page occupancy while the concurrent half is in flight
+            while not done.wait(0.05):
+                code, st = http("GET", server.base + "/stats")
+                if code == 200:
+                    occupancy.append(st["cache_page_occupancy"])
+
+        t_req = time.monotonic()
+        half = len(prompts) // 2
+        results = [send(p) for p in prompts[:half]]
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        with ThreadPoolExecutor(max_workers=len(prompts) - half) as pool:
+            results += list(pool.map(send, prompts[half:]))
+        done.set()
+        watcher.join(timeout=30)
+        wall = time.monotonic() - t_req
+        code, after = http("GET", server.base + "/stats")
+        assert code == 200, after
+
+        for toks, (code, body, _) in zip(prompts, results):
+            out = body.get("output") if code == 200 else None
+            if (not out or len(out) > d["max_new"] or not math.isfinite(body["score"])
+                    or not all(0 <= t < vocab for t in out)):
+                raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
+            if out[-1] != eos and len(out) < d["max_new"] and len(toks) + len(out) < edges[-1]:
+                raise AssertionError(f"generation stopped early: {len(toks)} tokens, {body}")
+        if kv == "fp32" and {bucket_for(len(p), edges) for p in prompts} != set(edges):
+            raise AssertionError(f"prompts miss a cache bucket of {edges}")
+        if after["kv_dtype"] != ("int8" if kv == "int8" else "float32"):
+            raise AssertionError(f"kv_dtype {after['kv_dtype']} for --decode-kv {kv}")
+        steps, prefills, launches = decode_launch_check(cfg, before, after)
+        log(f"decode main path ({kv} KV): {len(prompts)} requests, {steps} decode steps, "
+            f"{prefills} prefill batches, server launches {launches}")
+
+        agreement = None
+        if kv == "fp32":  # two served generations against the CPU
+            cpu_model = load_lm(torch, path, "cpu")
+            order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+            agreement = {
+                "requests": len(order),
+                "steps": sum(len(results[i][1]["output"]) for i in order),
+                "checked_steps": sum(teacher_forced_check(
+                    torch, cpu_model, prompts[i], results[i][1]["output"], d["cpu_gap"])
+                    for i in order),
+                "gap": d["cpu_gap"]}
+            del cpu_model
+            log(f"decode CPU agreement: {json.dumps(agreement)}")
+
+        server.proc.send_signal(signal.SIGTERM)
+        rc = server.proc.wait(timeout=180)
+        if rc != 0 or "DRAIN complete" not in server.log_text():
+            raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
+        tokens = after["tokens_generated"] - before["tokens_generated"]
+        lat = np.asarray([r[2] for r in results])
+        res = {
+            "kv": kv, "requests": len(prompts), "concurrent": len(prompts) - half,
+            "prompt_tokens": [min(lengths), max(lengths)], "max_new_tokens": d["max_new"],
+            "tokens_generated": tokens, "request_wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "server_tokens_per_s": after["tokens_per_s"],
+            "token_p50_ms": after.get("token_p50_ms"),
+            "token_p99_ms": after.get("token_p99_ms"),
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99)),
+            "decode_steps": steps, "prefill_batches": prefills,
+            "page_occupancy_peak": max(occupancy), "preempted":
+                after["preempted"] - before["preempted"],
+            "buckets": edges, "launches": launches, "cpu_agreement": agreement,
+            "arch": d["arch"], "card": card, "nvidia_smi": smi,
+        }
+        print(f"{'decode_serve' if kv == 'fp32' else 'decode_serve_int8'} "
+              + json.dumps(res), flush=True)
+        return launches
+    finally:
+        server.stop()
+
+
+def check_decode_parity(torch, cfg, path):
+    """In this process on the card, at full width: a batch of prompts in the
+    smallest cache bucket, prefilled, then decoded step by step over dense
+    caches, against the full causal forward's logits on the same card
+    (1e-4 absolute and relative, as the JAX package's parity test)."""
+    from unicore_tpu_torch.ops import _kernels
+
+    p, dev = cfg["decode"]["parity"], cfg["device"]
+    model = load_lm(torch, path, dev)
+    B, P, steps, Lc = p["batch"], p["prompt"], p["steps"], p["cache"]
+    toks = torch.randint(5, model.vocab_size, (B, P + steps),
+                         generator=torch.Generator().manual_seed(11)).to(dev)
+    with torch.inference_mode():
+        full = model(toks)[:, P:].float()
+        _, (k, v) = model.prefill(toks[:, :P])
+        nl, _, H, _, D = k.shape
+        kc = torch.zeros(nl, B, H, Lc, D, device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :, :P], vc[:, :, :, :P] = k, v
+        _kernels.reset_launch_counts()
+        rows = []
+        for t in range(P, P + steps):
+            logits, (kr, vr) = model.decode_step(
+                toks[:, t], (kc, vc), torch.full((B,), t, dtype=torch.int32, device=dev))
+            kc[:, :, :, t], vc[:, :, :, t] = kr, vr
+            rows.append(logits.float())
+        got = torch.stack(rows, dim=1)
+    launches = _kernels.launch_counts()
+    err = (got - full).abs()
+    res = {"batch": B, "prompt": P, "steps": steps, "cache": Lc,
+           "max_abs_err": err.max().item(),
+           "max_err_over_tol": (err / (1e-4 + 1e-4 * full.abs())).max().item(),
+           "decode_attention_launches": launches.get("decode_attention", 0)}
+    log(f"decode parity (incremental vs full forward, {dev.type}): {json.dumps(res)}")
+    if not res["max_err_over_tol"] <= 1.0:
+        raise AssertionError(f"incremental decode differs from the full forward: {res}")
+    if dev.type == "cuda" and res["decode_attention_launches"] != steps * model.decoder_layers:
+        raise AssertionError(f"decode parity launched {launches}")
+    del model
+    return res
+
+
+def profile_decode_steps(torch, cfg, path, lm, card, smi):
+    """Decode steps of the served configuration in this process: a
+    ``DecodeEngine`` at batch 8 in the top bucket, every sequence deep in
+    it, stepped through the engine's own decode dispatch (gather, model,
+    scatter, the greedy pick, the host read of it); their wall time
+    unprofiled, then the same steps under ``torch.profiler`` for device
+    time by kernel group.  The idle share is the part of the unprofiled
+    wall time the device time does not fill."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch.serve import DecodeEngine
+
+    p, dev = cfg["decode"]["profile"], cfg["device"]
+    eng = DecodeEngine(load_lm(torch, path, dev), bucket_edges=(p["bucket"],),
+                       decode_batch=p["batch"], prefill_batch=p["batch"],
+                       num_pages=cfg["decode"]["cache_pages"], pad_idx=lm["pad"],
+                       eos_idx=lm["eos"], vocab_size=lm["vocab"], device=card)
+    eng.warmup()
+    with torch.inference_mode():
+        gen = torch.Generator(device=dev).manual_seed(12)
+        eng.cache.k_pool.normal_(generator=gen)
+        eng.cache.v_pool.normal_(generator=gen)
+    pages = [eng.cache.alloc(eng.cache.pages_for(p["bucket"])) for _ in range(p["batch"])]
+    table = np.stack([eng.cache.table(pg, p["bucket"]) for pg in pages])
+    tokens = np.random.default_rng(13).integers(5, lm["vocab"], p["batch"]).astype(np.int32)
+
+    def run():
+        for i in range(p["steps"]):
+            eng._dispatch_decode_arrays(
+                tokens, np.full((p["batch"],), p["start"] + i, np.int32), table)
+
+    run()  # warm
+    t0 = time.perf_counter()
+    run()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    res = {"steps": p["steps"], "batch": p["batch"], "bucket": p["bucket"],
+           "positions": [p["start"], p["start"] + p["steps"] - 1],
+           "step_wall_ms": wall_us / p["steps"] / 1e3, "card": card, "nvidia_smi": smi}
+    if dev.type == "cuda":
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kinds = (("decode_attention", ("decode_attention",)),) + KERNEL_GROUPS
+        groups = {name: 0.0 for name, _ in kinds}
+        groups["other"] = 0.0
+        top = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+                continue
+            name = next((g for g, keys in kinds if any(k in ev.key for k in keys)), "other")
+            groups[name] += ev.self_device_time_total
+            top.append((ev.self_device_time_total, ev.key[:90], ev.count))
+        busy = sum(groups.values())
+        top.sort(reverse=True)
+        res.update({
+            "device_busy_ms_per_step": busy / p["steps"] / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ms_per_step_by_group": {k: v / p["steps"] / 1e3
+                                            for k, v in groups.items()},
+            "top_kernels": [{"name": n, "device_ms_per_step": t / p["steps"] / 1e3,
+                             "calls": c} for t, n, c in top[:12]],
+            "profiled": f"{p['steps']} decode steps after {p['steps']} warm ones and an "
+                        "unprofiled timing of the same steps, in-process",
+        })
+    print("decode_profile " + json.dumps(res), flush=True)
+    del eng
+
+
+# ---------------------------------------------------------------------------
 
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
@@ -1647,6 +2078,16 @@ CHIP = {
          "rate": 0.1},
     ],
     "flash_mask": (2, 12, 1152, 64),
+    # phase 7's decode step: batch 8, 12 heads of 64, the top cache bucket
+    # with every position live, fp32 KV and the bias row; then bf16, int8
+    # KV, mixed positions with junk past them, and the smallest bucket
+    "decode_checks": [
+        {"name": "serve", "shape": (8, 12, 512, 64), "dtype": "float32"},
+        {"name": "serve_bf16", "shape": (8, 12, 512, 64), "dtype": "bfloat16"},
+        {"name": "serve_int8", "shape": (8, 12, 512, 64), "dtype": "float32", "int8": True},
+        {"name": "mixed", "shape": (8, 12, 512, 64), "dtype": "float32", "mixed": True},
+        {"name": "bucket128", "shape": (8, 12, 128, 64), "dtype": "float32"},
+    ],
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
     "docs": 400, "doc_words": (380, 510),
@@ -1699,6 +2140,19 @@ CHIP = {
                                                 "softmax_dropout_bwd": 0}},
                   "card_vs_cpu": {"updates": 3, "batch": 2, "blocks": 2, "length": 128,
                                   "max_rows": 16, "param_tol": 1e-5}},
+    # the full `transformer_lm` arch (6 layers, 768 wide, 12 heads, FFN 3072,
+    # max_seq_len 512) on phase 4a's dictionary, cache buckets
+    # 128/256/384/512; 24 prompts of 20-470 tokens (each bucket in the
+    # sequential first half), 32 new tokens each; launches per decode step
+    # 6 decode attentions, per prefill batch 6 full-row forwards, per
+    # dispatch 14 norm forwards
+    "decode": {"arch": "transformer_lm", "seed": 7, "layers": 6, "prefill_batch": 8,
+               "decode_batch": 8, "cache_pages": 512, "max_new": 32,
+               "lengths": [20, 470, 127, 300, 64, 350, 200, 420, 383, 100, 260, 450,
+                           40, 150, 240, 330, 400, 460, 90, 310, 180, 255, 385, 128],
+               "int8_requests": 8, "cpu_gap": 1e-3, "ready_budget_s": 600,
+               "parity": {"batch": 8, "prompt": 112, "steps": 16, "cache": 128},
+               "profile": {"batch": 8, "bucket": 512, "steps": 20, "start": 480}},
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -1721,6 +2175,12 @@ REHEARSAL = {
          "rate": 0.1},
     ],
     "flash_mask": (1, 2, 256, 16),
+    "decode_checks": [
+        {"name": "serve", "shape": (2, 2, 64, 16), "dtype": "float32"},
+        {"name": "serve_bf16", "shape": (2, 2, 64, 16), "dtype": "bfloat16"},
+        {"name": "serve_int8", "shape": (2, 2, 64, 16), "dtype": "float32", "int8": True},
+        {"name": "mixed", "shape": (3, 2, 64, 16), "dtype": "float32", "mixed": True},
+    ],
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
     "docs": 48, "doc_words": (60, 126),
@@ -1759,14 +2219,21 @@ REHEARSAL = {
                                                 "fused_norm_dwdb": 5}},
                   "card_vs_cpu": {"updates": 2, "batch": 2, "blocks": 2, "length": 112,
                                   "max_rows": 8, "param_tol": 1e-5}},
+    # `transformer_lm_tiny` (2 layers, 64 wide, max_seq_len 128): cache
+    # buckets 32/64/96/128
+    "decode": {"arch": "transformer_lm_tiny", "seed": 7, "layers": 2, "prefill_batch": 4,
+               "decode_batch": 4, "cache_pages": 64, "max_new": 8,
+               "lengths": [5, 100, 31, 60, 33, 90, 64, 70, 20, 110, 45, 96],
+               "int8_requests": 4, "cpu_gap": 1e-3, "ready_budget_s": 120,
+               "parity": {"batch": 2, "prompt": 16, "steps": 8, "cache": 32},
+               "profile": {"batch": 4, "bucket": 128, "steps": 4, "start": 100}},
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3, 4a, 4b, 4, 5a, 5b, 6a and 6b on the CPU at a "
-                             "tiny size, no card")
+                        help="phases 3 to 7 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -1837,6 +2304,8 @@ def main(argv=None):
             for kname, res in check_flash(torch, dev, c, dt, iters).items():
                 checks[kname].append(res)
     flash_mask = check_flash_mask(torch, dev, *cfg["flash_mask"], 0.1, 2026)
+    for c in cfg["decode_checks"]:
+        checks["decode_attention"].append(check_decode(torch, dev, c, iters))
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
@@ -1861,17 +2330,29 @@ def main(argv=None):
     log(f"phase 6a done at {time.monotonic() - started:.0f}s")
     drive_evoformer_card_vs_cpu(torch, cfg, evo_data)
     log(f"phase 6b done at {time.monotonic() - started:.0f}s")
+
+    # 7. incremental-decode serving of the causal LM: fp32 KV, the card's
+    # parity, int8 KV, a profile of the decode step
+    lm_path, vocab, pad, eos = write_lm_checkpoint(torch, cfg, data)
+    lm = {"vocab": vocab, "pad": pad, "eos": eos}
+    decode_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "fp32")
+    check_decode_parity(torch, cfg, lm_path)
+    decode8_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "int8")
+    profile_decode_steps(torch, cfg, lm_path, lm, card, smi)
+    log(f"phase 7 done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 7. result lines: each kernel at its main path's shape (fp32, the
+    # 8. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
-    # count of the training run its slice ported it for (BERT for the
+    # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
-    # Evoformer for the flash kernels), every path's beside it
+    # Evoformer for the flash kernels, decode serving for the decode
+    # attention), every path's beside it
     by_path = {"train": train_launches, "serve": serve_launches,
-               "unimol_train": unimol_launches, "evoformer_train": evoformer_launches}
+               "unimol_train": unimol_launches, "evoformer_train": evoformer_launches,
+               "decode_serve": decode_launches, "decode_serve_int8": decode8_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

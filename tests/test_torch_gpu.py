@@ -6,9 +6,13 @@ and tiny row counts; softmax rows of 128 to 8192 with every extra layout),
 forward and backward, with and without dropout; the four flash kernels
 (forward, dq, dk/dv, dbias) with every bias grouping, head dims 24 to 128,
 1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
-the dbias sum's repeatability; plus the wrappers' refusals and a tiny BERT,
-a tiny Uni-Mol and a 2-block Evoformer on the card against the same
-weights on the CPU, their outputs and every parameter's gradient.
+the dbias sum's repeatability; the decode attention (fp32, bf16, int8 caches
+with fp32 and bf16 q, head dims 4 to 256, L of 1 to 512, mixed positions
+with junk rows past them) and the shapes it refuses; plus the wrappers'
+refusals and a tiny BERT, a tiny Uni-Mol and a 2-block Evoformer on the card
+against the same weights on the CPU, their outputs and every parameter's
+gradient, and a 2-layer full-width ``transformer_lm`` whose incremental
+decode on the card matches its full forward on the CPU.
 
 Marked ``gpu``: each test takes the ``cuda`` fixture, which skips without a
 card, so on the CPU every test here is skipped.  On a machine with a card
@@ -26,6 +30,13 @@ Softmax(+dropout): fp32 1e-6 absolute (probabilities, summation order
 and exp's last bits); bf16 that plus two bf16 ulps of the element (2**-6
 of it: the cast of p, and of the dropped quotient, may each land on a
 neighbouring bf16 value).
+
+Decode attention, kernel vs ``decode_attention_plain``: fp32 q 1e-5
+absolute (int8 caches included: both dequantize in fp32 and differ only in
+summation order); bf16 q two bf16 ulps of the element plus 1e-6 (both round
+one fp32 result once).  Incremental decode of the 2-layer LM on the card vs
+its full forward on the CPU: 1e-4 absolute and relative on logits, as the
+JAX package's parity test holds it.
 
 Gradients, kernel vs autograd of the plain version (for the attention
 backward in bf16, vs ``fullrow_attention_bwd_plain``, which rounds pd and
@@ -635,3 +646,121 @@ def test_tiny_evoformer_gradients_on_card_match_cpu(cuda):
     for name, g in got.items():
         assert torch.isfinite(g).all(), name
         assert _rel_err(g, ref[name]) <= 1e-4, name
+
+
+@pytest.mark.parametrize(
+    "B,H,L,D,dtype,kv,with_bias",
+    [
+        (8, 12, 512, 64, torch.float32, "same", True),  # the served shape
+        (8, 12, 512, 64, torch.bfloat16, "same", True),
+        (8, 12, 512, 64, torch.float32, "int8", True),
+        (3, 4, 128, 64, torch.bfloat16, "int8", False),
+        (2, 3, 1, 16, torch.float32, "same", True),  # one row: only itself
+        (3, 2, 37, 4, torch.float32, "same", False),  # D = 4: 32 rows a warp
+        (3, 2, 200, 12, torch.float32, "int8", True),  # 3 quads: a lane idle
+        (2, 2, 300, 128, torch.float32, "same", True),
+        (2, 2, 100, 192, torch.bfloat16, "same", True),  # two loads a lane
+        (2, 2, 64, 256, torch.float32, "int8", True),
+    ],
+)
+def test_decode_attention_kernel_matches_plain(cuda, B, H, L, D, dtype, kv, with_bias):
+    """Mixed positions (0, a middle one, L - 1) with junk past each one
+    (K +1e6 / V -1e6, int8 +127 / -127), which must not leak."""
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    g = torch.Generator(device=cuda).manual_seed(L * 7 + D)
+    q = (torch.randn(B, H, D, generator=g, device=cuda) * D ** -0.5).to(dtype)
+    k = torch.randn(B, H, L, D, generator=g, device=cuda)
+    v = torch.randn(B, H, L, D, generator=g, device=cuda)
+    pos = torch.linspace(0, L - 1, B, device=cuda).to(torch.int32)
+    live = torch.arange(L, device=cuda)[None, None, :, None] <= pos[:, None, None, None].long()
+    scales = {}
+    if kv == "int8":
+        ks = k.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        vs = v.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        k = torch.where(live, torch.round(k / ks[None, :, None]).clamp(-127, 127),
+                        127.0).to(torch.int8)
+        v = torch.where(live, torch.round(v / vs[None, :, None]).clamp(-127, 127),
+                        -127.0).to(torch.int8)
+        scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        k = torch.where(live, k, 1e6).to(dtype)
+        v = torch.where(live, v, -1e6).to(dtype)
+    bias = torch.randn(B, H, L, generator=g, device=cuda) if with_bias else None
+    _kernels.reset_launch_counts()
+    out = da.decode_attention(q, k, v, pos, bias=bias, **scales)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES.count == 1
+    ref = da.decode_attention_plain(q, k, v, pos, bias=bias, **scales)
+    assert out.dtype == dtype and out.shape == (B, H, D)
+    assert torch.isfinite(out.float()).all() and out.float().abs().max() < 100
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5, err.max().item()
+    else:
+        assert (err <= 2 * 2.0 ** -7 * ref.float().abs() + 1e-6).all(), err.max().item()
+
+
+def test_decode_attention_refusals(cuda):
+    """A CUDA call launches the kernel or raises, naming what it refuses."""
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    def call(D=64, dtype=torch.float32, cache=torch.float32, **kw):
+        q = torch.zeros(2, 2, D, device=cuda, dtype=dtype)
+        c = torch.zeros(2, 2, 32, D, device=cuda, dtype=cache)
+        pos = kw.pop("pos", torch.zeros(2, dtype=torch.int32, device=cuda))
+        return da.decode_attention(q, c, c, pos, **kw)
+
+    _kernels.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="multiple of 4"):
+        call(D=6)
+    with pytest.raises(NotImplementedError, match="at most 256"):
+        call(D=260)
+    with pytest.raises(NotImplementedError, match="q's type or int8"):
+        call(cache=torch.bfloat16)
+    with pytest.raises(ValueError, match="fp32/bf16"):
+        call(dtype=torch.float16, cache=torch.float16)
+    with pytest.raises(ValueError, match="int32"):
+        call(pos=torch.zeros(2, dtype=torch.int64, device=cuda))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call(pos=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="bias must be fp32"):
+        call(bias=torch.zeros(2, 2, 32, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="together"):
+        call(k_scale=torch.ones(2, 64, device=cuda))
+    assert da.LAUNCHES.count == 0  # refused calls launch nothing
+    call()
+    assert da.LAUNCHES.count == 1
+
+
+def test_transformer_lm_incremental_decode_on_card_matches_cpu(cuda):
+    """A 2-layer full-width ``transformer_lm`` (768 wide, 12 heads, FFN
+    3072): prefill of 112 tokens (the full-row kernel, padded to 128) and 16
+    decode steps over a 128-row cache (the decode kernel) on the card
+    against the full causal forward on the CPU.  Launches per step: 2
+    decode attentions and 6 norm forwards."""
+    from unicore_tpu_torch.models.transformer_lm import TransformerLMModel
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    model = TransformerLMModel(vocab_size=1000, padding_idx=1, decoder_layers=2,
+                               generator=torch.Generator().manual_seed(5)).eval()
+    B, P, steps, Lc = 4, 112, 16, 128
+    toks = torch.randint(4, 1000, (B, P + steps), generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        full = model(toks)[:, P:]
+        model.to(cuda)
+        _, (k, v) = model.prefill(toks[:, :P].to(cuda))
+        kc = torch.zeros(2, B, 12, Lc, 64, device=cuda)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :, :P], vc[:, :, :, :P] = k, v
+        _kernels.reset_launch_counts()
+        rows = []
+        for t in range(P, P + steps):
+            logits, (kr, vr) = model.decode_step(
+                toks[:, t].to(cuda), (kc, vc), torch.full((B,), t, dtype=torch.int32,
+                                                          device=cuda))
+            kc[:, :, :, t], vc[:, :, :, t] = kr, vr
+            rows.append(logits.cpu())
+    assert da.LAUNCHES.count == 2 * steps and fn.LAUNCHES.count == 6 * steps
+    got = torch.stack(rows, dim=1)
+    assert ((got - full).abs() <= 1e-4 + 1e-4 * full.abs()).all(), (got - full).abs().max()

@@ -176,9 +176,9 @@ def test_serve_matches_jax_engine(tmp_path):
         # out-of-vocabulary ids are refused before they reach the model
         code, body = _post(srv.base + "/v1/infer", {"tokens": [5, VOCAB]})
         assert code == 400 and f"[0, {VOCAB})" in body["reason"], body
-        # the decode plane is not ported: a named error, not a silent 404
+        # an encoder engine does not generate: 404, as the JAX server answers
         code, body = _post(srv.base + "/v1/generate", {"tokens": [5, 6]})
-        assert (code, body["reason"]) == (501, "not-ported")
+        assert code == 404 and "does not generate" in body["error"], body
         code, stats = _get(srv.base + "/stats")
         assert code == 200 and stats["served"] == len(reqs)
         assert stats["device"] == "cpu"

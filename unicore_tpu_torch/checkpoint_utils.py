@@ -76,7 +76,14 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
       name; Uni-Mol's ``gbf.mul``/``gbf.bias`` are embeddings (one column
       per edge type), so their ``embedding`` becomes ``weight``;
     - the Evoformer's ``block_{i}`` modules keep their names (the port
-      names its blocks so), as do its ``nn.Embed`` tables' owners.
+      names its blocks so), as do its ``nn.Embed`` tables' owners;
+    - ``transformer_lm``: ``embed_tokens``, ``embed_positions``,
+      ``decoder.{emb_layer_norm, final_layer_norm, relative_attention_bias}``,
+      ``decoder.layers_{i}.{self_attn, self_attn_layer_norm,
+      final_layer_norm, fc1, fc2}`` and the top-level ``out_bias`` map by
+      the rules above (a JAX ``transformer_lm`` has no cross-attention
+      parameters, and the port's decoder layer creates none), so the
+      result loads with ``load_state_dict(strict=True)``.
     """
     params = variables["params"] if "params" in variables else variables
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()

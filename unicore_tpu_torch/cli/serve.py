@@ -12,7 +12,10 @@ Boot sequence, each stage with the JAX server's failure exit code:
 2. HTTP bind on ``--host:--port`` (exit **75** on failure) — probes go
    live immediately, readiness stays false;
 3. bucket warm-up (the CUDA kernels build and load here); readiness flips
-   true only after;
+   true only after.  A checkpoint whose model has the decode surface
+   (``prefill``/``decode_step``: ``transformer_lm``) is served by the
+   incremental-decode engine (``POST /v1/generate``, paged KV cache,
+   step-level continuous batching) unless ``--serve-decode off``;
 4. serve until signalled: SIGTERM/SIGINT drains — admission stops,
    in-flight batches flush under ``--drain-deadline``, exit **0**; a blown
    drain budget exits **77**; a second signal aborts (also 77).
@@ -103,6 +106,7 @@ def load_serving_model(args, device):
     model.load_state_dict(weights)
     model = model.to(device).eval()
     pad_idx = task.dictionary.pad()
+    eos_idx = task.dictionary.eos()
     vocab_size = len(task.dictionary)
     max_seq_len = int(getattr(ckpt_args, "max_seq_len", 512) or 512)
     logger.info(
@@ -110,7 +114,61 @@ def load_serving_model(args, device):
         f"arch {getattr(ckpt_args, 'arch', '?')}, max_seq_len {max_seq_len}, "
         f"vocab {vocab_size}, device {device})"
     )
-    return model, pad_idx, max_seq_len, vocab_size
+    return model, pad_idx, max_seq_len, vocab_size, eos_idx
+
+
+def decode_serving_requested(args, model) -> bool:
+    """``--serve-decode`` resolution: 'auto' turns the decode plane on
+    exactly when the model has the serving surface (prefill +
+    decode_step); 'on' demands it (exit-76 territory otherwise)."""
+    mode = args.serve_decode
+    has_surface = hasattr(model, "prefill") and hasattr(model, "decode_step")
+    if mode == "off":
+        return False
+    if mode == "on" and not has_surface:
+        raise ValueError(
+            f"--serve-decode on: {type(model).__name__} has no "
+            "prefill/decode_step surface; serve a decoder-only checkpoint "
+            "(e.g. transformer_lm) or drop the flag"
+        )
+    return has_surface
+
+
+def build_decode_engine(args, model, pad_idx, max_seq_len, vocab_size, eos_idx,
+                        device_name):
+    """The incremental-decode engine: cache-length buckets in page
+    multiples, a paged KV pool of ``--cache-pages`` pages, step-level
+    continuous batching."""
+    from unicore_tpu_torch.serve import DecodeEngine, cache_bucket_edges
+
+    edges = cache_bucket_edges(
+        max_seq_len, args.serve_buckets, page_size=args.cache_page_size
+    )
+    if edges[-1] > max_seq_len:
+        # a position past the learned ones would index the position
+        # embedding out of range, which asserts on the card
+        raise ValueError(
+            f"max_seq_len {max_seq_len} is not a multiple of --cache-page-size "
+            f"{args.cache_page_size}: the top cache bucket {edges[-1]} would "
+            "reach positions the model has no embedding for"
+        )
+    return DecodeEngine(
+        model,
+        bucket_edges=edges,
+        decode_batch=args.decode_batch_size,
+        prefill_batch=args.serve_batch_size,
+        pad_idx=pad_idx,
+        eos_idx=eos_idx,
+        vocab_size=vocab_size,
+        num_pages=args.cache_pages,
+        page_size=args.cache_page_size,
+        kv_dtype=args.decode_kv,
+        max_new_tokens=args.max_new_tokens,
+        admission_capacity=args.admission_capacity,
+        precision="int8-kv" if args.decode_kv == "int8" else "",
+        decode_sample_every=args.decode_sample_every,
+        device=device_name,
+    )
 
 
 def serve_buckets(args, max_seq_len):
@@ -147,22 +205,35 @@ def main(args) -> int:
 
     # 1. model load ------------------------------------------------------
     try:
-        model, pad_idx, max_seq_len, vocab_size = load_serving_model(
+        model, pad_idx, max_seq_len, vocab_size, eos_idx = load_serving_model(
             args, device
         )
-        engine = ServeEngine(
-            model,
-            build_infer_fn(device),
-            bucket_edges=serve_buckets(args, max_seq_len),
-            batch_size=args.serve_batch_size,
-            pad_idx=pad_idx,
-            vocab_size=vocab_size,
-            admission_capacity=args.admission_capacity,
-            device=(
-                torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "cpu"
-            ),
+        device_name = (
+            torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         )
+        if decode_serving_requested(args, model):
+            engine = build_decode_engine(
+                args, model, pad_idx, max_seq_len, vocab_size, eos_idx,
+                device_name,
+            )
+            logger.info(
+                f"serving INCREMENTAL DECODE: cache buckets "
+                f"{list(engine.bucket_edges)}, "
+                f"{args.cache_pages} pages x {args.cache_page_size} rows, "
+                f"kv {args.decode_kv}, decode batch "
+                f"{args.decode_batch_size}, max_new {args.max_new_tokens}"
+            )
+        else:
+            engine = ServeEngine(
+                model,
+                build_infer_fn(device),
+                bucket_edges=serve_buckets(args, max_seq_len),
+                batch_size=args.serve_batch_size,
+                pad_idx=pad_idx,
+                vocab_size=vocab_size,
+                admission_capacity=args.admission_capacity,
+                device=device_name,
+            )
     except Exception as err:
         logger.error(
             f"FATAL: model load failed ({type(err).__name__}: {err}) — "

@@ -20,8 +20,15 @@ routes exactly as the JAX package routes on a TPU:
   -inf there; the softmax gives 0 for it and its gradient 0, as in the JAX
   package.
 
-The JAX package's sequence-parallel (ring, Ulysses), quantized and
-incremental-decode routes are not ported yet.
+- **decode route** (``cache_kv`` given, JAX :484-594): one query token per
+  sequence; its K/V row (quantized against ``kv_scales`` when the cache is
+  int8) is written into the gathered cache at each sequence's position, so
+  the token attends itself, and ``ops/decode_attention.py`` reads the
+  cache.  ``return_kv`` instead returns a prefill's split-heads K/V beside
+  the output, to seed the cache.
+
+The JAX package's sequence-parallel (ring, Ulysses) and quantized routes
+are not ported yet.
 """
 
 import logging
@@ -35,7 +42,9 @@ from unicore_tpu_torch.ops.attention_fullrow import (
     fullrow_attention,
     supported as _fullrow_supported,
 )
+from unicore_tpu_torch.ops.decode_attention import decode_attention
 from unicore_tpu_torch.ops.flash_attention import flash_attention
+from unicore_tpu_torch.ops.quant import INT8_QMAX, quantize_to_dtype
 from unicore_tpu_torch.ops.softmax_dropout import softmax_dropout
 
 logger = logging.getLogger(__name__)
@@ -267,13 +276,28 @@ class SelfMultiheadAttention(nn.Module):
         attn_bias: Optional[torch.Tensor] = None,
         rng=None,
         return_attn: bool = False,
+        cache_kv=None,
+        cache_positions: Optional[torch.Tensor] = None,
+        kv_scales=None,
+        return_kv: bool = False,
     ):
         """Self-attention over ``query`` (B, L, E); ``key_padding_mask``
         (B, L) nonzero = padding; ``attn_bias`` any layout
         ``_bias_to_bhll`` accepts.  Dropout follows ``self.training`` and
         draws from ``rng`` (a :class:`DropoutRng`).  With ``return_attn``
         it returns (output, pre-softmax weights, probabilities), the
-        latter two (B, H, L, L)."""
+        latter two (B, H, L, L).
+
+        Incremental decode, same projections and parameters:
+
+        * ``return_kv``: also return the split-heads K/V ((B, H, L, D)
+          each), so a prefill can seed the cache: ``(out, (k, v))``;
+        * ``cache_kv=(k_cache, v_cache)`` ((B, H, Lc, D) each, fp32/bf16
+          or int8) with ``cache_positions`` (B,) int32: decode.  ``query``
+          is one token (B, 1, E) and ``attn_bias`` the (B, H, Lc) bias row
+          at the current positions.  Returns ``(out, (k_row, v_row))``,
+          the new rows (B, H, D) in the cache type, for the caller's page
+          scatter."""
         bsz, tgt_len, embed_dim = query.shape
         assert embed_dim == self.embed_dim
         q, k, v = self.in_proj(query).chunk(3, dim=-1)
@@ -281,9 +305,43 @@ class SelfMultiheadAttention(nn.Module):
         q = _split_heads(q, self.num_heads) * self.scaling
         k = _split_heads(k, self.num_heads)
         v = _split_heads(v, self.num_heads)
+        if cache_kv is not None:
+            assert tgt_len == 1, f"decode takes one token per step, got {tgt_len}"
+            o, rows = self._decode(q, k, v, cache_kv, cache_positions, kv_scales,
+                                   attn_bias)
+            return self.out_proj(_merge_heads(o)), rows
         o = _attend(q, k, v, key_padding_mask, attn_bias, self.dropout,
                     self.training, rng, return_attn)
         if return_attn:
             o, attn_weights, attn_probs = o
             return self.out_proj(_merge_heads(o)), attn_weights, attn_probs
+        if return_kv:
+            return self.out_proj(_merge_heads(o)), (k, v)
         return self.out_proj(_merge_heads(o))
+
+    def _decode(self, q, k, v, cache_kv, positions, kv_scales, attn_bias):
+        """One incremental step: write this token's K/V row into the
+        gathered cache (so the token attends itself), then read the cache
+        through the single-query kernel.  The gathered cache is the
+        caller's ephemeral copy of the page pool, written in place here;
+        only the new rows return (the pool is the source of truth,
+        ``serve/kv_cache.py``)."""
+        k_cache, v_cache = cache_kv
+        k_row, v_row = k[:, :, 0], v[:, :, 0]  # (B, H, D)
+        k_scale = v_scale = None
+        if k_cache.dtype == torch.int8:
+            assert kv_scales is not None, "int8 KV cache needs kv_scales"
+            k_scale, v_scale = kv_scales  # (H, D) each
+            k_row = quantize_to_dtype(k_row, k_scale[None], INT8_QMAX, torch.int8)
+            v_row = quantize_to_dtype(v_row, v_scale[None], INT8_QMAX, torch.int8)
+        else:
+            k_row, v_row = k_row.to(k_cache.dtype), v_row.to(v_cache.dtype)
+        rows = torch.arange(q.shape[0], device=q.device)
+        # advanced indices around a slice: the indexed block is (B, H, D)
+        k_cache[rows, :, positions.long()] = k_row
+        v_cache[rows, :, positions.long()] = v_row
+        o = decode_attention(
+            q[:, :, 0].contiguous(), k_cache, v_cache, positions.to(torch.int32),
+            bias=attn_bias, k_scale=k_scale, v_scale=v_scale,
+        )
+        return o[:, :, None], (k_row, v_row)

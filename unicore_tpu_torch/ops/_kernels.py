@@ -170,12 +170,14 @@ def _bind(lib) -> None:
     lib.unicore_flash_attention_dq.argtypes = [p] * 9 + geom
     lib.unicore_flash_attention_dkv.argtypes = [p] * 10 + geom
     lib.unicore_flash_attention_db.argtypes = [p] * 10 + geom
+    # csrc/decode_attention.cu: tensors, (B, H, L, D), dtype, quant, stream
+    lib.unicore_decode_attention.argtypes = [p] * 8 + [i] * 6 + [p]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
                "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
                "unicore_softmax_dropout_bwd", "unicore_flash_attention_fwd",
                "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
-               "unicore_flash_attention_db"):
+               "unicore_flash_attention_db", "unicore_decode_attention"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll

@@ -1,0 +1,148 @@
+"""Single-query cache-reading attention, the decode step's kernel
+(counterpart of ``unicore_tpu/ops/decode_attention.py``, whose TPU kernel is
+``_decode_kernel``).
+
+Incremental decode attends ONE query row per sequence against that
+sequence's K/V cache: q is ``(B, H, D)``, pre-scaled; the gathered caches
+are ``(B, H, L, D)`` (``L`` the cache-length bucket), fp32/bf16 or int8;
+``positions[b]`` names the current token's row, and rows beyond it are dead
+(pad junk or pages not yet written).  int8 caches come with per-(head,
+channel) fp32 dequant scales ``(H, D)``, multiplied in as each row is read.
+The output is ``(B, H, D)`` in q's type.  Forward only: the cache read path
+never trains.
+
+A CPU tensor goes through :func:`decode_attention_plain`, the JAX package's
+``decode_attention_reference`` in plain PyTorch; a CUDA tensor goes through
+the hand-written kernel of ``csrc/decode_attention.cu`` — or raises.  There
+is no fallback between the two.  The TPU kernel's eligibility rule (L a
+multiple of the cache type's sublane tile) is the TPU's tiling and is not
+carried over: the CUDA kernel takes every L, and refuses only a head dim
+that is not a multiple of 4 or is above 256, and type pairs other than q and
+caches of one type or int8 caches.
+"""
+
+from typing import Optional
+
+import torch
+
+from . import _kernels
+
+#: finite stand-in for -inf: keeps masked rows NaN-free through softmax
+NEG = -1e30
+#: the kernel's limits: 4-element loads, at most 2 per lane of a warp
+MAX_HEAD_DIM = 256
+
+_QDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES = _kernels.counter("decode_attention")
+
+
+def decode_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: dequant (int8 caches) and an
+    fp32 row softmax over the live cache prefix, rows past ``positions[b]``
+    set to -1e30."""
+    L = k_cache.shape[2]
+    kf = k_cache.float()
+    vf = v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale.float()[None, :, None, :]
+    if v_scale is not None:
+        vf = vf * v_scale.float()[None, :, None, :]
+    s = torch.einsum("bhd,bhld->bhl", q.float(), kf)
+    if bias is not None:
+        s = s + bias.float()
+    dead = (torch.arange(L, device=q.device)[None, None, :]
+            > positions.to(torch.int64)[:, None, None])
+    s = s.masked_fill(dead, NEG)
+    # the query's own row is always live (positions[b] points at it), so
+    # no fully-masked-row guard is needed
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhl,bhld->bhd", p, vf).to(q.dtype)
+
+
+def _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale):
+    B, H, L, D = k_cache.shape
+    if q.dtype not in _QDTYPES:
+        raise ValueError(f"decode_attention: q dtype {q.dtype} unsupported (fp32/bf16)")
+    if k_cache.dtype != torch.int8 and k_cache.dtype != q.dtype:
+        raise NotImplementedError(
+            f"decode_attention: caches of {k_cache.dtype} with q of {q.dtype}; the "
+            "kernel takes caches of q's type or int8"
+        )
+    if v_cache.dtype != k_cache.dtype or tuple(v_cache.shape) != (B, H, L, D):
+        raise ValueError("decode_attention: k and v caches differ in type or shape")
+    if D % 4 or D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"decode_attention: head dim {D} must be a multiple of 4 and at most "
+            f"{MAX_HEAD_DIM} (the kernel loads 4 channels at a time, at most two "
+            "loads per lane of a 32-lane warp)"
+        )
+    if tuple(q.shape) != (B, H, D) or tuple(positions.shape) != (B,):
+        raise ValueError(
+            f"decode_attention: q {tuple(q.shape)} / positions "
+            f"{tuple(positions.shape)} do not fit caches {(B, H, L, D)}"
+        )
+    if positions.dtype != torch.int32:
+        raise ValueError(f"decode_attention: positions must be int32, got {positions.dtype}")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (B, H, L)):
+        raise ValueError(
+            f"decode_attention: bias must be fp32 (B, H, L) = {(B, H, L)}, got "
+            f"{bias.dtype} {tuple(bias.shape)}"
+        )
+    for what, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if s is not None and (s.dtype != torch.float32 or tuple(s.shape) != (H, D)):
+            raise ValueError(
+                f"decode_attention: {what} must be fp32 (H, D) = {(H, D)}, got "
+                f"{s.dtype} {tuple(s.shape)}"
+            )
+    _kernels.require_cuda("decode_attention", q, k_cache, v_cache, positions, bias,
+                          k_scale, v_scale)
+    out = torch.empty_like(q)
+    if B == 0 or H == 0 or L == 0:
+        return out
+    rc = _kernels.library().unicore_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
+        _kernels.ptr(bias), _kernels.ptr(k_scale), _kernels.ptr(v_scale),
+        out.data_ptr(), B, H, L, D, _QDTYPES[q.dtype], int(k_cache.dtype == torch.int8),
+        _kernels.stream_handle(q.device),
+    )
+    _kernels.check(rc, "decode_attention")
+    LAUNCHES.add()
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One decode step of attention: ``softmax(q k^T + bias, live-mask) v``
+    with ``q`` (B, H, D) pre-scaled, caches (B, H, L, D), ``positions``
+    (B,) int32 naming each row's current token (each in [0, L): cache rows
+    beyond it are masked out), ``bias`` (B, H, L) fp32 or None.
+
+    ``k_scale``/``v_scale`` (H, D) fp32: static per-(head, channel) dequant
+    scales for int8 caches.  Scales must come paired with int8 caches and
+    vice versa.  Every tensor must be contiguous."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if (k_cache.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError(
+            f"int8 caches need dequant scales (cache dtype "
+            f"{k_cache.dtype}, k_scale {'set' if k_scale is not None else 'None'})"
+        )
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, positions, bias=bias,
+                                      k_scale=k_scale, v_scale=v_scale)
+    return _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale)

@@ -83,6 +83,53 @@ def add_serving_args(parser):
                             "the CUDA kernel for CUDA tensors (its plain "
                             "version on the CPU), 'off' the module's plain "
                             "composition")
+    decode = parser.add_argument_group(
+        "incremental decode (POST /v1/generate)"
+    )
+    decode.add_argument("--serve-decode", default="auto",
+                        choices=["auto", "on", "off"],
+                        help="serve autoregressive generation (POST "
+                             "/v1/generate) through the paged-KV decode "
+                             "engine: 'auto' enables it when the "
+                             "checkpoint's model has a decode surface "
+                             "(prefill/decode_step, e.g. transformer_lm), "
+                             "'on' requires one, 'off' serves the plain "
+                             "encoder path")
+    decode.add_argument("--decode-batch-size", type=int, default=8,
+                        metavar="N",
+                        help="decode-step batch rows; sequences re-enter "
+                             "the scheduler after EVERY step, so batches "
+                             "re-form per step (continuous batching) and "
+                             "a finished sequence frees its slot "
+                             "mid-generation")
+    decode.add_argument("--cache-pages", type=int, default=512, metavar="N",
+                        help="paged KV-cache pool size: memory is bounded "
+                             "by pages x page-size TOKENS in flight, not by "
+                             "max-seq-len x batch; exhaustion preempts the "
+                             "youngest generation (it re-prefills later) "
+                             "and sheds 'cache-oom' at admission")
+    decode.add_argument("--cache-page-size", type=int, default=32,
+                        metavar="N",
+                        help="rows per KV-cache page; every cache-length "
+                             "bucket is a page multiple")
+    decode.add_argument("--decode-kv", default="fp32",
+                        choices=["fp32", "int8"],
+                        help="KV-cache precision: int8 stores quantized "
+                             "K/V against static per-(layer, head, "
+                             "channel) scales from a startup calibration "
+                             "prefill, with the dequant fused into the "
+                             "attention read")
+    decode.add_argument("--max-new-tokens", type=int, default=32,
+                        metavar="N",
+                        help="generation ceiling per request (clients may "
+                             "ask for fewer via 'max_new_tokens'); "
+                             "generation also stops at EOS or the top "
+                             "cache bucket")
+    decode.add_argument("--decode-sample-every", type=int, default=64,
+                        metavar="N",
+                        help="log every N-th decode step (bucket, live "
+                             "rows, service ms, page occupancy; 0 "
+                             "disables)")
     return group
 
 

@@ -15,7 +15,9 @@ fixed set of shape buckets) → **respond** (deadline checked one last time).
 * **Drain, don't drop**: SIGTERM stops admission and flushes in-flight
   work under a deadline (:meth:`drain`).
 
-Hot reload, quantized serving and the decode plane are not ported yet.
+The decode plane (``serve/decode.py``) subclasses this engine: it injects
+its own admission queue and passes no ``infer_fn``.  Hot reload and
+quantized serving are not ported yet.
 """
 
 import logging
@@ -72,13 +74,15 @@ class ServeEngine:
     def __init__(
         self,
         model,
-        infer_fn: Callable,
+        infer_fn: Optional[Callable],
         *,
         bucket_edges: Sequence[int],
         batch_size: int,
         pad_idx: int = 0,
         vocab_size: Optional[int] = None,
+        queue: Optional[AdmissionQueue] = None,
         admission_capacity: int = 256,
+        precision: str = "",
         device: str = "",
     ):
         if not bucket_edges:
@@ -93,11 +97,15 @@ class ServeEngine:
         self.vocab_size = vocab_size
         #: the card's name (or "cpu"), surfaced in /stats
         self.device = str(device)
-        self.queue = AdmissionQueue(
+        #: precision label keying the admission queue's per-(bucket,
+        #: precision) service EMAs ('' = the checkpoint's precision)
+        self.precision = str(precision)
+        self.queue = queue or AdmissionQueue(
             admission_capacity,
             batch_capacity=self.batch_size,
             max_len=self.bucket_edges[-1],
             bucket_edges=self.bucket_edges,
+            precision=self.precision,
         )
         self._phase = PHASE_WARMING
         self._ready = False
@@ -168,6 +176,14 @@ class ServeEngine:
                request_id: Optional[str] = None) -> rq.ServeRequest:
         """Admit one request (or resolve it immediately with a named
         reason).  Raises ValueError for token ids outside the vocabulary."""
+        req = self.make_request(tokens, deadline_s, request_id)
+        self.queue.admit(req)
+        return req
+
+    def make_request(self, tokens, deadline_s: float,
+                     request_id: Optional[str] = None) -> rq.ServeRequest:
+        """A request for ``tokens``; ValueError for ids outside the
+        vocabulary (an embedding lookup out of range faults on the card)."""
         req = rq.ServeRequest.make(tokens, deadline_s, request_id)
         if self.vocab_size is not None and len(req) and (
             int(req.tokens.min()) < 0
@@ -177,7 +193,6 @@ class ServeEngine:
                 f"token ids must lie in [0, {self.vocab_size}), got "
                 f"[{int(req.tokens.min())}, {int(req.tokens.max())}]"
             )
-        self.queue.admit(req)
         return req
 
     # -- the loop --------------------------------------------------------
@@ -332,6 +347,7 @@ class ServeEngine:
         return {
             "phase": self._phase,
             "ready": self._ready,
+            "precision": self.precision or "training",
             "device": self.device,
             "served": self.served,
             "admitted": self.queue.admitted,

@@ -10,8 +10,11 @@ in the engine/admission layer; this module only maps outcomes onto HTTP:
 * ``POST /v1/infer`` → ``{"tokens": [...], "deadline_ms": N, "id": "..."}``
   → 200 ok / 429 shed (named reason) / 400 too long or malformed /
   503 not-ready-or-draining / 504 expired / 408 slow client;
-* ``POST /v1/generate`` → 501 ``not-ported``: the decode plane is not
-  ported yet.
+* ``POST /v1/generate`` → the same envelope plus an optional
+  ``max_new_tokens`` (a positive integer, else 400) → the generated ids,
+  on an engine that declares ``supports_generate`` (``serve/decode.py``);
+  404 on any other engine.  ``/v1/infer`` on a decode engine generates
+  with the engine's default budget.
 
 Every 503 carries ``Retry-After``.  The body read is deadline-bounded (a
 client that trickles its request gets a 408 instead of wedging a worker),
@@ -158,8 +161,8 @@ class ServeHandler(BaseHTTPRequestHandler):
     # -- inference -------------------------------------------------------
 
     def _parse_infer(self):
-        """(tokens, deadline_ms, id) from the body; ValueError/KeyError
-        for anything malformed."""
+        """(tokens, deadline_ms, id, max_new_tokens) from the body;
+        ValueError/KeyError for anything malformed."""
         server = self.server
         body = read_bounded_body(
             self,
@@ -194,25 +197,39 @@ class ServeHandler(BaseHTTPRequestHandler):
             raise ValueError(
                 f"'deadline_ms' must be a number, got {raw_deadline!r}"
             ) from None
-        return tokens, deadline_ms, payload.get("id")
+        max_new = payload.get("max_new_tokens")
+        # a JSON integer only: a bool is an int to Python, a float would be
+        # cut silently
+        if max_new is not None and (
+            isinstance(max_new, bool) or not isinstance(max_new, int) or max_new <= 0
+        ):
+            raise ValueError(
+                f"'max_new_tokens' must be a positive integer, got {max_new!r}"
+            )
+        return tokens, deadline_ms, payload.get("id"), max_new
 
     def do_POST(self):
-        if self.path == "/v1/generate":
-            self._send_json(
-                501,
-                {"status": rq.STATUS_ERROR, "reason": "not-ported",
-                 "error": "/v1/generate (the incremental-decode plane) is "
-                          "not ported to unicore_tpu_torch yet"},
-            )
-            return
-        if self.path != "/v1/infer":
+        if self.path not in ("/v1/infer", "/v1/generate"):
             self._send_json(404, {"error": f"unknown path {self.path}"})
             return
-        try:
-            tokens, deadline_ms, request_id = self._parse_infer()
-            req = self.server.engine.submit(
-                tokens, deadline_ms / 1000.0, request_id
+        engine = self.server.engine
+        generate = self.path == "/v1/generate"
+        if generate and not getattr(engine, "supports_generate", False):
+            # the body stays unread: close rather than desync keep-alive
+            self.close_connection = True
+            self._send_json(
+                404,
+                {"error": "this engine does not generate (serve a "
+                          "decoder-only checkpoint, e.g. transformer_lm)"},
             )
+            return
+        try:
+            tokens, deadline_ms, request_id, max_new = self._parse_infer()
+            if generate:
+                req = engine.submit(tokens, deadline_ms / 1000.0, request_id,
+                                    max_new_tokens=max_new)
+            else:
+                req = engine.submit(tokens, deadline_ms / 1000.0, request_id)
         except SlowClientError as err:
             # leftover body bytes would desync the keep-alive stream
             self.close_connection = True
@@ -262,6 +279,7 @@ def bind_server(host: str, port: int, engine, **kw) -> ServeHTTPServer:
     server = ServeHTTPServer((host, port), engine, **kw)
     logger.info(
         f"SERVE listening on http://{server.server_address[0]}:"
-        f"{server.server_address[1]} (/healthz /readyz /stats /v1/infer)"
+        f"{server.server_address[1]} (/healthz /readyz /stats /v1/infer"
+        f"{' /v1/generate' if getattr(engine, 'supports_generate', False) else ''})"
     )
     return server

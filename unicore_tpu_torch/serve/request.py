@@ -25,8 +25,9 @@ SHED_DEADLINE_UNMEETABLE = "deadline-unmeetable"
 SHED_DRAINING = "draining"
 SHED_NOT_READY = "not-ready"
 SHED_TOO_LONG = "too-long"
-#: admission-time page exhaustion on the decode plane (kept for vocabulary
-#: parity; the decode plane is not ported yet)
+#: decode plane: the paged KV cache cannot cover even the prompt
+#: (serve/decode.py sheds at the door rather than preempting every
+#: in-flight generation)
 SHED_CACHE_OOM = "cache-oom"
 
 # -- expiry stages (request admitted, deadline ran out) ---------------------
@@ -69,6 +70,9 @@ class ServeRequest:
     deadline: Deadline
     request_id: str = field(default_factory=lambda: f"r{next(_req_counter)}")
     arrival: float = field(default_factory=time.monotonic)
+    #: generation budget (POST /v1/generate); the decode engine sets it,
+    #: clamped to its own ceiling
+    max_new_tokens: Optional[int] = None
 
     def __post_init__(self):
         self.tokens = np.asarray(self.tokens, dtype=np.int32).reshape(-1)
