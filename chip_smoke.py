@@ -99,7 +99,24 @@ result line):
    decode steps at batch 8 in bucket 512 under ``torch.profiler``
    (``decode_profile``: device ms by kernel group, idle share); each
    server drains on SIGTERM and exits 0;
-8. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+8. quantized serving — phase 4a's checkpoint served by ``python -m
+   unicore_tpu_torch.cli.serve --device cuda --serve-quantize int8
+   --quant-drift-sample 1`` (batch 8, buckets 128/256/384/512): the
+   ``QUANT-PATH int8`` line and the scale sidecar beside the checkpoint; 12
+   ``/v1/infer`` requests over every bucket, half concurrent; from
+   ``/stats`` the ``precision`` and ``quant`` block (calibration drift below
+   the JAX package's int8 bound, 0.05 of the logit absmax; every request's
+   drift sampled) and exactly 49 W8A8 dense, 12 int8 softmax, 1 int8
+   LayerNorm and 25 norm launches per batch and no full-row attention (the
+   drift probe's launches, counted apart, subtracted; the probe's own held
+   to the quantized plus the fp32 forward's); two answers held against the
+   same checkpoint quantized in this process on the CPU from the server's
+   sidecar (ids 99% equal, scores 1e-3 relative); in this process the
+   served forward of a full top-bucket batch, int8 and fp32 on the same
+   weights, timed and profiled (``quant_profile``: device ms by kernel
+   group, idle share); then a ``--serve-quantize fp8`` server (4 requests; drift below 0.15; 12 full-row and 25 norm
+   launches per batch, no W8A8 dense); each drains on SIGTERM and exits 0;
+9. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
@@ -120,10 +137,20 @@ also holds the decode attention against ``decode_attention_plain`` at phase
 7's step (8, 12, 512, 64) in fp32 and bf16, with int8 KV, with mixed
 positions and junk rows past them, and at the 128 bucket; its yardstick is
 SDPA over the single query row with the bias row and the dead rows in a
-float mask (int8: the dequant, then SDPA).
+float mask (int8: the dequant, then SDPA).  And it holds the three int8
+serving kernels at BERT-base serving shapes (8 x 512 = 4096 rows): the W8A8
+dense against ``quant_matmul_plain`` at ``in_proj`` (768 -> 2304, bias),
+``fc1`` (768 -> 3072, GELU), ``fc2`` (3072 -> 768), the LM head (768 ->
+768, GELU) and an M of 4093 (1e-6 of the output's absmax; yardstick one
+``torch._int_mm`` plus the epilogue in torch ops); the int8 LayerNorm at
+(4096, 768) with a scalar and a per-channel scale (the dequant multiply
+plus ``F.layer_norm``); the int8/int32 softmax on (8, 12, 512, 512) int32
+scores with the (8, 1, 1, 512) ``finfo.min`` key mask and the (1, 12, 512,
+512) bias, and on int8 at (8, 12, 128, 128) (the dequant multiply, the adds
+and ``torch.softmax``).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 7 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 8 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -148,7 +175,7 @@ WORK = ROOT / "build" / "chip_smoke"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 #: tolerances, kernel vs plain version on the same inputs.  Forward
 #: outputs, max abs error: fp32 differs only in summation order; bf16 may
 #: round last-bit fp32 differences to neighbouring bf16 values (one ulp is
@@ -203,6 +230,12 @@ KERNELS = {
                            "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
     "decode_attention": ("unicore_tpu/ops/decode_attention.py:98",
                          "unicore_tpu_torch/csrc/decode_attention.cu", "decode_serve"),
+    "quant_matmul": ("unicore_tpu/ops/quant_matmul.py:147",
+                     "unicore_tpu_torch/csrc/quant_matmul.cu", "quant_serve"),
+    "quant_layer_norm": ("unicore_tpu/ops/fused_norm.py:281",
+                         "unicore_tpu_torch/csrc/fused_norm.cu", "quant_serve"),
+    "quant_softmax_dropout_fwd": ("unicore_tpu/ops/softmax_dropout_pallas.py:443",
+                                  "unicore_tpu_torch/csrc/softmax_dropout.cu", "quant_serve"),
 }
 
 
@@ -977,6 +1010,131 @@ def check_decode(torch, device, c, iters, seed=5150):
     nbytes = (2 * q.numel() * q.element_size() + 4 * B
               + live_rows * H * (2 * D * k.element_size() + 4) + 8 * H * D * bool(scales))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4 * live_rows * H * D, "float32")
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
+def check_quant_matmul(torch, device, c, iters):
+    """#13 against ``quant_matmul_plain`` at one BERT-base dense site: int8
+    x (M, K) and w (N, K), the combined scale, the site's bias and
+    activation; fp32 out within 1e-6 of its absmax.  Yardstick: one
+    ``torch._int_mm`` (where it takes the shape) plus the epilogue in torch
+    ops."""
+    from unicore_tpu_torch.ops import quant_matmul as qm
+    from unicore_tpu_torch.utils import get_activation_fn
+
+    M, K, N, act = c["M"], c["K"], c["N"], c["act"]
+    g = torch.Generator(device=device).manual_seed(M + K + N)
+    x = torch.randint(-127, 128, (M, K), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(N, generator=g, device=device) * 2e-5 + 1e-5
+    bias = torch.randn(N, generator=g, device=device) if c["bias"] else None
+    on_card = device.type == "cuda"
+    call = ((lambda: qm.quant_matmul_kernel(x, w, scale, bias, act)) if on_card
+            else (lambda: qm.quant_matmul_plain(x, w, scale, bias, act)))
+    plain = lambda: qm.quant_matmul_plain(x, w, scale, bias, act)  # noqa: E731
+    fn = get_activation_fn(act) if act else (lambda t: t)
+
+    def library():
+        y = torch._int_mm(x, w.t()).float() * scale
+        return fn(y + bias if bias is not None else y)
+
+    ref = plain()
+    err = (call() - ref).abs().max().item()
+    tol = 1e-6 * ref.abs().max().item()
+    name = f"quant_matmul {c['name']} M={M} K={K} N={N} act={act or 'linear'}"
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
+    res = {"site": c["name"], "shape": [M, K, N], "dtype": "int8", "activation": act,
+           "bias": bool(c["bias"]), "max_abs_err": err, "tolerance": "1e-6 x max|ref|"}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2))
+    try:
+        library()
+        timed(res, "library_ms", torch, library, device, iters)
+    except RuntimeError as err_lib:  # _int_mm refuses some shapes
+        res["library_ms"] = res["library_ms_spread"] = res["library_device_ms"] = None
+        res["library_refused"] = str(err_lib).splitlines()[0][:200]
+    nbytes = M * K + N * K + 4 * N * (2 if bias is not None else 1) + 4 * M * N
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * M * N * K, "int8")
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
+def check_quant_norm(torch, device, N, D, per_channel, iters):
+    """7q against ``quant_layer_norm_plain``: int8 (N, D) dequantized by one
+    scale or (D,) of them; tolerance the fp32 norm's.  Yardstick: the
+    dequant multiply and one ``F.layer_norm``."""
+    import torch.nn.functional as F
+
+    from unicore_tpu_torch.ops import fused_norm as fn
+
+    g = torch.Generator(device=device).manual_seed(N + D)
+    x = torch.randint(-127, 128, (N, D), generator=g, device=device,
+                      dtype=torch.int32).to(torch.int8)
+    scale = torch.rand(D if per_channel else (), generator=g, device=device) * 0.05 + 0.01
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=device)
+    b = 0.1 * torch.randn(D, generator=g, device=device)
+    call = ((lambda: fn.quant_layer_norm_kernel(x, scale, w, b)) if device.type == "cuda"
+            else (lambda: fn.quant_layer_norm_plain(x, scale, w, b)))
+    plain = lambda: fn.quant_layer_norm_plain(x, scale, w, b)  # noqa: E731
+    library = lambda: F.layer_norm(x.float() * scale, (D,), w, b, 1e-5)  # noqa: E731
+    err = (call() - plain()).abs().max().item()
+    tol = TOL["norm"]["float32"]
+    name = f"quant_layer_norm N={N} D={D} {'per-channel' if per_channel else 'scalar'} scale"
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
+    res = {"shape": [N, D], "dtype": "int8", "per_channel_scale": per_channel,
+           "max_abs_err": err, "tolerance": tol}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "library_ms", torch, library, device, iters)
+    nbytes = N * D + 4 * N * D + 4 * D * (3 if per_channel else 2)
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 9 * N * D, "float32")
+    log(f"{name}: {json.dumps(res)}")
+    return res
+
+
+def check_quant_softmax(torch, device, c, iters):
+    """10q against ``quant_softmax_dropout_plain``: int32 (or int8) scores of
+    BERT serving, one device scale, the ``finfo.min`` key mask of padded
+    rows (B, 1, 1, L) and the rel-pos bias (1, H, L, L); tolerance the fp32
+    softmax's.  Yardstick: the dequant multiply, the adds and one
+    ``torch.softmax``."""
+    from unicore_tpu_torch.ops import quant_softmax_dropout as qsd
+    from unicore_tpu_torch.ops import softmax_dropout as sd
+
+    shape, dtype = tuple(c["shape"]), getattr(torch, c["dtype"])
+    B, H, Lq, L = shape
+    g = torch.Generator(device=device).manual_seed(L + len(c["dtype"]))
+    hi = 128 if dtype == torch.int8 else 200_000
+    x = torch.randint(-hi + 1, hi, shape, generator=g, device=device,
+                      dtype=torch.int32).to(dtype)
+    scale = torch.tensor(3.0 / hi, device=device)
+    lens = torch.linspace(L, L // 4, B, device=device).long()
+    mask = ((torch.arange(L, device=device)[None, :] >= lens[:, None]).float()
+            * torch.finfo(torch.float32).min)[:, None, None, :]
+    bias = torch.randn(1, H, Lq, L, generator=g, device=device)
+    call = ((lambda: sd.quant_softmax_dropout_kernel(x, scale, 0.0, mask, bias))
+            if device.type == "cuda"
+            else (lambda: qsd.quant_softmax_dropout_plain(x, scale, 0.0, mask, bias)))
+    plain = lambda: qsd.quant_softmax_dropout_plain(x, scale, 0.0, mask, bias)  # noqa: E731
+    library = lambda: torch.softmax(x.float() * scale + mask + bias, -1)  # noqa: E731
+    err = (call() - plain()).abs().max().item()
+    tol = TOL["softmax"]
+    name = f"quant_softmax_dropout {shape} {c['dtype']}"
+    if not (err <= tol and math.isfinite(err)):
+        raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
+    res = {"shape": list(shape), "dtype": c["dtype"], "mask": list(mask.shape),
+           "bias": list(bias.shape), "max_abs_err": err, "tolerance": tol}
+    timed(res, "ms", torch, call, device, iters)
+    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2))
+    timed(res, "library_ms", torch, library, device, max(iters // 4, 2))
+    n = x.numel()
+    nbytes = n * x.element_size() + 4 * n + 4 * (mask.numel() + bias.numel())
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 6 * n, "float32")
     log(f"{name}: {json.dumps(res)}")
     return res
 
@@ -1927,6 +2085,263 @@ def drive_decode_serving(torch, cfg, path, lm, card, smi, kv):
         server.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: quantized serving of the BERT checkpoint
+# ---------------------------------------------------------------------------
+
+def quant_per_batch(layers, mode):
+    """Kernel launches of one quantized BERT forward: int8 runs 4 W8A8
+    denses a layer plus the LM head's, one int8 softmax a layer, the LM
+    head's int8 LayerNorm and the other 2 x layers + 1 norms; fp8 runs the
+    full-row attention and those norms (its LM-head norm is plain), no
+    W8A8 dense."""
+    if mode == "int8":
+        return {"quant_matmul": 4 * layers + 1, "quant_softmax_dropout_fwd": layers,
+                "quant_layer_norm": 1, "fused_norm_fwd": 2 * layers + 1,
+                "fullrow_attention_fwd": 0}
+    return {"quant_matmul": 0, "quant_softmax_dropout_fwd": 0, "quant_layer_norm": 0,
+            "fused_norm_fwd": 2 * layers + 1, "fullrow_attention_fwd": layers}
+
+
+def load_quantized(torch, path, mode, device):
+    """(fp32 model, quantized model) of the checkpoint on ``device``, the
+    latter from the server's sidecar (its digest verified)."""
+    from unicore_tpu_torch import checkpoint_utils, tasks
+    from unicore_tpu_torch.quant import calibrate
+
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+    task = tasks.setup_task(state["args"])
+    model = task.build_model(state["args"])
+    model.load_state_dict(state["model"])
+    model.eval()
+    doc = calibrate.load_scales(calibrate.scales_path(str(path)))
+    if doc is None or doc["mode"] != mode or not calibrate.digest_matches(
+            doc, model.state_dict()):
+        raise AssertionError(f"the {mode} sidecar beside {path} does not verify")
+    model_q = calibrate.load_prepared(
+        model.clone(quantize=mode),
+        calibrate.prepare(model.state_dict(), doc["sites"], mode))
+    return model.to(device), model_q.to(device)
+
+
+def cpu_quant_reference(torch, path, mode, rows, bucket, pad_idx):
+    """ids/score for ``rows`` padded to ``bucket``: the same checkpoint
+    quantized in this process on the CPU from the server's sidecar, through
+    the plain versions."""
+    import numpy as np
+
+    from unicore_tpu_torch.serve import build_infer_fn
+
+    _, model_q = load_quantized(torch, path, mode, "cpu")
+    arr = np.full((len(rows), bucket), pad_idx, np.int32)
+    for i, r in enumerate(rows):
+        arr[i, : len(r)] = r
+    return build_infer_fn("cpu")(model_q, arr)
+
+
+QUANT_GROUPS = (("quant_matmul", ("quant_matmul",)), ("quant_layer_norm", ("quant_layer_norm",)),
+                ("softmax_kernel", ("softmax_dropout_fwd",)),
+                ("fullrow_attention", ("fullrow_",))) + KERNEL_GROUPS
+
+
+def profile_serve_batches(torch, cfg, path, card, smi):
+    """The served forward of one full batch (8 rows at the top bucket,
+    through the engine's own ``build_infer_fn``) in this process, int8 and
+    fp32 on the same weights: wall time per batch unprofiled, then device
+    time by kernel group under ``torch.profiler``; the idle share is the
+    part of the wall time the device time does not fill."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from unicore_tpu_torch.serve import build_infer_fn
+
+    dev, n = cfg["device"], cfg["quant_serve"]["profile_batches"]
+    model, model_q = load_quantized(torch, path, "int8", dev)
+    bucket = max(cfg["quant_serve"]["lengths"])  # the top bucket
+    arr = np.random.default_rng(14).integers(5, model.vocab_size, (cfg["batch"], bucket))
+    infer = build_infer_fn(dev)
+    out = {"batch": cfg["batch"], "bucket": bucket, "batches": n, "card": card,
+           "nvidia_smi": smi}
+    for name, m in (("int8", model_q), ("fp32", model)):
+        infer(m, arr)  # warm
+        t0 = time.perf_counter()
+        for _ in range(n):
+            infer(m, arr)
+        wall_us = (time.perf_counter() - t0) * 1e6
+        res = {"batch_wall_ms": wall_us / n / 1e3}
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    infer(m, arr)
+                torch.cuda.synchronize()
+            groups = {g: 0.0 for g, _ in QUANT_GROUPS}
+            groups["other"] = 0.0
+            top = []
+            for ev in prof.key_averages():
+                if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+                    continue
+                g = next((g for g, keys in QUANT_GROUPS if any(k in ev.key for k in keys)),
+                         "other")
+                groups[g] += ev.self_device_time_total
+                top.append((ev.self_device_time_total, ev.key[:90], ev.count))
+            busy = sum(groups.values())
+            top.sort(reverse=True)
+            res.update({
+                "device_busy_ms_per_batch": busy / n / 1e3,
+                "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+                "device_ms_per_batch_by_group": {k: v / n / 1e3 for k, v in groups.items()},
+                "top_kernels": [{"name": k, "device_ms_per_batch": t / n / 1e3, "calls": c}
+                                for t, k, c in top[:10]],
+            })
+        out[name] = res
+    del model, model_q
+    print("quant_profile " + json.dumps(out), flush=True)
+
+
+def drive_quant_serving(torch, cfg, path, card, smi, mode):
+    """``python -m unicore_tpu_torch.cli.serve --serve-quantize <mode>
+    --quant-drift-sample 1`` on phase 4a's checkpoint: the ``QUANT-PATH``
+    line, the sidecar, /stats' ``precision`` and ``quant`` block with every
+    request's drift sampled, the calibration drift within the JAX package's
+    bound, the serving path's launches per batch (the drift probe's, counted
+    apart, subtracted), for int8 two answers against this process's CPU on
+    the same sidecar; SIGTERM drains and exits 0.  Prints the
+    ``quant_serve`` line and returns the serving path's launches."""
+    import numpy as np
+
+    from unicore_tpu_torch import checkpoint_utils, tasks
+    from unicore_tpu_torch.quant import calibrate
+
+    q = cfg["quant_serve"]
+    lengths = q["lengths"] if mode == "int8" else q["lengths"][: q["fp8_requests"]]
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+    task = tasks.setup_task(state["args"])
+    vocab, pad = len(task.dictionary), task.dictionary.pad()
+    del state
+    t0 = time.monotonic()
+    server = Server(path, cfg, ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets",
+                                "4", "--serve-quantize", mode, "--quant-drift-sample", "1"],
+                    name=f"quant_serve_{mode}")
+    try:
+        server.wait_ready(cfg["ready_budget_s"])
+        startup_s = time.monotonic() - t0
+        line = next((ln for ln in server.log_text().splitlines()
+                     if f"QUANT-PATH {mode}:" in ln), None)
+        sidecar = calibrate.scales_path(str(path))
+        if line is None or f"scales at {sidecar}" not in line or not os.path.exists(sidecar):
+            raise AssertionError(f"no QUANT-PATH line naming {sidecar}:\n"
+                                 f"{server.log_text()[-6000:]}")
+        log(f"{mode} server ready after {startup_s:.1f}s: {line.split('QUANT-PATH', 1)[1]}")
+        rng = np.random.default_rng(cfg["seed"] + 8)
+        reqs = [rng.integers(5, vocab, size=n).tolist() for n in lengths]
+        code, before = http("GET", server.base + "/stats")
+        assert code == 200, before
+
+        def send(toks):
+            t = time.monotonic()
+            code, body = http("POST", server.base + "/v1/infer", {"tokens": toks})
+            return code, body, (time.monotonic() - t) * 1e3
+
+        half = len(reqs) // 2
+        results = [send(r) for r in reqs[:half]]
+        with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
+            results += list(pool.map(send, reqs[half:]))
+        deadline = time.monotonic() + 60  # the last batch's drift sample follows it
+        while True:
+            code, after = http("GET", server.base + "/stats")
+            assert code == 200, after
+            if after["quant"]["request_drift"]["samples"] >= len(reqs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        buckets = set()
+        for toks, (code, body, _) in zip(reqs, results):
+            if code != 200 or len(body["output"]) != len(toks) \
+                    or not math.isfinite(body["score"]):
+                raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
+            buckets.add(body["bucket"])
+        if mode == "int8" and buckets != set(after["buckets"]):
+            raise AssertionError(f"buckets hit {sorted(buckets)} != {after['buckets']}")
+        quant = after["quant"]
+        if after["precision"] != mode or quant["mode"] != mode \
+                or quant["rel_drift"] >= q["rel_drift_bound"][mode] \
+                or quant["request_drift"]["samples"] != len(reqs):
+            raise AssertionError(f"/stats precision {after['precision']}, quant {quant}")
+
+        batches = after["batches"] - before["batches"]
+
+        def delta(key):
+            a, b = after.get(key, {}), before.get(key, {})
+            return {k: a.get(k, 0) - b.get(k, 0) for k in a}
+
+        total, probe = delta("kernel_launches"), delta("probe_kernel_launches")
+        launches = {k: n - probe.get(k, 0) for k, n in total.items()}
+        want = quant_per_batch(q["layers"], mode)
+        log(f"quant main path ({mode}): {len(reqs)} requests in {batches} batches, "
+            f"serving launches {launches}, drift probe launches {probe} "
+            f"(want per batch {want})")
+        if batches <= 0:
+            raise AssertionError("no batch was served")
+        if cfg["device"].type == "cuda":
+            for k, n in want.items():
+                if launches.get(k, 0) != n * batches:
+                    raise AssertionError(f"{k}: {launches.get(k, 0)} launches for "
+                                         f"{batches} batches, want {n} per batch")
+            fp = quant_per_batch(q["layers"], "fp8")  # the fp32 model's, less its LM head
+            probe_want = {k: want[k] + fp[k] for k in want}
+            probe_want["fused_norm_fwd"] += 1  # the fp32 LM head's norm is a kernel
+            for k, n in probe_want.items():
+                if probe.get(k, 0) != n * batches:
+                    raise AssertionError(f"drift probe {k}: {probe.get(k, 0)} launches "
+                                         f"for {batches} batches, want {n} per batch")
+
+        agreement = None
+        if mode == "int8":  # two answers of the smallest bucket against the CPU
+            small = [i for i, (_, b, _) in enumerate(results)
+                     if b["bucket"] == min(buckets)][:2]
+            ids, score = cpu_quant_reference(torch, path, mode, [reqs[i] for i in small],
+                                             min(buckets), pad)
+            agree = total_ids = 0
+            worst = 0.0
+            for row, i in enumerate(small):
+                got = np.asarray(results[i][1]["output"])
+                agree += int((got == ids[row, : len(got)]).sum())
+                total_ids += len(got)
+                rel = (abs(results[i][1]["score"] - float(score[row]))
+                       / max(abs(float(score[row])), 1e-6))
+                worst = max(worst, rel)
+            if agree < 0.99 * total_ids or worst > 1e-3:
+                raise AssertionError(f"{mode} answers vs the CPU: ids {agree}/{total_ids}, "
+                                     f"score rel err {worst}")
+            agreement = {"requests": len(small), "ids_equal": agree, "ids": total_ids,
+                         "score_rel_err": worst}
+            log(f"quant CPU agreement: {json.dumps(agreement)}")
+
+        server.proc.send_signal(signal.SIGTERM)
+        rc = server.proc.wait(timeout=180)
+        if rc != 0 or "DRAIN complete" not in server.log_text():
+            raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
+        lat = np.asarray([r[2] for r in results])
+        res = {
+            "mode": mode, "requests": len(reqs), "batches": batches,
+            "startup_s": startup_s,
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99)),
+            "server_p50_ms": after.get("p50_ms"), "server_p99_ms": after.get("p99_ms"),
+            "calibration": {k: quant[k] for k in (
+                "source", "sites", "rel_drift", "max_abs_logit_drift",
+                "mean_abs_logit_drift", "ref_logit_absmax", "batches")},
+            "request_drift": quant["request_drift"], "launches": launches,
+            "probe_launches": probe, "per_batch_want": want, "cpu_agreement": agreement,
+            "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+        }
+        print(f"quant_serve_{mode} " + json.dumps(res), flush=True)
+        return launches
+    finally:
+        server.stop()
+
+
 def check_decode_parity(torch, cfg, path):
     """In this process on the card, at full width: a batch of prompts in the
     smallest cache bucket, prefilled, then decoded step by step over dense
@@ -2088,6 +2503,25 @@ CHIP = {
         {"name": "mixed", "shape": (8, 12, 512, 64), "dtype": "float32", "mixed": True},
         {"name": "bucket128", "shape": (8, 12, 128, 64), "dtype": "float32"},
     ],
+    # the int8 serving kernels at BERT-base serving shapes, batch 8 x 512
+    # rows: the denses in_proj, fc1 (GELU), fc2, the LM head's (GELU), and an
+    # M that is not a multiple of 16; the LM head's norm with a scalar and a
+    # per-channel scale; the scores at the top bucket (int32) and an int8
+    # input at the smallest
+    "quant_matmul": [
+        {"name": "in_proj", "M": 4096, "K": 768, "N": 2304, "act": "", "bias": True},
+        {"name": "fc1", "M": 4096, "K": 768, "N": 3072, "act": "gelu", "bias": True},
+        {"name": "fc2", "M": 4096, "K": 3072, "N": 768, "act": "", "bias": True},
+        {"name": "lm_head", "M": 4096, "K": 768, "N": 768, "act": "gelu", "bias": True},
+        {"name": "odd_m", "M": 4093, "K": 768, "N": 2304, "act": "", "bias": True},
+    ],
+    "quant_norm": [(4096, 768, False), (4096, 768, True)],
+    "quant_softmax": [{"shape": (8, 12, 512, 512), "dtype": "int32"},
+                      {"shape": (8, 12, 128, 128), "dtype": "int8"}],
+    # phase 8: 12 requests over every bucket of 128/256/384/512, 4 at fp8
+    "quant_serve": {"layers": 12, "fp8_requests": 4, "profile_batches": 10,
+                    "lengths": [30, 200, 300, 450, 128, 256, 384, 512, 90, 250, 380, 500],
+                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15}},
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
     "docs": 400, "doc_words": (380, 510),
@@ -2181,6 +2615,17 @@ REHEARSAL = {
         {"name": "serve_int8", "shape": (2, 2, 64, 16), "dtype": "float32", "int8": True},
         {"name": "mixed", "shape": (3, 2, 64, 16), "dtype": "float32", "mixed": True},
     ],
+    "quant_matmul": [
+        {"name": "in_proj", "M": 256, "K": 64, "N": 192, "act": "", "bias": True},
+        {"name": "fc1", "M": 256, "K": 64, "N": 128, "act": "gelu", "bias": True},
+        {"name": "odd_m", "M": 250, "K": 128, "N": 64, "act": "", "bias": False},
+    ],
+    "quant_norm": [(256, 64, False), (256, 64, True)],
+    "quant_softmax": [{"shape": (2, 4, 128, 128), "dtype": "int32"},
+                      {"shape": (2, 4, 128, 128), "dtype": "int8"}],
+    "quant_serve": {"layers": 2, "fp8_requests": 4, "profile_batches": 2,
+                    "lengths": [10, 40, 70, 100, 32, 64, 96, 128],
+                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15}},
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
     "docs": 48, "doc_words": (60, 126),
@@ -2233,7 +2678,7 @@ REHEARSAL = {
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 7 on the CPU at a tiny size, no card")
+                        help="phases 3 to 8 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -2306,6 +2751,12 @@ def main(argv=None):
     flash_mask = check_flash_mask(torch, dev, *cfg["flash_mask"], 0.1, 2026)
     for c in cfg["decode_checks"]:
         checks["decode_attention"].append(check_decode(torch, dev, c, iters))
+    for c in cfg["quant_matmul"]:
+        checks["quant_matmul"].append(check_quant_matmul(torch, dev, c, iters))
+    for N, D, per_channel in cfg["quant_norm"]:
+        checks["quant_layer_norm"].append(check_quant_norm(torch, dev, N, D, per_channel, iters))
+    for c in cfg["quant_softmax"]:
+        checks["quant_softmax_dropout_fwd"].append(check_quant_softmax(torch, dev, c, iters))
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
@@ -2340,19 +2791,28 @@ def main(argv=None):
     decode8_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "int8")
     profile_decode_steps(torch, cfg, lm_path, lm, card, smi)
     log(f"phase 7 done at {time.monotonic() - started:.0f}s")
+
+    # 8. quantized serving of phase 4a's checkpoint: int8, then fp8
+    # (the profile reads the int8 sidecar, which the fp8 server replaces)
+    quant_launches = drive_quant_serving(torch, cfg, ckpt, card, smi, "int8")
+    profile_serve_batches(torch, cfg, ckpt, card, smi)
+    quant8_launches = drive_quant_serving(torch, cfg, ckpt, card, smi, "fp8")
+    log(f"phase 8 done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 8. result lines: each kernel at its main path's shape (fp32, the
+    # 9. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
     # Evoformer for the flash kernels, decode serving for the decode
-    # attention), every path's beside it
+    # attention, int8 serving for the quantized kernels), every path's
+    # beside it
     by_path = {"train": train_launches, "serve": serve_launches,
                "unimol_train": unimol_launches, "evoformer_train": evoformer_launches,
-               "decode_serve": decode_launches, "decode_serve_int8": decode8_launches}
+               "decode_serve": decode_launches, "decode_serve_int8": decode8_launches,
+               "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

@@ -27,7 +27,7 @@ from unicore_tpu.ops import _pallas
 
 from unicore_tpu_torch.ops import _kernels
 from unicore_tpu_torch.ops import decode_attention as port_da
-from unicore_tpu_torch.ops.quant import INT8_QMAX, quantize_to_dtype
+from unicore_tpu_torch.ops.quant_matmul import INT8_QMAX, quantize_to_dtype
 
 jax_da = importlib.import_module("unicore_tpu.ops.decode_attention")
 

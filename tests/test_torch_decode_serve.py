@@ -79,6 +79,16 @@ def _check_rollout(jax_model, variables, prompt, got, max_new):
     assert got == want, (prompt, got, want)
 
 
+def _jax_max_new(value):
+    """The JAX server's ``max_new_tokens`` rule: ``int(value)``, then > 0;
+    None where it answers 400."""
+    try:
+        n = int(value)
+    except (TypeError, ValueError):
+        return None
+    return n if n > 0 else None
+
+
 def test_serve_generate_matches_jax_rollout(tmp_path):
     path, jax_model, variables = write_lm_checkpoint(tmp_path)
     srv = PortServer(tmp_path / "serve.log", [
@@ -106,17 +116,25 @@ def test_serve_generate_matches_jax_rollout(tmp_path):
         code, body = _post(srv.base + "/v1/infer", {"tokens": prompts[1]})
         assert code == 200, body
         _check_rollout(jax_model, variables, prompts[1], body["output"], MAX_NEW)
-        for bad in ("x", 0, -3, 2.5, True):
+        # max_new_tokens as the JAX server takes it: whatever int() takes,
+        # then positive (unicore_tpu/serve/http.py:291-303)
+        for value in ("16", 2.5, True, "x", 0, -3, [1]):
             code, body = _post(srv.base + "/v1/generate",
-                               {"tokens": prompts[0], "max_new_tokens": bad})
-            assert code == 400 and "max_new_tokens" in body["reason"], (bad, body)
+                               {"tokens": prompts[0], "max_new_tokens": value})
+            want = _jax_max_new(value)
+            if want is None:
+                assert code == 400 and "max_new_tokens" in body["reason"], (value, body)
+                continue
+            assert code == 200 and 1 <= len(body["output"]) <= min(want, MAX_NEW), (value, body)
+            _check_rollout(jax_model, variables, prompts[0], body["output"],
+                           min(want, MAX_NEW))
         code, body = _post(srv.base + "/v1/generate", {"tokens": [5] * (TOP + 1)})
         assert (code, body["reason"]) == (400, "too-long")
 
         code, st = _get(srv.base + "/stats")
         assert code == 200 and st["mode"] == "decode" and st["kv_dtype"] == "float32"
-        assert st["served"] == len(prompts) + 2 and st["buckets"] == [64, TOP]
-        assert st["decode_steps"] > 0 and st["prefill_batches"] >= len(prompts) + 2
+        assert st["served"] == len(prompts) + 5 and st["buckets"] == [64, TOP]
+        assert st["decode_steps"] > 0 and st["prefill_batches"] >= len(prompts) + 5
         assert st["tokens_generated"] > 0 and st["tokens_per_s"] > 0
         assert st["token_p50_ms"] > 0 and st["token_p99_ms"] >= st["token_p50_ms"]
         assert st["cache_page_occupancy"] == 0.0 and st["active_sequences"] == 0

@@ -8,7 +8,11 @@ forward and backward, with and without dropout; the four flash kernels
 1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
 the dbias sum's repeatability; the decode attention (fp32, bf16, int8 caches
 with fp32 and bf16 q, head dims 4 to 256, L of 1 to 512, mixed positions
-with junk rows past them) and the shapes it refuses; plus the wrappers'
+with junk rows past them) and the shapes it refuses; the int8 serving
+kernels (the W8A8 dense at every activation, with and without bias, odd M
+and an exact-sum check past 2**24; the int8 LayerNorm with a scalar and a
+per-channel scale; the int8/int32 softmax with every extra layout and
+dropout) and their refusals; plus the wrappers'
 refusals and a tiny BERT, a tiny Uni-Mol and a 2-block Evoformer on the card
 against the same weights on the CPU, their outputs and every parameter's
 gradient, and a 2-layer full-width ``transformer_lm`` whose incremental
@@ -30,6 +34,13 @@ Softmax(+dropout): fp32 1e-6 absolute (probabilities, summation order
 and exp's last bits); bf16 that plus two bf16 ulps of the element (2**-6
 of it: the cast of p, and of the dropped quotient, may each land on a
 neighbouring bf16 value).
+
+Quantized kernels, vs their plain versions: the W8A8 dense 1e-6 of the
+output's absmax (both sums exact; the activations' last bits differ); the
+int8 LayerNorm 1e-5 and the int8/int32 softmax 1e-6 absolute, as their
+unquantized kernels.  A 2-layer BERT prepared on the CPU (int8 and fp8),
+card vs CPU: 5e-3 of the logit absmax and argmax equal on 99% of the
+positions (a rare activation may round to the neighbouring int8 step).
 
 Decode attention, kernel vs ``decode_attention_plain``: fp32 q 1e-5
 absolute (int8 caches included: both dequantize in fp32 and differ only in
@@ -764,3 +775,179 @@ def test_transformer_lm_incremental_decode_on_card_matches_cpu(cuda):
     assert da.LAUNCHES.count == 2 * steps and fn.LAUNCHES.count == 6 * steps
     got = torch.stack(rows, dim=1)
     assert ((got - full).abs() <= 1e-4 + 1e-4 * full.abs()).all(), (got - full).abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the int8 serving kernels: the W8A8 dense, the int8 LayerNorm and the
+# int8/int32 softmax
+# ---------------------------------------------------------------------------
+
+def _int8(g, shape, device, lo=-127, hi=128):
+    return torch.randint(lo, hi, shape, generator=g, device=device, dtype=torch.int32
+                         ).to(torch.int8)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 32, 8), (77, 64, 40), (300, 768, 2304),
+                                   (130, 3072, 768), (4096, 768, 768), (257, 96, 136)])
+@pytest.mark.parametrize("act,with_bias", [("", False), ("gelu", True), ("relu", True),
+                                           ("gelu_fast", False), ("tanh", True),
+                                           ("silu", True)])
+def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, act, with_bias):
+    """#13 against ``quant_matmul_plain``: fp32 out within 1e-6 of the
+    output's absmax (the int32 sums are exact on both sides; only the
+    activation's last bits differ)."""
+    from unicore_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=cuda).manual_seed(M * 7 + K + N)
+    x, w = _int8(g, (M, K), cuda), _int8(g, (N, K), cuda)
+    scale = torch.rand(N, generator=g, device=cuda) * 1e-4 + 1e-5
+    bias = torch.randn(N, generator=g, device=cuda) if with_bias else None
+    _kernels.reset_launch_counts()
+    out = qm.quant_matmul(x, w, scale, bias, act)
+    assert qm.LAUNCHES.count == 1 and out.dtype == torch.float32 and out.shape == (M, N)
+    ref = qm.quant_matmul_plain(x, w, scale, bias, act)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-6 * max(ref.abs().max().item(), 1e-30), err
+
+
+def test_quant_matmul_kernel_sums_exactly(cuda):
+    """+-127 operands over K = 3072 (sums near 5e7, past fp32's 2**24 and
+    past an int8 result's wrap): with scale 1 the output is the int32 sum
+    rounded once to fp32, bit for bit the plain version's."""
+    from unicore_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    M, K, N = 64, 3072, 256
+    x = torch.where(torch.rand(M, K, generator=g, device=cuda) < 0.9, 127, -127).to(torch.int8)
+    w = torch.full((N, K), 127, dtype=torch.int8, device=cuda)
+    w[1::2] = -127
+    out = qm.quant_matmul(x, w, torch.ones(N, device=cuda))
+    acc = qm.int8_matmul_plain(x, w)
+    assert acc.abs().max().item() > 2 ** 24
+    assert torch.equal(out, acc.float())
+
+
+def test_quant_kernels_refusals(cuda):
+    from unicore_tpu_torch.ops import quant_matmul as qm
+
+    x = torch.zeros(4, 64, dtype=torch.int8, device=cuda)
+    w = torch.zeros(16, 64, dtype=torch.int8, device=cuda)
+    s = torch.ones(16, device=cuda)
+    _kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qm.quant_matmul(torch.zeros(4, 48, dtype=torch.int8, device=cuda),
+                        torch.zeros(16, 48, dtype=torch.int8, device=cuda), s)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        qm.quant_matmul(x, torch.zeros(12, 64, dtype=torch.int8, device=cuda),
+                        torch.ones(12, device=cuda))
+    with pytest.raises(ValueError, match="int8 operands"):
+        qm.quant_matmul_kernel(x.float().to(torch.float8_e4m3fn),
+                               w.float().to(torch.float8_e4m3fn), s)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        qm.quant_matmul(x, w, s.cpu())
+    with pytest.raises(ValueError, match="scale must be fp32"):
+        qm.quant_matmul(x, w, torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="activation"):
+        qm.quant_matmul(x, w, s, activation="softplus")
+    with pytest.raises(ValueError, match="scale must be fp32"):
+        fn.quant_layer_norm_kernel(x, torch.ones(3, device=cuda), torch.ones(64, device=cuda),
+                                   torch.zeros(64, device=cuda))
+    with pytest.raises(ValueError, match="int8/int32"):
+        sd.quant_softmax_dropout_kernel(torch.zeros(2, 8, 128, device=cuda),
+                                        torch.ones((), device=cuda))
+    with pytest.raises(ValueError, match="refused"):
+        sd.quant_softmax_dropout_kernel(torch.zeros(2, 8, 100, dtype=torch.int32, device=cuda),
+                                        torch.ones((), device=cuda))
+    assert sum(_kernels.launch_counts().values()) == 0  # refused calls launch nothing
+    # fp8 is the plain composition on the card too (the JAX route): no launch
+    y = qm.quant_matmul(x.float().to(torch.float8_e4m3fn), w.float().to(torch.float8_e4m3fn), s)
+    assert y.is_cuda and qm.LAUNCHES.count == 0
+
+
+@pytest.mark.parametrize("N,D", [(1, 8), (5, 33), (4096, 768), (7, 8192)])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_quant_layer_norm_kernel_matches_plain(cuda, N, D, per_channel):
+    from unicore_tpu_torch.ops.quant_norm import quant_layer_norm
+
+    g = torch.Generator(device=cuda).manual_seed(N + D)
+    x = _int8(g, (2, N, D), cuda)
+    scale = (torch.rand(D if per_channel else (), generator=g, device=cuda) * 0.05 + 0.01)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    b = 0.1 * torch.randn(D, generator=g, device=cuda)
+    _kernels.reset_launch_counts()
+    out = quant_layer_norm(x, scale, w, b)
+    assert fn.QUANT_LAUNCHES.count == 1 and out.dtype == torch.float32
+    ref = fn.quant_layer_norm_plain(x, scale, w, b)
+    assert (out - ref).abs().max().item() <= TOL["norm"][torch.float32]
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,mask_shape,bias_shape,rate",
+    [
+        ((2, 3, 128, 256), torch.int32, (2, 1, 1, 256), (1, 3, 128, 256), 0.0),
+        ((2, 12, 512, 512), torch.int32, (2, 1, 1, 512), (1, 12, 512, 512), 0.0),
+        ((4, 2, 128, 128), torch.int8, None, None, 0.0),
+        ((6, 16, 384), torch.int32, None, (2, 16, 384), 0.1),  # tile
+        ((2, 8, 2048), torch.int8, (2, 1, 2048), None, 0.1),  # block rows
+    ],
+)
+def test_quant_softmax_kernel_matches_plain(cuda, shape, dtype, mask_shape, bias_shape, rate):
+    from unicore_tpu_torch.ops import quant_softmax_dropout as qsd
+
+    g = torch.Generator(device=cuda).manual_seed(shape[-1] + len(shape))
+    hi = 128 if dtype == torch.int8 else 200_000
+    x = torch.randint(-hi + 1, hi, shape, generator=g, device=cuda,
+                      dtype=torch.int32).to(dtype)
+    scale = torch.tensor(3.0 / hi, device=cuda)
+    mask = None
+    if mask_shape is not None:
+        mask = (torch.rand(mask_shape, generator=g, device=cuda) < 0.2).float() \
+            * torch.finfo(torch.float32).min
+    bias = None if bias_shape is None else torch.randn(bias_shape, generator=g, device=cuda)
+    _kernels.reset_launch_counts()
+    out = sd.quant_softmax_dropout_kernel(x, scale, rate, mask, bias, seed=17)
+    assert sd.QUANT_LAUNCHES.count == 1 and out.dtype == torch.float32
+    ref = qsd.quant_softmax_dropout_plain(x, scale, rate, mask, bias, seed=17)
+    assert (out - ref).abs().max().item() <= TOL["softmax"]
+    if rate:
+        assert torch.equal(out != 0, ref != 0)
+
+
+def test_tiny_bert_quantized_on_card_matches_cpu(cuda):
+    """A 2-layer BERT prepared once on the CPU (int8 and fp8), its logits on
+    the card against the CPU: within 5e-3 of the logit absmax and argmax
+    equal on 99% of the positions (a rare activation may round to the
+    neighbouring int8 step on the other device).  The int8 card forward
+    launches 9 W8A8 dense, 2 int8 softmax, 1 int8 LayerNorm and 5 norms and
+    no full-row attention."""
+    from unicore_tpu_torch.ops import quant_matmul as qm
+    from unicore_tpu_torch.quant import calibrate
+
+    model = BertModel(vocab_size=100, encoder_layers=2, encoder_embed_dim=64,
+                      encoder_ffn_embed_dim=128, encoder_attention_heads=4,
+                      max_seq_len=256, generator=torch.Generator().manual_seed(0)).eval()
+    toks = torch.randint(4, 100, (4, 128), generator=torch.Generator().manual_seed(1))
+    toks[1, 100:] = 1
+    for mode in ("int8", "fp8"):
+        twin = model.clone(quantize=mode)
+        twin, info = calibrate.calibrate_for_serving(
+            twin, model, mode=mode, snapshot_path=None, vocab_size=100, pad_idx=1,
+            bucket_edges=[128], batch_size=4)
+        with torch.no_grad():
+            cpu = twin(toks)
+            twin.to(cuda)
+            _kernels.reset_launch_counts()
+            card = twin(toks.to(cuda)).cpu()
+        counts = _kernels.launch_counts()
+        if mode == "int8":
+            assert counts["quant_matmul"] == 9 and counts["quant_softmax_dropout_fwd"] == 2
+            assert counts["quant_layer_norm"] == 1 and counts["fused_norm_fwd"] == 5
+        else:
+            assert counts["quant_matmul"] == 0 and counts["fullrow_attention_fwd"] == 2
+            assert counts["fused_norm_fwd"] == 5
+        assert counts.get("fullrow_attention_fwd", 0) == (0 if mode == "int8" else 2)
+        err = (card - cpu).abs().max().item()
+        assert err <= 5e-3 * cpu.abs().max().item(), (mode, err)
+        agree = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
+        assert agree >= 0.99, (mode, agree)
+        assert qm.LAUNCHES.count == counts["quant_matmul"]

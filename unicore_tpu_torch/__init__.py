@@ -15,7 +15,8 @@ Ported so far: BERT masked-LM serving, ``unicore-tpu-torch-serve``
 Evoformer masked-MSA training, ``unicore-tpu-torch-train`` (``python -m
 unicore_tpu_torch.cli.train``); and incremental-decode serving of the
 causal LM (``transformer_lm``: ``POST /v1/generate``, a paged KV cache,
-step-level continuous batching) through the same serving entry point.
+step-level continuous batching) and quantized BERT serving
+(``--serve-quantize int8|fp8``) through the same serving entry point.
 """
 
 __version__ = "0.0.1"

@@ -77,6 +77,10 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
       per edge type), so their ``embedding`` becomes ``weight``;
     - the Evoformer's ``block_{i}`` modules keep their names (the port
       names its blocks so), as do its ``nn.Embed`` tables' owners;
+    - a quantized serving tree (``calibrate.prepare`` of the JAX package):
+      ``kernel_q`` (K, N) becomes ``weight_q`` (N, K) in its own type (int8,
+      or ``float8_e4m3fn`` carried as its bytes), ``kernel_scale`` becomes
+      ``weight_scale``, and ``act_scale``/``out_scale`` keep their names;
     - ``transformer_lm``: ``embed_tokens``, ``embed_positions``,
       ``decoder.{emb_layer_norm, final_layer_norm, relative_attention_bias}``,
       ``decoder.layers_{i}.{self_attn, self_attn_layer_norm,
@@ -96,7 +100,12 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
                 walk(val, prefix + [f"layers.{m.group(1)}" if m else key])
                 continue
             arr = np.asarray(val)
-            if key == "kernel":
+            if key == "kernel_q":
+                out[".".join(prefix + ["weight_q"])] = _quantized_kernel(arr)
+                continue
+            if key == "kernel_scale":
+                key = "weight_scale"
+            elif key == "kernel":
                 if arr.ndim != 2:
                     raise ValueError(
                         f"{'.'.join(prefix)}.kernel has shape {arr.shape}; "
@@ -113,6 +122,24 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
     return out
 
 
+def _quantized_kernel(arr: np.ndarray) -> torch.Tensor:
+    """A prepared (K, N) ``kernel_q`` as the port's (N, K) ``weight_q``:
+    int8 as is; float8 (an ``ml_dtypes`` array, which ``torch.from_numpy``
+    does not take) through its bytes."""
+    w = np.ascontiguousarray(arr.T)
+    if w.dtype == np.int8:
+        return torch.from_numpy(w)
+    if w.dtype.name != "float8_e4m3fn":
+        raise ValueError(f"kernel_q of type {w.dtype} is neither int8 nor float8_e4m3fn")
+    return torch.from_numpy(w.view(np.uint8)).view(torch.float8_e4m3fn)
+
+
+def flax_path(name: str) -> str:
+    """A port module path as the JAX package's Flax path (dotted):
+    ``layers.{i}`` is ``layers_{i}``."""
+    return re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", name)
+
+
 def jax_param_names(model: torch.nn.Module) -> Dict[str, str]:
     """Each parameter's Flax name (dotted path) in the JAX package: the
     inverse of :func:`from_jax_params` — ``layers.{i}`` is ``layers_{i}``,
@@ -127,6 +154,6 @@ def jax_param_names(model: torch.nn.Module) -> Dict[str, str]:
             leaf = "kernel"
         elif leaf == "weight" and isinstance(mod, torch.nn.Embedding):
             leaf = "embedding"
-        path = re.sub(r"(^|\.)layers\.(\d+)(?=\.|$)", r"\1layers_\2", owner)
+        path = flax_path(owner)
         names[name] = f"{path}.{leaf}" if path else leaf
     return names

@@ -16,12 +16,19 @@ Boot sequence, each stage with the JAX server's failure exit code:
    (``prefill``/``decode_step``: ``transformer_lm``) is served by the
    incremental-decode engine (``POST /v1/generate``, paged KV cache,
    step-level continuous batching) unless ``--serve-decode off``;
+   With ``--serve-quantize int8|fp8`` a calibration pass runs before the
+   bind (:func:`setup_quantized_serving`): scales are calibrated, or a
+   digest-verified ``<checkpoint>.quant-scales.json`` is reused; the model's
+   quantized twin serves, and the grep-able ``QUANT-PATH`` line reports the
+   scale source, site count and calibration drift.  A calibration failure,
+   or the flag on a decode-plane checkpoint, exits **76**;
 4. serve until signalled: SIGTERM/SIGINT drains — admission stops,
    in-flight batches flush under ``--drain-deadline``, exit **0**; a blown
    drain budget exits **77**; a second signal aborts (also 77).
 
 Precision is fp32 end to end, as the JAX server runs at checkpoint
-precision: TF32 is switched off for matmuls and convolutions.
+precision: TF32 is switched off for matmuls and convolutions.  Quantized
+serving changes only what ``--serve-quantize`` names.
 """
 
 import logging
@@ -141,6 +148,13 @@ def build_decode_engine(args, model, pad_idx, max_seq_len, vocab_size, eos_idx,
     continuous batching."""
     from unicore_tpu_torch.serve import DecodeEngine, cache_bucket_edges
 
+    if args.serve_quantize != "off":
+        raise ValueError(
+            "--serve-quantize is the encoder-path weight quantization; "
+            "the decode plane quantizes its KV cache via --decode-kv int8 "
+            "(use --serve-decode off to serve this checkpoint through the "
+            "encoder path)"
+        )
     edges = cache_bucket_edges(
         max_seq_len, args.serve_buckets, page_size=args.cache_page_size
     )
@@ -177,6 +191,70 @@ def serve_buckets(args, max_seq_len):
     return compute_length_buckets(args.serve_buckets, max_seq_len) or (
         max_seq_len,
     )
+
+
+def setup_quantized_serving(args, model, pad_idx, vocab_size, edges, device):
+    """Startup calibration for ``--serve-quantize``: calibrate (or reuse
+    digest-verified persisted scales), prepare the quantized twin, build
+    the sampled drift probe.  Returns ``(model_q, engine_kwargs)``; any
+    failure is exit-76 territory (nothing safe to serve at the requested
+    precision).  The fp32 model stays on the device only when
+    ``--quant-drift-sample`` > 0, for the probe."""
+    import numpy as np
+    import torch
+
+    from unicore_tpu_torch.quant import calibrate
+
+    mode = args.serve_quantize
+    if vocab_size <= 0:
+        raise ValueError(
+            "--serve-quantize needs a vocabulary to synthesize calibration "
+            "batches, but the task has no dictionary"
+        )
+    if not hasattr(model, "quantize"):
+        raise ValueError(
+            f"--serve-quantize {mode}: {type(model).__name__} is not "
+            "quantize-aware (no 'quantize' attr); only models whose dense "
+            "call sites route through QuantDense can serve quantized"
+        )
+    model_q, info = calibrate.calibrate_for_serving(
+        model.clone(quantize=mode), model,
+        mode=mode,
+        snapshot_path=args.path,
+        vocab_size=vocab_size,
+        pad_idx=pad_idx,
+        bucket_edges=edges,
+        batch_size=args.serve_batch_size,
+        n_batches=args.calibration_batches,
+    )
+    logger.info(
+        f"QUANT-PATH {info['mode']}: scales {info['source']} for "
+        f"{info['sites']} site(s), calibration max |logit drift| "
+        f"{info['max_abs_logit_drift']:.5f} (rel {info['rel_drift']:.5f}) "
+        f"over {info['batches']} batch(es); scales at {info['scales_path']}"
+    )
+    public = {k: v for k, v in info.items() if k != "weights_digest"}
+    logger.info(f"quant-path calibrated: {public}")
+
+    drift_probe = None
+    if args.quant_drift_sample > 0:
+        def drift_probe(tokens):
+            """Per-row max |logit_q - logit_f32| over the real (non-pad)
+            positions, the only ones a response is cut from."""
+            with torch.inference_mode():
+                toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                       device=device)
+                d = (model_q(toks).float() - model(toks).float()).abs()
+                d = d * (toks != pad_idx)[..., None].to(d.dtype)
+                return d.amax(dim=tuple(range(1, d.ndim))).cpu().numpy()
+    else:
+        model.to("cpu")  # only the probe needs it on the device
+    return model_q, {
+        "precision": mode,
+        "quant_info": public,
+        "drift_probe": drift_probe,
+        "drift_sample_every": args.quant_drift_sample,
+    }
 
 
 def main(args) -> int:
@@ -224,15 +302,22 @@ def main(args) -> int:
                 f"{args.decode_batch_size}, max_new {args.max_new_tokens}"
             )
         else:
+            edges = serve_buckets(args, max_seq_len)
+            serve_model, quant_kwargs = model, {}
+            if args.serve_quantize != "off":
+                serve_model, quant_kwargs = setup_quantized_serving(
+                    args, model, pad_idx, vocab_size, edges, device
+                )
             engine = ServeEngine(
-                model,
+                serve_model,
                 build_infer_fn(device),
-                bucket_edges=serve_buckets(args, max_seq_len),
+                bucket_edges=edges,
                 batch_size=args.serve_batch_size,
                 pad_idx=pad_idx,
                 vocab_size=vocab_size,
                 admission_capacity=args.admission_capacity,
                 device=device_name,
+                **quant_kwargs,
             )
     except Exception as err:
         logger.error(

@@ -10,12 +10,18 @@
 
 namespace unicore {
 
-// dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16)
+// dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16; the
+// quantized inputs 2 = int8, 3 = int32)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;
+constexpr int kInt32 = 3;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
+// round to nearest even, as XLA's and torch's int32 -> fp32 converts
+__device__ __forceinline__ float to_f(int32_t x) { return __int2float_rn(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }

@@ -4,8 +4,9 @@
 // the `jax.custom_vjp` `_fused_norm` (:231) behind `fused_layer_norm` /
 // `fused_rms_norm`:
 //   `_ln_fwd_kernel`  (:56, launched by `_ln_fwd` :81), with its mean/rstd
-//                     outputs for training but without its int8 `scale_ref`
-//                     variant (that waits for quantized serving);
+//                     outputs for training, and its int8 `scale_ref` variant
+//                     (:60-63, launched by `quant_layer_norm_pallas` :281,
+//                     `pallas_call` :124) as a kernel of its own below;
 //   `_ln_dx_kernel`   (:140, launched by `_ln_bwd` :176);
 //   `_ln_dwdb_kernel` (:157, launched by `_ln_bwd` :176).
 //
@@ -20,6 +21,12 @@
 //            dx = (g - mean(g) - x^ * mean(g * x^)) * rstd (RMS: no mean(g));
 //   dw, db   dw = sum over rows of dy * x^, db = sum over rows of dy, fp32.
 // w and b are fp32.
+//   quantized forward (LayerNorm only, no statistics written): the int8 row
+//            dequantized in the statistics pass, v = float(x) * scale, where
+//            `scale` points at one fp32 value or at (D,) of them and is read
+//            on the device (no host sync); then the forward above on v, fp32
+//            out.  It reads 1 byte an element and writes 4: at the LM head's
+//            (4096, 768) the floor is 4.7 us.
 //
 // What bounds them on this card: bytes.  The forward reads x and writes y
 // (2 * N * D * itemsize), dx reads x and dy and writes dx (3 * N * D *
@@ -169,6 +176,37 @@ fused_norm_dwdb_finish_kernel(const float* __restrict__ part_w,
   if (db != nullptr) db[col] = ab;
 }
 
+// the quantized-input forward: x int8, scale[c * scale_stride] (stride 0: one
+// value for the tensor, 1: per channel), y fp32
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+quant_layer_norm_fwd_kernel(const int8_t* __restrict__ x, const float* __restrict__ scale,
+                            int scale_stride, const float* __restrict__ w,
+                            const float* __restrict__ b, float* __restrict__ y, long long N,
+                            int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const int8_t* xr = x + row * D;
+  float* yr = y + row * D;
+  const float inv_d = 1.f / (float)D;
+  // __fmul_rn: the dequantized value rounds once, as the plain version's
+  // multiply does, whatever the compiler contracts around it
+  float s = 0.f;
+  for (int c = lane; c < D; c += 32) s += __fmul_rn((float)xr[c], scale[c * scale_stride]);
+  const float mean = warp_sum(s) * inv_d;
+  float sq = 0.f;
+  for (int c = lane; c < D; c += 32) {
+    const float d = __fmul_rn((float)xr[c], scale[c * scale_stride]) - mean;
+    sq += d * d;
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
+  for (int c = lane; c < D; c += 32) {
+    float v = (__fmul_rn((float)xr[c], scale[c * scale_stride]) - mean) * rstd * w[c];
+    if (b != nullptr) v += b[c];
+    yr[c] = v;
+  }
+}
+
 long long row_blocks(long long N) { return (N + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 
 bool bad_rows(long long N, int D) {
@@ -229,6 +267,23 @@ extern "C" int unicore_fused_norm_fwd(const void* x, const void* w, const void* 
   if (dtype == kBFloat16)
     return (int)launch_fwd<__nv_bfloat16>(x, w, b, y, mean, rstd, N, D, eps, rms, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// x: (N, D) int8; scale: fp32, one value (scale_stride 0) or (D,)
+// (scale_stride 1), read on the device; w, b: fp32 (D,), b may be null;
+// y: (N, D) fp32.  LayerNorm only; no statistics.
+extern "C" int unicore_quant_layer_norm_fwd(const void* x, const void* scale,
+                                            int scale_stride, const void* w, const void* b,
+                                            void* y, long long N, int D, float eps,
+                                            void* stream) {
+  if (bad_rows(N, D) || (scale_stride != 0 && scale_stride != 1))
+    return (int)cudaErrorInvalidValue;
+  quant_layer_norm_fwd_kernel<<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const float*>(scale), scale_stride,
+      static_cast<const float*>(w), static_cast<const float*>(b), static_cast<float*>(y), N,
+      D, eps);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int unicore_fused_norm_dx(const void* x, const void* w, const void* mean,

@@ -4,8 +4,10 @@
 // Replaces the TPU kernels of unicore_tpu/ops/softmax_dropout_pallas.py, the
 // two halves of the `jax.custom_vjp` `_sd` (:322), both launched by `_run`
 // (:254):
-//   `_fwd_kernel` (:223), without its int8/int32 dequant `scale_ref` variant
-//                 (`quant_softmax_dropout_pallas` :443 waits for int8 serving);
+//   `_fwd_kernel` (:223), with its int8/int32 dequant `scale_ref` variant
+//                 (`_row_probs` :204-220, launched by
+//                 `quant_softmax_dropout_pallas` :443, `pallas_call` :305)
+//                 through `unicore_quant_softmax_dropout_fwd`;
 //   `_bwd_kernel` (:234).
 //
 // What they compute, per row of x viewed as (R, M, L) -- the softmax runs
@@ -22,6 +24,13 @@
 //             dx is ds cast to x's type and the extras' gradients are fp32
 //             sums of ds over their broadcast dims, taken outside the kernel
 //             as the JAX `_sd_bwd` (:335) takes them.
+// Quantized input: x is int8, or the int32 sum of an int8 q.k^T product, and
+// one fp32 `scale` read through a device pointer (no host sync) dequantizes
+// it in the row pass: v = x * scale (+ mask) (+ bias), rounded before the
+// adds; y is fp32.  The fp32 scores never exist as a tensor.  At BERT-base
+// serving, (8, 12, 512, 512) int32 scores with the (8, 1, 1, 512) key mask
+// and the (1, 12, 512, 512) rel-pos bias read 4 + 4 bytes and write 4 an
+// element: about 64 us at 3.35 TB/s.
 // A -inf in v (the Uni-Mol pair bias holds -inf at padded keys from its
 // second layer on) gives p = 0 and ds = 0 there; the row max stays finite as
 // long as one entry of the row is.
@@ -110,14 +119,15 @@ __device__ __forceinline__ float extra_at(const Extra& e, long long base, int co
                 : static_cast<const float*>(e.ptr)[i];
 }
 
-// v = x (+ mask) (+ bias) for the four columns c0..c0+3 of a row
-template <typename T>
-__device__ __forceinline__ void load_quad(const T* xr, const Extra& mask, long long mb,
-                                          const Extra& bias, long long bb, int c0,
-                                          float v[4]) {
+// v = x * sc (+ mask) (+ bias) for the four columns c0..c0+3 of a row; sc is
+// 1 for an fp32/bf16 x, where the product is x itself, bit for bit
+template <typename TI>
+__device__ __forceinline__ void load_quad(const TI* xr, float sc, const Extra& mask,
+                                          long long mb, const Extra& bias, long long bb,
+                                          int c0, float v[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float t = to_f(xr[c0 + j]);
+    float t = __fmul_rn(to_f(xr[c0 + j]), sc);
     if (mask.ptr != nullptr) t += extra_at(mask, mb, c0 + j);
     if (bias.ptr != nullptr) t += extra_at(bias, bb, c0 + j);
     v[j] = t;
@@ -151,8 +161,8 @@ __device__ __forceinline__ float drop_grad(const Drop& dr, float dy, bool keep) 
 // rows up to 1024: one warp per row, the row in registers (CH chunks of 128)
 // ---------------------------------------------------------------------------
 
-template <typename T, int CH>
-__device__ __forceinline__ void warp_row_probs(const T* xr, const Extra& mask,
+template <typename TI, int CH>
+__device__ __forceinline__ void warp_row_probs(const TI* xr, float sc, const Extra& mask,
                                                const Extra& bias, long long r, int m,
                                                int lane, float p[CH][4]) {
   const long long mb = mask.ptr != nullptr ? extra_base(mask, r, m) : 0;
@@ -160,7 +170,7 @@ __device__ __forceinline__ void warp_row_probs(const T* xr, const Extra& mask,
   float mx = -CUDART_INF_F;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    load_quad(xr, mask, mb, bias, bb, c * 128 + lane * 4, p[c]);
+    load_quad(xr, sc, mask, mb, bias, bb, c * 128 + lane * 4, p[c]);
 #pragma unroll
     for (int j = 0; j < 4; ++j) mx = fmaxf(mx, p[c][j]);
   }
@@ -182,10 +192,13 @@ __device__ __forceinline__ void warp_row_probs(const T* xr, const Extra& mask,
   }
 }
 
-template <typename T, int CH>
+// TI: the stored input (fp32, bf16, or int8/int32 with `scale`); TO: the
+// output (the input's type, fp32 for a quantized input)
+template <typename TI, typename TO, int CH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-softmax_dropout_fwd_warp(const T* __restrict__ x, Extra mask, Extra bias, T* __restrict__ y,
-                         long long rows, int M, Drop dr) {
+softmax_dropout_fwd_warp(const TI* __restrict__ x, const float* __restrict__ scale,
+                         Extra mask, Extra bias, TO* __restrict__ y, long long rows, int M,
+                         Drop dr) {
   constexpr int L = CH * 128;
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -193,15 +206,16 @@ softmax_dropout_fwd_warp(const T* __restrict__ x, Extra mask, Extra bias, T* __r
   const long long r = row / M;
   const int m = (int)(row % M);
   float p[CH][4];
-  warp_row_probs<T, CH>(x + row * L, mask, bias, r, m, lane, p);
-  T* yr = y + row * L;
+  warp_row_probs<TI, CH>(x + row * L, scale != nullptr ? *scale : 1.f, mask, bias, r, m,
+                         lane, p);
+  TO* yr = y + row * L;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
     const int c0 = c * 128 + lane * 4;
     bool keep[4] = {true, true, true, true};
     if (dr.on) keep_quad(dr, r, m, c0, keep);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<T>(dr, p[c][j], keep[j]);
+    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<TO>(dr, p[c][j], keep[j]);
   }
 }
 
@@ -217,7 +231,7 @@ softmax_dropout_bwd_warp(const T* __restrict__ x, Extra mask, Extra bias,
   const long long r = row / M;
   const int m = (int)(row % M);
   float p[CH][4], dp[CH][4];
-  warp_row_probs<T, CH>(x + row * L, mask, bias, r, m, lane, p);
+  warp_row_probs<T, CH>(x + row * L, 1.f, mask, bias, r, m, lane, p);
   const T* gr = dy + row * L;
   float dot = 0.f;
 #pragma unroll
@@ -263,8 +277,8 @@ __device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) 
 }
 
 // p of one row into srow; each thread touches only its own quads
-template <typename T>
-__device__ __forceinline__ void block_row_probs(const T* xr, const Extra& mask,
+template <typename TI>
+__device__ __forceinline__ void block_row_probs(const TI* xr, float sc, const Extra& mask,
                                                 const Extra& bias, long long r, int m, int L,
                                                 float* srow, float* red) {
   const long long mb = mask.ptr != nullptr ? extra_base(mask, r, m) : 0;
@@ -272,7 +286,7 @@ __device__ __forceinline__ void block_row_probs(const T* xr, const Extra& mask,
   float mx = -CUDART_INF_F;
   for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
     float v[4];
-    load_quad(xr, mask, mb, bias, bb, c0, v);
+    load_quad(xr, sc, mask, mb, bias, bb, c0, v);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       srow[c0 + j] = v[j];
@@ -296,22 +310,23 @@ __device__ __forceinline__ void block_row_probs(const T* xr, const Extra& mask,
   }
 }
 
-template <typename T>
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(kRowThreads)
-softmax_dropout_fwd_block(const T* __restrict__ x, Extra mask, Extra bias, T* __restrict__ y,
-                          int M, int L, Drop dr) {
+softmax_dropout_fwd_block(const TI* __restrict__ x, const float* __restrict__ scale,
+                          Extra mask, Extra bias, TO* __restrict__ y, int M, int L, Drop dr) {
   __shared__ float srow[kMaxL];
   __shared__ float red[kRowThreads / 32 + 1];
   const long long row = blockIdx.x;
   const long long r = row / M;
   const int m = (int)(row % M);
-  block_row_probs<T>(x + row * L, mask, bias, r, m, L, srow, red);
-  T* yr = y + row * L;
+  block_row_probs<TI>(x + row * L, scale != nullptr ? *scale : 1.f, mask, bias, r, m, L,
+                      srow, red);
+  TO* yr = y + row * L;
   for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
     bool keep[4] = {true, true, true, true};
     if (dr.on) keep_quad(dr, r, m, c0, keep);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<T>(dr, srow[c0 + j], keep[j]);
+    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<TO>(dr, srow[c0 + j], keep[j]);
   }
 }
 
@@ -325,7 +340,7 @@ softmax_dropout_bwd_block(const T* __restrict__ x, Extra mask, Extra bias,
   const long long row = blockIdx.x;
   const long long r = row / M;
   const int m = (int)(row % M);
-  block_row_probs<T>(x + row * L, mask, bias, r, m, L, srow, red);
+  block_row_probs<T>(x + row * L, 1.f, mask, bias, r, m, L, srow, red);
   const T* gr = dy + row * L;
   float dot = 0.f;
   for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
@@ -380,23 +395,25 @@ bool bad_geometry(long long R, int M, int L) {
          R * M > 0x7fffffffLL * (L <= kWarpRowMaxL ? kWarpsPerBlock : 1);
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* x, const Extra& mask, const Extra& bias, void* y,
-                       long long R, int M, int L, const Drop& dr, cudaStream_t s) {
+template <typename TI, typename TO>
+cudaError_t launch_fwd(const void* x, const float* scale, const Extra& mask,
+                       const Extra& bias, void* y, long long R, int M, int L, const Drop& dr,
+                       cudaStream_t s) {
   const long long rows = R * M;
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
+  const TI* xt = static_cast<const TI*>(x);
+  TO* yt = static_cast<TO*>(y);
   if (L > kWarpRowMaxL) {
-    softmax_dropout_fwd_block<T><<<(unsigned)rows, kRowThreads, 0, s>>>(xt, mask, bias, yt, M,
-                                                                      L, dr);
+    softmax_dropout_fwd_block<TI, TO><<<(unsigned)rows, kRowThreads, 0, s>>>(
+        xt, scale, mask, bias, yt, M, L, dr);
     return cudaGetLastError();
   }
   const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const int threads = kWarpsPerBlock * 32;
   switch (L / 128) {
-#define UNICORE_SD_FWD(CH)                                                                    \
-  case CH:                                                                                    \
-    softmax_dropout_fwd_warp<T, CH><<<grid, threads, 0, s>>>(xt, mask, bias, yt, rows, M, dr); \
+#define UNICORE_SD_FWD(CH)                                                              \
+  case CH:                                                                              \
+    softmax_dropout_fwd_warp<TI, TO, CH><<<grid, threads, 0, s>>>(xt, scale, mask, bias, \
+                                                                  yt, rows, M, dr);      \
     break;
     UNICORE_SD_FWD(1) UNICORE_SD_FWD(2) UNICORE_SD_FWD(3) UNICORE_SD_FWD(4)
     UNICORE_SD_FWD(5) UNICORE_SD_FWD(6) UNICORE_SD_FWD(7) UNICORE_SD_FWD(8)
@@ -453,8 +470,33 @@ extern "C" int unicore_softmax_dropout_fwd(const void* x, const void* mask,
     return (int)cudaErrorInvalidValue;
   const Drop dr{dropout, seed, threshold, div, 1.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return (int)launch_fwd<float>(x, em, eb, y, R, M, L, dr, s);
-  if (dtype == kBFloat16) return (int)launch_fwd<__nv_bfloat16>(x, em, eb, y, R, M, L, dr, s);
+  if (dtype == kFloat32)
+    return (int)launch_fwd<float, float>(x, nullptr, em, eb, y, R, M, L, dr, s);
+  if (dtype == kBFloat16)
+    return (int)launch_fwd<__nv_bfloat16, __nv_bfloat16>(x, nullptr, em, eb, y, R, M, L, dr,
+                                                         s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The quantized-input forward: x (R, M, L) int8 or int32 (in_dtype), `scale`
+// one fp32 on the device, y (R, M, L) fp32; the rest as above.
+extern "C" int unicore_quant_softmax_dropout_fwd(const void* x, const void* scale,
+                                                 const void* mask, const long long* mask_desc,
+                                                 const void* bias, const long long* bias_desc,
+                                                 void* y, long long R, int M, int L,
+                                                 int dropout, unsigned seed, unsigned threshold,
+                                                 float div, int in_dtype, void* stream) {
+  Extra em, eb;
+  if (scale == nullptr || bad_geometry(R, M, L) || !make_extra(mask, mask_desc, &em) ||
+      !make_extra(bias, bias_desc, &eb))
+    return (int)cudaErrorInvalidValue;
+  const Drop dr{dropout, seed, threshold, div, 1.f};
+  const float* sc = static_cast<const float*>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == kInt8)
+    return (int)launch_fwd<int8_t, float>(x, sc, em, eb, y, R, M, L, dr, s);
+  if (in_dtype == kInt32)
+    return (int)launch_fwd<int32_t, float>(x, sc, em, eb, y, R, M, L, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 

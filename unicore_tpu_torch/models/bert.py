@@ -7,7 +7,16 @@ is tied to the token embedding.  Positions count pad positions too
 ``src_tokens == padding_idx``.  Training projects only the masked positions
 (``masked_positions``).  The classification head and the
 mixture-of-experts archs are not ported yet.
+
+Quantized serving: :meth:`BertModel.clone` with ``quantize='int8'`` or
+``'fp8'`` builds the quantized twin (the JAX ``model.clone(quantize=mode)``)
+whose ``QuantDense`` sites and attentions run that mode once
+``quant.calibrate`` has loaded the prepared weights.  The LM head's dense
+fuses its activation and, quantized, emits a ``QTensor`` that the LM head's
+LayerNorm dequantizes in its statistics pass.
 """
+
+import copy
 
 from typing import Optional
 
@@ -26,24 +35,28 @@ from unicore_tpu_torch.modules import (
     TransformerEncoder,
     init_bert_params,
 )
+from unicore_tpu_torch.quant import check_mode
+from unicore_tpu_torch.quant.dense import QuantDense
 
 
 class BertLMHead(nn.Module):
-    """Masked-LM head; the tied projection weight is passed in."""
+    """Masked-LM head; the tied projection weight is passed in.  Its dense
+    fuses the activation and, in a quantized model, quantizes its output
+    (``quantize_output``) for the LayerNorm to consume."""
 
     def __init__(self, embed_dim: int, output_dim: int,
                  activation_fn: str = "gelu", device=None):
         super().__init__()
-        self.dense = nn.Linear(embed_dim, embed_dim, device=device)
-        self.activation_fn = utils.get_activation_fn(activation_fn)
+        utils.get_activation_fn(activation_fn)  # an unknown name raises here
+        self.dense = QuantDense(embed_dim, embed_dim, device=device,
+                                activation=activation_fn, quantize_output=True)
         self.layer_norm = LayerNorm(embed_dim, device=device)
         self.bias = nn.Parameter(
             torch.zeros(output_dim, dtype=torch.float32, device=device)
         )
 
     def forward(self, features, embed_weight):
-        x = self.activation_fn(self.dense(features))
-        x = self.layer_norm(x)
+        x = self.layer_norm(self.dense(features))
         return F.linear(x, embed_weight) + self.bias
 
 
@@ -71,6 +84,8 @@ class BertModel(BaseUnicoreModel):
         self.vocab_size = vocab_size
         self.padding_idx = padding_idx
         self.max_seq_len = max_seq_len
+        #: '' (training precision), 'int8' or 'fp8' (see :meth:`clone`)
+        self.quantize = ""
         self.embed_tokens = nn.Embedding(vocab_size, encoder_embed_dim, device=device)
         self.embed_positions = nn.Embedding(max_seq_len, encoder_embed_dim, device=device)
         self.sentence_encoder = TransformerEncoder(
@@ -150,6 +165,18 @@ class BertModel(BaseUnicoreModel):
             device=device,
             generator=generator,
         )
+
+    def clone(self, quantize: str = ""):
+        """A copy of this model whose ``QuantDense`` sites and attentions run
+        mode ``quantize`` (the JAX ``model.clone(quantize=mode)``).  It holds
+        this model's fp32 weights until ``quant.calibrate.load_prepared``
+        swaps them for the prepared ones."""
+        mode = check_mode(quantize)
+        twin = copy.deepcopy(self)
+        for m in twin.modules():
+            if hasattr(m, "quantize"):
+                m.quantize = "" if mode == "off" else mode
+        return twin
 
     def forward(self, src_tokens, masked_positions=None, rng=None):
         """Logits (B, L, vocab) for ``src_tokens`` (B, L).  With

@@ -11,6 +11,11 @@ One flag picks the path (``--fused-norm {auto,on,off}``, wired through
   such fusion, so here ``auto`` takes the kernel.)
 - ``off``: the module's own plain composition, an explicit choice.
 
+A :class:`~unicore_tpu_torch.quant.QTensor` input (the int8 or fp8 output
+of the BERT LM head's ``QuantDense`` in quantized serving) goes to
+``ops/quant_norm.py``, whatever the flag: the dequant multiply fused into
+the statistics pass, fp32 out, as the JAX ``LayerNorm`` routes it.
+
 Semantics on every path: eps defaults (1e-5 LN / 1e-6 RMS),
 elementwise affine (weight=1, bias=0 init), fp32 statistics whatever the
 input type, output cast back to the input type.  The JAX package also
@@ -24,6 +29,8 @@ import torch
 from torch import nn
 
 from unicore_tpu_torch.ops.fused_norm import fused_layer_norm, fused_rms_norm
+from unicore_tpu_torch.ops.quant_norm import quant_layer_norm
+from unicore_tpu_torch.quant import QTensor
 
 _MODES = ("auto", "on", "off")
 _mode = "auto"
@@ -58,6 +65,9 @@ class LayerNorm(nn.Module):
         )
 
     def forward(self, x):
+        if isinstance(x, QTensor):
+            return quant_layer_norm(x.values, x.scale, self.weight, self.bias,
+                                    eps=self.eps, out_dtype=torch.float32)
         if _use_kernel():
             # the kernel reads rows in place: a transposed view is copied
             return fused_layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)

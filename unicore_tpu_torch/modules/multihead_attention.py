@@ -27,8 +27,19 @@ routes exactly as the JAX package routes on a TPU:
   cache.  ``return_kv`` instead returns a prefill's split-heads K/V beside
   the output, to seed the cache.
 
-The JAX package's sequence-parallel (ring, Ulysses) and quantized routes
-are not ported yet.
+- **quantized route** (``quantize == "int8"``, not training, not
+  ``return_attn``; JAX ``_quant_attend`` :239-275, picked at :301): q and k
+  quantize to int8 against dynamic per-tensor scales (0-d device tensors),
+  their product sums exactly in int32, and
+  ``ops/quant_softmax_dropout.py`` takes the int32 scores with the scale
+  ``q_scale * k_scale``, the additive ``finfo.min`` key mask and the bias;
+  the probabilities multiply v in fp32.  ``in_proj``/``out_proj`` are
+  :class:`~unicore_tpu_torch.quant.dense.QuantDense` sites.  In fp8 mode
+  only the projections quantize: the scores stay fp32 and take the routes
+  above, as in the JAX package.
+
+The JAX package's sequence-parallel (ring, Ulysses) routes are not ported
+yet.
 """
 
 import logging
@@ -44,8 +55,15 @@ from unicore_tpu_torch.ops.attention_fullrow import (
 )
 from unicore_tpu_torch.ops.decode_attention import decode_attention
 from unicore_tpu_torch.ops.flash_attention import flash_attention
-from unicore_tpu_torch.ops.quant import INT8_QMAX, quantize_to_dtype
+from unicore_tpu_torch.ops.quant_matmul import (
+    INT8_QMAX,
+    dynamic_act_scale,
+    quantize_to_dtype,
+    quantize_to_int8,
+)
+from unicore_tpu_torch.ops.quant_softmax_dropout import quant_softmax_dropout
 from unicore_tpu_torch.ops.softmax_dropout import softmax_dropout
+from unicore_tpu_torch.quant.dense import QuantDense
 
 logger = logging.getLogger(__name__)
 
@@ -190,8 +208,53 @@ def _flash_ok(tgt_len, src_len, head_dim, dtype):
     return True, None
 
 
+#: the int8 score product in fp32 is exact while every partial sum of
+#: head_dim products of two int8 values (at most 127**2 each) stays below
+#: 2**24: head dims up to 1040 (BERT's is 64)
+_EXACT_FP32_HEAD_DIM = (2 ** 24) // (127 * 127)
+
+
+def _int8_scores(q_q, k_q):
+    """The exact int32 ``q_q @ k_q^T`` of int8 (B, H, L, D) operands, the
+    JAX ``dot_general(preferred_element_type=int32)``.  torch has no batched
+    int8 product that accumulates in int32, so the operands widen: to fp32
+    when the product is exact there (head dim at most 1040, and no TF32 on
+    the card), else to float64.  A TF32 product is never taken."""
+    exact_fp32 = (
+        q_q.shape[-1] <= _EXACT_FP32_HEAD_DIM
+        and torch.get_float32_matmul_precision() == "highest"
+        and not (q_q.is_cuda and torch.backends.cuda.matmul.allow_tf32)
+    )
+    wide = torch.float32 if exact_fp32 else torch.float64
+    return torch.matmul(q_q.to(wide), k_q.to(wide).transpose(-1, -2)).to(torch.int32)
+
+
+def _quant_attend(q, k, v, key_padding_mask, attn_bias, bsz, num_heads,
+                  tgt_len, src_len):
+    """The int8 serving scores (JAX ``_quant_attend``): int8 q and k, their
+    exact int32 product, softmax of the dequantized scores with the key
+    mask and bias in ``ops/quant_softmax_dropout.py``, fp32 probabilities
+    times v."""
+    q_scale = dynamic_act_scale(q)
+    k_scale = dynamic_act_scale(k)
+    scores_q = _int8_scores(quantize_to_int8(q, q_scale), quantize_to_int8(k, k_scale))
+    mask_add = None
+    if key_padding_mask is not None:
+        # the additive form of the fp route's where(mask, finfo.min): the
+        # dequantized scores are far below the fp32 maximum, so the sum
+        # stays finite and a fully masked row degrades to a uniform softmax
+        mask_add = (key_padding_mask[:, None, None, :].to(torch.float32)
+                    * torch.finfo(torch.float32).min)
+    bias4 = _bias_min_broadcast(attn_bias, bsz, num_heads, tgt_len, src_len)
+    if bias4 is None:
+        bias4 = _bias_to_bhll(attn_bias, bsz, num_heads, tgt_len, src_len)
+    probs = quant_softmax_dropout(scores_q, q_scale * k_scale, 0.0, is_training=False,
+                                  mask=mask_add, bias=bias4, out_dtype=v.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
 def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
-            rng=None, return_attn=False):
+            rng=None, return_attn=False, quantize=""):
     """Shared core: pick the kernel route or the fused-softmax route.
     ``rng`` (a :class:`DropoutRng`) draws the dropout.  Returns the output,
     or with ``return_attn`` (output, pre-softmax weights, probabilities)."""
@@ -202,6 +265,11 @@ def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
         key_padding_mask = None
 
     eff_dropout = dropout_rate if train else 0.0
+
+    if quantize == "int8" and not train and not return_attn:
+        # fp8 quantizes the projections only: its scores stay fp32
+        return _quant_attend(q, k, v, key_padding_mask, attn_bias, bsz, num_heads,
+                             tgt_len, src_len)
 
     if return_attn:
         shapes_ok = False
@@ -266,8 +334,11 @@ class SelfMultiheadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         assert self.head_dim * num_heads == embed_dim
         self.scaling = self.head_dim ** -0.5
-        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim, device=device)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, device=device)
+        #: '' (training precision), 'int8' or 'fp8': set on a model's
+        #: quantized twin; 'int8' takes the quantized score route in eval
+        self.quantize = ""
+        self.in_proj = QuantDense(embed_dim, 3 * embed_dim, device=device)
+        self.out_proj = QuantDense(embed_dim, embed_dim, device=device)
 
     def forward(
         self,
@@ -311,7 +382,7 @@ class SelfMultiheadAttention(nn.Module):
                                    attn_bias)
             return self.out_proj(_merge_heads(o)), rows
         o = _attend(q, k, v, key_padding_mask, attn_bias, self.dropout,
-                    self.training, rng, return_attn)
+                    self.training, rng, return_attn, self.quantize)
         if return_attn:
             o, attn_weights, attn_probs = o
             return self.out_proj(_merge_heads(o)), attn_weights, attn_probs

@@ -10,8 +10,14 @@
 - dropout in training draws from the :class:`DropoutRng` passed to
   ``forward``, never from the global generator.
 
-The JAX package's pipeline, mixture-of-experts, remat, sequence-parallel
-and quantized variants are not ported yet.
+- quantized serving: ``fc1`` is a
+  :class:`~unicore_tpu_torch.quant.dense.QuantDense` with the activation
+  fused into it (the epilogue of the int8 kernel on the quantized path,
+  ``F.linear`` then the activation on the fp path), ``fc2`` one without;
+  the attention's projections are ``QuantDense`` too.
+
+The JAX package's pipeline, mixture-of-experts, remat and sequence-parallel
+variants are not ported yet.
 """
 
 import math
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from unicore_tpu_torch import utils
+from unicore_tpu_torch.quant.dense import QuantDense
 from .dropout import dropout
 from .layer_norm import LayerNorm
 from .multihead_attention import SelfMultiheadAttention
@@ -92,14 +99,17 @@ class TransformerEncoderLayer(nn.Module):
         super().__init__()
         self.dropout = dropout
         self.activation_dropout = activation_dropout
-        self.activation_fn = utils.get_activation_fn(activation_fn)
         self.post_ln = post_ln
         self.self_attn = SelfMultiheadAttention(
             embed_dim, attention_heads, dropout=attention_dropout, device=device
         )
         self.self_attn_layer_norm = LayerNorm(embed_dim, device=device)
-        self.fc1 = nn.Linear(embed_dim, ffn_embed_dim, device=device)
-        self.fc2 = nn.Linear(ffn_embed_dim, embed_dim, device=device)
+        utils.get_activation_fn(activation_fn)  # an unknown name raises here
+        # the activation fused into fc1: the same composition on the fp path,
+        # the int8 kernel's epilogue on the quantized one
+        self.fc1 = QuantDense(embed_dim, ffn_embed_dim, device=device,
+                              activation=activation_fn)
+        self.fc2 = QuantDense(ffn_embed_dim, embed_dim, device=device)
         self.final_layer_norm = LayerNorm(embed_dim, device=device)
 
     def forward(
@@ -127,7 +137,7 @@ class TransformerEncoderLayer(nn.Module):
         residual = x
         if not self.post_ln:
             x = self.final_layer_norm(x)
-        x = self.activation_fn(self.fc1(x))
+        x = self.fc1(x)
         x = dropout(x, self.activation_dropout, self.training, rng)
         x = self.fc2(x)
         x = dropout(x, self.dropout, self.training, rng)

@@ -172,12 +172,22 @@ def _bind(lib) -> None:
     lib.unicore_flash_attention_db.argtypes = [p] * 10 + geom
     # csrc/decode_attention.cu: tensors, (B, H, L, D), dtype, quant, stream
     lib.unicore_decode_attention.argtypes = [p] * 8 + [i] * 6 + [p]
+    # the quantized serving path: csrc/quant_matmul.cu (x, w, scale, bias, y,
+    # M, N, K, activation), the int8 LayerNorm of csrc/fused_norm.cu and the
+    # int8/int32 softmax of csrc/softmax_dropout.cu
+    lib.unicore_quant_matmul.argtypes = [p] * 5 + [ll, i, i, i, p]
+    lib.unicore_quant_layer_norm_fwd.argtypes = [p, p, i, p, p, p, ll, i, f, p]
+    lib.unicore_quant_softmax_dropout_fwd.argtypes = [
+        p, p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,
+    ]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
                "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
                "unicore_softmax_dropout_bwd", "unicore_flash_attention_fwd",
                "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
-               "unicore_flash_attention_db", "unicore_decode_attention"):
+               "unicore_flash_attention_db", "unicore_decode_attention",
+               "unicore_quant_matmul", "unicore_quant_layer_norm_fwd",
+               "unicore_quant_softmax_dropout_fwd"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll

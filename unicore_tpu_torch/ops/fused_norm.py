@@ -16,6 +16,13 @@ Without a gradient the forward writes no statistics.
 
 Statistics are fp32 whatever the input type; weight and bias are fp32 and
 the output and dx take the input's type; dw and db are fp32.
+
+The quantized-input forward (the TPU kernel's int8 ``scale_ref`` variant,
+``quant_layer_norm_pallas``) is :func:`quant_layer_norm_kernel` on the card
+and :func:`quant_layer_norm_plain` on the CPU, routed by
+``ops/quant_norm.py``: LayerNorm of an int8 tensor whose dequant multiply
+(one fp32 scale or (D,) of them, read on the device) is fused into the
+statistics pass; fp32 out, no statistics, no gradient.
 """
 
 import torch
@@ -26,6 +33,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _kernels.counter("fused_norm_fwd")
 DX_LAUNCHES = _kernels.counter("fused_norm_dx")
 DWDB_LAUNCHES = _kernels.counter("fused_norm_dwdb")
+QUANT_LAUNCHES = _kernels.counter("quant_layer_norm")
 
 
 def fused_norm_plain(x, weight, bias, eps: float, rms: bool):
@@ -159,3 +167,52 @@ def fused_layer_norm(x, weight, bias, eps: float = 1e-5):
 def fused_rms_norm(x, weight, eps: float = 1e-6):
     """Fused RMSNorm over the last dim: y = x * rsqrt(mean(x^2)) * w."""
     return _fused_norm(x, weight, None, eps, True)
+
+
+# ---------------------------------------------------------------------------
+# the quantized-input forward
+# ---------------------------------------------------------------------------
+
+def quant_layer_norm_plain(x_q, x_scale, weight, bias, eps: float = 1e-5,
+                           out_dtype=torch.float32):
+    """The kernel's function in plain PyTorch (the JAX
+    ``quant_layer_norm_reference``): ``x_q`` dequantized in fp32
+    (``x_q * x_scale``, a scalar or (D,) scale), then the two-pass LayerNorm
+    with fp32 statistics, ``* weight + bias``, cast to ``out_dtype``."""
+    x = x_q.float() * x_scale
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(out_dtype)
+
+
+def quant_layer_norm_kernel(x_q, x_scale, weight, bias, eps: float = 1e-5):
+    """The CUDA kernel on card tensors: int8 ``x_q`` (..., D), fp32
+    ``x_scale`` of one element or (D,), fp32 weight and bias (D,); fp32 out.
+    Raises on anything it does not take."""
+    D = x_q.shape[-1]
+    if x_q.dtype != torch.int8:
+        raise ValueError(f"quant_layer_norm kernel: int8 input only, got {x_q.dtype}")
+    if x_scale.dtype != torch.float32 or x_scale.numel() not in (1, D):
+        raise ValueError(
+            f"quant_layer_norm: scale must be fp32 with 1 or {D} elements, got "
+            f"{x_scale.dtype} {tuple(x_scale.shape)}"
+        )
+    for what, t in (("weight", weight), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (D,):
+            raise ValueError(f"quant_layer_norm: {what} must be fp32 of shape ({D},), "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    x2 = x_q.reshape(-1, D).contiguous()
+    scale = x_scale.reshape(-1).contiguous()
+    _kernels.require_cuda("quant_layer_norm", x2, scale, weight, bias)
+    y = torch.empty(x2.shape, dtype=torch.float32, device=x2.device)
+    if x2.shape[0] == 0 or D == 0:
+        return y.view(x_q.shape)
+    rc = _kernels.library().unicore_quant_layer_norm_fwd(
+        x2.data_ptr(), scale.data_ptr(), int(scale.numel() == D and D > 1),
+        weight.data_ptr(), bias.data_ptr(), y.data_ptr(), x2.shape[0], D,
+        float(eps), _kernels.stream_handle(x2.device),
+    )
+    _kernels.check(rc, "quant_layer_norm")
+    QUANT_LAUNCHES.add()
+    return y.view(x_q.shape)

@@ -32,6 +32,11 @@ type; the forward casts p to the output type, then divides kept values by
 p with ``dp = keep ? dy * (1 / (1 - rate)) : 0``
 (:func:`softmax_dropout_bwd_plain` is that backward in plain PyTorch).
 
+The forward kernel also takes a quantized input (the JAX kernel's
+``scale_ref`` variant): :func:`quant_softmax_dropout_kernel` runs it on int8
+or int32 scores dequantized by one fp32 scale read on the device, fp32 out,
+no gradient; ``ops/quant_softmax_dropout.py`` routes to it.
+
 Dropout keeps an element when the Philox4x32-10 bits of the counter
 (col / 4, m, r, 0), keyed on the int32 seed, are at least
 ``min(int(rate * 2**32), 2**32 - 1)``: the attention kernels' generator and
@@ -54,8 +59,13 @@ _MAX_L = 8192
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the quantized inputs of the forward kernel (the TPU kernel's ``scale_ref``
+#: variant) and their codes in csrc/softmax_dropout.cu
+_QUANT_DTYPES = {torch.int8: 2, torch.int32: 3}
+
 FWD_LAUNCHES = _kernels.counter("softmax_dropout_fwd")
 BWD_LAUNCHES = _kernels.counter("softmax_dropout_bwd")
+QUANT_LAUNCHES = _kernels.counter("quant_softmax_dropout_fwd")
 
 
 def _broadcastable_to(shape, target):
@@ -267,6 +277,21 @@ def _launch_fwd(x, mask, bias, plans, rate: float, seed: int):
     return y
 
 
+def _launch_quant_fwd(x, scale, mask, bias, plans, rate: float, seed: int):
+    R, M, L = _rows(x.shape)
+    y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    md, bd = _descs(x, mask, bias, plans)
+    rc = _kernels.library().unicore_quant_softmax_dropout_fwd(
+        x.data_ptr(), scale.data_ptr(), _kernels.ptr(mask), md, _kernels.ptr(bias), bd,
+        y.data_ptr(), R, M, L, *_dropout_args(rate, seed),
+        _keep_divisor(rate, torch.float32), _QUANT_DTYPES[x.dtype],
+        _kernels.stream_handle(x.device),
+    )
+    _kernels.check(rc, "quant_softmax_dropout")
+    QUANT_LAUNCHES.add()
+    return y
+
+
 def _launch_bwd(x, mask, bias, plans, dy, rate: float, seed: int):
     R, M, L = _rows(x.shape)
     ds = torch.empty(x.shape, dtype=torch.float32, device=x.device)
@@ -340,6 +365,38 @@ def softmax_dropout_kernel(input, rate: float = 0.0, mask=None, bias=None,
                   for t in (mask, bias))
     _kernels.require_cuda("softmax_dropout", x, mask, bias)
     return _SoftmaxDropout.apply(x, mask, bias, plans, float(rate), int(seed))
+
+
+def quant_softmax_dropout_kernel(input_q, x_scale, rate: float = 0.0, mask=None,
+                                 bias=None, seed: int = 0) -> torch.Tensor:
+    """The forward kernel on a quantized input: int8 or int32 ``input_q``
+    dequantized by the one-element fp32 ``x_scale`` (read on the device) in
+    the row pass, at a shape :func:`kernel_would_run` accepts for fp32;
+    fp32 out, no gradient.  Raises on anything else."""
+    if input_q.dtype not in _QUANT_DTYPES:
+        raise ValueError(f"quant_softmax_dropout kernel: int8/int32 input only, got "
+                         f"{input_q.dtype}")
+    if not kernel_would_run(input_q.shape, torch.float32, mask, bias):
+        raise ValueError(
+            f"quant_softmax_dropout kernel refused input {tuple(input_q.shape)} with "
+            f"mask {None if mask is None else tuple(mask.shape)} / bias "
+            f"{None if bias is None else tuple(bias.shape)}"
+        )
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"quant_softmax_dropout: dropout rate {rate} outside [0, 1)")
+    if x_scale.dtype != torch.float32 or x_scale.numel() != 1:
+        raise ValueError("quant_softmax_dropout: the scale must be one fp32 value, got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)}")
+    ishape = tuple(input_q.shape)
+    plans = tuple(None if t is None else plan_extra(tuple(t.shape), ishape)
+                  for t in (mask, bias))
+    x = input_q.contiguous()
+    scale = x_scale.reshape(1).contiguous()
+    mask, bias = (None if t is None else
+                  (t if t.dtype in _DTYPES else t.float()).contiguous()
+                  for t in (mask, bias))
+    _kernels.require_cuda("quant_softmax_dropout", x, scale, mask, bias)
+    return _launch_quant_fwd(x, scale, mask, bias, plans, float(rate), int(seed))
 
 
 def softmax_dropout(

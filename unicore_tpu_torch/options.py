@@ -77,6 +77,30 @@ def add_serving_args(parser):
     group.add_argument("--seed", type=int, default=1, metavar="N",
                        help="accepted for script compatibility; serving "
                             "is deterministic and consumes no rng")
+    group.add_argument("--serve-quantize", default="off",
+                       choices=["off", "int8", "fp8"],
+                       help="post-training quantized inference: a startup "
+                            "calibration pass runs deterministic held-out "
+                            "batches through every bucket geometry, captures "
+                            "per-channel weight + per-site activation scales "
+                            "(persisted beside the checkpoint, digest-tied to "
+                            "its weights), and serves the int8 kernels (or "
+                            "fp8-rounded weights and activations in plain "
+                            "torch) with the dequant fused into the consuming "
+                            "ops")
+    group.add_argument("--calibration-batches", type=int, default=1,
+                       metavar="N",
+                       help="calibration rounds per bucket edge (more "
+                            "rounds widen the observed activation range; "
+                            "scales stay a pure function of the weights "
+                            "and the fixed-seed stream)")
+    group.add_argument("--quant-drift-sample", type=int, default=64,
+                       metavar="N",
+                       help="with --serve-quantize: every N-th dispatched "
+                            "batch is re-run through the full-precision "
+                            "model and the per-request max |logit drift| "
+                            "lands in /stats (0 disables the shadow check "
+                            "and frees the fp32 model after calibration)")
     group.add_argument("--fused-norm", default="auto",
                        choices=["auto", "on", "off"],
                        help="LayerNorm/RMSNorm path: 'auto' and 'on' run "

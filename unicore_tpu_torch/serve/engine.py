@@ -16,8 +16,17 @@ fixed set of shape buckets) → **respond** (deadline checked one last time).
   work under a deadline (:meth:`drain`).
 
 The decode plane (``serve/decode.py``) subclasses this engine: it injects
-its own admission queue and passes no ``infer_fn``.  Hot reload and
-quantized serving are not ported yet.
+its own admission queue and passes no ``infer_fn``.
+
+Quantized serving (``--serve-quantize``): ``precision`` names the mode,
+``quant_info`` (the calibration summary) and the sampled per-request drift
+(``drift_probe`` every ``drift_sample_every``-th batch: the max |logit
+drift| of each real request row against the fp32 model) show in /stats
+under ``quant``, with the JAX field names.  The probe's own kernel launches
+are counted apart (``probe_kernel_launches``), so the serving path's
+launches per batch stay readable.  The JAX package journals the samples as
+``quant-path`` events; the port's journal is not ported, so they are
+logged.  Hot reload is not ported yet.
 """
 
 import logging
@@ -84,6 +93,9 @@ class ServeEngine:
         admission_capacity: int = 256,
         precision: str = "",
         device: str = "",
+        quant_info: Optional[dict] = None,
+        drift_probe: Optional[Callable] = None,
+        drift_sample_every: int = 64,
     ):
         if not bucket_edges:
             raise ValueError("bucket_edges must name at least one length")
@@ -107,6 +119,18 @@ class ServeEngine:
             bucket_edges=self.bucket_edges,
             precision=self.precision,
         )
+        #: calibration summary from quant.calibrate (mode, scale source,
+        #: site count, calibration drift) -- surfaced in /stats
+        self.quant_info = quant_info
+        #: optional sampled per-request logit-drift probe: ``tokens[B, L] ->
+        #: per-row max |logit drift|``, every ``drift_sample_every``-th batch
+        self._drift_probe = drift_probe
+        self._drift_every = max(0, int(drift_sample_every))
+        self._drift = {"samples": 0, "max_abs": 0.0, "mean_abs": 0.0,
+                       "last_abs": 0.0}
+        self._drift_probe_dead = False
+        #: kernel launches made by the drift probe (not the serving path)
+        self._probe_launches = {}
         self._phase = PHASE_WARMING
         self._ready = False
         self._stop = threading.Event()
@@ -266,9 +290,58 @@ class ServeEngine:
                     self._latencies_ms.append(latency_ms)
                     if len(self._latencies_ms) > _LATENCY_WINDOW:
                         del self._latencies_ms[: _LATENCY_WINDOW // 4]
+            self._maybe_sample_drift(arr, len(reqs))
             return len(reqs)
         finally:
             self.queue.batch_done()
+
+    def _maybe_sample_drift(self, arr, n_real: int) -> None:
+        """Sampled per-request logit-drift check (quantized serving): every
+        ``drift_sample_every``-th batch re-runs through the probe, and the
+        max |logit_q - logit_f32| of each REAL request row lands in /stats.
+        A dying probe disables itself; it never takes the loop down."""
+        if (
+            self._drift_probe is None
+            or self._drift_probe_dead
+            or self._drift_every <= 0
+            or self._batch_seq % self._drift_every != 0
+        ):
+            return
+        before = _kernels.launch_counts()
+        try:
+            per_row = np.asarray(self._drift_probe(arr), np.float32)
+        except Exception:
+            self._drift_probe_dead = True
+            logger.exception("quant drift probe died; per-request drift sampling "
+                             "disabled (serving continues)")
+            return
+        finally:
+            # the probe runs on this thread between dispatches: the counts'
+            # difference is its launches alone
+            after = _kernels.launch_counts()
+            with self._lock:
+                for k, n in after.items():
+                    if n - before.get(k, 0):
+                        self._probe_launches[k] = (self._probe_launches.get(k, 0)
+                                                   + n - before.get(k, 0))
+        rows = per_row[:n_real] if per_row.ndim else per_row.reshape(1)
+        if rows.size == 0:
+            return
+        batch_max = float(rows.max())
+        with self._lock:
+            d = self._drift
+            d["samples"] += int(n_real)
+            d["last_abs"] = batch_max
+            d["max_abs"] = max(d["max_abs"], batch_max)
+            # an EMA, so a long run's mean tracks the current snapshot
+            mean = float(rows.mean())
+            d["mean_abs"] = (mean if d["samples"] <= n_real
+                             else 0.1 * mean + 0.9 * d["mean_abs"])
+            running = d["max_abs"]
+        logger.info(
+            f"quant-path drift-sample: batch {self._batch_seq}, {n_real} request(s), "
+            f"max |logit drift| {batch_max:.6f} (running max {running:.6f})"
+        )
 
     # -- drain / stop ----------------------------------------------------
 
@@ -343,11 +416,26 @@ class ServeEngine:
             for p in (50, 90, 99)
         }
 
+    def update_quant_info(self, info: dict) -> None:
+        """/stats must describe the snapshot actually serving: the
+        calibration block is replaced and the drift aggregate starts over
+        (the JAX hot reload's hook; the port's hot reload is not ported)."""
+        with self._lock:
+            self.quant_info = dict(info)
+            self._drift = {"samples": 0, "max_abs": 0.0, "mean_abs": 0.0,
+                           "last_abs": 0.0}
+
     def stats(self) -> dict:
+        quant = probe = None
+        if self.quant_info is not None:
+            with self._lock:
+                quant = {**self.quant_info, "request_drift": dict(self._drift)}
+                probe = dict(self._probe_launches)
         return {
             "phase": self._phase,
             "ready": self._ready,
             "precision": self.precision or "training",
+            **({"quant": quant} if quant is not None else {}),
             "device": self.device,
             "served": self.served,
             "admitted": self.queue.admitted,
@@ -359,5 +447,7 @@ class ServeEngine:
             "estimated_delay_s": round(self.queue.estimated_delay(), 4),
             #: per-kernel launch counts of this process (ops/_kernels.py)
             "kernel_launches": _kernels.launch_counts(),
+            #: the part of them the quantized drift probe made
+            **({"probe_kernel_launches": probe} if probe is not None else {}),
             **self.latency_percentiles(),
         }

@@ -11,7 +11,8 @@ in the engine/admission layer; this module only maps outcomes onto HTTP:
   → 200 ok / 429 shed (named reason) / 400 too long or malformed /
   503 not-ready-or-draining / 504 expired / 408 slow client;
 * ``POST /v1/generate`` → the same envelope plus an optional
-  ``max_new_tokens`` (a positive integer, else 400) → the generated ids,
+  ``max_new_tokens`` (anything ``int()`` takes that comes out positive, as
+  the JAX server takes it; else 400) → the generated ids,
   on an engine that declares ``supports_generate`` (``serve/decode.py``);
   404 on any other engine.  ``/v1/infer`` on a decode engine generates
   with the engine's default budget.
@@ -198,14 +199,17 @@ class ServeHandler(BaseHTTPRequestHandler):
                 f"'deadline_ms' must be a number, got {raw_deadline!r}"
             ) from None
         max_new = payload.get("max_new_tokens")
-        # a JSON integer only: a bool is an int to Python, a float would be
-        # cut silently
-        if max_new is not None and (
-            isinstance(max_new, bool) or not isinstance(max_new, int) or max_new <= 0
-        ):
-            raise ValueError(
-                f"'max_new_tokens' must be a positive integer, got {max_new!r}"
-            )
+        # the JAX server's rule: whatever int() takes ("16", 2.5, true),
+        # then positive
+        if max_new is not None:
+            try:
+                max_new = int(max_new)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"'max_new_tokens' must be an integer, got {max_new!r}"
+                ) from None
+            if max_new <= 0:
+                raise ValueError("'max_new_tokens' must be positive")
         return tokens, deadline_ms, payload.get("id"), max_new
 
     def do_POST(self):

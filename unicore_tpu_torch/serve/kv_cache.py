@@ -19,7 +19,7 @@ sequences in a big bucket need no per-sequence branching.
 
 int8 KV: pools hold int8, quantized on write against STATIC per-(layer,
 head, channel) scales (:func:`calibrate_kv_scales`: max-abs over a
-calibration prefill / 127, ``ops/quant.quantize_to_dtype``), dequantized
+calibration prefill / 127, ``ops/quant_matmul.quantize_to_dtype``), dequantized
 inside the attention read (``ops/decode_attention.py``).
 
 The scatters update the pool in place (the JAX package donates its pools
@@ -33,7 +33,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from unicore_tpu_torch.ops.quant import INT8_QMAX, quantize_to_dtype
+from unicore_tpu_torch.ops.quant_matmul import INT8_QMAX, quantize_to_dtype
 
 #: rows per page; every cache-length bucket is a page multiple
 DEFAULT_PAGE_SIZE = 32
