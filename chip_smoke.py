@@ -26,7 +26,9 @@ result line):
    between calls), the same two for the plain version and for one PyTorch
    library call (a backward timed alone on a retained autograd graph), and
    the least time the card could take (bytes over 3.35 TB/s or operations
-   over the type's peak rate, whichever is larger);
+   over the type's peak rate, whichever is larger; fp32 attention at the
+   3xTF32 rate, 495 / 3 TFLOP/s, the least for fp32 accuracy on tensor
+   cores);
 4a. training — ``python -m unicore_tpu_torch.cli.train --device cuda`` on a
    full-width BERT-base (12 layers, 768 wide, 12 heads, max_seq_len 512;
    weights from ``--seed``) over an indexed corpus written from a seed
@@ -36,6 +38,9 @@ result line):
    arch's own dropouts; kernel launches per micro-batch read from the CLI's
    stats line (12 attention forward + 12 backward, 26 norm forward + 26 dx
    + 26 dw/db), every loss finite and the last losses below the first;
+   then one update of the same configuration in this process under
+   ``torch.profiler`` (``bert_profile``: device time by kernel group, the
+   attention backward's two launches apart, and the idle share);
 4b. card against CPU — one training path (BERT-base widths at 2 layers,
    L=256, attention dropout 0.1, other dropouts 0) in this process, on the
    card (kernels) and on the CPU (plain versions) from the same weights and
@@ -175,7 +180,8 @@ WORK = ROOT / "build" / "chip_smoke"
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and flop/s by type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
+PEAK_FLOPS = {"float32": 67e12, "float32_3xtf32": 495e12 / 3, "bfloat16": 989e12,
+              "int8": 1979e12}
 #: tolerances, kernel vs plain version on the same inputs.  Forward
 #: outputs, max abs error: fp32 differs only in summation order; bf16 may
 #: round last-bit fp32 differences to neighbouring bf16 values (one ulp is
@@ -183,8 +189,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 #: (:func:`grad_check`): the ``*_grad`` fraction of the reference's largest
 #: magnitude (at least 1) for every output, the fp32 outputs of bf16 runs
 #: included (dw, db, dbias, and dk, dv as the kernel sums them before their
-#: cast) -- the attention backward adds dk, dv and dbias by atomics in an
-#: order that changes from run to run; plus two bf16 ulps of the element
+#: cast) -- the full-row backward adds dbias by atomics in an order that
+#: changes from run to run; plus two bf16 ulps of the element
 #: (BF16_ULPS of it) for an output stored in bf16, and for the attention
 #: backward in bf16 ``bwd_rounding_slack``: pd and ds round to bf16 before
 #: their products, and may land one ulp apart on the two sides.
@@ -336,6 +342,15 @@ def bound_ms(nbytes, flops, dtype_name):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def attention_bound(res, nbytes, flops):
+    """res[bound_ms], res[bound_by], res[bound_rate] of an attention check
+    (full-row and flash alike): fp32 at the 3xTF32 rate (495 / 3 TFLOP/s,
+    the least time for fp32 accuracy on tensor cores), bf16 at 989."""
+    rate = "float32_3xtf32" if res["dtype"] == "float32" else res["dtype"]
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, rate)
+    res["bound_rate"] = f"{rate} {PEAK_FLOPS[rate] / 1e12:.0f} TFLOP/s"
+
+
 def rel_err(got, ref):
     """max |got - ref| and the scale max(1, max |ref|) it is held against."""
     err = (got.float() - ref.float()).abs().max().item()
@@ -411,8 +426,7 @@ def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234
     timed(res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, scale=1.0, dropout_p=rate), device, iters)
     nbytes = 4 * B * H * L * D * q.element_size() + bias.numel() * 4 + mask.numel() * 4
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4 * B * H * L * L * D,
-                                                res["dtype"])
+    attention_bound(res, nbytes, 4 * B * H * L * L * D)
     log(f"{name}: {json.dumps(res)}")
     return res
 
@@ -470,17 +484,22 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
             leaves, do)
         slack = [0.0] * 4
     pairs = list(zip(("dq", "dk", "dv", "dbias"), got, ref, slack))
+    if device.type == "cuda":
+        # the forward's output and row statistics, the backward's residuals
+        o, lse = fr._launch_fwd(q, k, v, bias, mask, 1.0, rate, seed, True)
     if dtype == torch.bfloat16 and device.type == "cuda":
         # dk and dv as the kernel sums them in fp32, before their cast
-        _, dk32, dv32, _ = fr._launch_bwd(q, k, v, bias, mask, do, 1.0, rate, seed, True)
+        _, dk32, dv32, _ = fr._launch_bwd(q, k, v, bias, mask, o, do, lse, 1.0, rate, seed,
+                                          True)
         pairs += [("dk_fp32", dk32, ref[1], slack[1]), ("dv_fp32", dv32, ref[2], slack[2])]
     errs, ratios = {}, {}
     for gname, g, r, s in pairs:
         errs[gname], ratios[gname] = grad_check(torch, f"{name}: {gname}", g, r,
                                                 TOL["attention_grad"], s)
-    # the backward kernel alone on the card (its launch, with the zeroed
-    # fp32 sums it adds into); the whole autograd backward on the CPU
-    kernel = ((lambda: fr._launch_bwd(q, k, v, bias, mask, do, 1.0, rate, seed, True))
+    # the backward kernels alone on the card (their two launches, with the
+    # zeroed dbias they add into); the whole autograd backward on the CPU
+    kernel = ((lambda: fr._launch_bwd(q, k, v, bias, mask, o, do, lse, 1.0, rate, seed,
+                                      True))
               if device.type == "cuda" else public_grads)
     res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
@@ -499,8 +518,7 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
         leaves[:3] + [lib_mask], do), device, slow_iters)
     item = q.element_size()
     nbytes = (7 * B * H * L * D * item + 2 * bias.numel() * 4 + mask.numel() * 4)
-    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 10 * B * H * L * L * D,
-                                                res["dtype"])
+    attention_bound(res, nbytes, 10 * B * H * L * L * D)
     log(f"{name}: {json.dumps(res)}")
     return res
 
@@ -882,8 +900,7 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
     bias_bytes = 0 if bias is None else bias.numel() * 4
     extra = bias_bytes + mask.numel() * 4
     prod = 2 * B * H * L * L * D  # operations of one (L x L) by D product
-    f_res["bound_ms"], f_res["bound_by"] = bound_ms(4 * bhld * item + 4 * bhl + extra,
-                                                    2 * prod, f_res["dtype"])
+    attention_bound(f_res, 4 * bhld * item + 4 * bhl + extra, 2 * prod)
     sizes = {"flash_attention_dq": (5 * bhld * item + 8 * bhl + extra, 3 * prod),
              "flash_attention_dkv": (6 * bhld * item + 8 * bhl + extra, 4 * prod),
              "flash_attention_db": (4 * bhld * item + 8 * bhl + extra + bias_bytes,
@@ -896,7 +913,7 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
                 else (lambda: torch.autograd.grad(public(*leaves), leaves, do)))
         timed(res, "ms", torch, call, device, iters)
         res.update(both)
-        res["bound_ms"], res["bound_by"] = bound_ms(*sizes[kname], res["dtype"])
+        attention_bound(res, *sizes[kname])
     for kname, res in rows.items():
         log(f"{name} {kname}: {json.dumps(res)}")
     return rows
@@ -1232,7 +1249,7 @@ def run_train_cli(tag, argv, device, t, timeout_s):
     return stats
 
 
-def drive_training(cfg, data, card, smi):
+def drive_training(torch, cfg, data, card, smi):
     save_dir = WORK / "train_ckpt"
     t = cfg["train"]
     stats = run_train_cli("train", train_argv(cfg, data, save_dir, cfg["device"].type),
@@ -1248,6 +1265,8 @@ def drive_training(cfg, data, card, smi):
         "step_ms": stats["step_ms"], "card": card, "nvidia_smi": smi,
     }
     print("train " + json.dumps(train), flush=True)
+    if cfg["device"].type == "cuda":
+        profile_bert_update(torch, cfg, data, card, smi)
     return save_dir / "checkpoint_last.pt", stats["kernel_launches"]
 
 
@@ -1560,15 +1579,52 @@ KERNEL_GROUPS = (("flash_attention", ("flash_",)), ("fused_norm", ("fused_norm",
                                                  "Softmax", "foreach", "fill")))
 
 
-def profile_evoformer_update(torch, cfg, data, card, smi):
-    """One update of 6a's configuration (2 micro-batches, full width, its
-    optimizer) in this process, after a warm-up update: its wall time, then
-    the same update again under ``torch.profiler`` for the device time of
-    the kernels by group; the idle share is the part of the unprofiled
-    wall time the device time does not fill."""
+def profile_update(torch, tr, samples, groups, card, smi):
+    """One update of ``tr`` (a Trainer, its micro-batches ``samples[2:4]``)
+    after a warm-up update on ``samples[:2]``: its wall time unprofiled,
+    then the same update under ``torch.profiler`` for the device time of
+    the kernels by ``groups`` (first match by name; "other" for the rest);
+    the idle share is the part of the unprofiled wall time the device time
+    does not fill."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    tr.begin_epoch(1)
+    tr.train_step(samples[:2])  # warm-up
+    # the wall time of an update without the profiler (whose host-side
+    # recording of every op stretches the traced update several times)
+    tr.train_step(samples[2:4])
+    wall_us = tr.step_ms[-1] * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.train_step(samples[2:4])
+        torch.cuda.synchronize()
+    by_group = {name: 0.0 for name, _ in groups}
+    by_group["other"] = 0.0
+    calls = {name: 0 for name in by_group}
+    top = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+            continue
+        name = next((g for g, keys in groups if any(k in ev.key for k in keys)), "other")
+        by_group[name] += ev.self_device_time_total
+        calls[name] += ev.count
+        top.append((ev.self_device_time_total, ev.key[:90], ev.count))
+    busy = sum(by_group.values())
+    top.sort(reverse=True)
+    return {"update_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+            "device_ms_by_group": {k: v / 1e3 for k, v in by_group.items()},
+            "calls_by_group": calls,
+            "top_kernels": [{"name": n, "device_ms": t / 1e3, "calls": c}
+                            for t, n, c in top[:12]],
+            "profiled": "one update (2 micro-batches) after a warm-up update and an "
+                        "unprofiled timing of the same update, in-process",
+            "card": card, "nvidia_smi": smi}
+
+
+def profile_evoformer_update(torch, cfg, data, card, smi):
+    """:func:`profile_update` on 6a's configuration (full width, its
+    optimizer): the ``evoformer_profile`` line."""
     from unicore_tpu_torch import options
     from unicore_tpu_torch.losses.masked_msa import MaskedMSALoss
     from unicore_tpu_torch.tasks.msa_pretrain import MSAPretrainTask
@@ -1586,36 +1642,40 @@ def profile_evoformer_update(torch, cfg, data, card, smi):
     model = task.build_model(args, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(args.seed))
     tr = Trainer(args, task, model, MaskedMSALoss(task), dev)
-    tr.begin_epoch(1)
-    tr.train_step(samples[:2])  # warm-up
-    # the wall time of an update without the profiler (whose host-side
-    # recording of every op stretches the traced update several times)
-    tr.train_step(samples[2:])
-    wall_us = tr.step_ms[-1] * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.train_step(samples[2:])
-        torch.cuda.synchronize()
-    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
-    groups["other"] = 0.0
-    top = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
-            continue
-        name = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)),
-                    "other")
-        groups[name] += ev.self_device_time_total
-        top.append((ev.self_device_time_total, ev.key[:90], ev.count))
-    busy = sum(groups.values())
-    top.sort(reverse=True)
-    res = {"update_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-           "device_idle_share": max(0.0, 1.0 - busy / wall_us),
-           "device_ms_by_group": {k: v / 1e3 for k, v in groups.items()},
-           "top_kernels": [{"name": n, "device_ms": t / 1e3, "calls": c}
-                           for t, n, c in top[:12]],
-           "profiled": "one update (2 micro-batches) after a warm-up update and an "
-                       "unprofiled timing of the same update, in-process",
-           "card": card, "nvidia_smi": smi}
+    res = profile_update(torch, tr, samples, KERNEL_GROUPS, card, smi)
     print("evoformer_profile " + json.dumps(res), flush=True)
+    del tr, model
+    torch.cuda.empty_cache()
+
+
+#: BERT's update by kernel group: the full-row forward and each launch of
+#: its backward apart, then the groups of :data:`KERNEL_GROUPS`
+BERT_GROUPS = (("fullrow_fwd", ("fullrow_fwd",)), ("fullrow_bwd_dq_dbias", ("fullrow_dq",)),
+               ("fullrow_bwd_dk_dv", ("fullrow_dkv",))) + KERNEL_GROUPS[1:]
+
+
+def profile_bert_update(torch, cfg, data, card, smi):
+    """:func:`profile_update` on 4a's configuration (BERT-base at full
+    width, batch 8 x 2 micro-batches of the 384/512 buckets, its optimizer
+    and dropouts): the ``bert_profile`` line."""
+    from unicore_tpu_torch import options, tasks
+    from unicore_tpu_torch.trainer import Trainer
+
+    dev = cfg["device"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(), train_argv(cfg, data, WORK / "unused", "cuda"))
+    task = tasks.setup_task(args)
+    task.load_dataset("train")
+    itr = task.get_batch_iterator(task.dataset("train"), batch_size=cfg["batch"],
+                                  seed=args.seed)
+    samples = list(itr.next_epoch_itr(shuffle=True))[:4]
+    model = task.build_model(args, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(args.seed))
+    tr = Trainer(args, task, model, task.build_loss(args), dev)
+    res = profile_update(torch, tr, samples, BERT_GROUPS, card, smi)
+    res["micro_batch_shapes"] = [list(s["net_input"]["src_tokens"].shape)
+                                 for s in samples[2:4]]
+    print("bert_profile " + json.dumps(res), flush=True)
     del tr, model
     torch.cuda.empty_cache()
 
@@ -2761,7 +2821,7 @@ def main(argv=None):
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
     data = write_corpus(cfg)
-    ckpt, train_launches = drive_training(cfg, data, card, smi)
+    ckpt, train_launches = drive_training(torch, cfg, data, card, smi)
     log(f"phase 4a done at {time.monotonic() - started:.0f}s")
     drive_card_vs_cpu(torch, cfg, data)
     log(f"phase 4b done at {time.monotonic() - started:.0f}s")

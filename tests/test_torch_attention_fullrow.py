@@ -331,3 +331,86 @@ def test_plain_backward_matches_jax_bwd_kernel(pallas_interpret, dtype, bias_hea
                 tol = tol + 2.0 ** -6 * r.abs()
             err = (g.float() - r).abs()
             assert (err <= tol).all(), (name, (err / tol).max().item())
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """``tf32_split_plain`` is PTX ``cvt.rna.tf32.f32``: 10 mantissa bits
+    kept, the nearest value taken, a tie (exactly half an ulp) away from
+    zero for either sign; ``lo`` carries the remainder."""
+    one_ulp = 2.0 ** -10
+    x = torch.tensor([1.0 + one_ulp / 2, -(1.0 + one_ulp / 2), 1.0 + one_ulp / 2 - 2 ** -23,
+                      1.0 + 3 * one_ulp / 2, 0.0, -0.0], dtype=torch.float32)
+    hi, lo = port_fr.tf32_split_plain(x)
+    assert hi.tolist() == [1.0 + one_ulp, -(1.0 + one_ulp), 1.0, 1.0 + 2 * one_ulp, 0.0, 0.0]
+    assert (hi.view(torch.int32) & 0x1FFF == 0).all()
+    assert (lo.view(torch.int32) & 0x1FFF == 0).all()
+    r = torch.from_numpy(np.random.default_rng(3).standard_normal(4096).astype(np.float32))
+    hi, lo = port_fr.tf32_split_plain(r)
+    # hi + lo is r within the rounding of lo: about 2**-22 of r
+    assert ((hi.double() + lo.double() - r.double()).abs()
+            <= 2.0 ** -21 * r.double().abs()).all()
+
+
+def test_3xtf32_product_holds_the_fp32_tolerance():
+    """Why the kernels take 3xTF32 for fp32 inputs: at (2, 2, 256, 64) the
+    product q k^T from the split (hi hi + hi lo + lo hi) stays within the
+    attention tolerance (2e-5) of the float64 product, while one plain TF32
+    product (hi hi) does not."""
+    q, k, _, _, _ = _inputs(2, 2, 256, 64, None, seed=21)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    exact = torch.matmul(qt.double(), kt.double().transpose(-1, -2))
+    (qh, ql), (kh, kl) = port_fr.tf32_split_plain(qt), port_fr.tf32_split_plain(kt)
+    mm = lambda a, b: torch.matmul(a.double(), b.double().transpose(-1, -2))  # noqa: E731
+    three = mm(qh, kh) + mm(qh, kl) + mm(ql, kh)
+    one = mm(qh, kh)
+    assert (three - exact).abs().max().item() <= ATOL
+    assert (one - exact).abs().max().item() > ATOL
+
+
+def test_backward_identities_match_jax_vjp(pallas_interpret):
+    """The identities the backward kernels rest on, on the plain side,
+    against the JAX ``_fullrow`` VJP in interpret mode (fp32, a per-head
+    bias, a key mask with a fully masked row, dropout 0): p = exp(s - lse)
+    from the forward's row statistics (``fullrow_lse_plain``; 0 on masked
+    keys), and di = rowsum(do * o) from the forward's output, give dq, dk,
+    dv and dbias as ``jax.grad`` of the JAX kernels does."""
+    B, H, L, D, scale = 2, 3, 128, 32, 0.8
+    q, k, v, bias, mask = _inputs(B, H, L, D, H, seed=77)
+    do = np.random.default_rng(78).standard_normal((B, H, L, D)).astype(np.float32)
+    qt, kt, vt, bt, mt, dot = (torch.from_numpy(a) for a in (q, k, v, bias, mask, do))
+    kvm = (mt != 0)[:, None, None, :]
+    lse = port_fr.fullrow_lse_plain(qt, kt, bt, mt, scale)
+    s = torch.matmul(qt, kt.transpose(-1, -2)) * scale + bt
+    p = torch.where(kvm, 0.0, torch.exp(s - lse[..., None]))
+    o = np.asarray(jax_fr.fullrow_attention(_j(q), _j(k), _j(v), bias=_j(bias),
+                                            kv_padding_mask=_j(mask), sm_scale=scale))
+    np.testing.assert_allclose(torch.matmul(p, vt).numpy(), o, rtol=0, atol=ATOL)
+    di = (dot * torch.from_numpy(o.copy())).sum(-1, keepdim=True)
+    dp = torch.matmul(dot, vt.transpose(-1, -2))
+    np.testing.assert_allclose(di.numpy(), (p * dp).sum(-1, keepdim=True).numpy(),
+                               rtol=0, atol=1e-4)
+    ds = p * (dp - di)
+    got = [scale * torch.matmul(ds, kt), scale * torch.matmul(ds.transpose(-1, -2), qt),
+           torch.matmul(p.transpose(-1, -2), dot), ds.sum(0, keepdim=True)]
+
+    def f(q, k, v, b):
+        o = jax_fr.fullrow_attention(q, k, v, bias=b, kv_padding_mask=_j(mask),
+                                     sm_scale=scale)
+        return jnp.sum(o * jnp.asarray(do))
+
+    ref = jax.grad(f, argnums=(0, 1, 2, 3))(_j(q), _j(k), _j(v), _j(bias))
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        assert _rel(g.numpy(), r) < GRAD_TOL, name
+    assert not lse[-1].any()  # the fully masked batch row
+
+
+def test_row_statistics_only_when_a_backward_follows():
+    """``_needs_backward``, which decides whether the CUDA forward writes
+    its row statistics: grad mode on and an input that requires grad."""
+    q = torch.zeros(1, 1, 128, 8)
+    leaf = q.clone().requires_grad_(True)
+    assert port_fr._needs_backward(leaf, q, q, None)
+    assert not port_fr._needs_backward(q, q, q, None)
+    assert port_fr._needs_backward(q, q, q, leaf)
+    with torch.no_grad():
+        assert not port_fr._needs_backward(leaf, leaf, leaf, None)

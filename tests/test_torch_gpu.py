@@ -49,15 +49,21 @@ one fp32 result once).  Incremental decode of the 2-layer LM on the card vs
 its full forward on the CPU: 1e-4 absolute and relative on logits, as the
 JAX package's parity test holds it.
 
+The full-row backward at BERT-base's (8, 12, 512, 64) with dropout; its
+dq, dk and dv bit for bit across two calls (no atomics), dbias within its
+tolerance; the forward's row statistics written only when a backward
+follows (not under ``torch.no_grad()``), and equal to the plain
+log-sum-exp within 1e-5.
+
 Gradients, kernel vs autograd of the plain version (for the attention
 backward in bf16, vs ``fullrow_attention_bwd_plain``, which rounds pd and
 ds as the kernel does; for the softmax backward in bf16, vs
 ``softmax_dropout_bwd_plain``, which keeps dp in fp32 as the kernel does),
 per element as chip_smoke.py holds them: 1e-4 (attention, full-row and
 flash) / 1e-5 (norm, softmax) of the reference's largest magnitude (at
-least 1) — the full-row dk, dv and dbias are sums of per-tile partials
-added by atomics in an order that changes from run to run, the flash
-backward recomputes p from the forward's lse — plus two bf16 ulps of the
+least 1) — both backwards recompute p from the forward's lse, and the
+full-row dbias is a sum added by atomics in an order that changes from run
+to run — plus two bf16 ulps of the
 element (2**-6 of it) where the output is stored in bf16, plus for the
 attention backward in bf16 ``bwd_rounding_slack`` (pd and ds may round to
 neighbouring bf16 values).  BERT gradients: 1e-4 relative to each
@@ -111,7 +117,7 @@ def cuda():
     [
         (2, 3, 128, 128, 16, None, False, torch.float32),
         (2, 3, 128, 256, 64, 1, True, torch.float32),
-        (1, 2, 128, 1024, 128, 2, True, torch.float32),  # 186 KB of smem
+        (1, 2, 128, 1024, 128, 2, True, torch.float32),  # L 1024, D 128
         (2, 2, 128, 128, 12, None, True, torch.float32),
         (2, 2, 384, 384, 8, 2, True, torch.bfloat16),
         (1, 1, 256, 768, 64, None, False, torch.bfloat16),
@@ -226,10 +232,12 @@ def _attention_grads(fn, q, k, v, do, bias, mask, **kw):
         (2, 3, 512, 512, 64, 3, 0.1, torch.float32),
         (2, 2, 384, 384, 128, 2, 0.0, torch.float32),
         (2, 2, 256, 256, 12, 1, 0.1, torch.float32),  # D not a multiple of 8
-        (1, 2, 128, 1024, 128, 2, 0.1, torch.float32),  # 16-row tiles, 186 KB
+        (1, 2, 128, 1024, 128, 2, 0.1, torch.float32),  # 202 KB of smem (dq)
         (2, 2, 256, 1024, 64, 1, 0.0, torch.float32),
         (2, 3, 512, 512, 64, 3, 0.1, torch.bfloat16),
         (2, 2, 768, 768, 32, None, 0.2, torch.bfloat16),
+        # the main paths' shape: BERT-base at L = 512, dropout 0.1
+        (8, 12, 512, 512, 64, 12, 0.1, torch.float32),
     ],
 )
 def test_attention_backward_matches_plain(cuda, B, H, Lq, Lk, D, bias_heads,
@@ -259,6 +267,50 @@ def test_attention_backward_matches_plain(cuda, B, H, Lq, Lk, D, bias_heads,
         assert got.dtype == (torch.float32 if name == "dbias" else dtype), name
         ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
         assert ratio <= 1.0, (name, ratio)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_repeats_bit_for_bit(cuda, dtype):
+    """dq, dk and dv are each written once by one block (no atomics), so two
+    backward calls on the same inputs give the same bits; dbias, summed over
+    the batch by atomics, within its fp32 tolerance."""
+    q, k, v, do, bias, mask = _attention_inputs(cuda, 8, 12, 512, 512, 64, 12, dtype,
+                                                seed=5)
+    o, lse = fr._launch_fwd(q, k, v, bias, mask, 0.125, 0.1, 7, True)
+    first = fr._launch_bwd(q, k, v, bias, mask, o, do, lse, 0.125, 0.1, 7, True)
+    second = fr._launch_bwd(q, k, v, bias, mask, o, do, lse, 0.125, 0.1, 7, True)
+    for name, a, b in zip(("dq", "dk", "dv"), first[:3], second[:3]):
+        assert torch.equal(a, b), name
+    assert _grad_over_tol(second[3], first[3], GRAD_TOL["attention"]) <= 1.0
+
+
+def test_attention_row_statistics_only_for_a_backward(cuda, monkeypatch):
+    """The forward writes its (B, H, Lq) fp32 lse only when a backward will
+    follow: not under ``torch.no_grad()`` (the serving path), nor for inputs
+    that need no gradient; with one, lse is the plain log-sum-exp of the
+    scores (0 for a fully masked row)."""
+    q, k, v, _, bias, mask = _attention_inputs(cuda, 2, 3, 256, 256, 64, 3,
+                                               torch.float32, seed=9)
+    seen = []
+    launch = fr._launch_fwd
+
+    def spy(*args):
+        out = launch(*args)
+        seen.append(out[1])
+        return out
+
+    monkeypatch.setattr(fr, "_launch_fwd", spy)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with torch.no_grad():
+        fr.fullrow_attention(*leaves, bias=bias, kv_padding_mask=mask)
+    fr.fullrow_attention(q, k, v, bias=bias, kv_padding_mask=mask)
+    assert seen == [None, None]
+    fr.fullrow_attention(*leaves, bias=bias, kv_padding_mask=mask, sm_scale=0.5)
+    lse = seen[-1]
+    assert lse.shape == (2, 3, 256) and lse.dtype == torch.float32
+    ref = fr.fullrow_lse_plain(q, k, bias, mask, 0.5)
+    assert (lse - ref).abs().max().item() <= 1e-5
+    assert (lse[-1] == 0).all()  # the fully masked batch row
 
 
 def test_attention_dropout_mask_is_philox(cuda):

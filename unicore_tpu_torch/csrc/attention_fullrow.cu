@@ -1,9 +1,10 @@
-// Full-row attention, forward and fused backward, for Hopper (sm_90a).
+// Full-row attention, forward and backward, for Hopper (sm_90a) tensor cores.
 //
 // Replaces the TPU kernels of unicore_tpu/ops/attention_fullrow.py:
-//   `_fwd_kernel` (:110, launched by `_fwd` :160) and
-//   `_bwd_kernel` (:205, launched by `_bwd` :289), the two halves of the
-//   `jax.custom_vjp` `_fullrow` (:370).
+//   `_fwd_kernel` (:110, launched by `_fwd` :160)  -> fullrow_fwd_kernel
+//   `_bwd_kernel` (:205, launched by `_bwd` :289)  -> fullrow_dq_kernel, then
+//                                                    fullrow_dkv_kernel
+// the two halves of the `jax.custom_vjp` `_fullrow` (:370).
 //
 // What they compute (the TPU kernels' maths, not their block structure):
 //   forward   s = (q k^T) * sm_scale + bias;  s = NEG_INF where the key is
@@ -22,7 +23,8 @@
 // q, k, v, o, do, dq are (B, H, L, D) fp32 or bf16; bias is (1, 1|H, Lq, Lk)
 // fp32; the key mask is (B, Lk) int32, nonzero = masked.  Lq, Lk are
 // multiples of 128 up to 1024 and D <= 128, as the shared `supported()`
-// gate routes.
+// gate routes (the kernels take multiples of 64; D is zero-padded to 16,
+// 32, 64 or 128 in shared memory).
 //
 // Dropout: the TPU stream (pltpu.prng_random_bits) cannot be reproduced off
 // the TPU, so the keep bits come from Philox4x32-10 (common.cuh) keyed on
@@ -32,448 +34,767 @@
 // keep rule is the TPU's: keep when bits >= min(int(rate * 2^32), 2^32 - 1)
 // as uint32, scale by 1 / (1 - rate).  The plain version in
 // ops/attention_fullrow.py computes the same bits in torch integer ops, so
-// the two agree bit for bit on the mask.
+// the two agree bit for bit on the mask.  A lane computes each call once
+// and hands its four bits to the lanes that hold the other columns by
+// shuffle: two lanes share a call in the query-major kernels, four in the
+// key-major one, so no call is made twice.
 //
-// What bounds them on this card: operations.  Without tensor cores the
-// forward's 4*B*H*L^2*D flops at the main shape (B=8, H=12, L=512, D=64:
-// 6.44 GFLOP) take at least 96 us at the 67 TFLOP/s fp32 rate, the
-// backward's 10*B*H*L^2*D (16.1 GFLOP: five products of that size) 240 us,
-// while their fp32 traffic needs 19 and 34 us.
+// What bounds them on this card: operations.  At the main shape (B=8, H=12,
+// L=512, D=64, fp32) the forward's two products are 6.44 GFLOP and the
+// backward's five 16.1 GFLOP, against 19 and 34 us of fp32 traffic.  Held
+// to fp32 accuracy, the least time is at the 3xTF32 rate (495 / 3 = 165
+// TFLOP/s): 39 and 98 us; bf16 runs at 989 TFLOP/s.
 //
-// What the design does about it: the TPU kernels keep whole (Lq, Lk) fp32
-// blocks in 12 MB of VMEM; a Hopper block has at most 227 KB of shared
-// memory.  Each block therefore takes one (b, h) and a tile of TQ query rows
-// and keeps those rows' FULL score rows in dynamic shared memory, which
-// keeps the one-shot softmax with no online rescaling.  K and V stream
-// through a 64-row shared tile; the products are fp32 FMA from shared memory
-// with 16-byte loads and register micro-tiles.  The forward takes TQ = 32
-// (<= 182 KB at L = 1024, D = 128).  The backward holds two row sets, p and
-// dp (64 KB each at TQ = 32, L = 512), so it takes TQ = 32 up to 512 keys
-// and TQ = 16 above (186 KB at L = 1024, D = 128); the keep bits of a row
-// live in one register per lane between its two passes.  dq is written
-// directly.  dk, dv and dbias sum over query tiles (dbias over the batch
-// too) and are accumulated in fp32 with atomicAdd into zeroed buffers: one
-// add per element per query tile, no partial buffers.  The order of those
-// adds changes from run to run, so their last bits do, and the tolerances
-// allow it.  wgmma, TMA and a key-major dk/dv pass are left to a later PR.
+// What the design does about it (FlashAttention-2's shape on mma.sync):
+//   * Products on tensor cores (mma.cuh): fp32 inputs as 3xTF32 on
+//     m16n8k8 (hi/lo split, three products, fp32 accumulators; never one
+//     plain TF32 product), bf16 inputs as one m16n8k16 bf16 product.  The
+//     split rounds with integer operations on the bits rather than
+//     `cvt.rna.tf32.f32` (the same values), because the splits, not the
+//     tensor cores, limit these kernels: on an H100 at the main shape the
+//     backward took 1.18 ms with the conversion and 0.86 ms with integer
+//     rounding, 0.74 ms with one integer operation fewer for lo (mma.cuh).
+//   * Blocks of 4 warps; a warp owns 16 rows of a 64-row tile.  K/V (or Q
+//     and do) tiles of 64 rows stream through a two-stage cp.async ring in
+//     shared memory: the next tile's copy overlaps this tile's products.
+//     Rows are padded by 16 bytes, so fragment reads hit 32 distinct banks.
+//   * Scores never leave registers: the forward runs an online softmax
+//     (running max and sum a row; a masked key adds exactly 0, a row with
+//     every key masked ends with l = 0 and writes zeros), and the products
+//     that take p or ds as their A operand take it straight from the
+//     accumulator (mma.cuh).  For bf16 the forward rounds the unnormalised
+//     dropped numerator before p v, where the TPU rounds the normalised
+//     one; the two differ by about one bf16 rounding of each term.
+//   * The bias is read from device memory (L2-resident: one (Lq, Lk) slab
+//     per head, shared by the batch) at each lane's accumulator places,
+//     for a whole tile into registers before the tile's barrier, so the
+//     loads overlap the wait and the products.
+//   * When a backward will follow, the forward writes the row statistic
+//     lse = m + log(l) (fp32, (B, H, Lq)); the serving path writes none.
+//   * Backward, two launches and no atomics for dq, dk, dv:
+//       fullrow_dq_kernel (grid Lq/64 x H x B, query-major): di per row --
+//         rowsum(do * o) from the saved output for fp32, and for bf16 a
+//         first sweep summing the fp32 pd * dp as the TPU does (o is
+//         rounded there) -- then p = exp(s - lse), dp, ds over the K/V
+//         tiles, dq = sm_scale ds k in registers written once, and dbias
+//         by fp32 atomicAdd (float2, two neighbouring keys an add) per
+//         (b, h).  It writes di.
+//       fullrow_dkv_kernel (grid Lk/64 x H x B, key-major): streams the q
+//         and do tiles (64 rows; 32 at D > 64 to keep four accumulator
+//         sets in registers), recomputes s^T, dp^T, p, the keep bits and
+//         ds, and sums dv = pd^T do and dk = sm_scale ds^T q in registers,
+//         written once as fp32: no zeroed buffers, and the same bits from
+//         run to run.
+//     Five products would do (FlashAttention-2 recomputes s and dp once,
+//     key-major, and adds dq by atomics through a shared ds tile); that
+//     form measured 0.85 ms against these two launches' 0.86 on an H100
+//     (main shape, fp32, both with integer rounding): its shared ds tile,
+//     two more barriers a tile and 25 M dq atomics cost what the two
+//     products it saves cost, and its dq would change from run to run.
+// Offsets are 64-bit; dynamic shared memory up to 202 KB (the dq kernel,
+// fp32, D = 128).
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using namespace unicore;
 
-constexpr int kThreads = 256;
-constexpr int kTileK = 64;        // key / value rows per shared tile
-constexpr int kFwdTileQ = 32;     // query rows per forward block
-constexpr float kNegInf = -1e30f; // NEG_INF of ops/flash_attention.py
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 64;          // rows a block owns, rows of a streamed tile
+constexpr float kNegInf = -1e30f;  // NEG_INF of ops/flash_attention.py
+constexpr unsigned kFull = 0xffffffffu;
 
-__host__ __device__ __forceinline__ int pad4(int D) { return (D + 3) & ~3; }
+struct Geom {
+  int B, H, Lq, Lk, D, bias_heads;
+  float sm_scale;
+};
 
-// Copy `rows` rows of a row-major (rows, D) tile into shared memory with row
-// stride `ld`, converting to fp32 and zero-filling columns [D, Dp).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
-                                          int rows, int D, int Dp) {
-  for (int e = threadIdx.x; e < rows * Dp; e += kThreads) {
-    const int r = e / Dp, c = e - r * Dp;
-    dst[r * ld + c] = c < D ? to_f(src[(size_t)r * D + c]) : 0.f;
-  }
+// The keep bits (bit w: key column c0 + w) a lane needs for its two rows of
+// one 16 x 8 accumulator tile in the query-major kernels: the lane holds
+// columns 2t, 2t+1 of rows g and g+8; lanes t and t^1 share the 4-column
+// group, so the even one computes row g's call, the odd one row g+8's, and
+// they swap.  Returns {row g bits, row g+8 bits}.
+__device__ __forceinline__ uint2 keep_rows(const Dropout& dr, int b, int h, int row_g, int c0,
+                                           int t) {
+  const uint32_t mine = keep4(dr, b, h, row_g + ((t & 1) ? 8 : 0), c0);
+  const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
+  return (t & 1) ? make_uint2(other, mine) : make_uint2(mine, other);
 }
 
-// acc = <row i of sA, row key of src> for the TQ rows of sA and all Lk rows
-// of src, which stream through the shared tile sKV; `epi(i, key, acc)`
-// stores each.  Thread (rg, j) owns rows rg, rg+4, ... of column j of each
-// 64-key tile.
-template <int TQ, typename T, typename Epi>
-__device__ __forceinline__ void rows_times_keys(const float* sA, float* sKV, int ld,
-                                                const T* __restrict__ src, int Lk, int D,
-                                                int Dp, Epi epi) {
-  const int j = threadIdx.x % kTileK, rg = threadIdx.x / kTileK;
-  for (int k0 = 0; k0 < Lk; k0 += kTileK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(sKV, ld, src + (size_t)k0 * D, kTileK, D, Dp);
-    __syncthreads();
-    float acc[TQ / 4];
+// The bias of one 64-key tile at a query-major lane's accumulator places
+// (rows g, g+8 of `brow`; columns key0 + 8n + 2t, +1), as float2 loads;
+// zeros without a bias.
+template <int NT>
+__device__ __forceinline__ void load_bias(float (&bv)[NT][4], const float* brow, int Lk,
+                                          int key0, int t) {
 #pragma unroll
-    for (int r = 0; r < TQ / 4; ++r) acc[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(sKV + j * ld);
-    for (int d4 = 0; d4 < Dp / 4; ++d4) {
-      const float4 kv = krow[d4];
-#pragma unroll
-      for (int r = 0; r < TQ / 4; ++r) {
-        const float4 a = reinterpret_cast<const float4*>(sA + (rg + 4 * r) * ld)[d4];
-        acc[r] += a.x * kv.x + a.y * kv.y + a.z * kv.z + a.w * kv.w;
-      }
+  for (int n = 0; n < NT; ++n) {
+    float2 a = make_float2(0.f, 0.f), c = a;
+    if (brow != nullptr) {
+      a = *reinterpret_cast<const float2*>(brow + key0 + n * 8 + 2 * t);
+      c = *reinterpret_cast<const float2*>(brow + (size_t)8 * Lk + key0 + n * 8 + 2 * t);
     }
-#pragma unroll
-    for (int r = 0; r < TQ / 4; ++r) epi(rg + 4 * r, k0 + j, acc[r]);
+    bv[n][0] = a.x;
+    bv[n][1] = a.y;
+    bv[n][2] = c.x;
+    bv[n][3] = c.y;
   }
 }
 
-// acc[r] = columns 4*cg .. 4*cg+3 of row rg + r*nrg of (sP src), sP the
-// (TQ, Lk) rows in shared memory, src (Lk, D) streaming through sKV.
-template <int TQ, typename T>
-__device__ __forceinline__ void probs_times_rows(const float* sP, int lds, float* sKV, int ld,
-                                                 const T* __restrict__ src, int Lk, int D,
-                                                 int Dp, float4 (&acc)[4]) {
-  const int ncg = Dp / 4;
-  const int nrg = kThreads / ncg;  // >= 8 since Dp <= 128
-  const int cg = threadIdx.x % ncg, rg = threadIdx.x / ncg;
-  const bool active = rg < nrg;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = 0; k0 < Lk; k0 += kTileK) {
-    __syncthreads();  // sP complete / the previous tile's readers are done
-    load_tile(sKV, ld, src + (size_t)k0 * D, kTileK, D, Dp);
-    __syncthreads();
-    if (!active) continue;
-    for (int jj = 0; jj < kTileK; jj += 4) {
-      const float4 v0 = *reinterpret_cast<const float4*>(sKV + (jj + 0) * ld + 4 * cg);
-      const float4 v1 = *reinterpret_cast<const float4*>(sKV + (jj + 1) * ld + 4 * cg);
-      const float4 v2 = *reinterpret_cast<const float4*>(sKV + (jj + 2) * ld + 4 * cg);
-      const float4 v3 = *reinterpret_cast<const float4*>(sKV + (jj + 3) * ld + 4 * cg);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = rg + r * nrg;
-        if (i < TQ) {
-          const float4 p = *reinterpret_cast<const float4*>(sP + i * lds + k0 + jj);
-          acc[r].x += p.x * v0.x + p.y * v1.x + p.z * v2.x + p.w * v3.x;
-          acc[r].y += p.x * v0.y + p.y * v1.y + p.z * v2.y + p.w * v3.y;
-          acc[r].z += p.x * v0.z + p.y * v1.z + p.z * v2.z + p.w * v3.z;
-          acc[r].w += p.x * v0.w + p.y * v1.w + p.z * v2.w + p.w * v3.w;
-        }
-      }
-    }
-  }
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
 }
 
-// dst[i][d] = scale * acc, in probs_times_rows' thread layout
-template <int TQ, typename T>
-__device__ __forceinline__ void store_rows(const float4 (&acc)[4], T* dst, int D, int Dp,
-                                           float scale) {
-  const int ncg = Dp / 4, nrg = kThreads / ncg;
-  const int cg = threadIdx.x % ncg, rg = threadIdx.x / ncg;
-  if (rg >= nrg) return;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = rg + r * nrg;
-    if (i >= TQ) continue;
-    T* row = dst + (size_t)i * D;
-    const float vals[4] = {acc[r].x, acc[r].y, acc[r].z, acc[r].w};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int d = 4 * cg + c;
-      if (d < D) row[d] = from_f<T>(scale * vals[c]);
-    }
-  }
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-// Unnormalised softmax numerators of one score row in place (one warp):
-// returns 1 / rowsum, or 0 for a fully-masked row.
-__device__ __forceinline__ float softmax_numerators(float* row, const int* sM, int Lk, int lane) {
-  float m = -__int_as_float(0x7f800000);  // -inf
-  for (int c = lane; c < Lk; c += 32) m = fmaxf(m, row[c]);
-  m = warp_max(m);
-  float l = 0.f;
-  for (int c = lane; c < Lk; c += 32) {
-    const float p = sM[c] != 0 ? 0.f : expf(row[c] - m);
-    row[c] = p;
-    l += p;
-  }
-  l = warp_sum(l);
-  return l > 0.f ? 1.f / l : 0.f;
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+size_t fwd_smem_bytes(int Lk) {
+  return sizeof(T) * (size_t)5 * kTile * tile_ld<T>(DP) + sizeof(int) * (size_t)Lk;
 }
 
-size_t fwd_smem_bytes(int Lk, int D) {
-  const int ld = pad4(D) + 4, lds = Lk + 4;
-  return sizeof(float) *
-         ((size_t)(kFwdTileQ + kTileK) * ld + (size_t)kFwdTileQ * lds + Lk);
-}
-
-template <typename T, int TQ>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
-fullrow_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ bias,
-                   const int* __restrict__ mask, T* __restrict__ o,
-                   int H, int Lq, int Lk, int D, int bias_heads, float sm_scale,
-                   Dropout dr) {
-  extern __shared__ __align__(16) float smem[];
-  const int Dp = pad4(D);
-  const int ld = Dp + 4;   // row stride of the Q and K/V tiles (16-byte rows)
-  const int lds = Lk + 4;  // row stride of the score rows
-  float* sQ = smem;                // TQ x ld
-  float* sKV = sQ + TQ * ld;       // kTileK x ld
-  float* sS = sKV + kTileK * ld;   // TQ x lds
-  int* sM = reinterpret_cast<int*>(sS + TQ * lds);  // Lk
+fullrow_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ bias, const int* __restrict__ mask,
+                   T* __restrict__ o, float* __restrict__ lse, Geom gm, Dropout dr) {
+  using M = Mma<T>;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int NT = kTile / 8;  // accumulator tiles across 64 keys
+  constexpr int NO = DP / 8;     // accumulator tiles across the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // 64 x LD
+  T* sK = sQ + kTile * LD;                 // 2 stages of 64 x LD
+  T* sV = sK + 2 * kTile * LD;             // 2 stages of 64 x LD
+  int* sM = reinterpret_cast<int*>(sV + 2 * kTile * LD);  // Lk
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const float* biasb =
-      bias == nullptr ? nullptr
-                      : bias + ((size_t)(bias_heads > 1 ? h : 0) * Lq + q0) * Lk;
-
-  load_tile(sQ, ld, q + (bh * Lq + q0) * D, TQ, D, Dp);
-  for (int c = tid; c < Lk; c += kThreads) sM[c] = mask == nullptr ? 0 : mask[(size_t)b * Lk + c];
-
-  rows_times_keys<TQ>(sQ, sKV, ld, k + bh * Lk * D, Lk, D, Dp,
-                      [&](int i, int key, float acc) {
-                        float s = acc * sm_scale;
-                        if (biasb != nullptr) s += biasb[(size_t)i * Lk + key];
-                        sS[i * lds + key] = sM[key] != 0 ? kNegInf : s;
-                      });
-  __syncthreads();
-
-  // one-shot softmax over each full row, then dropout: one warp per row
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int i = warp; i < TQ; i += kThreads / 32) {
-    float* row = sS + i * lds;
-    const float inv = softmax_numerators(row, sM, Lk, lane);
-    for (int c0 = 4 * lane; c0 < Lk; c0 += 128) {
-      const uint32_t keep = dr.on ? keep4(dr, b, h, q0 + i, c0) : 0xFu;
-      float4 p = *reinterpret_cast<float4*>(row + c0);
-      float pw[4] = {p.x * inv, p.y * inv, p.z * inv, p.w * inv};
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        if (dr.on) pw[w] = (keep >> w) & 1u ? pw[w] * dr.scale : 0.f;
-        pw[w] = round_to<T>(pw[w]);  // cast to v's type before p v
-      }
-      *reinterpret_cast<float4*>(row + c0) = make_float4(pw[0], pw[1], pw[2], pw[3]);
-    }
-  }
-
-  float4 acc[4];
-  probs_times_rows<TQ>(sS, lds, sKV, ld, v + bh * Lk * D, Lk, D, Dp, acc);
-  store_rows<TQ>(acc, o + (bh * Lq + q0) * D, D, Dp, 1.f);
-}
-
-int bwd_tile_q(int Lk) { return Lk <= 512 ? 32 : 16; }
-
-size_t bwd_smem_bytes(int TQ, int Lk, int D) {
-  const int ld = pad4(D) + 4, lds = Lk + 4;
-  return sizeof(float) *
-         ((size_t)(2 * TQ + kTileK) * ld + (size_t)2 * TQ * lds + Lk);
-}
-
-template <typename T, int TQ>
-__global__ void __launch_bounds__(kThreads)
-fullrow_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ bias,
-                   const int* __restrict__ mask, const T* __restrict__ dout,
-                   T* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-                   float* __restrict__ db, int H, int Lq, int Lk, int D, int bias_heads,
-                   float sm_scale, Dropout dr) {
-  extern __shared__ __align__(16) float smem[];
-  const int Dp = pad4(D);
-  const int ld = Dp + 4, lds = Lk + 4;
-  float* sQ = smem;                // TQ x ld: q rows
-  float* sDO = sQ + TQ * ld;       // TQ x ld: do rows
-  float* sKV = sDO + TQ * ld;      // kTileK x ld: streamed K / V tiles
-  float* sS = sKV + kTileK * ld;   // TQ x lds: s, then p, then pd (in T)
-  float* sDP = sS + TQ * lds;      // TQ x lds: dp, then dp_keep, then ds (in T)
-  int* sM = reinterpret_cast<int*>(sDP + TQ * lds);  // Lk
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
-  const size_t brow = ((size_t)(bias_heads > 1 ? h : 0) * Lq + q0) * Lk;
-  const float* biasb = bias == nullptr ? nullptr : bias + brow;
-  float* dbb = db == nullptr ? nullptr : db + brow;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int D = gm.D, Lk = gm.Lk;
+  const size_t bh = (size_t)b * gm.H + h;
+  const bool vec = (D * sizeof(T)) % 16 == 0;
   const T* kb = k + bh * Lk * D;
+  const T* vb = v + bh * Lk * D;
 
-  load_tile(sQ, ld, q + (bh * Lq + q0) * D, TQ, D, Dp);
-  load_tile(sDO, ld, dout + (bh * Lq + q0) * D, TQ, D, Dp);
-  for (int c = tid; c < Lk; c += kThreads) sM[c] = mask == nullptr ? 0 : mask[(size_t)b * Lk + c];
+  load_rows_async(sQ, LD, q + (bh * gm.Lq + q0) * D, kTile, D, DP, vec, kThreads);
+  load_rows_async(sK, LD, kb, kTile, D, DP, vec, kThreads);
+  load_rows_async(sV, LD, vb, kTile, D, DP, vec, kThreads);
+  cp_async_commit();
+  for (int c = threadIdx.x; c < Lk; c += kThreads)
+    sM[c] = mask == nullptr ? 0 : mask[(size_t)b * Lk + c];
 
-  rows_times_keys<TQ>(sQ, sKV, ld, kb, Lk, D, Dp, [&](int i, int key, float acc) {
-    float s = acc * sm_scale;
-    if (biasb != nullptr) s += biasb[(size_t)i * Lk + key];
-    sS[i * lds + key] = sM[key] != 0 ? kNegInf : s;
-  });
-  rows_times_keys<TQ>(sDO, sKV, ld, v + bh * Lk * D, Lk, D, Dp,
-                      [&](int i, int key, float acc) { sDP[i * lds + key] = acc; });
-  __syncthreads();
+  const int row = q0 + warp * 16 + g;  // this lane's rows: row, row + 8
+  const float* brow =
+      bias == nullptr
+          ? nullptr
+          : bias + ((size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq + row) * Lk;
 
-  // per row (one warp): p, the regenerated keep mask, di, ds and dbias
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int i = warp; i < TQ; i += kThreads / 32) {
-    float* srow = sS + i * lds;
-    float* dprow = sDP + i * lds;
-    const float inv = softmax_numerators(srow, sM, Lk, lane);
-    uint32_t bits = 0;  // keep bits of this lane's columns (<= 32 at Lk <= 1024)
-    float di = 0.f;
-    for (int c0 = 4 * lane, t = 0; c0 < Lk; c0 += 128, t += 4) {
-      const uint32_t keep = dr.on ? keep4(dr, b, h, q0 + i, c0) : 0xFu;
-      bits |= keep << t;
-      const float4 p4 = *reinterpret_cast<float4*>(srow + c0);
-      const float4 g4 = *reinterpret_cast<float4*>(dprow + c0);
-      const float pw[4] = {p4.x * inv, p4.y * inv, p4.z * inv, p4.w * inv};
-      float gw[4] = {g4.x, g4.y, g4.z, g4.w};
+  float acc[NO][4];
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        if (dr.on) gw[w] = (keep >> w) & 1u ? gw[w] * dr.scale : 0.f;
-        di += pw[w] * gw[w];  // rowsum(pd * dp) == rowsum(p * dp_keep)
-      }
-      *reinterpret_cast<float4*>(srow + c0) = make_float4(pw[0], pw[1], pw[2], pw[3]);
-      *reinterpret_cast<float4*>(dprow + c0) = make_float4(gw[0], gw[1], gw[2], gw[3]);
-    }
-    di = warp_sum(di);
-    for (int c0 = 4 * lane, t = 0; c0 < Lk; c0 += 128, t += 4) {
-      const float4 p4 = *reinterpret_cast<float4*>(srow + c0);
-      const float4 g4 = *reinterpret_cast<float4*>(dprow + c0);
-      const float pw[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float gw[4] = {g4.x, g4.y, g4.z, g4.w};
-      float pd[4], ds[4];
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        ds[w] = sM[c0 + w] != 0 ? 0.f : pw[w] * (gw[w] - di);
-        pd[w] = pw[w];
-        if (dr.on) pd[w] = (bits >> (t + w)) & 1u ? pw[w] * dr.scale : 0.f;
-        if (dbb != nullptr) atomicAdd(dbb + (size_t)i * Lk + c0 + w, ds[w]);
-        pd[w] = round_to<T>(pd[w]);
-        ds[w] = round_to<T>(ds[w]);
-      }
-      *reinterpret_cast<float4*>(srow + c0) = make_float4(pd[0], pd[1], pd[2], pd[3]);
-      *reinterpret_cast<float4*>(dprow + c0) = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
+  float l[2] = {0.f, 0.f};
+
+  const int ntiles = Lk / kTile;
+  for (int j = 0; j < ntiles; ++j) {
+    const int st = j & 1;
+    if (j + 1 < ntiles) {
+      load_rows_async(sK + (st ^ 1) * kTile * LD, LD, kb + (size_t)(j + 1) * kTile * D, kTile,
+                      D, DP, vec, kThreads);
+      load_rows_async(sV + (st ^ 1) * kTile * LD, LD, vb + (size_t)(j + 1) * kTile * D, kTile,
+                      D, DP, vec, kThreads);
     }
+    cp_async_commit();
+    const int key0 = j * kTile;
+    float bv[NT][4];  // this tile's bias, loaded before the wait and the products
+    load_bias(bv, brow, Lk, key0, t);
+    cp_async_wait<1>();  // tile j (and q) have landed
+    __syncthreads();
+    const T* cK = sK + st * kTile * LD;
+    const T* cV = sV + st * kTile * LD;
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += M::kK) {
+      const typename M::A a = M::load_a(sQ, LD, warp * 16, kk);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) M::mma(s[n], a, M::load_b_nmajor(cK, LD, n * 8, kk));
+    }
+
+    // scale, bias and mask; the running max of each row
+    float tmax[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float x = sM[key] != 0 ? kNegInf : s[n][e] * gm.sm_scale + bv[n][e];
+        s[n][e] = x;
+        tmax[r] = fmaxf(tmax[r], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(tmax[r]));
+      corr[r] = __expf(m[r] - mn);  // 0 on the first tile (m = -inf)
+      m[r] = mn;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+    // numerators, their sum, dropout and the cast to v's type
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint2 keep = make_uint2(0xFu, 0xFu);
+      if (dr.on) keep = keep_rows(dr, b, h, row, key0 + n * 8 + 4 * (t >> 1), t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = key0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float p = sM[key] != 0 ? 0.f : __expf(s[n][e] - m[r]);
+        l[r] += p;
+        float pd = p;
+        if (dr.on) {
+          const uint32_t bits = r ? keep.y : keep.x;
+          pd = (bits >> (2 * (t & 1) + (e & 1))) & 1u ? p * dr.scale : 0.f;
+        }
+        s[n][e] = round_to<T>(pd);
+      }
+    }
+
+    // acc += pd v
+#pragma unroll
+    for (int ks = 0; ks < kTile / M::kK; ++ks) {
+      const typename M::A a = M::template a_from_acc<NT>(s, ks);
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        M::mma(acc[n], a, M::load_b_kmajor(cV, LD, ks * M::kK, n * 8));
+    }
+    __syncthreads();  // every warp is done with stage st before it is refilled
   }
 
-  // dq = sm_scale * ds k (the row sets are complete after the first sync
-  // inside probs_times_rows)
-  float4 acc[4];
-  probs_times_rows<TQ>(sDP, lds, sKV, ld, kb, Lk, D, Dp, acc);
-  store_rows<TQ>(acc, dq + (bh * Lq + q0) * D, D, Dp, sm_scale);
-
-  // dk += sm_scale * ds^T q and dv += pd^T do over this tile's rows: thread
-  // (kg, cg) owns 4 keys x 4 columns per pass; shared memory is read-only
-  // from here on
-  const int ncg = Dp / 4, nkg = kThreads / ncg;
-  const int cg = tid % ncg, kg = tid / ncg;
-  if (kg >= nkg) return;
-  float* dkb = dk + bh * Lk * D;
-  float* dvb = dv + bh * Lk * D;
-  for (int j = 4 * kg; j < Lk; j += 4 * nkg) {
-    float ak[4][4], av[4][4];
+  float inv[2];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  T* orow = o + (bh * gm.Lq + row) * D;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ak[a][c] = av[a][c] = 0.f;
-    for (int i = 0; i < TQ; ++i) {
-      const float4 s4 = *reinterpret_cast<const float4*>(sDP + i * lds + j);
-      const float4 p4 = *reinterpret_cast<const float4*>(sS + i * lds + j);
-      const float4 q4 = *reinterpret_cast<const float4*>(sQ + i * ld + 4 * cg);
-      const float4 o4 = *reinterpret_cast<const float4*>(sDO + i * ld + 4 * cg);
-      const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float qv[4] = {q4.x, q4.y, q4.z, q4.w}, ov[4] = {o4.x, o4.y, o4.z, o4.w};
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ak[a][c] += sv[a] * qv[c];
-          av[a][c] += pv[a] * ov[c];
-        }
+    for (int e = 0; e < 4; ++e) {
+      const int d = n * 8 + 2 * t + (e & 1), r = e >> 1;
+      if (d < D) orow[(size_t)r * 8 * D + d] = from_f<T>(acc[n][e] * inv[r]);
     }
+  if (lse != nullptr && t == 0) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = 4 * cg + c;
-        if (d < D) {
-          atomicAdd(dkb + (size_t)(j + a) * D + d, sm_scale * ak[a][c]);
-          atomicAdd(dvb + (size_t)(j + a) * D + d, av[a][c]);
-        }
-      }
+    for (int r = 0; r < 2; ++r)
+      lse[bh * gm.Lq + row + 8 * r] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
   }
 }
 
-bool bad_geometry(int B, int H, int Lq, int Lk, int D, int tq) {
-  return B <= 0 || H <= 0 || B > 65535 || H > 65535 || Lq <= 0 || Lk <= 0 ||
-         Lq % tq != 0 || Lk % kTileK != 0 || Lk > 1024 || D <= 0 || D > 128;
+// ---------------------------------------------------------------------------
+// backward, launch 1: di, dq and dbias, query-major
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+size_t dq_smem_bytes(int Lk) {
+  return sizeof(T) * (size_t)6 * kTile * tile_ld<T>(DP) + sizeof(int) * (size_t)Lk +
+         sizeof(float) * 2 * kTile;
 }
 
-template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
-                       const void* mask, void* o, int B, int H, int Lq, int Lk, int D,
-                       int bias_heads, float sm_scale, Dropout dr, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(Lk, D);
-  auto kernel = fullrow_fwd_kernel<T, kFwdTileQ>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+fullrow_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const float* __restrict__ bias, const int* __restrict__ mask,
+                  const T* __restrict__ o, const T* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ di_out,
+                  T* __restrict__ dq, float* __restrict__ db, Geom gm, Dropout dr) {
+  using M = Mma<T>;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int NT = kTile / 8;
+  constexpr int NO = DP / 8;
+  // fp32: di = rowsum(do * o) from the saved output.  bf16: o is rounded,
+  // so di is summed from the fp32 pd * dp in a first sweep, as the TPU does.
+  constexpr bool kDiFromOut = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // 64 x LD
+  T* sDO = sQ + kTile * LD;                // 64 x LD
+  T* sK = sDO + kTile * LD;                // 2 stages
+  T* sV = sK + 2 * kTile * LD;             // 2 stages
+  float* sLse = reinterpret_cast<float*>(sV + 2 * kTile * LD);  // 64
+  float* sDi = sLse + kTile;                                     // 64
+  int* sM = reinterpret_cast<int*>(sDi + kTile);                 // Lk
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int D = gm.D, Lk = gm.Lk;
+  const size_t bh = (size_t)b * gm.H + h;
+  const bool vec = (D * sizeof(T)) % 16 == 0;
+  const T* kb = k + bh * Lk * D;
+  const T* vb = v + bh * Lk * D;
+  const size_t qrow0 = bh * gm.Lq + q0;
+
+  load_rows_async(sQ, LD, q + qrow0 * D, kTile, D, DP, vec, kThreads);
+  load_rows_async(sDO, LD, dout + qrow0 * D, kTile, D, DP, vec, kThreads);
+  for (int c = threadIdx.x; c < Lk; c += kThreads)
+    sM[c] = mask == nullptr ? 0 : mask[(size_t)b * Lk + c];
+  for (int r = threadIdx.x; r < kTile; r += kThreads) sLse[r] = lse[qrow0 + r];
+  if (kDiFromOut) {
+    for (int r = warp; r < kTile; r += kWarps) {
+      const T* orow = o + (qrow0 + r) * D;
+      const T* drow = dout + (qrow0 + r) * D;
+      float sum = 0.f;
+      for (int d = lane; d < D; d += 32) sum += to_f(orow[d]) * to_f(drow[d]);
+      sum = warp_sum(sum);
+      if (lane == 0) sDi[r] = sum;
+    }
+  }
+
+  const int row = q0 + warp * 16 + g;
+  const int lrow = warp * 16 + g;  // row within the block's tile
+  const size_t brow_off = ((size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq + row) * Lk;
+  const float* brow = bias == nullptr ? nullptr : bias + brow_off;
+  float* dbrow = db == nullptr ? nullptr : db + brow_off;
+
+  float dqa[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+  float di[2] = {0.f, 0.f};
+
+  const int ntiles = Lk / kTile;
+  // pass 0 (bf16 only): di; pass 1: ds, dq, dbias
+  for (int pass = kDiFromOut ? 1 : 0; pass < 2; ++pass) {
+    load_rows_async(sK, LD, kb, kTile, D, DP, vec, kThreads);
+    load_rows_async(sV, LD, vb, kTile, D, DP, vec, kThreads);
+    cp_async_commit();
+    if (pass == 1) {
+      if (!kDiFromOut) {
+        // the first sweep's per-lane sums -> sDi
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float s = quad_sum(di[r]);
+          if (t == 0) sDi[lrow + 8 * r] = s;
+        }
+      }
+      __syncthreads();  // sDi complete
+      di[0] = sDi[lrow];
+      di[1] = sDi[lrow + 8];
+      if (t == 0) {
+        di_out[qrow0 + lrow] = di[0];
+        di_out[qrow0 + lrow + 8] = di[1];
+      }
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j & 1;
+      if (j + 1 < ntiles) {
+        load_rows_async(sK + (st ^ 1) * kTile * LD, LD, kb + (size_t)(j + 1) * kTile * D,
+                        kTile, D, DP, vec, kThreads);
+        load_rows_async(sV + (st ^ 1) * kTile * LD, LD, vb + (size_t)(j + 1) * kTile * D,
+                        kTile, D, DP, vec, kThreads);
+      }
+      cp_async_commit();
+      const int key0 = j * kTile;
+      float bv[NT][4];
+      load_bias(bv, brow, Lk, key0, t);
+      cp_async_wait<1>();
+      __syncthreads();
+      const T* cK = sK + st * kTile * LD;
+      const T* cV = sV + st * kTile * LD;
+
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP; kk += M::kK) {
+        const typename M::A aq = M::load_a(sQ, LD, warp * 16, kk);
+        const typename M::A ado = M::load_a(sDO, LD, warp * 16, kk);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          M::mma(s[n], aq, M::load_b_nmajor(cK, LD, n * 8, kk));
+          M::mma(dp[n], ado, M::load_b_nmajor(cV, LD, n * 8, kk));
+        }
+      }
+
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint2 keep = make_uint2(0xFu, 0xFu);
+        if (dr.on) keep = keep_rows(dr, b, h, row, key0 + n * 8 + 4 * (t >> 1), t);
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
+          const float x = s[n][e] * gm.sm_scale + bv[n][e];
+          const float p = sM[key] != 0 ? 0.f : __expf(x - sLse[lrow + 8 * r]);
+          float dpk = dp[n][e];
+          if (dr.on) {
+            const uint32_t bits = r ? keep.y : keep.x;
+            dpk = (bits >> (2 * (t & 1) + (e & 1))) & 1u ? dpk * dr.scale : 0.f;
+          }
+          if (pass == 0) {
+            di[r] += p * dpk;  // rowsum(pd * dp) == rowsum(p * dp_keep)
+          } else {
+            ds[e] = p * (dpk - di[r]);  // 0 on masked keys: p is 0 there
+          }
+        }
+        if (pass == 1) {
+          if (dbrow != nullptr) {  // columns 2t, 2t+1 of rows g, g+8: float2 adds
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              atomicAdd(reinterpret_cast<float2*>(dbrow + (size_t)r * 8 * Lk + key0 + n * 8 +
+                                                  2 * t),
+                        make_float2(ds[2 * r], ds[2 * r + 1]));
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = round_to<T>(ds[e]);
+        }
+      }
+
+      if (pass == 1) {  // dq += ds k
+#pragma unroll
+        for (int ks = 0; ks < kTile / M::kK; ++ks) {
+          const typename M::A a = M::template a_from_acc<NT>(s, ks);
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            M::mma(dqa[n], a, M::load_b_kmajor(cK, LD, ks * M::kK, n * 8));
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  T* dqrow = dq + (bh * gm.Lq + row) * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = n * 8 + 2 * t + (e & 1);
+      if (d < D) dqrow[(size_t)(e >> 1) * 8 * D + d] = from_f<T>(gm.sm_scale * dqa[n][e]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// backward, launch 2: dk and dv, key-major
+// ---------------------------------------------------------------------------
+
+// query rows of a streamed q / do tile: 32 at D > 64, where four
+// accumulator sets (s^T, dp^T, dk, dv) would not fit in registers at 64
+template <int DP>
+__host__ __device__ constexpr int dkv_tile_q() {
+  return DP <= 64 ? 64 : 32;
+}
+
+template <typename T, int DP>
+size_t dkv_smem_bytes() {
+  constexpr int TQ = dkv_tile_q<DP>();
+  return sizeof(T) * (size_t)(2 * kTile + 4 * TQ) * tile_ld<T>(DP) + sizeof(float) * 4 * TQ;
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const float* __restrict__ bias, const int* __restrict__ mask,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ di, float* __restrict__ dk,
+                   float* __restrict__ dv, Geom gm, Dropout dr) {
+  using M = Mma<T>;
+  constexpr int LD = tile_ld<T>(DP);
+  constexpr int TQ = dkv_tile_q<DP>();
+  constexpr int NT = TQ / 8;  // accumulator tiles across a query tile
+  constexpr int NO = DP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sK = reinterpret_cast<T*>(smem_raw);  // 64 x LD: this block's keys
+  T* sV = sK + kTile * LD;                 // 64 x LD
+  T* sQ = sV + kTile * LD;                 // 2 stages of TQ x LD
+  T* sDO = sQ + 2 * TQ * LD;               // 2 stages of TQ x LD
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * TQ * LD);  // 2 stages of TQ
+  float* sDi = sLse + 2 * TQ;                                  // 2 stages of TQ
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int D = gm.D, Lq = gm.Lq, Lk = gm.Lk;
+  const size_t bh = (size_t)b * gm.H + h;
+  const bool vec = (D * sizeof(T)) % 16 == 0;
+  const T* qb = q + bh * Lq * D;
+  const T* dob = dout + bh * Lq * D;
+  const float* lseb = lse + bh * Lq;
+  const float* dib = di + bh * Lq;
+
+  load_rows_async(sK, LD, k + (bh * Lk + k0) * D, kTile, D, DP, vec, kThreads);
+  load_rows_async(sV, LD, v + (bh * Lk + k0) * D, kTile, D, DP, vec, kThreads);
+  auto load_q_tile = [&](int i, int st) {
+    load_rows_async(sQ + st * TQ * LD, LD, qb + (size_t)i * TQ * D, TQ, D, DP, vec, kThreads);
+    load_rows_async(sDO + st * TQ * LD, LD, dob + (size_t)i * TQ * D, TQ, D, DP, vec,
+                    kThreads);
+    for (int c = threadIdx.x; c < TQ / 2; c += kThreads) {  // TQ/4 chunks of each
+      const int which = c / (TQ / 4), off = 4 * (c % (TQ / 4));
+      cp_async16((which ? sDi : sLse) + st * TQ + off, (which ? dib : lseb) + i * TQ + off,
+                 16);
+    }
+  };
+  load_q_tile(0, 0);
+  cp_async_commit();
+
+  const int key = k0 + warp * 16 + g;  // this lane's keys: key, key + 8
+  bool masked[2] = {false, false};
+  if (mask != nullptr) {
+    masked[0] = mask[(size_t)b * Lk + key] != 0;
+    masked[1] = mask[(size_t)b * Lk + key + 8] != 0;
+  }
+  const float* bcol =
+      bias == nullptr ? nullptr
+                      : bias + (size_t)(gm.bias_heads > 1 ? h : 0) * Lq * Lk + key;
+  // the lanes whose Philox calls this lane reads: same t, g of this group of 4
+  const int src0 = (g & ~3) * 4 + t;
+  const int gkey = k0 + warp * 16 + (g & ~3) + ((g & 2) ? 8 : 0);  // this lane's call
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int ntiles = Lq / TQ;
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i & 1;
+    if (i + 1 < ntiles) load_q_tile(i + 1, st ^ 1);
+    cp_async_commit();
+    const int qt0 = i * TQ;
+    float bv[NT][4];  // bias at (query qt0 + 8n + 2t + (e & 1), key + 8 (e >> 1))
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        bv[n][e] = bcol == nullptr
+                       ? 0.f
+                       : bcol[(size_t)(qt0 + n * 8 + 2 * t + (e & 1)) * Lk + 8 * (e >> 1)];
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* cQ = sQ + st * TQ * LD;
+    const T* cDO = sDO + st * TQ * LD;
+    const float* cL = sLse + st * TQ;
+    const float* cD = sDi + st * TQ;
+
+    // s^T = k q^T and dp^T = v do^T for this warp's 16 keys
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += M::kK) {
+      const typename M::A ak = M::load_a(sK, LD, warp * 16, kk);
+      const typename M::A av = M::load_a(sV, LD, warp * 16, kk);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        M::mma(s[n], ak, M::load_b_nmajor(cQ, LD, n * 8, kk));
+        M::mma(dp[n], av, M::load_b_nmajor(cDO, LD, n * 8, kk));
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      // keep bits: element (key + 8 (e >> 1), query 2t + (e & 1)) reads
+      // call e of its group of four lanes, bit g % 4
+      uint32_t calls[4] = {0xFu, 0xFu, 0xFu, 0xFu};
+      if (dr.on) {
+        const uint32_t mine =
+            keep4(dr, b, h, qt0 + n * 8 + 2 * t + (g & 1), gkey);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) calls[c] = __shfl_sync(kFull, mine, src0 + 4 * c);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = n * 8 + 2 * t + (e & 1), r = e >> 1;
+        const float x = s[n][e] * gm.sm_scale + bv[n][e];
+        const float p = masked[r] ? 0.f : __expf(x - cL[ql]);
+        float pd = p, dpk = dp[n][e];
+        if (dr.on) {
+          const bool kept = (calls[e] >> (g & 3)) & 1u;
+          pd = kept ? p * dr.scale : 0.f;
+          dpk = kept ? dpk * dr.scale : 0.f;
+        }
+        dp[n][e] = round_to<T>(p * (dpk - cD[ql]));  // ds^T
+        s[n][e] = round_to<T>(pd);                   // pd^T
+      }
+    }
+
+    // dv += pd^T do, dk += ds^T q
+#pragma unroll
+    for (int ks = 0; ks < TQ / M::kK; ++ks) {
+      const typename M::A ap = M::template a_from_acc<NT>(s, ks);
+      const typename M::A as = M::template a_from_acc<NT>(dp, ks);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        M::mma(dva[n], ap, M::load_b_kmajor(cDO, LD, ks * M::kK, n * 8));
+        M::mma(dka[n], as, M::load_b_kmajor(cQ, LD, ks * M::kK, n * 8));
+      }
+    }
+    __syncthreads();
+  }
+
+  float* dkrow = dk + (bh * Lk + key) * D;
+  float* dvrow = dv + (bh * Lk + key) * D;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = n * 8 + 2 * t + (e & 1);
+      if (d < D) {
+        dkrow[(size_t)(e >> 1) * 8 * D + d] = gm.sm_scale * dka[n][e];
+        dvrow[(size_t)(e >> 1) * 8 * D + d] = dva[n][e];
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+bool bad_geometry(const Geom& g) {
+  return g.B <= 0 || g.H <= 0 || g.B > 65535 || g.H > 65535 || g.Lq <= 0 || g.Lk <= 0 ||
+         g.Lq % kTile != 0 || g.Lk % kTile != 0 || g.Lk > 1024 ||
+         g.D <= 0 || g.D > 128 || g.bias_heads <= 0;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int DP>
+cudaError_t launch_fwd_dp(const void* q, const void* k, const void* v, const void* bias,
+                          const void* mask, void* o, void* lse, const Geom& g, Dropout dr,
+                          cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<T, DP>(g.Lk);
+  auto kernel = fullrow_fwd_kernel<T, DP>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(Lq / kFwdTileQ, H, B), kThreads, smem, stream>>>(
+  kernel<<<dim3(g.Lq / kTile, g.H, g.B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const int*>(mask), static_cast<T*>(o),
-      H, Lq, Lk, D, bias_heads, sm_scale, dr);
+      static_cast<float*>(lse), g, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int TQ>
-cudaError_t launch_bwd_tq(const void* q, const void* k, const void* v, const void* bias,
-                          const void* mask, const void* dout, void* dq, void* dk, void* dv,
-                          void* db, int B, int H, int Lq, int Lk, int D, int bias_heads,
-                          float sm_scale, Dropout dr, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(TQ, Lk, D);
-  auto kernel = fullrow_bwd_kernel<T, TQ>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, int DP>
+cudaError_t launch_bwd_dp(const void* q, const void* k, const void* v, const void* bias,
+                          const void* mask, const void* o, const void* dout, const void* lse,
+                          void* di, void* dq, void* dk, void* dv, void* db, const Geom& g,
+                          Dropout dr, cudaStream_t stream) {
+  const size_t smem1 = dq_smem_bytes<T, DP>(g.Lk);
+  auto k1 = fullrow_dq_kernel<T, DP>;
+  cudaError_t err = allow_smem(k1, smem1);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(Lq / TQ, H, B), kThreads, smem, stream>>>(
+  k1<<<dim3(g.Lq / kTile, g.H, g.B), kThreads, smem1, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const int*>(mask),
-      static_cast<const T*>(dout), static_cast<T*>(dq), static_cast<float*>(dk),
-      static_cast<float*>(dv), static_cast<float*>(db), H, Lq, Lk, D, bias_heads,
-      sm_scale, dr);
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(di), static_cast<T*>(dq), static_cast<float*>(db), g, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem2 = dkv_smem_bytes<T, DP>();
+  auto k2 = fullrow_dkv_kernel<T, DP>;
+  err = allow_smem(k2, smem2);
+  if (err != cudaSuccess) return err;
+  k2<<<dim3(g.Lk / kTile, g.H, g.B), kThreads, smem2, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<const int*>(mask),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), g, dr);
   return cudaGetLastError();
+}
+
+// the head dim padded to a multiple of the bf16 mma's k (16): 16, 32, 64, 128
+template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
+                       const void* mask, void* o, void* lse, const Geom& g, Dropout dr,
+                       cudaStream_t s) {
+  if (g.D <= 16) return launch_fwd_dp<T, 16>(q, k, v, bias, mask, o, lse, g, dr, s);
+  if (g.D <= 32) return launch_fwd_dp<T, 32>(q, k, v, bias, mask, o, lse, g, dr, s);
+  if (g.D <= 64) return launch_fwd_dp<T, 64>(q, k, v, bias, mask, o, lse, g, dr, s);
+  return launch_fwd_dp<T, 128>(q, k, v, bias, mask, o, lse, g, dr, s);
 }
 
 template <typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
-                       const void* mask, const void* dout, void* dq, void* dk, void* dv,
-                       void* db, int B, int H, int Lq, int Lk, int D, int bias_heads,
-                       float sm_scale, Dropout dr, cudaStream_t stream) {
-  if (bwd_tile_q(Lk) == 32)
-    return launch_bwd_tq<T, 32>(q, k, v, bias, mask, dout, dq, dk, dv, db, B, H, Lq, Lk, D,
-                                bias_heads, sm_scale, dr, stream);
-  return launch_bwd_tq<T, 16>(q, k, v, bias, mask, dout, dq, dk, dv, db, B, H, Lq, Lk, D,
-                              bias_heads, sm_scale, dr, stream);
+                       const void* mask, const void* o, const void* dout, const void* lse,
+                       void* di, void* dq, void* dk, void* dv, void* db, const Geom& g,
+                       Dropout dr, cudaStream_t s) {
+  if (g.D <= 16)
+    return launch_bwd_dp<T, 16>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+                                s);
+  if (g.D <= 32)
+    return launch_bwd_dp<T, 32>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+                                s);
+  if (g.D <= 64)
+    return launch_bwd_dp<T, 64>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+                                s);
+  return launch_bwd_dp<T, 128>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+                               s);
 }
 
 }  // namespace
 
+// lse: fp32 (B, H, Lq) row statistics for a backward, or null (serving).
 extern "C" int unicore_fullrow_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
-    void* o, int B, int H, int Lq, int Lk, int D, int bias_heads, float sm_scale,
+    void* o, void* lse, int B, int H, int Lq, int Lk, int D, int bias_heads, float sm_scale,
     int dropout, int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
-  if (bad_geometry(B, H, Lq, Lk, D, kFwdTileQ)) return (int)cudaErrorInvalidValue;
+  const Geom g{B, H, Lq, Lk, D, bias_heads, sm_scale};
+  if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return (int)launch_fwd<float>(q, k, v, bias, mask, o, B, H, Lq, Lk, D, bias_heads,
-                                  sm_scale, dr, s);
+  if (dtype == kFloat32) return (int)launch_fwd<float>(q, k, v, bias, mask, o, lse, g, dr, s);
   if (dtype == kBFloat16)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, bias, mask, o, B, H, Lq, Lk, D,
-                                          bias_heads, sm_scale, dr, s);
+    return (int)launch_fwd<__nv_bfloat16>(q, k, v, bias, mask, o, lse, g, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// dk, dv: fp32 (B, H, Lk, D) and db: fp32 (1, bias_heads, Lq, Lk) or null,
-// all zeroed by the caller (the kernel adds into them).
+// Two launches: di, dq and dbias, then dk and dv.  o and lse are the
+// forward's output and row statistics; di: fp32 (B, H, Lq) scratch; dq in
+// the inputs' type; dk, dv: fp32 (B, H, Lk, D), written (no zeroing
+// needed); db: fp32 (1, bias_heads, Lq, Lk) zeroed by the caller (the
+// kernel adds into it), or null.
 extern "C" int unicore_fullrow_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
-    const void* dout, void* dq, void* dk, void* dv, void* db, int B, int H, int Lq, int Lk,
-    int D, int bias_heads, float sm_scale, int dropout, int seed, unsigned threshold,
-    float keep_scale, int dtype, void* stream) {
-  if (bad_geometry(B, H, Lq, Lk, D, bwd_tile_q(Lk)) || (db != nullptr && bias == nullptr))
+    const void* o, const void* dout, const void* lse, void* di, void* dq, void* dk, void* dv,
+    void* db, int B, int H, int Lq, int Lk, int D, int bias_heads, float sm_scale, int dropout,
+    int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
+  const Geom g{B, H, Lq, Lk, D, bias_heads, sm_scale};
+  if (bad_geometry(g) || lse == nullptr || o == nullptr || (db != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return (int)launch_bwd<float>(q, k, v, bias, mask, dout, dq, dk, dv, db, B, H, Lq, Lk,
-                                  D, bias_heads, sm_scale, dr, s);
+    return (int)launch_bwd<float>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+                                  s);
   if (dtype == kBFloat16)
-    return (int)launch_bwd<__nv_bfloat16>(q, k, v, bias, mask, dout, dq, dk, dv, db, B, H,
-                                          Lq, Lk, D, bias_heads, sm_scale, dr, s);
+    return (int)launch_bwd<__nv_bfloat16>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv,
+                                          db, g, dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -147,12 +147,13 @@ def build() -> Path:
 def _bind(lib) -> None:
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     u = ctypes.c_uint
-    lib.unicore_fullrow_attention_fwd.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, u, f, i, p,
-    ]
-    lib.unicore_fullrow_attention_bwd.argtypes = [
-        p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, u, f, i, p,
-    ]
+    # csrc/attention_fullrow.cu: tensors (the forward's lse and the
+    # backward's o, lse, di scratch among them), then (B, H, Lq, Lk, D,
+    # bias_heads), sm_scale, the dropout (on, seed, threshold, scale), dtype,
+    # stream
+    fr_geom = [i] * 6 + [f, i, i, u, f, i, p]
+    lib.unicore_fullrow_attention_fwd.argtypes = [p] * 7 + fr_geom
+    lib.unicore_fullrow_attention_bwd.argtypes = [p] * 13 + fr_geom
     lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, p]
     lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
     lib.unicore_fused_norm_dwdb.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]

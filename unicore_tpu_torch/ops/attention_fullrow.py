@@ -11,11 +11,19 @@ through the hand-written kernels of ``csrc/attention_fullrow.cu`` — or
 raises.  There is no fallback between the two.
 
 On a CUDA tensor the call is a :class:`torch.autograd.Function`, as the JAX
-package's ``jax.custom_vjp``: its residuals are the inputs and the dropout
-seed, no probabilities are saved, and the backward kernel recomputes p and
-regenerates the dropout mask to produce dq, dk, dv and dbias in one pass.
-:func:`fullrow_attention_bwd_plain` is that backward in plain PyTorch, with
-the kernel's bf16 roundings, for holding the kernel against it.
+package's ``jax.custom_vjp``.  Its residuals are the inputs, the dropout
+seed, its own output and, unlike the JAX package's, the forward's fp32 row
+statistics ``lse = m + log(l)`` (B, H, Lq), written only when a backward
+will follow (:func:`_needs_backward`; the serving path writes none).  No
+probabilities are saved: the backward's two kernels (dq and dbias
+query-major, then dk and dv key-major) recompute ``p = exp(s - lse)`` and
+regenerate the dropout mask.  :func:`fullrow_attention_bwd_plain` is that
+backward in plain PyTorch, with the kernel's bf16 roundings, for holding
+the kernel against it.
+
+The kernels run their products on tensor cores; fp32 inputs as 3xTF32
+(each operand split into two TF32 parts, three products), which
+:func:`tf32_split_plain` emulates for the tests.
 
 Dropout keeps a probability when its Philox4x32-10 bits, keyed on the int32
 seed and counted from (key column / 4, query row, head, batch), are at
@@ -121,6 +129,21 @@ def philox_keep_plain(B: int, H: int, Lq: int, Lk: int, seed: int,
     return keep.reshape(B, H, Lq, Lk)
 
 
+def tf32_split_plain(x: torch.Tensor):
+    """The kernels' 3xTF32 split of an fp32 tensor: ``hi`` = x rounded to
+    TF32 (10 mantissa bits, to nearest, ties away from zero: PTX
+    ``cvt.rna.tf32.f32``, done here on the int32 view) and ``lo`` = the
+    remainder ``x - hi`` rounded the same way.  ``hi_a hi_b + hi_a lo_b +
+    lo_a hi_b`` is the product the kernels' tensor cores sum."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        bits = torch.where(torch.isfinite(t), (bits + 0x1000) & ~0x1FFF, bits)
+        return bits.view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
 def _softmax_row(s, kvm):
     """One-shot fp32 softmax over the last dim; fully-masked rows -> zeros
     (the TPU kernel's ``_softmax_row``)."""
@@ -151,6 +174,19 @@ def fullrow_attention_plain(q, k, v, bias=None, kv_mask=None,
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
     return o.to(q.dtype)
+
+
+def fullrow_lse_plain(q, k, bias=None, kv_mask=None, sm_scale: float = 1.0):
+    """The forward kernel's row statistics in plain PyTorch: ``lse = m +
+    log(l)`` over each row's unmasked keys, fp32 (B, H, Lq); 0 for a row
+    whose every key is masked (its p is 0 wherever it is read)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.float()
+    if kv_mask is not None:
+        s = s.masked_fill((kv_mask != 0)[:, None, None, :], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    return torch.where(torch.isfinite(lse), lse, 0.0)
 
 
 def bwd_plain_terms(q, k, v, bias, kv_mask, do, sm_scale: float = 1.0,
@@ -257,34 +293,42 @@ def _dropout_args(rate: float, seed: int):
     return 1, int(seed), dropout_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed):
+def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed, want_lse):
+    """The forward kernel: (o, lse), lse (B, H, Lq) fp32 only when
+    ``want_lse`` (a backward will follow), else None."""
     B, H, Lq, D = q.shape
     o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     rc = _kernels.library().unicore_fullrow_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
-        _kernels.ptr(kv_mask), o.data_ptr(), B, H, Lq, k.shape[2], D,
-        1 if bias is None else bias.shape[1], float(sm_scale),
+        _kernels.ptr(kv_mask), o.data_ptr(), _kernels.ptr(lse), B, H, Lq,
+        k.shape[2], D, 1 if bias is None else bias.shape[1], float(sm_scale),
         *_dropout_args(rate, seed), _DTYPES[q.dtype],
         _kernels.stream_handle(q.device),
     )
     _kernels.check(rc, "fullrow_attention")
     LAUNCHES.add()
-    return o
+    return o, lse
 
 
-def _launch_bwd(q, k, v, bias, kv_mask, do, sm_scale, rate, seed, want_db):
+def _launch_bwd(q, k, v, bias, kv_mask, o, do, lse, sm_scale, rate, seed, want_db):
+    """The backward kernels (two launches, one count): dq in q's type; dk,
+    dv as the fp32 sums the key-major kernel writes; dbias fp32 or None."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     dev = q.device
     dq = torch.empty_like(q)
-    # dk, dv, dbias are sums over query tiles, added in fp32
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=dev)
+    di = torch.empty((B, H, Lq), dtype=torch.float32, device=dev)
+    # dbias sums over the batch (and the heads when shared): fp32 adds
     db = torch.zeros(bias.shape, dtype=torch.float32, device=dev) if want_db else None
     rc = _kernels.library().unicore_fullrow_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
-        _kernels.ptr(kv_mask), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), _kernels.ptr(db), B, H, Lq, Lk, D,
+        _kernels.ptr(kv_mask), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _kernels.ptr(db), B, H, Lq, Lk, D,
         1 if bias is None else bias.shape[1], float(sm_scale),
         *_dropout_args(rate, seed), _DTYPES[q.dtype], _kernels.stream_handle(dev),
     )
@@ -293,24 +337,36 @@ def _launch_bwd(q, k, v, bias, kv_mask, do, sm_scale, rate, seed, want_db):
     return dq, dk, dv, db
 
 
+def _needs_backward(*tensors) -> bool:
+    """Whether autograd will call the backward of this forward: grad mode
+    on and an input that requires grad.  Only then does the forward write
+    its row statistics."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 class _FullrowAttention(torch.autograd.Function):
-    """The kernels with their gradient; residuals are the inputs and the
-    seed, as the JAX ``_fullrow_fwd`` keeps them."""
+    """The kernels with their gradient; residuals are the inputs, the seed,
+    the output and the forward's row statistics (kept only when a backward
+    will follow)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, kv_mask, sm_scale, rate, seed):
-        ctx.save_for_backward(q, k, v, bias, kv_mask)
+    def forward(ctx, q, k, v, bias, kv_mask, sm_scale, rate, seed, need_bwd):
+        o, lse = _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed, need_bwd)
+        if need_bwd:
+            ctx.save_for_backward(q, k, v, bias, kv_mask, o, lse)
         ctx.sm_scale, ctx.rate, ctx.seed = sm_scale, rate, seed
-        return _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, kv_mask = ctx.saved_tensors
+        q, k, v, bias, kv_mask, o, lse = ctx.saved_tensors
         dq, dk, dv, db = _launch_bwd(
-            q, k, v, bias, kv_mask, do.to(q.dtype).contiguous(), ctx.sm_scale,
-            ctx.rate, ctx.seed, bias is not None and ctx.needs_input_grad[3],
+            q, k, v, bias, kv_mask, o, do.to(q.dtype).contiguous(), lse,
+            ctx.sm_scale, ctx.rate, ctx.seed,
+            bias is not None and ctx.needs_input_grad[3],
         )
-        return dq, dk.to(k.dtype), dv.to(v.dtype), db, None, None, None, None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), db, None, None, None, None, None
 
 
 def fullrow_attention(
@@ -361,4 +417,5 @@ def fullrow_attention(
     _check(q, k, v, bias, kv_padding_mask)
     return _FullrowAttention.apply(q, k, v, bias, kv_padding_mask,
                                    float(sm_scale), float(dropout_rate),
-                                   int(dropout_seed))
+                                   int(dropout_seed),
+                                   _needs_backward(q, k, v, bias))
