@@ -80,7 +80,8 @@ result line):
    reach the loss; 145 norm forwards, 137 dx and dw/db; no full-row or
    softmax launch), every loss finite and the last below the first; then
    one update of the same configuration in this process under
-   ``torch.profiler``: device time by kernel group and the idle share;
+   ``torch.profiler``: device time by kernel group (the flash forward, the
+   dq launch and the dk/dv/dbias launch apart) and the idle share;
 6b. Evoformer card against CPU — full widths at 2 blocks, L=128, 16 rows,
    batch 2 (a grouped bias, Bb = 2), dropout 0, 3 updates from the same
    weights (the seed's, every one moved by a seeded 0.05 N(0, 1) so the
@@ -130,14 +131,17 @@ L=256 and 512, bf16, a ``bcast`` and a ``tile`` extra with their
 gradients, rows holding -inf, and the keep mask read off the card bit for
 bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
 rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
-D=128; and the four flash kernels (forward with its lse, dq, dk/dv,
-dbias) against ``flash_attention_plain`` in fp32 and bf16 at phase 6a's
+D=128; and the four flash kernels (forward with its lse, dq with di,
+dk/dv with dbias folded into the same launch) against
+``flash_attention_plain`` in fp32 and bf16 at phase 6a's
 triangle (256, 4, 256, 32) and MSA-row (32, 8, 256, 32) shapes with their
 (1, H, 256, 256) bias, the same at batch 2 with a grouped (2, H, 256, 256)
 bias, a shared (1, 1) bias, and BERT's (2, 12, 1152, 64) at dropout 0.1 (past the full-row gate),
 each with a fully masked key row, and the flash keep mask read off the
 card bit for bit; the library yardstick there is one
-``scaled_dot_product_attention`` with the bias expanded into its mask.  It
+``scaled_dot_product_attention`` with the bias expanded into its mask, and
+each check's ``flash_attention_bwd_total`` line sets the backward's two
+launches, summed, beside SDPA's backward and the bound.  It
 also holds the decode attention against ``decode_attention_plain`` at phase
 7's step (8, 12, 512, 64) in fp32 and bf16, with int8 KV, with mixed
 positions and junk rows past them, and at the 128 bucket; its yardstick is
@@ -871,9 +875,9 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
                                max_err_over_tol=max(ratios[n] for n in gnames),
                                tolerance=grad_tolerance(TOL["attention_grad"], dtype))
 
-    # times: the forward through the public call; each backward kernel
+    # times: the forward through the public call; each backward launch
     # alone on the card (the whole autograd backward on the CPU); plain and
-    # library: the forward, and the whole backward for every backward kernel
+    # library: the forward, and the whole backward for every backward row
     slow_iters = max(iters // 4, 2)
     f_res = rows["flash_attention_fwd"]
     timed(f_res, "ms", torch, lambda: public(q, k, v, *([bias] if bias is not None else [])),
@@ -890,10 +894,16 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
         torch, lambda: F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
                                                       scale=1.0, dropout_p=rate),
         lib_leaves, do), device, slow_iters)
-    di = (out.detach().float() * do.float()).sum(-1)
-    bwd_args = (q, k, v, bias, mask, lse, di, do, 1.0, rate, seed)
-    launch = {"flash_attention_dq": fa._launch_dq, "flash_attention_dkv": fa._launch_dkv,
-              "flash_attention_db": fa._launch_db}
+    # the backward is two launches: dq (with di), then dk/dv with dbias
+    # from the same ds (#5 and #6 fused; its row and dbias's are one launch)
+    o_det = out.detach()
+    di = fa._launch_dq(q, k, v, bias, mask, lse, o_det, do, 1.0, rate, seed)[1] if on_card else None
+    launch = {
+        "flash_attention_dq": lambda: fa._launch_dq(q, k, v, bias, mask, lse, o_det, do, 1.0,
+                                                    rate, seed),
+        "flash_attention_dkv": lambda: fa._launch_dkv(q, k, v, bias, mask, lse, di, do, 1.0,
+                                                      rate, seed, need_db=bias is not None),
+    }
     # bounds: q, k, v, do, out read or written once (item bytes), lse and di
     # (4 bytes a row), the bias and the mask read once, dbias written once
     item, bhld, bhl = q.element_size(), B * H * L * D, B * H * L
@@ -901,21 +911,38 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
     extra = bias_bytes + mask.numel() * 4
     prod = 2 * B * H * L * L * D  # operations of one (L x L) by D product
     attention_bound(f_res, 4 * bhld * item + 4 * bhl + extra, 2 * prod)
-    sizes = {"flash_attention_dq": (5 * bhld * item + 8 * bhl + extra, 3 * prod),
-             "flash_attention_dkv": (6 * bhld * item + 8 * bhl + extra, 4 * prod),
-             "flash_attention_db": (4 * bhld * item + 8 * bhl + extra + bias_bytes,
-                                    2 * prod)}
-    for kname in ("flash_attention_dq", "flash_attention_dkv", "flash_attention_db"):
-        if kname not in rows:
-            continue
+    sizes = {"flash_attention_dq": (6 * bhld * item + 8 * bhl + extra, 3 * prod),
+             "flash_attention_dkv": (6 * bhld * item + 8 * bhl + extra + bias_bytes,
+                                     4 * prod)}
+    for kname in ("flash_attention_dq", "flash_attention_dkv"):
         res = rows[kname]
-        call = ((lambda fn=launch[kname]: fn(*bwd_args)) if on_card
+        call = (launch[kname] if on_card
                 else (lambda: torch.autograd.grad(public(*leaves), leaves, do)))
         timed(res, "ms", torch, call, device, iters)
         res.update(both)
         attention_bound(res, *sizes[kname])
+    dkv = rows["flash_attention_dkv"]
+    if "flash_attention_db" in rows:
+        dkv["fused_with"] = "flash_attention_db"
+        rows["flash_attention_db"].update(
+            {key: dkv[key] for key in dkv if key.startswith(("ms", "device_ms", "plain", "library",
+                                                              "bound"))},
+            fused_with="flash_attention_dkv")
+    dq = rows["flash_attention_dq"]
+    total = {"device_ms": (None if dq["device_ms"] is None or dkv["device_ms"] is None
+                           else dq["device_ms"] + dkv["device_ms"]),
+             "ms": dq["ms"] + dkv["ms"] if on_card else dq["ms"],  # CPU: one autograd backward
+             "library_device_ms": both["library_device_ms"], "library_ms": both["library_ms"],
+             "bound_ms": dq["bound_ms"] + dkv["bound_ms"],
+             "launches": "dq (with di) + dk/dv" + ("/dbias" if bias is not None else "")}
+    total["vs_library"] = (None if total["device_ms"] is None or not total["library_device_ms"]
+                           else total["device_ms"] / total["library_device_ms"])
+    for kname in ("flash_attention_dq", "flash_attention_dkv", "flash_attention_db"):
+        if kname in rows:
+            rows[kname]["flash_attention_bwd_total"] = total
     for kname, res in rows.items():
         log(f"{name} {kname}: {json.dumps(res)}")
+    log(f"{name} flash_attention_bwd_total: {json.dumps(total)}")
     return rows
 
 
@@ -1622,6 +1649,13 @@ def profile_update(torch, tr, samples, groups, card, smi):
             "card": card, "nvidia_smi": smi}
 
 
+#: the Evoformer's update by kernel group: the flash forward and each
+#: launch of its backward apart (the dbias reduction with dk/dv), then the
+#: groups of :data:`KERNEL_GROUPS`; ``flash_attention`` is their sum
+EVOFORMER_GROUPS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd_dq", ("flash_dq",)),
+                    ("flash_bwd_dkv_dbias", ("flash_dkv", "flash_db_reduce"))) + KERNEL_GROUPS[1:]
+
+
 def profile_evoformer_update(torch, cfg, data, card, smi):
     """:func:`profile_update` on 6a's configuration (full width, its
     optimizer): the ``evoformer_profile`` line."""
@@ -1642,7 +1676,9 @@ def profile_evoformer_update(torch, cfg, data, card, smi):
     model = task.build_model(args, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(args.seed))
     tr = Trainer(args, task, model, MaskedMSALoss(task), dev)
-    res = profile_update(torch, tr, samples, KERNEL_GROUPS, card, smi)
+    res = profile_update(torch, tr, samples, EVOFORMER_GROUPS, card, smi)
+    by_group = res["device_ms_by_group"]
+    by_group["flash_attention"] = sum(by_group[g] for g, _ in EVOFORMER_GROUPS[:3])
     print("evoformer_profile " + json.dumps(res), flush=True)
     del tr, model
     torch.cuda.empty_cache()

@@ -140,6 +140,61 @@ def test_plain_matches_jax_flash(pallas_interpret, B, H, L, bias_bh, masked):
     assert sum(_kernels.launch_counts().values()) == 0
 
 
+def _mm(a, b, three=True):
+    """a @ b as the backward kernels' tensor cores take an fp32 product:
+    both operands split by ``tf32_split_plain`` and summed as hi hi + hi lo
+    + lo hi in fp32 (3xTF32), or, for ``three=False``, one plain TF32
+    product hi hi."""
+    (ah, al), (bh, bl) = port_fr.tf32_split_plain(a), port_fr.tf32_split_plain(b)
+    return ah @ bh + ah @ bl + al @ bh if three else ah @ bh
+
+
+def _tf32_backward(q, k, v, bias, mask, do, three):
+    """dq, dk, dv, dbias from ``bwd_plain_terms``' definitions (p from the
+    forward's lse, di = rowsum(out * do), ds = p (dp - di), 0 at masked
+    keys) with every product -- s, dp, dq, dk, dv -- taken as :func:`_mm`
+    takes it; fp32, dropout 0, sm_scale 1."""
+    out, lse = port_fa.flash_attention_fwd_plain(q, k, v, bias, mask)
+    kvm = (mask != 0)[:, None, None, :]
+    s = _mm(q, k.transpose(-1, -2), three) + bias
+    p = torch.where(kvm, 0.0, torch.exp(s - lse[..., None]))
+    dp = _mm(do, v.transpose(-1, -2), three)
+    di = (out * do).sum(-1, keepdim=True)
+    ds = torch.where(kvm, 0.0, p * (dp - di))
+    return (_mm(ds, k, three), _mm(ds.transpose(-1, -2), q, three),
+            _mm(p.transpose(-1, -2), do, three), ds.sum(0, keepdim=True))
+
+
+def test_3xtf32_backward_holds_the_jax_gradients(pallas_interpret):
+    """The arithmetic of the tensor-core backward (every product 3xTF32:
+    hi hi + hi lo + lo hi of ``tf32_split_plain``'s halves, fp32 sums) at
+    the triangle attention's head dim, (4, 4, 256, 32) with a (1, 4, 256,
+    256) bias and a key mask whose last row masks every key: dq, dk, dv
+    and dbias against ``jax.vjp`` of the JAX Pallas flash kernels
+    (interpret mode) within GRAD_TOL, and exact zeros for the fully masked
+    row.  One plain TF32 product (hi hi) misses that tolerance, which is
+    why the kernels never take one on fp32 inputs."""
+    B, H, L, D = 4, 4, 256, 32
+    q, k, v, do, bias, mask = _inputs(B, H, L, D, (1, H, L, L), True, seed=808)
+
+    def jf(*xs):
+        return jax_fa.flash_attention(xs[0], xs[1], xs[2], bias=xs[3],
+                                      kv_padding_mask=_j(mask))
+
+    _, vjp = jax.vjp(jf, _j(q), _j(k), _j(v), _j(bias))
+    jgrads = [_t(np.asarray(g)) for g in vjp(_j(do))]
+    args = [_t(x) for x in (q, k, v, bias, mask, do)]
+    three = _tf32_backward(*args, three=True)
+    for name, g, r in zip(("dq", "dk", "dv", "dbias"), three, jgrads):
+        _close_grad(g, r, f"3xTF32 {name}")
+    assert three[0][-1].abs().max().item() == 0.0
+    one = _tf32_backward(*args, three=False)
+    worst = max(((g.double() - r.double()).abs().max()
+                 / (GRAD_TOL * max(1.0, r.abs().max().item()))).item()
+                for g, r in zip(one, jgrads))
+    assert worst > 1.0, worst
+
+
 def test_lse_and_fully_masked_rows():
     """lse = logsumexp of the masked scores; a fully masked row gives lse
     ~ NEG_INF (m + log(1e-37) with m = -1e30) and zero output."""

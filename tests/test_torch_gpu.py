@@ -582,7 +582,11 @@ def test_flash_kernels_match_plain(cuda, B, H, Lq, Lk, D, bias_shape, masked, dr
     """The four flash kernels (forward, dq, dk/dv, dbias) through the
     autograd Function against the plain version on the same card inputs:
     fp32 vs autograd of ``flash_attention_plain``; bf16 vs
-    ``flash_attention_bwd_plain`` from the kernel's own output and lse."""
+    ``flash_attention_bwd_plain`` from the kernel's own output and lse.
+    dq, dk, dv and dbias repeat bit for bit across two backward calls (no
+    atomics; dbias's partial sums are added in a fixed order), and each
+    backward raises the dq, dk/dv and dbias counts by one -- dbias by none
+    when the bias needs no gradient."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do, bias, mask = _flash_inputs(cuda, B, H, Lq, Lk, D, bias_shape, masked,
@@ -592,10 +596,22 @@ def test_flash_kernels_match_plain(cuda, B, H, Lq, Lk, D, bias_shape, masked, dr
     _kernels.reset_launch_counts()
     out = fa.flash_attention(*leaves[:3], bias=leaves[3] if bias is not None else None,
                              kv_padding_mask=mask, **kw)
-    grads = torch.autograd.grad(out, leaves, do)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
     counts = (fa.FWD_LAUNCHES.count, fa.DQ_LAUNCHES.count, fa.DKV_LAUNCHES.count,
               fa.DB_LAUNCHES.count)
     assert counts == (1, 1, 1, int(bias is not None)), counts
+    again = torch.autograd.grad(out, leaves, do)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, again):
+        assert torch.equal(a, b), name
+    counts = (fa.DQ_LAUNCHES.count, fa.DKV_LAUNCHES.count, fa.DB_LAUNCHES.count)
+    assert counts == (2, 2, 2 * int(bias is not None)), counts
+    if bias is not None:  # the bias needs no gradient: no dbias
+        fixed = fa.flash_attention(*leaves[:3], bias=bias, kv_padding_mask=mask, **kw)
+        no_db = torch.autograd.grad(fixed, leaves[:3], do)
+        for name, a, b in zip(("dq", "dk", "dv"), grads, no_db):
+            assert torch.equal(a, b), name
+        counts = (fa.DQ_LAUNCHES.count, fa.DKV_LAUNCHES.count, fa.DB_LAUNCHES.count)
+        assert counts == (3, 3, 2), counts
     ref_out, lse = fa.flash_attention_fwd_plain(q, k, v, bias, mask, 0.7, dropout, 99)
     assert (out.float() - ref_out.float()).abs().max().item() <= \
         TOL["attention"][dtype] * max(1.0, ref_out.float().abs().max().item())
@@ -623,7 +639,8 @@ def test_flash_kernels_match_plain(cuda, B, H, Lq, Lk, D, bias_shape, masked, dr
 def test_flash_dropout_mask_is_the_fullrow_one(cuda):
     """q = k = 0 and v = I: the flash kernel's output is its dropped
     probability row, and its mask equals the full-row kernel's and the
-    plain Philox mask bit for bit; the dbias partial sums repeat to the bit."""
+    plain Philox mask bit for bit; the dk/dv launch's dbias (partial sums
+    in its chunks, then the ordered reduction) repeats to the bit."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     B, H, L, rate, seed = 2, 3, 128, 0.1, 77
@@ -638,8 +655,8 @@ def test_flash_dropout_mask_is_the_fullrow_one(cuda):
                                             True, torch.float32, seed=5)
     _, lse = fa._launch_fwd(q, k, v, bias, mask, 1.0, 0.0, 0)
     di = torch.randn(8, 2, 128, device=cuda)
-    a = fa._launch_db(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0)
-    b = fa._launch_db(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0)
+    a = fa._launch_dkv(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0, need_db=True)[2]
+    b = fa._launch_dkv(q, k, v, bias, mask, lse, di, do, 1.0, 0.0, 0, need_db=True)[2]
     assert torch.equal(a, b)
 
 

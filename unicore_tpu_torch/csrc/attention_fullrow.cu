@@ -106,54 +106,11 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;          // rows a block owns, rows of a streamed tile
 constexpr float kNegInf = -1e30f;  // NEG_INF of ops/flash_attention.py
-constexpr unsigned kFull = 0xffffffffu;
 
 struct Geom {
   int B, H, Lq, Lk, D, bias_heads;
   float sm_scale;
 };
-
-// The keep bits (bit w: key column c0 + w) a lane needs for its two rows of
-// one 16 x 8 accumulator tile in the query-major kernels: the lane holds
-// columns 2t, 2t+1 of rows g and g+8; lanes t and t^1 share the 4-column
-// group, so the even one computes row g's call, the odd one row g+8's, and
-// they swap.  Returns {row g bits, row g+8 bits}.
-__device__ __forceinline__ uint2 keep_rows(const Dropout& dr, int b, int h, int row_g, int c0,
-                                           int t) {
-  const uint32_t mine = keep4(dr, b, h, row_g + ((t & 1) ? 8 : 0), c0);
-  const uint32_t other = __shfl_xor_sync(kFull, mine, 1);
-  return (t & 1) ? make_uint2(other, mine) : make_uint2(mine, other);
-}
-
-// The bias of one 64-key tile at a query-major lane's accumulator places
-// (rows g, g+8 of `brow`; columns key0 + 8n + 2t, +1), as float2 loads;
-// zeros without a bias.
-template <int NT>
-__device__ __forceinline__ void load_bias(float (&bv)[NT][4], const float* brow, int Lk,
-                                          int key0, int t) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    float2 a = make_float2(0.f, 0.f), c = a;
-    if (brow != nullptr) {
-      a = *reinterpret_cast<const float2*>(brow + key0 + n * 8 + 2 * t);
-      c = *reinterpret_cast<const float2*>(brow + (size_t)8 * Lk + key0 + n * 8 + 2 * t);
-    }
-    bv[n][0] = a.x;
-    bv[n][1] = a.y;
-    bv[n][2] = c.x;
-    bv[n][3] = c.y;
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  return v + __shfl_xor_sync(kFull, v, 2);
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -568,9 +525,6 @@ fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const float* bcol =
       bias == nullptr ? nullptr
                       : bias + (size_t)(gm.bias_heads > 1 ? h : 0) * Lq * Lk + key;
-  // the lanes whose Philox calls this lane reads: same t, g of this group of 4
-  const int src0 = (g & ~3) * 4 + t;
-  const int gkey = k0 + warp * 16 + (g & ~3) + ((g & 2) ? 8 : 0);  // this lane's call
 
   float dka[NO][4], dva[NO][4];
 #pragma unroll
@@ -618,15 +572,10 @@ fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      // keep bits: element (key + 8 (e >> 1), query 2t + (e & 1)) reads
-      // call e of its group of four lanes, bit g % 4
+      // keep bits: element (key + 8 (e >> 1), query 2t + (e & 1)) is bit
+      // g % 4 of calls[e]
       uint32_t calls[4] = {0xFu, 0xFu, 0xFu, 0xFu};
-      if (dr.on) {
-        const uint32_t mine =
-            keep4(dr, b, h, qt0 + n * 8 + 2 * t + (g & 1), gkey);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) calls[c] = __shfl_sync(kFull, mine, src0 + 4 * c);
-      }
+      if (dr.on) keep_cols(dr, b, h, qt0 + n * 8, k0 + warp * 16, g, t, calls);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int ql = n * 8 + 2 * t + (e & 1), r = e >> 1;

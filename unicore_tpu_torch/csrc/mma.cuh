@@ -229,4 +229,65 @@ template <> struct Mma<__nv_bfloat16> {
   }
 };
 
+// ---- accumulator-layout helpers of the attention kernels ------------------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+// max and sum over the four lanes (t = 0..3) that hold one accumulator row
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFullMask, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFullMask, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFullMask, v, 1);
+  return v + __shfl_xor_sync(kFullMask, v, 2);
+}
+
+// The keep bits (bit w: key column c0 + w) a lane needs for its two rows of
+// one 16 x 8 accumulator tile in a query-major kernel (rows: queries): the
+// lane holds columns 2t, 2t+1 of rows g and g+8; lanes t and t^1 share the
+// 4-column group, so the even one computes row g's call, the odd one row
+// g+8's, and they swap.  Returns {row g bits, row g+8 bits}.
+__device__ __forceinline__ uint2 keep_rows(const Dropout& dr, int b, int h, int row_g, int c0,
+                                           int t) {
+  const uint32_t mine = keep4(dr, b, h, row_g + ((t & 1) ? 8 : 0), c0);
+  const uint32_t other = __shfl_xor_sync(kFullMask, mine, 1);
+  return (t & 1) ? make_uint2(other, mine) : make_uint2(mine, other);
+}
+
+// The keep bits of one 16 x 8 accumulator tile in a key-major kernel
+// (rows: keys key16 + g, + 8 with key16 a multiple of 16; columns: queries
+// q8 + 2t, + 1): element e (key + 8 (e >> 1), query 2t + (e & 1)) is bit
+// g % 4 of calls[e].  The four lanes of a group g / 4 need four calls and
+// make one each (lane g % 4 == e makes call e), read by shuffle.
+__device__ __forceinline__ void keep_cols(const Dropout& dr, int b, int h, int q8, int key16,
+                                          int g, int t, uint32_t (&calls)[4]) {
+  const uint32_t mine =
+      keep4(dr, b, h, q8 + 2 * t + (g & 1), key16 + (g & ~3) + ((g & 2) ? 8 : 0));
+  const int src0 = (g & ~3) * 4 + t;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) calls[c] = __shfl_sync(kFullMask, mine, src0 + 4 * c);
+}
+
+// The bias of one 64-key tile at a query-major lane's accumulator places
+// (rows g, g+8 of `brow`, whose rows are Lk apart; columns key0 + 8n + 2t,
+// +1), as float2 loads; zeros without a bias.
+template <int NT>
+__device__ __forceinline__ void load_bias(float (&bv)[NT][4], const float* brow, int Lk,
+                                          int key0, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float2 a = make_float2(0.f, 0.f), c = a;
+    if (brow != nullptr) {
+      a = *reinterpret_cast<const float2*>(brow + key0 + n * 8 + 2 * t);
+      c = *reinterpret_cast<const float2*>(brow + (size_t)8 * Lk + key0 + n * 8 + 2 * t);
+    }
+    bv[n][0] = a.x;
+    bv[n][1] = a.y;
+    bv[n][2] = c.x;
+    bv[n][3] = c.y;
+  }
+}
+
 }  // namespace unicore

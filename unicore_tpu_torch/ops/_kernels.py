@@ -168,9 +168,8 @@ def _bind(lib) -> None:
     # sm_scale, the dropout (on, seed, threshold, scale), dtype, stream
     geom = [i] * 7 + [f, i, i, u, f, i, p]
     lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + geom
-    lib.unicore_flash_attention_dq.argtypes = [p] * 9 + geom
-    lib.unicore_flash_attention_dkv.argtypes = [p] * 10 + geom
-    lib.unicore_flash_attention_db.argtypes = [p] * 10 + geom
+    lib.unicore_flash_attention_dq.argtypes = [p] * 10 + geom
+    lib.unicore_flash_attention_dkv.argtypes = [p] * 12 + geom
     # csrc/decode_attention.cu: tensors, (B, H, L, D), dtype, quant, stream
     lib.unicore_decode_attention.argtypes = [p] * 8 + [i] * 6 + [p]
     # the quantized serving path: csrc/quant_matmul.cu (x, w, scale, bias, y,
@@ -186,14 +185,14 @@ def _bind(lib) -> None:
                "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
                "unicore_softmax_dropout_bwd", "unicore_flash_attention_fwd",
                "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
-               "unicore_flash_attention_db", "unicore_decode_attention",
+               "unicore_decode_attention",
                "unicore_quant_matmul", "unicore_quant_layer_norm_fwd",
                "unicore_quant_softmax_dropout_fwd"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll
-    lib.unicore_flash_attention_db_scratch.argtypes = [i] * 5
-    lib.unicore_flash_attention_db_scratch.restype = ll
+    lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 8
+    lib.unicore_flash_attention_dkv_scratch.restype = ll
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p
 

@@ -18,10 +18,13 @@ the JAX package's ``mha_reference`` plus dropout, in plain PyTorch
 kernels of ``csrc/flash_attention.cu`` -- or raises.  There is no other
 gate.  On a CUDA tensor the call is a :class:`torch.autograd.Function`, as
 the JAX ``jax.custom_vjp`` ``_flash``: the forward kernel writes the output
-and the fp32 row ``lse = m + log(max(l, 1e-37))``; the backward computes
-``di = rowsum(out * do)`` in fp32, then runs the dq, dk/dv and dbias
-kernels, each recomputing p from lse.  dbias is the fp32 sum of ds over
-each group's B / Bb batches (and over the heads when the bias has one).
+and the fp32 row ``lse = m + log(max(l, 1e-37))``; the backward is two
+launches on tensor cores, each recomputing p from lse: a query-major one
+that computes ``di = rowsum(out * do)`` in fp32 and dq, and a key-major one
+that computes dk, dv and -- from the same ds -- dbias, the fp32 sum of ds
+over each group's B / Bb batches (and over the heads when the bias has
+one), whose partial sums an ordered third launch adds where one block
+does not hold a whole sum.
 :func:`flash_attention_bwd_plain` is that backward in plain PyTorch with
 the kernels' bf16 roundings (ds and the dropped p rounded to the inputs'
 type before their products), for holding the kernels against it.
@@ -202,45 +205,52 @@ def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed):
     return o, lse
 
 
-def _launch_dq(q, k, v, bias, kv_mask, lse, di, do, sm_scale, rate, seed):
+def _launch_dq(q, k, v, bias, kv_mask, lse, out, do, sm_scale, rate, seed):
+    """The query-major launch: (dq, di), di = rowsum(out * do) (B, H, Lq)
+    fp32 for :func:`_launch_dkv`."""
     dq = torch.empty_like(q)
+    di = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     rc = _kernels.library().unicore_flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
-        _kernels.ptr(kv_mask), lse.data_ptr(), di.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), *_geom(q, k, bias, sm_scale, rate, seed),
+        _kernels.ptr(kv_mask), lse.data_ptr(), out.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), di.data_ptr(), *_geom(q, k, bias, sm_scale, rate, seed),
     )
     _kernels.check(rc, "flash_attention dq")
     DQ_LAUNCHES.add()
-    return dq
+    return dq, di
 
 
-def _launch_dkv(q, k, v, bias, kv_mask, lse, di, do, sm_scale, rate, seed):
+def _launch_dkv(q, k, v, bias, kv_mask, lse, di, do, sm_scale, rate, seed,
+                need_db: bool = False):
+    """The key-major launch: (dk, dv, dbias), dbias (Bb, Hb, Lq, Lk) fp32
+    from the same ds when ``need_db`` (its partial sums added by the
+    ordered reduction the C entry launches after it), else None."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _kernels.library().unicore_flash_attention_dkv(
+    lib = _kernels.library()
+    partial = db = None
+    if need_db:
+        if bias is None:
+            raise ValueError("flash_attention dk/dv: dbias asked for without a bias")
+        B, H, Lq, D = q.shape
+        floats = lib.unicore_flash_attention_dkv_scratch(
+            B, H, Lq, k.shape[2], D, bias.shape[0], bias.shape[1], _DTYPES[q.dtype])
+        if floats < 0:
+            raise RuntimeError(f"flash_attention dk/dv: no dbias plan for q={tuple(q.shape)} "
+                               f"bias={tuple(bias.shape)}")
+        if floats:
+            partial = torch.empty(floats, dtype=torch.float32, device=q.device)
+        db = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
+    rc = lib.unicore_flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
         _kernels.ptr(kv_mask), lse.data_ptr(), di.data_ptr(), do.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *_geom(q, k, bias, sm_scale, rate, seed),
+        dk.data_ptr(), dv.data_ptr(), _kernels.ptr(partial), _kernels.ptr(db),
+        *_geom(q, k, bias, sm_scale, rate, seed),
     )
-    _kernels.check(rc, "flash_attention dk/dv")
+    _kernels.check(rc, "flash_attention dk/dv/dbias")
     DKV_LAUNCHES.add()
-    return dk, dv
-
-
-def _launch_db(q, k, v, bias, kv_mask, lse, di, do, sm_scale, rate, seed):
-    B, H, Lq, _ = q.shape
-    Lk, Bb = k.shape[2], bias.shape[0]
-    lib = _kernels.library()
-    partial = torch.empty(lib.unicore_flash_attention_db_scratch(B, H, Lq, Lk, Bb),
-                          dtype=torch.float32, device=q.device)
-    db = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
-    rc = lib.unicore_flash_attention_db(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        _kernels.ptr(kv_mask), lse.data_ptr(), di.data_ptr(), do.data_ptr(),
-        partial.data_ptr(), db.data_ptr(), *_geom(q, k, bias, sm_scale, rate, seed),
-    )
-    _kernels.check(rc, "flash_attention dbias")
-    DB_LAUNCHES.add()
-    return db
+    if need_db:
+        DB_LAUNCHES.add()
+    return dk, dv, db
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -258,14 +268,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, bias, kv_mask, out, lse = ctx.saved_tensors
         do = do.to(q.dtype).contiguous()
-        # di = rowsum(out * do) in fp32, outside the kernels as in the JAX _bwd
-        di = (out.float() * do.float()).sum(-1)
-        args = (q, k, v, bias, kv_mask, lse, di, do, ctx.sm_scale, ctx.rate, ctx.seed)
-        dq = _launch_dq(*args)
-        dk, dv = _launch_dkv(*args)
-        db = None
-        if bias is not None and ctx.needs_input_grad[3]:
-            db = _launch_db(*args)
+        rest = (ctx.sm_scale, ctx.rate, ctx.seed)
+        dq, di = _launch_dq(q, k, v, bias, kv_mask, lse, out, do, *rest)
+        dk, dv, db = _launch_dkv(q, k, v, bias, kv_mask, lse, di, do, *rest,
+                                 need_db=bias is not None and ctx.needs_input_grad[3])
         return dq, dk, dv, db, None, None, None, None
 
 
