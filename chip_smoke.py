@@ -127,8 +127,9 @@ result line):
 
 Phase 3 also holds the softmax(+dropout) kernels against
 ``softmax_dropout_plain``: Uni-Mol's (16 * 64, 128, 128) fp32 at rate 0.1,
-L=256 and 512, bf16, a ``bcast`` and a ``tile`` extra with their
-gradients, rows holding -inf, and the keep mask read off the card bit for
+and at rate 0 beside ``torch.softmax`` (the like-for-like yardstick: no
+PyTorch call takes the dropout), L=256 and 512, bf16, a ``bcast`` and a
+``tile`` extra with their gradients, rows holding -inf, and the keep mask read off the card bit for
 bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
 rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
 D=128; and the four flash kernels (forward with its lse, dq with di,
@@ -2564,6 +2565,7 @@ CHIP = {
     # Uni-Mol's micro-batch (16 x 64 heads, L = 128) first, fp32 then bf16
     "softmax": [
         {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "float32"},
+        {"shape": (16, 64, 128, 128), "rate": 0.0, "dtype": "float32"},
         {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "bfloat16"},
         {"shape": (4, 64, 256, 256), "rate": 0.1, "dtype": "float32"},
         {"shape": (2, 64, 512, 512), "rate": 0.1, "dtype": "float32"},
@@ -2690,6 +2692,7 @@ REHEARSAL = {
     "norm": [(33, 64)],
     "softmax": [
         {"shape": (2, 4, 16, 128), "rate": 0.1, "dtype": "float32"},
+        {"shape": (2, 4, 16, 128), "rate": 0.0, "dtype": "float32"},
         {"shape": (2, 4, 16, 128), "rate": 0.1, "dtype": "bfloat16"},
         {"shape": (2, 8, 256), "mask": (2, 1, 256), "bias": (1, 8, 256), "rate": 0.1,
          "dtype": "float32"},
@@ -2932,6 +2935,10 @@ def main(argv=None):
             row["dropout_mask_check"] = mask_check
         if name == "softmax_dropout_fwd":
             row["dropout_mask_check"] = softmax_mask
+            # the main shape at rate 0: the kernel beside torch.softmax, like for like
+            rate0 = rows[1]
+            row["rate0"] = {k: rate0[k] for k in ("ms", "device_ms", "library_ms",
+                                                  "library_device_ms", "max_abs_err")}
         if name == "flash_attention_fwd":
             row["dropout_mask_check"] = flash_mask
         kernels.append(row)

@@ -195,6 +195,52 @@ def test_3xtf32_backward_holds_the_jax_gradients(pallas_interpret):
     assert worst > 1.0, worst
 
 
+def _tf32_forward(q, k, v, bias, mask, three):
+    """(out, lse) of the tensor-core forward's arithmetic (fp32, dropout 0,
+    sm_scale 1): s = q k^T taken as :func:`_mm` takes it, plus the bias,
+    NEG_INF at masked keys; an online softmax over 64-key tiles (running max
+    m and sum l, p exactly 0 at masked keys); each tile's p rounded to v's
+    type (fp32 here) and added as p v through :func:`_mm`; out = acc / l
+    where l > 0, and lse = m + log(max(l, 1e-37))."""
+    kvm = (mask != 0)[:, None, None, :]
+    s_all = torch.where(kvm, port_fr.NEG_INF, _mm(q, k.transpose(-1, -2), three) + bias)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:-1] + (1,))
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
+    for j in range(0, k.shape[2], 64):
+        s, km = s_all[..., j:j + 64], kvm[..., j:j + 64]
+        mn = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - mn)
+        p = torch.where(km, 0.0, torch.exp(s - mn))
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm(p.to(v.dtype).float(), v[..., j:j + 64, :], three)
+        m = mn
+    out = acc * torch.where(l > 0.0, 1.0 / torch.where(l > 0.0, l, 1.0), 0.0)
+    return out, (m + torch.log(torch.clamp(l, min=1e-37)))[..., 0]
+
+
+def test_3xtf32_forward_holds_the_jax_forward(pallas_interpret):
+    """The arithmetic of the tensor-core forward (3xTF32 products, an online
+    softmax over 64-key tiles, p rounded to v's type before p v) at the
+    triangle attention's head dim, (4, 4, 256, 32) with a (1, 4, 256, 256)
+    bias and a key mask whose last row masks every key: out within ATOL
+    and lse within 1e-5 of the JAX Pallas flash forward (interpret mode),
+    exact zeros on the fully masked row.  One plain TF32 product (hi hi)
+    misses ATOL."""
+    B, H, L, D = 4, 4, 256, 32
+    q, k, v, _, bias, mask = _inputs(B, H, L, D, (1, H, L, L), True, seed=909)
+    jout, jlse = jax_fa._fwd(_j(q), _j(k), _j(v), _j(bias), _j(mask)[:, None, :],
+                             jnp.zeros((1,), jnp.int32), 1.0, 0.0, 256, 512)
+    jout, jlse = _t(np.asarray(jout)), _t(np.asarray(jlse)[..., 0])
+    args = [_t(x) for x in (q, k, v, bias, mask)]
+    out, lse = _tf32_forward(*args, three=True)
+    assert (out - jout).abs().max().item() <= ATOL
+    assert (lse - jlse).abs().max().item() <= 1e-5
+    assert out[-1].abs().max().item() == 0.0 and float(lse[-1].max()) <= -1e29
+    one, _ = _tf32_forward(*args, three=False)
+    assert (one - jout).abs().max().item() > ATOL
+
+
 def test_lse_and_fully_masked_rows():
     """lse = logsumexp of the masked scores; a fully masked row gives lse
     ~ NEG_INF (m + log(1e-37) with m = -1e30) and zero output."""

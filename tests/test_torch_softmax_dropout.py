@@ -37,6 +37,7 @@ from unicore_tpu_torch.ops import attention_fullrow as port_fr
 from unicore_tpu_torch.ops import softmax_dropout as port_sd
 
 jax_sd = importlib.import_module("unicore_tpu.ops.softmax_dropout")
+jax_sdp = importlib.import_module("unicore_tpu.ops.softmax_dropout_pallas")
 
 FWD_TOL = 1e-6
 GRAD_TOL = 1e-5
@@ -238,6 +239,64 @@ def test_bf16_dropout_rounds_in_the_output_type():
     kept = out != 0
     ref = (y.float() / div).bfloat16()
     assert torch.equal(out[kept], ref[kept])
+
+
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+
+
+def _fma(a, b, c):
+    """fp32 a * b + c with one rounding (exact product in float64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _kernel_probs(x):
+    """The forward kernel's p of an fp32 (..., L): exp as exp2 of (v -
+    max) log2(e) taken as one FMA, the row normalised by the correctly
+    rounded reciprocal of its sum (csrc/softmax_dropout.cu row_probs)."""
+    ml = x.amax(-1, keepdim=True) * LOG2E
+    e = torch.exp2(_fma(x, LOG2E, -ml))
+    return e * (1.0 / e.sum(-1, keepdim=True))
+
+
+def _kernel_drop(y, keep, div):
+    """The forward kernel's keep ? y / div : 0 on y (p rounded to the
+    output type, as fp32 values): q = y (1 / div), then one FMA correction
+    (drop_out), the quotient rounded to the output type by the caller."""
+    rd = 1.0 / torch.tensor(div, dtype=torch.float32)
+    q = y * rd
+    return torch.where(keep, _fma(_fma(-q, torch.tensor(div), y), rd, q), 0.0)
+
+
+@pytest.mark.parametrize("shape", [(16 * 64, 128, 128), (4, 12, 64, 1152)],
+                         ids=["unimol", "L1152"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_arithmetic_holds_the_jax_kernel(shape, dtype):
+    """The forward kernel's arithmetic, emulated in torch (no division an
+    element: exp2 of a pre-scaled argument, one reciprocal a row, the
+    dropout's quotient by a reciprocal and one FMA correction), against the
+    JAX ``_row_probs`` and ``_fwd_kernel``'s ``y / (1.0 - rate)`` in the
+    output type, at Uni-Mol's micro-batch and at L = 1152, rate 0.1 on the
+    same Philox mask: within 1e-6 (chip_smoke.py's TOL["softmax"]) plus
+    two bf16 ulps of the element in bf16."""
+    rate, seed = 0.1, 31
+    x = (2 * np.random.RandomState(len(shape)).randn(*shape)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    jx = jnp.asarray(x).astype(jdt)
+    jp = jax_sdp._row_probs(jx[None], None, None)
+    R, M, L = port_sd._rows(shape)
+    keep = port_fr.philox_keep_plain(1, R, M, L, seed, rate).view(shape)
+    jy = jp.astype(jdt)
+    jout = jnp.where(jnp.asarray(keep.numpy()), jy / (1.0 - rate), 0.0).astype(jdt)
+    jp = torch.from_numpy(np.array(jp))
+    jout = torch.from_numpy(np.array(jout.astype(jnp.float32)))
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32)))
+    p = _kernel_probs(tx)
+    assert (p - jp).abs().max().item() <= FWD_TOL
+    y = p.to(tdt).float()
+    out = _kernel_drop(y, keep, port_sd._keep_divisor(rate, tdt)).to(tdt).float()
+    tol = FWD_TOL + (2 * BF16_ULP * jout.abs() if dtype == "bfloat16" else 0.0)
+    assert bool(((out - jout).abs() <= tol).all()), (out - jout).abs().max().item()
+    assert torch.equal(out != 0, keep & (jout != 0))
 
 
 def test_routing():

@@ -71,6 +71,8 @@
 //     loads overlap the wait and the products.
 //   * When a backward will follow, the forward writes the row statistic
 //     lse = m + log(l) (fp32, (B, H, Lq)); the serving path writes none.
+//     The forward's body lives in attention_fwd.cuh, shared with the flash
+//     forward, which stages the key mask a tile at a time instead of whole.
 //   * Backward, two launches and no atomics for dq, dk, dv:
 //       fullrow_dq_kernel (grid Lq/64 x H x B, query-major): di per row --
 //         rowsum(do * o) from the saved output for fp32, and for bf16 a
@@ -95,6 +97,7 @@
 // fp32, D = 128).
 #include <cstdint>
 
+#include "attention_fwd.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -105,7 +108,6 @@ using namespace unicore;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;          // rows a block owns, rows of a streamed tile
-constexpr float kNegInf = -1e30f;  // NEG_INF of ops/flash_attention.py
 
 struct Geom {
   int B, H, Lq, Lk, D, bias_heads;
@@ -116,158 +118,24 @@ struct Geom {
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP>
-size_t fwd_smem_bytes(int Lk) {
-  return sizeof(T) * (size_t)5 * kTile * tile_ld<T>(DP) + sizeof(int) * (size_t)Lk;
-}
-
+// the body is attention_fwd.cuh's, shared with the flash forward: the key
+// mask staged whole (Lk <= 1024), lse only for a backward
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
 fullrow_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const float* __restrict__ bias, const int* __restrict__ mask,
                    T* __restrict__ o, float* __restrict__ lse, Geom gm, Dropout dr) {
-  using M = Mma<T>;
-  constexpr int LD = tile_ld<T>(DP);
-  constexpr int NT = kTile / 8;  // accumulator tiles across 64 keys
-  constexpr int NO = DP / 8;     // accumulator tiles across the head dim
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // 64 x LD
-  T* sK = sQ + kTile * LD;                 // 2 stages of 64 x LD
-  T* sV = sK + 2 * kTile * LD;             // 2 stages of 64 x LD
-  int* sM = reinterpret_cast<int*>(sV + 2 * kTile * LD);  // Lk
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = gm.D, Lk = gm.Lk;
   const size_t bh = (size_t)b * gm.H + h;
-  const bool vec = (D * sizeof(T)) % 16 == 0;
-  const T* kb = k + bh * Lk * D;
-  const T* vb = v + bh * Lk * D;
-
-  load_rows_async(sQ, LD, q + (bh * gm.Lq + q0) * D, kTile, D, DP, vec, kThreads);
-  load_rows_async(sK, LD, kb, kTile, D, DP, vec, kThreads);
-  load_rows_async(sV, LD, vb, kTile, D, DP, vec, kThreads);
-  cp_async_commit();
-  for (int c = threadIdx.x; c < Lk; c += kThreads)
-    sM[c] = mask == nullptr ? 0 : mask[(size_t)b * Lk + c];
-
-  const int row = q0 + warp * 16 + g;  // this lane's rows: row, row + 8
-  const float* brow =
-      bias == nullptr
-          ? nullptr
-          : bias + ((size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq + row) * Lk;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {-__int_as_float(0x7f800000), -__int_as_float(0x7f800000)};
-  float l[2] = {0.f, 0.f};
-
-  const int ntiles = Lk / kTile;
-  for (int j = 0; j < ntiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < ntiles) {
-      load_rows_async(sK + (st ^ 1) * kTile * LD, LD, kb + (size_t)(j + 1) * kTile * D, kTile,
-                      D, DP, vec, kThreads);
-      load_rows_async(sV + (st ^ 1) * kTile * LD, LD, vb + (size_t)(j + 1) * kTile * D, kTile,
-                      D, DP, vec, kThreads);
-    }
-    cp_async_commit();
-    const int key0 = j * kTile;
-    float bv[NT][4];  // this tile's bias, loaded before the wait and the products
-    load_bias(bv, brow, Lk, key0, t);
-    cp_async_wait<1>();  // tile j (and q) have landed
-    __syncthreads();
-    const T* cK = sK + st * kTile * LD;
-    const T* cV = sV + st * kTile * LD;
-
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += M::kK) {
-      const typename M::A a = M::load_a(sQ, LD, warp * 16, kk);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) M::mma(s[n], a, M::load_b_nmajor(cK, LD, n * 8, kk));
-    }
-
-    // scale, bias and mask; the running max of each row
-    float tmax[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
-        const float x = sM[key] != 0 ? kNegInf : s[n][e] * gm.sm_scale + bv[n][e];
-        s[n][e] = x;
-        tmax[r] = fmaxf(tmax[r], x);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(tmax[r]));
-      corr[r] = __expf(m[r] - mn);  // 0 on the first tile (m = -inf)
-      m[r] = mn;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
-
-    // numerators, their sum, dropout and the cast to v's type
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      uint2 keep = make_uint2(0xFu, 0xFu);
-      if (dr.on) keep = keep_rows(dr, b, h, row, key0 + n * 8 + 4 * (t >> 1), t);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + n * 8 + 2 * t + (e & 1), r = e >> 1;
-        const float p = sM[key] != 0 ? 0.f : __expf(s[n][e] - m[r]);
-        l[r] += p;
-        float pd = p;
-        if (dr.on) {
-          const uint32_t bits = r ? keep.y : keep.x;
-          pd = (bits >> (2 * (t & 1) + (e & 1))) & 1u ? p * dr.scale : 0.f;
-        }
-        s[n][e] = round_to<T>(pd);
-      }
-    }
-
-    // acc += pd v
-#pragma unroll
-    for (int ks = 0; ks < kTile / M::kK; ++ks) {
-      const typename M::A a = M::template a_from_acc<NT>(s, ks);
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        M::mma(acc[n], a, M::load_b_kmajor(cV, LD, ks * M::kK, n * 8));
-    }
-    __syncthreads();  // every warp is done with stage st before it is refilled
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] = quad_sum(l[r]);
-    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
-  }
-  T* orow = o + (bh * gm.Lq + row) * D;
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = n * 8 + 2 * t + (e & 1), r = e >> 1;
-      if (d < D) orow[(size_t)r * 8 * D + d] = from_f<T>(acc[n][e] * inv[r]);
-    }
-  if (lse != nullptr && t == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      lse[bh * gm.Lq + row + 8 * r] = l[r] > 0.f ? m[r] + logf(l[r]) : 0.f;
-  }
+  const float* slab =
+      bias == nullptr ? nullptr : bias + (size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq * Lk;
+  attention_fwd_block<T, DP, false>(
+      q + (bh * gm.Lq + q0) * D, k + bh * Lk * D, v + bh * Lk * D,
+      mask == nullptr ? nullptr : mask + (size_t)b * Lk, slab, o + (bh * gm.Lq + q0) * D,
+      lse == nullptr ? nullptr : lse + bh * gm.Lq + q0, Lk, D, gm.sm_scale, dr, b, h, q0,
+      smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -639,7 +507,7 @@ template <typename T, int DP>
 cudaError_t launch_fwd_dp(const void* q, const void* k, const void* v, const void* bias,
                           const void* mask, void* o, void* lse, const Geom& g, Dropout dr,
                           cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<T, DP>(g.Lk);
+  const size_t smem = attention_fwd_smem<T, DP, false>(g.Lk);
   auto kernel = fullrow_fwd_kernel<T, DP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

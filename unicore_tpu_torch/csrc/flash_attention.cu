@@ -41,18 +41,23 @@
 // What bounds them on this card: operations.  At the Evoformer's triangle
 // attention (B = 256 rows, H = 4, L = 256, D = 32, fp32) one (L x L) by D
 // product is 4.3 GFLOP against 67 MB of traffic for the whole backward
-// (0.02 ms); the backward makes seven (dq three, dk/dv four), 30 GFLOP,
-// whose least time held to fp32 accuracy is at the 3xTF32 rate (495 / 3 =
-// 165 TFLOP/s): 0.182 ms.
+// (0.02 ms); the forward makes two products (8.6 GFLOP), the backward seven
+// (dq three, dk/dv four), 30 GFLOP, whose least time held to fp32 accuracy
+// is at the 3xTF32 rate (495 / 3 = 165 TFLOP/s): 0.052 and 0.182 ms.
 //
-// The forward (right and simple first; fp32 FMA, no tensor cores): 256
-// threads over 64 x 64 tiles, one block per (batch, head, 64 query rows)
-// looping over the key tiles; thread (ty, tx) = (tid / 16, tid % 16) owns
-// rows 4 ty .. 4 ty + 3 and the four neighbouring columns 4 tx .. 4 tx + 3,
-// so one Philox call gives its dropout bits of a row, and a row's 64 values
-// live in 16 lanes of one warp (its max and sum are shuffles); K and V are
-// staged transposed, m and l in registers, p through shared memory into the
-// p v product.
+// The forward (attention_fwd.cuh, the full-row forward's body, shared): 4
+// warps of 16 rows a block, grid Lq/64 x H x B; Q resident in shared
+// memory, K, V and the tile's key mask through a two-stage cp.async ring;
+// s = q k^T and p v on tensor cores (3xTF32 / bf16, mma.cuh), scores and p
+// in registers, the online softmax's max and sum by quad shuffles; the
+// tile's bias read from the L2-resident slab into registers before the
+// barrier; dropout bits from one Philox call shared by two lanes.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (device ms, chip_smoke.py
+// phase 3): fp32 triangle attention with its bias and a key mask 0.249,
+// 21% of the 3xTF32 bound, against 0.519-0.573 for the fp32-FMA kernel it
+// replaces and 0.603 for SDPA; MSA-row (32, 8, 256, 32) 0.066 (SDPA 0.168); BERT's
+// (2, 12, 1152, 64) at dropout 0.1 0.293 (SDPA 0.502).  bf16 loses to
+// SDPA's bf16 kernels (triangle 0.156 against 0.113).
 //
 // The backward (the full-row backward's shape, attention_fullrow.cu, with
 // the grouped bias; products from mma.cuh): blocks of 4 warps, a warp owns
@@ -106,6 +111,7 @@
 #include <climits>
 #include <cstdint>
 
+#include "attention_fwd.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -113,19 +119,15 @@ namespace {
 
 using namespace unicore;
 
-constexpr int kThreads = 256;      // the forward and the dbias reduction
+constexpr int kThreads = 256;      // the dbias reduction
 constexpr int kBwdWarps = 4;       // the backward: a warp owns 16 rows
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kTile = 64;          // query rows and key columns per tile
-constexpr int kLdT = kTile + 4;    // row stride of the forward's transposed and p tiles
-constexpr float kNegInf = -1e30f;  // NEG_INF of ops/flash_attention.py
 
 struct Geom {
   int B, H, Lq, Lk, D;
   int Bb, Hb;  // bias groups and heads (Bb = 0: no bias)
 };
-
-__host__ __device__ __forceinline__ int pad4(int D) { return (D + 3) & ~3; }
 
 // the (Lq, Lk) bias slab batch b and head h read
 __device__ __forceinline__ const float* bias_slab(const float* bias, const Geom& g, int b,
@@ -135,204 +137,30 @@ __device__ __forceinline__ const float* bias_slab(const float* bias, const Geom&
   return bias + ((size_t)group * g.Hb + (g.Hb > 1 ? h : 0)) * g.Lq * g.Lk;
 }
 
-// 64 rows of a row-major (rows, D) matrix -> dst (64 x ldr) fp32, columns
-// [D, Dp) zero
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ldr, const T* __restrict__ src, int D,
-                                          int Dp) {
-  for (int e = threadIdx.x; e < kTile * Dp; e += kThreads) {
-    const int r = e / Dp, c = e - r * Dp;
-    dst[r * ldr + c] = c < D ? to_f(src[(size_t)r * D + c]) : 0.f;
-  }
-}
-
-// 64 rows of a row-major (rows, D) matrix -> dst (Dp x kLdT) transposed,
-// rows [D, Dp) zero.  Global reads coalesced; the shared writes conflict.
-template <typename T>
-__device__ __forceinline__ void load_transposed(float* dst, const T* __restrict__ src, int D,
-                                                int Dp) {
-  for (int e = threadIdx.x; e < kTile * Dp; e += kThreads) {
-    const int r = e / Dp, c = e - r * Dp;
-    dst[c * kLdT + r] = c < D ? to_f(src[(size_t)r * D + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void unpack(const float4& v, float (&o)[4]) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-
-// s[i][e] = <row 4 ty + i of sA (64 x lda), column 4 tx + e of sBT (Dp x kLdT)>
-__device__ __forceinline__ void tile_dots(const float* sA, int lda, const float* sBT, int Dp,
-                                          int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-  for (int d = 0; d < Dp; d += 4) {
-    float a[4][4], bt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      unpack(*reinterpret_cast<const float4*>(sA + (4 * ty + i) * lda + d), a[i]);
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      unpack(*reinterpret_cast<const float4*>(sBT + (d + u) * kLdT + 4 * tx), bt[u]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[i][e] += a[i][0] * bt[0][e] + a[i][1] * bt[1][e] + a[i][2] * bt[2][e] +
-                   a[i][3] * bt[3][e];
-  }
-}
-
-// acc[i][j] += sum_c sP[4 ty + i][c] * sXT[tx + 16 j][c] over the tile's 64
-// columns c: (64 x 64) times (64 x D), the D side stored transposed
-template <int NJ>
-__device__ __forceinline__ void tile_times(const float* sP, const float* sXT, int Dp, int ty,
-                                           int tx, float (&acc)[4][NJ]) {
-  for (int c = 0; c < kTile; c += 4) {
-    float p[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      unpack(*reinterpret_cast<const float4*>(sP + (4 * ty + i) * kLdT + c), p[i]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d >= Dp) continue;
-      float x[4];
-      unpack(*reinterpret_cast<const float4*>(sXT + d * kLdT + c), x);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i][j] += p[i][0] * x[0] + p[i][1] * x[1] + p[i][2] * x[2] + p[i][3] * x[3];
-    }
-  }
-}
-
-// reductions over the 16 lanes (tx) that share a tile row
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// out[row][tx + 16 j] = scale * acc[i][j] for the thread's rows
-template <typename T, int NJ>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, int D, int ty, int tx,
-                                           const float (&acc)[4][NJ], float scale) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) dst[(size_t)(4 * ty + i) * D + d] = from_f<T>(scale * acc[i][j]);
-    }
-}
-
-size_t query_major_smem(int D, int row_tiles, int t_tiles) {
-  const int Dp = pad4(D);
-  return sizeof(float) * ((size_t)row_tiles * kTile * (Dp + 4) + (size_t)t_tiles * Dp * kLdT +
-                          (size_t)kTile * kLdT + kTile);
-}
-
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kThreads)
+// the body is attention_fwd.cuh's, shared with the full-row forward: the key
+// mask staged a tile at a time (Lk is unbounded), the grouped bias slab,
+// lse always.  At DP = 32 (the Evoformer's head dim) four blocks an SM
+// (<= 128 registers), as the dq launch: fp32 triangle 0.254 ms against
+// 0.268 with no hint and 0.265 with three (tools/fwd_ab.py)
+template <typename T, int DP>
+__global__ void __launch_bounds__(kFwdThreads, DP == 32 ? 4 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, const int* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, Geom g, float sm_scale,
                  Dropout dr) {
-  extern __shared__ __align__(16) float smem[];
-  const int D = g.D, Dp = pad4(D), ldr = Dp + 4;
-  float* sQ = smem;                  // 64 x ldr
-  float* sKT = sQ + kTile * ldr;     // Dp x kLdT
-  float* sVT = sKT + Dp * kLdT;      // Dp x kLdT
-  float* sP = sVT + Dp * kLdT;       // 64 x kLdT
-  int* sM = reinterpret_cast<int*>(sP + kTile * kLdT);  // 64
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int D = g.D, Lk = g.Lk;
   const size_t bh = (size_t)b * g.H + h;
-  const float* slab = bias_slab(bias, g, b, h);
-
-  load_rows(sQ, ldr, q + (bh * g.Lq + q0) * D, D, Dp);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < g.Lk; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_transposed(sKT, k + (bh * g.Lk + k0) * D, D, Dp);
-    load_transposed(sVT, v + (bh * g.Lk + k0) * D, D, Dp);
-    if (tid < kTile) sM[tid] = mask == nullptr ? 0 : mask[(size_t)b * g.Lk + k0 + tid];
-    __syncthreads();
-
-    float s[4][4];
-    tile_dots(sQ, ldr, sKT, Dp, ty, tx, s);
-    int mk[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mk[e] = sM[4 * tx + e];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float bb[4] = {0.f, 0.f, 0.f, 0.f};
-      if (slab != nullptr)
-        unpack(*reinterpret_cast<const float4*>(slab + (size_t)row * g.Lk + k0 + 4 * tx), bb);
-      float mc = kNegInf;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[i][e] = mk[e] ? kNegInf : s[i][e] * sm_scale + bb[e];
-        mc = fmaxf(mc, s[i][e]);
-      }
-      const float mn = fmaxf(m[i], row_max16(mc));
-      const float corr = expf(m[i] - mn);
-      const uint32_t keep = dr.on ? keep4(dr, b, h, row, k0 + 4 * tx) : 0xFu;
-      float p[4], ps = 0.f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        p[e] = mk[e] ? 0.f : expf(s[i][e] - mn);
-        ps += p[e];
-        float pu = p[e];
-        if (dr.on) pu = (keep >> e) & 1u ? pu * dr.scale : 0.f;
-        p[e] = round_to<T>(pu);  // cast to v's type before p v
-      }
-      l[i] = corr * l[i] + row_sum16(ps);
-      m[i] = mn;
-      *reinterpret_cast<float4*>(sP + (4 * ty + i) * kLdT + 4 * tx) =
-          make_float4(p[0], p[1], p[2], p[3]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-    tile_times<NJ>(sP, sVT, Dp, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] *= inv;
-    if (tx == 0) lse[bh * g.Lq + q0 + 4 * ty + i] = m[i] + logf(fmaxf(l[i], 1e-37f));
-  }
-  store_rows<T, NJ>(o + (bh * g.Lq + q0) * D, D, ty, tx, acc, 1.f);
+  attention_fwd_block<T, DP, true>(
+      q + (bh * g.Lq + q0) * D, k + bh * Lk * D, v + bh * Lk * D,
+      mask == nullptr ? nullptr : mask + (size_t)b * Lk, bias_slab(bias, g, b, h),
+      o + (bh * g.Lq + q0) * D, lse + bh * g.Lq + q0, Lk, D, sm_scale, dr, b, h, q0, smem_raw);
 }
-
 
 // ---------------------------------------------------------------------------
 // backward, launch 1: di and dq, query-major
@@ -341,11 +169,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int DP>
 size_t dq_smem_bytes() {
   return sizeof(T) * (size_t)6 * kTile * tile_ld<T>(DP) + sizeof(int) * 2 * kTile;
-}
-
-// the key mask of one 64-key tile into shared memory (16 cp.async chunks)
-__device__ __forceinline__ void load_mask_async(int* dst, const int* src) {
-  if (threadIdx.x < kTile / 4) cp_async16(dst + 4 * threadIdx.x, src + 4 * threadIdx.x, 16);
 }
 
 // at DP = 32 (the Evoformer's head dim) four blocks an SM (<= 128
@@ -741,13 +564,13 @@ cudaError_t with_smem(K kernel, size_t smem) {
 }
 
 struct FwdLaunch {
-  template <typename T, int NJ>
+  template <typename T, int DP>
   cudaError_t run(const Args& a) const {
-    const size_t smem = query_major_smem(a.g.D, 1, 2);
-    auto kernel = flash_fwd_kernel<T, NJ>;
+    const size_t smem = attention_fwd_smem<T, DP, true>(a.g.Lk);
+    auto kernel = flash_fwd_kernel<T, DP>;
     cudaError_t err = with_smem(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(a.g.Lq / kTile, a.g.H, a.g.B), kThreads, smem, a.stream>>>(
+    kernel<<<dim3(a.g.Lq / kTile, a.g.H, a.g.B), kFwdThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const float*>(a.bias), static_cast<const int*>(a.mask),
         static_cast<T*>(a.out[0]), static_cast<float*>(a.out[1]), a.g, a.sm_scale, a.dr);
@@ -855,26 +678,8 @@ struct DkvLaunch {
   }
 };
 
-// f.run<T, NJ>(a) for the dtype code and the head dim (NJ column groups of
-// 16: D <= 32, 64, 128): the forward
-template <typename F>
-cudaError_t dispatch_fwd(int dtype, const F& f, const Args& a) {
-  const int D = a.g.D;
-  if (dtype == kFloat32) {
-    if (D <= 32) return f.template run<float, 2>(a);
-    if (D <= 64) return f.template run<float, 4>(a);
-    return f.template run<float, 8>(a);
-  }
-  if (dtype == kBFloat16) {
-    if (D <= 32) return f.template run<__nv_bfloat16, 2>(a);
-    if (D <= 64) return f.template run<__nv_bfloat16, 4>(a);
-    return f.template run<__nv_bfloat16, 8>(a);
-  }
-  return cudaErrorInvalidValue;
-}
-
 // f.run<T, DP>(a) with the head dim zero-padded to a multiple of the bf16
-// mma's k (16): 16, 32, 64, 128: the backward
+// mma's k (16): 16, 32, 64, 128
 template <typename T, typename F>
 cudaError_t dispatch_dp(const F& f, const Args& a) {
   if (a.g.D <= 16) return f.template run<T, 16>(a);
@@ -884,7 +689,7 @@ cudaError_t dispatch_dp(const F& f, const Args& a) {
 }
 
 template <typename F>
-cudaError_t dispatch_bwd(int dtype, const F& f, const Args& a) {
+cudaError_t dispatch(int dtype, const F& f, const Args& a) {
   if (dtype == kFloat32) return dispatch_dp<float>(f, a);
   if (dtype == kBFloat16) return dispatch_dp<__nv_bfloat16>(f, a);
   return cudaErrorInvalidValue;
@@ -912,7 +717,7 @@ extern "C" int unicore_flash_attention_fwd(
                            nullptr, nullptr, B, H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed,
                            threshold, keep_scale, stream);
   if (bad_geometry(a.g)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_fwd(dtype, FwdLaunch{}, a);
+  return (int)dispatch(dtype, FwdLaunch{}, a);
 }
 
 // o, lse: the forward's output and row statistics; dq: (B, H, Lq, D) in the
@@ -927,7 +732,7 @@ extern "C" int unicore_flash_attention_dq(
                            B, H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed, threshold,
                            keep_scale, stream);
   if (bad_geometry(a.g)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_bwd(dtype, DqLaunch{}, a);
+  return (int)dispatch(dtype, DqLaunch{}, a);
 }
 
 // floats of fp32 scratch unicore_flash_attention_dkv needs for dbias with
@@ -938,7 +743,7 @@ extern "C" long long unicore_flash_attention_dkv_scratch(int B, int H, int Lq, i
   Args a{};
   a.g = Geom{B, H, Lq, Lk, D, Bb, Hb};
   long long floats = -1;
-  if (Bb <= 0 || bad_geometry(a.g) || dispatch_bwd(dtype, DkvScratch{&floats}, a) != cudaSuccess)
+  if (Bb <= 0 || bad_geometry(a.g) || dispatch(dtype, DkvScratch{&floats}, a) != cudaSuccess)
     return -1;
   return floats;
 }
@@ -955,5 +760,5 @@ extern "C" int unicore_flash_attention_dkv(
                            H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed, threshold, keep_scale,
                            stream);
   if (bad_geometry(a.g) || (db != nullptr && bias == nullptr)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_bwd(dtype, DkvLaunch{}, a);
+  return (int)dispatch(dtype, DkvLaunch{}, a);
 }

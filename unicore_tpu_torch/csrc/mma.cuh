@@ -89,6 +89,12 @@ __device__ __forceinline__ void load_rows_async(T* dst, int ld, const T* __restr
   }
 }
 
+// one 64-key tile of a key mask (64 int32, 16-byte aligned) into shared
+// memory: 16 cp.async chunks, by threads 0..15
+__device__ __forceinline__ void load_mask_async(int* dst, const int* src) {
+  if (threadIdx.x < 16) cp_async16(dst + 4 * threadIdx.x, src + 4 * threadIdx.x, 16);
+}
+
 // ---- fragments and products -------------------------------------------------
 
 // x rounded to TF32, to nearest with ties away from zero: the value of

@@ -54,21 +54,56 @@
 // kernels' rule.  `philox_keep_plain(1, R, M, L, seed, rate)` in
 // ops/attention_fullrow.py computes the same bits in torch integer ops.
 //
-// What bounds them on this card: bytes.  The forward reads x and writes y,
-// the backward reads x and dy and writes fp32 ds; ~10 flops and a quarter
-// of a Philox call per element are far below the H100's 20 fp32 flops per
-// byte.  At the Uni-Mol training shape, fp32 (R, M, L) = (16 * 64, 128, 128),
-// that is 134 MB and 201 MB: 0.040 and 0.060 ms at 3.35 TB/s.
+// What bounds them on this card.  The forward reads x and writes y, the
+// backward reads x and dy and writes fp32 ds: at the Uni-Mol training shape,
+// fp32 (R, M, L) = (16 * 64, 128, 128), 134 MB and 201 MB, 0.040 and 0.060 ms
+// at 3.35 TB/s.  ~10 flops an element are far below the H100's 20 fp32
+// flops a byte, but the dropout adds a quarter of a Philox4x32-10 call an
+// element: ten rounds of two 32-bit multiplies (hi and lo) and their xors,
+// ~90 integer instructions a call, 4.2 M calls and ~12 M warp instructions
+// at that shape, ~13 us of issue on 528 schedulers at 1.755 GHz -- a third
+// of the bytes bound.  So the forward at rate 0.1 is bound by bytes only if
+// the Philox work hides under the memory traffic.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (device ms at that shape,
+// fp32; tools/fwd_ab.py and chip_smoke.py phase 3): the kernel this one
+// replaces took 0.0495 at rate 0 (torch.softmax 0.0469) and 0.088-0.090 at
+// rate 0.1: the dropout cost 0.039 ms (its Philox drawn after the row's two
+// reductions, an IEEE division an element, one row a warp).  This one:
+// 0.044-0.047 at rate 0 (torch.softmax 0.047), 0.043-0.048 at rate 0.1,
+// 84-92% of the bytes bound; bf16 at rate 0.1 0.038-0.040; the backward
+// 0.068 (0.071 before).
 //
-// What the design does about it: one pass over memory each way.  Rows up
-// to 1024 long take one warp each, four warps to a block, with the row in
-// registers: lane l holds the four columns 4l..4l+3 of every 128-column
-// chunk, which is exactly one Philox call's worth.  Longer rows (up to the
-// gate's 8192) take one 256-thread block each, with the row in 32 KB of
-// shared memory.  Offsets are 64-bit; the grid's x dimension takes up to
-// 2^31 - 1 blocks, far beyond R * M at B = 128, H = 64, L = 512.
-// Vectorised 16-byte loads and fusing the drop into the PV product are left
-// to a later PR.
+// What the design does about it: one pass over memory each way, the row in
+// registers, and as many bytes in flight as the card needs.
+//   * Rows up to 1024 long take one warp each (four warps a block): lane l
+//     holds the quads 4l..4l+3 of every 128-column chunk, one Philox call's
+//     worth.  At L = 128 a warp takes four rows and at L = 256 two, and
+//     issues every row's loads before any reduction, so 2 KB of fp32 a warp
+//     are in flight where one row gave 512 bytes.  Longer rows (up to the
+//     gate's 8192) take a 256-thread block each, eight quads a thread in
+//     registers.
+//   * Each quad is one vector access: 16 bytes for fp32 and int32, 8 for
+//     bf16, 4 for int8 (the wrappers hand over 16-byte aligned tensors).
+//   * The keep bits depend on (r, m, col), not on x: they are drawn after
+//     the loads are issued and before the first use of a loaded value, so
+//     the Philox work overlaps the loads.
+//   * No division an element: exp is ex2.approx of (v - max) log2(e) as one
+//     FMA (the rounding of max log2(e) shifts every exponent of a row alike
+//     and cancels in the normalisation), the row is normalised by one
+//     correctly rounded reciprocal of its sum, and the dropout's y / div is
+//     y * (1 / div) with one FMA correction, which is the correctly rounded
+//     quotient (Markstein).  p differs from the JAX `e / sum` by a few fp32
+//     ulps, inside the 1e-6 of chip_smoke.py's TOL["softmax"]; forward and
+//     backward share load_rows, combine and row_probs, so the backward recomputes
+//     exactly the forward's p, as the JAX kernels share `_row_probs`.
+// Each choice against a copy with it undone (tools/fwd_ab.py, rate 0.1,
+// fp32 / bf16, same card): the dropout's IEEE division 0.0561 / 0.0528
+// against 0.0466 / 0.0393; one row a warp at L = 128 0.0493 / 0.0492; expf
+// 0.0472 / 0.0438.  Four 4-byte accesses a quad (fp32 0.0474) and
+// streaming cache hints on x and y (fp32 0.0476) measured within 2% of the
+// 16-byte vectors with the default cache policy: the hints are not taken.
+// Offsets are 64-bit; the grid's x dimension takes up to 2^31 - 1 blocks,
+// far beyond R * M at B = 128, H = 64, L = 512.
 #include <cstdint>
 
 #include <math_constants.h>
@@ -84,6 +119,13 @@ constexpr int kMaxL = 8192;        // the gate's longest row
 constexpr int kWarpRowMaxL = 1024; // rows up to this long take one warp
 constexpr int kWarpsPerBlock = 4;
 constexpr int kRowThreads = 256;   // threads of a long row's block
+constexpr int kBlockQuads = kMaxL / (4 * kRowThreads);  // quads a thread holds of a long row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows a warp takes at L = 128 CH: enough loads in flight at short rows
+__host__ __device__ constexpr int rows_per_warp(int CH) {
+  return CH <= 2 ? 4 / CH : 1;
+}
 
 struct Extra {
   const void* ptr;  // null: no extra
@@ -113,43 +155,217 @@ __device__ __forceinline__ long long extra_base(const Extra& e, long long r, int
   return g + (long long)m * e.row_stride;
 }
 
-__device__ __forceinline__ float extra_at(const Extra& e, long long base, int col) {
-  const long long i = base + (long long)col * e.col_stride;
-  return e.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(e.ptr)[i])
-                : static_cast<const float*>(e.ptr)[i];
+// ---- quads: four neighbouring columns, one vector access ------------------
+
+__device__ __forceinline__ void load_quad(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
 }
 
-// v = x * sc (+ mask) (+ bias) for the four columns c0..c0+3 of a row; sc is
-// 1 for an fp32/bf16 x, where the product is x itself, bit for bit
-template <typename TI>
-__device__ __forceinline__ void load_quad(const TI* xr, float sc, const Extra& mask,
-                                          long long mb, const Extra& bias, long long bb,
-                                          int c0, float v[4]) {
+__device__ __forceinline__ void load_quad(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(t.x << 16);
+  v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+  v[2] = __uint_as_float(t.y << 16);
+  v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ void load_quad(const int8_t* p, float (&v)[4]) {
+  const int t = *reinterpret_cast<const int*>(p);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float t = __fmul_rn(to_f(xr[c0 + j]), sc);
-    if (mask.ptr != nullptr) t += extra_at(mask, mb, c0 + j);
-    if (bias.ptr != nullptr) t += extra_at(bias, bb, c0 + j);
-    v[j] = t;
+  for (int j = 0; j < 4; ++j) v[j] = (float)((int)((unsigned)t << (24 - 8 * j)) >> 24);
+}
+
+__device__ __forceinline__ void load_quad(const int32_t* p, float (&v)[4]) {
+  const int4 t = *reinterpret_cast<const int4*>(p);
+  v[0] = to_f(t.x);
+  v[1] = to_f(t.y);
+  v[2] = to_f(t.z);
+  v[3] = to_f(t.w);
+}
+
+__device__ __forceinline__ void store_quad(float* p, const float (&y)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+// y already holds bf16 values: their top halves are the bf16 bits
+__device__ __forceinline__ void store_quad(__nv_bfloat16* p, const float (&y)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2((__float_as_uint(y[0]) >> 16) | (__float_as_uint(y[1]) & 0xFFFF0000u),
+                 (__float_as_uint(y[2]) >> 16) | (__float_as_uint(y[3]) & 0xFFFF0000u));
+}
+
+// an extra at the four columns c0..c0+3 of the row at `base`
+__device__ __forceinline__ void extra_quad(const Extra& e, long long base, int c0,
+                                           float (&v)[4]) {
+  if (e.col_stride == 0) {
+    const float s = e.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(e.ptr)[base])
+                           : static_cast<const float*>(e.ptr)[base];
+    v[0] = v[1] = v[2] = v[3] = s;
+  } else if (e.bf16) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(
+        static_cast<const __nv_bfloat16*>(e.ptr) + base + c0));
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xFFFF0000u);
+  } else {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(
+        static_cast<const float*>(e.ptr) + base + c0));
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
   }
 }
 
-// keep flags of the four columns c0..c0+3 (c0 a multiple of 4) of row (r, m)
-__device__ __forceinline__ void keep_quad(const Drop& dr, long long r, int m, int c0,
-                                          bool keep[4]) {
-  const uint4 w = philox4x32_10(make_uint4((uint32_t)(c0 >> 2), (uint32_t)m, (uint32_t)r, 0u),
-                                dr.seed, 0u);
-  keep[0] = w.x >= dr.threshold;
-  keep[1] = w.y >= dr.threshold;
-  keep[2] = w.z >= dr.threshold;
-  keep[3] = w.w >= dr.threshold;
+// ---- rows: v = x * sc (+ mask) (+ bias), then their softmax ---------------
+
+// What a thread loads of RW rows: quad q of row i starts at column
+// q * qstride + off (lane l of a warp: 128 q + 4 l; thread t of a long row's
+// block: 1024 q + 4 t); a quad at or past L (a long row's last columns) is
+// read at `off` and later set to -inf.  Rows past `rows` read the last row
+// and are never stored.  Every load is issued before any value is used.
+template <int RW, int NQ>
+struct RowsIn {
+  float x[RW][NQ][4], mk[RW][NQ][4], bs[RW][NQ][4];
+};
+
+template <typename TI, int RW, int NQ>
+__device__ __forceinline__ void load_rows(RowsIn<RW, NQ>& in, const TI* x, long long row0,
+                                          long long rows, int L, const Extra& mask,
+                                          const Extra& bias, const long long (&r)[RW],
+                                          const int (&m)[RW], int off, int qstride) {
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const TI* xr = x + (row0 + i < rows ? row0 + i : rows - 1) * L;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * qstride + off;
+      load_quad(xr + (c0 < L ? c0 : off), in.x[i][q]);
+    }
+  }
+  if (mask.ptr != nullptr) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const long long base = extra_base(mask, r[i], m[i]);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int c0 = q * qstride + off;
+        extra_quad(mask, base, c0 < L ? c0 : off, in.mk[i][q]);
+      }
+    }
+  }
+  if (bias.ptr != nullptr) {
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      const long long base = extra_base(bias, r[i], m[i]);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int c0 = q * qstride + off;
+        extra_quad(bias, base, c0 < L ? c0 : off, in.bs[i][q]);
+      }
+    }
+  }
 }
 
+// in.x <- v = x * sc (+ mask) (+ bias), -inf past L.  sc is 1 for an
+// fp32/bf16 x, where the product is x itself, bit for bit.
+template <int RW, int NQ>
+__device__ __forceinline__ void combine(RowsIn<RW, NQ>& in, float sc, bool has_mask,
+                                        bool has_bias, int L, int off, int qstride) {
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float t = __fmul_rn(in.x[i][q][j], sc);
+        if (has_mask) t += in.mk[i][q][j];
+        if (has_bias) t += in.bs[i][q][j];
+        in.x[i][q][j] = q * qstride + off < L ? t : -CUDART_INF_F;
+      }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+struct WarpReduce {
+  __device__ __forceinline__ float operator()(float v, bool is_max) const {
+    return is_max ? warp_max(v) : warp_sum(v);
+  }
+};
+
+// the block's max (is_max) or sum of v; every thread gets it
+struct BlockReduce {
+  float* red;  // kRowThreads / 32 + 1 floats of shared memory
+  __device__ __forceinline__ float operator()(float v, bool is_max) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    v = is_max ? warp_max(v) : warp_sum(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      float t = lane < kRowThreads / 32 ? red[lane] : (is_max ? -CUDART_INF_F : 0.f);
+      t = is_max ? warp_max(t) : warp_sum(t);
+      if (lane == 0) red[kRowThreads / 32] = t;
+    }
+    __syncthreads();
+    const float out = red[kRowThreads / 32];
+    __syncthreads();  // red is reused by the next reduction
+    return out;
+  }
+};
+
+// v -> p = softmax over one row, in place, reduced over the row's threads
+template <int NQ, typename Reduce>
+__device__ __forceinline__ void row_probs(float (&v)[NQ][4], const Reduce& reduce) {
+  float mx = -CUDART_INF_F;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx = fmaxf(mx, v[q][j]);
+  mx = reduce(mx, true);
+  const float ml = __fmul_rn(mx, kLog2e);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[q][j] = ex2(__fmaf_rn(v[q][j], kLog2e, -ml));
+      s += v[q][j];
+    }
+  s = reduce(s, false);
+  const float rs = __frcp_rn(s);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[q][j] *= rs;
+}
+
+// keep bits (bit j: column c0 + j, c0 a multiple of 4) of row (r, m)
+__device__ __forceinline__ uint32_t keep_quad(const Drop& dr, long long r, int m, int c0) {
+  const uint4 w = philox4x32_10(make_uint4((uint32_t)(c0 >> 2), (uint32_t)m, (uint32_t)r, 0u),
+                                dr.seed, 0u);
+  return (uint32_t)(w.x >= dr.threshold) | ((uint32_t)(w.y >= dr.threshold) << 1) |
+         ((uint32_t)(w.z >= dr.threshold) << 2) | ((uint32_t)(w.w >= dr.threshold) << 3);
+}
+
+// y = p rounded to T; with dropout keep ? y / div : 0, the quotient rounded
+// to T.  rd = 1 / div correctly rounded: q = y rd and one FMA correction
+// give y / div correctly rounded (Markstein), without a division.
 template <typename T>
-__device__ __forceinline__ T drop_out(const Drop& dr, float p, bool keep) {
-  const T y = from_f<T>(p);
+__device__ __forceinline__ float drop_out(const Drop& dr, float rd, float p, bool keep) {
+  const float y = round_to<T>(p);
   if (!dr.on) return y;
-  return keep ? from_f<T>(to_f(y) / dr.div) : from_f<T>(0.f);
+  if (!keep) return 0.f;
+  const float qt = __fmul_rn(y, rd);
+  return round_to<T>(__fmaf_rn(__fmaf_rn(-qt, dr.div, y), rd, qt));
 }
 
 __device__ __forceinline__ float drop_grad(const Drop& dr, float dy, bool keep) {
@@ -158,65 +374,137 @@ __device__ __forceinline__ float drop_grad(const Drop& dr, float dy, bool keep) 
 }
 
 // ---------------------------------------------------------------------------
-// rows up to 1024: one warp per row, the row in registers (CH chunks of 128)
+// the kernels: a row up to 1024 long takes a warp (rows_per_warp(CH) rows
+// a warp), a longer one a 256-thread block; both hold their rows in
+// registers
 // ---------------------------------------------------------------------------
 
-template <typename TI, int CH>
-__device__ __forceinline__ void warp_row_probs(const TI* xr, float sc, const Extra& mask,
-                                               const Extra& bias, long long r, int m,
-                                               int lane, float p[CH][4]) {
-  const long long mb = mask.ptr != nullptr ? extra_base(mask, r, m) : 0;
-  const long long bb = bias.ptr != nullptr ? extra_base(bias, r, m) : 0;
-  float mx = -CUDART_INF_F;
+// the (r, m) of rows row0 .. row0 + RW - 1, each one past the last
+template <int RW>
+__device__ __forceinline__ void row_index(long long row0, int M, long long (&r)[RW],
+                                          int (&m)[RW]) {
+  r[0] = row0 / M;
+  m[0] = (int)(row0 % M);
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    load_quad(xr, sc, mask, mb, bias, bb, c * 128 + lane * 4, p[c]);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) mx = fmaxf(mx, p[c][j]);
-  }
-  mx = warp_max(mx);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[c][j] = expf(p[c][j] - mx);
-      s += p[c][j];
-    }
-  }
-  s = warp_sum(s);
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[c][j] = p[c][j] / s;
+  for (int i = 1; i < RW; ++i) {
+    const bool wrap = m[i - 1] + 1 == M;
+    r[i] = r[i - 1] + wrap;
+    m[i] = wrap ? 0 : m[i - 1] + 1;
   }
 }
 
+// keep bits of every quad, drawn after the loads are issued: they need no x
+template <int RW, int NQ>
+__device__ __forceinline__ void keep_bits(uint32_t (&keep)[RW][NQ], const Drop& dr,
+                                          const long long (&r)[RW], const int (&m)[RW], int L,
+                                          int off, int qstride) {
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * qstride + off;
+      keep[i][q] = dr.on && c0 < L ? keep_quad(dr, r[i], m[i], c0) : 0xFu;
+    }
+}
+
 // TI: the stored input (fp32, bf16, or int8/int32 with `scale`); TO: the
-// output (the input's type, fp32 for a quantized input)
+// output (the input's type, fp32 for a quantized input).  RW rows a
+// thread group (a warp of NQ chunks of 128 columns, or a long row's block of
+// NQ quads a thread)
+template <typename TI, typename TO, int RW, int NQ, typename Reduce>
+__device__ __forceinline__ void fwd_rows(const TI* __restrict__ x, const float* __restrict__ scale,
+                                         const Extra& mask, const Extra& bias,
+                                         TO* __restrict__ y, long long row0, long long rows,
+                                         int M, int L, int off, int qstride, const Drop& dr,
+                                         const Reduce& reduce) {
+  long long r[RW];
+  int m[RW];
+  row_index(row0, M, r, m);
+  RowsIn<RW, NQ> in;
+  load_rows<TI, RW, NQ>(in, x, row0, rows, L, mask, bias, r, m, off, qstride);
+  const float sc = scale != nullptr ? *scale : 1.f;
+  uint32_t keep[RW][NQ];
+  keep_bits(keep, dr, r, m, L, off, qstride);
+  combine(in, sc, mask.ptr != nullptr, bias.ptr != nullptr, L, off, qstride);
+  const float rd = dr.on ? __frcp_rn(dr.div) : 1.f;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (row0 + i >= rows) break;
+    row_probs<NQ>(in.x[i], reduce);
+    TO* yr = y + (row0 + i) * L;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * qstride + off;
+      if (c0 >= L) break;
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = drop_out<TO>(dr, rd, in.x[i][q][j], (keep[i][q] >> j) & 1u);
+      store_quad(yr + c0, o);
+    }
+  }
+}
+
+template <typename T, int RW, int NQ, typename Reduce>
+__device__ __forceinline__ void bwd_rows(const T* __restrict__ x, const Extra& mask,
+                                         const Extra& bias, const T* __restrict__ dy,
+                                         float* __restrict__ ds, long long row0, long long rows,
+                                         int M, int L, int off, int qstride, const Drop& dr,
+                                         const Reduce& reduce) {
+  long long r[RW];
+  int m[RW];
+  row_index(row0, M, r, m);
+  RowsIn<RW, NQ> in;
+  load_rows<T, RW, NQ>(in, x, row0, rows, L, mask, bias, r, m, off, qstride);
+  float g[RW][NQ][4];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const T* gr = dy + (row0 + i < rows ? row0 + i : rows - 1) * L;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * qstride + off;
+      load_quad(gr + (c0 < L ? c0 : off), g[i][q]);
+    }
+  }
+  uint32_t keep[RW][NQ];
+  keep_bits(keep, dr, r, m, L, off, qstride);
+  combine(in, 1.f, mask.ptr != nullptr, bias.ptr != nullptr, L, off, qstride);
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (row0 + i >= rows) break;
+    row_probs<NQ>(in.x[i], reduce);
+    float dot = 0.f;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in_row = q * qstride + off < L;
+        g[i][q][j] = in_row ? drop_grad(dr, g[i][q][j], (keep[i][q] >> j) & 1u) : 0.f;
+        dot += g[i][q][j] * in.x[i][q][j];
+      }
+    dot = reduce(dot, false);
+    float* dsr = ds + (row0 + i) * L;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const int c0 = q * qstride + off;
+      if (c0 >= L) break;
+      float o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[j] = in.x[i][q][j] * (g[i][q][j] - dot);
+      store_quad(dsr + c0, o);
+    }
+  }
+}
+
 template <typename TI, typename TO, int CH>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_dropout_fwd_warp(const TI* __restrict__ x, const float* __restrict__ scale,
                          Extra mask, Extra bias, TO* __restrict__ y, long long rows, int M,
                          Drop dr) {
-  constexpr int L = CH * 128;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const long long r = row / M;
-  const int m = (int)(row % M);
-  float p[CH][4];
-  warp_row_probs<TI, CH>(x + row * L, scale != nullptr ? *scale : 1.f, mask, bias, r, m,
-                         lane, p);
-  TO* yr = y + row * L;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int c0 = c * 128 + lane * 4;
-    bool keep[4] = {true, true, true, true};
-    if (dr.on) keep_quad(dr, r, m, c0, keep);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<TO>(dr, p[c][j], keep[j]);
-  }
+  constexpr int RW = rows_per_warp(CH);
+  const long long row0 = ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * RW;
+  if (row0 >= rows) return;
+  fwd_rows<TI, TO, RW, CH>(x, scale, mask, bias, y, row0, rows, M, CH * 128,
+                           (threadIdx.x & 31) * 4, 128, dr, WarpReduce{});
 }
 
 template <typename T, int CH>
@@ -224,110 +512,20 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 softmax_dropout_bwd_warp(const T* __restrict__ x, Extra mask, Extra bias,
                          const T* __restrict__ dy, float* __restrict__ ds, long long rows,
                          int M, Drop dr) {
-  constexpr int L = CH * 128;
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const long long r = row / M;
-  const int m = (int)(row % M);
-  float p[CH][4], dp[CH][4];
-  warp_row_probs<T, CH>(x + row * L, 1.f, mask, bias, r, m, lane, p);
-  const T* gr = dy + row * L;
-  float dot = 0.f;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int c0 = c * 128 + lane * 4;
-    bool keep[4] = {true, true, true, true};
-    if (dr.on) keep_quad(dr, r, m, c0, keep);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dp[c][j] = drop_grad(dr, to_f(gr[c0 + j]), keep[j]);
-      dot += dp[c][j] * p[c][j];
-    }
-  }
-  dot = warp_sum(dot);
-  float* dsr = ds + row * L;
-#pragma unroll
-  for (int c = 0; c < CH; ++c) {
-    const int c0 = c * 128 + lane * 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dsr[c0 + j] = p[c][j] * (dp[c][j] - dot);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// rows over 1024: one block per row, the row in shared memory
-// ---------------------------------------------------------------------------
-
-// the block's max (is_max) or sum of v; every thread gets it
-__device__ __forceinline__ float block_reduce(float v, bool is_max, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < kRowThreads / 32 ? red[lane] : (is_max ? -CUDART_INF_F : 0.f);
-    t = is_max ? warp_max(t) : warp_sum(t);
-    if (lane == 0) red[kRowThreads / 32] = t;
-  }
-  __syncthreads();
-  const float out = red[kRowThreads / 32];
-  __syncthreads();  // red is reused by the next reduction
-  return out;
-}
-
-// p of one row into srow; each thread touches only its own quads
-template <typename TI>
-__device__ __forceinline__ void block_row_probs(const TI* xr, float sc, const Extra& mask,
-                                                const Extra& bias, long long r, int m, int L,
-                                                float* srow, float* red) {
-  const long long mb = mask.ptr != nullptr ? extra_base(mask, r, m) : 0;
-  const long long bb = bias.ptr != nullptr ? extra_base(bias, r, m) : 0;
-  float mx = -CUDART_INF_F;
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-    float v[4];
-    load_quad(xr, sc, mask, mb, bias, bb, c0, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      srow[c0 + j] = v[j];
-      mx = fmaxf(mx, v[j]);
-    }
-  }
-  mx = block_reduce(mx, true, red);
-  float s = 0.f;
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float e = expf(srow[c0 + j] - mx);
-      srow[c0 + j] = e;
-      s += e;
-    }
-  }
-  s = block_reduce(s, false, red);
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) srow[c0 + j] = srow[c0 + j] / s;
-  }
+  constexpr int RW = rows_per_warp(CH);
+  const long long row0 = ((long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * RW;
+  if (row0 >= rows) return;
+  bwd_rows<T, RW, CH>(x, mask, bias, dy, ds, row0, rows, M, CH * 128, (threadIdx.x & 31) * 4,
+                      128, dr, WarpReduce{});
 }
 
 template <typename TI, typename TO>
 __global__ void __launch_bounds__(kRowThreads)
 softmax_dropout_fwd_block(const TI* __restrict__ x, const float* __restrict__ scale,
                           Extra mask, Extra bias, TO* __restrict__ y, int M, int L, Drop dr) {
-  __shared__ float srow[kMaxL];
   __shared__ float red[kRowThreads / 32 + 1];
-  const long long row = blockIdx.x;
-  const long long r = row / M;
-  const int m = (int)(row % M);
-  block_row_probs<TI>(x + row * L, scale != nullptr ? *scale : 1.f, mask, bias, r, m, L,
-                      srow, red);
-  TO* yr = y + row * L;
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-    bool keep[4] = {true, true, true, true};
-    if (dr.on) keep_quad(dr, r, m, c0, keep);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) yr[c0 + j] = drop_out<TO>(dr, srow[c0 + j], keep[j]);
-  }
+  fwd_rows<TI, TO, 1, kBlockQuads>(x, scale, mask, bias, y, blockIdx.x, gridDim.x, M, L,
+                                   threadIdx.x * 4, 4 * kRowThreads, dr, BlockReduce{red});
 }
 
 template <typename T>
@@ -335,38 +533,18 @@ __global__ void __launch_bounds__(kRowThreads)
 softmax_dropout_bwd_block(const T* __restrict__ x, Extra mask, Extra bias,
                           const T* __restrict__ dy, float* __restrict__ ds, int M, int L,
                           Drop dr) {
-  __shared__ float srow[kMaxL];
   __shared__ float red[kRowThreads / 32 + 1];
-  const long long row = blockIdx.x;
-  const long long r = row / M;
-  const int m = (int)(row % M);
-  block_row_probs<T>(x + row * L, 1.f, mask, bias, r, m, L, srow, red);
-  const T* gr = dy + row * L;
-  float dot = 0.f;
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-    bool keep[4] = {true, true, true, true};
-    if (dr.on) keep_quad(dr, r, m, c0, keep);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dot += drop_grad(dr, to_f(gr[c0 + j]), keep[j]) * srow[c0 + j];
-  }
-  dot = block_reduce(dot, false, red);
-  float* dsr = ds + row * L;
-  // dp is regenerated (dy re-read, the keep bits drawn again) rather than
-  // held: the row's p already fills the 32 KB of shared memory
-  for (int c0 = threadIdx.x * 4; c0 < L; c0 += kRowThreads * 4) {
-    bool keep[4] = {true, true, true, true};
-    if (dr.on) keep_quad(dr, r, m, c0, keep);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float dp = drop_grad(dr, to_f(gr[c0 + j]), keep[j]);
-      dsr[c0 + j] = srow[c0 + j] * (dp - dot);
-    }
-  }
+  bwd_rows<T, 1, kBlockQuads>(x, mask, bias, dy, ds, blockIdx.x, gridDim.x, M, L,
+                              threadIdx.x * 4, 4 * kRowThreads, dr, BlockReduce{red});
 }
 
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+// the kernels read and write quads as one vector: every row (a multiple of
+// 128 elements) starts 16-byte aligned when its tensor does
+bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // desc: [dtype (0 fp32, 1 bf16), nlead, row_stride, col_stride, dims[nlead],
 // gstride[nlead]]; a null ptr means no extra
@@ -385,14 +563,21 @@ bool make_extra(const void* ptr, const long long* desc, Extra* e) {
   for (int d = 0; d < nlead; ++d) {
     e->dims[d] = desc[4 + d];
     e->gstride[d] = desc[4 + nlead + d];
-    if (e->dims[d] < 1) return false;
+    if (e->dims[d] < 1 || (e->col_stride != 0 && e->gstride[d] % 4 != 0)) return false;
   }
-  return true;
+  // quads of a full-width extra are one 16-byte (8 for bf16) read
+  return e->col_stride == 0 || (e->row_stride % 4 == 0 && aligned16(ptr));
 }
 
 bool bad_geometry(long long R, int M, int L) {
   return R <= 0 || M <= 0 || L <= 0 || L % 128 != 0 || L > kMaxL ||
          R * M > 0x7fffffffLL * (L <= kWarpRowMaxL ? kWarpsPerBlock : 1);
+}
+
+// blocks of the warp route: kWarpsPerBlock warps of rows_per_warp(CH) rows
+unsigned warp_grid(long long rows, int CH) {
+  const long long per_block = (long long)kWarpsPerBlock * rows_per_warp(CH);
+  return (unsigned)((rows + per_block - 1) / per_block);
 }
 
 template <typename TI, typename TO>
@@ -407,13 +592,12 @@ cudaError_t launch_fwd(const void* x, const float* scale, const Extra& mask,
         xt, scale, mask, bias, yt, M, L, dr);
     return cudaGetLastError();
   }
-  const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const int threads = kWarpsPerBlock * 32;
   switch (L / 128) {
-#define UNICORE_SD_FWD(CH)                                                              \
-  case CH:                                                                              \
-    softmax_dropout_fwd_warp<TI, TO, CH><<<grid, threads, 0, s>>>(xt, scale, mask, bias, \
-                                                                  yt, rows, M, dr);      \
+#define UNICORE_SD_FWD(CH)                                                                \
+  case CH:                                                                                \
+    softmax_dropout_fwd_warp<TI, TO, CH><<<warp_grid(rows, CH), threads, 0, s>>>(          \
+        xt, scale, mask, bias, yt, rows, M, dr);                                          \
     break;
     UNICORE_SD_FWD(1) UNICORE_SD_FWD(2) UNICORE_SD_FWD(3) UNICORE_SD_FWD(4)
     UNICORE_SD_FWD(5) UNICORE_SD_FWD(6) UNICORE_SD_FWD(7) UNICORE_SD_FWD(8)
@@ -436,13 +620,12 @@ cudaError_t launch_bwd(const void* x, const Extra& mask, const Extra& bias, cons
                                                                       M, L, dr);
     return cudaGetLastError();
   }
-  const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const int threads = kWarpsPerBlock * 32;
   switch (L / 128) {
-#define UNICORE_SD_BWD(CH)                                                                 \
-  case CH:                                                                                 \
-    softmax_dropout_bwd_warp<T, CH><<<grid, threads, 0, s>>>(xt, mask, bias, gt, dst, rows, \
-                                                             M, dr);                       \
+#define UNICORE_SD_BWD(CH)                                                                \
+  case CH:                                                                                \
+    softmax_dropout_bwd_warp<T, CH><<<warp_grid(rows, CH), threads, 0, s>>>(               \
+        xt, mask, bias, gt, dst, rows, M, dr);                                            \
     break;
     UNICORE_SD_BWD(1) UNICORE_SD_BWD(2) UNICORE_SD_BWD(3) UNICORE_SD_BWD(4)
     UNICORE_SD_BWD(5) UNICORE_SD_BWD(6) UNICORE_SD_BWD(7) UNICORE_SD_BWD(8)
@@ -455,8 +638,8 @@ cudaError_t launch_bwd(const void* x, const Extra& mask, const Extra& bias, cons
 
 }  // namespace
 
-// x, y: (R, M, L) fp32 or bf16 (dtype); mask/bias with their descriptors, or
-// null.  dropout: on, seed, threshold, and `div` = (1 - rate) rounded to the
+// x, y: (R, M, L) fp32 or bf16 (dtype), 16-byte aligned; mask/bias with their
+// descriptors (16-byte aligned unless broadcast over columns), or null.  dropout: on, seed, threshold, and `div` = (1 - rate) rounded to the
 // output type.
 extern "C" int unicore_softmax_dropout_fwd(const void* x, const void* mask,
                                            const long long* mask_desc, const void* bias,
@@ -465,8 +648,8 @@ extern "C" int unicore_softmax_dropout_fwd(const void* x, const void* mask,
                                            unsigned threshold, float div, int dtype,
                                            void* stream) {
   Extra em, eb;
-  if (bad_geometry(R, M, L) || !make_extra(mask, mask_desc, &em) ||
-      !make_extra(bias, bias_desc, &eb))
+  if (bad_geometry(R, M, L) || !aligned16(x) || !aligned16(y) ||
+      !make_extra(mask, mask_desc, &em) || !make_extra(bias, bias_desc, &eb))
     return (int)cudaErrorInvalidValue;
   const Drop dr{dropout, seed, threshold, div, 1.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -487,8 +670,8 @@ extern "C" int unicore_quant_softmax_dropout_fwd(const void* x, const void* scal
                                                  int dropout, unsigned seed, unsigned threshold,
                                                  float div, int in_dtype, void* stream) {
   Extra em, eb;
-  if (scale == nullptr || bad_geometry(R, M, L) || !make_extra(mask, mask_desc, &em) ||
-      !make_extra(bias, bias_desc, &eb))
+  if (scale == nullptr || bad_geometry(R, M, L) || !aligned16(x) || !aligned16(y) ||
+      !make_extra(mask, mask_desc, &em) || !make_extra(bias, bias_desc, &eb))
     return (int)cudaErrorInvalidValue;
   const Drop dr{dropout, seed, threshold, div, 1.f};
   const float* sc = static_cast<const float*>(scale);
@@ -508,8 +691,8 @@ extern "C" int unicore_softmax_dropout_bwd(const void* x, const void* mask,
                                            unsigned seed, unsigned threshold, float scale,
                                            int dtype, void* stream) {
   Extra em, eb;
-  if (bad_geometry(R, M, L) || !make_extra(mask, mask_desc, &em) ||
-      !make_extra(bias, bias_desc, &eb))
+  if (bad_geometry(R, M, L) || !aligned16(x) || !aligned16(dy) || !aligned16(ds) ||
+      !make_extra(mask, mask_desc, &em) || !make_extra(bias, bias_desc, &eb))
     return (int)cudaErrorInvalidValue;
   const Drop dr{dropout, seed, threshold, 1.f, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

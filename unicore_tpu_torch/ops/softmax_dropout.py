@@ -255,6 +255,15 @@ def _descs(x, mask, bias, plans):
     return out
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it where its data does not start 16-byte aligned
+    (a view at an odd offset): the kernels read and write every row as
+    16-byte vectors."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
+
+
 def _dropout_args(rate: float, seed: int):
     """(on, seed, threshold) as the C entry points take them."""
     if rate == 0.0:
@@ -332,7 +341,7 @@ class _SoftmaxDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, mask, bias = ctx.saved_tensors
-        ds = _launch_bwd(x, mask, bias, ctx.plans, dy.to(x.dtype).contiguous(),
+        ds = _launch_bwd(x, mask, bias, ctx.plans, _aligned(dy.to(x.dtype).contiguous()),
                          ctx.rate, ctx.seed)
         dx = ds.to(x.dtype) if ctx.needs_input_grad[0] else None
         dmask = dbias = None
@@ -359,9 +368,9 @@ def softmax_dropout_kernel(input, rate: float = 0.0, mask=None, bias=None,
     ishape = tuple(input.shape)
     plans = tuple(None if t is None else plan_extra(tuple(t.shape), ishape)
                   for t in (mask, bias))
-    x = input.contiguous()
+    x = _aligned(input.contiguous())
     mask, bias = (None if t is None else
-                  (t if t.dtype in _DTYPES else t.float()).contiguous()
+                  _aligned((t if t.dtype in _DTYPES else t.float()).contiguous())
                   for t in (mask, bias))
     _kernels.require_cuda("softmax_dropout", x, mask, bias)
     return _SoftmaxDropout.apply(x, mask, bias, plans, float(rate), int(seed))
@@ -390,10 +399,10 @@ def quant_softmax_dropout_kernel(input_q, x_scale, rate: float = 0.0, mask=None,
     ishape = tuple(input_q.shape)
     plans = tuple(None if t is None else plan_extra(tuple(t.shape), ishape)
                   for t in (mask, bias))
-    x = input_q.contiguous()
+    x = _aligned(input_q.contiguous())
     scale = x_scale.reshape(1).contiguous()
     mask, bias = (None if t is None else
-                  (t if t.dtype in _DTYPES else t.float()).contiguous()
+                  _aligned((t if t.dtype in _DTYPES else t.float()).contiguous())
                   for t in (mask, bias))
     _kernels.require_cuda("quant_softmax_dropout", x, scale, mask, bias)
     return _launch_quant_fwd(x, scale, mask, bias, plans, float(rate), int(seed))

@@ -81,23 +81,25 @@ SHAPES = [("triangle", (256, 4, 256, 32), (1, 4, 256, 256)),
           ("bert_router", (2, 12, 1152, 64), (1, 12, 1152, 1152))]
 
 
-def build_variant(name, edits, out):
-    """Compile the edited copy (and fused_norm.cu, for the error strings)
-    into its own library under build/; out[name] = its path or the error."""
-    d = _kernels.BUILD_DIR.parent / "flash_bwd_ab" / name
+def build_variant(name, edits, out, source="flash_attention.cu"):
+    """Compile the copy of ``csrc/<source>`` with ``edits`` applied (and
+    fused_norm.cu, for the error strings) into its own library under
+    build/; out[name] = its path or the error."""
+    d = _kernels.BUILD_DIR.parent / "kernel_ab" / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
-    for header in ("common.cuh", "mma.cuh", "fused_norm.cu"):
-        shutil.copy(_kernels.CSRC / header, d / header)
-    src = (_kernels.CSRC / "flash_attention.cu").read_text()
+    for f in _kernels.sources():
+        if f.suffix == ".cuh" or f.name == "fused_norm.cu":
+            shutil.copy(f, d / f.name)
+    src = (_kernels.CSRC / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
             out[name] = f"edit not found once: {old[:60]!r}"
             return
         src = src.replace(old, new)
-    (d / "flash_attention.cu").write_text(src)
+    (d / source).write_text(src)
     nvcc, objs = _kernels._nvcc(), []
-    for cu in ("flash_attention.cu", "fused_norm.cu"):
+    for cu in (source, "fused_norm.cu"):
         obj = d / f"{cu}.o"
         r = subprocess.run([nvcc, *_kernels.NVCC_FLAGS, "-I", str(d), "-c", str(d / cu),
                             "-o", str(obj)], capture_output=True, text=True)
