@@ -145,14 +145,19 @@ each check's ``flash_attention_bwd_total`` line sets the backward's two
 launches, summed, beside SDPA's backward and the bound.  It
 also holds the decode attention against ``decode_attention_plain`` at phase
 7's step (8, 12, 512, 64) in fp32 and bf16, with int8 KV, with mixed
-positions and junk rows past them, and at the 128 bucket; its yardstick is
-SDPA over the single query row with the bias row and the dead rows in a
-float mask (int8: the dequant, then SDPA).  And it holds the three int8
-serving kernels at BERT-base serving shapes (8 x 512 = 4096 rows): the W8A8
-dense against ``quant_matmul_plain`` at ``in_proj`` (768 -> 2304, bias),
+positions and junk rows past them, and at the 128 bucket, each with the
+split count its wrapper chose, and a second call on the same inputs
+(mixed positions, a chunk of -inf bias) that must equal the first bit for
+bit; its yardstick is SDPA over the single query row with the bias row and
+the dead rows in a float mask (int8: the dequant, then SDPA).  And it holds
+the three int8 serving kernels at BERT-base serving shapes (8 x 512 = 4096
+rows): the W8A8 dense against ``quant_matmul_plain`` at every dense site
+of a served batch -- ``in_proj`` (768 -> 2304), ``out_proj`` (768 -> 768),
 ``fc1`` (768 -> 3072, GELU), ``fc2`` (3072 -> 768), the LM head (768 ->
-768, GELU) and an M of 4093 (1e-6 of the output's absmax; yardstick one
-``torch._int_mm`` plus the epilogue in torch ops); the int8 LayerNorm at
+768, GELU), each with its bias -- and an M of 4093 (1e-6 of the output's
+absmax; yardstick one ``torch._int_mm`` plus the epilogue in torch ops,
+logged beside the kernel at every site with the tile width it ran); the
+int8 LayerNorm at
 (4096, 768) with a scalar and a per-channel scale (the dequant multiply
 plus ``F.layer_norm``); the int8/int32 softmax on (8, 12, 512, 512) int32
 scores with the (8, 1, 1, 512) ``finfo.min`` key mask and the (1, 12, 512,
@@ -987,6 +992,8 @@ def decode_inputs(torch, device, c, seed):
     k = torch.randn(B, H, L, D, generator=g, device=device)
     v = torch.randn(B, H, L, D, generator=g, device=device)
     bias = torch.randn(B, H, L, generator=g, device=device)
+    if c.get("neg_inf"):  # a chunk of -inf scores in the last (b, h): weight 0, not NaN
+        bias[-1, -1, :min(32, L - 1)] = float("-inf")
     if c.get("mixed"):
         pos = torch.linspace(0, L - 1, B, device=device).to(torch.int32)
     else:
@@ -1035,6 +1042,11 @@ def check_decode(torch, device, c, iters, seed=5150):
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q[:, :, None], k, v, attn_mask=mask, scale=1.0)
     out, ref = call(), plain()
+    bitwise = None
+    if c.get("repeat"):  # the split partials combine in a fixed order
+        bitwise = bool(torch.equal(call(), out))
+        if not bitwise:
+            raise AssertionError(f"decode {c['name']}: two calls on the same inputs differ")
     err_t = (out.float() - ref.float()).abs()
     err = err_t.max().item()
     if q.dtype == torch.bfloat16:
@@ -1048,7 +1060,9 @@ def check_decode(torch, device, c, iters, seed=5150):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
     res = {"name": c["name"], "shape": [B, H, L, D], "dtype": c["dtype"],
            "kv": "int8" if scales else c["dtype"], "live_rows": live_rows,
-           "max_abs_err": err, "tolerance": tol}
+           "splits": da.choose_splits(B * H, L), "max_abs_err": err, "tolerance": tol}
+    if bitwise is not None:
+        res["repeat_bitwise"] = bitwise
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     timed(res, "library_ms", torch, lib, device, iters)
@@ -1093,7 +1107,8 @@ def check_quant_matmul(torch, device, c, iters):
     if not (err <= tol and math.isfinite(err)):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
     res = {"site": c["name"], "shape": [M, K, N], "dtype": "int8", "activation": act,
-           "bias": bool(c["bias"]), "max_abs_err": err, "tolerance": "1e-6 x max|ref|"}
+           "bias": bool(c["bias"]), "tile": [qm.TILE_M, qm.choose_tile_n(M, N, K)],
+           "max_abs_err": err, "tolerance": "1e-6 x max|ref|"}
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2))
     try:
@@ -1105,6 +1120,9 @@ def check_quant_matmul(torch, device, c, iters):
     nbytes = M * K + N * K + 4 * N * (2 if bias is not None else 1) + 4 * M * N
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 2 * M * N * K, "int8")
     log(f"{name}: {json.dumps(res)}")
+    log("quant_matmul_site " + json.dumps(
+        {k: res[k] for k in ("site", "shape", "tile", "device_ms", "library_device_ms", "ms",
+                             "library_ms", "bound_ms", "bound_by")}))
     return res
 
 
@@ -2600,14 +2618,17 @@ CHIP = {
         {"name": "serve_int8", "shape": (8, 12, 512, 64), "dtype": "float32", "int8": True},
         {"name": "mixed", "shape": (8, 12, 512, 64), "dtype": "float32", "mixed": True},
         {"name": "bucket128", "shape": (8, 12, 128, 64), "dtype": "float32"},
+        {"name": "repeat", "shape": (8, 12, 512, 64), "dtype": "float32", "mixed": True,
+         "neg_inf": True, "repeat": True},
     ],
     # the int8 serving kernels at BERT-base serving shapes, batch 8 x 512
-    # rows: the denses in_proj, fc1 (GELU), fc2, the LM head's (GELU), and an
-    # M that is not a multiple of 16; the LM head's norm with a scalar and a
+    # rows: the denses in_proj, out_proj, fc1 (GELU), fc2, the LM head's
+    # (GELU), and an M that is not a multiple of 16; the LM head's norm with a scalar and a
     # per-channel scale; the scores at the top bucket (int32) and an int8
     # input at the smallest
     "quant_matmul": [
         {"name": "in_proj", "M": 4096, "K": 768, "N": 2304, "act": "", "bias": True},
+        {"name": "out_proj", "M": 4096, "K": 768, "N": 768, "act": "", "bias": True},
         {"name": "fc1", "M": 4096, "K": 768, "N": 3072, "act": "gelu", "bias": True},
         {"name": "fc2", "M": 4096, "K": 3072, "N": 768, "act": "", "bias": True},
         {"name": "lm_head", "M": 4096, "K": 768, "N": 768, "act": "gelu", "bias": True},
@@ -2713,9 +2734,12 @@ REHEARSAL = {
         {"name": "serve_bf16", "shape": (2, 2, 64, 16), "dtype": "bfloat16"},
         {"name": "serve_int8", "shape": (2, 2, 64, 16), "dtype": "float32", "int8": True},
         {"name": "mixed", "shape": (3, 2, 64, 16), "dtype": "float32", "mixed": True},
+        {"name": "repeat", "shape": (3, 2, 64, 16), "dtype": "float32", "mixed": True,
+         "neg_inf": True, "repeat": True},
     ],
     "quant_matmul": [
         {"name": "in_proj", "M": 256, "K": 64, "N": 192, "act": "", "bias": True},
+        {"name": "out_proj", "M": 256, "K": 64, "N": 64, "act": "", "bias": True},
         {"name": "fc1", "M": 256, "K": 64, "N": 128, "act": "gelu", "bias": True},
         {"name": "odd_m", "M": 250, "K": 128, "N": 64, "act": "", "bias": False},
     ],

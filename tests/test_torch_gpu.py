@@ -8,9 +8,12 @@ forward and backward, with and without dropout; the four flash kernels
 1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
 the dbias sum's repeatability; the decode attention (fp32, bf16, int8 caches
 with fp32 and bf16 q, head dims 4 to 256, L of 1 to 512, mixed positions
-with junk rows past them) and the shapes it refuses; the int8 serving
-kernels (the W8A8 dense at every activation, with and without bias, odd M
-and an exact-sum check past 2**24; the int8 LayerNorm with a scalar and a
+with junk rows past them; the split edges -- positions 0, a middle one and
+L - 1 in one batch, a chunk of -inf bias, L 1 / 37 / 512 -- bit-equal
+across two calls) and the shapes it refuses; the int8 serving
+kernels (the W8A8 dense at every activation, with and without bias, odd M,
+every dense site of a served BERT-base batch, and an exact-sum check past
+2**24 at each tile width; the int8 LayerNorm with a scalar and a
 per-channel scale; the int8/int32 softmax with every extra layout and
 dropout) and their refusals; plus the wrappers'
 refusals and a tiny BERT, a tiny Uni-Mol and a 2-block Evoformer on the card
@@ -781,6 +784,51 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, L, D, dtype, kv, with
         assert (err <= 2 * 2.0 ** -7 * ref.float().abs() + 1e-6).all(), err.max().item()
 
 
+@pytest.mark.parametrize("L", [1, 37, 512])
+@pytest.mark.parametrize("dtype,kv", [(torch.float32, "same"), (torch.bfloat16, "same"),
+                                      (torch.float32, "int8")])
+def test_decode_attention_split_edges_repeat_bit_for_bit(cuda, L, dtype, kv):
+    """The split kernel's edges: positions 0, a middle one and L - 1 in one
+    batch (chunks past a position read nothing), a (b, h) whose first 32
+    rows have a -inf bias (a chunk of -inf scores: weight 0, not NaN) and a
+    single -inf bias entry; against the plain version, twice, bit-equal,
+    and the arrival counters left at zero."""
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    B, H, D = 3, 4, 64
+    g = torch.Generator(device=cuda).manual_seed(L + 11)
+    q = (torch.randn(B, H, D, generator=g, device=cuda) * D ** -0.5).to(dtype)
+    k = torch.randn(B, H, L, D, generator=g, device=cuda)
+    v = torch.randn(B, H, L, D, generator=g, device=cuda)
+    pos = torch.tensor([0, L // 2, L - 1], dtype=torch.int32, device=cuda)
+    bias = torch.randn(B, H, L, generator=g, device=cuda)
+    bias[2, 1, :min(32, L - 1)] = float("-inf")  # row L - 1 stays live
+    bias[1, 2, L // 4] = float("-inf") if L // 4 != L // 2 else bias[1, 2, L // 4]
+    scales = {}
+    if kv == "int8":
+        ks = k.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        vs = v.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        k = torch.round(k / ks[None, :, None]).clamp(-127, 127).to(torch.int8)
+        v = torch.round(v / vs[None, :, None]).clamp(-127, 127).to(torch.int8)
+        scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    _kernels.reset_launch_counts()
+    out = da.decode_attention(q, k, v, pos, bias=bias, **scales)
+    again = da.decode_attention(q, k, v, pos, bias=bias, **scales)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES.count == 2
+    assert torch.equal(out, again)
+    assert not da._COUNTERS.get(cuda, torch.zeros(1, device=cuda)).any()
+    ref = da.decode_attention_plain(q, k, v, pos, bias=bias, **scales)
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 1e-5, err.max().item()
+    else:
+        assert (err <= 2 * 2.0 ** -7 * ref.float().abs() + 1e-6).all(), err.max().item()
+
+
 def test_decode_attention_refusals(cuda):
     """A CUDA call launches the kernel or raises, naming what it refuses."""
     from unicore_tpu_torch.ops import decode_attention as da
@@ -879,14 +927,18 @@ def test_quant_matmul_kernel_matches_plain(cuda, M, K, N, act, with_bias):
     assert err <= 1e-6 * max(ref.abs().max().item(), 1e-30), err
 
 
-def test_quant_matmul_kernel_sums_exactly(cuda):
+@pytest.mark.parametrize("M,N,tile_n", [(64, 256, 128), (4096, 768, 192), (300, 768, 256)])
+def test_quant_matmul_kernel_sums_exactly(cuda, monkeypatch, M, N, tile_n):
     """+-127 operands over K = 3072 (sums near 5e7, past fp32's 2**24 and
     past an int8 result's wrap): with scale 1 the output is the int32 sum
-    rounded once to fp32, bit for bit the plain version's."""
+    rounded once to fp32, bit for bit the plain version's, at each tile
+    width (the chooser's 128 and 192; 256 forced)."""
     from unicore_tpu_torch.ops import quant_matmul as qm
 
+    if qm.choose_tile_n(M, N, 3072) != tile_n:
+        monkeypatch.setattr(qm, "choose_tile_n", lambda *shape: tile_n)
     g = torch.Generator(device=cuda).manual_seed(3)
-    M, K, N = 64, 3072, 256
+    K = 3072
     x = torch.where(torch.rand(M, K, generator=g, device=cuda) < 0.9, 127, -127).to(torch.int8)
     w = torch.full((N, K), 127, dtype=torch.int8, device=cuda)
     w[1::2] = -127
@@ -894,6 +946,29 @@ def test_quant_matmul_kernel_sums_exactly(cuda):
     acc = qm.int8_matmul_plain(x, w)
     assert acc.abs().max().item() > 2 ** 24
     assert torch.equal(out, acc.float())
+
+
+@pytest.mark.parametrize("site,M,K,N,act", [
+    ("in_proj", 4096, 768, 2304, ""), ("out_proj", 4096, 768, 768, ""),
+    ("fc1", 4096, 768, 3072, "gelu"), ("fc2", 4096, 3072, 768, ""),
+    ("lm_head", 4096, 768, 768, "gelu"), ("odd_m", 4093, 768, 2304, ""),
+])
+def test_quant_matmul_kernel_at_serving_sites(cuda, site, M, K, N, act):
+    """#13 at every dense of a served int8 BERT-base batch (8 x 512 rows) and
+    at an M that is not a multiple of the tile, with the bias: within 1e-6
+    of the output's absmax, one launch."""
+    from unicore_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x, w = _int8(g, (M, K), cuda), _int8(g, (N, K), cuda)
+    scale = torch.rand(N, generator=g, device=cuda) * 2e-5 + 1e-5
+    bias = torch.randn(N, generator=g, device=cuda)
+    _kernels.reset_launch_counts()
+    out = qm.quant_matmul(x, w, scale, bias, act)
+    assert qm.LAUNCHES.count == 1 and out.shape == (M, N)
+    ref = qm.quant_matmul_plain(x, w, scale, bias, act)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-6 * ref.abs().max().item(), (site, err)
 
 
 def test_quant_kernels_refusals(cuda):

@@ -1,5 +1,5 @@
-"""The A/B tools of the port (unicore_tpu_torch/tools/flash_bwd_ab.py and
-fwd_ab.py) build copies of a kernel source with one design choice undone
+"""The A/B tools of the port (unicore_tpu_torch/tools/flash_bwd_ab.py,
+fwd_ab.py and dense_decode_ab.py) build copies of a kernel source with one design choice undone
 by text edits.  Each edit's anchor must occur exactly once in the tree's
 csrc/ file, or a later change to the kernel would void the copy without a
 word (a copy that does not build, or that undoes the wrong thing).  Runs on
@@ -8,13 +8,20 @@ the CPU: only the sources are read."""
 import pytest
 
 from unicore_tpu_torch.ops import _kernels
-from unicore_tpu_torch.tools import flash_bwd_ab, fwd_ab
+from unicore_tpu_torch.tools import dense_decode_ab, flash_bwd_ab, fwd_ab
 
+#: dense_decode_ab's source copies as fwd_ab's: name -> (source, edits)
+DENSE_DECODE_COPIES = {name: (source, edits)
+                       for name, (_, source, edits) in dense_decode_ab.VARIANTS.items()
+                       if source is not None}
 EDITS = (
     [("flash_bwd_ab", name, "flash_attention.cu", i, old)
      for name, edits in flash_bwd_ab.VARIANTS.items() for i, (old, _) in enumerate(edits)]
     + [("fwd_ab", name, source, i, old)
        for name, (source, edits) in fwd_ab.VARIANTS.items() for i, (old, _) in enumerate(edits)]
+    + [("dense_decode_ab", name, source, i, old)
+       for name, (source, edits) in DENSE_DECODE_COPIES.items()
+       for i, (old, _) in enumerate(edits)]
 )
 
 
@@ -30,10 +37,25 @@ def test_every_variant_undoes_something():
     against itself."""
     for tool, variants in (("flash_bwd_ab", {n: ("flash_attention.cu", e) for n, e in
                                              flash_bwd_ab.VARIANTS.items()}),
-                           ("fwd_ab", fwd_ab.VARIANTS)):
+                           ("fwd_ab", fwd_ab.VARIANTS),
+                           ("dense_decode_ab", DENSE_DECODE_COPIES)):
         for name, (source, edits) in variants.items():
             text = (_kernels.CSRC / source).read_text()
             edited = text
             for old, new in edits:
                 edited = edited.replace(old, new)
             assert edited != text and all(old != new for old, new in edits), (tool, name)
+
+
+@pytest.mark.parametrize("name", [n for n, (_, src, _) in dense_decode_ab.VARIANTS.items()
+                                  if src is None])
+def test_chooser_overrides_name_a_chooser(name):
+    """A chooser override replaces a function the wrapper calls by its
+    module name, so the tree's kernel runs the undone choice."""
+    from unicore_tpu_torch.ops import decode_attention, quant_matmul
+
+    kernel, _, change = dense_decode_ab.VARIANTS[name]
+    mod = {"quant_matmul": quant_matmul, "decode_attention": decode_attention}[kernel]
+    for attr in change:
+        assert callable(getattr(mod, attr)), (name, attr)
+        assert f"{attr}(" in (_kernels.CSRC.parent / "ops" / f"{kernel}.py").read_text()

@@ -170,12 +170,13 @@ def _bind(lib) -> None:
     lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + geom
     lib.unicore_flash_attention_dq.argtypes = [p] * 10 + geom
     lib.unicore_flash_attention_dkv.argtypes = [p] * 12 + geom
-    # csrc/decode_attention.cu: tensors, (B, H, L, D), dtype, quant, stream
-    lib.unicore_decode_attention.argtypes = [p] * 8 + [i] * 6 + [p]
+    # csrc/decode_attention.cu: tensors (partials and counters among them),
+    # (B, H, L, D), dtype, quant, splits, stream
+    lib.unicore_decode_attention.argtypes = [p] * 10 + [i] * 7 + [p]
     # the quantized serving path: csrc/quant_matmul.cu (x, w, scale, bias, y,
-    # M, N, K, activation), the int8 LayerNorm of csrc/fused_norm.cu and the
-    # int8/int32 softmax of csrc/softmax_dropout.cu
-    lib.unicore_quant_matmul.argtypes = [p] * 5 + [ll, i, i, i, p]
+    # M, N, K, activation, tile width), the int8 LayerNorm of
+    # csrc/fused_norm.cu and the int8/int32 softmax of csrc/softmax_dropout.cu
+    lib.unicore_quant_matmul.argtypes = [p] * 5 + [ll, i, i, i, i, p]
     lib.unicore_quant_layer_norm_fwd.argtypes = [p, p, i, p, p, p, ll, i, f, p]
     lib.unicore_quant_softmax_dropout_fwd.argtypes = [
         p, p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,

@@ -14,7 +14,11 @@ never trains.
 A CPU tensor goes through :func:`decode_attention_plain`, the JAX package's
 ``decode_attention_reference`` in plain PyTorch; a CUDA tensor goes through
 the hand-written kernel of ``csrc/decode_attention.cu`` — or raises.  There
-is no fallback between the two.  The TPU kernel's eligibility rule (L a
+is no fallback between the two.  The kernel splits the rows of each (b, h)
+across :func:`choose_splits` blocks and combines their partials in the same
+launch, through a scratch slab (``torch.empty``) and a per-device buffer of
+arrival counters that every launch leaves at zero: one launch at a time
+may use a device's counters, as the port's single stream does.  The TPU kernel's eligibility rule (L a
 multiple of the cache type's sublane tile) is the TPU's tiling and is not
 carried over: the CUDA kernel takes every L, and refuses only a head dim
 that is not a multiple of 4 or is above 256, and type pairs other than q and
@@ -34,6 +38,34 @@ MAX_HEAD_DIM = 256
 
 _QDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _kernels.counter("decode_attention")
+
+#: blocks a call aims for (several an SM of a 132-SM card), and the fewest
+#: rows a block takes once the rows are split
+TARGET_BLOCKS = 512
+MIN_SPLIT_ROWS = 32
+
+_COUNTERS = {}
+
+
+def choose_splits(bh: int, L: int) -> int:
+    """Blocks the kernel gives each (b, h): doubled from 1 while the
+    ``bh * S`` blocks fall short of :data:`TARGET_BLOCKS` and each split
+    keeps at least :data:`MIN_SPLIT_ROWS` of the ``L`` rows.  A function of
+    the shape only (never of the positions): 8 at the served (8, 12, 512)
+    step, 4 at the 128 bucket, 1 below 64 rows."""
+    s = 1
+    while bh * s < TARGET_BLOCKS and -(-L // (2 * s)) >= MIN_SPLIT_ROWS:
+        s *= 2
+    return s
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The device's arrival counters (int32 zeros, at least ``n``)."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def decode_attention_plain(
@@ -107,10 +139,16 @@ def _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale):
     out = torch.empty_like(q)
     if B == 0 or H == 0 or L == 0:
         return out
+    splits = choose_splits(B * H, L)
+    partials = counters = None
+    if splits > 1:
+        partials = torch.empty(B * H * splits * (D + 2), dtype=torch.float32, device=q.device)
+        counters = _counters(q.device, B * H)
     rc = _kernels.library().unicore_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
         _kernels.ptr(bias), _kernels.ptr(k_scale), _kernels.ptr(v_scale),
-        out.data_ptr(), B, H, L, D, _QDTYPES[q.dtype], int(k_cache.dtype == torch.int8),
+        out.data_ptr(), _kernels.ptr(partials), _kernels.ptr(counters), B, H, L, D,
+        _QDTYPES[q.dtype], int(k_cache.dtype == torch.int8), splits,
         _kernels.stream_handle(q.device),
     )
     _kernels.check(rc, "decode_attention")

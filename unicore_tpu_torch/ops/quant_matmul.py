@@ -14,7 +14,8 @@ int8 KV cache and the decode route quantize through this one function.
   function in plain PyTorch, on a CPU tensor.  The TPU kernel's gate (K and
   N multiples of 128, rows of 32) is a tiling rule of that chip; the CUDA
   kernel takes any M, K a multiple of 32 and N a multiple of 8, every BERT
-  geometry;
+  geometry, with an output tile 128 rows high and :func:`choose_tile_n`
+  wide;
 - ``float8_e4m3fn`` operands (``--serve-quantize fp8``) run
   :func:`quant_matmul_plain` on either device: the JAX Pallas kernel is
   int8-only and its fp8 route is the jnp composition (values carry the fp8
@@ -47,6 +48,30 @@ _ACTIVATIONS = {"": 0, "linear": 0, "relu": 1, "gelu": 2, "gelu_fast": 3,
                 "gelu_accurate": 3, "tanh": 4, "swish": 5, "silu": 5}
 
 LAUNCHES = _kernels.counter("quant_matmul")
+
+#: the kernel's output tile: 128 rows, one of these widths
+TILE_M = 128
+TILE_NS = (256, 192, 128)
+#: SMs of the card the tile width is chosen for (an H100 SXM)
+SMS = 132
+
+
+def choose_tile_n(M: int, N: int, K: int) -> int:
+    """The kernel's tile width for an (M, K) x (K, N) product: the one of
+    :data:`TILE_NS` whose waves of tiles over :data:`SMS` SMs cost the
+    fewest columns (waves x width), the narrowest on a tie (more, smaller
+    tiles: measured faster at fc1, where 128, 192 and 256 tie).  A function
+    of the shape only: 192 at N = 768 (128 tiles of 4096 rows for 132 SMs,
+    where 128 wide made 192 tiles and a second, thin wave), 192 at
+    in_proj's 2304, 128 at fc1's 3072.  ``K`` does not move it: every tile
+    runs the same K loop."""
+    row_tiles = -(-M // TILE_M)
+    best = None
+    for bn in TILE_NS:
+        waves = -(-row_tiles * -(-N // bn) // SMS)
+        if best is None or waves * bn <= best[0]:
+            best = (waves * bn, bn)
+    return best[1]
 
 
 def quantize_to_dtype(x, scale, qmax: float, dtype):
@@ -115,8 +140,10 @@ def _check(x2, w_q, scale, bias, activation):
     if K % 32 != 0 or N % 8 != 0:
         raise ValueError(
             f"quant_matmul kernel: K = {K} must be a multiple of 32 and N = {N} "
-            "of 8 (mma.m16n8k32 fragments)"
+            "of 8 (k32 tensor-core products, column pairs)"
         )
+    if M >= 2 ** 31:
+        raise ValueError(f"quant_matmul kernel: M = {M} rows must be below 2**31")
     if activation not in _ACTIVATIONS:
         raise ValueError(f"quant_matmul: activation {activation!r} not in "
                          f"{sorted(_ACTIVATIONS)}")
@@ -141,7 +168,7 @@ def quant_matmul_kernel(x2, w_q, scale, bias=None, activation: str = ""):
         return y
     rc = _kernels.library().unicore_quant_matmul(
         x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), _kernels.ptr(bias),
-        y.data_ptr(), M, N, K, _ACTIVATIONS[activation],
+        y.data_ptr(), M, N, K, _ACTIVATIONS[activation], choose_tile_n(M, N, K),
         _kernels.stream_handle(x2.device),
     )
     _kernels.check(rc, "quant_matmul")
