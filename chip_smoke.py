@@ -122,7 +122,38 @@ result line):
    weights, timed and profiled (``quant_profile``: device ms by kernel
    group, idle share); then a ``--serve-quantize fp8`` server (4 requests; drift below 0.15; 12 full-row and 25 norm
    launches per batch, no W8A8 dense); each drains on SIGTERM and exits 0;
-9. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+9. causal-LM training with the run control — 9a: ``python -m
+   unicore_tpu_torch.cli.train --task causal_lm --arch transformer_lm
+   --loss lm_cross_entropy --device cuda`` (6 layers, 768 wide, 12 heads,
+   FFN 3072, tied head; weights from ``--seed``) on phase 4a's corpus as
+   ``train`` and a ``valid`` split of 40 documents written the same way from
+   another seed, ``--seq-pad-multiple 128 --length-bucket 4`` (buckets
+   128/256/384/512), batch 8 x ``--update-freq 2``, 20 updates (25 an
+   epoch), Adam (0.9, 0.98) eps 1e-6 wd 0.01, clip 1.0, ``inverse_sqrt``
+   from 5e-4 after 5 warmup updates, ``--ema-decay 0.999
+   --validate-with-ema``, validating and saving every 10 updates: the
+   ``lm_train`` line (per-update losses, the valid losses, step ms,
+   tokens/s, peak memory, launches), exactly 6 full-row forwards and 14
+   norm forwards per forward (micro-batch or validation batch), 6 full-row
+   backwards and 14 norm dx and dw/db per micro-batch, a falling loss,
+   ``checkpoint_best.pt`` and ``checkpoint_1_10.pt``, then one update of the
+   same configuration in this process under ``torch.profiler``
+   (``lm_profile``, the groups of ``bert_profile``); 9b: a second process
+   resumed from 9a's ``checkpoint_1_10.pt`` (mid-epoch) into a fresh
+   ``--save-dir`` for updates 11-20: ``resumed_from_update`` 10, lrs equal
+   to 9a's, per-update losses and the update-20 valid loss within 1e-4
+   relative (the full-row backward sums dbias by atomics, so the card is
+   not bit-exact run to run); 9c: 9a's ``checkpoint_last.pt`` served as
+   phase 7 serves its checkpoint, 8 ``/v1/generate`` requests covering
+   every cache bucket, two held against the CPU teacher-forced; 9d: a
+   2-layer full-width ``transformer_lm`` trained on the card and on the CPU
+   from the same weights and batches, 3 updates at L=256 (the full-row
+   kernels, attention dropout 0.1) and 3 at L=200 with
+   ``--seq-pad-multiple 8`` (neither attention kernel: the plain softmax
+   composition, as the JAX package routes that length; dropout 0), each
+   with the EMA and one validation: loss 1e-4, gradient norm 1e-3
+   relative, parameters and EMA 1e-5 absolute, valid loss 1e-4 relative;
+10. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
@@ -164,8 +195,14 @@ scores with the (8, 1, 1, 512) ``finfo.min`` key mask and the (1, 12, 512,
 512) bias, and on int8 at (8, 12, 128, 128) (the dequant multiply, the adds
 and ``torch.softmax``).
 
+Phase 3 also holds the full-row forward and backward at the causal LM's
+attention, (8, 12, 512, 64): the rel-pos bias plus the ``triu`` of
+``CAUSAL_NEG`` as one (1, 12, 512, 512) bias that needs a gradient, the key
+mask and dropout 0.1, with dbias exactly 0 at every entry above the
+diagonal.
+
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 8 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 9 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -390,13 +427,20 @@ def grad_check(torch, name, got, ref, floor, slack=0.0):
     return worst, ratio
 
 
-def attention_inputs(torch, device, B, H, L, D, dtype, seed):
+def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False):
+    """q, k, v, do, a (1, H, L, L) bias (with ``causal``, plus the causal
+    LM's ``triu`` of ``CAUSAL_NEG``), a key mask with a fully-masked row,
+    and SDPA's float mask."""
     g = torch.Generator(device=device).manual_seed(seed)
     q = (torch.randn(B, H, L, D, generator=g, device=device) * D ** -0.5).to(dtype)
     k = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
     v = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
     do = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
     bias = torch.randn(1, H, L, L, generator=g, device=device)
+    if causal:
+        from unicore_tpu_torch.modules.transformer_decoder import CAUSAL_NEG
+
+        bias = bias + torch.triu(torch.full((L, L), CAUSAL_NEG, device=device), 1)
     lens = torch.linspace(L, L // 3, B, device=device).long()
     lens[-1] = 0  # a fully-masked row, like the serve engine's fill rows
     mask = (torch.arange(L, device=device)[None, :] >= lens[:, None]).to(torch.int32)
@@ -408,13 +452,14 @@ def attention_inputs(torch, device, B, H, L, D, dtype, seed):
     return q, k, v, do, bias, mask, attn_mask
 
 
-def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234):
+def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234,
+                    causal=False):
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import attention_fullrow as fr
 
     q, k, v, _, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
-                                                         dtype, L)
+                                                         dtype, L, causal)
     call = lambda: fr.fullrow_attention(  # noqa: E731
         q, k, v, bias=bias, kv_padding_mask=mask, dropout_rate=rate,
         dropout_seed=seed)
@@ -423,14 +468,15 @@ def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234
     err = (out.float() - plain().float()).abs().max().item()
     masked_row_zero = out[-1].abs().max().item() == 0.0
     tol = TOL["attention"][dtype_name(dtype)]
-    name = f"attention fwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+    name = (f"attention fwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+            + (" causal" if causal else ""))
     if not (err <= tol and masked_row_zero and math.isfinite(err)):
         raise AssertionError(
             f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
             f"fully-masked row zero: {masked_row_zero}"
         )
     res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
-           "max_abs_err": err, "tolerance": tol}
+           "causal": causal, "max_abs_err": err, "tolerance": tol}
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     timed(res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
@@ -464,13 +510,18 @@ def check_dropout_mask(torch, device, B, H, rate, seed):
     return res
 
 
-def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321):
+def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321,
+                        causal=False):
+    """The backward against autograd of the plain version (fp32) or the
+    plain backward with the kernel's roundings (bf16); with ``causal``
+    (the LM's bias, which needs a gradient) also dbias exactly 0 above the
+    diagonal, where every probability is 0."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import attention_fullrow as fr
 
     q, k, v, do, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
-                                                          dtype, L + 1)
+                                                          dtype, L + 1, causal)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
 
     def public_grads():  # the training path: the autograd Function
@@ -478,8 +529,16 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
                                    dropout_rate=rate, dropout_seed=seed)
         return torch.autograd.grad(out, leaves, do)
 
-    name = f"attention bwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+    name = (f"attention bwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
+            + (" causal" if causal else ""))
     got = public_grads()
+    masked_dbias_nonzero = None
+    if causal:
+        above = torch.triu(torch.ones(L, L, dtype=torch.bool, device=device), 1)
+        masked_dbias_nonzero = int((got[3][:, :, above] != 0).sum())
+        if masked_dbias_nonzero:
+            raise AssertionError(f"{name}: dbias nonzero at {masked_dbias_nonzero} "
+                                 "masked entries")
     if dtype == torch.bfloat16:
         # the plain backward with the kernel's roundings (autograd of the
         # plain forward rounds dp instead of pd and ds)
@@ -512,6 +571,7 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
                                       True))
               if device.type == "cuda" else public_grads)
     res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
+           "causal": causal, "masked_dbias_nonzero": masked_dbias_nonzero,
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "max_err_over_tol": max(ratios.values()),
            "tolerance": grad_tolerance(TOL["attention_grad"], dtype)}
@@ -1206,28 +1266,44 @@ def check_quant_softmax(torch, device, c, iters):
 # phase 4a: training, a subprocess of the train CLI
 # ---------------------------------------------------------------------------
 
-def write_corpus(cfg):
-    """dict.txt (one symbol per line, as WordPiece reads it) and an indexed
-    train split of documents drawn from a seed."""
+def fresh_dir(path):
+    """``path`` emptied: the train CLI resumes from a ``checkpoint_last.pt``
+    it finds in its ``--save-dir``."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def write_split(cfg, data, split, docs, seed):
+    """An indexed split of ``docs`` documents drawn from ``seed``."""
     import numpy as np
 
     from unicore_tpu_torch.data import make_builder
 
-    data = WORK / "data"
-    data.mkdir(parents=True, exist_ok=True)
     words = [f"w{i}" for i in range(cfg["symbols"])]
-    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
-    (data / "dict.txt").write_text("\n".join(vocab) + "\n")
-    rng = np.random.default_rng(cfg["seed"])
+    rng = np.random.default_rng(seed)
     # Zipf-like word frequencies, as in text, so a few updates can learn them
     freq = 1.0 / np.arange(10, len(words) + 10)
-    builder = make_builder(str(data / "train"))
+    builder = make_builder(str(data / split))
     lo, hi = cfg["doc_words"]
-    for _ in range(cfg["docs"]):
+    for _ in range(docs):
         n = int(rng.integers(lo, hi + 1))
         picks = rng.choice(len(words), size=n, p=freq / freq.sum())
         builder.add_item(" ".join(words[i] for i in picks))
     builder.finalize()
+
+
+def write_corpus(cfg):
+    """dict.txt (one symbol per line, as WordPiece reads it) and an indexed
+    train split of documents drawn from a seed (no valid split: phase 9
+    writes it, after the BERT phases)."""
+    data = fresh_dir(WORK / "data")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [
+        f"w{i}" for i in range(cfg["symbols"])]
+    (data / "dict.txt").write_text("\n".join(vocab) + "\n")
+    write_split(cfg, data, "train", cfg["docs"], cfg["seed"])
     return data
 
 
@@ -1246,11 +1322,12 @@ def train_argv(cfg, data, save_dir, device):
     ]
 
 
-def run_train_cli(tag, argv, device, t, timeout_s):
+def run_train_cli(tag, argv, device, t, timeout_s, falling=True):
     """``python -m unicore_tpu_torch.cli.train`` with ``argv``: its stats
     line, checked -- the update count, every loss finite, the mean of the
-    last five below the first five, and the launches per micro-batch
-    (``t["per_micro_batch"]``; none at all on the CPU rehearsal)."""
+    last five below the first five (``falling``), and the launches per
+    micro-batch (``t["per_micro_batch"]``; none at all on the CPU
+    rehearsal)."""
     log_path = WORK / f"{tag}.log"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
@@ -1281,7 +1358,7 @@ def run_train_cli(tag, argv, device, t, timeout_s):
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: non-finite loss: {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    if not last < first:
+    if falling and not last < first:
         raise AssertionError(f"{tag}: loss did not fall: first 5 mean {first}, "
                              f"last 5 mean {last}")
     if device.type == "cuda":
@@ -1296,7 +1373,7 @@ def run_train_cli(tag, argv, device, t, timeout_s):
 
 
 def drive_training(torch, cfg, data, card, smi):
-    save_dir = WORK / "train_ckpt"
+    save_dir = fresh_dir(WORK / "train_ckpt")
     t = cfg["train"]
     stats = run_train_cli("train", train_argv(cfg, data, save_dir, cfg["device"].type),
                           cfg["device"], t, t["timeout_s"])
@@ -1312,7 +1389,8 @@ def drive_training(torch, cfg, data, card, smi):
     }
     print("train " + json.dumps(train), flush=True)
     if cfg["device"].type == "cuda":
-        profile_bert_update(torch, cfg, data, card, smi)
+        profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda"),
+                           "bert_profile", card, smi)
     return save_dir / "checkpoint_last.pt", stats["kernel_launches"]
 
 
@@ -1444,7 +1522,8 @@ def drive_unimol_training(cfg, data, card, smi):
     u = cfg["unimol"]
     t = u["train"]
     stats = run_train_cli("unimol_train",
-                          unimol_argv(u, data, WORK / "unimol_ckpt", cfg["device"].type),
+                          unimol_argv(u, data, fresh_dir(WORK / "unimol_ckpt"),
+                                      cfg["device"].type),
                           cfg["device"], t, t["timeout_s"])
     lengths = stats["micro_batch_lengths"]
     if set(lengths) != {u["length"]}:
@@ -1592,7 +1671,8 @@ def drive_evoformer_training(torch, cfg, data, card, smi):
     e = cfg["evoformer"]
     t = e["train"]
     stats = run_train_cli("evoformer_train",
-                          evoformer_argv(e, data, WORK / "evoformer_ckpt", cfg["device"].type),
+                          evoformer_argv(e, data, fresh_dir(WORK / "evoformer_ckpt"),
+                                         cfg["device"].type),
                           cfg["device"], t, t["timeout_s"])
     lengths = stats["micro_batch_lengths"]
     if set(lengths) != {e["length"]}:
@@ -1709,16 +1789,16 @@ BERT_GROUPS = (("fullrow_fwd", ("fullrow_fwd",)), ("fullrow_bwd_dq_dbias", ("ful
                ("fullrow_bwd_dk_dv", ("fullrow_dkv",))) + KERNEL_GROUPS[1:]
 
 
-def profile_bert_update(torch, cfg, data, card, smi):
-    """:func:`profile_update` on 4a's configuration (BERT-base at full
-    width, batch 8 x 2 micro-batches of the 384/512 buckets, its optimizer
-    and dropouts): the ``bert_profile`` line."""
+def profile_cli_update(torch, cfg, argv, tag, card, smi):
+    """:func:`profile_update` on the configuration the train CLI takes from
+    ``argv`` (its model at full width, optimizer, EMA and dropouts; its
+    first 4 batches of 8): the ``tag`` line.  BERT (4a): 2 micro-batches
+    of the 384/512 buckets; the LM (9a): of the 512 bucket."""
     from unicore_tpu_torch import options, tasks
     from unicore_tpu_torch.trainer import Trainer
 
     dev = cfg["device"]
-    args = options.parse_args_and_arch(
-        options.get_training_parser(), train_argv(cfg, data, WORK / "unused", "cuda"))
+    args = options.parse_args_and_arch(options.get_training_parser(), argv)
     task = tasks.setup_task(args)
     task.load_dataset("train")
     itr = task.get_batch_iterator(task.dataset("train"), batch_size=cfg["batch"],
@@ -1730,7 +1810,7 @@ def profile_bert_update(torch, cfg, data, card, smi):
     res = profile_update(torch, tr, samples, BERT_GROUPS, card, smi)
     res["micro_batch_shapes"] = [list(s["net_input"]["src_tokens"].shape)
                                  for s in samples[2:4]]
-    print("bert_profile " + json.dumps(res), flush=True)
+    print(f"{tag} " + json.dumps(res), flush=True)
     del tr, model
     torch.cuda.empty_cache()
 
@@ -2015,7 +2095,7 @@ def write_lm_checkpoint(torch, cfg, data):
     task = tasks.setup_task(args)
     model = task.build_model(args, generator=torch.Generator().manual_seed(d["seed"]))
     path = WORK / "lm.pt"
-    checkpoint_utils.save_checkpoint(str(path), args, model.state_dict())
+    checkpoint_utils.write_checkpoint(str(path), args, model.state_dict())
     log(f"wrote {d['arch']} ({sum(p.numel() for p in model.parameters())} parameters, "
         f"vocab {len(task.dictionary)}) to {path}")
     return path, len(task.dictionary), task.dictionary.pad(), task.dictionary.eos()
@@ -2083,13 +2163,14 @@ def teacher_forced_check(torch, model, prompt, served, gap):
     return checked
 
 
-def drive_decode_serving(torch, cfg, path, lm, card, smi, kv):
+def drive_decode_serving(torch, cfg, path, lm, card, smi, kv, lengths=None, tag=None):
     """``python -m unicore_tpu_torch.cli.serve`` on the LM checkpoint:
-    ``/v1/generate`` requests (the first half one at a time, the rest
-    concurrently) with their launch arithmetic from ``/stats``; with fp32
-    KV two served generations held against the CPU; SIGTERM drains and
-    exits 0.  Prints the ``decode_serve`` (``decode_serve_int8``) line and
-    returns the server's launches."""
+    ``/v1/generate`` requests of ``lengths`` prompt tokens (phase 7's by
+    default; the first half one at a time, the rest concurrently) with their
+    launch arithmetic from ``/stats``; with fp32 KV two served generations
+    held against the CPU; SIGTERM drains and exits 0.  Prints the ``tag``
+    line (``decode_serve`` / ``decode_serve_int8`` by default) and returns
+    the server's launches."""
     import threading
 
     import numpy as np
@@ -2098,13 +2179,15 @@ def drive_decode_serving(torch, cfg, path, lm, card, smi, kv):
 
     d = cfg["decode"]
     vocab, eos = lm["vocab"], lm["eos"]
-    lengths = d["lengths"] if kv == "fp32" else d["lengths"][: d["int8_requests"]]
+    if lengths is None:
+        lengths = d["lengths"] if kv == "fp32" else d["lengths"][: d["int8_requests"]]
+    tag = tag or ("decode_serve" if kv == "fp32" else "decode_serve_int8")
     t0 = time.monotonic()
     server = Server(path, cfg, [
         "--serve-batch-size", str(d["prefill_batch"]),
         "--decode-batch-size", str(d["decode_batch"]), "--serve-buckets", "4",
         "--cache-pages", str(d["cache_pages"]), "--max-new-tokens", str(d["max_new"]),
-        "--decode-kv", kv], name=f"decode_serve_{kv}")
+        "--decode-kv", kv], name=tag)
     try:
         server.wait_ready(d["ready_budget_s"])
         log(f"decode server ({kv} KV) ready at {server.base} after "
@@ -2193,8 +2276,7 @@ def drive_decode_serving(torch, cfg, path, lm, card, smi, kv):
             "buckets": edges, "launches": launches, "cpu_agreement": agreement,
             "arch": d["arch"], "card": card, "nvidia_smi": smi,
         }
-        print(f"{'decode_serve' if kv == 'fp32' else 'decode_serve_int8'} "
-              + json.dumps(res), flush=True)
+        print(f"{tag} " + json.dumps(res), flush=True)
         return launches
     finally:
         server.stop()
@@ -2570,11 +2652,221 @@ def profile_decode_steps(torch, cfg, path, lm, card, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: causal-LM training with validation, EMA, checkpoints and resume
+# ---------------------------------------------------------------------------
+
+def lm_train_argv(cfg, data, save_dir, device, *extra):
+    m = cfg["lm_train"]
+    return [
+        str(data), "--device", device, "--task", "causal_lm", "--loss", "lm_cross_entropy",
+        "--arch", m["arch"], *m["extra_args"], "--seq-pad-multiple", "128",
+        "--length-bucket", "4", "--batch-size", str(cfg["batch"]), "--update-freq", "2",
+        "--max-update", str(m["updates"]), "--optimizer", "adam",
+        "--adam-betas", "(0.9, 0.98)", "--adam-eps", "1e-6", "--weight-decay", "0.01",
+        "--clip-norm", "1.0", "--lr-scheduler", "inverse_sqrt", "--lr", str(m["lr"]),
+        "--warmup-updates", "5", "--ema-decay", "0.999", "--validate-with-ema",
+        "--validate-interval-updates", str(m["interval"]),
+        "--save-interval-updates", str(m["interval"]), "--log-interval", "1",
+        "--save-dir", str(save_dir), "--seed", str(cfg["seed"] + 2), *extra,
+    ]
+
+
+def lm_launch_check(cfg, stats, valid_batches):
+    """The LM's launches from a stats line: per forward (a micro-batch or a
+    validation batch) one full-row forward a layer and two norm forwards a
+    layer plus the embedding and final norms; per micro-batch the same
+    counts of backwards.  On the CPU: none."""
+    layers, micro = cfg["lm_train"]["layers"], stats["micro_batches"]
+    forwards = micro + valid_batches * len(stats["validations"])
+    want = {"fullrow_attention_fwd": layers * forwards,
+            "fullrow_attention_bwd": layers * micro,
+            "fused_norm_fwd": (2 * layers + 2) * forwards,
+            "fused_norm_dx": (2 * layers + 2) * micro,
+            "fused_norm_dwdb": (2 * layers + 2) * micro}
+    launches = stats["kernel_launches"]
+    if cfg["device"].type != "cuda":
+        want = {}
+    for k in set(launches) | set(want):
+        if launches.get(k, 0) != want.get(k, 0):
+            raise AssertionError(f"{k}: {launches.get(k, 0)} launches for {micro} "
+                                 f"micro-batches and {forwards - micro} validation "
+                                 f"batches, want {want.get(k, 0)} ({launches})")
+    return launches
+
+
+def drive_lm_training(torch, cfg, data, card, smi):
+    """9a: the train CLI on the full ``transformer_lm`` with validation, the
+    EMA and interval checkpoints; then 9b: a second process resumed from
+    9a's mid-epoch checkpoint.  Prints ``lm_train``, on the card
+    ``lm_profile`` (one update of 9a's configuration in this process), and
+    ``lm_resume``; returns (9a's save dir, 9a's launches)."""
+    m = cfg["lm_train"]
+    write_split(cfg, data, "valid", m["valid_docs"], cfg["seed"] + 100)
+    valid_batches = -(-m["valid_docs"] // cfg["batch"])
+    dev = cfg["device"]
+    t = {"updates": m["updates"], "per_micro_batch": {}}
+    save_dir = fresh_dir(WORK / "lm_ckpt")
+    stats = run_train_cli("lm_train", lm_train_argv(cfg, data, save_dir, dev.type), dev,
+                          t, m["timeout_s"])
+    launches = lm_launch_check(cfg, stats, valid_batches)
+    interval = m["interval"]
+    names = sorted(os.listdir(save_dir))
+    want_names = {"checkpoint_best.pt", f"checkpoint_1_{interval}.pt", "checkpoint_last.pt"}
+    if not want_names <= set(names):
+        raise AssertionError(f"lm_train: checkpoints {names}, want {sorted(want_names)}")
+    if [v["update"] for v in stats["validations"]] != list(
+            range(interval, m["updates"] + 1, interval)):
+        raise AssertionError(f"lm_train: validations {stats['validations']}")
+    if not all(math.isfinite(v["loss"]) for v in stats["validations"]):
+        raise AssertionError(f"lm_train: non-finite valid loss: {stats['validations']}")
+    steady = stats["step_ms"][1:]
+    train = {
+        "arch": m["arch"], "extra_args": m["extra_args"], "updates": stats["updates"],
+        "micro_batches": stats["micro_batches"], "batch": cfg["batch"], "update_freq": 2,
+        "micro_batch_lengths": sorted(set(stats["micro_batch_lengths"])),
+        "loss_per_update": stats["loss_per_update"], "lr_per_update": stats["lr_per_update"],
+        "validations": stats["validations"], "best": stats["best"],
+        "median_step_ms": stats["median_step_ms"],
+        "step_ms_min_max": [min(steady), max(steady)] if steady else None,
+        "tokens": stats["tokens"], "tokens_per_s": stats["tokens_per_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"], "launches": launches,
+        "checkpoints": names, "wall_s": stats["wall_s"], "card": card, "nvidia_smi": smi,
+    }
+    print("lm_train " + json.dumps(train), flush=True)
+    if dev.type == "cuda":
+        profile_cli_update(torch, cfg, lm_train_argv(cfg, data, WORK / "unused", "cuda"),
+                           "lm_profile", card, smi)
+
+    # 9b: resume from the mid-epoch checkpoint into a fresh --save-dir
+    resumed_dir = fresh_dir(WORK / "lm_resume_ckpt")
+    restore = save_dir / f"checkpoint_1_{interval}.pt"
+    res = run_train_cli("lm_resume", lm_train_argv(
+        cfg, data, resumed_dir, dev.type, "--restore-file", str(restore)), dev, t,
+        m["timeout_s"], falling=False)
+    ref_losses = stats["loss_per_update"][interval:]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(res["loss_per_update"], ref_losses))
+    v_ref, v_res = stats["validations"][-1], res["validations"][-1]
+    valid_rel = abs(v_res["loss"] - v_ref["loss"]) / abs(v_ref["loss"])
+    resume = {
+        "resumed_from_update": res["resumed_from_update"], "restore_file": restore.name,
+        "updates": res["updates"], "loss_per_update": res["loss_per_update"],
+        "loss_max_rel_diff": loss_rel, "lrs_equal":
+            res["lr_per_update"] == stats["lr_per_update"][interval:],
+        "valid_loss": v_res["loss"], "valid_loss_uninterrupted": v_ref["loss"],
+        "valid_loss_rel_diff": valid_rel, "tolerance": 1e-4, "card": card,
+        "nvidia_smi": smi,
+    }
+    print("lm_resume " + json.dumps(resume), flush=True)
+    if not (res["resumed_from_update"] == interval and resume["lrs_equal"]
+            and len(res["loss_per_update"]) == len(ref_losses) == m["updates"] - interval
+            and v_res["update"] == v_ref["update"] == m["updates"]
+            and loss_rel <= 1e-4 and valid_rel <= 1e-4):
+        raise AssertionError(f"the resumed run differs from the uninterrupted one: {resume}")
+    return save_dir, launches
+
+
+def drive_lm_card_vs_cpu(torch, cfg, data):
+    """9d: a 2-layer full-width ``transformer_lm`` trained on the card and on
+    the CPU from the same weights and batches (3 updates of 2 micro-batches)
+    at each length of ``c["lengths"]``, with the EMA, then validated on its
+    weights: loss 1e-4, gnorm 1e-3 relative, parameters and EMA 1e-5
+    absolute, valid loss 1e-4 relative.  Returns the card's launches by
+    length."""
+    import copy
+
+    import numpy as np
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.models.transformer_lm import TransformerLMModel
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.tasks.causal_lm import CausalLMTask
+    from unicore_tpu_torch.trainer import Trainer
+
+    c = cfg["lm_train"]["card_vs_cpu"]
+    out = {}
+    for L, pad_multiple, attn_dropout in c["lengths"]:
+        args = options.parse_args_and_arch(options.get_training_parser(), lm_train_argv(
+            cfg, data, WORK / "unused", "cpu", "--max-update", str(c["updates"]),
+            "--seq-pad-multiple", str(pad_multiple)))
+        task = CausalLMTask.setup_task(args)
+        vocab, pad = len(task.dictionary), task.dictionary.pad()
+        model = TransformerLMModel(
+            vocab_size=vocab, padding_idx=pad, decoder_layers=2,
+            decoder_embed_dim=args.decoder_embed_dim,
+            decoder_ffn_embed_dim=args.decoder_ffn_embed_dim,
+            decoder_attention_heads=args.decoder_attention_heads,
+            max_seq_len=args.max_seq_len, dropout=0.0, emb_dropout=0.0,
+            attention_dropout=attn_dropout, generator=torch.Generator().manual_seed(8))
+        rng = np.random.default_rng(12 + L)
+        B = c["batch"]
+
+        def batch():
+            lens = rng.integers(L // 2, L + 1, B)
+            lens[0] = L
+            src = rng.integers(5, vocab, (B, L))
+            src[np.arange(L)[None, :] >= lens[:, None]] = pad
+            return {"net_input": {"src_tokens": src}, "target": src}
+
+        samples = [batch() for _ in range(2 * c["updates"])]
+        valid = [batch() for _ in range(2)]
+
+        def run(device):
+            tr = Trainer(args, task, copy.deepcopy(model),
+                         task.build_loss(args), device)
+            tr.begin_epoch(1)
+            gnorms = [tr.train_step(samples[2 * i:2 * i + 2]) for i in range(c["updates"])]
+            totals = {}
+            with tr.eval_weights():
+                for s in valid:
+                    for k, v in tr.valid_step(s).items():
+                        totals[k] = totals.get(k, 0) + float(v)
+            params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+            ema = {n: e.cpu() for n, e in tr.ema.shadow.items()}
+            return (tr.update_losses, gnorms, params, ema,
+                    totals["loss"] / totals["sample_size"] / math.log(2))
+
+        _kernels.reset_launch_counts()
+        card = run(cfg["device"])
+        card_launches = _kernels.launch_counts()
+        _kernels.reset_launch_counts()
+        cpu = run(torch.device("cpu"))
+        cpu_launches = _kernels.launch_counts()
+        res = {
+            "seq_len": L, "seq_pad_multiple": pad_multiple, "attention_dropout": attn_dropout,
+            "losses_card": card[0], "losses_cpu": cpu[0],
+            "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])),
+            "gnorm_rel": max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1])),
+            "param_max_abs_diff": max((card[2][n] - cpu[2][n]).abs().max().item()
+                                      for n in cpu[2]),
+            "ema_max_abs_diff": max((card[3][n] - cpu[3][n]).abs().max().item()
+                                    for n in cpu[3]),
+            "valid_loss_card": card[4], "valid_loss_cpu": cpu[4],
+            "valid_rel": abs(card[4] - cpu[4]) / abs(cpu[4]),
+            "card_launches": {k: v for k, v in card_launches.items() if v},
+        }
+        log(f"LM card vs CPU: {json.dumps(res)}")
+        if sum(cpu_launches.values()):
+            raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
+        if cfg["device"].type == "cuda":
+            route = ("fullrow_attention_fwd", "fullrow_attention_bwd") if L % 128 == 0 else ()
+            need = route + ("fused_norm_fwd", "fused_norm_dx", "fused_norm_dwdb")
+            if not all(card_launches.get(k, 0) > 0 for k in need):
+                raise AssertionError(f"L={L}: the card run missed a kernel: {card_launches}")
+        if not (res["loss_rel"] <= 1e-4 and res["gnorm_rel"] <= 1e-3
+                and res["param_max_abs_diff"] <= 1e-5 and res["ema_max_abs_diff"] <= 1e-5
+                and res["valid_rel"] <= 1e-4):
+            raise AssertionError(f"L={L}: card and CPU disagree: {res}")
+        out[L] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
     # and the serving path's smallest, 128
     "attention": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
+    "attention_causal": (8, 12, 512, 64),
     "attention_bwd": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
     # Uni-Mol's head norms: D = 64 over B * L**2 rows; the Evoformer's msa
     # (32 rows x 256 residues, D = 256) and pair (256**2 rows, D = 128) norms
@@ -2706,9 +2998,19 @@ CHIP = {
                "int8_requests": 8, "cpu_gap": 1e-3, "ready_budget_s": 600,
                "parity": {"batch": 8, "prompt": 112, "steps": 16, "cache": 128},
                "profile": {"batch": 8, "bucket": 512, "steps": 20, "start": 480}},
+    # phase 9: the full `transformer_lm` on phase 4a's corpus (25 updates an
+    # epoch), validated and saved every 10 updates; 8 served prompts, every
+    # cache bucket; 9d at L = 256 (the full-row kernels) and L = 200 (the
+    # plain softmax composition)
+    "lm_train": {"arch": "transformer_lm", "extra_args": [], "layers": 6, "updates": 20,
+                 "interval": 10, "lr": 5e-4, "valid_docs": 40, "timeout_s": 600,
+                 "serve_lengths": [20, 470, 127, 300, 200, 383, 64, 260],
+                 "card_vs_cpu": {"updates": 3, "batch": 4,
+                                 "lengths": [(256, 128, 0.1), (200, 8, 0.0)]}},
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
+    "attention_causal": (2, 2, 128, 16),
     "attention_bwd": [(2, 2, 128, 16)],
     "norm": [(33, 64)],
     "softmax": [
@@ -2795,13 +3097,19 @@ REHEARSAL = {
                "int8_requests": 4, "cpu_gap": 1e-3, "ready_budget_s": 120,
                "parity": {"batch": 2, "prompt": 16, "steps": 8, "cache": 32},
                "profile": {"batch": 4, "bucket": 128, "steps": 4, "start": 100}},
+    # 6 updates an epoch: validated and saved every 2
+    "lm_train": {"arch": "transformer_lm_tiny", "extra_args": [], "layers": 2,
+                 "updates": 6, "interval": 2, "lr": 2e-3, "valid_docs": 8,
+                 "timeout_s": 300, "serve_lengths": [5, 100, 31, 60, 33, 90, 64, 70],
+                 "card_vs_cpu": {"updates": 2, "batch": 2,
+                                 "lengths": [(128, 128, 0.1), (40, 8, 0.0)]}},
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 8 on the CPU at a tiny size, no card")
+                        help="phases 3 to 9 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -2856,6 +3164,12 @@ def main(argv=None):
             for dt in dtypes:
                 checks["fullrow_attention_bwd"].append(
                     check_attention_bwd(torch, dev, *shape, dt, iters, rate))
+    # the causal LM's attention: the rel-pos bias plus the causal triangle
+    checks["fullrow_attention_fwd"].append(check_attention(
+        torch, dev, *cfg["attention_causal"], torch.float32, iters, rate=0.1, causal=True))
+    for dt in dtypes:
+        checks["fullrow_attention_bwd"].append(check_attention_bwd(
+            torch, dev, *cfg["attention_causal"], dt, iters, 0.1, causal=True))
     for shape in cfg["norm"]:
         for dt in dtypes:
             for rms in (False, True):
@@ -2921,11 +3235,23 @@ def main(argv=None):
     profile_serve_batches(torch, cfg, ckpt, card, smi)
     quant8_launches = drive_quant_serving(torch, cfg, ckpt, card, smi, "fp8")
     log(f"phase 8 done at {time.monotonic() - started:.0f}s")
+
+    # 9. causal-LM training through the CLI with validation, the EMA and
+    # checkpoints (9a), resumed mid-epoch (9b), served (9c), card against
+    # CPU (9d)
+    lm_dir, lm_train_launches = drive_lm_training(torch, cfg, data, card, smi)
+    log(f"phases 9a-9b done at {time.monotonic() - started:.0f}s")
+    lm_serve_launches = drive_decode_serving(
+        torch, cfg, lm_dir / "checkpoint_last.pt", lm, card, smi, "fp32",
+        lengths=cfg["lm_train"]["serve_lengths"], tag="lm_serve")
+    log(f"phase 9c done at {time.monotonic() - started:.0f}s")
+    drive_lm_card_vs_cpu(torch, cfg, data)
+    log(f"phase 9d done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 9. result lines: each kernel at its main path's shape (fp32, the
+    # 10. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -2935,7 +3261,8 @@ def main(argv=None):
     by_path = {"train": train_launches, "serve": serve_launches,
                "unimol_train": unimol_launches, "evoformer_train": evoformer_launches,
                "decode_serve": decode_launches, "decode_serve_int8": decode8_launches,
-               "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches}
+               "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
+               "lm_train": lm_train_launches, "lm_serve": lm_serve_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

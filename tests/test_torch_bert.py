@@ -122,7 +122,7 @@ def test_checkpoint_round_trip(tmp_path):
     args = Namespace(task="bert", arch="bert_tiny", data=str(tmp_path))
     bert_tiny_architecture(args)
     path = str(tmp_path / "ckpt.pt")
-    checkpoint_utils.save_checkpoint(
+    checkpoint_utils.write_checkpoint(
         path, args, checkpoint_utils.from_jax_params(variables)
     )
     state = checkpoint_utils.load_checkpoint_to_cpu(path)

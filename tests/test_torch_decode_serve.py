@@ -40,7 +40,7 @@ def write_lm_checkpoint(root):
                      decoder_ffn_embed_dim=TINY["decoder_ffn_embed_dim"])
     transformer_lm_tiny_architecture(args)
     path = root / "lm.pt"
-    checkpoint_utils.save_checkpoint(str(path), args,
+    checkpoint_utils.write_checkpoint(str(path), args,
                                      checkpoint_utils.from_jax_params(variables))
     return path, jax_model, variables
 

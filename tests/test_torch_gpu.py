@@ -16,7 +16,10 @@ every dense site of a served BERT-base batch, and an exact-sum check past
 2**24 at each tile width; the int8 LayerNorm with a scalar and a
 per-channel scale; the int8/int32 softmax with every extra layout and
 dropout) and their refusals; plus the wrappers'
-refusals and a tiny BERT, a tiny Uni-Mol and a 2-block Evoformer on the card
+refusals; the full-row forward and backward at the causal LM's attention
+(the rel-pos bias plus the causal triangle as one bias that needs a
+gradient, dbias exactly 0 above the diagonal); and a tiny BERT, a tiny
+Uni-Mol and a 2-block Evoformer on the card
 against the same weights on the CPU, their outputs and every parameter's
 gradient, and a 2-layer full-width ``transformer_lm`` whose incremental
 decode on the card matches its full forward on the CPU.
@@ -270,6 +273,43 @@ def test_attention_backward_matches_plain(cuda, B, H, Lq, Lk, D, bias_heads,
         assert got.dtype == (torch.float32 if name == "dbias" else dtype), name
         ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
         assert ratio <= 1.0, (name, ratio)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_causal_lm_bias_matches_plain(cuda, dtype):
+    """The causal LM's attention at full width, (8, 12, 512, 64): the rel-pos
+    bias plus the ``triu`` of ``CAUSAL_NEG`` as one bias that needs a
+    gradient, the key mask (a fully-masked row among them) and dropout 0.1;
+    forward and dq, dk, dv, dbias against the plain versions, and dbias
+    exactly 0 above the diagonal, where every probability is 0."""
+    from unicore_tpu_torch.modules.transformer_decoder import CAUSAL_NEG
+
+    B, H, L, D = 8, 12, 512, 64
+    q, k, v, do, rel, mask = _attention_inputs(cuda, B, H, L, L, D, H, dtype, seed=11)
+    bias = rel + torch.triu(torch.full((L, L), CAUSAL_NEG, device=cuda), 1)
+    kw = dict(dropout_rate=0.1, sm_scale=0.125, dropout_seed=77)
+    _kernels.reset_launch_counts()
+    out, grads = _attention_grads(
+        lambda q, k, v, b, m, **a: fr.fullrow_attention(q, k, v, bias=b,
+                                                       kv_padding_mask=m, **a),
+        q, k, v, do, bias, mask, **kw)
+    assert fr.LAUNCHES.count == 1 and fr.BWD_LAUNCHES.count == 1
+    ref_out, ref_grads = _attention_grads(
+        lambda q, k, v, b, m, **a: fr.fullrow_attention_plain(
+            q, k, v, b, m, a["sm_scale"], a["dropout_rate"], a["dropout_seed"]),
+        q, k, v, do, bias, mask, **kw)
+    assert (out.float() - ref_out.float()).abs().max().item() <= TOL["attention"][dtype]
+    assert out[-1].abs().max().item() == 0.0
+    slack = [0.0] * 4
+    if dtype == torch.bfloat16:
+        args = (q, k, v, bias, mask, do, 0.125, 0.1, 77)
+        ref_grads = fr.fullrow_attention_bwd_plain(*args)
+        slack = [*fr.bwd_rounding_slack(*args), 0.0]
+    for name, got, ref, s in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads, slack):
+        ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
+        assert ratio <= 1.0, (name, ratio)
+    above = torch.triu(torch.ones(L, L, dtype=torch.bool, device=cuda), 1)
+    assert int((grads[3][:, :, above] != 0).sum()) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -49,7 +49,7 @@ def write_checkpoint(root):
     args = Namespace(task="bert", arch="bert_tiny", data=str(data), seed=1)
     bert_tiny_architecture(args)
     path = root / "checkpoint.pt"
-    checkpoint_utils.save_checkpoint(
+    checkpoint_utils.write_checkpoint(
         str(path), args, checkpoint_utils.from_jax_params(variables)
     )
     return path, jax_model, variables

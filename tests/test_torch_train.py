@@ -149,12 +149,16 @@ def test_train_cli_checkpoint_serves(tmp_path):
     assert stats["updates"] == 4 and stats["micro_batches"] == 8
     assert all(np.isfinite(stats["loss_per_update"]))
     assert sum(stats["kernel_launches"].values()) == 0
-    # 3 updates per epoch: update 4 is in epoch 2; --keep-interval-updates 1
-    assert sorted(os.listdir(save_dir)) == ["checkpoint_2_4.pt", "checkpoint_last.pt"]
+    # 3 updates per epoch, saved as the JAX CLI names them: checkpoint_1_2
+    # (update 2), checkpoint1 (the end of epoch 1), checkpoint_2_4 (update
+    # 4, the last) pruning checkpoint_1_2 (--keep-interval-updates 1)
+    assert sorted(os.listdir(save_dir)) == ["checkpoint1.pt", "checkpoint_2_4.pt",
+                                            "checkpoint_last.pt"]
 
     ckpt = os.path.join(save_dir, "checkpoint_last.pt")
     state = checkpoint_utils.load_checkpoint_to_cpu(ckpt)
-    assert state["num_updates"] == 4 and state["optimizer"]["num_steps"] == 4
+    assert state["optimizer_history"][-1]["num_updates"] == 4
+    assert state["optimizer_state"]["num_steps"] == 4
     srv = PortServer(tmp_path / "serve.log", [
         "--path", ckpt, "--device", "cpu", "--port", "0",
         "--serve-batch-size", "2", "--serve-buckets", "1",

@@ -11,9 +11,11 @@ its wrapper.  A wrapper runs the plain version only for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises.
 
 Ported so far: BERT masked-LM serving, ``unicore-tpu-torch-serve``
-(``python -m unicore_tpu_torch.cli.serve``); BERT masked-LM, Uni-Mol and
-Evoformer masked-MSA training, ``unicore-tpu-torch-train`` (``python -m
-unicore_tpu_torch.cli.train``); and incremental-decode serving of the
+(``python -m unicore_tpu_torch.cli.serve``); BERT masked-LM, Uni-Mol,
+Evoformer masked-MSA and causal-LM training, ``unicore-tpu-torch-train``
+(``python -m unicore_tpu_torch.cli.train``), with validation, an EMA, best
+and interval checkpoints, resume and fine-tune; and incremental-decode
+serving of the
 causal LM (``transformer_lm``: ``POST /v1/generate``, a paged KV cache,
 step-level continuous batching) and quantized BERT serving
 (``--serve-quantize int8|fp8``) through the same serving entry point.

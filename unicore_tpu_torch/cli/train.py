@@ -3,29 +3,47 @@
 port (counterpart of ``unicore_tpu_cli/train.py``).
 
 ``main`` builds the task, the model (weights from ``--seed``), the loss and
-the :class:`Trainer`, loads the train split and runs ``train_epoch`` until
-``--max-update`` or ``--max-epoch``; every ``--log-interval`` updates it
-logs loss, lr and gnorm.  It writes ``checkpoint_last.pt`` in
-``--save-dir`` at the end (and ``checkpoint_{epoch}_{update}.pt`` every
-``--save-interval-updates``), a checkpoint ``unicore-tpu-torch-serve``
-loads.  The last line it prints is ``TRAIN stats {json}``: updates,
-micro-batches and the padded length of each, per-update losses (the
-summed loss over the summed sample size, in bits), step times, real
-(non-pad) tokens/s (MSA tokens for the Evoformer), samples/s, peak device
-memory and the launch count of every kernel.
+the :class:`Trainer`, loads the train split, restores the run from its
+checkpoint (``restore_session``: ``--save-dir``'s ``checkpoint_last.pt``,
+an explicit ``--restore-file``, or ``--finetune-from-model``, with the
+``--reset-*`` flags), and trains epoch after epoch.  After every update a
+:class:`TrainSession` decides, as the JAX CLI does, whether to stop
+(``--max-update``, ``--stop-time-hours``, ``--stop-min-lr``, ``--patience``
+validations without a better score), validate (every
+``--validate-interval`` epochs and ``--validate-interval-updates``
+updates, beside every mid-epoch save, and when stopping) and save (every
+``--save-interval`` epochs and ``--save-interval-updates`` updates, and
+when stopping) under the JAX save-name matrix: ``checkpoint{epoch}.pt``,
+``checkpoint_{epoch}_{update}.pt``, ``checkpoint_best.pt``,
+``checkpoint_last.pt``, pruned by the ``--keep-*`` flags.  Each epoch ends
+with the epoch-level ``lr_step`` on the first subset's validation loss,
+taken before the end-of-epoch checkpoint is written (the JAX CLI steps
+after it), so a run resumed from an epoch boundary has the step too.  A
+validation subset with no data on disk is skipped with a warning.
+
+The last line it prints is ``TRAIN stats {json}``: updates (the run's
+count, resumed ones included), ``resumed_from_update``, micro-batches and
+the padded length of each, this process's per-update losses (the summed
+loss over the summed sample size, in bits) and lrs, every validation's
+loss (``valid_losses``: the best-checkpoint metric as the JAX CLI rounds
+it; ``validations``: each with its update and unrounded loss), the best
+score, step times, real (non-pad) tokens/s (MSA tokens for the
+Evoformer), samples/s, peak device memory and the launch count of every
+kernel.
 
 ``--device cuda`` (the default) needs a visible CUDA card and exits 76
 naming the missing card; ``--device cpu`` is the explicit CPU run (the
 kernels' plain versions).  Precision is fp32 with TF32 off, as the server.
-Resuming from a checkpoint is not ported yet.
+The JAX CLI's signal guard, elastic restarts, telemetry and prefetch are
+not ported.
 """
 
 import json
 import logging
 import math
-import os
 import sys
 import time
+from typing import List, Optional
 
 _LOG_FIELDS = ("asctime", "levelname", "name", "message")
 logger = logging.getLogger("unicore_tpu_torch.cli.train")
@@ -33,17 +51,152 @@ logger = logging.getLogger("unicore_tpu_torch.cli.train")
 EXIT_NO_DEVICE = 76
 
 
-def train_epoch(args, trainer, epoch_itr):
-    """One epoch of updates; returns True when training should stop."""
+class EarlyStopMonitor:
+    """Trips once the tracked validation metric fails to improve ``patience``
+    validations in a row.  A non-positive patience disables the monitor;
+    validations that produced no metric are ignored."""
+
+    def __init__(self, patience: int, maximize: bool):
+        self.patience = patience
+        self.maximize = maximize
+        self.best: Optional[float] = None
+        self.strikes = 0
+
+    def _improved(self, value: float) -> bool:
+        if self.best is None:
+            return True
+        return value > self.best if self.maximize else value < self.best
+
+    def should_stop(self, value: Optional[float]) -> bool:
+        if value is None or self.patience <= 0:
+            return False
+        if self._improved(value):
+            self.best = value
+            self.strikes = 0
+            return False
+        self.strikes += 1
+        if self.strikes < self.patience:
+            return False
+        logger.info(f"early stop: validation metric stagnant for {self.strikes} "
+                    f"consecutive validations (patience {self.patience})")
+        return True
+
+
+class TrainSession:
+    """One training run: the trainer, the early-stop monitor and the
+    save / validate / stop cadence."""
+
+    def __init__(self, args, trainer, task):
+        self.args = args
+        self.trainer = trainer
+        self.task = task
+        self.early_stop = EarlyStopMonitor(args.patience,
+                                           args.maximize_best_checkpoint_metric)
+        self.valid_subsets = args.valid_subset.split(",")
+        self.validations: List[dict] = []
+
+    def hard_stop_reason(self) -> Optional[str]:
+        """The budget limits, checked after every update."""
+        n = self.trainer.get_num_updates()
+        if self.args.max_update and n >= self.args.max_update:
+            return f"num_updates: {n} hit --max-update ({self.args.max_update})"
+        if self.args.stop_time_hours > 0:
+            trained_h = self.trainer.cumulative_training_time() / 3600.0
+            if trained_h > self.args.stop_time_hours:
+                return (f"exceeded --stop-time-hours ({trained_h:.2f}h > "
+                        f"{self.args.stop_time_hours}h)")
+        return None
+
+    def lr_floor_reached(self) -> bool:
+        if self.args.stop_min_lr <= -1:
+            return False
+        return self.trainer.get_lr() <= self.args.stop_min_lr
+
+    @staticmethod
+    def _on_interval(count: int, every: int) -> bool:
+        return every > 0 and count > 0 and count % every == 0
+
+    def cadence(self, epoch: int, end_of_epoch: bool, stopping: bool):
+        """(save?, validate?) at the current position of the run: saves at
+        --save-interval epoch boundaries, every --save-interval-updates once
+        past --validate-after-updates, and when stopping; validation beside
+        every mid-epoch save, at --validate-interval epoch boundaries, every
+        --validate-interval-updates, and when stopping, unless disabled."""
+        n = self.trainer.get_num_updates()
+        a = self.args
+        save = (
+            stopping
+            or (end_of_epoch and self._on_interval(epoch, a.save_interval))
+            or (self._on_interval(n, a.save_interval_updates)
+                and n >= a.validate_after_updates)
+        )
+        validate = not a.disable_validation and (
+            stopping
+            or (save and not end_of_epoch)
+            or (end_of_epoch and self._on_interval(epoch, a.validate_interval))
+            or self._on_interval(n, a.validate_interval_updates)
+        )
+        return save, validate
+
+    def checkpoint_and_validate(self, epoch_itr, end_of_epoch: bool):
+        """After an update: the stop conditions, validation, at the end of
+        an epoch the epoch-level lr step, and the checkpoint by the
+        cadence; returns (validation losses, stop?)."""
+        from unicore_tpu_torch import checkpoint_utils
+
+        reason = self.hard_stop_reason()
+        if reason:
+            logger.info(f"stopping training: {reason}")
+        stopping = reason is not None
+        do_save, do_validate = self.cadence(epoch_itr.epoch, end_of_epoch, stopping)
+        valid_losses: List[Optional[float]] = [None]
+        if do_validate:
+            valid_losses = validate(self.args, self.trainer, self.task,
+                                    self.valid_subsets, self.validations)
+        if self.early_stop.should_stop(valid_losses[0]):
+            stopping = True
+        if self.lr_floor_reached():
+            logger.info(f"stopping training: lr {self.trainer.get_lr()} fell to "
+                        f"--stop-min-lr ({self.args.stop_min_lr})")
+            stopping = True
+        if end_of_epoch:  # epoch-level schedules key off the first subset
+            self.trainer.lr_step(epoch_itr.epoch, valid_losses[0])
+        if do_save or stopping:
+            checkpoint_utils.save_checkpoint(self.args, self.trainer, epoch_itr,
+                                             valid_losses[0])
+        return valid_losses, stopping
+
+
+def restore_session(args, trainer):
+    """Load the run's checkpoint, if any, and return the epoch iterator
+    positioned where the saved run left off (the epoch's start with
+    ``--reset-dataloader``)."""
+    from unicore_tpu_torch import checkpoint_utils
+
+    extra_state = checkpoint_utils.load_checkpoint(args, trainer)
+    saved_itr = ((extra_state or {}).get("train_iterator")
+                 if not args.reset_dataloader else None)
+    if saved_itr is not None:
+        epoch_itr = trainer.get_train_iterator(epoch=saved_itr["epoch"])
+        epoch_itr.load_state_dict(saved_itr)
+    else:
+        epoch_itr = trainer.get_train_iterator(epoch=1)
+    return epoch_itr
+
+
+def train_epoch(args, session, epoch_itr):
+    """One epoch of updates (the rest of it, when resumed mid-epoch);
+    returns True when training should stop."""
     from unicore_tpu_torch.data import iterators
     from unicore_tpu_torch.logging import metrics
 
+    trainer = session.trainer
     epoch = epoch_itr.next_epoch_idx
-    itr = epoch_itr.next_epoch_itr(shuffle=True)
+    itr = epoch_itr.next_epoch_itr(shuffle=epoch > args.curriculum)
     update_freq = args.update_freq[min(epoch, len(args.update_freq)) - 1]
     itr = iterators.GroupedIterator(itr, update_freq)
     trainer.begin_epoch(epoch)
-    max_update = args.max_update or math.inf
+    stop = False
     for samples in itr:
         gnorm = trainer.train_step(samples)
         num_updates = trainer.get_num_updates()
@@ -56,35 +209,70 @@ def train_epoch(args, trainer, epoch_itr):
                 f"{trainer.step_ms[-1]:.1f} ms"
             )
             metrics.reset_meters("train_inner")
-        if (args.save_interval_updates > 0
-                and num_updates % args.save_interval_updates == 0):
-            save_interval_checkpoint(args, trainer, epoch_itr, epoch)
-        if num_updates >= max_update:
-            return True
+        _, stop = session.checkpoint_and_validate(epoch_itr,
+                                                  end_of_epoch=not itr.has_next())
+        if stop:
+            break
     stats = metrics.get_smoothed_values("train")
     logger.info(f"end of epoch {epoch}: loss {stats.get('loss', float('nan')):.3f}")
     metrics.reset_meters("train")
-    return False
+    return stop
 
 
-def save_interval_checkpoint(args, trainer, epoch_itr, epoch):
-    name = f"checkpoint_{epoch}_{trainer.get_num_updates()}.pt"
-    trainer.save_checkpoint(os.path.join(args.save_dir, name), epoch_itr)
-    if args.keep_interval_updates > 0:
-        kept = sorted(
-            (f for f in os.listdir(args.save_dir)
-             if f.startswith("checkpoint_") and f != "checkpoint_last.pt"),
-            key=lambda f: int(f[:-3].rsplit("_", 1)[1]),
-        )
-        for old in kept[:-args.keep_interval_updates]:
-            os.unlink(os.path.join(args.save_dir, old))
+def validate(args, trainer, task, subsets, records):
+    """Every batch of each validation subset in corpus order, in eval mode
+    (on the EMA's weights with ``--validate-with-ema``); the logging
+    outputs are summed over the batches before the loss reduces them.
+    Returns the ``--best-checkpoint-metric`` of each subset (None for a
+    subset with no data on disk) and appends a record of each to
+    ``records`` (its update, unrounded loss and metric)."""
+    from unicore_tpu_torch import checkpoint_utils
+    from unicore_tpu_torch.logging import metrics
+
+    results = []
+    with trainer.eval_weights():
+        for subset in subsets:
+            if subset not in task.datasets:
+                try:
+                    task.load_dataset(subset)
+                except FileNotFoundError as err:
+                    logger.warning(f'no "{subset}" subset to validate on ({err})')
+                    results.append(None)
+                    continue
+            logger.info(f'begin validation on "{subset}" subset')
+            itr = trainer.get_valid_iterator(subset).next_epoch_itr(shuffle=False)
+            totals = {}
+            for i, sample in enumerate(itr):
+                if args.max_valid_steps is not None and i > args.max_valid_steps:
+                    break
+                out = trainer.valid_step(sample)
+                for k, v in (out or {}).items():
+                    totals[k] = totals.get(k, 0) + v
+            if not totals:
+                results.append(None)
+                continue
+            with metrics.aggregate(new_root=True) as agg:
+                task.reduce_metrics([totals], trainer.loss, subset)
+            stats = agg.get_smoothed_values()
+            metric = args.best_checkpoint_metric
+            best = checkpoint_utils.best_score()
+            if best is not None and metric in stats:
+                pick = max if args.maximize_best_checkpoint_metric else min
+                stats[f"best_{metric}"] = pick(best, stats[metric])
+            logger.info(f'valid on "{subset}" | update {trainer.get_num_updates()} | '
+                        + " | ".join(f"{k} {v}" for k, v in stats.items()))
+            results.append(stats.get(metric))
+            records.append({"update": trainer.get_num_updates(), "subset": subset,
+                            "loss": agg["loss"].val if "loss" in agg else None,
+                            "metric": stats.get(metric)})
+    return results
 
 
 def main(args, device) -> dict:
     import numpy as np
     import torch
 
-    from unicore_tpu_torch import tasks
+    from unicore_tpu_torch import checkpoint_utils, tasks
     from unicore_tpu_torch.logging import metrics
     from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.trainer import Trainer
@@ -94,7 +282,7 @@ def main(args, device) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     np.random.seed(args.seed)
     metrics.reset()
-    os.makedirs(args.save_dir, exist_ok=True)
+    checkpoint_utils.set_best_score(None)
     logger.info(args)
 
     task = tasks.setup_task(args)
@@ -109,33 +297,37 @@ def main(args, device) -> dict:
     )
 
     task.load_dataset(args.train_subset)
-    epoch_itr = trainer.get_train_iterator(epoch=1)
+    epoch_itr = restore_session(args, trainer)
+    session = TrainSession(args, trainer, task)
     _kernels.reset_launch_counts()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     started = time.time()
     last_epoch = args.max_epoch or math.inf
     while epoch_itr.next_epoch_idx <= last_epoch:
-        if train_epoch(args, trainer, epoch_itr):
+        if train_epoch(args, session, epoch_itr):
             break
-        trainer.lr_step(epoch_itr.epoch)
         epoch_itr = trainer.get_train_iterator(epoch_itr.next_epoch_idx)
     wall = time.time() - started
-    trainer.save_checkpoint(os.path.join(args.save_dir, "checkpoint_last.pt"),
-                            epoch_itr)
 
-    steady = trainer.step_ms[1:] or trainer.step_ms
+    steady = trainer.step_ms[1:] or trainer.step_ms or [float("nan")]
+    train_s = sum(trainer.step_ms) / 1e3
     stats = {
         "updates": trainer.get_num_updates(),
+        "resumed_from_update": trainer.resumed_from_update,
         "micro_batches": trainer.micro_batches,
         "micro_batch_lengths": trainer.micro_batch_lengths,
         "loss_per_update": trainer.update_losses,
+        "lr_per_update": trainer.update_lrs,
+        "valid_losses": [v["metric"] for v in session.validations],
+        "validations": session.validations,
+        "best": checkpoint_utils.best_score(),
         "step_ms": trainer.step_ms,
         "median_step_ms": float(np.median(steady)),
         "tokens": trainer.tokens,
-        "tokens_per_s": trainer.tokens / (sum(trainer.step_ms) / 1e3),
+        "tokens_per_s": trainer.tokens / train_s if train_s else None,
         "samples": trainer.samples,
-        "samples_per_s": trainer.samples / (sum(trainer.step_ms) / 1e3),
+        "samples_per_s": trainer.samples / train_s if train_s else None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
         "kernel_launches": _kernels.launch_counts(),

@@ -6,9 +6,12 @@ Epoch planning is the JAX package's: the frozen batch list is reshuffled
 per epoch under ``numpy_seed(seed + epoch)`` and sharded round-robin, so
 both packages visit the same batches in the same order.  Batches are
 fetched and collated on the calling thread; the JAX package's loader
-threads, prefetch buffer, stall watchdog and mid-epoch resume are not
-ported.
+threads, prefetch buffer and stall watchdog are not ported.  Mid-epoch
+resume is: ``state_dict`` records the epoch and the batches consumed in it,
+``load_state_dict`` plans the same epoch and starts it past them.
 """
+
+import logging
 
 import itertools
 import math
@@ -16,6 +19,8 @@ import math
 import numpy as np
 
 from . import data_utils
+
+logger = logging.getLogger(__name__)
 
 
 class CountingIterator(object):
@@ -46,6 +51,12 @@ class CountingIterator(object):
     def has_next(self):
         return self.n < self.total
 
+    def skip(self, num_to_skip):
+        """Consume and discard ``num_to_skip`` items."""
+        for _ in itertools.islice(self, num_to_skip):
+            pass
+        return self
+
 
 class EpochBatchIterator(object):
     """Multi-epoch iterator over a dataset's batches, sharded over
@@ -63,6 +74,7 @@ class EpochBatchIterator(object):
         self.disable_shuffling = disable_shuffling
         self.shuffle = not disable_shuffling
         self._cur_epoch_itr = None
+        self._next_epoch_itr = None  # a resumed mid-epoch iterator
 
     def __len__(self):
         return int(math.ceil(len(self.frozen_batches) / float(self.num_shards)))
@@ -70,6 +82,8 @@ class EpochBatchIterator(object):
     @property
     def next_epoch_idx(self):
         """The epoch the next ``next_epoch_itr`` call will serve."""
+        if self._next_epoch_itr is not None:
+            return self.epoch  # a resumed mid-epoch iterator is pending
         if self._cur_epoch_itr is not None and self.end_of_epoch():
             return self.epoch + 1
         return self.epoch
@@ -80,7 +94,11 @@ class EpochBatchIterator(object):
         self.epoch = self.next_epoch_idx
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)
-        self._cur_epoch_itr = self._get_iterator_for_epoch(self.epoch, shuffle)
+        if self._next_epoch_itr is not None:
+            # hand over the iterator load_state_dict prepared
+            self._cur_epoch_itr, self._next_epoch_itr = self._next_epoch_itr, None
+        else:
+            self._cur_epoch_itr = self._get_iterator_for_epoch(self.epoch, shuffle)
         self.shuffle = shuffle
         return self._cur_epoch_itr
 
@@ -89,7 +107,10 @@ class EpochBatchIterator(object):
 
     @property
     def iterations_in_epoch(self):
-        return 0 if self._cur_epoch_itr is None else self._cur_epoch_itr.n
+        for itr in (self._cur_epoch_itr, self._next_epoch_itr):
+            if itr is not None:
+                return itr.n
+        return 0
 
     def state_dict(self):
         """Position snapshot; an exhausted epoch serializes as the start of
@@ -101,6 +122,31 @@ class EpochBatchIterator(object):
                 "iterations_in_epoch": self.iterations_in_epoch,
                 "shuffle": self.shuffle, "len": len(self)}
 
+    def load_state_dict(self, state_dict):
+        """Position the iterator where :meth:`state_dict` left it: the next
+        ``next_epoch_itr`` serves the saved epoch from its saved offset.
+        When the epoch's length changed since (batch count, update-freq or
+        shard count), the offset is rescaled to the same fraction."""
+        self.epoch = state_dict["epoch"]
+        offset = state_dict.get("iterations_in_epoch", 0)
+        if offset == 0:
+            self._next_epoch_itr = None
+            return
+        saved_len = state_dict.get("len")
+        if saved_len is not None and saved_len != len(self):
+            rescaled = int(offset * len(self) / saved_len)
+            logger.info(f"iterator size changed ({saved_len} -> {len(self)} "
+                        f"batches); rescaling itr_pos {offset} -> {rescaled}")
+            offset = rescaled
+        self._next_epoch_itr = self._get_iterator_for_epoch(
+            self.epoch, shuffle=state_dict.get("shuffle", True), offset=offset)
+        if self._next_epoch_itr is None:
+            raise RuntimeError(
+                "Cannot resume training due to dataloader mismatch. You can "
+                "relaunch training with `--reset-dataloader` and it should "
+                "work."
+            )
+
     def _plan_shard(self, epoch, shuffle):
         """This process's padded batch list for ``epoch``, deterministic in
         (seed, epoch)."""
@@ -111,17 +157,19 @@ class EpochBatchIterator(object):
         return list(ShardedIterator(batches, self.num_shards, self.shard_id,
                                     fill_value=[]))
 
-    def _get_iterator_for_epoch(self, epoch, shuffle):
+    def _get_iterator_for_epoch(self, epoch, shuffle, offset=0):
         shard = self._plan_shard(epoch, shuffle)
+        if offset > 0 and offset >= len(shard):
+            return None  # position beyond the epoch: the caller decides
 
         def load():
-            for batch in shard:
+            for batch in shard[offset:]:
                 if len(batch) == 0:
                     yield {}
                 else:
                     yield self.collate_fn([self.dataset[int(i)] for i in batch])
 
-        return CountingIterator(load(), start=0, total=len(shard))
+        return CountingIterator(load(), start=offset, total=len(shard))
 
 
 class GroupedIterator(CountingIterator):

@@ -1,6 +1,8 @@
 """Metric meters (counterpart of ``unicore_tpu/logging/meters.py``; the
 weighted running average behind a priority-ordered dict, which is what the
-loss's ``reduce_metrics`` and the training log need)."""
+loss's ``reduce_metrics`` and the training log need, and their
+``state_dict`` round trip in the JAX package's layout, so a resumed run's
+meters continue)."""
 
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -37,6 +39,16 @@ class AverageMeter:
             self.sum = self.sum + val * n
             self.count = self.count + n
 
+    def state_dict(self):
+        return {"val": self.val, "sum": self.sum, "count": self.count,
+                "round": self.round}
+
+    def load_state_dict(self, state_dict):
+        self.val = state_dict["val"]
+        self.sum = state_dict["sum"]
+        self.count = state_dict["count"]
+        self.round = state_dict.get("round")
+
     @property
     def avg(self):
         return self.sum / self.count if self.count > 0 else self.val
@@ -72,3 +84,19 @@ class MetersDict(OrderedDict):
     def reset(self):
         for meter in self.values():
             meter.reset()
+
+    def state_dict(self):
+        """``[(priority, key, meter class name, meter state)]`` in
+        (priority, insertion) order, as the JAX package writes it."""
+        return [(priority, key, type(self[key]).__name__, self[key].state_dict())
+                for priority, _, key in self._rank]
+
+    def load_state_dict(self, state_dict):
+        self.clear()
+        self._rank.clear()
+        for priority, key, cls_name, meter_state in state_dict:
+            if cls_name != "AverageMeter":
+                raise ValueError(f"meter {key!r}: {cls_name} is not ported")
+            meter = AverageMeter()
+            meter.load_state_dict(meter_state)
+            self.add_meter(key, meter, priority)

@@ -1,9 +1,11 @@
 """Metrics aggregation with named contexts (counterpart of
-``unicore_tpu/logging/metrics.py``; ``aggregate``, ``log_scalar`` and the
-per-aggregator reads, which is what the loss's ``reduce_metrics`` and the
-training log need)."""
+``unicore_tpu/logging/metrics.py``): ``aggregate`` (nestable; ``new_root``
+isolates, as validation inside the train loop does), ``log_scalar``, the
+per-aggregator reads, and a ``state_dict`` a checkpoint carries so a
+resumed run's meters continue."""
 
 import contextlib
+import uuid
 from typing import Dict, List, Optional
 
 from .meters import AverageMeter, MetersDict
@@ -19,10 +21,18 @@ def reset() -> None:
 
 
 @contextlib.contextmanager
-def aggregate(name: str):
+def aggregate(name: Optional[str] = None, new_root: bool = False):
     """Route logged values into the named aggregator (as well as any other
-    active one) for the duration of the block."""
-    agg = _by_name.setdefault(name, MetersDict())
+    active one, unless ``new_root``, which suspends them) for the duration
+    of the block.  Without a name the aggregator is anonymous and lives
+    only as long as the block."""
+    if name is None:
+        name, agg = str(uuid.uuid4()), MetersDict()
+    else:
+        agg = _by_name.setdefault(name, MetersDict())
+    saved = dict(_active) if new_root else None
+    if new_root:
+        _active.clear()
     outer = name in _active
     _active[name] = agg
     try:
@@ -30,6 +40,9 @@ def aggregate(name: str):
     finally:
         if not outer:
             _active.pop(name, None)
+        if saved is not None:
+            _active.clear()
+            _active.update(saved)
 
 
 def get_active_aggregators() -> List[MetersDict]:
@@ -52,3 +65,14 @@ def reset_meters(name: str) -> None:
 
 def get_smoothed_values(name: str):
     return _by_name[name].get_smoothed_values()
+
+
+def state_dict():
+    return {name: agg.state_dict() for name, agg in _by_name.items()}
+
+
+def load_state_dict(state):
+    for name, agg_state in state.items():
+        agg = MetersDict()
+        agg.load_state_dict(agg_state)
+        _by_name[name] = agg

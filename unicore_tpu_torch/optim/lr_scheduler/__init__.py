@@ -1,19 +1,24 @@
 """LR scheduler registry (counterpart of
-``unicore_tpu/optim/lr_scheduler/__init__.py``; this slice ports
-``polynomial_decay``, the schedule of the BERT example)."""
+``unicore_tpu/optim/lr_scheduler/__init__.py``): the nine schedules of the
+JAX package, ``fixed`` the default; each module registers itself on
+import."""
 
 import importlib
 import pkgutil
 
 from unicore_tpu_torch import registry
-from .unicore_lr_scheduler import UnicoreLRScheduler  # noqa
+from .unicore_lr_scheduler import (  # noqa
+    UnicoreLRScheduler,
+    linear_warmup,
+    single_lr,
+)
 
 (
     build_lr_scheduler_,
     register_lr_scheduler,
     LR_SCHEDULER_REGISTRY,
 ) = registry.setup_registry(
-    "--lr-scheduler", base_class=UnicoreLRScheduler, default="polynomial_decay"
+    "--lr-scheduler", base_class=UnicoreLRScheduler, default="fixed"
 )
 
 

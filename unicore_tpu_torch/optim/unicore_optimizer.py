@@ -77,6 +77,31 @@ class UnicoreOptimizer(object):
     def state_dict(self):
         return {"num_steps": self.num_steps, "state": self.state}
 
+    def load_state_dict(self, state_dict, optimizer_overrides=None):
+        """Restore the step count and every slot in place (onto the slots'
+        device) from :meth:`state_dict`.  ``optimizer_overrides`` (the
+        ``--optimizer-overrides`` dict) updates the optimizer's args first,
+        as the JAX package's ``load_state_dict`` does; betas, eps and weight
+        decay are read from the args at each step.  Returns False, leaving
+        the fresh state, when the saved slots do not match the parameters
+        (names or shapes)."""
+        if optimizer_overrides:
+            self.args.__dict__.update(optimizer_overrides)
+        saved = state_dict["state"]
+        same = saved.keys() == self.state.keys() and all(
+            saved[n].keys() == slots.keys()
+            and all(saved[n][k].shape == v.shape for k, v in slots.items())
+            for n, slots in self.state.items()
+        )
+        if not same:
+            return False
+        with torch.no_grad():
+            for n, slots in self.state.items():
+                for k, v in slots.items():
+                    v.copy_(saved[n][k])
+        self.num_steps = int(state_dict["num_steps"])
+        return True
+
 
 def bias_corrected_step_size(lr: float, step: int,
                              betas: Tuple[float, float]) -> float:

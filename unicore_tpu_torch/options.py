@@ -207,8 +207,11 @@ def get_training_parser():
     parser.add_argument("--loss", default="masked_lm", choices=LOSS_REGISTRY.keys())
     parser.add_argument("--optimizer", default="adam",
                         choices=OPTIMIZER_REGISTRY.keys())
-    parser.add_argument("--lr-scheduler", default="polynomial_decay",
+    parser.add_argument("--lr-scheduler", default="fixed",
                         choices=LR_SCHEDULER_REGISTRY.keys())
+    parser.add_argument("--ema-decay", default=-1.0, type=float,
+                        help="enable moving average for model parameters")
+    parser.add_argument("--validate-with-ema", action="store_true")
 
     group = parser.add_argument_group("dataset_data_loading")
     group.add_argument("--batch-size", "--max-sentences", type=int, metavar="N",
@@ -216,14 +219,43 @@ def get_training_parser():
     group.add_argument("--num-workers", default=0, type=int, choices=[0],
                        help="data loader processes: batches load on the "
                             "training thread (only 0)")
+    group.add_argument("--length-bucket", default=0, type=int, metavar="N",
+                       help="pad each batch's sequence length up into a "
+                            "fixed set of at most N lengths covering "
+                            "--max-seq-len (evenly spaced, rounded to the "
+                            "pad multiple; 0 disables)")
     group.add_argument("--train-subset", default="train", metavar="SPLIT",
                        help="data subset to use for training")
+    group.add_argument("--valid-subset", default="valid", metavar="SPLIT",
+                       help="comma separated list of data subsets to use for "
+                            "validation; a subset with no data on disk is "
+                            "skipped with a warning")
+    group.add_argument("--validate-interval", type=int, default=1, metavar="N",
+                       help="validate every N epochs")
+    group.add_argument("--validate-interval-updates", type=int, default=0,
+                       metavar="N", help="validate every N updates")
+    group.add_argument("--validate-after-updates", type=int, default=0, metavar="N",
+                       help="dont validate until reaching this many updates")
+    group.add_argument("--disable-validation", action="store_true",
+                       help="disable validation")
+    group.add_argument("--batch-size-valid", type=int, metavar="N",
+                       help="maximum number of sentences in a validation "
+                            "batch (default: --batch-size)")
+    group.add_argument("--max-valid-steps", "--nval", type=int, metavar="N",
+                       help="How many batches to evaluate")
+    group.add_argument("--curriculum", default=0, type=int, metavar="N",
+                       help="don't shuffle batches for first N epochs")
 
     group = parser.add_argument_group("optimization")
     group.add_argument("--max-epoch", default=0, type=int, metavar="N",
                        help="force stop training at specified epoch")
     group.add_argument("--max-update", default=0, type=int, metavar="N",
                        help="force stop training at specified update")
+    group.add_argument("--stop-time-hours", default=0, type=float, metavar="N",
+                       help="force stop training after specified cumulative time")
+    group.add_argument("--stop-min-lr", default=-1, type=float, metavar="LR",
+                       help="stop training when the learning rate reaches "
+                            "this minimum")
     group.add_argument("--clip-norm", default=0.0, type=float, metavar="NORM",
                        help="clip threshold of gradients")
     group.add_argument("--update-freq", default="1",
@@ -253,10 +285,59 @@ def get_training_parser():
                        help="accepted for the JAX CLI's scripts; each "
                             "checkpoint is written to a temporary name in "
                             "--save-dir and renamed into place")
+    group.add_argument("--restore-file", default="checkpoint_last.pt",
+                       help="filename from which to load checkpoint")
+    group.add_argument("--finetune-from-model", default=None, type=str,
+                       help="finetune from a pretrained model; resets "
+                            "optimizer, lr scheduler, meters and dataloader")
+    group.add_argument("--load-from-ema", action="store_true",
+                       help="initialize model params from the EMA state in "
+                            "the checkpoint")
+    group.add_argument("--reset-dataloader", action="store_true",
+                       help="don't restore the dataloader position from the "
+                            "checkpoint")
+    group.add_argument("--reset-lr-scheduler", action="store_true",
+                       help="don't restore lr scheduler state from the "
+                            "checkpoint")
+    group.add_argument("--reset-meters", action="store_true",
+                       help="don't restore metrics meters from the checkpoint")
+    group.add_argument("--reset-optimizer", action="store_true",
+                       help="don't restore optimizer state from the checkpoint")
+    group.add_argument("--optimizer-overrides", default="{}", type=str,
+                       metavar="DICT",
+                       help="a dictionary used to override optimizer args "
+                            "when loading a checkpoint")
+    group.add_argument("--save-interval", type=int, default=1, metavar="N",
+                       help="save a checkpoint every N epochs")
     group.add_argument("--save-interval-updates", type=int, default=0,
-                       metavar="N", help="save a checkpoint every N updates")
+                       metavar="N",
+                       help="save a checkpoint (and validate) every N updates")
     group.add_argument("--keep-interval-updates", type=int, default=-1,
-                       metavar="N", help="keep the last N interval checkpoints")
+                       metavar="N",
+                       help="keep the last N checkpoints saved with "
+                            "--save-interval-updates")
+    group.add_argument("--keep-last-epochs", type=int, default=-1, metavar="N",
+                       help="keep last N epoch checkpoints")
+    group.add_argument("--keep-best-checkpoints", type=int, default=-1,
+                       metavar="N", help="keep best N checkpoints based on scores")
+    group.add_argument("--no-save", action="store_true",
+                       help="don't save models or checkpoints")
+    group.add_argument("--no-epoch-checkpoints", action="store_true",
+                       help="only store last and best checkpoints")
+    group.add_argument("--no-last-checkpoints", action="store_true",
+                       help="don't store last checkpoints")
+    group.add_argument("--no-save-optimizer-state", action="store_true",
+                       help="don't save optimizer-state as part of checkpoint")
+    group.add_argument("--best-checkpoint-metric", type=str, default="loss",
+                       help='metric to use for saving "best" checkpoints')
+    group.add_argument("--maximize-best-checkpoint-metric", action="store_true",
+                       help='select the largest metric value for saving "best" '
+                            "checkpoints")
+    group.add_argument("--patience", type=int, default=-1, metavar="N",
+                       help="early stop training if valid performance doesn't "
+                            "improve for N consecutive validation runs")
+    group.add_argument("--checkpoint-suffix", type=str, default="",
+                       help="suffix to add to the checkpoint file name")
 
     add_model_args(parser)
     return parser
@@ -284,5 +365,7 @@ def parse_args_and_arch(parser, input_args=None):
                           (LR_SCHEDULER_REGISTRY, args.lr_scheduler)):
         registry[key].add_args(parser)
     args = parser.parse_args(input_args)
+    if getattr(args, "batch_size_valid", None) is None and hasattr(args, "batch_size"):
+        args.batch_size_valid = args.batch_size
     ARCH_CONFIG_REGISTRY[args.arch](args)
     return args

@@ -1,11 +1,11 @@
 """BERT masked-LM task (counterpart of ``unicore_tpu/tasks/bert.py``).
 
 Pipeline: raw text in the native indexed shards -> WordPiece tokenize ->
-BERT masking -> right-pad to ``--seq-pad-multiple`` -> nested-dict
-batches; the train split reshuffles every epoch, deterministically in
-(seed, epoch).  :func:`open_text_dataset` opens a split for this task and
-Uni-Mol's.  The JAX package's LMDB input and length buckets are not
-ported."""
+BERT masking -> right-pad to ``--seq-pad-multiple`` (and into the
+``--length-bucket`` edges) -> nested-dict batches; the train split
+reshuffles every epoch, deterministically in (seed, epoch).
+:func:`open_text_dataset` opens a split for this task and Uni-Mol's.  The
+JAX package's LMDB input is not ported."""
 
 import logging
 import os
@@ -100,7 +100,8 @@ class BertTask(UnicoreTask):
 
         def padded(ds):
             return RightPadDataset(ds, pad_idx=self.dictionary.pad(),
-                                   pad_to_multiple=a.seq_pad_multiple)
+                                   pad_to_multiple=a.seq_pad_multiple,
+                                   pad_to_buckets=self.length_bucket_edges())
 
         batches = NestedDictionaryDataset(
             {"net_input": {"src_tokens": padded(masked)}, "target": padded(labels)}

@@ -1,12 +1,12 @@
 """Causal-LM task (counterpart of ``unicore_tpu/tasks/causal_lm.py``): the
 BERT data pipeline minus the masking stage.
 
-Same shards, WordPiece tokenizer and padding as ``tasks/bert.py``;
-``target`` is the input token stream itself (a next-token loss shifts it by
-one).  It gives the incremental-decode serving plane a decoder-only
-checkpoint (``models/transformer_lm.py``) its dictionary.  The JAX
-package's length buckets are not ported (batches pad to
-``--seq-pad-multiple``), nor is the trainer's ``lm_cross_entropy`` loss.
+Same shards, WordPiece tokenizer and padding as ``tasks/bert.py`` (to
+``--seq-pad-multiple``, and into the ``--length-bucket`` edges);
+``target`` is the input token stream itself, which the ``lm_cross_entropy``
+loss shifts by one.  ``unicore-tpu-torch-train`` trains a decoder-only
+``transformer_lm`` on it, and the incremental-decode serving plane serves
+that checkpoint with this task's dictionary.
 """
 
 import logging
@@ -64,7 +64,8 @@ class CausalLMTask(UnicoreTask):
 
         def padded(ds):
             return RightPadDataset(ds, pad_idx=self.dictionary.pad(),
-                                   pad_to_multiple=a.seq_pad_multiple)
+                                   pad_to_multiple=a.seq_pad_multiple,
+                                   pad_to_buckets=self.length_bucket_edges())
 
         batches = NestedDictionaryDataset(
             {"net_input": {"src_tokens": padded(tokens)}, "target": padded(tokens)}

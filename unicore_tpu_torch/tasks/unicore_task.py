@@ -1,7 +1,7 @@
 """Task base class (counterpart of ``unicore_tpu/tasks/unicore_task.py``):
-construction, dataset access, the epoch batch iterator and model/loss
-construction.  The JAX package's checkpointable task state, length
-buckets and loader threads are not ported."""
+construction, dataset access, the ``--length-bucket`` edges, the epoch
+batch iterator and model/loss construction.  The JAX package's
+checkpointable task state and loader threads are not ported."""
 
 import logging
 from argparse import Namespace
@@ -37,6 +37,17 @@ class UnicoreTask(object):
         if not isinstance(ds, UnicoreDataset):
             raise TypeError("Datasets are expected to be of type UnicoreDataset")
         return ds
+
+    def length_bucket_edges(self):
+        """The run's ``--length-bucket`` edges: at most that many lengths
+        evenly spaced over ``--max-seq-len``, each rounded up to
+        ``--seq-pad-multiple``; None when bucketing is off.  (The JAX
+        package spaces them by quantiles when a dataset reports its
+        per-sample sizes; none of the port's datasets does, nor do the
+        lazily tokenized ones of the JAX tasks that bucket.)"""
+        return data_utils.compute_length_buckets(
+            getattr(self.args, "length_bucket", 0), self.args.max_seq_len,
+            multiple=getattr(self.args, "seq_pad_multiple", 1))
 
     def get_batch_iterator(self, dataset, batch_size=None,
                            required_batch_size_multiple=1, seed=1,
