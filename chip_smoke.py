@@ -153,7 +153,33 @@ result line):
    composition, as the JAX package routes that length; dropout 0), each
    with the EMA and one validation: loss 1e-4, gradient norm 1e-3
    relative, parameters and EMA 1e-5 absolute, valid loss 1e-4 relative;
-10. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+10. mixed precision -- 10a: phase 4a's run (same corpus, seed and
+   arguments) plus ``--bf16 --bf16-sr``, 20 updates: the ``bf16_train``
+   line (per-update losses beside 4a's, step ms, tokens/s, peak memory,
+   launches), 4a's launches per micro-batch, a falling loss, each update's
+   loss within 2% relative of 4a's fp32 loss at the same update; then one
+   update under ``torch.profiler`` (``bf16_profile``: 4a's groups with the
+   products on cuBLAS's tensor cores as ``bf16_matmul`` and the optimizer
+   -- Adam on the fp32 master, the copy-back with its rounding, the EMA --
+   apart); 10b: phase 9a's run plus ``--bf16`` (``lm_bf16_train``): 9a's
+   exact launches, per-update and valid losses within 2% relative of 9a's,
+   the fp32 master in ``checkpoint_1_10.pt`` (with the share of its
+   elements that the bf16 weights do not hold), then resumed from that
+   checkpoint in a second process (``lm_bf16_resume``): lrs equal, losses
+   and the update-20 valid loss within 1e-3 relative; 10c: 4a's run with
+   ``--fp16 --fp16-init-scale 128 --fp16-scale-window 4`` for 10 updates
+   (``fp16_train``): finite falling losses, the norms' launches and no
+   attention or softmax kernel (the JAX package sends fp16 attention to its
+   plain composition), each update's loss scale as the schedule gives it
+   for the run's own overflows, grown at least once; then
+   ``--fp16-init-scale 2**120``: both of 2 updates overflow, are skipped
+   (no optimizer step in the checkpoint) and halve the scale; 10d: the
+   card-against-CPU paths of 4b, 5b, 6b and 9d (L=256) with ``--bf16``
+   (no SR), 3 updates each (``bf16_card_vs_cpu``): loss 1e-2 and gradient
+   norm 5e-2 relative, each update's change to the fp32 master within 10%
+   in L2 over all parameters, and on each side the bf16 parameters the
+   nearest-even rounding of its own master, bit for bit;
+11. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
@@ -199,10 +225,15 @@ Phase 3 also holds the full-row forward and backward at the causal LM's
 attention, (8, 12, 512, 64): the rel-pos bias plus the ``triu`` of
 ``CAUSAL_NEG`` as one (1, 12, 512, 512) bias that needs a gradient, the key
 mask and dropout 0.1, with dbias exactly 0 at every entry above the
-diagonal.
+diagonal.  And the inputs of a ``--bf16`` / ``--fp16`` run: the norms at
+(4096, 768) with bf16 and with fp16 x, weight and bias; the full-row
+kernels at (8, 12, 512, 64) bf16 with a bf16 bias, with and without the
+causal triangle, dropout 0.1; the flash kernels at the triangle shape
+(256, 4, 256, 32) bf16 with a bf16 (1, 4, 256, 256) bias; each gradient in
+its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 9 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 10 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -232,7 +263,8 @@ PEAK_FLOPS = {"float32": 67e12, "float32_3xtf32": 495e12 / 3, "bfloat16": 989e12
 #: tolerances, kernel vs plain version on the same inputs.  Forward
 #: outputs, max abs error: fp32 differs only in summation order; bf16 may
 #: round last-bit fp32 differences to neighbouring bf16 values (one ulp is
-#: 2**-8 below 1 and 2**-4 below 16 in magnitude).  Gradients, per element
+#: 2**-8 below 1 and 2**-4 below 16 in magnitude), so the bf16 full-row
+#: forward also allows two ulps of each element (BF16_ULPS of it).  Gradients, per element
 #: (:func:`grad_check`): the ``*_grad`` fraction of the reference's largest
 #: magnitude (at least 1) for every output, the fp32 outputs of bf16 runs
 #: included (dw, db, dbias, and dk, dv as the kernel sums them before their
@@ -247,7 +279,8 @@ PEAK_FLOPS = {"float32": 67e12, "float32_3xtf32": 495e12 / 3, "bfloat16": 989e12
 #: quotient may each land on a neighbouring value.
 TOL = {
     "attention": {"float32": 2e-5, "bfloat16": 2e-2},
-    "norm": {"float32": 1e-5, "bfloat16": 6.25e-2},
+    # fp16: two ulps below 16 in magnitude (2**-7 each)
+    "norm": {"float32": 1e-5, "bfloat16": 6.25e-2, "float16": 1.5625e-2},
     "softmax": 1e-6,
     "attention_grad": 1e-4,
     "norm_grad": 1e-5,
@@ -256,6 +289,8 @@ TOL = {
     "decode_bf16_ulps": 2 * 2.0 ** -7,
 }
 BF16_ULPS = 2.0 ** -6
+#: two fp16 ulps of an element (10 mantissa bits), for a gradient stored in fp16
+FP16_ULPS = 2.0 ** -9
 #: kernel -> (the TPU kernel it replaces, its source, the main path whose
 #: launches the result line reports as ``launches``)
 KERNELS = {
@@ -409,28 +444,34 @@ def grad_tolerance(floor, dtype):
     text = f"{floor} x max(1, max|ref|)"
     if "bfloat16" in str(dtype):
         text += f" + {BF16_ULPS} x |ref| where stored in bf16"
+    if "float16" in str(dtype) and "bfloat16" not in str(dtype):
+        text += f" + {FP16_ULPS} x |ref| where stored in fp16"
     return text
 
 
 def grad_check(torch, name, got, ref, floor, slack=0.0):
     """(max abs error, max error over tolerance) of one gradient, raising
     past 1: per element, ``floor`` x max(1, max|ref|) + ``slack``, plus
-    BF16_ULPS of the element where ``got`` is stored in bf16."""
+    BF16_ULPS (FP16_ULPS) of the element where ``got`` is stored in bf16
+    (fp16)."""
     ref = ref.float()
     err = (got.float() - ref).abs()
     tol = floor * max(1.0, ref.abs().max().item()) + slack
     if got.dtype == torch.bfloat16:
         tol = tol + BF16_ULPS * ref.abs()
+    elif got.dtype == torch.float16:
+        tol = tol + FP16_ULPS * ref.abs()
     worst, ratio = err.max().item(), (err / tol).max().item()
     if not (ratio <= 1.0 and math.isfinite(worst)):
         raise AssertionError(f"{name}: max abs err {worst}, {ratio} x its tolerance")
     return worst, ratio
 
 
-def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False):
+def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False,
+                     bias_dtype=None):
     """q, k, v, do, a (1, H, L, L) bias (with ``causal``, plus the causal
-    LM's ``triu`` of ``CAUSAL_NEG``), a key mask with a fully-masked row,
-    and SDPA's float mask."""
+    LM's ``triu`` of ``CAUSAL_NEG``; in ``bias_dtype``, fp32 by default), a
+    key mask with a fully-masked row, and SDPA's float mask."""
     g = torch.Generator(device=device).manual_seed(seed)
     q = (torch.randn(B, H, L, D, generator=g, device=device) * D ** -0.5).to(dtype)
     k = torch.randn(B, H, L, D, generator=g, device=device).to(dtype)
@@ -441,6 +482,8 @@ def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False):
         from unicore_tpu_torch.modules.transformer_decoder import CAUSAL_NEG
 
         bias = bias + torch.triu(torch.full((L, L), CAUSAL_NEG, device=device), 1)
+    if bias_dtype is not None:
+        bias = bias.to(bias_dtype)
     lens = torch.linspace(L, L // 3, B, device=device).long()
     lens[-1] = 0  # a fully-masked row, like the serve engine's fill rows
     mask = (torch.arange(L, device=device)[None, :] >= lens[:, None]).to(torch.int32)
@@ -448,40 +491,50 @@ def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False):
     lens_lib = lens.clone()
     lens_lib[-1] = L // 3
     keymask = torch.arange(L, device=device)[None, :] >= lens_lib[:, None]
-    attn_mask = (bias + torch.where(keymask, float("-inf"), 0.0)[:, None, None, :]).to(dtype)
+    attn_mask = (bias.float()
+                 + torch.where(keymask, float("-inf"), 0.0)[:, None, None, :]).to(dtype)
     return q, k, v, do, bias, mask, attn_mask
 
 
 def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234,
-                    causal=False):
+                    causal=False, bias_dtype=None):
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import attention_fullrow as fr
 
     q, k, v, _, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
-                                                         dtype, L, causal)
+                                                         dtype, L, causal, bias_dtype)
     call = lambda: fr.fullrow_attention(  # noqa: E731
         q, k, v, bias=bias, kv_padding_mask=mask, dropout_rate=rate,
         dropout_seed=seed)
     plain = lambda: fr.fullrow_attention_plain(q, k, v, bias, mask, 1.0, rate, seed)  # noqa: E731
-    out = call()
-    err = (out.float() - plain().float()).abs().max().item()
+    out, ref = call().float(), plain().float()
+    diff = (out - ref).abs()
+    err = diff.max().item()
     masked_row_zero = out[-1].abs().max().item() == 0.0
     tol = TOL["attention"][dtype_name(dtype)]
+    # bf16: per element, at least two ulps of the element (a causal row of
+    # few keys reaches |v| ~ 4.5, where one ulp is 2**-5)
+    over = (diff / (tol + BF16_ULPS * ref.abs()) if dtype == torch.bfloat16
+            else diff / tol).max().item()
     name = (f"attention fwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
-            + (" causal" if causal else ""))
-    if not (err <= tol and masked_row_zero and math.isfinite(err)):
+            + (" causal" if causal else "") + f" bias {bias.dtype}")
+    if not (over <= 1.0 and masked_row_zero and math.isfinite(err)):
         raise AssertionError(
-            f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
-            f"fully-masked row zero: {masked_row_zero}"
+            f"{name}: kernel vs plain max abs err {err}, {over} x its tolerance (tol "
+            f"{tol}), fully-masked row zero: {masked_row_zero}"
         )
     res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
-           "causal": causal, "max_abs_err": err, "tolerance": tol}
+           "causal": causal, "bias_dtype": dtype_name(bias.dtype), "max_abs_err": err,
+           "max_err_over_tol": over,
+           "tolerance": tol if dtype != torch.bfloat16 else
+           f"{tol} + {BF16_ULPS} x |ref| (bf16)"}
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     timed(res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, scale=1.0, dropout_p=rate), device, iters)
-    nbytes = 4 * B * H * L * D * q.element_size() + bias.numel() * 4 + mask.numel() * 4
+    nbytes = (4 * B * H * L * D * q.element_size() + bias.numel() * bias.element_size()
+              + mask.numel() * 4)
     attention_bound(res, nbytes, 4 * B * H * L * L * D)
     log(f"{name}: {json.dumps(res)}")
     return res
@@ -511,17 +564,18 @@ def check_dropout_mask(torch, device, B, H, rate, seed):
 
 
 def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321,
-                        causal=False):
+                        causal=False, bias_dtype=None):
     """The backward against autograd of the plain version (fp32) or the
     plain backward with the kernel's roundings (bf16); with ``causal``
     (the LM's bias, which needs a gradient) also dbias exactly 0 above the
-    diagonal, where every probability is 0."""
+    diagonal, where every probability is 0; every gradient in its input's
+    type (dbias in the bias's: bf16 in a --bf16 run)."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import attention_fullrow as fr
 
     q, k, v, do, bias, mask, attn_mask = attention_inputs(torch, device, B, H, L, D,
-                                                          dtype, L + 1, causal)
+                                                          dtype, L + 1, causal, bias_dtype)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
 
     def public_grads():  # the training path: the autograd Function
@@ -530,8 +584,11 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
         return torch.autograd.grad(out, leaves, do)
 
     name = (f"attention bwd B={B} H={H} L={L} D={D} {dtype} dropout={rate}"
-            + (" causal" if causal else ""))
+            + (" causal" if causal else "") + f" bias {bias.dtype}")
     got = public_grads()
+    got_dtypes = [g.dtype for g in got]
+    if got_dtypes != [t.dtype for t in leaves]:
+        raise AssertionError(f"{name}: gradient types {got_dtypes}, want their inputs'")
     masked_dbias_nonzero = None
     if causal:
         above = torch.triu(torch.ones(L, L, dtype=torch.bool, device=device), 1)
@@ -571,7 +628,8 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
                                       True))
               if device.type == "cuda" else public_grads)
     res = {"shape": [B, H, L, D], "dtype": dtype_name(dtype), "dropout": rate,
-           "causal": causal, "masked_dbias_nonzero": masked_dbias_nonzero,
+           "causal": causal, "bias_dtype": dtype_name(bias.dtype),
+           "masked_dbias_nonzero": masked_dbias_nonzero,
            "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
            "max_err_over_tol": max(ratios.values()),
            "tolerance": grad_tolerance(TOL["attention_grad"], dtype)}
@@ -587,27 +645,31 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
             *leaves[:3], attn_mask=lib_mask, scale=1.0, dropout_p=rate),
         leaves[:3] + [lib_mask], do), device, slow_iters)
     item = q.element_size()
-    nbytes = (7 * B * H * L * D * item + 2 * bias.numel() * 4 + mask.numel() * 4)
+    nbytes = (7 * B * H * L * D * item + 2 * bias.numel() * bias.element_size()
+              + mask.numel() * 4)
     attention_bound(res, nbytes, 10 * B * H * L * L * D)
     log(f"{name}: {json.dumps(res)}")
     return res
 
 
-def norm_inputs(torch, device, N, D, dtype):
+def norm_inputs(torch, device, N, D, dtype, wdtype=None):
+    """x, dy, weight and bias (in ``wdtype``, fp32 by default)."""
     g = torch.Generator(device=device).manual_seed(N + D)
     x = (torch.randn(N, D, generator=g, device=device) * 2 + 0.5).to(dtype)
     dy = torch.randn(N, D, generator=g, device=device).to(dtype)
     w = 1 + 0.1 * torch.randn(D, generator=g, device=device)
     b = 0.1 * torch.randn(D, generator=g, device=device)
+    if wdtype is not None:
+        w, b = w.to(wdtype), b.to(wdtype)
     return x, dy, w, b
 
 
-def check_norm(torch, device, N, D, dtype, rms, iters):
+def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import fused_norm as fn
 
-    x, _, w, b = norm_inputs(torch, device, N, D, dtype)
+    x, _, w, b = norm_inputs(torch, device, N, D, dtype, wdtype)
     eps = 1e-6 if rms else 1e-5
     bb = None if rms else b
     name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
@@ -629,33 +691,34 @@ def check_norm(torch, device, N, D, dtype, rms, iters):
             err_s, scale = rel_err(got, ref)
             stat_err = max(stat_err, err_s / scale)
     tol = TOL["norm"][dtype_name(dtype)]
-    name = f"{'rms' if rms else 'layer'}_norm fwd N={N} D={D} {dtype}"
+    name = f"{'rms' if rms else 'layer'}_norm fwd N={N} D={D} {dtype} weight {w.dtype}"
     if not (err <= tol and stat_err <= 1e-5 and math.isfinite(err)):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
                              f"statistics err {stat_err} (tol 1e-5)")
-    res = {"shape": [N, D], "dtype": dtype_name(dtype), "rms": rms,
-           "max_abs_err": err, "tolerance": tol, "stats_rel_err": stat_err}
+    res = {"shape": [N, D], "dtype": dtype_name(dtype), "weight_dtype": dtype_name(w.dtype),
+           "rms": rms, "max_abs_err": err, "tolerance": tol, "stats_rel_err": stat_err}
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     if lib is None:
         res["library_ms"] = res["library_ms_spread"] = res["library_device_ms"] = None
     else:
         timed(res, "library_ms", torch, lib, device, iters)
-    nbytes = 2 * N * D * x.element_size() + D * 4 * (1 if rms else 2)
+    nbytes = 2 * N * D * x.element_size() + D * w.element_size() * (1 if rms else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * N * D, "float32")
     log(f"{name}: {json.dumps(res)}")
     return res
 
 
-def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
-    """dx and dw/db kernels against autograd of the plain version.  Their
-    plain and library times are the whole backward (dx, dw and db
-    together), as autograd computes it."""
+def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
+    """dx and dw/db kernels against autograd of the plain version, each
+    gradient in its input's type (dw, db in the weight's).  Their plain and
+    library times are the whole backward (dx, dw and db together), as
+    autograd computes it."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import fused_norm as fn
 
-    x, dy, w, b = norm_inputs(torch, device, N, D, dtype)
+    x, dy, w, b = norm_inputs(torch, device, N, D, dtype, wdtype)
     eps = 1e-6 if rms else 1e-5
     name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
     leaves = [t.clone().requires_grad_(True) for t in ((x, w) if rms else (x, w, b))]
@@ -670,6 +733,9 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
 
     ref = torch.autograd.grad(plain_fwd(), leaves, dy)
     got = public_grads()
+    if [g.dtype for g in got] != [t.dtype for t in leaves]:
+        raise AssertionError(f"norm bwd N={N} D={D} {dtype} weight {w.dtype}: gradient "
+                             f"types {[g.dtype for g in got]}, want their inputs'")
     if device.type == "cuda":  # each kernel alone on the card
         _, mean, rstd = fn._launch_fwd(x, w, None if rms else b, eps, rms, True, name_fn)
         dx_call = lambda: fn._launch_dx(x, w, mean, rstd, dy, rms, name_fn)  # noqa: E731
@@ -682,9 +748,10 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
         errs, ratios = {}, {}
         for gname, g, r in pairs:
             errs[gname], ratios[gname] = grad_check(
-                torch, f"{kname} N={N} D={D} {dtype} rms={rms}: {gname}", g, r,
-                TOL["norm_grad"])
-        out[kname] = {"shape": [N, D], "dtype": dtype_name(dtype), "rms": rms,
+                torch, f"{kname} N={N} D={D} {dtype} weight {w.dtype} rms={rms}: {gname}",
+                g, r, TOL["norm_grad"])
+        out[kname] = {"shape": [N, D], "dtype": dtype_name(dtype),
+                      "weight_dtype": dtype_name(w.dtype), "rms": rms,
                       "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
                       "max_err_over_tol": max(ratios.values()),
                       "tolerance": grad_tolerance(TOL["norm_grad"], pairs[0][1].dtype)}
@@ -703,17 +770,17 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters):
             (lambda: F.rms_norm(lx, (D,), lw, eps)) if rms else
             (lambda: F.layer_norm(lx, (D,), lw, lb, eps)),
             [lx, lw] if rms else [lx, lw, lb], dy), device, iters)
-    item = x.element_size()
+    item, witem = x.element_size(), w.element_size()
     for kname, call, nbytes, flops in (
-        ("fused_norm_dx", dx_call, 3 * N * D * item + 2 * N * 4 + D * 4, 10 * N * D),
+        ("fused_norm_dx", dx_call, 3 * N * D * item + 2 * N * 4 + D * witem, 10 * N * D),
         ("fused_norm_dwdb", dwdb_call,
-         2 * N * D * item + 2 * N * 4 + D * 4 * (1 if rms else 2), 4 * N * D),
+         2 * N * D * item + 2 * N * 4 + D * witem * (1 if rms else 2), 4 * N * D),
     ):
         res = out[kname]
         timed(res, "ms", torch, call, device, iters)
         res.update(both)
         res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "float32")
-        log(f"{kname} N={N} D={D} {dtype} rms={rms}: {json.dumps(res)}")
+        log(f"{kname} N={N} D={D} {dtype} weight {w.dtype} rms={rms}: {json.dumps(res)}")
     return out
 
 
@@ -870,7 +937,9 @@ def flash_inputs(torch, device, c, dtype, seed):
     lib = torch.where(torch.arange(L, device=device)[None, :] >= lens[:, None],
                       float("-inf"), 0.0)[:, None, None, :]
     if bias is not None:
-        lib = lib + bias.repeat_interleave(B // bias.shape[0], dim=0)
+        if c.get("bias_dtype"):
+            bias = bias.to(getattr(torch, c["bias_dtype"]))
+        lib = lib + bias.float().repeat_interleave(B // bias.shape[0], dim=0)
     return q, k, v, do, bias, mask, lib.to(dtype)
 
 
@@ -887,8 +956,8 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
     B, H, L, D = c["shape"]
     rate = c.get("rate", 0.0)
     q, k, v, do, bias, mask, lib = flash_inputs(torch, device, c, dtype, L + D)
-    name = (f"flash {c['name']} B={B} H={H} L={L} D={D} bias={c.get('bias')} {dtype} "
-            f"dropout={rate}")
+    name = (f"flash {c['name']} B={B} H={H} L={L} D={D} bias={c.get('bias')} "
+            f"{c.get('bias_dtype', 'float32')} {dtype} dropout={rate}")
     on_card = device.type == "cuda"
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias) if t is not None]
     lb = leaves[3] if bias is not None else None
@@ -904,6 +973,9 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
 
     out = public(*leaves)
     got = torch.autograd.grad(out, leaves, do)
+    if [g.dtype for g in got] != [t.dtype for t in leaves]:
+        raise AssertionError(f"{name}: gradient types {[g.dtype for g in got]}, want their "
+                             "inputs'")
     ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, bias, mask, 1.0, rate, seed)
     lse = fa._launch_fwd(q, k, v, bias, mask, 1.0, rate, seed)[1] if on_card else ref_lse
     err = (out.float() - ref_out.float()).abs().max().item()
@@ -929,6 +1001,7 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
         errs[gname], ratios[gname] = grad_check(torch, f"{name}: {gname}", g, r,
                                                 TOL["attention_grad"], s)
     base = {"shape": [B, H, L, D], "bias": c.get("bias"), "dtype": dtype_name(dtype),
+            "bias_dtype": None if bias is None else dtype_name(bias.dtype),
             "dropout": rate, "case": c["name"]}
     rows = {"flash_attention_fwd": dict(base, max_abs_err=err, lse_max_abs_err=lse_err,
                                         tolerance=tol)}
@@ -973,7 +1046,7 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
     # bounds: q, k, v, do, out read or written once (item bytes), lse and di
     # (4 bytes a row), the bias and the mask read once, dbias written once
     item, bhld, bhl = q.element_size(), B * H * L * D, B * H * L
-    bias_bytes = 0 if bias is None else bias.numel() * 4
+    bias_bytes = 0 if bias is None else bias.numel() * bias.element_size()
     extra = bias_bytes + mask.numel() * 4
     prod = 2 * B * H * L * L * D  # operations of one (L x L) by D product
     attention_bound(f_res, 4 * bhld * item + 4 * bhl + extra, 2 * prod)
@@ -1391,31 +1464,29 @@ def drive_training(torch, cfg, data, card, smi):
     if cfg["device"].type == "cuda":
         profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda"),
                            "bert_profile", card, smi)
-    return save_dir / "checkpoint_last.pt", stats["kernel_launches"]
+    return save_dir / "checkpoint_last.pt", stats
 
 
 # ---------------------------------------------------------------------------
 # phase 4b: one training path on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def drive_card_vs_cpu(torch, cfg, data):
-    import copy
-
+def bert_card_vs_cpu_setup(torch, cfg, data, *flags):
+    """4b's path with ``flags`` added to its arguments: (args, task, model,
+    loss, the micro-batches of each update)."""
     import numpy as np
 
     from unicore_tpu_torch import options
     from unicore_tpu_torch.losses import LOSS_REGISTRY
     from unicore_tpu_torch.models.bert import BertModel
-    from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.tasks.bert import BertTask
-    from unicore_tpu_torch.trainer import Trainer
 
     c = cfg["card_vs_cpu"]
     args = options.parse_args_and_arch(
         options.get_training_parser(),
         train_argv(cfg, data, WORK / "unused", "cpu")
         + ["--update-freq", "2", "--max-update", str(c["updates"]),
-           "--total-num-update", str(c["updates"]), "--warmup-updates", "1"])
+           "--total-num-update", str(c["updates"]), "--warmup-updates", "1", *flags])
     task = BertTask.setup_task(args)
     vocab, pad = len(task.dictionary), task.dictionary.pad()
     model = BertModel(
@@ -1434,12 +1505,23 @@ def drive_card_vs_cpu(torch, cfg, data):
         src[np.arange(L)[None, :] >= lens[:, None]] = pad
         tgt = np.where((rng.random((B, L)) < 0.15) & (src != pad), src, pad)
         samples.append({"net_input": {"src_tokens": src}, "target": tgt})
+    groups = [samples[2 * i:2 * i + 2] for i in range(c["updates"])]
+    return args, task, model, LOSS_REGISTRY["masked_lm"](task), groups
+
+
+def drive_card_vs_cpu(torch, cfg, data):
+    import copy
+
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.trainer import Trainer
+
+    c = cfg["card_vs_cpu"]
+    args, task, model, loss, groups = bert_card_vs_cpu_setup(torch, cfg, data)
 
     def run(device):
-        tr = Trainer(args, task, copy.deepcopy(model), LOSS_REGISTRY["masked_lm"](task),
-                     device)
+        tr = Trainer(args, task, copy.deepcopy(model), loss, device)
         tr.begin_epoch(1)
-        gnorms = [tr.train_step(samples[2 * i:2 * i + 2]) for i in range(c["updates"])]
+        gnorms = [tr.train_step(group) for group in groups]
         params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
         return tr.update_losses, gnorms, params
 
@@ -1545,25 +1627,21 @@ def drive_unimol_training(cfg, data, card, smi):
     return stats["kernel_launches"]
 
 
-def drive_unimol_card_vs_cpu(torch, cfg, data):
-    """One Uni-Mol training path (full widths at 2 layers, attention dropout
-    0.1, other dropouts 0) on the card and on the CPU from the same weights
-    and batches."""
-    import copy
-
+def unimol_card_vs_cpu_setup(torch, cfg, data, *flags):
+    """5b's path (full widths at 2 layers, attention dropout 0.1, other
+    dropouts 0) with ``flags`` added to its arguments: (args, task, model,
+    loss, the micro-batches of each update)."""
     from unicore_tpu_torch import options
     from unicore_tpu_torch.losses.unimol import UniMolLoss
     from unicore_tpu_torch.models.unimol import UniMolModel
-    from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.tasks.unimol import UniMolTask
-    from unicore_tpu_torch.trainer import Trainer
 
     u, c = cfg["unimol"], cfg["unimol"]["card_vs_cpu"]
     args = options.parse_args_and_arch(
         options.get_training_parser(),
         unimol_argv(u, data, WORK / "unused", "cpu")
         + ["--batch-size", str(c["batch"]), "--max-update", str(c["updates"]),
-           "--total-num-update", str(c["updates"]), "--warmup-updates", "1"])
+           "--total-num-update", str(c["updates"]), "--warmup-updates", "1", *flags])
     task = UniMolTask.setup_task(args)
     task.load_dataset("train")
     itr = task.get_batch_iterator(task.dataset("train"), batch_size=c["batch"],
@@ -1578,11 +1656,24 @@ def drive_unimol_card_vs_cpu(torch, cfg, data):
         dropout=0.0, emb_dropout=0.0, attention_dropout=0.1, activation_dropout=0.0,
         masked_token_loss=args.masked_token_loss, masked_coord_loss=args.masked_coord_loss,
         masked_dist_loss=args.masked_dist_loss, generator=torch.Generator().manual_seed(7))
+    return args, task, model, UniMolLoss(task), [[s] for s in samples]
+
+
+def drive_unimol_card_vs_cpu(torch, cfg, data):
+    """One Uni-Mol training path (:func:`unimol_card_vs_cpu_setup`) on the
+    card and on the CPU from the same weights and batches."""
+    import copy
+
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.trainer import Trainer
+
+    u, c = cfg["unimol"], cfg["unimol"]["card_vs_cpu"]
+    args, task, model, loss, groups = unimol_card_vs_cpu_setup(torch, cfg, data)
 
     def run(device):
-        tr = Trainer(args, task, copy.deepcopy(model), UniMolLoss(task), device)
+        tr = Trainer(args, task, copy.deepcopy(model), loss, device)
         tr.begin_epoch(1)
-        gnorms = [tr.train_step([s]) for s in samples]
+        gnorms = [tr.train_step(group) for group in groups]
         params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
         return tr.update_losses, gnorms, params, tr.micro_batch_lengths
 
@@ -1698,7 +1789,7 @@ def drive_evoformer_training(torch, cfg, data, card, smi):
 
 #: device kernels by name, for the step's time split
 KERNEL_GROUPS = (("flash_attention", ("flash_",)), ("fused_norm", ("fused_norm",)),
-                 ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "splitk")),
+                 ("matmul", ("gemm", "xmma", "cutlass", "sm90_", "splitk", "nvjet")),
                  ("elementwise_and_reductions", ("elementwise", "vectorized", "reduce",
                                                  "Reduce", "index", "Index", "scatter",
                                                  "gather", "copy", "cat", "softmax",
@@ -1729,13 +1820,22 @@ def profile_update(torch, tr, samples, groups, card, smi):
     calls = {name: 0 for name in by_group}
     top = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0:
+        if (ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0
+                or ev.key == "optimizer"):  # the range itself, not a kernel
             continue
         name = next((g for g, keys in groups if any(k in ev.key for k in keys)), "other")
         by_group[name] += ev.self_device_time_total
         calls[name] += ev.count
         top.append((ev.self_device_time_total, ev.key[:90], ev.count))
     busy = sum(by_group.values())
+    # the trainer's "optimizer" range (Adam on the master, the copy-back and
+    # its rounding, the EMA): its kernels, all elementwise or foreach ones,
+    # come out of that group into their own
+    opt_us = range_device_us(prof, "optimizer")
+    if opt_us is not None:
+        by_group["optimizer"] = opt_us
+        elem = "elementwise_and_reductions"
+        by_group[elem] = max(0.0, by_group[elem] - opt_us)
     top.sort(reverse=True)
     return {"update_wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": max(0.0, 1.0 - busy / wall_us),
@@ -1746,6 +1846,24 @@ def profile_update(torch, tr, samples, groups, card, smi):
             "profiled": "one update (2 micro-batches) after a warm-up update and an "
                         "unprofiled timing of the same update, in-process",
             "card": card, "nvidia_smi": smi}
+
+
+def range_device_us(prof, name):
+    """Microseconds of the device kernels launched inside the profiler
+    ranges called ``name`` (their CPU ops' kernels, summed down the op
+    tree); None when no such range or no kernel was seen."""
+    from torch.autograd import DeviceType
+
+    def kernel_us(ev):
+        return (sum(k.duration for k in getattr(ev, "kernels", []))
+                + sum(kernel_us(ch) for ch in ev.cpu_children))
+
+    total, found = 0.0, False
+    for ev in prof.events():
+        if ev.name == name and ev.device_type == DeviceType.CPU:
+            found = True
+            total += kernel_us(ev)
+    return total if found and total > 0 else None
 
 
 #: the Evoformer's update by kernel group: the flash forward and each
@@ -1789,7 +1907,7 @@ BERT_GROUPS = (("fullrow_fwd", ("fullrow_fwd",)), ("fullrow_bwd_dq_dbias", ("ful
                ("fullrow_bwd_dk_dv", ("fullrow_dkv",))) + KERNEL_GROUPS[1:]
 
 
-def profile_cli_update(torch, cfg, argv, tag, card, smi):
+def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None):
     """:func:`profile_update` on the configuration the train CLI takes from
     ``argv`` (its model at full width, optimizer, EMA and dropouts; its
     first 4 batches of 8): the ``tag`` line.  BERT (4a): 2 micro-batches
@@ -1807,7 +1925,7 @@ def profile_cli_update(torch, cfg, argv, tag, card, smi):
     model = task.build_model(args, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(args.seed))
     tr = Trainer(args, task, model, task.build_loss(args), dev)
-    res = profile_update(torch, tr, samples, BERT_GROUPS, card, smi)
+    res = profile_update(torch, tr, samples, groups or BERT_GROUPS, card, smi)
     res["micro_batch_shapes"] = [list(s["net_input"]["src_tokens"].shape)
                                  for s in samples[2:4]]
     print(f"{tag} " + json.dumps(res), flush=True)
@@ -1815,23 +1933,20 @@ def profile_cli_update(torch, cfg, argv, tag, card, smi):
     torch.cuda.empty_cache()
 
 
-def drive_evoformer_card_vs_cpu(torch, cfg, data):
-    """One Evoformer training path (full widths at 2 blocks, dropout 0) on
-    the card and on the CPU from the same weights and batches, with the
-    optimizer of phases 4b and 5b (lr 1e-4, eps 1e-6).  At 6a's lr 1e-3 and
-    eps 1e-8 Adam turns gradient elements at fp32 noise level -- the bias
-    of ``ln_z`` before the pair-bias projection, whose true gradient is 0
-    (a constant added to a score row leaves the softmax as it is), and
-    ReLU units at the edge of activity -- into steps the size of the lr, and
-    the devices then differ by more than the parameter limit."""
-    import copy
-
+def evoformer_card_vs_cpu_setup(torch, cfg, data, *flags):
+    """6b's path (full widths at 2 blocks, dropout 0, the optimizer of
+    phases 4b and 5b: lr 1e-4, eps 1e-6) with ``flags`` added to its
+    arguments: (args, task, model, loss, the micro-batches of each update).
+    At 6a's lr 1e-3 and eps 1e-8 Adam turns gradient elements at fp32 noise
+    level -- the bias of ``ln_z`` before the pair-bias projection, whose
+    true gradient is 0 (a constant added to a score row leaves the softmax
+    as it is), and ReLU units at the edge of activity -- into steps the size
+    of the lr, and the devices then differ by more than the parameter
+    limit."""
     from unicore_tpu_torch import options
     from unicore_tpu_torch.losses.masked_msa import MaskedMSALoss
     from unicore_tpu_torch.models.evoformer_model import EvoformerModel
-    from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.tasks.msa_pretrain import MSAPretrainTask
-    from unicore_tpu_torch.trainer import Trainer
 
     e, c = cfg["evoformer"], cfg["evoformer"]["card_vs_cpu"]
     args = options.parse_args_and_arch(
@@ -1840,7 +1955,7 @@ def drive_evoformer_card_vs_cpu(torch, cfg, data):
         + ["--batch-size", str(c["batch"]), "--max-update", str(c["updates"]),
            "--total-num-update", str(c["updates"]), "--warmup-updates", "1",
            "--update-freq", "1", "--max-msa-rows", str(c["max_rows"]),
-           "--max-seq-len", str(c["length"]), "--lr", "1e-4", "--adam-eps", "1e-6"])
+           "--max-seq-len", str(c["length"]), "--lr", "1e-4", "--adam-eps", "1e-6", *flags])
     task = MSAPretrainTask.setup_task(args)
     task.load_dataset("train")
     itr = task.get_batch_iterator(task.dataset("train"), batch_size=c["batch"],
@@ -1855,11 +1970,24 @@ def drive_evoformer_card_vs_cpu(torch, cfg, data):
         gen = torch.Generator().manual_seed(8)  # every path has gradient at once
         for p in model.parameters():
             p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return args, task, model, MaskedMSALoss(task), [[s] for s in samples]
+
+
+def drive_evoformer_card_vs_cpu(torch, cfg, data):
+    """One Evoformer training path (:func:`evoformer_card_vs_cpu_setup`) on
+    the card and on the CPU from the same weights and batches."""
+    import copy
+
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.trainer import Trainer
+
+    c = cfg["evoformer"]["card_vs_cpu"]
+    args, task, model, loss, groups = evoformer_card_vs_cpu_setup(torch, cfg, data)
 
     def run(device):
-        tr = Trainer(args, task, copy.deepcopy(model), MaskedMSALoss(task), device)
+        tr = Trainer(args, task, copy.deepcopy(model), loss, device)
         tr.begin_epoch(1)
-        gnorms = [tr.train_step([s]) for s in samples]
+        gnorms = [tr.train_step(group) for group in groups]
         params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
         return tr.update_losses, gnorms, params, tr.micro_batch_lengths
 
@@ -2762,7 +2890,47 @@ def drive_lm_training(torch, cfg, data, card, smi):
             and v_res["update"] == v_ref["update"] == m["updates"]
             and loss_rel <= 1e-4 and valid_rel <= 1e-4):
         raise AssertionError(f"the resumed run differs from the uninterrupted one: {resume}")
-    return save_dir, launches
+    return save_dir, stats
+
+
+def lm_card_vs_cpu_setup(torch, cfg, data, L, pad_multiple, attn_dropout, *flags):
+    """9d's path at length ``L`` (a 2-layer full-width ``transformer_lm``,
+    3 updates of 2 micro-batches) with ``flags`` added to its arguments:
+    (args, task, model, loss, the micro-batches of each update, 2
+    validation batches)."""
+    import numpy as np
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.models.transformer_lm import TransformerLMModel
+    from unicore_tpu_torch.tasks.causal_lm import CausalLMTask
+
+    c = cfg["lm_train"]["card_vs_cpu"]
+    args = options.parse_args_and_arch(options.get_training_parser(), lm_train_argv(
+        cfg, data, WORK / "unused", "cpu", "--max-update", str(c["updates"]),
+        "--seq-pad-multiple", str(pad_multiple), *flags))
+    task = CausalLMTask.setup_task(args)
+    vocab, pad = len(task.dictionary), task.dictionary.pad()
+    model = TransformerLMModel(
+        vocab_size=vocab, padding_idx=pad, decoder_layers=2,
+        decoder_embed_dim=args.decoder_embed_dim,
+        decoder_ffn_embed_dim=args.decoder_ffn_embed_dim,
+        decoder_attention_heads=args.decoder_attention_heads,
+        max_seq_len=args.max_seq_len, dropout=0.0, emb_dropout=0.0,
+        attention_dropout=attn_dropout, generator=torch.Generator().manual_seed(8))
+    rng = np.random.default_rng(12 + L)
+    B = c["batch"]
+
+    def batch():
+        lens = rng.integers(L // 2, L + 1, B)
+        lens[0] = L
+        src = rng.integers(5, vocab, (B, L))
+        src[np.arange(L)[None, :] >= lens[:, None]] = pad
+        return {"net_input": {"src_tokens": src}, "target": src}
+
+    samples = [batch() for _ in range(2 * c["updates"])]
+    valid = [batch() for _ in range(2)]
+    groups = [samples[2 * i:2 * i + 2] for i in range(c["updates"])]
+    return args, task, model, task.build_loss(args), groups, valid
 
 
 def drive_lm_card_vs_cpu(torch, cfg, data):
@@ -2774,47 +2942,19 @@ def drive_lm_card_vs_cpu(torch, cfg, data):
     length."""
     import copy
 
-    import numpy as np
-
-    from unicore_tpu_torch import options
-    from unicore_tpu_torch.models.transformer_lm import TransformerLMModel
     from unicore_tpu_torch.ops import _kernels
-    from unicore_tpu_torch.tasks.causal_lm import CausalLMTask
     from unicore_tpu_torch.trainer import Trainer
 
     c = cfg["lm_train"]["card_vs_cpu"]
     out = {}
     for L, pad_multiple, attn_dropout in c["lengths"]:
-        args = options.parse_args_and_arch(options.get_training_parser(), lm_train_argv(
-            cfg, data, WORK / "unused", "cpu", "--max-update", str(c["updates"]),
-            "--seq-pad-multiple", str(pad_multiple)))
-        task = CausalLMTask.setup_task(args)
-        vocab, pad = len(task.dictionary), task.dictionary.pad()
-        model = TransformerLMModel(
-            vocab_size=vocab, padding_idx=pad, decoder_layers=2,
-            decoder_embed_dim=args.decoder_embed_dim,
-            decoder_ffn_embed_dim=args.decoder_ffn_embed_dim,
-            decoder_attention_heads=args.decoder_attention_heads,
-            max_seq_len=args.max_seq_len, dropout=0.0, emb_dropout=0.0,
-            attention_dropout=attn_dropout, generator=torch.Generator().manual_seed(8))
-        rng = np.random.default_rng(12 + L)
-        B = c["batch"]
-
-        def batch():
-            lens = rng.integers(L // 2, L + 1, B)
-            lens[0] = L
-            src = rng.integers(5, vocab, (B, L))
-            src[np.arange(L)[None, :] >= lens[:, None]] = pad
-            return {"net_input": {"src_tokens": src}, "target": src}
-
-        samples = [batch() for _ in range(2 * c["updates"])]
-        valid = [batch() for _ in range(2)]
+        args, task, model, loss, groups, valid = lm_card_vs_cpu_setup(
+            torch, cfg, data, L, pad_multiple, attn_dropout)
 
         def run(device):
-            tr = Trainer(args, task, copy.deepcopy(model),
-                         task.build_loss(args), device)
+            tr = Trainer(args, task, copy.deepcopy(model), loss, device)
             tr.begin_epoch(1)
-            gnorms = [tr.train_step(samples[2 * i:2 * i + 2]) for i in range(c["updates"])]
+            gnorms = [tr.train_step(group) for group in groups]
             totals = {}
             with tr.eval_weights():
                 for s in valid:
@@ -2857,6 +2997,295 @@ def drive_lm_card_vs_cpu(torch, cfg, data):
                 and res["valid_rel"] <= 1e-4):
             raise AssertionError(f"L={L}: card and CPU disagree: {res}")
         out[L] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: mixed-precision training (--bf16 with the fp32 master and
+# --bf16-sr, --fp16 with the dynamic loss scale)
+# ---------------------------------------------------------------------------
+
+#: the bf16 update by kernel group: :data:`BERT_GROUPS` with the products
+#: on cuBLAS's tensor cores named as such; ``optimizer`` (the trainer's
+#: range: Adam on the master, the copy-back with its stochastic rounding,
+#: the EMA) is split out by :func:`profile_update`
+BF16_GROUPS = BERT_GROUPS[:4] + (("bf16_matmul", KERNEL_GROUPS[2][1]),) + BERT_GROUPS[5:]
+
+
+def loss_rel_diffs(got, ref):
+    return [abs(a - b) / abs(b) for a, b in zip(got, ref)]
+
+
+def matmul_reduction_cost(torch, card, smi):
+    """What the train CLI's ``allow_bf16_reduced_precision_reduction =
+    False`` (bf16 products summed in fp32 throughout) costs cuBLAS: BERT-base's
+    FFN products in bf16, (4096, 768) x (768, 3072) and (4096, 3072) x
+    (3072, 768), timed with reduced-precision reductions allowed and not,
+    in turns (allowed, not, not, allowed; the faster of each pair).  Prints
+    ``bf16_matmul_reduction``; leaves the setting False."""
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(5)
+    flag = torch.backends.cuda.matmul
+    out = {}
+    for name, (M, K, N) in {"fc1": (4096, 768, 3072), "fc2": (4096, 3072, 768)}.items():
+        a = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        b = torch.randn(K, N, generator=g, device=dev).to(torch.bfloat16)
+        times = {True: [], False: []}
+        for allow in (True, False, False, True):
+            flag.allow_bf16_reduced_precision_reduction = allow
+            times[allow].append(time_ms(torch, lambda: a @ b, dev, iters=200)[0])
+        fp32_sum, reduced = min(times[False]), min(times[True])
+        out[name] = {"shape": [M, K, N], "fp32_reduction_ms": fp32_sum,
+                     "reduced_allowed_ms": reduced, "cost": fp32_sum / reduced - 1.0,
+                     "tflops_fp32_reduction": 2 * M * K * N / fp32_sum / 1e9}
+    flag.allow_bf16_reduced_precision_reduction = False
+    print("bf16_matmul_reduction " + json.dumps(dict(out, card=card, nvidia_smi=smi)),
+          flush=True)
+
+
+def drive_bf16_training(torch, cfg, data, fp32_stats, card, smi):
+    """10a: phase 4a's configuration (same corpus, seed and arguments) plus
+    ``--bf16 --bf16-sr``: the launches per micro-batch of 4a, a falling
+    loss, each update's loss within ``tol`` relative of 4a's fp32 loss at
+    the same update (same batches; the Philox keep masks and the elementwise
+    dropout masks do not depend on the type).  Prints ``bf16_train`` and,
+    on the card, ``bf16_profile``.  Returns the run's launches."""
+    b = cfg["bf16"]
+    dev = cfg["device"]
+    # 4a ran before phase 9 wrote the valid split: no validation, as in 4a
+    flags = ["--bf16", "--bf16-sr", "--disable-validation"]
+    # this process's products as the train CLI sets them under --bf16/--fp16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    stats = run_train_cli("bf16_train", train_argv(cfg, data, fresh_dir(WORK / "bf16_ckpt"),
+                                                   dev.type) + flags,
+                          dev, cfg["train"], cfg["train"]["timeout_s"])
+    rel = loss_rel_diffs(stats["loss_per_update"], fp32_stats["loss_per_update"])
+    line = {
+        "arch": cfg["arch"], "flags": flags, "dtype": stats["dtype"],
+        "bf16_sr": stats["bf16_sr"], "updates": stats["updates"],
+        "micro_batches": stats["micro_batches"], "loss_per_update": stats["loss_per_update"],
+        "fp32_loss_per_update": fp32_stats["loss_per_update"],
+        "loss_max_rel_diff_vs_fp32": max(rel), "tolerance": b["loss_rel"],
+        "median_step_ms": stats["median_step_ms"],
+        "fp32_median_step_ms": fp32_stats["median_step_ms"],
+        "tokens_per_s": stats["tokens_per_s"], "fp32_tokens_per_s": fp32_stats["tokens_per_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"],
+        "fp32_peak_memory_bytes": fp32_stats["peak_memory_bytes"],
+        "step_ms": stats["step_ms"], "launches": stats["kernel_launches"], "card": card,
+        "nvidia_smi": smi,
+    }
+    print("bf16_train " + json.dumps(line), flush=True)
+    if not (stats["dtype"] == "bfloat16" and stats["bf16_sr"] and max(rel) <= b["loss_rel"]):
+        raise AssertionError(f"bf16_train: dtype {stats['dtype']}, sr {stats['bf16_sr']}, "
+                             f"loss vs fp32 {max(rel)} (tol {b['loss_rel']} rel)")
+    if dev.type == "cuda":
+        profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda") + flags,
+                           "bf16_profile", card, smi, BF16_GROUPS)
+        matmul_reduction_cost(torch, card, smi)
+    return stats["kernel_launches"]
+
+
+def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
+    """10b: phase 9a's configuration plus ``--bf16``: its exact launches, a
+    falling loss, each update's loss and the valid losses within ``tol``
+    relative of 9a's; then a second process resumed from its
+    ``checkpoint_1_{interval}.pt`` (the fp32 master from the optimizer
+    state: the low bits that a master rebuilt from the bf16 weights would
+    lose, counted in the checkpoint) with 9a's lrs, losses and last valid
+    loss within ``resume_rel``.  Prints ``lm_bf16_train`` and
+    ``lm_bf16_resume``; returns the run's launches."""
+    m, b = cfg["lm_train"], cfg["bf16"]
+    dev = cfg["device"]
+    interval = m["interval"]
+    valid_batches = -(-m["valid_docs"] // cfg["batch"])
+    t = {"updates": m["updates"], "per_micro_batch": {}}
+    save_dir = fresh_dir(WORK / "lm_bf16_ckpt")
+    stats = run_train_cli("lm_bf16_train", lm_train_argv(cfg, data, save_dir, dev.type,
+                                                         "--bf16"), dev, t, m["timeout_s"])
+    launches = lm_launch_check(cfg, stats, valid_batches)
+    rel = loss_rel_diffs(stats["loss_per_update"], fp32_stats["loss_per_update"])
+    v_rel = loss_rel_diffs([v["loss"] for v in stats["validations"]],
+                           [v["loss"] for v in fp32_stats["validations"]])
+    restore = save_dir / f"checkpoint_1_{interval}.pt"
+    state = torch.load(restore, map_location="cpu", weights_only=False)
+    master = state["optimizer_state"]["master"]
+    low_bits = sum(int((mt != state["model"][n].float()).sum()) for n, mt in master.items())
+    total = sum(mt.numel() for mt in master.values())
+    line = {
+        "arch": m["arch"], "dtype": stats["dtype"], "updates": stats["updates"],
+        "loss_per_update": stats["loss_per_update"],
+        "fp32_loss_per_update": fp32_stats["loss_per_update"], "loss_max_rel_diff": max(rel),
+        "validations": stats["validations"], "fp32_validations": fp32_stats["validations"],
+        "valid_loss_max_rel_diff": max(v_rel), "tolerance": b["loss_rel"],
+        "median_step_ms": stats["median_step_ms"],
+        "fp32_median_step_ms": fp32_stats["median_step_ms"],
+        "tokens_per_s": stats["tokens_per_s"], "peak_memory_bytes": stats["peak_memory_bytes"],
+        "launches": launches, "checkpoint_master_share_off_bf16": low_bits / total,
+        "card": card, "nvidia_smi": smi,
+    }
+    print("lm_bf16_train " + json.dumps(line), flush=True)
+    if not (stats["dtype"] == "bfloat16" and len(v_rel) == m["updates"] // interval
+            and max(rel) <= b["loss_rel"] and max(v_rel) <= b["loss_rel"]
+            and all(mt.dtype == torch.float32 for mt in master.values()) and low_bits > 0):
+        raise AssertionError(f"lm_bf16_train against 9a: {line}")
+
+    res = run_train_cli("lm_bf16_resume", lm_train_argv(
+        cfg, data, fresh_dir(WORK / "lm_bf16_resume_ckpt"), dev.type, "--bf16",
+        "--restore-file", str(restore)), dev, t, m["timeout_s"], falling=False)
+    r_rel = loss_rel_diffs(res["loss_per_update"], stats["loss_per_update"][interval:])
+    v_ref, v_res = stats["validations"][-1], res["validations"][-1]
+    valid_rel = abs(v_res["loss"] - v_ref["loss"]) / abs(v_ref["loss"])
+    resume = {
+        "resumed_from_update": res["resumed_from_update"], "restore_file": restore.name,
+        "loss_per_update": res["loss_per_update"], "loss_max_rel_diff": max(r_rel),
+        "lrs_equal": res["lr_per_update"] == stats["lr_per_update"][interval:],
+        "valid_loss": v_res["loss"], "valid_loss_uninterrupted": v_ref["loss"],
+        "valid_loss_rel_diff": valid_rel, "tolerance": b["resume_rel"], "card": card,
+        "nvidia_smi": smi,
+    }
+    print("lm_bf16_resume " + json.dumps(resume), flush=True)
+    if not (res["resumed_from_update"] == interval and resume["lrs_equal"]
+            and len(r_rel) == m["updates"] - interval and v_res["update"] == m["updates"]
+            and max(r_rel) <= b["resume_rel"] and valid_rel <= b["resume_rel"]):
+        raise AssertionError(f"the resumed bf16 run differs from the uninterrupted one: {resume}")
+    return launches
+
+
+def drive_fp16_training(torch, cfg, data, card, smi):
+    """10c: phase 4a's configuration with ``--fp16 --fp16-init-scale 128
+    --fp16-scale-window 4`` for ``updates`` updates: finite falling losses,
+    the norms' launches of 4a and no attention or softmax kernel (the JAX
+    package routes fp16 attention to its plain composition), and the loss
+    scale of every update as the schedule gives it for the run's own
+    overflows (non-finite gradient norms), grown at least once.  Then
+    ``--fp16-init-scale 2**120``: the first two updates overflow, are
+    skipped (no optimizer step in the checkpoint) and halve the scale.
+    Prints ``fp16_train``; returns the first run's launches."""
+    from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
+
+    f = cfg["fp16"]
+    dev = cfg["device"]
+    t = {"updates": f["updates"], "per_micro_batch": f["per_micro_batch"]}
+    window, init = 4, 128
+    flags = ["--fp16", "--fp16-scale-window", str(window), "--max-update", str(f["updates"]),
+             "--total-num-update", str(f["updates"]), "--disable-validation"]
+    stats = run_train_cli("fp16_train", train_argv(cfg, data, fresh_dir(WORK / "fp16_ckpt"),
+                                                   dev.type)
+                          + flags + ["--fp16-init-scale", str(init)],
+                          dev, t, cfg["train"]["timeout_s"])
+    st, want = init_scale_state(init), []
+    for g in stats["gnorm_per_update"]:
+        want.append(float(st["scale"]))
+        st, _ = scale_schedule(st, not math.isfinite(g), scale_window=window)
+    save_dir = fresh_dir(WORK / "fp16_overflow_ckpt")
+    t2 = {"updates": 2, "per_micro_batch": f["per_micro_batch"]}
+    over = run_train_cli("fp16_overflow", train_argv(cfg, data, save_dir, dev.type)
+                         + flags + ["--fp16-init-scale", str(2 ** 120), "--max-update", "2"],
+                         dev, t2, cfg["train"]["timeout_s"], falling=False)
+    steps = torch.load(save_dir / "checkpoint_last.pt", map_location="cpu",
+                       weights_only=False)["optimizer_state"]["num_steps"]
+    line = {
+        "arch": cfg["arch"], "dtype": stats["dtype"], "updates": stats["updates"],
+        "loss_per_update": stats["loss_per_update"], "loss_scale": stats["loss_scale"],
+        "loss_scale_schedule": want, "gnorm_per_update": stats["gnorm_per_update"],
+        "overflows": stats["overflows"], "median_step_ms": stats["median_step_ms"],
+        "tokens_per_s": stats["tokens_per_s"], "peak_memory_bytes": stats["peak_memory_bytes"],
+        "launches": stats["kernel_launches"],
+        "forced_overflow": {"loss_scale": over["loss_scale"], "overflows": over["overflows"],
+                            "optimizer_steps": steps},
+        "card": card, "nvidia_smi": smi,
+    }
+    print("fp16_train " + json.dumps(line), flush=True)
+    if not (stats["dtype"] == "float16" and stats["loss_scale"] == want and max(want) > init
+            and over["loss_scale"] == [2.0 ** 120, 2.0 ** 119] and over["overflows"] == 2
+            and steps == 0):
+        raise AssertionError(f"fp16_train: {line}")
+    return stats["kernel_launches"]
+
+
+def bf16_compare(torch, cfg, tag, args, task, model, loss, groups, need):
+    """One family's training path in bf16 (no SR) on the card and on the CPU
+    from the same weights and batches (``groups``: the micro-batches of
+    each update): loss and gradient norm within ``loss_rel`` /
+    ``gnorm_rel`` relative, each update's change to the fp32 master within
+    ``master_rel`` in L2 over all parameters, and on each side the bf16
+    parameters the nearest-even rounding of its own master, bit for bit;
+    the card ran each kernel of ``need``."""
+    import copy
+
+    from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.trainer import Trainer
+
+    b = cfg["bf16"]["card_vs_cpu"]
+
+    def run(device):
+        tr = Trainer(args, task, copy.deepcopy(model), loss, device)
+        tr.begin_epoch(1)
+        gnorms, deltas = [], []
+        for group in groups:
+            before = {n: mt.clone() for n, mt in tr._optimizer.master.items()}
+            gnorms.append(tr.train_step(group))
+            deltas.append({n: (mt - before[n]).cpu() for n, mt in tr._optimizer.master.items()})
+        rne = all(torch.equal(p.detach(), tr._optimizer.master[n].to(p.dtype))
+                  for n, p in tr.params.items())
+        return tr.update_losses, gnorms, deltas, rne, str(tr.compute_dtype)
+
+    _kernels.reset_launch_counts()
+    card = run(cfg["device"])
+    card_launches = _kernels.launch_counts()
+    _kernels.reset_launch_counts()
+    cpu = run(torch.device("cpu"))
+    cpu_launches = _kernels.launch_counts()
+    master_rel = []
+    for dc, dp in zip(card[2], cpu[2]):
+        ref = math.sqrt(sum(float(d.square().sum()) for d in dp.values()))
+        diff = math.sqrt(sum(float((dc[n] - d).square().sum()) for n, d in dp.items()))
+        master_rel.append(diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf))
+    res = {
+        "family": tag, "dtype": card[4], "losses_card": card[0], "losses_cpu": cpu[0],
+        "gnorm_card": card[1], "gnorm_cpu": cpu[1],
+        "loss_rel": max(loss_rel_diffs(card[0], cpu[0])),
+        "gnorm_rel": max(loss_rel_diffs(card[1], cpu[1])),
+        "master_change_rel_l2": master_rel, "params_rne_of_master": [card[3], cpu[3]],
+        "tolerances": b, "card_launches": {k: v for k, v in card_launches.items() if v},
+    }
+    log(f"bf16 card vs CPU: {json.dumps(res)}")
+    if sum(cpu_launches.values()):
+        raise AssertionError(f"{tag}: the CPU run launched kernels: {cpu_launches}")
+    if cfg["device"].type == "cuda" and not all(card_launches.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"{tag}: the card run missed a kernel of {need}: {card_launches}")
+    if not (card[4] == cpu[4] == "torch.bfloat16" and res["loss_rel"] <= b["loss_rel"]
+            and res["gnorm_rel"] <= b["gnorm_rel"] and max(master_rel) <= b["master_rel"]
+            and card[3] and cpu[3]):
+        raise AssertionError(f"{tag}: bf16 card and CPU disagree: {res}")
+    return res
+
+
+def drive_bf16_card_vs_cpu(torch, cfg, data, um_data, evo_data):
+    """10d: :func:`bf16_compare` on the card-against-CPU paths of 4b (a
+    2-layer full-width BERT-base), 5b (Uni-Mol at 2 layers), 6b (a 2-block
+    Evoformer) and 9d (a 2-layer full-width LM at L = 256), each with its
+    attention dropout, plus ``--bf16``.  Prints ``bf16_card_vs_cpu``."""
+    norms = ("fused_norm_fwd", "fused_norm_dx", "fused_norm_dwdb")
+    fullrow = ("fullrow_attention_fwd", "fullrow_attention_bwd")
+    flash = tuple(k for k, v in KERNELS.items() if v[2] == "evoformer_train")
+    lm = cfg["lm_train"]["card_vs_cpu"]["lengths"][0]
+    out = {
+        "bert": bf16_compare(torch, cfg, "bert",
+                             *bert_card_vs_cpu_setup(torch, cfg, data, "--bf16"),
+                             fullrow + norms),
+        "unimol": bf16_compare(torch, cfg, "unimol",
+                               *unimol_card_vs_cpu_setup(torch, cfg, um_data, "--bf16"),
+                               ("softmax_dropout_fwd", "softmax_dropout_bwd") + norms),
+        "evoformer": bf16_compare(torch, cfg, "evoformer",
+                                  *evoformer_card_vs_cpu_setup(torch, cfg, evo_data, "--bf16"),
+                                  flash + norms),
+        "lm": bf16_compare(torch, cfg, "lm",
+                           *lm_card_vs_cpu_setup(torch, cfg, data, *lm, "--bf16")[:5],
+                           fullrow + norms),
+    }
+    print("bf16_card_vs_cpu " + json.dumps(out), flush=True)
     return out
 
 
@@ -3007,6 +3436,22 @@ CHIP = {
                  "serve_lengths": [20, 470, 127, 300, 200, 383, 64, 260],
                  "card_vs_cpu": {"updates": 3, "batch": 4,
                                  "lengths": [(256, 128, 0.1), (200, 8, 0.0)]}},
+    # phase 3's mixed-precision inputs: the norms at BERT-base's (4096, 768)
+    # with bf16 and fp16 x, weight and bias; the full-row kernels at
+    # (8, 12, 512, 64) bf16 with a bf16 bias (with and without the causal
+    # triangle); the flash kernels at the triangle shape with a bf16 bias
+    "mixed": {"norm": [(4096, 768, "bfloat16", "bfloat16"), (4096, 768, "float16", "float16")],
+              "attention": (8, 12, 512, 64),
+              "flash": {"name": "triangle", "shape": (256, 4, 256, 32),
+                        "bias": (1, 4, 256, 256), "bias_dtype": "bfloat16"}},
+    # phase 10: 10a/10b against 4a/9a, 10b's resume, 10d card against CPU
+    "bf16": {"loss_rel": 0.02, "resume_rel": 1e-3,
+             "card_vs_cpu": {"loss_rel": 1e-2, "gnorm_rel": 5e-2, "master_rel": 0.1}},
+    "fp16": {"updates": 10,
+             "per_micro_batch": {"fused_norm_fwd": 26, "fused_norm_dx": 26,
+                                 "fused_norm_dwdb": 26, "fullrow_attention_fwd": 0,
+                                 "fullrow_attention_bwd": 0, "softmax_dropout_fwd": 0,
+                                 "softmax_dropout_bwd": 0}},
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -3103,13 +3548,22 @@ REHEARSAL = {
                  "timeout_s": 300, "serve_lengths": [5, 100, 31, 60, 33, 90, 64, 70],
                  "card_vs_cpu": {"updates": 2, "batch": 2,
                                  "lengths": [(128, 128, 0.1), (40, 8, 0.0)]}},
+    "mixed": {"norm": [(33, 64, "bfloat16", "bfloat16"), (33, 64, "float16", "float16")],
+              "attention": (2, 2, 128, 16),
+              "flash": {"name": "triangle", "shape": (16, 2, 128, 16),
+                        "bias": (1, 2, 128, 128), "bias_dtype": "bfloat16"}},
+    "bf16": {"loss_rel": 0.02, "resume_rel": 1e-3,
+             "card_vs_cpu": {"loss_rel": 1e-2, "gnorm_rel": 5e-2, "master_rel": 0.1}},
+    "fp16": {"updates": 10,
+             "per_micro_batch": {"fused_norm_fwd": 6, "fused_norm_dx": 6,
+                                 "fused_norm_dwdb": 6}},
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 9 on the CPU at a tiny size, no card")
+                        help="phases 3 to 10 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -3194,11 +3648,35 @@ def main(argv=None):
         checks["quant_layer_norm"].append(check_quant_norm(torch, dev, N, D, per_channel, iters))
     for c in cfg["quant_softmax"]:
         checks["quant_softmax_dropout_fwd"].append(check_quant_softmax(torch, dev, c, iters))
+    # the inputs of a --bf16 / --fp16 run (phase 10): the norms with their
+    # weight and bias in the run's type, the attention kernels with a bf16
+    # bias, every gradient in its input's type
+    mixed = cfg["mixed"]
+    for N, D, xd, wd in mixed["norm"]:
+        xd, wd = getattr(torch, xd), getattr(torch, wd)
+        for rms in (False, True):
+            checks["fused_norm_fwd"].append(check_norm(torch, dev, N, D, xd, rms, iters, wd))
+            for kname, res in check_norm_bwd(torch, dev, N, D, xd, rms, iters, wd).items():
+                checks[kname].append(res)
+    # (the forward with an fp32 bias at rate 0.1 too: the backward's is in
+    # the loop above, the flash kernels' at "triangle" there)
+    for causal, bias_dtype in ((False, torch.float32), (False, torch.bfloat16),
+                               (True, torch.bfloat16)):
+        checks["fullrow_attention_fwd"].append(check_attention(
+            torch, dev, *mixed["attention"], torch.bfloat16, iters, rate=0.1, causal=causal,
+            bias_dtype=bias_dtype))
+    for causal in (False, True):
+        checks["fullrow_attention_bwd"].append(check_attention_bwd(
+            torch, dev, *mixed["attention"], torch.bfloat16, iters, 0.1, causal=causal,
+            bias_dtype=torch.bfloat16))
+    for kname, res in check_flash(torch, dev, mixed["flash"], torch.bfloat16, iters).items():
+        checks[kname].append(res)
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
     data = write_corpus(cfg)
-    ckpt, train_launches = drive_training(torch, cfg, data, card, smi)
+    ckpt, train_stats = drive_training(torch, cfg, data, card, smi)
+    train_launches = train_stats["kernel_launches"]
     log(f"phase 4a done at {time.monotonic() - started:.0f}s")
     drive_card_vs_cpu(torch, cfg, data)
     log(f"phase 4b done at {time.monotonic() - started:.0f}s")
@@ -3239,7 +3717,8 @@ def main(argv=None):
     # 9. causal-LM training through the CLI with validation, the EMA and
     # checkpoints (9a), resumed mid-epoch (9b), served (9c), card against
     # CPU (9d)
-    lm_dir, lm_train_launches = drive_lm_training(torch, cfg, data, card, smi)
+    lm_dir, lm_stats = drive_lm_training(torch, cfg, data, card, smi)
+    lm_train_launches = lm_stats["kernel_launches"]
     log(f"phases 9a-9b done at {time.monotonic() - started:.0f}s")
     lm_serve_launches = drive_decode_serving(
         torch, cfg, lm_dir / "checkpoint_last.pt", lm, card, smi, "fp32",
@@ -3247,6 +3726,18 @@ def main(argv=None):
     log(f"phase 9c done at {time.monotonic() - started:.0f}s")
     drive_lm_card_vs_cpu(torch, cfg, data)
     log(f"phase 9d done at {time.monotonic() - started:.0f}s")
+
+    # 10. mixed precision: BERT-base in bf16 with SR against 4a (10a), the
+    # LM in bf16 against 9a and resumed (10b), fp16 with the loss scale
+    # (10c), bf16 card against CPU for the four families (10d)
+    bf16_launches = drive_bf16_training(torch, cfg, data, train_stats, card, smi)
+    log(f"phase 10a done at {time.monotonic() - started:.0f}s")
+    lm_bf16_launches = drive_lm_bf16_training(torch, cfg, data, lm_stats, card, smi)
+    log(f"phase 10b done at {time.monotonic() - started:.0f}s")
+    fp16_launches = drive_fp16_training(torch, cfg, data, card, smi)
+    log(f"phase 10c done at {time.monotonic() - started:.0f}s")
+    drive_bf16_card_vs_cpu(torch, cfg, data, um_data, evo_data)
+    log(f"phase 10d done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
@@ -3262,7 +3753,9 @@ def main(argv=None):
                "unimol_train": unimol_launches, "evoformer_train": evoformer_launches,
                "decode_serve": decode_launches, "decode_serve_int8": decode8_launches,
                "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
-               "lm_train": lm_train_launches, "lm_serve": lm_serve_launches}
+               "lm_train": lm_train_launches, "lm_serve": lm_serve_launches,
+               "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
+               "fp16_train": fp16_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

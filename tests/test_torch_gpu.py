@@ -18,7 +18,11 @@ per-channel scale; the int8/int32 softmax with every extra layout and
 dropout) and their refusals; plus the wrappers'
 refusals; the full-row forward and backward at the causal LM's attention
 (the rel-pos bias plus the causal triangle as one bias that needs a
-gradient, dbias exactly 0 above the diagonal); and a tiny BERT, a tiny
+gradient, dbias exactly 0 above the diagonal); the mixed-precision inputs
+of a ``--bf16`` / ``--fp16`` run (the norms with bf16 and fp16 x, weight
+and bias; the full-row and flash kernels with a bf16 bias, dbias returned
+in bf16; the stochastic rounding on a card tensor, unbiased and the same
+bits from a generator with the same seed); and a tiny BERT, a tiny
 Uni-Mol and a 2-block Evoformer on the card
 against the same weights on the CPU, their outputs and every parameter's
 gradient, and a 2-layer full-width ``transformer_lm`` whose incremental
@@ -70,7 +74,8 @@ flash) / 1e-5 (norm, softmax) of the reference's largest magnitude (at
 least 1) — both backwards recompute p from the forward's lse, and the
 full-row dbias is a sum added by atomics in an order that changes from run
 to run — plus two bf16 ulps of the
-element (2**-6 of it) where the output is stored in bf16, plus for the
+element (2**-6 of it) where the output is stored in bf16 (two fp16 ulps,
+2**-9 of it, in fp16), plus for the
 attention backward in bf16 ``bwd_rounding_slack`` (pd and ds may round to
 neighbouring bf16 values).  BERT gradients: 1e-4 relative to each
 tensor's largest magnitude, card vs CPU.
@@ -94,6 +99,7 @@ TOL = {
 }
 GRAD_TOL = {"attention": 1e-4, "norm": 1e-5, "softmax": 1e-5}
 BF16_ULPS = 2.0 ** -6
+FP16_ULPS = 2.0 ** -9
 
 
 def _rel_err(got, ref):
@@ -107,6 +113,8 @@ def _grad_over_tol(got, ref, floor, slack=0.0):
     tol = floor * max(1.0, ref.abs().max().item()) + slack
     if got.dtype == torch.bfloat16:
         tol = tol + BF16_ULPS * ref.abs()
+    elif got.dtype == torch.float16:
+        tol = tol + FP16_ULPS * ref.abs()
     return ((got.float() - ref).abs() / tol).max().item()
 
 
@@ -179,8 +187,8 @@ def test_launch_counters_and_refusals(cuda):
         fr.fullrow_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="contiguous"):
         fr.fullrow_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
-    with pytest.raises(ValueError, match="fp32"):
-        fn.fused_layer_norm(x, w.half(), None)
+    with pytest.raises(ValueError, match="fp32, bf16 or fp16"):
+        fn.fused_layer_norm(x, w.double(), None)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fn.fused_layer_norm(x, w.cpu(), None)
     with pytest.raises(ValueError, match="dropout rate"):
@@ -705,7 +713,7 @@ def test_flash_dropout_mask_is_the_fullrow_one(cuda):
 
 def test_flash_refusals(cuda):
     """A CUDA call launches the kernels or raises: CPU tensors mixed in,
-    fp16, a bias that is not fp32."""
+    fp16, a bias that is neither fp32 nor bf16, a bf16 bias with fp32 q."""
     from unicore_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(2, 2, 128, 32, device=cuda)
@@ -715,6 +723,8 @@ def test_flash_refusals(cuda):
         fa.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="bias must be fp32"):
         fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 128, 128, device=cuda).half())
+    with pytest.raises(ValueError, match="bias must be fp32, or bf16 with bf16"):
+        fa.flash_attention(q, q, q, bias=torch.zeros(1, 2, 128, 128, device=cuda).bfloat16())
 
 
 def test_tiny_evoformer_gradients_on_card_match_cpu(cuda):
@@ -1135,3 +1145,125 @@ def test_tiny_bert_quantized_on_card_matches_cpu(cuda):
         agree = (card.argmax(-1) == cpu.argmax(-1)).float().mean().item()
         assert agree >= 0.99, (mode, agree)
         assert qm.LAUNCHES.count == counts["quant_matmul"]
+
+
+# ---------------------------------------------------------------------------
+# the mixed-precision inputs of a --bf16 / --fp16 run
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("N,D", [(5, 33), (4096, 768)])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("xdtype,wdtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.float16, torch.float16),
+                                           (torch.float32, torch.bfloat16)])
+def test_norm_low_precision_weights_match_plain(cuda, N, D, rms, xdtype, wdtype):
+    """The norm kernels with the weight and bias in bf16 or fp16 (and fp16
+    x): forward, dx and dw/db against the plain version, the gradients in
+    their parameter's type (dw, db summed in fp32, then cast)."""
+    g = torch.Generator(device=cuda).manual_seed(N + D)
+    x = (torch.randn(2, N, D, generator=g, device=cuda) * 2 + 0.5).to(xdtype)
+    dy = torch.randn(2, N, D, generator=g, device=cuda).to(xdtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    b = None if rms else (0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    eps = 1e-6 if rms else 1e-5
+
+    def run(fwd):
+        xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        bs = None if b is None else b.clone().requires_grad_(True)
+        out = fwd(xs, ws, bs)
+        out.backward(dy)
+        return out.detach(), [xs.grad, ws.grad] + ([] if bs is None else [bs.grad])
+
+    _kernels.reset_launch_counts()
+    out, got = run(lambda x, w, b: fn.fused_rms_norm(x, w, eps) if rms
+                   else fn.fused_layer_norm(x, w, b, eps))
+    assert (fn.LAUNCHES.count, fn.DX_LAUNCHES.count, fn.DWDB_LAUNCHES.count) == (1, 1, 1)
+    ref_out, ref = run(lambda x, w, b: fn.fused_norm_plain(x, w, b, eps, rms))
+    tol = TOL["norm"][torch.bfloat16] if xdtype != torch.float32 else TOL["norm"][xdtype]
+    assert out.dtype == xdtype and _rel_err(out, ref_out) <= tol
+    for name, gk, gr, want in zip(("dx", "dw", "db"), got, ref, (xdtype, wdtype, wdtype)):
+        assert gk.dtype == gr.dtype == want, name
+        ratio = _grad_over_tol(gk, gr, GRAD_TOL["norm"])
+        assert ratio <= 1.0, (name, ratio)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_bf16_bias_matches_plain(cuda, causal):
+    """BERT-base's and the LM's attention in a --bf16 run: (8, 12, 512, 64)
+    bf16 with a bf16 rel-pos bias (plus the causal triangle), the key mask
+    and dropout 0.1; forward, dq, dk, dv and dbias (bf16) against the plain
+    versions on the same bf16 bias, and with the triangle dbias exactly 0
+    above the diagonal."""
+    from unicore_tpu_torch.modules.transformer_decoder import CAUSAL_NEG
+
+    B, H, L, D = 8, 12, 512, 64
+    q, k, v, do, rel, mask = _attention_inputs(cuda, B, H, L, L, D, H, torch.bfloat16,
+                                               seed=13)
+    bias = rel
+    if causal:
+        bias = rel + torch.triu(torch.full((L, L), CAUSAL_NEG, device=cuda), 1)
+    bias = bias.to(torch.bfloat16)
+    kw = dict(dropout_rate=0.1, sm_scale=0.125, dropout_seed=21)
+    _kernels.reset_launch_counts()
+    out, grads = _attention_grads(
+        lambda q, k, v, b, m, **a: fr.fullrow_attention(q, k, v, bias=b,
+                                                       kv_padding_mask=m, **a),
+        q, k, v, do, bias, mask, **kw)
+    assert fr.LAUNCHES.count == 1 and fr.BWD_LAUNCHES.count == 1
+    ref_out = fr.fullrow_attention_plain(q, k, v, bias, mask, 0.125, 0.1, 21)
+    assert _rel_err(out, ref_out) <= TOL["attention"][torch.bfloat16]
+    args = (q, k, v, bias, mask, do, 0.125, 0.1, 21)
+    ref_grads = fr.fullrow_attention_bwd_plain(*args)
+    slack = [*fr.bwd_rounding_slack(*args), 0.0]
+    assert grads[3].dtype == torch.bfloat16
+    for name, got, ref, s in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads, slack):
+        ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
+        assert ratio <= 1.0, (name, ratio)
+    if causal:
+        above = torch.triu(torch.ones(L, L, dtype=torch.bool, device=cuda), 1)
+        assert int((grads[3][:, :, above] != 0).sum()) == 0
+
+
+def test_flash_bf16_bias_matches_plain(cuda):
+    """The Evoformer's triangle attention in a --bf16 run: (256, 4, 256, 32)
+    bf16 with a bf16 (1, 4, 256, 256) bias and the key mask; forward, dq,
+    dk, dv and dbias (bf16) against the plain versions on the same bias."""
+    from unicore_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do, bias, mask = _flash_inputs(cuda, 256, 4, 256, 256, 32, (1, 4, 256, 256),
+                                            True, torch.bfloat16, seed=3)
+    bias = bias.to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    out = fa.flash_attention(*leaves[:3], bias=leaves[3], kv_padding_mask=mask,
+                             sm_scale=0.7)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_out, _ = fa.flash_attention_fwd_plain(q, k, v, bias, mask, 0.7)
+    assert _rel_err(out, ref_out) <= TOL["attention"][torch.bfloat16]
+    _, klse = fa._launch_fwd(q, k, v, bias, mask, 0.7, 0.0, 0)
+    args = (q, k, v, bias, mask, out.detach(), klse, do, 0.7)
+    ref_grads = fa.flash_attention_bwd_plain(*args)
+    slack = [*fa.bwd_rounding_slack(*args), 0.0]
+    assert grads[3].dtype == torch.bfloat16
+    for name, got, ref, s in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads, slack):
+        ratio = _grad_over_tol(got, ref, GRAD_TOL["attention"], s)
+        assert ratio <= 1.0, (name, ratio)
+
+
+def test_stochastic_rounding_on_the_card(cuda):
+    """``fp32_to_bf16_sr`` on a card tensor: every output one of the two bf16
+    neighbours, the mean of 1024 draws within 3 sigma of the input, and the
+    same bits from two generators with the same seed."""
+    from unicore_tpu_torch.ops.rounding import fp32_to_bf16_sr
+
+    x = torch.randn(4096, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    draws = torch.stack([fp32_to_bf16_sr(x, g).float() for _ in range(1024)])
+    cut = x.view(torch.int32) & ~0xFFFF
+    lo, hi = cut.view(torch.float32), (cut + 0x10000).view(torch.float32)
+    assert bool(((draws == lo) | (draws == hi)).all())
+    sigma = (hi - lo).abs() / 2 / 1024 ** 0.5
+    assert bool(((draws.mean(0) - x).abs() <= 3 * sigma + 1e-12).float().mean() >= 0.995)
+    a = fp32_to_bf16_sr(x, torch.Generator(device=cuda).manual_seed(9))
+    b = fp32_to_bf16_sr(x, torch.Generator(device=cuda).manual_seed(9))
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``unicore_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, Flax, Optax or anything of the JAX package
-``unicore_tpu`` — checked statically over the source, and dynamically by
+``unicore_tpu``, nor ``ml_dtypes`` (JAX's numpy bf16 type: the port reads
+bf16 arrays by their bits) — checked statically over the source, and dynamically by
 importing the server entry point with those names blocked."""
 
 import ast
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "unicore_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "unicore_tpu")
 
 
 def _forbidden(name: str) -> bool:

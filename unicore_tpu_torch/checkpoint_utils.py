@@ -326,7 +326,10 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
       final_layer_norm, fc1, fc2}`` and the top-level ``out_bias`` map by
       the rules above (a JAX ``transformer_lm`` has no cross-attention
       parameters, and the port's decoder layer creates none), so the
-      result loads with ``load_state_dict(strict=True)``.
+      result loads with ``load_state_dict(strict=True)``;
+    - float leaves keep their type where torch has it: a bf16 leaf (a JAX
+      ``--bf16`` run's) is a bf16 tensor of the same bits, read without
+      ``ml_dtypes``; fp16 stays fp16; the rest is fp32.
     """
     params = variables["params"] if "params" in variables else variables
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
@@ -353,12 +356,22 @@ def from_jax_params(variables: Mapping[str, Any]) -> "OrderedDict[str, torch.Ten
                 key, arr = "weight", arr.T
             elif key == "embedding":
                 key = "weight"
-            out[".".join(prefix + [key])] = torch.from_numpy(
-                np.array(arr, dtype=np.float32)  # a writable copy
-            )
+            out[".".join(prefix + [key])] = _float_tensor(arr)
 
     walk(params, [])
     return out
+
+
+def _float_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A JAX float leaf as a torch tensor of its own type: bf16 (an
+    ``ml_dtypes`` array, which ``torch.from_numpy`` does not take) through
+    its 16-bit pattern, fp16 as is, anything else as fp32; always a copy."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    if arr.dtype == np.float16:
+        return torch.from_numpy(np.array(arr, dtype=np.float16))
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 
 def _quantized_kernel(arr: np.ndarray) -> torch.Tensor:

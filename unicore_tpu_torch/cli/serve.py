@@ -26,8 +26,11 @@ Boot sequence, each stage with the JAX server's failure exit code:
    in-flight batches flush under ``--drain-deadline``, exit **0**; a blown
    drain budget exits **77**; a second signal aborts (also 77).
 
-Precision is fp32 end to end, as the JAX server runs at checkpoint
-precision: TF32 is switched off for matmuls and convolutions.  Quantized
+Precision is fp32 end to end: TF32 is switched off for matmuls and
+convolutions.  A checkpoint of a ``--bf16`` or ``--fp16`` run holds its
+weights in that type; they load into the fp32 model by an exact upcast,
+and the log says so.  (The JAX server applies such weights in their own
+type; serving in the checkpoint's dtype is not ported yet.)  Quantized
 serving changes only what ``--serve-quantize`` names.
 """
 
@@ -94,6 +97,8 @@ def resolve_device(name: str):
 def load_serving_model(args, device):
     """Checkpoint load + model/task rebuild from the saved args.  Any
     failure here is exit 76 territory — there is nothing to serve."""
+    import torch
+
     from unicore_tpu_torch import checkpoint_utils, tasks
 
     state = checkpoint_utils.load_checkpoint_to_cpu(args.path)
@@ -110,6 +115,11 @@ def load_serving_model(args, device):
         raise ValueError(f"checkpoint {args.path} holds no model weights")
     task = tasks.setup_task(ckpt_args)
     model = task.build_model(ckpt_args)
+    low = sorted({str(t.dtype).replace("torch.", "") for t in weights.values()
+                  if t.dtype in (torch.bfloat16, torch.float16)})
+    if low:
+        logger.info(f"checkpoint weights in {', '.join(low)}: upcast exactly to "
+                    "the fp32 model")
     model.load_state_dict(weights)
     model = model.to(device).eval()
     pad_idx = task.dictionary.pad()

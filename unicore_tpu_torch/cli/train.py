@@ -28,12 +28,17 @@ loss over the summed sample size, in bits) and lrs, every validation's
 loss (``valid_losses``: the best-checkpoint metric as the JAX CLI rounds
 it; ``validations``: each with its update and unrounded loss), the best
 score, step times, real (non-pad) tokens/s (MSA tokens for the
-Evoformer), samples/s, peak device memory and the launch count of every
-kernel.
+Evoformer), samples/s, peak device memory, the launch count of every
+kernel, the compute ``dtype``, ``bf16_sr``, the loss scale of each update
+(``loss_scale``; 1.0 outside ``--fp16``), each update's gradient norm
+(non-finite where it overflowed) and the overflowed updates.
 
 ``--device cuda`` (the default) needs a visible CUDA card and exits 76
 naming the missing card; ``--device cpu`` is the explicit CPU run (the
-kernels' plain versions).  Precision is fp32 with TF32 off, as the server.
+kernels' plain versions).  Precision is fp32 with TF32 off, as the
+server, unless ``--bf16`` / ``--fp16`` (``Trainer``); then cuBLAS is told
+to keep its reductions of bf16 and fp16 products in fp32, as the TPU's
+matrix unit accumulates.
 The JAX CLI's signal guard, elastic restarts, telemetry and prefetch are
 not ported.
 """
@@ -199,14 +204,17 @@ def train_epoch(args, session, epoch_itr):
     stop = False
     for samples in itr:
         gnorm = trainer.train_step(samples)
+        trainer.flush_metrics()
         num_updates = trainer.get_num_updates()
         if num_updates % args.log_interval == 0:
             stats = metrics.get_smoothed_values("train_inner")
+            scale = (f" | loss_scale {stats['loss_scale']:.4f}"
+                     if "loss_scale" in stats else "")
             logger.info(
                 f"epoch {epoch:03d} | update {num_updates} | loss "
                 f"{stats['loss']:.3f} | lr {trainer.get_lr():.6g} | gnorm "
                 f"{gnorm:.3f} | bsz {stats.get('bsz', 0):.0f} | step "
-                f"{trainer.step_ms[-1]:.1f} ms"
+                f"{trainer.step_ms[-1]:.1f} ms{scale}"
             )
             metrics.reset_meters("train_inner")
         _, stop = session.checkpoint_and_validate(epoch_itr,
@@ -280,6 +288,10 @@ def main(args, device) -> dict:
     assert args.batch_size is not None, "Must specify --batch-size"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.bf16 or args.fp16:
+        # bf16/fp16 products summed in fp32, as the TPU's matrix unit does
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     np.random.seed(args.seed)
     metrics.reset()
     checkpoint_utils.set_best_score(None)
@@ -333,6 +345,11 @@ def main(args, device) -> dict:
         "kernel_launches": _kernels.launch_counts(),
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
+        "dtype": str(trainer.compute_dtype).replace("torch.", ""),
+        "bf16_sr": bool(args.bf16_sr) and trainer.compute_dtype == torch.bfloat16,
+        "loss_scale": trainer.update_loss_scales,
+        "gnorm_per_update": trainer.update_gnorms,
+        "overflows": trainer.overflows,
         "wall_s": wall,
     }
     logger.info(f"done training in {wall:.1f} seconds")

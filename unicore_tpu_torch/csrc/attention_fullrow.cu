@@ -21,10 +21,13 @@
 //             bias is shared across heads), in fp32.  bf16 inputs round pd
 //             and ds to bf16 before the products, as the TPU kernel does.
 // q, k, v, o, do, dq are (B, H, L, D) fp32 or bf16; bias is (1, 1|H, Lq, Lk)
-// fp32; the key mask is (B, Lk) int32, nonzero = masked.  Lq, Lk are
-// multiples of 128 up to 1024 and D <= 128, as the shared `supported()`
-// gate routes (the kernels take multiples of 64; D is zero-padded to 16,
-// 32, 64 or 128 in shared memory).
+// fp32, or bf16 with bf16 inputs (a --bf16 run's rel-pos table; a template
+// argument, TB: read in place, widened on load); dbias is summed in fp32
+// whatever the bias's type (the wrapper returns it in that type); the key
+// mask is (B, Lk) int32, nonzero = masked.  Lq, Lk are multiples of 128 up
+// to 1024 and D <= 128, as the shared `supported()` gate routes (the
+// kernels take multiples of 64; D is zero-padded to 16, 32, 64 or 128 in
+// shared memory).
 //
 // Dropout: the TPU stream (pltpu.prng_random_bits) cannot be reproduced off
 // the TPU, so the keep bits come from Philox4x32-10 (common.cuh) keyed on
@@ -120,18 +123,18 @@ struct Geom {
 
 // the body is attention_fwd.cuh's, shared with the flash forward: the key
 // mask staged whole (Lk <= 1024), lse only for a backward
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kThreads)
 fullrow_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ bias, const int* __restrict__ mask,
+                   const TB* __restrict__ bias, const int* __restrict__ mask,
                    T* __restrict__ o, float* __restrict__ lse, Geom gm, Dropout dr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = gm.D, Lk = gm.Lk;
   const size_t bh = (size_t)b * gm.H + h;
-  const float* slab =
+  const TB* slab =
       bias == nullptr ? nullptr : bias + (size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq * Lk;
-  attention_fwd_block<T, DP, false>(
+  attention_fwd_block<T, TB, DP, false>(
       q + (bh * gm.Lq + q0) * D, k + bh * Lk * D, v + bh * Lk * D,
       mask == nullptr ? nullptr : mask + (size_t)b * Lk, slab, o + (bh * gm.Lq + q0) * D,
       lse == nullptr ? nullptr : lse + bh * gm.Lq + q0, Lk, D, gm.sm_scale, dr, b, h, q0,
@@ -148,10 +151,10 @@ size_t dq_smem_bytes(int Lk) {
          sizeof(float) * 2 * kTile;
 }
 
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kThreads)
 fullrow_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const float* __restrict__ bias, const int* __restrict__ mask,
+                  const TB* __restrict__ bias, const int* __restrict__ mask,
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ di_out,
                   T* __restrict__ dq, float* __restrict__ db, Geom gm, Dropout dr) {
@@ -199,7 +202,7 @@ fullrow_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int row = q0 + warp * 16 + g;
   const int lrow = warp * 16 + g;  // row within the block's tile
   const size_t brow_off = ((size_t)(gm.bias_heads > 1 ? h : 0) * gm.Lq + row) * Lk;
-  const float* brow = bias == nullptr ? nullptr : bias + brow_off;
+  const TB* brow = bias == nullptr ? nullptr : bias + brow_off;
   float* dbrow = db == nullptr ? nullptr : db + brow_off;
 
   float dqa[NO][4];
@@ -339,10 +342,10 @@ size_t dkv_smem_bytes() {
   return sizeof(T) * (size_t)(2 * kTile + 4 * TQ) * tile_ld<T>(DP) + sizeof(float) * 4 * TQ;
 }
 
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kThreads)
 fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ bias, const int* __restrict__ mask,
+                   const TB* __restrict__ bias, const int* __restrict__ mask,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ di, float* __restrict__ dk,
                    float* __restrict__ dv, Geom gm, Dropout dr) {
@@ -390,7 +393,7 @@ fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     masked[0] = mask[(size_t)b * Lk + key] != 0;
     masked[1] = mask[(size_t)b * Lk + key + 8] != 0;
   }
-  const float* bcol =
+  const TB* bcol =
       bias == nullptr ? nullptr
                       : bias + (size_t)(gm.bias_heads > 1 ? h : 0) * Lq * Lk + key;
 
@@ -413,7 +416,8 @@ fullrow_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       for (int e = 0; e < 4; ++e)
         bv[n][e] = bcol == nullptr
                        ? 0.f
-                       : bcol[(size_t)(qt0 + n * 8 + 2 * t + (e & 1)) * Lk + 8 * (e >> 1)];
+                       : to_f(bcol[(size_t)(qt0 + n * 8 + 2 * t + (e & 1)) * Lk +
+                                   8 * (e >> 1)]);
     cp_async_wait<1>();
     __syncthreads();
     const T* cQ = sQ + st * TQ * LD;
@@ -503,115 +507,114 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 cudaError_t launch_fwd_dp(const void* q, const void* k, const void* v, const void* bias,
                           const void* mask, void* o, void* lse, const Geom& g, Dropout dr,
                           cudaStream_t stream) {
   const size_t smem = attention_fwd_smem<T, DP, false>(g.Lk);
-  auto kernel = fullrow_fwd_kernel<T, DP>;
+  auto kernel = fullrow_fwd_kernel<T, TB, DP>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(g.Lq / kTile, g.H, g.B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const int*>(mask), static_cast<T*>(o),
+      static_cast<const TB*>(bias), static_cast<const int*>(mask), static_cast<T*>(o),
       static_cast<float*>(lse), g, dr);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 cudaError_t launch_bwd_dp(const void* q, const void* k, const void* v, const void* bias,
                           const void* mask, const void* o, const void* dout, const void* lse,
                           void* di, void* dq, void* dk, void* dv, void* db, const Geom& g,
                           Dropout dr, cudaStream_t stream) {
   const size_t smem1 = dq_smem_bytes<T, DP>(g.Lk);
-  auto k1 = fullrow_dq_kernel<T, DP>;
+  auto k1 = fullrow_dq_kernel<T, TB, DP>;
   cudaError_t err = allow_smem(k1, smem1);
   if (err != cudaSuccess) return err;
   k1<<<dim3(g.Lq / kTile, g.H, g.B), kThreads, smem1, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const int*>(mask),
+      static_cast<const TB*>(bias), static_cast<const int*>(mask),
       static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<float*>(di), static_cast<T*>(dq), static_cast<float*>(db), g, dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem2 = dkv_smem_bytes<T, DP>();
-  auto k2 = fullrow_dkv_kernel<T, DP>;
+  auto k2 = fullrow_dkv_kernel<T, TB, DP>;
   err = allow_smem(k2, smem2);
   if (err != cudaSuccess) return err;
   k2<<<dim3(g.Lk / kTile, g.H, g.B), kThreads, smem2, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(bias), static_cast<const int*>(mask),
+      static_cast<const TB*>(bias), static_cast<const int*>(mask),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), g, dr);
   return cudaGetLastError();
 }
 
 // the head dim padded to a multiple of the bf16 mma's k (16): 16, 32, 64, 128
-template <typename T>
+template <typename T, typename TB>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* mask, void* o, void* lse, const Geom& g, Dropout dr,
                        cudaStream_t s) {
-  if (g.D <= 16) return launch_fwd_dp<T, 16>(q, k, v, bias, mask, o, lse, g, dr, s);
-  if (g.D <= 32) return launch_fwd_dp<T, 32>(q, k, v, bias, mask, o, lse, g, dr, s);
-  if (g.D <= 64) return launch_fwd_dp<T, 64>(q, k, v, bias, mask, o, lse, g, dr, s);
-  return launch_fwd_dp<T, 128>(q, k, v, bias, mask, o, lse, g, dr, s);
+  if (g.D <= 16) return launch_fwd_dp<T, TB, 16>(q, k, v, bias, mask, o, lse, g, dr, s);
+  if (g.D <= 32) return launch_fwd_dp<T, TB, 32>(q, k, v, bias, mask, o, lse, g, dr, s);
+  if (g.D <= 64) return launch_fwd_dp<T, TB, 64>(q, k, v, bias, mask, o, lse, g, dr, s);
+  return launch_fwd_dp<T, TB, 128>(q, k, v, bias, mask, o, lse, g, dr, s);
 }
 
-template <typename T>
+template <typename T, typename TB>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* mask, const void* o, const void* dout, const void* lse,
                        void* di, void* dq, void* dk, void* dv, void* db, const Geom& g,
                        Dropout dr, cudaStream_t s) {
   if (g.D <= 16)
-    return launch_bwd_dp<T, 16>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+    return launch_bwd_dp<T, TB, 16>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
                                 s);
   if (g.D <= 32)
-    return launch_bwd_dp<T, 32>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+    return launch_bwd_dp<T, TB, 32>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
                                 s);
   if (g.D <= 64)
-    return launch_bwd_dp<T, 64>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+    return launch_bwd_dp<T, TB, 64>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
                                 s);
-  return launch_bwd_dp<T, 128>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
+  return launch_bwd_dp<T, TB, 128>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
                                s);
 }
 
 }  // namespace
 
 // lse: fp32 (B, H, Lq) row statistics for a backward, or null (serving).
+// dtype: q/k/v/o's type code; bias_dtype: the bias's (fp32 or bf16).
 extern "C" int unicore_fullrow_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     void* o, void* lse, int B, int H, int Lq, int Lk, int D, int bias_heads, float sm_scale,
-    int dropout, int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
+    int dropout, int seed, unsigned threshold, float keep_scale, int dtype, int bias_dtype,
+    void* stream) {
   const Geom g{B, H, Lq, Lk, D, bias_heads, sm_scale};
   if (bad_geometry(g)) return (int)cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return (int)launch_fwd<float>(q, k, v, bias, mask, o, lse, g, dr, s);
-  if (dtype == kBFloat16)
-    return (int)launch_fwd<__nv_bfloat16>(q, k, v, bias, mask, o, lse, g, dr, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_attention(dtype, bias_dtype, [&](auto qt, auto bt) {
+    return launch_fwd<typename decltype(qt)::type, typename decltype(bt)::type>(
+        q, k, v, bias, mask, o, lse, g, dr, s);
+  });
 }
 
 // Two launches: di, dq and dbias, then dk and dv.  o and lse are the
 // forward's output and row statistics; di: fp32 (B, H, Lq) scratch; dq in
 // the inputs' type; dk, dv: fp32 (B, H, Lk, D), written (no zeroing
 // needed); db: fp32 (1, bias_heads, Lq, Lk) zeroed by the caller (the
-// kernel adds into it), or null.
+// kernel adds into it, whatever the bias's type), or null.
 extern "C" int unicore_fullrow_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     const void* o, const void* dout, const void* lse, void* di, void* dq, void* dk, void* dv,
     void* db, int B, int H, int Lq, int Lk, int D, int bias_heads, float sm_scale, int dropout,
-    int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
+    int seed, unsigned threshold, float keep_scale, int dtype, int bias_dtype, void* stream) {
   const Geom g{B, H, Lq, Lk, D, bias_heads, sm_scale};
   if (bad_geometry(g) || lse == nullptr || o == nullptr || (db != nullptr && bias == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout dr = make_dropout(dropout, seed, threshold, keep_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return (int)launch_bwd<float>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr,
-                                  s);
-  if (dtype == kBFloat16)
-    return (int)launch_bwd<__nv_bfloat16>(q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv,
-                                          db, g, dr, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_attention(dtype, bias_dtype, [&](auto qt, auto bt) {
+    return launch_bwd<typename decltype(qt)::type, typename decltype(bt)::type>(
+        q, k, v, bias, mask, o, dout, lse, di, dq, dk, dv, db, g, dr, s);
+  });
 }

@@ -52,13 +52,13 @@ size_t attention_fwd_smem(int Lk) {
 
 // The block's 64 rows.  qt: its query rows (row-major, D wide); kb, vb: the
 // (batch, head)'s Lk keys and values; mrow: the batch's key mask (Lk int32,
-// nonzero = masked) or null; slab: the (batch, head)'s (Lq, Lk) bias or
-// null; ot: the block's output rows; lse_t: the block's 64 row statistics
+// nonzero = masked) or null; slab: the (batch, head)'s (Lq, Lk) bias (TB:
+// fp32 or bf16) or null; ot: the block's output rows; lse_t: the block's 64 row statistics
 // or null.  b, h, q0: the dropout counter's batch, head and first query row.
-template <typename T, int DP, bool kFlash>
+template <typename T, typename TB, int DP, bool kFlash>
 __device__ __forceinline__ void attention_fwd_block(
     const T* __restrict__ qt, const T* __restrict__ kb, const T* __restrict__ vb,
-    const int* __restrict__ mrow, const float* __restrict__ slab, T* __restrict__ ot,
+    const int* __restrict__ mrow, const TB* __restrict__ slab, T* __restrict__ ot,
     float* __restrict__ lse_t, int Lk, int D, float sm_scale, const Dropout& dr, int b, int h,
     int q0, unsigned char* smem_raw) {
   using M = Mma<T>;
@@ -89,7 +89,7 @@ __device__ __forceinline__ void attention_fwd_block(
   }
 
   const int row = q0 + warp * 16 + g;  // this lane's rows: row, row + 8
-  const float* brow = slab == nullptr ? nullptr : slab + (size_t)row * Lk;
+  const TB* brow = slab == nullptr ? nullptr : slab + (size_t)row * Lk;
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)

@@ -6,19 +6,22 @@
 #include <cstdint>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace unicore {
 
 // dtype codes the Python wrappers pass (0 = float32, 1 = bfloat16; the
-// quantized inputs 2 = int8, 3 = int32)
+// quantized inputs 2 = int8, 3 = int32; 4 = float16, the norms' --fp16 type)
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 constexpr int kInt8 = 2;
 constexpr int kInt32 = 3;
+constexpr int kFloat16 = 4;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
 // round to nearest even, as XLA's and torch's int32 -> fp32 converts
 __device__ __forceinline__ float to_f(int32_t x) { return __int2float_rn(x); }
@@ -27,6 +30,43 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// A type as a value, for dispatching a run-time dtype code to a template
+template <typename T> struct Tag { using type = T; };
+
+// f(Tag<T>{}) for the float type T of `dtype` (fp32, bf16 or fp16)
+template <typename F>
+cudaError_t dispatch_float(int dtype, F&& f) {
+  if (dtype == kFloat32) return f(Tag<float>{});
+  if (dtype == kBFloat16) return f(Tag<__nv_bfloat16>{});
+  if (dtype == kFloat16) return f(Tag<__half>{});
+  return cudaErrorInvalidValue;
+}
+
+// Two neighbouring elements of an attention bias (p even-aligned), fp32 or
+// bf16, widened to fp32: a bf16 bias is read in place at half the bytes.
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// f(Tag<T>{}, Tag<TB>{}) for the attention kernels' q type T of `dtype`
+// (fp32 or bf16) and bias type TB of `bias_dtype`: fp32 with either, bf16
+// with bf16 q (a --bf16 run casts both)
+template <typename F>
+cudaError_t dispatch_attention(int dtype, int bias_dtype, F&& f) {
+  if (dtype == kFloat32 && bias_dtype == kFloat32) return f(Tag<float>{}, Tag<float>{});
+  if (dtype == kBFloat16 && bias_dtype == kFloat32)
+    return f(Tag<__nv_bfloat16>{}, Tag<float>{});
+  if (dtype == kBFloat16 && bias_dtype == kBFloat16)
+    return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
 }
 
 // x rounded to T and back: what a product in T sees of an fp32 value

@@ -29,7 +29,9 @@
 //             dbias = the fp32 ds summed over the R = B / Bb batches of each
 //             bias group, and over the heads when Hb == 1.
 // q, k, v, out, do, dq, dk, dv: (B, H, L, D) fp32 or bf16; bias (Bb, 1|H,
-// Lq, Lk) fp32; the key mask (B, Lk) int32, nonzero = masked; lse and di
+// Lq, Lk) fp32, or bf16 with bf16 inputs (a template argument, TB: read in
+// place, widened on load; dbias summed in fp32 whatever its type); the key
+// mask (B, Lk) int32, nonzero = masked; lse and di
 // (B, H, Lq) fp32.  Lq, Lk multiples of 64 (the Python wrapper asks for 128,
 // the TPU kernel's tiling; the router pads), D <= 128.
 //
@@ -130,8 +132,8 @@ struct Geom {
 };
 
 // the (Lq, Lk) bias slab batch b and head h read
-__device__ __forceinline__ const float* bias_slab(const float* bias, const Geom& g, int b,
-                                                  int h) {
+template <typename TB>
+__device__ __forceinline__ const TB* bias_slab(const TB* bias, const Geom& g, int b, int h) {
   if (bias == nullptr) return nullptr;
   const int group = b / (g.B / g.Bb);
   return bias + ((size_t)group * g.Hb + (g.Hb > 1 ? h : 0)) * g.Lq * g.Lk;
@@ -146,17 +148,17 @@ __device__ __forceinline__ const float* bias_slab(const float* bias, const Geom&
 // lse always.  At DP = 32 (the Evoformer's head dim) four blocks an SM
 // (<= 128 registers), as the dq launch: fp32 triangle 0.254 ms against
 // 0.268 with no hint and 0.265 with three (tools/fwd_ab.py)
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kFwdThreads, DP == 32 ? 4 : 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ bias, const int* __restrict__ mask,
+                 const TB* __restrict__ bias, const int* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, Geom g, float sm_scale,
                  Dropout dr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int D = g.D, Lk = g.Lk;
   const size_t bh = (size_t)b * g.H + h;
-  attention_fwd_block<T, DP, true>(
+  attention_fwd_block<T, TB, DP, true>(
       q + (bh * g.Lq + q0) * D, k + bh * Lk * D, v + bh * Lk * D,
       mask == nullptr ? nullptr : mask + (size_t)b * Lk, bias_slab(bias, g, b, h),
       o + (bh * g.Lq + q0) * D, lse + bh * g.Lq + q0, Lk, D, sm_scale, dr, b, h, q0, smem_raw);
@@ -173,10 +175,10 @@ size_t dq_smem_bytes() {
 
 // at DP = 32 (the Evoformer's head dim) four blocks an SM (<= 128
 // registers) measured 5% faster; larger DP spill there
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kBwdThreads, DP == 32 ? 4 : 1)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const float* __restrict__ bias, const int* __restrict__ mask,
+                const TB* __restrict__ bias, const int* __restrict__ mask,
                 const float* __restrict__ lse, const T* __restrict__ o,
                 const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ di_out,
                 Geom g, float sm_scale, Dropout dr) {
@@ -226,8 +228,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     lr[r] = lse[row];
     if (t == 0) di_out[row] = di[r];
   }
-  const float* slab = bias_slab(bias, g, b, h);
-  const float* brow = slab == nullptr ? nullptr : slab + (size_t)(q0 + lrow) * Lk;
+  const TB* slab = bias_slab(bias, g, b, h);
+  const TB* brow = slab == nullptr ? nullptr : slab + (size_t)(q0 + lrow) * Lk;
 
   float dqa[NO][4];
 #pragma unroll
@@ -328,10 +330,10 @@ struct DkvPlan {
 };
 
 // at DP = 32 three blocks an SM (<= 168 registers) measured 2% faster
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 __global__ void __launch_bounds__(kBwdThreads, DP == 32 ? 3 : 1)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const float* __restrict__ bias, const int* __restrict__ mask,
+                 const TB* __restrict__ bias, const int* __restrict__ mask,
                  const float* __restrict__ lse, const float* __restrict__ di,
                  const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
                  float* __restrict__ db, Geom g, DkvPlan pl, float sm_scale, Dropout dr) {
@@ -359,7 +361,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int key = k0 + warp * 16 + gr;  // this lane's keys: key, key + 8
 
   // the bias and this block's dbias slab at the lane's keys (rows Lk apart)
-  const float* bcol = bias == nullptr ? nullptr : bias_slab(bias, g, b0, h) + key;
+  const TB* bcol = bias == nullptr ? nullptr : bias_slab(bias, g, b0, h) + key;
   float* dbcol = nullptr;
   if (db != nullptr)
     dbcol = db + (pl.direct ? (size_t)grp * g.Hb + h
@@ -414,7 +416,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e)
         bv[n][e] = bcol == nullptr
                        ? 0.f
-                       : bcol[(size_t)(qt0 + n * 8 + 2 * t + (e & 1)) * Lk + 8 * (e >> 1)];
+                       : to_f(bcol[(size_t)(qt0 + n * 8 + 2 * t + (e & 1)) * Lk +
+                                   8 * (e >> 1)]);
     cp_async_wait<1>();
     __syncthreads();
     const T* cK = sK + (r & 1) * kTile * LD;
@@ -564,30 +567,30 @@ cudaError_t with_smem(K kernel, size_t smem) {
 }
 
 struct FwdLaunch {
-  template <typename T, int DP>
+  template <typename T, typename TB, int DP>
   cudaError_t run(const Args& a) const {
     const size_t smem = attention_fwd_smem<T, DP, true>(a.g.Lk);
-    auto kernel = flash_fwd_kernel<T, DP>;
+    auto kernel = flash_fwd_kernel<T, TB, DP>;
     cudaError_t err = with_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(a.g.Lq / kTile, a.g.H, a.g.B), kFwdThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const float*>(a.bias), static_cast<const int*>(a.mask),
+        static_cast<const TB*>(a.bias), static_cast<const int*>(a.mask),
         static_cast<T*>(a.out[0]), static_cast<float*>(a.out[1]), a.g, a.sm_scale, a.dr);
     return cudaGetLastError();
   }
 };
 
 struct DqLaunch {
-  template <typename T, int DP>
+  template <typename T, typename TB, int DP>
   cudaError_t run(const Args& a) const {
     const size_t smem = dq_smem_bytes<T, DP>();
-    auto kernel = flash_dq_kernel<T, DP>;
+    auto kernel = flash_dq_kernel<T, TB, DP>;
     cudaError_t err = with_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     kernel<<<dim3(a.g.Lq / kTile, a.g.H, a.g.B), kBwdThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const float*>(a.bias), static_cast<const int*>(a.mask),
+        static_cast<const TB*>(a.bias), static_cast<const int*>(a.mask),
         static_cast<const float*>(a.lse), static_cast<const T*>(a.o),
         static_cast<const T*>(a.dout), static_cast<T*>(a.out[0]),
         static_cast<float*>(a.out[1]), a.g, a.sm_scale, a.dr);
@@ -599,13 +602,13 @@ struct DqLaunch {
 // block; with it, the chunk length rchunk with the fewest waves x batches a
 // block, counting the blocks the card holds at once (occupancy x SMs), the
 // longest of equals (fewer partial slabs to add)
-template <typename T, int DP>
+template <typename T, typename TB, int DP>
 cudaError_t dkv_plan(const Geom& g, bool want_db, DkvPlan& pl) {
   const int groups = g.Bb > 0 ? g.Bb : 1;
   const int R = g.B / groups;
   pl = DkvPlan{R, 1, R, 0};
   if (!want_db) return cudaSuccess;
-  auto kernel = flash_dkv_kernel<T, DP>;
+  auto kernel = flash_dkv_kernel<T, TB, DP>;
   const size_t smem = dkv_smem_bytes<T, DP>();
   cudaError_t err = with_smem(kernel, smem);
   int dev = 0, sms = 0, per_sm = 0;
@@ -638,32 +641,32 @@ long long dkv_scratch(const Geom& g, const DkvPlan& pl) {
 
 struct DkvScratch {
   long long* floats;
-  template <typename T, int DP>
+  template <typename T, typename TB, int DP>
   cudaError_t run(const Args& a) const {
     DkvPlan pl;
-    const cudaError_t err = dkv_plan<T, DP>(a.g, true, pl);
+    const cudaError_t err = dkv_plan<T, TB, DP>(a.g, true, pl);
     if (err == cudaSuccess) *floats = dkv_scratch(a.g, pl);
     return err;
   }
 };
 
 struct DkvLaunch {
-  template <typename T, int DP>
+  template <typename T, typename TB, int DP>
   cudaError_t run(const Args& a) const {
     float* partial = static_cast<float*>(a.out[2]);
     float* db = static_cast<float*>(a.out[3]);
     DkvPlan pl;
-    cudaError_t err = dkv_plan<T, DP>(a.g, db != nullptr, pl);
+    cudaError_t err = dkv_plan<T, TB, DP>(a.g, db != nullptr, pl);
     if (err != cudaSuccess) return err;
     if (db != nullptr && !pl.direct && partial == nullptr) return cudaErrorInvalidValue;
     const size_t smem = dkv_smem_bytes<T, DP>();
-    auto kernel = flash_dkv_kernel<T, DP>;
+    auto kernel = flash_dkv_kernel<T, TB, DP>;
     err = with_smem(kernel, smem);
     if (err != cudaSuccess) return err;
     const int groups = a.g.Bb > 0 ? a.g.Bb : 1;
     kernel<<<dim3(a.g.Lk / kTile, a.g.H, groups * pl.chunks), kBwdThreads, smem, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const float*>(a.bias), static_cast<const int*>(a.mask),
+        static_cast<const TB*>(a.bias), static_cast<const int*>(a.mask),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.di),
         static_cast<const T*>(a.dout), static_cast<T*>(a.out[0]), static_cast<T*>(a.out[1]),
         db == nullptr ? nullptr : (pl.direct ? db : partial), a.g, pl, a.sm_scale, a.dr);
@@ -678,21 +681,22 @@ struct DkvLaunch {
   }
 };
 
-// f.run<T, DP>(a) with the head dim zero-padded to a multiple of the bf16
+// f.run<T, TB, DP>(a) with the head dim zero-padded to a multiple of the bf16
 // mma's k (16): 16, 32, 64, 128
-template <typename T, typename F>
+template <typename T, typename TB, typename F>
 cudaError_t dispatch_dp(const F& f, const Args& a) {
-  if (a.g.D <= 16) return f.template run<T, 16>(a);
-  if (a.g.D <= 32) return f.template run<T, 32>(a);
-  if (a.g.D <= 64) return f.template run<T, 64>(a);
-  return f.template run<T, 128>(a);
+  if (a.g.D <= 16) return f.template run<T, TB, 16>(a);
+  if (a.g.D <= 32) return f.template run<T, TB, 32>(a);
+  if (a.g.D <= 64) return f.template run<T, TB, 64>(a);
+  return f.template run<T, TB, 128>(a);
 }
 
+// the inputs' type code, then the bias's
 template <typename F>
-cudaError_t dispatch(int dtype, const F& f, const Args& a) {
-  if (dtype == kFloat32) return dispatch_dp<float>(f, a);
-  if (dtype == kBFloat16) return dispatch_dp<__nv_bfloat16>(f, a);
-  return cudaErrorInvalidValue;
+cudaError_t dispatch(int dtype, int bias_dtype, const F& f, const Args& a) {
+  return dispatch_attention(dtype, bias_dtype, [&](auto qt, auto bt) {
+    return dispatch_dp<typename decltype(qt)::type, typename decltype(bt)::type>(f, a);
+  });
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias, const void* mask,
@@ -712,12 +716,12 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, co
 extern "C" int unicore_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, const void* mask, void* o,
     void* lse, int B, int H, int Lq, int Lk, int D, int Bb, int Hb, float sm_scale, int dropout,
-    int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
+    int seed, unsigned threshold, float keep_scale, int dtype, int bias_dtype, void* stream) {
   const Args a = make_args(q, k, v, bias, mask, nullptr, nullptr, nullptr, nullptr, o, lse,
                            nullptr, nullptr, B, H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed,
                            threshold, keep_scale, stream);
   if (bad_geometry(a.g)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(dtype, FwdLaunch{}, a);
+  return (int)dispatch(dtype, bias_dtype, FwdLaunch{}, a);
 }
 
 // o, lse: the forward's output and row statistics; dq: (B, H, Lq, D) in the
@@ -727,23 +731,25 @@ extern "C" int unicore_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     const void* lse, const void* o, const void* dout, void* dq, void* di, int B, int H, int Lq,
     int Lk, int D, int Bb, int Hb, float sm_scale, int dropout, int seed, unsigned threshold,
-    float keep_scale, int dtype, void* stream) {
+    float keep_scale, int dtype, int bias_dtype, void* stream) {
   const Args a = make_args(q, k, v, bias, mask, lse, nullptr, o, dout, dq, di, nullptr, nullptr,
                            B, H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed, threshold,
                            keep_scale, stream);
   if (bad_geometry(a.g)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(dtype, DqLaunch{}, a);
+  return (int)dispatch(dtype, bias_dtype, DqLaunch{}, a);
 }
 
 // floats of fp32 scratch unicore_flash_attention_dkv needs for dbias with
-// this geometry (0: it writes db directly); -1 for a geometry or type it
-// refuses
+// this geometry and these types (0: it writes db directly); -1 for a
+// geometry or type it refuses
 extern "C" long long unicore_flash_attention_dkv_scratch(int B, int H, int Lq, int Lk, int D,
-                                                         int Bb, int Hb, int dtype) {
+                                                         int Bb, int Hb, int dtype,
+                                                         int bias_dtype) {
   Args a{};
   a.g = Geom{B, H, Lq, Lk, D, Bb, Hb};
   long long floats = -1;
-  if (Bb <= 0 || bad_geometry(a.g) || dispatch(dtype, DkvScratch{&floats}, a) != cudaSuccess)
+  if (Bb <= 0 || bad_geometry(a.g) ||
+      dispatch(dtype, bias_dtype, DkvScratch{&floats}, a) != cudaSuccess)
     return -1;
   return floats;
 }
@@ -755,10 +761,10 @@ extern "C" int unicore_flash_attention_dkv(
     const void* q, const void* k, const void* v, const void* bias, const void* mask,
     const void* lse, const void* di, const void* dout, void* dk, void* dv, void* partial,
     void* db, int B, int H, int Lq, int Lk, int D, int Bb, int Hb, float sm_scale, int dropout,
-    int seed, unsigned threshold, float keep_scale, int dtype, void* stream) {
+    int seed, unsigned threshold, float keep_scale, int dtype, int bias_dtype, void* stream) {
   const Args a = make_args(q, k, v, bias, mask, lse, di, nullptr, dout, dk, dv, partial, db, B,
                            H, Lq, Lk, D, Bb, Hb, sm_scale, dropout, seed, threshold, keep_scale,
                            stream);
   if (bad_geometry(a.g) || (db != nullptr && bias == nullptr)) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(dtype, DkvLaunch{}, a);
+  return (int)dispatch(dtype, bias_dtype, DkvLaunch{}, a);
 }

@@ -20,7 +20,10 @@
 //   dx       x^ = (x - mean) * rstd, g = w * dy,
 //            dx = (g - mean(g) - x^ * mean(g * x^)) * rstd (RMS: no mean(g));
 //   dw, db   dw = sum over rows of dy * x^, db = sum over rows of dy, fp32.
-// w and b are fp32.
+// x (and y, dy, dx) is fp32, bf16 or fp16; w and b are fp32, bf16 or fp16
+// (a --bf16 / --fp16 run casts them as the JAX trainer casts every floating
+// parameter), read in place and widened to fp32 in registers.  dw and db
+// stay fp32 sums; the wrapper returns them in w's type.
 //   quantized forward (LayerNorm only, no statistics written): the int8 row
 //            dequantized in the statistics pass, v = float(x) * scale, where
 //            `scale` points at one fp32 value or at (D,) of them and is read
@@ -59,10 +62,10 @@ constexpr int kColTile = 32;        // dw/db stage 1: columns per block
 constexpr int kRowGroups = 8;       // dw/db stage 1: threads down a column
 constexpr int kRowsPerChunk = 128;  // dw/db stage 1: rows per block
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                      const float* __restrict__ b, T* __restrict__ y,
+fused_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                      const W* __restrict__ b, T* __restrict__ y,
                       float* __restrict__ mean_out, float* __restrict__ rstd_out,
                       long long N, int D, float eps, int rms) {
   const int lane = threadIdx.x & 31;
@@ -86,8 +89,8 @@ fused_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float var = warp_sum(sq) * inv_d;
   const float rstd = rsqrtf(var + eps);
   for (int c = lane; c < D; c += 32) {
-    float v = (to_f(xr[c]) - mean) * rstd * w[c];
-    if (b != nullptr) v += b[c];
+    float v = (to_f(xr[c]) - mean) * rstd * to_f(w[c]);
+    if (b != nullptr) v += to_f(b[c]);
     yr[c] = from_f<T>(v);
   }
   if (mean_out != nullptr && lane == 0) {
@@ -96,9 +99,9 @@ fused_norm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_norm_dx_kernel(const T* __restrict__ x, const float* __restrict__ w,
+fused_norm_dx_kernel(const T* __restrict__ x, const W* __restrict__ w,
                      const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
                      const T* __restrict__ dy, T* __restrict__ dx, long long N, int D,
                      int rms) {
@@ -113,14 +116,14 @@ fused_norm_dx_kernel(const T* __restrict__ x, const float* __restrict__ w,
 
   float s1 = 0.f, s2 = 0.f;
   for (int c = lane; c < D; c += 32) {
-    const float g = to_f(gr[c]) * w[c];
+    const float g = to_f(gr[c]) * to_f(w[c]);
     s1 += g;
     s2 += g * (to_f(xr[c]) - mean) * rstd;
   }
   const float c1 = rms ? 0.f : warp_sum(s1) * inv_d;
   const float c2 = warp_sum(s2) * inv_d;
   for (int c = lane; c < D; c += 32) {
-    const float g = to_f(gr[c]) * w[c];
+    const float g = to_f(gr[c]) * to_f(w[c]);
     const float xhat = (to_f(xr[c]) - mean) * rstd;
     dr[c] = from_f<T>((g - c1 - xhat * c2) * rstd);
   }
@@ -213,23 +216,23 @@ bool bad_rows(long long N, int D) {
   return N <= 0 || D <= 0 || row_blocks(N) > 0x7fffffffLL;
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, void* mean,
                        void* rstd, long long N, int D, float eps, int rms,
                        cudaStream_t stream) {
-  fused_norm_fwd_kernel<T><<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), static_cast<float*>(mean),
+  fused_norm_fwd_kernel<T, W><<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
+      static_cast<const W*>(b), static_cast<T*>(y), static_cast<float*>(mean),
       static_cast<float*>(rstd), N, D, eps, rms);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename W>
 cudaError_t launch_dx(const void* x, const void* w, const void* mean, const void* rstd,
                       const void* dy, void* dx, long long N, int D, int rms,
                       cudaStream_t stream) {
-  fused_norm_dx_kernel<T><<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
+  fused_norm_dx_kernel<T, W><<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w),
       static_cast<const float*>(mean), static_cast<const float*>(rstd),
       static_cast<const T*>(dy), static_cast<T*>(dx), N, D, rms);
   return cudaGetLastError();
@@ -255,18 +258,22 @@ cudaError_t launch_dwdb(const void* x, const void* mean, const void* rstd, const
 
 }  // namespace
 
-// mean and rstd: fp32 (N,) outputs, or both null (no statistics written)
+// mean and rstd: fp32 (N,) outputs, or both null (no statistics written).
+// dtype: x's and y's type code; wdtype: w's and b's (fp32, bf16 or fp16)
 extern "C" int unicore_fused_norm_fwd(const void* x, const void* w, const void* b,
                                       void* y, void* mean, void* rstd, long long N, int D,
-                                      float eps, int rms, int dtype, void* stream) {
+                                      float eps, int rms, int dtype, int wdtype,
+                                      void* stream) {
   if (bad_rows(N, D) || (mean == nullptr) != (rstd == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return (int)launch_fwd<float>(x, w, b, y, mean, rstd, N, D, eps, rms, s);
-  if (dtype == kBFloat16)
-    return (int)launch_fwd<__nv_bfloat16>(x, w, b, y, mean, rstd, N, D, eps, rms, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_float(dtype, [&](auto xt) {
+    return dispatch_float(wdtype, [&](auto wt) {
+      using T = typename decltype(xt)::type;
+      using W = typename decltype(wt)::type;
+      return launch_fwd<T, W>(x, w, b, y, mean, rstd, N, D, eps, rms, s);
+    });
+  });
 }
 
 // x: (N, D) int8; scale: fp32, one value (scale_stride 0) or (D,)
@@ -288,13 +295,17 @@ extern "C" int unicore_quant_layer_norm_fwd(const void* x, const void* scale,
 
 extern "C" int unicore_fused_norm_dx(const void* x, const void* w, const void* mean,
                                      const void* rstd, const void* dy, void* dx,
-                                     long long N, int D, int rms, int dtype, void* stream) {
+                                     long long N, int D, int rms, int dtype, int wdtype,
+                                     void* stream) {
   if (bad_rows(N, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return (int)launch_dx<float>(x, w, mean, rstd, dy, dx, N, D, rms, s);
-  if (dtype == kBFloat16)
-    return (int)launch_dx<__nv_bfloat16>(x, w, mean, rstd, dy, dx, N, D, rms, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_float(dtype, [&](auto xt) {
+    return dispatch_float(wdtype, [&](auto wt) {
+      using T = typename decltype(xt)::type;
+      using W = typename decltype(wt)::type;
+      return launch_dx<T, W>(x, w, mean, rstd, dy, dx, N, D, rms, s);
+    });
+  });
 }
 
 // fp32 scratch floats the dw/db launch needs for N rows and D columns
@@ -310,11 +321,10 @@ extern "C" int unicore_fused_norm_dwdb(const void* x, const void* mean, const vo
   if (N <= 0 || D <= 0 || (N + kRowsPerChunk - 1) / kRowsPerChunk > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return (int)launch_dwdb<float>(x, mean, rstd, dy, partial, dw, db, N, D, s);
-  if (dtype == kBFloat16)
-    return (int)launch_dwdb<__nv_bfloat16>(x, mean, rstd, dy, partial, dw, db, N, D, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_float(dtype, [&](auto xt) {
+    return launch_dwdb<typename decltype(xt)::type>(x, mean, rstd, dy, partial, dw, db, N, D,
+                                                    s);
+  });
 }
 
 extern "C" const char* unicore_cuda_error_string(int code) {

@@ -278,16 +278,16 @@ __device__ __forceinline__ void keep_cols(const Dropout& dr, int b, int h, int q
 
 // The bias of one 64-key tile at a query-major lane's accumulator places
 // (rows g, g+8 of `brow`, whose rows are Lk apart; columns key0 + 8n + 2t,
-// +1), as float2 loads; zeros without a bias.
-template <int NT>
-__device__ __forceinline__ void load_bias(float (&bv)[NT][4], const float* brow, int Lk,
+// +1), as pair loads (fp32 or bf16, widened); zeros without a bias.
+template <int NT, typename TB>
+__device__ __forceinline__ void load_bias(float (&bv)[NT][4], const TB* brow, int Lk,
                                           int key0, int t) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     float2 a = make_float2(0.f, 0.f), c = a;
     if (brow != nullptr) {
-      a = *reinterpret_cast<const float2*>(brow + key0 + n * 8 + 2 * t);
-      c = *reinterpret_cast<const float2*>(brow + (size_t)8 * Lk + key0 + n * 8 + 2 * t);
+      a = load_pair(brow + key0 + n * 8 + 2 * t);
+      c = load_pair(brow + (size_t)8 * Lk + key0 + n * 8 + 2 * t);
     }
     bv[n][0] = a.x;
     bv[n][1] = a.y;

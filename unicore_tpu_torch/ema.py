@@ -4,7 +4,9 @@
 An fp32 shadow of every trained parameter, updated after each optimizer
 step as ``e <- e - (1 - decay) (e - p)``; a skipped update (non-finite
 gradient norm) leaves it as it was, as the JAX trainer keeps the old EMA
-on an overflow.  Plain ``torch._foreach_*`` ops over all tensors at once;
+on an overflow.  Under ``--bf16`` / ``--fp16`` the trainer hands it the
+optimizer's fp32 master, not the rounded parameters, as the JAX trainer
+averages its master.  Plain ``torch._foreach_*`` ops over all tensors at once;
 the JAX package has no Pallas kernel here either.
 """
 

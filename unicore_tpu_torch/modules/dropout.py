@@ -20,11 +20,17 @@ import torch
 _MIX = 1000003  # the JAX kernels' seed-mixing multiplier (_seed_block)
 
 
+def fold_key(seed: int, *fold: int) -> int:
+    """A generator seed from ``seed`` and the numbers folded into it."""
+    key = int(seed)
+    for f in fold:
+        key = (key * _MIX + int(f)) % (2 ** 63)
+    return key
+
+
 class DropoutRng:
     def __init__(self, seed: int, device, *fold: int):
-        key = int(seed)
-        for f in fold:
-            key = (key * _MIX + int(f)) % (2 ** 63)
+        key = fold_key(seed, *fold)
         self.device = torch.Generator(device=device).manual_seed(key)
         self.host = torch.Generator().manual_seed(key)
 
@@ -47,11 +53,13 @@ def dropout(x: torch.Tensor, p: float, training: bool, rng,
             "dropout in training needs an explicit DropoutRng (seed, update, "
             "micro-batch); the port never draws from the global generator"
         )
+    # drawn in fp32 whatever x's type, so a bf16 run drops what an fp32 run
+    # from the same generator drops
     if broadcast_dims:
         shared = {b % x.ndim for b in broadcast_dims}
         shape = [1 if d in shared else n for d, n in enumerate(x.shape)]
-        keep = torch.empty(shape, dtype=x.dtype, device=x.device)
+        keep = torch.empty(shape, dtype=torch.float32, device=x.device)
     else:
-        keep = torch.empty_like(x)
+        keep = torch.empty_like(x, dtype=torch.float32)
     keep.bernoulli_(1.0 - p, generator=rng.device)
-    return x * keep * (1.0 / (1.0 - p))
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - p))

@@ -174,8 +174,10 @@ class OuterProductMean(nn.Module):
         else:
             norm = msa.shape[1]
         outer = torch.einsum("brid,brje->bijde", a, b)
+        # the fp32 norm promotes the quotient; the projection runs in m's
+        # type, as the JAX Dense(dtype=m.dtype) casts its input
         outer = outer.reshape(*outer.shape[:3], -1) / norm
-        return self.out_proj(outer)
+        return self.out_proj(outer.to(m.dtype))
 
 
 class TriangleMultiplication(nn.Module):

@@ -308,10 +308,11 @@ def _attend(q, k, v, key_padding_mask, attn_bias, dropout_rate, train,
     # fused-softmax path (materializes the attention matrix)
     attn_weights = torch.einsum("bhqd,bhkd->bhqk", q, k)
     if key_padding_mask is not None:
+        # the fp32 minimum in the scores' type: -inf in bf16 and fp16, as
+        # the JAX package's asarray(finfo(float32).min, dtype) gives
+        neg = torch.tensor(torch.finfo(torch.float32).min).to(attn_weights.dtype)
         attn_weights = attn_weights.masked_fill(
-            key_padding_mask[:, None, None, :].to(torch.bool),
-            torch.finfo(torch.float32).min,
-        )
+            key_padding_mask[:, None, None, :].to(torch.bool), neg.item())
     bias4 = _bias_to_bhll(attn_bias, bsz, num_heads, tgt_len, src_len)
     if not return_attn:
         attn = softmax_dropout(attn_weights, eff_dropout, is_training=train,

@@ -202,7 +202,12 @@ class TransformerDecoder(nn.Module):
             causal = torch.triu(
                 torch.full((seq_len, seq_len), CAUSAL_NEG, device=emb.device), 1
             )
-            attn_bias = causal if attn_bias is None else attn_bias + causal
+            if attn_bias is not None:
+                # in the bias's type, as JAX's weakly typed -1e30 joins a bf16
+                # or fp16 bias (-1.00026e30 in bf16, -inf in fp16)
+                attn_bias = attn_bias + causal.to(attn_bias.dtype)
+            else:
+                attn_bias = causal
 
         # the key-padding mask stays separate from the bias (see the encoder)
         ks, vs = [], []

@@ -150,12 +150,13 @@ def _bind(lib) -> None:
     # csrc/attention_fullrow.cu: tensors (the forward's lse and the
     # backward's o, lse, di scratch among them), then (B, H, Lq, Lk, D,
     # bias_heads), sm_scale, the dropout (on, seed, threshold, scale), dtype,
-    # stream
-    fr_geom = [i] * 6 + [f, i, i, u, f, i, p]
+    # the bias's dtype, stream
+    fr_geom = [i] * 6 + [f, i, i, u, f, i, i, p]
     lib.unicore_fullrow_attention_fwd.argtypes = [p] * 7 + fr_geom
     lib.unicore_fullrow_attention_bwd.argtypes = [p] * 13 + fr_geom
-    lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, p]
-    lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    # csrc/fused_norm.cu: ..., x's dtype, the weight's dtype, stream
+    lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, i, p]
+    lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
     lib.unicore_fused_norm_dwdb.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
     desc = ctypes.POINTER(ll)  # an extra's index map (csrc/softmax_dropout.cu)
     lib.unicore_softmax_dropout_fwd.argtypes = [
@@ -165,8 +166,9 @@ def _bind(lib) -> None:
         p, p, desc, p, desc, p, p, ll, i, i, i, u, u, f, i, p,
     ]
     # csrc/flash_attention.cu: tensors, then (B, H, Lq, Lk, D, Bb, Hb),
-    # sm_scale, the dropout (on, seed, threshold, scale), dtype, stream
-    geom = [i] * 7 + [f, i, i, u, f, i, p]
+    # sm_scale, the dropout (on, seed, threshold, scale), dtype, the bias's
+    # dtype, stream
+    geom = [i] * 7 + [f, i, i, u, f, i, i, p]
     lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + geom
     lib.unicore_flash_attention_dq.argtypes = [p] * 10 + geom
     lib.unicore_flash_attention_dkv.argtypes = [p] * 12 + geom
@@ -192,7 +194,7 @@ def _bind(lib) -> None:
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll
-    lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 8
+    lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 9
     lib.unicore_flash_attention_dkv_scratch.restype = ll
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p

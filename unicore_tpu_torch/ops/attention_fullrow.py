@@ -11,7 +11,12 @@ through the hand-written kernels of ``csrc/attention_fullrow.cu`` — or
 raises.  There is no fallback between the two.
 
 On a CUDA tensor the call is a :class:`torch.autograd.Function`, as the JAX
-package's ``jax.custom_vjp``.  Its residuals are the inputs, the dropout
+package's ``jax.custom_vjp``.  The bias may be fp32, or bf16 with bf16
+q/k/v (a ``--bf16`` run casts the rel-pos table as the JAX trainer casts
+every parameter): the kernels read it in place and widen it on load (its
+type a template argument), and dbias, summed in fp32, comes back in the
+bias's type, as the JAX ``_fullrow_bwd`` returns
+``dbias.astype(bias.dtype)``.  Its residuals are the inputs, the dropout
 seed, its own output and, unlike the JAX package's, the forward's fp32 row
 statistics ``lse = m + log(l)`` (B, H, Lq), written only when a backward
 will follow (:func:`_needs_backward`; the serving path writes none).  No
@@ -50,6 +55,8 @@ _VMEM_BUDGET = 12 * 1024 * 1024
 #: masked scores (ops/flash_attention.py NEG_INF)
 NEG_INF = -1e30
 
+#: the kernels' type codes, of q/k/v and of the bias (fp16 attention takes
+#: the plain composition in the JAX package, so no kernel sees it)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = _kernels.counter("fullrow_attention_fwd")
 BWD_LAUNCHES = _kernels.counter("fullrow_attention_bwd")
@@ -275,8 +282,9 @@ def _check(q, k, v, bias, kv_mask, name="fullrow_attention"):
             f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} do "
             f"not match q {tuple(q.shape)}"
         )
-    if bias is not None and bias.dtype != torch.float32:
-        raise ValueError(f"{name}: bias must be fp32, got {bias.dtype}")
+    if bias is not None and bias.dtype not in (torch.float32, q.dtype):
+        raise ValueError(f"{name}: bias must be fp32, or bf16 with bf16 q/k/v, got "
+                         f"{bias.dtype}")
     if kv_mask is not None:
         if kv_mask.dtype != torch.int32 or tuple(kv_mask.shape) != (B, Lk):
             raise ValueError(
@@ -284,6 +292,11 @@ def _check(q, k, v, bias, kv_mask, name="fullrow_attention"):
                 f"{kv_mask.dtype} {tuple(kv_mask.shape)}"
             )
     _kernels.require_cuda(name, q, k, v, bias, kv_mask)
+
+
+def _bias_dtype(bias) -> int:
+    """The bias's type code for the C entry points (fp32 without a bias)."""
+    return _DTYPES[torch.float32 if bias is None else bias.dtype]
 
 
 def _dropout_args(rate: float, seed: int):
@@ -304,7 +317,7 @@ def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed, want_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _kernels.ptr(bias),
         _kernels.ptr(kv_mask), o.data_ptr(), _kernels.ptr(lse), B, H, Lq,
         k.shape[2], D, 1 if bias is None else bias.shape[1], float(sm_scale),
-        *_dropout_args(rate, seed), _DTYPES[q.dtype],
+        *_dropout_args(rate, seed), _DTYPES[q.dtype], _bias_dtype(bias),
         _kernels.stream_handle(q.device),
     )
     _kernels.check(rc, "fullrow_attention")
@@ -330,7 +343,8 @@ def _launch_bwd(q, k, v, bias, kv_mask, o, do, lse, sm_scale, rate, seed, want_d
         di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _kernels.ptr(db), B, H, Lq, Lk, D,
         1 if bias is None else bias.shape[1], float(sm_scale),
-        *_dropout_args(rate, seed), _DTYPES[q.dtype], _kernels.stream_handle(dev),
+        *_dropout_args(rate, seed), _DTYPES[q.dtype], _bias_dtype(bias),
+        _kernels.stream_handle(dev),
     )
     _kernels.check(rc, "fullrow_attention backward")
     BWD_LAUNCHES.add()
@@ -366,6 +380,8 @@ class _FullrowAttention(torch.autograd.Function):
             ctx.sm_scale, ctx.rate, ctx.seed,
             bias is not None and ctx.needs_input_grad[3],
         )
+        if db is not None:
+            db = db.to(bias.dtype)
         return dq, dk.to(k.dtype), dv.to(v.dtype), db, None, None, None, None, None
 
 

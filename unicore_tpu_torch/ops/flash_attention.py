@@ -24,7 +24,9 @@ that computes ``di = rowsum(out * do)`` in fp32 and dq, and a key-major one
 that computes dk, dv and -- from the same ds -- dbias, the fp32 sum of ds
 over each group's B / Bb batches (and over the heads when the bias has
 one), whose partial sums an ordered third launch adds where one block
-does not hold a whole sum.
+does not hold a whole sum.  The bias may be fp32, or bf16 with bf16
+q/k/v: the kernels read it in place and widen it on load (its type a
+template argument), and dbias comes back in its type.
 :func:`flash_attention_bwd_plain` is that backward in plain PyTorch with
 the kernels' bf16 roundings (ds and the dropped p rounded to the inputs'
 type before their products), for holding the kernels against it.
@@ -48,6 +50,7 @@ from .attention_fullrow import (
     _DTYPES,
     NEG_INF,
     KernelGeometryError,
+    _bias_dtype,
     _check,
     _dropout_args,
     philox_keep_plain,
@@ -188,7 +191,8 @@ def _geom(q, k, bias, sm_scale, rate, seed):
     B, H, Lq, D = q.shape
     Bb, Hb = (1, 1) if bias is None else (bias.shape[0], bias.shape[1])
     return (B, H, Lq, k.shape[2], D, Bb, Hb, float(sm_scale),
-            *_dropout_args(rate, seed), _DTYPES[q.dtype], _kernels.stream_handle(q.device))
+            *_dropout_args(rate, seed), _DTYPES[q.dtype], _bias_dtype(bias),
+            _kernels.stream_handle(q.device))
 
 
 def _launch_fwd(q, k, v, bias, kv_mask, sm_scale, rate, seed):
@@ -233,7 +237,8 @@ def _launch_dkv(q, k, v, bias, kv_mask, lse, di, do, sm_scale, rate, seed,
             raise ValueError("flash_attention dk/dv: dbias asked for without a bias")
         B, H, Lq, D = q.shape
         floats = lib.unicore_flash_attention_dkv_scratch(
-            B, H, Lq, k.shape[2], D, bias.shape[0], bias.shape[1], _DTYPES[q.dtype])
+            B, H, Lq, k.shape[2], D, bias.shape[0], bias.shape[1], _DTYPES[q.dtype],
+            _bias_dtype(bias))
         if floats < 0:
             raise RuntimeError(f"flash_attention dk/dv: no dbias plan for q={tuple(q.shape)} "
                                f"bias={tuple(bias.shape)}")
@@ -272,6 +277,8 @@ class _FlashAttention(torch.autograd.Function):
         dq, di = _launch_dq(q, k, v, bias, kv_mask, lse, out, do, *rest)
         dk, dv, db = _launch_dkv(q, k, v, bias, kv_mask, lse, di, do, *rest,
                                  need_db=bias is not None and ctx.needs_input_grad[3])
+        if db is not None:  # the fp32 sums in the bias's type
+            db = db.to(bias.dtype)
         return dq, dk, dv, db, None, None, None, None
 
 

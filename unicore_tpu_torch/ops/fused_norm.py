@@ -14,8 +14,13 @@ the forward kernel also writes the fp32 row statistics (mean, rstd), which
 the backward's two kernels read (dx per row; dw/db as a column reduction).
 Without a gradient the forward writes no statistics.
 
-Statistics are fp32 whatever the input type; weight and bias are fp32 and
-the output and dx take the input's type; dw and db are fp32.
+Statistics are fp32 whatever the input type.  x is fp32, bf16 or fp16
+(the JAX package sends every norm to its Pallas kernel, fp16 ones too);
+weight and bias are fp32, bf16 or fp16 (a ``--bf16`` / ``--fp16`` run
+casts them, as the JAX trainer casts every floating parameter), read in
+place by the kernels and widened to fp32.  The output and dx take x's type;
+dw and db are summed in fp32 and returned in the weight's type, as the JAX
+``_fused_norm_bwd`` returns ``dw.astype(w.dtype)``.
 
 The quantized-input forward (the TPU kernel's int8 ``scale_ref`` variant,
 ``quant_layer_norm_pallas``) is :func:`quant_layer_norm_kernel` on the card
@@ -29,7 +34,8 @@ import torch
 
 from . import _kernels
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernels' type codes (csrc/common.cuh)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 4}
 LAUNCHES = _kernels.counter("fused_norm_fwd")
 DX_LAUNCHES = _kernels.counter("fused_norm_dx")
 DWDB_LAUNCHES = _kernels.counter("fused_norm_dwdb")
@@ -38,7 +44,8 @@ QUANT_LAUNCHES = _kernels.counter("quant_layer_norm")
 
 def fused_norm_plain(x, weight, bias, eps: float, rms: bool):
     """The kernel's function in plain PyTorch: two-pass fp32 statistics,
-    ``(x - mean) * rsqrt(var + eps) * w (+ b)``, cast to ``x``'s type."""
+    ``(x - mean) * rsqrt(var + eps) * w (+ b)`` with w and b widened to
+    fp32, cast to ``x``'s type."""
     xf = x.float()
     if rms:
         mean = 0.0
@@ -55,14 +62,16 @@ def fused_norm_plain(x, weight, bias, eps: float, rms: bool):
 def _check(x, weight, bias, rms: bool) -> str:
     name = "fused_rms_norm" if rms else "fused_layer_norm"
     if x.dtype not in _DTYPES:
-        raise ValueError(f"{name}: dtype {x.dtype} unsupported (fp32/bf16)")
+        raise ValueError(f"{name}: dtype {x.dtype} unsupported (fp32/bf16/fp16)")
     D = x.shape[-1]
     for what, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != (D,)):
+        if t is not None and (t.dtype not in _DTYPES or tuple(t.shape) != (D,)):
             raise ValueError(
-                f"{name}: {what} must be fp32 of shape ({D},), got "
+                f"{name}: {what} must be fp32, bf16 or fp16 of shape ({D},), got "
                 f"{t.dtype} {tuple(t.shape)}"
             )
+    if bias is not None and bias.dtype != weight.dtype:
+        raise ValueError(f"{name}: weight {weight.dtype} and bias {bias.dtype} differ")
     _kernels.require_cuda(name, x, weight, bias)
     return name
 
@@ -79,7 +88,7 @@ def _launch_fwd(x2, weight, bias, eps: float, rms: bool, want_stats: bool, name)
     rc = _kernels.library().unicore_fused_norm_fwd(
         x2.data_ptr(), weight.data_ptr(), _kernels.ptr(bias), y.data_ptr(),
         _kernels.ptr(mean), _kernels.ptr(rstd), N, D, float(eps), int(rms),
-        _DTYPES[x2.dtype], _kernels.stream_handle(x2.device),
+        _DTYPES[x2.dtype], _DTYPES[weight.dtype], _kernels.stream_handle(x2.device),
     )
     _kernels.check(rc, name)
     LAUNCHES.add()
@@ -94,7 +103,7 @@ def _launch_dx(x2, weight, mean, rstd, dy2, rms: bool, name):
     rc = _kernels.library().unicore_fused_norm_dx(
         x2.data_ptr(), weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
         dy2.data_ptr(), dx.data_ptr(), N, D, int(rms), _DTYPES[x2.dtype],
-        _kernels.stream_handle(x2.device),
+        _DTYPES[weight.dtype], _kernels.stream_handle(x2.device),
     )
     _kernels.check(rc, f"{name} dx")
     DX_LAUNCHES.add()
@@ -143,6 +152,9 @@ class _FusedNorm(torch.autograd.Function):
                             ctx.name).view(dy.shape)
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             dw, db = _launch_dwdb(x2, mean, rstd, dy2, ctx.has_bias, ctx.name)
+            # the fp32 sums in the parameters' type
+            dw = dw.to(weight.dtype)
+            db = None if db is None else db.to(weight.dtype)
         return dx, dw, db, None, None, None
 
 

@@ -3,7 +3,9 @@
 fp32 moments; bias correction folded into the step size; decoupled weight
 decay ``p *= 1 - step_size * wd`` applied first, on the tensors the decay
 mask selects; then ``m = b1 m + (1 - b1) g``, ``v = b2 v + (1 - b2) g^2``,
-``p -= step_size * m / (sqrt(v) + eps)``.  The updates are plain PyTorch
+``p -= step_size * m / (sqrt(v) + eps)``, on the fp32 master when the
+parameters are bf16 or fp16 (``UnicoreOptimizer.step`` copies it back).
+The updates are plain PyTorch
 tensor ops over all parameters at once (``torch._foreach_*``); the JAX
 package has no Pallas kernel here either.
 """
@@ -45,7 +47,7 @@ class Adam(UnicoreOptimizer):
                 "v": torch.zeros_like(p, dtype=torch.float32)}
 
     @torch.no_grad()
-    def step(self, params, grads, lr):
+    def _update(self, params, grads, lr):
         beta1, beta2 = self.betas
         self.num_steps += 1
         step_size = bias_corrected_step_size(lr, self.num_steps, (beta1, beta2))

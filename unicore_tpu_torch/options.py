@@ -213,6 +213,33 @@ def get_training_parser():
                         help="enable moving average for model parameters")
     parser.add_argument("--validate-with-ema", action="store_true")
 
+    group = parser.add_argument_group("precision")
+    group.add_argument("--fp16", action="store_true",
+                       help="parameters and activations in fp16, an fp32 master "
+                            "copy in the optimizer, dynamic loss scaling")
+    group.add_argument("--bf16", action="store_true",
+                       help="parameters and activations in bf16, an fp32 master "
+                            "copy in the optimizer (wins over --fp16)")
+    group.add_argument("--bf16-sr", action="store_true",
+                       help="use stochastic rounding on the fp32-master -> bf16 "
+                            "param copy-back")
+    group.add_argument("--allreduce-fp32-grad", action="store_true",
+                       help="accumulate gradients in fp32 (always done: "
+                            "accepted for the JAX CLI's scripts)")
+    group.add_argument("--fp16-init-scale", default=2 ** 7, type=int,
+                       help="default FP16 loss scale")
+    group.add_argument("--fp16-scale-window", type=int, default=None,
+                       help="number of updates before increasing loss scale "
+                            "(default 2**14)")
+    group.add_argument("--fp16-scale-tolerance", default=0.0, type=float,
+                       help="pct of updates that can overflow before "
+                            "decreasing the loss scale")
+    group.add_argument("--min-loss-scale", default=1e-4, type=float, metavar="D",
+                       help="minimum FP16 loss scale, after which training is "
+                            "stopped")
+    group.add_argument("--threshold-loss-scale", type=float,
+                       help="threshold FP16 loss scale from below")
+
     group = parser.add_argument_group("dataset_data_loading")
     group.add_argument("--batch-size", "--max-sentences", type=int, metavar="N",
                        help="maximum number of sentences in a batch")
@@ -367,5 +394,7 @@ def parse_args_and_arch(parser, input_args=None):
     args = parser.parse_args(input_args)
     if getattr(args, "batch_size_valid", None) is None and hasattr(args, "batch_size"):
         args.batch_size_valid = args.batch_size
+    if getattr(args, "memory_efficient_fp16", False):
+        args.fp16 = True
     ARCH_CONFIG_REGISTRY[args.arch](args)
     return args

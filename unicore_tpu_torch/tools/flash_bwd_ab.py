@@ -116,11 +116,11 @@ def build_variant(name, edits, out, source="flash_attention.cu"):
 def load(path):
     lib = ctypes.CDLL(str(path))
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    geom = [i] * 7 + [f, i, i, u, f, i, p]
+    geom = [i] * 7 + [f, i, i, u, f, i, i, p]
     lib.unicore_flash_attention_dq.argtypes = [p] * 10 + geom
     lib.unicore_flash_attention_dkv.argtypes = [p] * 12 + geom
     lib.unicore_flash_attention_dq.restype = lib.unicore_flash_attention_dkv.restype = i
-    lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 8
+    lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 9
     lib.unicore_flash_attention_dkv_scratch.restype = ctypes.c_longlong
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p

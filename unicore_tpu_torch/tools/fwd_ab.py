@@ -94,7 +94,8 @@ def load(path):
                                                     f, i, p]
         lib.unicore_softmax_dropout_fwd.restype = i
     if hasattr(lib, "unicore_flash_attention_fwd"):
-        lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + [i] * 7 + [f, i, i, u, f, i, p]
+        lib.unicore_flash_attention_fwd.argtypes = [p] * 7 + [i] * 7 + [f, i, i, u, f, i, i,
+                                                                         p]
         lib.unicore_flash_attention_fwd.restype = i
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p

@@ -2,31 +2,48 @@
 lean): ``train_step`` over the ``--update-freq`` micro-batches of one
 update, ``valid_step``, the EMA, the lr schedule and the checkpoint.
 
+Precision, as the JAX trainer's policy: the model's floating parameters
+are cast to the compute dtype (bf16 under ``--bf16``, else fp16 under
+``--fp16``, else fp32; integer buffers stay as they are), so activations
+run in it too; the optimizer keeps an fp32 master of low-precision
+parameters; ``--fp16`` scales the loss by the dynamic loss scale
+(``optim/dynamic_loss_scaler.py``).
+
 One update, as the JAX ``train_step`` / ``_forward_backward`` /
 ``_apply_update``:
 
 1. for each micro-batch ``i``: forward and loss in training mode, with
    dropout from a :class:`DropoutRng` keyed on (``--seed``, update, i), and
-   ``loss.backward()``, which adds the micro-batch's gradient into the fp32
-   ``.grad`` of each parameter (the fp32 accumulation of the JAX trainer);
-2. every gradient is divided by the summed ``sample_size``;
+   the backward of the fp32 loss times the loss scale; the micro-batch's
+   gradient is added into fp32 accumulators and ``.grad`` cleared (autograd
+   would sum ``.grad`` in the parameter's type: bf16 under ``--bf16``);
+2. every gradient is divided by the summed ``sample_size`` times the loss
+   scale;
 3. clipped to ``--clip-norm`` by the global norm;
-4. a non-finite norm skips the optimizer step and the EMA (the update still
-   counts);
-5. Adam with the lr the scheduler gave for this update, then the EMA
-   (``--ema-decay``); the update count moves on and the scheduler sets the
-   next lr.
+4. a non-finite norm is an overflow: it skips the optimizer step and the
+   EMA (the update still counts); under ``--fp16`` every update steps the
+   loss-scale schedule, and a scale pinned at ``--min-loss-scale`` raises
+   ``FloatingPointError`` at the next :meth:`flush_metrics`;
+5. Adam with the lr the scheduler gave for this update on the fp32 master
+   (copied back to the parameters, stochastically rounded under
+   ``--bf16-sr`` with noise keyed on (``--seed``, update)), then the EMA
+   (``--ema-decay``) of the master; the update count moves on and the
+   scheduler sets the next lr.
 
 The dropout key depends on the update count and nothing drawn before it,
 so a run resumed from a checkpoint draws the stream an uninterrupted run
 draws.  ``valid_step`` runs the forward in eval mode under
-``torch.no_grad()``, on the EMA's weights with ``--validate-with-ema``.
+``torch.no_grad()`` in the compute dtype, on the EMA's weights (cast to the
+parameters' type) with ``--validate-with-ema``.
 ``state_dict`` / ``load_checkpoint`` carry the JAX checkpoint's groups:
-weights, optimizer state, lr-scheduler state and update count, the EMA,
-the meters and the training time.
+weights (in the compute dtype), optimizer state (with the master), lr-
+scheduler state and update count, the EMA, the meters, the training time
+and the loss scale -- here with the schedule's counters too, which the JAX
+package's pickled checkpoint drops, so an fp16 run resumes as it would
+have gone on.
 
 The JAX trainer's parallel, health, chaos, telemetry and orbax machinery
-is not ported, nor bf16 and its stochastic rounding.
+is not ported.
 """
 
 import contextlib
@@ -43,8 +60,14 @@ from unicore_tpu_torch import checkpoint_utils, optim
 from unicore_tpu_torch.ema import EMA
 from unicore_tpu_torch.logging import metrics
 from unicore_tpu_torch.modules import DropoutRng
+from unicore_tpu_torch.modules.dropout import fold_key
 from unicore_tpu_torch.optim import lr_scheduler as lr_sched_mod
+from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
 from unicore_tpu_torch.optim.unicore_optimizer import clip_grad_norm
+
+#: folded into the SR noise's key, apart from the dropout's (the JAX
+#: trainer's ``fold_in(rng, 1337)``)
+_SR_FOLD = 1337
 
 logger = logging.getLogger(__name__)
 
@@ -62,6 +85,17 @@ class Trainer(object):
         self.loss = loss
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        if getattr(args, "bf16", False):
+            self.compute_dtype = torch.bfloat16
+        elif getattr(args, "fp16", False):
+            self.compute_dtype = torch.float16
+        else:
+            self.compute_dtype = torch.float32
+        self.use_loss_scale = bool(getattr(args, "fp16", False))
+        with torch.no_grad():
+            for p in self.model.parameters():
+                if p.is_floating_point():
+                    p.data = p.data.to(self.compute_dtype)
         self.params: Dict[str, torch.Tensor] = OrderedDict(
             (n, p) for n, p in self.model.named_parameters() if p.requires_grad
         )
@@ -73,8 +107,13 @@ class Trainer(object):
         self._lr_scheduler = lr_sched_mod.build_lr_scheduler(
             args, self._optimizer, total_train_steps
         )
+        self.scale_state = init_scale_state(
+            float(args.fp16_init_scale) if self.use_loss_scale else 1.0)
+        self._pinned = 0
+        self._nan_updates = 0
+        self.overflows = 0
         ema_decay = getattr(args, "ema_decay", -1.0)
-        self.ema = EMA(self.params, ema_decay) if ema_decay > 0 else None
+        self.ema = EMA(self._master(), ema_decay) if ema_decay > 0 else None
         self._num_updates = 0
         self._start_time = time.time()
         self._previous_training_time = 0.0
@@ -86,6 +125,17 @@ class Trainer(object):
         self.step_ms: List[float] = []
         self.update_losses: List[float] = []
         self.update_lrs: List[float] = []
+        self.update_loss_scales: List[float] = []
+        self.update_gnorms: List[float] = []
+
+    def _master(self) -> Dict[str, torch.Tensor]:
+        """The fp32 weights the optimizer updates and the EMA averages: the
+        optimizer's master, or the parameters in an fp32 run."""
+        master = self._optimizer.master
+        return self.params if master is None else master
+
+    def get_loss_scale(self) -> float:
+        return float(self.scale_state["scale"])
 
     # -- data ----------------------------------------------------------------
 
@@ -138,11 +188,33 @@ class Trainer(object):
 
     # -- the update ------------------------------------------------------------
 
-    def _forward_backward(self, sample, micro_i):
+    def _forward_backward(self, sample, micro_i, grads):
+        """One micro-batch: forward, the backward of the fp32 loss times
+        the loss scale, and its gradient added into the fp32 ``grads``."""
         rng = DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i)
         loss, sample_size, logging_output = self.loss(self.model, sample, rng=rng)
+        loss = loss.float()
+        if self.use_loss_scale:
+            loss = loss * torch.tensor(self.get_loss_scale(), dtype=torch.float32,
+                                       device=loss.device)
         loss.backward()
+        for n, p in self.params.items():
+            g, p.grad = p.grad, None
+            if g is None:
+                continue
+            if n in grads:
+                grads[n].add_(g)
+            else:
+                grads[n] = g.float()
         return sample_size, logging_output
+
+    def _sr_generator(self):
+        """The copy-back's noise under ``--bf16-sr``: keyed on (``--seed``,
+        update), so a resumed run rounds as an uninterrupted one."""
+        if not getattr(self.args, "bf16_sr", False) or self._optimizer.master is None:
+            return None
+        key = fold_key(self.args.seed, self.get_num_updates(), _SR_FOLD)
+        return torch.Generator(device=self.device).manual_seed(key)
 
     def train_step(self, samples):
         """One update from a list of micro-batches (a GroupedIterator
@@ -154,41 +226,87 @@ class Trainer(object):
         pad = self.task.dictionary.pad()
         sample_size = torch.zeros((), dtype=torch.float32, device=self.device)
         logging_outputs = []
+        acc: Dict[str, torch.Tensor] = {}
+        loss_scale = self.get_loss_scale()
         for i, sample in enumerate(samples):
             src = np.asarray(self.task.token_array(sample))
             self.tokens += int((src != pad).sum())
             self.samples += int(src.shape[0])
             self.micro_batch_lengths.append(int(src.shape[-1]))
-            ss, log = self._forward_backward(_to_device(sample, self.device), i)
+            ss, log = self._forward_backward(_to_device(sample, self.device), i, acc)
             sample_size = sample_size + ss
             logging_outputs.append(log)
             self.micro_batches += 1
 
         grads = OrderedDict(
-            (n, p.grad if p.grad is not None else torch.zeros_like(p))
+            (n, acc[n] if n in acc else torch.zeros_like(p, dtype=torch.float32))
             for n, p in self.params.items()
         )
         lr = self.get_lr()
-        torch._foreach_div_(list(grads.values()), torch.clamp(sample_size, min=1e-8))
+        denom = torch.clamp(sample_size, min=1e-8)
+        if self.use_loss_scale:
+            denom = denom * loss_scale
+        torch._foreach_div_(list(grads.values()), denom)
         gnorm = float(clip_grad_norm(grads, getattr(self.args, "clip_norm", 0.0) or 0.0))
-        if np.isfinite(gnorm):
-            self._optimizer.step(self.params, grads, lr)
-            if self.ema is not None:
-                self.ema.update(self.params)
+        overflow = not np.isfinite(gnorm)
+        if self.use_loss_scale:
+            self._step_loss_scale(overflow, gnorm)
+        if not overflow:
+            # the JAX trainer's named_scope("optimizer"): a profiler range
+            with torch.profiler.record_function("optimizer"):
+                self._optimizer.step(self.params, grads, lr, self._sr_generator())
+                if self.ema is not None:
+                    self.ema.update(self._master())
         else:
-            logger.warning(f"non-finite gradient norm {gnorm}: update skipped")
+            self.overflows += 1
+            if not self.use_loss_scale:
+                logger.warning(f"non-finite gradient norm {gnorm}: update skipped")
         self.set_num_updates(self.get_num_updates() + 1)
 
         with metrics.aggregate("train"), metrics.aggregate("train_inner"):
             self.task.reduce_metrics(logging_outputs, self.loss)
             metrics.log_scalar("gnorm", gnorm, priority=400, round=3)
+            if self.use_loss_scale:
+                metrics.log_scalar("loss_scale", loss_scale, priority=700, round=4)
         loss_sum = sum(float(log["loss"]) for log in logging_outputs)
         self.update_losses.append(loss_sum / max(float(sample_size), 1e-8) / np.log(2))
         self.update_lrs.append(lr)
+        self.update_loss_scales.append(loss_scale)
+        self.update_gnorms.append(gnorm)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.step_ms.append((time.perf_counter() - t0) * 1e3)
         return gnorm
+
+    def _step_loss_scale(self, overflow: bool, gnorm: float) -> None:
+        """The fp16 schedule's step (the JAX ``_sched_overflow``); a NaN norm
+        is counted apart, since no rescaling cures it."""
+        window = getattr(self.args, "fp16_scale_window", None) or 2 ** 14
+        self.scale_state, pinned = scale_schedule(
+            self.scale_state, overflow, scale_window=window,
+            min_loss_scale=self.args.min_loss_scale,
+            tolerance=getattr(self.args, "fp16_scale_tolerance", 0.0) or 0.0,
+            threshold_loss_scale=getattr(self.args, "threshold_loss_scale", None),
+        )
+        self._pinned += int(pinned)
+        self._nan_updates += int(np.isnan(gnorm))
+
+    def flush_metrics(self) -> None:
+        """The JAX trainer's flush checks: under ``--fp16`` a NaN gradient
+        norm is reported apart from the scale's routine overflows, and a
+        scale pinned at ``--min-loss-scale`` since the last flush raises
+        ``FloatingPointError``."""
+        nan, self._nan_updates = self._nan_updates, 0
+        if nan and self.use_loss_scale:
+            logger.warning(
+                f"{nan} update(s) in the last interval had NaN gradients: NOT a "
+                "loss-scale overflow (NaN survives rescaling)")
+        if self._pinned:
+            self._pinned = 0
+            raise FloatingPointError(
+                f"Minimum loss scale reached ({self.args.min_loss_scale}). "
+                "Your loss is probably exploding. Try lowering the learning "
+                "rate, using gradient clipping or increasing the batch size.")
 
     # -- validation ----------------------------------------------------------
 
@@ -205,8 +323,9 @@ class Trainer(object):
     @contextlib.contextmanager
     def eval_weights(self):
         """With ``--validate-with-ema`` the EMA's weights stand in the model's
-        parameters for the block (cast to their type), and the trained
-        weights come back bit for bit after it."""
+        parameters for the block (cast to their type: rounded to bf16 under
+        ``--bf16``), and the trained weights come back bit for bit after
+        it."""
         if self.ema is None or not getattr(self.args, "validate_with_ema", False):
             yield
             return
@@ -243,6 +362,9 @@ class Trainer(object):
             "extra_state": {
                 "metrics": metrics.state_dict(),
                 "previous_training_time": self.cumulative_training_time(),
+                "loss_scale": self.get_loss_scale(),
+                "loss_scale_state": {k: (float(v) if k == "scale" else v)
+                                     for k, v in self.scale_state.items()},
             },
         }
         if self.ema is not None:
@@ -262,10 +384,14 @@ class Trainer(object):
                         reset_dataloader=False, optimizer_overrides=None,
                         reset_meters=False):
         """Restore from ``filename`` what the resets leave: the weights
-        always (the EMA's with ``--load-from-ema``), the EMA when the run
-        keeps one, the optimizer state and update count unless
-        ``reset_optimizer``, the lr scheduler unless ``reset_lr_scheduler``,
-        the meters unless ``reset_meters``.  Returns the checkpoint's
+        always (the EMA's with ``--load-from-ema``), cast to the parameters'
+        type, with the fp32 master refreshed from them; the EMA when the run
+        keeps one; the optimizer state (its master among it), the update
+        count and the fp16 loss scale unless ``reset_optimizer``; the lr
+        scheduler unless ``reset_lr_scheduler``; the meters unless
+        ``reset_meters``.  (The JAX trainer leaves the master as it was
+        under ``reset_optimizer``; here it is refreshed then too, so a
+        fine-tune starts from the loaded weights.)  Returns the checkpoint's
         ``extra_state`` (None when there is no file); ``reset_dataloader``
         is the caller's to apply to its ``train_iterator``.  A checkpoint
         that lacks a group resumes without it, with a warning naming it."""
@@ -291,11 +417,7 @@ class Trainer(object):
             with torch.no_grad():
                 for n, p in self.params.items():
                     p.copy_(state["ema"][n])
-        if self.ema is not None:
-            if state.get("ema") is not None:
-                self.ema.load_state_dict(state["ema"])
-            else:  # start the average at the loaded weights
-                self.ema = EMA(self.params, self.ema.decay)
+        self._optimizer.refresh_master(self.params)
         if not reset_optimizer and state.get("optimizer_state") is not None:
             if not self._optimizer.load_state_dict(state["optimizer_state"],
                                                    optimizer_overrides):
@@ -303,6 +425,16 @@ class Trainer(object):
                     "optimizer state in checkpoint does not match the current "
                     "parameters; resetting optimizer state (Adam moments restart "
                     "from zero)")
+        if self.ema is not None:
+            if state.get("ema") is not None:
+                self.ema.load_state_dict(state["ema"])
+            else:  # start the average at the loaded weights
+                self.ema = EMA(self._master(), self.ema.decay)
+        if (not reset_optimizer and self.use_loss_scale and extra_state is not None
+                and extra_state.get("loss_scale") is not None):
+            saved = extra_state.get("loss_scale_state") or {}
+            self.scale_state = init_scale_state(extra_state["loss_scale"])
+            self.scale_state.update({k: int(v) for k, v in saved.items() if k != "scale"})
         if state.get("optimizer_history"):
             last = state["optimizer_history"][-1]
             if not reset_lr_scheduler:
