@@ -179,7 +179,28 @@ result line):
    norm 5e-2 relative, each update's change to the fp32 master within 10%
    in L2 over all parameters, and on each side the bf16 parameters the
    nearest-even rounding of its own master, bit for bit;
-11. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
+11. the optimizer and loader plane -- 11a: 10a's run plus ``--fused-adam
+   --num-workers 2 --prefetch-to-device`` (``fused_train``): each update's
+   loss within 2% relative of 10a's (the SR noise differs), 4a's launches
+   per micro-batch, exactly one ``multi_tensor_l2norm`` (K-a) and one
+   ``fused_adam`` (K-b) launch per update (one dtype group), step ms,
+   tokens/s and peak memory beside 10a's; then one update under
+   ``torch.profiler`` (``fused_profile``: K-a and K-b, the optimizer's
+   kernels); 11b: 4b's path with ``--fused-adam`` at 4b's tolerances, then a
+   checkpoint written with the flag resumed with and without it (the next
+   two losses within 1e-5 relative of each other and of the uninterrupted
+   run); 11c: 9d's L=256 path with ``--grad-accum adama`` at 9d's
+   tolerances, then 9a's full-width LM for 10 updates in buffer mode and in
+   adama (``adama_lm``: both peak memories, 9a's launches, falling losses);
+   11d: 5a's Uni-Mol run plus ``--num-workers 4 --prefetch-to-device``
+   (``unimol_loader``): each update's loss within 1e-4 relative of 5a's,
+   the same consumed position after every update, the step median beside
+   5a's; 11e: 4b's path at 4b's tolerances with ``--per-sample-clip-norm
+   0.1`` (batch 4, dropout 0) and with ``--optimizer sgd --momentum 0.9``,
+   then a 2-layer BERT-base checkpoint with a NaN in one named weight
+   fine-tuned by the train CLI with ``--nan-rerun`` on the card and on the
+   CPU: both exit non-zero naming that module (``nan_rerun``);
+12. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
    and, last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
@@ -221,6 +242,16 @@ scores with the (8, 1, 1, 512) ``finfo.min`` key mask and the (1, 12, 512,
 512) bias, and on int8 at (8, 12, 128, 128) (the dequant multiply, the adds
 and ``torch.softmax``).
 
+Phase 3 also holds the optimizer plane's two kernels against their plain
+versions at fp32 buffers of 110,000,000 (BERT-base's parameter count),
+1,000,003 and 1 elements: K-a (the L2 norm, each element divided by a
+device scalar) within 1e-6 relative of ``vector_norm`` and the same bits on
+a second call, its yardstick ``vector_norm`` of the buffer; K-b (two
+segments, the first decayed; the clip read from K-a's norm) with fp32
+parameters, bf16 parameters rounded to nearest even and bf16 under SR,
+bit for bit on m, v, the master and the parameters, its yardstick the
+per-tensor path's torch calls for the same update.
+
 Phase 3 also holds the full-row forward and backward at the causal LM's
 attention, (8, 12, 512, 64): the rel-pos bias plus the ``triu`` of
 ``CAUSAL_NEG`` as one (1, 12, 512, 512) bias that needs a gradient, the key
@@ -233,7 +264,7 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 10 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 11 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -324,6 +355,11 @@ KERNELS = {
                          "unicore_tpu_torch/csrc/fused_norm.cu", "quant_serve"),
     "quant_softmax_dropout_fwd": ("unicore_tpu/ops/softmax_dropout_pallas.py:443",
                                   "unicore_tpu_torch/csrc/softmax_dropout.cu", "quant_serve"),
+    # jnp in the JAX package (XLA fuses each into one pass; no Pallas kernel)
+    "multi_tensor_l2norm": ("unicore_tpu/optim/multi_tensor.py:232",
+                            "unicore_tpu_torch/csrc/multi_tensor.cu", "fused_train"),
+    "fused_adam": ("unicore_tpu/optim/multi_tensor.py:259",
+                   "unicore_tpu_torch/csrc/multi_tensor.cu", "fused_train"),
 }
 
 
@@ -1335,6 +1371,115 @@ def check_quant_softmax(torch, device, c, iters):
     return res
 
 
+def _bits_equal(torch, a, b):
+    if a is None:
+        return True
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return bool(torch.equal(a.view(view), b.view(view)))
+
+
+def check_l2norm(torch, device, n, iters):
+    """K-a (``multi_tensor_l2norm``) on an fp32 buffer of ``n`` elements,
+    each divided by a device scalar inside the reduction, against its plain
+    version and ``torch.linalg.vector_norm`` of the divided buffer (1e-6
+    relative), and the same bits on a second call.  Yardstick:
+    ``vector_norm`` of the buffer, one PyTorch call."""
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    g = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(n, generator=g, device=device) * 1e-3
+    denom = torch.tensor(3.0, device=device)
+    call = lambda: mt.multi_tensor_l2norm([x], denom)  # noqa: E731
+    plain = lambda: mt.multi_tensor_l2norm_plain([x], denom)  # noqa: E731
+    lib = lambda: torch.linalg.vector_norm(x)  # noqa: E731
+    got, again = call(), call()
+    ref = torch.linalg.vector_norm(x / denom)
+    rel = abs(float(got) - float(ref)) / float(ref)
+    res = {"shape": [n], "dtype": "float32", "max_abs_err": abs(float(got) - float(plain())),
+           "rel_err_vs_vector_norm": rel, "tolerance": 1e-6,
+           "same_bits_twice": _bits_equal(torch, got, again)}
+    if not (rel <= 1e-6 and res["same_bits_twice"]):
+        raise AssertionError(f"multi_tensor_l2norm n={n}: {res}")
+    if n >= 1_000_000 or device.type != "cuda":
+        iters = min(iters, 20)
+        timed(res, "ms", torch, call, device, iters)
+        timed(res, "plain_ms", torch, plain, device, iters)
+        timed(res, "library_ms", torch, lib, device, iters)
+    res["bound_ms"], res["bound_by"] = bound_ms(4 * n, 2 * n, "float32")
+    log(f"multi_tensor_l2norm n={n}: {json.dumps(res)}")
+    return res
+
+
+def check_fused_adam(torch, device, n, kind, iters):
+    """K-b (``fused_adam``) on a flat group of ``n`` elements -- two
+    segments, the first decayed, the clip read from K-a's norm, the
+    gradient divided by a device scalar -- with fp32 parameters (the master
+    is the parameters), bf16 parameters rounded to nearest even, or bf16
+    under SR: m, v, the master and the parameters bit for bit against
+    ``fused_adam_plain``.  Yardstick: the per-tensor path's torch calls for
+    the same function (divide, clip, the ``_foreach`` Adam, the
+    copy-back)."""
+    from unicore_tpu_torch.ops.rounding import fp32_to_bf16_sr
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    g = torch.Generator(device=device).manual_seed(n + len(kind))
+    master = torch.randn(n, generator=g, device=device)
+    m = torch.randn(n, generator=g, device=device) * 1e-3
+    v = torch.rand(n, generator=g, device=device) * 1e-6
+    grad = torch.randn(n, generator=g, device=device) * 1e-3
+    param = None if kind == "float32" else master.to(torch.bfloat16)
+    half = (n // 2) // mt.ALIGN * mt.ALIGN
+    segs = [(0, half, True), (half, n - half, False)] if half else [(0, n, True)]
+    step_size = float(torch.tensor(1e-4) * torch.tensor(0.99).sqrt() / 0.9)
+    decay = float(torch.tensor(1.0) - torch.tensor(step_size) * torch.tensor(0.01))
+    hp = mt.AdamHyper(0.9, 0.98, 1e-6, step_size, 0.01, decay)
+    denom = torch.tensor(3.0, device=device)
+    gnorm = mt.multi_tensor_l2norm([grad], denom)
+    sr_key = (0x1234567, 0x89) if kind == "bfloat16_sr" else None
+    chunks = mt.chunk_table(segs, device)
+    kw = dict(denom=denom, gnorm=gnorm, max_norm=1.0, sr_key=sr_key, buffer_id=1)
+    got = [t.clone() if t is not None else None for t in (master, m, v, param)]
+    ref = [t.clone() if t is not None else None for t in (master, m, v, param)]
+    if device.type == "cuda":
+        mt.fused_adam(got[0], got[1], got[2], grad, chunks, hp, got[3], **kw)
+    else:
+        mt.fused_adam_plain(got[0], got[1], got[2], grad, segs, hp, got[3], **kw)
+    mt.fused_adam_plain(ref[0], ref[1], ref[2], grad, segs, hp, ref[3], **kw)
+    same = [_bits_equal(torch, a, b) for a, b in zip(got, ref)]
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref)
+              if a is not None)
+    coef = float(mt.clip_coef(gnorm, 1.0))
+    res = {"shape": [n], "dtype": kind, "max_abs_err": err, "tolerance": "bit for bit",
+           "bit_equal_master_m_v_param": same, "clip_coef": coef}
+    if not all(same):
+        raise AssertionError(f"fused_adam n={n} {kind}: {res}")
+    if n >= 1_000_000 or device.type != "cuda":
+        bufs = [t.clone() if t is not None else None for t in (master, m, v, param)]
+        gen = torch.Generator(device=device).manual_seed(3)
+
+        def foreach_path():
+            g2 = grad / denom
+            g2.mul_(mt.clip_coef(gnorm, 1.0))
+            mt.adam_elementwise([bufs[0]], [g2], [bufs[1]], [bufs[2]], hp, [True])
+            if bufs[3] is not None:
+                bufs[3].copy_(fp32_to_bf16_sr(bufs[0], gen) if sr_key else bufs[0])
+
+        iters = min(iters, 20)
+        call = (lambda: mt.fused_adam(bufs[0], bufs[1], bufs[2], grad, chunks, hp, bufs[3],
+                                      **kw)) if device.type == "cuda" else foreach_path
+        plain = lambda: mt.fused_adam_plain(bufs[0], bufs[1], bufs[2], grad, segs, hp,  # noqa
+                                            bufs[3], **kw)
+        timed(res, "ms", torch, call, device, iters)
+        res["plain_ms"], res["plain_ms_spread"] = time_ms(torch, plain, device, 2, 1, 3)
+        res["plain_device_ms"] = device_ms(torch, plain, 2) if device.type == "cuda" else None
+        timed(res, "library_ms", torch, foreach_path, device, iters)
+    # g read; m, v, master read and written; a bf16 parameter written
+    nbytes = n * (4 + 8 + 8 + 8 + (2 if param is not None else 0))
+    res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 20 * n, "float32")
+    log(f"fused_adam n={n} {kind}: {json.dumps(res)}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4a: training, a subprocess of the train CLI
 # ---------------------------------------------------------------------------
@@ -1471,9 +1616,11 @@ def drive_training(torch, cfg, data, card, smi):
 # phase 4b: one training path on the card against the CPU
 # ---------------------------------------------------------------------------
 
-def bert_card_vs_cpu_setup(torch, cfg, data, *flags):
-    """4b's path with ``flags`` added to its arguments: (args, task, model,
-    loss, the micro-batches of each update)."""
+def bert_card_vs_cpu_setup(torch, cfg, data, *flags, batch=None, attention_dropout=0.1):
+    """4b's path with ``flags`` added to its arguments (and ``batch`` rows a
+    micro-batch, ``attention_dropout``, where given): (args, task, model,
+    loss, the micro-batches of each update).  Without Adam (``--optimizer
+    sgd``) the Adam flags of 4a's arguments are dropped."""
     import numpy as np
 
     from unicore_tpu_torch import options
@@ -1482,11 +1629,15 @@ def bert_card_vs_cpu_setup(torch, cfg, data, *flags):
     from unicore_tpu_torch.tasks.bert import BertTask
 
     c = cfg["card_vs_cpu"]
+    argv = train_argv(cfg, data, WORK / "unused", "cpu")
+    if "--optimizer" in flags:
+        for name in ("--adam-betas", "--adam-eps"):
+            i = argv.index(name)
+            del argv[i:i + 2]
     args = options.parse_args_and_arch(
         options.get_training_parser(),
-        train_argv(cfg, data, WORK / "unused", "cpu")
-        + ["--update-freq", "2", "--max-update", str(c["updates"]),
-           "--total-num-update", str(c["updates"]), "--warmup-updates", "1", *flags])
+        argv + ["--update-freq", "2", "--max-update", str(c["updates"]),
+                "--total-num-update", str(c["updates"]), "--warmup-updates", "1", *flags])
     task = BertTask.setup_task(args)
     vocab, pad = len(task.dictionary), task.dictionary.pad()
     model = BertModel(
@@ -1495,9 +1646,9 @@ def bert_card_vs_cpu_setup(torch, cfg, data, *flags):
         encoder_ffn_embed_dim=args.encoder_ffn_embed_dim,
         encoder_attention_heads=args.encoder_attention_heads,
         max_seq_len=args.max_seq_len, dropout=0.0, emb_dropout=0.0,
-        attention_dropout=0.1, generator=torch.Generator().manual_seed(7))
+        attention_dropout=attention_dropout, generator=torch.Generator().manual_seed(7))
     rng = np.random.default_rng(11)
-    B, L = cfg["batch"], c["seq_len"]
+    B, L = batch or cfg["batch"], c["seq_len"]
     samples = []
     for _ in range(2 * c["updates"]):
         lens = rng.integers(L // 2, L + 1, B)
@@ -1509,14 +1660,19 @@ def bert_card_vs_cpu_setup(torch, cfg, data, *flags):
     return args, task, model, LOSS_REGISTRY["masked_lm"](task), groups
 
 
-def drive_card_vs_cpu(torch, cfg, data):
+def drive_card_vs_cpu(torch, cfg, data, *flags, tag="card vs CPU", need=None, **setup):
+    """4b (and, with ``flags``, phase 11's variants of it): the 2-layer
+    BERT-base path trained on the card and on the CPU from the same weights
+    and batches; loss 1e-4 and gradient norm 1e-3 relative, parameters 1e-5
+    absolute, every kernel of ``need`` (4a's by default) launched on the
+    card and none on the CPU."""
     import copy
 
     from unicore_tpu_torch.ops import _kernels
     from unicore_tpu_torch.trainer import Trainer
 
     c = cfg["card_vs_cpu"]
-    args, task, model, loss, groups = bert_card_vs_cpu_setup(torch, cfg, data)
+    args, task, model, loss, groups = bert_card_vs_cpu_setup(torch, cfg, data, *flags, **setup)
 
     def run(device):
         tr = Trainer(args, task, copy.deepcopy(model), loss, device)
@@ -1539,12 +1695,12 @@ def drive_card_vs_cpu(torch, cfg, data):
     param_tol = c["param_tol"]
     res.update(loss_rel=loss_rel, gnorm_rel=gnorm_rel, param_max_abs_diff=param_err,
                param_tol=param_tol)
-    log(f"card vs CPU: {json.dumps(res)}")
+    log(f"{tag}: {json.dumps(res)}")
     if sum(cpu_launches.values()):
         raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
-    if cfg["device"].type == "cuda" and not all(
-            card_launches.get(k, 0) > 0 for k, v in KERNELS.items() if v[2] == "train"):
-        raise AssertionError(f"the card run missed a kernel: {card_launches}")
+    need = need or [k for k, v in KERNELS.items() if v[2] == "train"]
+    if cfg["device"].type == "cuda" and not all(card_launches.get(k, 0) > 0 for k in need):
+        raise AssertionError(f"{tag}: the card run missed a kernel: {card_launches}")
     if not (loss_rel <= 1e-4 and gnorm_rel <= 1e-3 and param_err <= param_tol):
         raise AssertionError(f"card and CPU disagree: loss {loss_rel} (1e-4 rel), "
                              f"gnorm {gnorm_rel} (1e-3 rel), params {param_err} "
@@ -1624,7 +1780,7 @@ def drive_unimol_training(cfg, data, card, smi):
         "loss_per_update": stats["loss_per_update"], "card": card, "nvidia_smi": smi,
     }
     print("unimol_train " + json.dumps(train), flush=True)
-    return stats["kernel_launches"]
+    return stats
 
 
 def unimol_card_vs_cpu_setup(torch, cfg, data, *flags):
@@ -1796,13 +1952,16 @@ KERNEL_GROUPS = (("flash_attention", ("flash_",)), ("fused_norm", ("fused_norm",
                                                  "Softmax", "foreach", "fill")))
 
 
-def profile_update(torch, tr, samples, groups, card, smi):
+def profile_update(torch, tr, samples, groups, card, smi, split_optimizer=True):
     """One update of ``tr`` (a Trainer, its micro-batches ``samples[2:4]``)
     after a warm-up update on ``samples[:2]``: its wall time unprofiled,
     then the same update under ``torch.profiler`` for the device time of
     the kernels by ``groups`` (first match by name; "other" for the rest);
     the idle share is the part of the unprofiled wall time the device time
-    does not fill."""
+    does not fill.  With ``split_optimizer`` the trainer's ``optimizer``
+    range comes out of the elementwise group into its own; without, the
+    optimizer's kernels have groups of their own (``--fused-adam``'s K-a
+    and K-b, launched through ``ctypes``, which the range does not see)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1831,7 +1990,7 @@ def profile_update(torch, tr, samples, groups, card, smi):
     # the trainer's "optimizer" range (Adam on the master, the copy-back and
     # its rounding, the EMA): its kernels, all elementwise or foreach ones,
     # come out of that group into their own
-    opt_us = range_device_us(prof, "optimizer")
+    opt_us = range_device_us(prof, "optimizer") if split_optimizer else None
     if opt_us is not None:
         by_group["optimizer"] = opt_us
         elem = "elementwise_and_reductions"
@@ -1907,7 +2066,7 @@ BERT_GROUPS = (("fullrow_fwd", ("fullrow_fwd",)), ("fullrow_bwd_dq_dbias", ("ful
                ("fullrow_bwd_dk_dv", ("fullrow_dkv",))) + KERNEL_GROUPS[1:]
 
 
-def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None):
+def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None, split_optimizer=True):
     """:func:`profile_update` on the configuration the train CLI takes from
     ``argv`` (its model at full width, optimizer, EMA and dropouts; its
     first 4 batches of 8): the ``tag`` line.  BERT (4a): 2 micro-batches
@@ -1925,7 +2084,8 @@ def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None):
     model = task.build_model(args, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(args.seed))
     tr = Trainer(args, task, model, task.build_loss(args), dev)
-    res = profile_update(torch, tr, samples, groups or BERT_GROUPS, card, smi)
+    res = profile_update(torch, tr, samples, groups or BERT_GROUPS, card, smi,
+                         split_optimizer)
     res["micro_batch_shapes"] = [list(s["net_input"]["src_tokens"].shape)
                                  for s in samples[2:4]]
     print(f"{tag} " + json.dumps(res), flush=True)
@@ -2933,7 +3093,7 @@ def lm_card_vs_cpu_setup(torch, cfg, data, L, pad_multiple, attn_dropout, *flags
     return args, task, model, task.build_loss(args), groups, valid
 
 
-def drive_lm_card_vs_cpu(torch, cfg, data):
+def drive_lm_card_vs_cpu(torch, cfg, data, *flags, lengths=None, tag="LM card vs CPU"):
     """9d: a 2-layer full-width ``transformer_lm`` trained on the card and on
     the CPU from the same weights and batches (3 updates of 2 micro-batches)
     at each length of ``c["lengths"]``, with the EMA, then validated on its
@@ -2947,9 +3107,9 @@ def drive_lm_card_vs_cpu(torch, cfg, data):
 
     c = cfg["lm_train"]["card_vs_cpu"]
     out = {}
-    for L, pad_multiple, attn_dropout in c["lengths"]:
+    for L, pad_multiple, attn_dropout in lengths or c["lengths"]:
         args, task, model, loss, groups, valid = lm_card_vs_cpu_setup(
-            torch, cfg, data, L, pad_multiple, attn_dropout)
+            torch, cfg, data, L, pad_multiple, attn_dropout, *flags)
 
         def run(device):
             tr = Trainer(args, task, copy.deepcopy(model), loss, device)
@@ -2984,7 +3144,7 @@ def drive_lm_card_vs_cpu(torch, cfg, data):
             "valid_rel": abs(card[4] - cpu[4]) / abs(cpu[4]),
             "card_launches": {k: v for k, v in card_launches.items() if v},
         }
-        log(f"LM card vs CPU: {json.dumps(res)}")
+        log(f"{tag}: {json.dumps(res)}")
         if sum(cpu_launches.values()):
             raise AssertionError(f"the CPU run launched kernels: {cpu_launches}")
         if cfg["device"].type == "cuda":
@@ -3083,7 +3243,7 @@ def drive_bf16_training(torch, cfg, data, fp32_stats, card, smi):
         profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda") + flags,
                            "bf16_profile", card, smi, BF16_GROUPS)
         matmul_reduction_cost(torch, card, smi)
-    return stats["kernel_launches"]
+    return stats
 
 
 def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
@@ -3290,6 +3450,238 @@ def drive_bf16_card_vs_cpu(torch, cfg, data, um_data, evo_data):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the optimizer and loader plane (--fused-adam, --grad-accum
+# adama, --per-sample-clip-norm, sgd, --nan-rerun, the loader threads and
+# the device prefetcher)
+# ---------------------------------------------------------------------------
+
+#: the fused update by kernel group: K-a and K-b apart, then :data:`BF16_GROUPS`
+FUSED_GROUPS = (("fused_adam", ("fused_adam",)),
+                ("multi_tensor_l2norm", ("l2norm",))) + BF16_GROUPS
+
+
+def fused_launch_check(tag, stats, per_update):
+    """K-a and K-b launched ``per_update`` times each update (one per dtype
+    group) in a run's stats; none on the CPU."""
+    launches = stats["kernel_launches"]
+    want = per_update * stats["updates"] if stats["device"] != "cpu" else 0
+    for k in ("multi_tensor_l2norm", "fused_adam"):
+        if launches.get(k, 0) != want:
+            raise AssertionError(f"{tag}: {k}: {launches.get(k, 0)} launches over "
+                                 f"{stats['updates']} updates, want {want}")
+
+
+def drive_fused_training(torch, cfg, data, bf16_stats, card, smi):
+    """11a: 10a's run (BERT-base, ``--bf16 --bf16-sr``, same corpus, seed
+    and arguments) plus ``--fused-adam --num-workers 2
+    --prefetch-to-device``: each update's loss within 2% relative of 10a's
+    (the SR noise differs: not bit for bit), 4a's launches per micro-batch,
+    exactly one K-a and one K-b launch per update (one dtype group); step
+    ms, update wall ms, tokens/s and peak memory beside 10a's
+    (``fused_train``).  On the card one update in-process under
+    ``torch.profiler`` (``fused_profile``: K-a and K-b, the optimizer's
+    kernels, beside ``bf16_profile``'s ``optimizer`` range).  Returns the
+    run's stats."""
+    p = cfg["phase11"]
+    dev = cfg["device"]
+    flags = ["--bf16", "--bf16-sr", "--disable-validation", *p["fused_flags"]]
+    stats = run_train_cli("fused_train", train_argv(cfg, data, fresh_dir(WORK / "fused_ckpt"),
+                                                    dev.type) + flags,
+                          dev, cfg["train"], cfg["train"]["timeout_s"])
+    fused_launch_check("fused_train", stats, 1)
+    rel = loss_rel_diffs(stats["loss_per_update"], bf16_stats["loss_per_update"])
+    line = {
+        "flags": flags, "updates": stats["updates"], "micro_batches": stats["micro_batches"],
+        "loss_per_update": stats["loss_per_update"],
+        "bf16_loss_per_update": bf16_stats["loss_per_update"],
+        "loss_max_rel_diff_vs_bf16": max(rel), "tolerance": p["fused_loss_rel"],
+        "median_step_ms": stats["median_step_ms"],
+        "bf16_median_step_ms": bf16_stats["median_step_ms"],
+        "median_update_wall_ms": stats["median_update_wall_ms"],
+        "bf16_median_update_wall_ms": bf16_stats["median_update_wall_ms"],
+        "tokens_per_s": stats["tokens_per_s"], "bf16_tokens_per_s": bf16_stats["tokens_per_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"],
+        "bf16_peak_memory_bytes": bf16_stats["peak_memory_bytes"],
+        "step_ms": stats["step_ms"], "launches": stats["kernel_launches"], "card": card,
+        "nvidia_smi": smi,
+    }
+    print("fused_train " + json.dumps(line), flush=True)
+    if max(rel) > p["fused_loss_rel"]:
+        raise AssertionError(f"fused_train: loss vs 10a {max(rel)} (tol {p['fused_loss_rel']})")
+    if dev.type == "cuda":
+        profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda") + flags,
+                           "fused_profile", card, smi, FUSED_GROUPS, split_optimizer=False)
+    return stats
+
+
+def drive_fused_card_vs_cpu(torch, cfg, data):
+    """11b: 4b's path with ``--fused-adam`` (fp32, 3 updates) at 4b's
+    tolerances, K-a and K-b launched on the card; then on the device a
+    checkpoint written after one ``--fused-adam`` update and resumed with
+    and without the flag: the next two updates' losses within 1e-5
+    relative of each other and of the uninterrupted run."""
+    import copy
+
+    from unicore_tpu_torch.trainer import Trainer
+
+    drive_card_vs_cpu(torch, cfg, data, "--fused-adam", tag="fused card vs CPU",
+                      need=["multi_tensor_l2norm", "fused_adam"])
+    args, task, model, loss, groups = bert_card_vs_cpu_setup(torch, cfg, data, "--fused-adam")
+    dev = cfg["device"]
+    ckpt = fresh_dir(WORK / "fused_resume") / "checkpoint_1.pt"
+
+    def trainer(fused):
+        a = copy.copy(args)
+        a.fused_adam = fused
+        tr = Trainer(a, task, copy.deepcopy(model), loss, dev)
+        tr.begin_epoch(1)
+        return tr
+
+    full = trainer(True)
+    for group in groups:
+        full.train_step(group)
+    first = trainer(True)
+    first.train_step(groups[0])
+    first.save_checkpoint(str(ckpt), {})
+    losses = {}
+    for fused in (True, False):
+        tr = trainer(fused)
+        tr.load_checkpoint(str(ckpt))
+        for group in groups[1:]:
+            tr.train_step(group)
+        losses[fused] = tr.update_losses
+    rel = max(loss_rel_diffs(losses[False], losses[True])
+              + loss_rel_diffs(losses[True], full.update_losses[1:]))
+    res = {"resumed_with_flag": losses[True], "resumed_without_flag": losses[False],
+           "uninterrupted": full.update_losses[1:], "max_rel_diff": rel, "tolerance": 1e-5}
+    log(f"fused cross-flag resume: {json.dumps(res)}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"fused cross-flag resume: {res}")
+
+
+def drive_adama(torch, cfg, data, card, smi):
+    """11c: 9d's LM path at L=256 with ``--grad-accum adama`` (its
+    tolerances: the adama fold runs in the same torch ops on both sides);
+    then the full-width LM (9a's arguments, no validation or checkpoint)
+    for ``adama_updates`` updates in buffer mode and in adama: both peak
+    memories (``adama_lm`` line), the launches of 9a, falling losses."""
+    p = cfg["phase11"]
+    L = cfg["lm_train"]["card_vs_cpu"]["lengths"][0]
+    drive_lm_card_vs_cpu(torch, cfg, data, "--grad-accum", "adama", lengths=[L],
+                         tag="adama LM card vs CPU")
+    runs = {}
+    t = dict(cfg["lm_train"], updates=p["adama_updates"], per_micro_batch={})
+    for mode in ("buffer", "adama"):
+        argv = lm_train_argv(cfg, data, fresh_dir(WORK / f"adama_{mode}"), cfg["device"].type,
+                             "--max-update", str(p["adama_updates"]), "--grad-accum", mode,
+                             "--disable-validation", "--no-save")
+        stats = run_train_cli(f"lm_{mode}", argv, cfg["device"], t, t["timeout_s"])
+        lm_launch_check(cfg, stats, 0)
+        runs[mode] = stats
+    line = {m: {k: r[k] for k in ("median_step_ms", "tokens_per_s", "peak_memory_bytes",
+                                  "loss_per_update", "gnorm_per_update")}
+            for m, r in runs.items()}
+    line.update(card=card, nvidia_smi=smi,
+                peak_memory_saved_bytes=(None if runs["buffer"]["peak_memory_bytes"] is None
+                                         else runs["buffer"]["peak_memory_bytes"]
+                                         - runs["adama"]["peak_memory_bytes"]))
+    print("adama_lm " + json.dumps(line), flush=True)
+
+
+def drive_loader(cfg, um_data, um_stats, card, smi):
+    """11d: 5a's Uni-Mol run plus ``--num-workers 4 --prefetch-to-device``:
+    each update's loss within 1e-4 relative of 5a's (the same batches in the
+    same order; a batch lost or out of order moves a loss far more), the
+    same consumed position after every update, 5a's launches; the step
+    median beside 5a's (``unimol_loader`` line)."""
+    p = cfg["phase11"]
+    u = cfg["unimol"]
+    argv = unimol_argv(u, um_data, fresh_dir(WORK / "unimol_loader"),
+                       cfg["device"].type) + p["loader_flags"]
+    stats = run_train_cli("unimol_loader", argv, cfg["device"], u["train"],
+                          u["train"]["timeout_s"])
+    rel = loss_rel_diffs(stats["loss_per_update"], um_stats["loss_per_update"])
+    line = {"flags": p["loader_flags"], "loss_max_rel_diff_vs_5a": max(rel),
+            "tolerance": p["loader_loss_rel"],
+            "iterations_in_epoch": stats["iterations_in_epoch"],
+            "iterations_in_epoch_5a": um_stats["iterations_in_epoch"],
+            "median_step_ms": stats["median_step_ms"],
+            "median_step_ms_5a": um_stats["median_step_ms"], "step_ms": stats["step_ms"],
+            "median_update_wall_ms": stats["median_update_wall_ms"],
+            "median_update_wall_ms_5a": um_stats["median_update_wall_ms"],
+            "card": card, "nvidia_smi": smi}
+    print("unimol_loader " + json.dumps(line), flush=True)
+    if not (max(rel) <= p["loader_loss_rel"]
+            and stats["iterations_in_epoch"] == um_stats["iterations_in_epoch"]):
+        raise AssertionError(f"unimol_loader: {line}")
+
+
+def drive_nan_rerun(torch, cfg, data):
+    """11e (last part): a 2-layer BERT-base checkpoint with a NaN written
+    into one named weight, fine-tuned by the train CLI with ``--nan-rerun``
+    on the card and on the CPU: both exit non-zero, naming the same module
+    in their ``FloatingPointError``."""
+    import re
+
+    from unicore_tpu_torch import checkpoint_utils, options, tasks
+
+    p = cfg["phase11"]
+    extra = ["--encoder-layers", "2", "--batch-size", "2", "--max-update", "1", "--nan-rerun"]
+    args = options.parse_args_and_arch(
+        options.get_training_parser(), train_argv(cfg, data, WORK / "unused", "cpu") + extra)
+    task = tasks.setup_task(args)
+    model = task.build_model(args, generator=torch.Generator().manual_seed(5))
+    state = model.state_dict()
+    state[p["poison"] + ".weight"][0, 0] = float("nan")
+    path = fresh_dir(WORK / "nan_ckpt") / "poisoned.pt"
+    checkpoint_utils.write_checkpoint(str(path), args, state)
+    named = {}
+    for device in sorted({cfg["device"].type, "cpu"}):
+        argv = train_argv(cfg, data, fresh_dir(WORK / f"nan_{device}"), device) + extra + [
+            "--finetune-from-model", str(path)]
+        log_path = WORK / f"nan_rerun_{device}.log"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        with open(log_path, "w") as f:
+            proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
+                                  stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
+                                  timeout=600)
+        text = log_path.read_text()
+        found = re.findall(r"FloatingPointError: non-finite gradients detected: NaN/Inf "
+                           r"detected in forward output of (\S+?);", text)
+        if proc.returncode == 0 or not found:
+            raise AssertionError(f"nan_rerun on {device}: exit {proc.returncode}, "
+                                 f"{found}:\n{text[-4000:]}")
+        named[device] = {"exit": proc.returncode, "module": found[-1]}
+    line = dict(named, poisoned=p["poison"])
+    print("nan_rerun " + json.dumps(line), flush=True)
+    if {v["module"] for v in named.values()} != {p["poison"]}:
+        raise AssertionError(f"nan_rerun: {line}")
+
+
+def drive_optimizer_paths(torch, cfg, data):
+    """11e: 4b's path at its tolerances with ``--per-sample-clip-norm 0.1``
+    (batch 4, dropout 0) and with ``--optimizer sgd --momentum 0.9``, then
+    :func:`drive_nan_rerun`."""
+    p = cfg["phase11"]
+    drive_card_vs_cpu(torch, cfg, data, "--per-sample-clip-norm", str(p["per_sample_clip"]),
+                      tag="per_sample_clip card vs CPU", batch=p["per_sample_batch"],
+                      attention_dropout=0.0)
+    drive_card_vs_cpu(torch, cfg, data, "--optimizer", "sgd", "--momentum", "0.9",
+                      tag="sgd card vs CPU")
+    drive_nan_rerun(torch, cfg, data)
+
+
+#: phase 11's settings, shared by the card and the rehearsal
+PHASE11 = {
+    "fused_flags": ["--fused-adam", "--num-workers", "2", "--prefetch-to-device"],
+    "fused_loss_rel": 0.02, "adama_updates": 10,
+    "loader_flags": ["--num-workers", "4", "--prefetch-to-device"], "loader_loss_rel": 1e-4,
+    "per_sample_clip": 0.1, "per_sample_batch": 4,
+    "poison": "sentence_encoder.layers.1.self_attn.in_proj",
+}
+
+# ---------------------------------------------------------------------------
 
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
@@ -3452,6 +3844,10 @@ CHIP = {
                                  "fused_norm_dwdb": 26, "fullrow_attention_fwd": 0,
                                  "fullrow_attention_bwd": 0, "softmax_dropout_fwd": 0,
                                  "softmax_dropout_bwd": 0}},
+    # phase 3's K-a / K-b buffers: BERT-base's ~110M fp32 elements, an odd
+    # length and one element; phase 11 (see its functions)
+    "multi_tensor": [110_000_000, 1_000_003, 1],
+    "phase11": PHASE11,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -3557,13 +3953,15 @@ REHEARSAL = {
     "fp16": {"updates": 10,
              "per_micro_batch": {"fused_norm_fwd": 6, "fused_norm_dx": 6,
                                  "fused_norm_dwdb": 6}},
+    "multi_tensor": [4099, 1],
+    "phase11": dict(PHASE11, adama_updates=6),
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 10 on the CPU at a tiny size, no card")
+                        help="phases 3 to 11 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -3671,6 +4069,12 @@ def main(argv=None):
             bias_dtype=torch.bfloat16))
     for kname, res in check_flash(torch, dev, mixed["flash"], torch.bfloat16, iters).items():
         checks[kname].append(res)
+    # the optimizer plane's kernels: K-a, then K-b with fp32 parameters,
+    # bf16 ones rounded to nearest even, and bf16 ones under SR
+    for n in cfg["multi_tensor"]:
+        checks["multi_tensor_l2norm"].append(check_l2norm(torch, dev, n, iters))
+        for kind in ("float32", "bfloat16", "bfloat16_sr"):
+            checks["fused_adam"].append(check_fused_adam(torch, dev, n, kind, iters))
     log(f"phase 3 done at {time.monotonic() - started:.0f}s")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
@@ -3685,7 +4089,8 @@ def main(argv=None):
 
     # 5a. Uni-Mol training through the CLI; 5b. card against CPU
     um_data = write_conformers(cfg["unimol"])
-    unimol_launches = drive_unimol_training(cfg, um_data, card, smi)
+    unimol_stats = drive_unimol_training(cfg, um_data, card, smi)
+    unimol_launches = unimol_stats["kernel_launches"]
     log(f"phase 5a done at {time.monotonic() - started:.0f}s")
     drive_unimol_card_vs_cpu(torch, cfg, um_data)
     log(f"phase 5b done at {time.monotonic() - started:.0f}s")
@@ -3730,7 +4135,8 @@ def main(argv=None):
     # 10. mixed precision: BERT-base in bf16 with SR against 4a (10a), the
     # LM in bf16 against 9a and resumed (10b), fp16 with the loss scale
     # (10c), bf16 card against CPU for the four families (10d)
-    bf16_launches = drive_bf16_training(torch, cfg, data, train_stats, card, smi)
+    bf16_stats = drive_bf16_training(torch, cfg, data, train_stats, card, smi)
+    bf16_launches = bf16_stats["kernel_launches"]
     log(f"phase 10a done at {time.monotonic() - started:.0f}s")
     lm_bf16_launches = drive_lm_bf16_training(torch, cfg, data, lm_stats, card, smi)
     log(f"phase 10b done at {time.monotonic() - started:.0f}s")
@@ -3738,11 +4144,26 @@ def main(argv=None):
     log(f"phase 10c done at {time.monotonic() - started:.0f}s")
     drive_bf16_card_vs_cpu(torch, cfg, data, um_data, evo_data)
     log(f"phase 10d done at {time.monotonic() - started:.0f}s")
+
+    # 11. the optimizer and loader plane: 10a with --fused-adam, workers
+    # and the device prefetcher (11a); --fused-adam card against CPU and
+    # its cross-flag resume (11b); adama (11c); 5a with the loader threads
+    # and the prefetcher (11d); per-sample clip, sgd, --nan-rerun (11e)
+    fused_stats = drive_fused_training(torch, cfg, data, bf16_stats, card, smi)
+    log(f"phase 11a done at {time.monotonic() - started:.0f}s")
+    drive_fused_card_vs_cpu(torch, cfg, data)
+    log(f"phase 11b done at {time.monotonic() - started:.0f}s")
+    drive_adama(torch, cfg, data, card, smi)
+    log(f"phase 11c done at {time.monotonic() - started:.0f}s")
+    drive_loader(cfg, um_data, unimol_stats, card, smi)
+    log(f"phase 11d done at {time.monotonic() - started:.0f}s")
+    drive_optimizer_paths(torch, cfg, data)
+    log(f"phase 11e done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 10. result lines: each kernel at its main path's shape (fp32, the
+    # 12. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -3755,7 +4176,7 @@ def main(argv=None):
                "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
                "lm_train": lm_train_launches, "lm_serve": lm_serve_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
-               "fp16_train": fp16_launches}
+               "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"]}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

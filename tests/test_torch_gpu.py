@@ -1267,3 +1267,66 @@ def test_stochastic_rounding_on_the_card(cuda):
     a = fp32_to_bf16_sr(x, torch.Generator(device=cuda).manual_seed(9))
     b = fp32_to_bf16_sr(x, torch.Generator(device=cuda).manual_seed(9))
     assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 8193, 3 * 8192 + 5])
+@pytest.mark.parametrize("param_dtype,sr", [(None, False), (torch.bfloat16, False),
+                                            (torch.bfloat16, True), (torch.float16, False)])
+def test_fused_adam_kernel_bit_for_bit(cuda, n, param_dtype, sr):
+    """The ``fused_adam`` kernel (K-b) against ``fused_adam_plain`` on one
+    flat group of ``n`` elements in three segments that cover it (decayed,
+    not, decayed; chunks that end mid-vector; the plain version updates the
+    whole buffer, the kernel the segments, as in a plan whose gaps are
+    zeros), the clip from a device norm: m, v, the
+    master and the parameter bit for bit, SR included; a non-finite norm
+    leaves every buffer as it was."""
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    g = torch.Generator(device=cuda).manual_seed(n)
+    master = torch.randn(n, generator=g, device=cuda)
+    m = torch.randn(n, generator=g, device=cuda) * 1e-2
+    v = torch.rand(n, generator=g, device=cuda) * 1e-4
+    grad = torch.randn(n, generator=g, device=cuda)
+    param = None if param_dtype is None else master.to(param_dtype)
+    a, b = n // 3 // 4 * 4, (2 * n // 3) // 4 * 4
+    segs = [(0, a, True), (a, b - a, False), (b, n - b, True)]
+    segs = [s for s in segs if s[1] > 0]
+    hp = mt.AdamHyper(0.9, 0.999, 1e-8, 3e-3, 0.1, 1.0 - 3e-3 * 0.1)
+    denom = torch.tensor(7.0, device=cuda)
+    gnorm = mt.multi_tensor_l2norm([grad], denom)
+    kw = dict(denom=denom, gnorm=gnorm, max_norm=0.5, sr_key=(5, 6) if sr else None,
+              buffer_id=2)
+    got = [t.clone() if t is not None else None for t in (master, m, v, param)]
+    ref = [t.clone() if t is not None else None for t in (master, m, v, param)]
+    mt.fused_adam(got[0], got[1], got[2], grad, mt.chunk_table(segs, cuda), hp, got[3], **kw)
+    mt.fused_adam_plain(ref[0], ref[1], ref[2], grad, segs, hp, ref[3], **kw)
+    for x, y in zip(got, ref):
+        if x is not None:
+            view = torch.int16 if x.element_size() == 2 else torch.int32
+            assert torch.equal(x.view(view), y.view(view))
+    before = [t.clone() for t in got if t is not None]
+    kw["gnorm"] = torch.tensor(float("nan"), device=cuda)
+    mt.fused_adam(got[0], got[1], got[2], grad, mt.chunk_table(segs, cuda), hp, got[3], **kw)
+    assert all(torch.equal(x, y) for x, y in zip([t for t in got if t is not None], before))
+
+
+@pytest.mark.parametrize("sizes", [[1], [5, 3], [1_000_003], [4096, 77, 1 << 20]])
+def test_l2norm_kernel_matches_and_repeats(cuda, sizes):
+    """The ``multi_tensor_l2norm`` kernel (K-a) over several buffers, each
+    element divided by a device scalar: within 1e-6 relative of the fp64
+    norm, the same bits on a second call, one launch count per buffer."""
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    g = torch.Generator(device=cuda).manual_seed(len(sizes))
+    bufs = [torch.randn(n, generator=g, device=cuda) for n in sizes]
+    denom = torch.tensor(0.25, device=cuda)
+    before = mt.NORM_LAUNCHES.count
+    a = mt.multi_tensor_l2norm(bufs, denom)
+    b = mt.multi_tensor_l2norm(bufs, denom)
+    assert mt.NORM_LAUNCHES.count - before == 2 * len(sizes)
+    ref = torch.cat([x.double() / 0.25 for x in bufs]).norm().item()
+    assert abs(a.item() - ref) <= 1e-6 * ref
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    with pytest.raises(ValueError):
+        mt.multi_tensor_l2norm([bufs[0][1:]] if bufs[0].numel() > 1 else
+                               [torch.zeros(3, dtype=torch.float64, device=cuda)])

@@ -37,12 +37,14 @@ logger = logging.getLogger(__name__)
 def write_checkpoint(path: str, args: argparse.Namespace,
                      state_dict: Mapping[str, torch.Tensor], **extra) -> None:
     """Write ``{"args", "model", **extra}`` atomically (temp name +
-    ``os.replace``); tensors in ``extra`` are saved from the CPU too."""
+    ``os.replace``); tensors in ``extra`` are saved from the CPU too, each
+    in its own storage (a ``--fused-adam`` parameter is a view into a flat
+    buffer, which ``torch.save`` would store whole)."""
     tmp = f"{path}.tmp-{os.getpid()}"
     state = {
         "args": args,
         "model": OrderedDict(
-            (k, v.detach().cpu()) for k, v in state_dict.items()
+            (k, _to_cpu(v)) for k, v in state_dict.items()
         ),
         **{k: _to_cpu(v) for k, v in extra.items()},
     }
@@ -56,7 +58,10 @@ def write_checkpoint(path: str, args: argparse.Namespace,
 
 def _to_cpu(tree):
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        t = tree.detach().cpu()
+        if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+            t = t.clone()
+        return t
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

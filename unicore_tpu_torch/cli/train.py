@@ -27,7 +27,9 @@ the padded length of each, this process's per-update losses (the summed
 loss over the summed sample size, in bits) and lrs, every validation's
 loss (``valid_losses``: the best-checkpoint metric as the JAX CLI rounds
 it; ``validations``: each with its update and unrounded loss), the best
-score, step times, real (non-pad) tokens/s (MSA tokens for the
+score, step times (``step_ms``: inside ``train_step``; ``update_wall_ms``:
+from one update's end to the next's, the batches' loading included), the
+consumed iterator position after each update, real (non-pad) tokens/s (MSA tokens for the
 Evoformer), samples/s, peak device memory, the launch count of every
 kernel, the compute ``dtype``, ``bf16_sr``, the loss scale of each update
 (``loss_scale``; 1.0 outside ``--fp16``), each update's gradient norm
@@ -39,8 +41,11 @@ kernels' plain versions).  Precision is fp32 with TF32 off, as the
 server, unless ``--bf16`` / ``--fp16`` (``Trainer``); then cuBLAS is told
 to keep its reductions of bf16 and fp16 products in fp32, as the TPU's
 matrix unit accumulates.
-The JAX CLI's signal guard, elastic restarts, telemetry and prefetch are
-not ported.
+Batches load on ``--num-workers`` threads behind a ``--data-buffer-size``
+read-ahead; ``--prefetch-to-device`` adds the device prefetcher
+(``data/prefetch.py``), which the trainer's ``maybe_prefetch`` /
+``finish_prefetch`` start and stop around each epoch.  The JAX CLI's
+signal guard, elastic restarts and telemetry are not ported.
 """
 
 import json
@@ -201,26 +206,32 @@ def train_epoch(args, session, epoch_itr):
     update_freq = args.update_freq[min(epoch, len(args.update_freq)) - 1]
     itr = iterators.GroupedIterator(itr, update_freq)
     trainer.begin_epoch(epoch)
+    itr = trainer.maybe_prefetch(itr, epoch_itr)
     stop = False
-    for samples in itr:
-        gnorm = trainer.train_step(samples)
-        trainer.flush_metrics()
-        num_updates = trainer.get_num_updates()
-        if num_updates % args.log_interval == 0:
-            stats = metrics.get_smoothed_values("train_inner")
-            scale = (f" | loss_scale {stats['loss_scale']:.4f}"
-                     if "loss_scale" in stats else "")
-            logger.info(
-                f"epoch {epoch:03d} | update {num_updates} | loss "
-                f"{stats['loss']:.3f} | lr {trainer.get_lr():.6g} | gnorm "
-                f"{gnorm:.3f} | bsz {stats.get('bsz', 0):.0f} | step "
-                f"{trainer.step_ms[-1]:.1f} ms{scale}"
-            )
-            metrics.reset_meters("train_inner")
-        _, stop = session.checkpoint_and_validate(epoch_itr,
-                                                  end_of_epoch=not itr.has_next())
-        if stop:
-            break
+    try:
+        for samples in itr:
+            gnorm = trainer.train_step(samples)
+            trainer.update_done.append(time.perf_counter())
+            trainer.flush_metrics()
+            num_updates = trainer.get_num_updates()
+            if num_updates % args.log_interval == 0:
+                stats = metrics.get_smoothed_values("train_inner")
+                scale = (f" | loss_scale {stats['loss_scale']:.4f}"
+                         if "loss_scale" in stats else "")
+                logger.info(
+                    f"epoch {epoch:03d} | update {num_updates} | loss "
+                    f"{stats['loss']:.3f} | lr {trainer.get_lr():.6g} | gnorm "
+                    f"{gnorm:.3f} | bsz {stats.get('bsz', 0):.0f} | step "
+                    f"{trainer.step_ms[-1]:.1f} ms{scale}"
+                )
+                metrics.reset_meters("train_inner")
+            trainer.iterations_per_update.append(epoch_itr.iterations_in_epoch)
+            _, stop = session.checkpoint_and_validate(epoch_itr,
+                                                      end_of_epoch=not itr.has_next())
+            if stop:
+                break
+    finally:
+        trainer.finish_prefetch(itr)
     stats = metrics.get_smoothed_values("train")
     logger.info(f"end of epoch {epoch}: loss {stats.get('loss', float('nan')):.3f}")
     metrics.reset_meters("train")
@@ -323,6 +334,11 @@ def main(args, device) -> dict:
     wall = time.time() - started
 
     steady = trainer.step_ms[1:] or trainer.step_ms or [float("nan")]
+    # between the ends of consecutive updates: the step, the batches'
+    # loading on the training thread (or what the loader threads take of
+    # it) and the cadence's work
+    update_wall_ms = [(b - a) * 1e3 for a, b in zip(trainer.update_done,
+                                                   trainer.update_done[1:])]
     train_s = sum(trainer.step_ms) / 1e3
     stats = {
         "updates": trainer.get_num_updates(),
@@ -336,6 +352,8 @@ def main(args, device) -> dict:
         "best": checkpoint_utils.best_score(),
         "step_ms": trainer.step_ms,
         "median_step_ms": float(np.median(steady)),
+        "update_wall_ms": update_wall_ms,
+        "median_update_wall_ms": float(np.median(update_wall_ms or [float("nan")])),
         "tokens": trainer.tokens,
         "tokens_per_s": trainer.tokens / train_s if train_s else None,
         "samples": trainer.samples,
@@ -350,6 +368,7 @@ def main(args, device) -> dict:
         "loss_scale": trainer.update_loss_scales,
         "gnorm_per_update": trainer.update_gnorms,
         "overflows": trainer.overflows,
+        "iterations_in_epoch": trainer.iterations_per_update,
         "wall_s": wall,
     }
     logger.info(f"done training in {wall:.1f} seconds")

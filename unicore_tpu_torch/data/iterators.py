@@ -5,16 +5,25 @@
 Epoch planning is the JAX package's: the frozen batch list is reshuffled
 per epoch under ``numpy_seed(seed + epoch)`` and sharded round-robin, so
 both packages visit the same batches in the same order.  Batches are
-fetched and collated on the calling thread; the JAX package's loader
-threads, prefetch buffer and stall watchdog are not ported.  Mid-epoch
-resume is: ``state_dict`` records the epoch and the batches consumed in it,
-``load_state_dict`` plans the same epoch and starts it past them.
+fetched and collated by ``--num-workers`` threads (:class:`_MapLoaderIterator`,
+strictly in order; 0 = the calling thread) and, with ``--data-buffer-size``
+> 0, read ahead by a producer thread into a bounded queue
+(:class:`BufferedIterator`, whose ``--data-stall-timeout`` watchdog raises
+:class:`DataStallError` when the producer delivers nothing for that long).
+Mid-epoch resume: ``state_dict`` records the epoch and the batches the
+CONSUMER took in it (the buffer sits inside the counting iterator, so
+batches loaded ahead are not counted; a device prefetcher reports its own
+consumed position through ``position_source``), and ``load_state_dict``
+plans the same epoch and starts it past them.
 """
 
-import logging
-
 import itertools
+import logging
 import math
+import queue
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -63,13 +72,21 @@ class EpochBatchIterator(object):
     ``num_shards`` processes."""
 
     def __init__(self, dataset, collate_fn, batch_sampler, seed=1,
-                 num_shards=1, shard_id=0, epoch=1, disable_shuffling=False):
+                 num_shards=1, shard_id=0, epoch=1, disable_shuffling=False,
+                 num_workers=0, buffer_size=0, stall_timeout=0.0):
         self.dataset = dataset
         self.collate_fn = collate_fn
         self.frozen_batches = tuple(batch_sampler)
         self.seed = seed
         self.num_shards = num_shards
         self.shard_id = shard_id
+        self.num_workers = num_workers
+        # capped: an oversized buffer only hoards host memory
+        self.buffer_size = min(buffer_size, 20)
+        self.stall_timeout = stall_timeout
+        #: a device prefetcher reading ahead of the training thread reports
+        #: the consumed position here (data/prefetch.py)
+        self.position_source = None
         self.epoch = max(epoch, 1)  # epochs are 1-based
         self.disable_shuffling = disable_shuffling
         self.shuffle = not disable_shuffling
@@ -91,6 +108,7 @@ class EpochBatchIterator(object):
     def next_epoch_itr(self, shuffle=True):
         if self.disable_shuffling:
             shuffle = False
+        self.position_source = None  # a stale prefetcher of the last epoch
         self.epoch = self.next_epoch_idx
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)
@@ -103,10 +121,14 @@ class EpochBatchIterator(object):
         return self._cur_epoch_itr
 
     def end_of_epoch(self) -> bool:
+        if self.position_source is not None:
+            return self.position_source.end_of_epoch()
         return not self._cur_epoch_itr.has_next()
 
     @property
     def iterations_in_epoch(self):
+        if self.position_source is not None:
+            return self.position_source.iterations_in_epoch
         for itr in (self._cur_epoch_itr, self._next_epoch_itr):
             if itr is not None:
                 return itr.n
@@ -161,15 +183,159 @@ class EpochBatchIterator(object):
         shard = self._plan_shard(epoch, shuffle)
         if offset > 0 and offset >= len(shard):
             return None  # position beyond the epoch: the caller decides
+        itr = _MapLoaderIterator(self.dataset, self.collate_fn, shard[offset:],
+                                 num_workers=self.num_workers)
+        if self.buffer_size > 0:
+            itr = BufferedIterator(
+                self.buffer_size, itr, stall_timeout=self.stall_timeout,
+                context=(f"dataset {type(self.dataset).__name__}, epoch {epoch}, "
+                         f"shard {self.shard_id}/{self.num_shards}"))
+        return CountingIterator(itr, start=offset, total=len(shard))
 
-        def load():
-            for batch in shard[offset:]:
-                if len(batch) == 0:
-                    yield {}
-                else:
-                    yield self.collate_fn([self.dataset[int(i)] for i in batch])
 
-        return CountingIterator(load(), start=offset, total=len(shard))
+class _MapLoaderIterator(object):
+    """Fetch and collate: ``num_workers`` threads load upcoming batches
+    concurrently (about two each in flight) and the batches are yielded
+    strictly in order; 0 workers load on the calling thread."""
+
+    def __init__(self, dataset, collate_fn, batch_sampler, num_workers=0):
+        self.dataset = dataset
+        self.collate_fn = collate_fn
+        self.batch_sampler = batch_sampler
+        self.num_workers = num_workers
+
+    def __len__(self):
+        return len(self.batch_sampler)
+
+    def _load(self, batch):
+        if len(batch) == 0:
+            return {}
+        return self.collate_fn([self.dataset[int(i)] for i in batch])
+
+    def __iter__(self):
+        if self.num_workers <= 0:
+            for batch in self.batch_sampler:
+                yield self._load(batch)
+            return
+        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+            source = iter(self.batch_sampler)
+            pending = [pool.submit(self._load, b)
+                       for b in itertools.islice(source, self.num_workers * 2)]
+            try:
+                while pending:
+                    head = pending.pop(0)
+                    nxt = next(source, None)
+                    if nxt is not None:
+                        pending.append(pool.submit(self._load, nxt))
+                    yield head.result()
+            finally:
+                for f in pending:
+                    f.cancel()
+
+
+class DataStallError(RuntimeError):
+    """The buffer's producer delivered nothing for ``--data-stall-timeout``
+    seconds: the data pipeline is wedged, not merely slow."""
+
+
+# queue sentinel: the producer finished cleanly
+_DONE = object()
+
+
+class BufferedIterator(object):
+    """A producer thread loads up to ``size`` batches ahead into a bounded
+    queue.  The consumer warns (after the run's first 5 minutes, at most
+    every 15) when the buffer runs near empty -- the loader cannot keep up
+    with the device -- and, with ``stall_timeout`` > 0, raises
+    :class:`DataStallError` naming ``context`` and the position when the
+    producer delivers nothing for that long.  A producer's exception is
+    raised in the consumer."""
+
+    _RUNTIME_BEFORE_WARN = 5 * 60
+    _WARN_EVERY = 15 * 60
+
+    def __init__(self, size, iterable, stall_timeout=0.0, context=None):
+        self._queue = queue.Queue(size)
+        self._iterable = iterable
+        self._producer = None
+        self._exhausted = False
+        self._started = time.time()
+        self._last_warn = None
+        self._stall_timeout = float(stall_timeout or 0.0)
+        self._context = context
+        self._delivered = 0
+        self.total = len(iterable)
+
+    def _start_producer(self):
+        def pump():
+            try:
+                for item in self._iterable:
+                    self._queue.put(item)
+                self._queue.put(_DONE)
+            except Exception as e:  # noqa: BLE001 -- raised in the consumer
+                self._queue.put(e)
+
+        self._producer = threading.Thread(target=pump, name="buffered-iterator-producer",
+                                          daemon=True)
+        self._producer.start()
+
+    def __len__(self):
+        return self.total
+
+    def __iter__(self):
+        return self
+
+    def _maybe_warn_starved(self):
+        if self._queue.qsize() >= min(2, max(1, self._queue.maxsize // 2)):
+            return
+        now = time.time()
+        if now - self._started <= self._RUNTIME_BEFORE_WARN:
+            return
+        if self._last_warn is not None and now - self._last_warn <= self._WARN_EVERY:
+            return
+        logger.debug("Data loading buffer is empty or nearly empty. This may indicate a "
+                     "data loading bottleneck, and increasing the number of workers "
+                     "(--num-workers) may help.")
+        self._last_warn = now
+
+    def _get_with_stall_watchdog(self):
+        deadline = time.time() + self._stall_timeout
+        while True:
+            remaining = deadline - time.time()
+            if remaining <= 0:
+                where = f" of {self._context}" if self._context else ""
+                alive = self._producer is not None and self._producer.is_alive()
+                raise DataStallError(
+                    f"data pipeline stalled: the prefetch producer delivered nothing for "
+                    f"{self._stall_timeout:.0f}s (--data-stall-timeout) at position "
+                    f"{self._delivered}/{self.total}{where}; producer thread "
+                    f"{'is still alive but wedged' if alive else 'has DIED'}.  Check the "
+                    "dataset storage (mount, LMDB file, remote store) -- a merely-slow "
+                    "pipeline logs the starvation warning instead of tripping this.")
+            try:
+                return self._queue.get(True, timeout=min(5.0, remaining))
+            except queue.Empty:
+                continue
+
+    def __next__(self):
+        # exhaustion is sticky: a grouped consumer pulls once more after the
+        # last partial chunk, and the drained queue would block it forever
+        if self._exhausted:
+            raise StopIteration()
+        if self._producer is None:
+            self._start_producer()
+        self._maybe_warn_starved()
+        if self._stall_timeout > 0:
+            item = self._get_with_stall_watchdog()
+        else:
+            item = self._queue.get(True)
+        if isinstance(item, Exception):
+            raise item
+        if item is _DONE:
+            self._exhausted = True
+            raise StopIteration()
+        self._delivered += 1
+        return item
 
 
 class GroupedIterator(CountingIterator):

@@ -183,6 +183,17 @@ def _bind(lib) -> None:
     lib.unicore_quant_softmax_dropout_fwd.argtypes = [
         p, p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,
     ]
+    # csrc/multi_tensor.cu: the L2 norm (host arrays of buffer pointers and
+    # lengths, their count, denom, partials, out, stream) and the Adam pass
+    # (master, param, its dtype, m, v, g, chunks, their count, denom, gnorm,
+    # beta1, beta2, 1 - beta1, 1 - beta2, eps, step size, decay factor,
+    # decay on, max norm, clip eps, sr, k0, k1, buffer id, stream)
+    lib.unicore_l2norm_blocks.argtypes = [ll]
+    lib.unicore_l2norm_blocks.restype = ll
+    lib.unicore_multi_tensor_l2norm.argtypes = [
+        ctypes.POINTER(p), ctypes.POINTER(ll), i, p, p, p, p]
+    lib.unicore_fused_adam.argtypes = [p, p, i, p, p, p, p, i, p, p] + [f] * 7 + [
+        i, f, f, i, u, u, u, p]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
                "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
@@ -190,7 +201,8 @@ def _bind(lib) -> None:
                "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
                "unicore_decode_attention",
                "unicore_quant_matmul", "unicore_quant_layer_norm_fwd",
-               "unicore_quant_softmax_dropout_fwd"):
+               "unicore_quant_softmax_dropout_fwd", "unicore_multi_tensor_l2norm",
+               "unicore_fused_adam"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
     lib.unicore_fused_norm_dwdb_scratch.restype = ll

@@ -25,6 +25,8 @@ import torch
 
 from unicore_tpu_torch.ops.rounding import fp32_to_bf16_sr
 
+from .multi_tensor import clip_coef
+
 LOW_PRECISION = (torch.bfloat16, torch.float16)
 
 NO_DECAY_NAMES = ("bias", "layer_norm", "layernorm")
@@ -52,8 +54,7 @@ def clip_grad_norm(grads: Dict[str, torch.Tensor], max_norm: float,
     clipping.  Branch-free on the device, as the JAX ``clip_grad_norm``."""
     gnorm = total_norm(grads.values())
     if max_norm > 0:
-        coef = torch.clamp(max_norm / (gnorm + eps), max=1.0)
-        torch._foreach_mul_(list(grads.values()), coef)
+        torch._foreach_mul_(list(grads.values()), clip_coef(gnorm, max_norm, eps))
     return gnorm
 
 
@@ -95,6 +96,12 @@ class UnicoreOptimizer(object):
     def _init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
 
+    @property
+    def supports_accum(self) -> bool:
+        """True when micro-batch gradients can fold straight into the
+        optimizer's accumulators (``--grad-accum adama``)."""
+        return False
+
     def step(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
              lr: float, sr_generator: Optional[torch.Generator] = None) -> None:
         """One update of ``params`` in place from fp32 ``grads``: on the
@@ -125,9 +132,15 @@ class UnicoreOptimizer(object):
                 p.copy_(m)
 
     def state_dict(self):
-        state = {"num_steps": self.num_steps, "state": self.state}
+        """The step count, the slots and the master by parameter name, each
+        tensor its own storage: under ``--fused-adam`` they are views into
+        flat buffers, which ``torch.save`` would store whole, so a
+        checkpoint has one layout with and without the flag."""
+        state = {"num_steps": self.num_steps,
+                 "state": {n: {k: _owned(v) for k, v in slots.items()}
+                           for n, slots in self.state.items()}}
         if self.master is not None:
-            state["master"] = self.master
+            state["master"] = {n: _owned(m) for n, m in self.master.items()}
         return state
 
     def load_state_dict(self, state_dict, optimizer_overrides=None):
@@ -166,6 +179,13 @@ class UnicoreOptimizer(object):
                     m.copy_(saved_master[n])
         self.num_steps = int(state_dict["num_steps"])
         return True
+
+
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when it is a view into a larger storage."""
+    if t.untyped_storage().nbytes() == t.numel() * t.element_size():
+        return t
+    return t.clone()
 
 
 def bias_corrected_step_size(lr: float, step: int,

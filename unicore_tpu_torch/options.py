@@ -212,6 +212,12 @@ def get_training_parser():
     parser.add_argument("--ema-decay", default=-1.0, type=float,
                         help="enable moving average for model parameters")
     parser.add_argument("--validate-with-ema", action="store_true")
+    parser.add_argument("--nan-rerun", action="store_true",
+                        help="check for non-finite gradients after every "
+                             "update (costs one host sync per step) and, on "
+                             "detection, re-run the batch under the NaN "
+                             "detector to name the first bad module before "
+                             "aborting")
 
     group = parser.add_argument_group("precision")
     group.add_argument("--fp16", action="store_true",
@@ -243,9 +249,30 @@ def get_training_parser():
     group = parser.add_argument_group("dataset_data_loading")
     group.add_argument("--batch-size", "--max-sentences", type=int, metavar="N",
                        help="maximum number of sentences in a batch")
-    group.add_argument("--num-workers", default=0, type=int, choices=[0],
-                       help="data loader processes: batches load on the "
-                            "training thread (only 0)")
+    group.add_argument("--num-workers", default=1, type=int, metavar="N",
+                       help="how many threads load and collate batches (0: "
+                            "the training thread)")
+    group.add_argument("--data-buffer-size", default=10, type=int, metavar="N",
+                       help="number of batches the host-side buffered loader "
+                            "preloads (device read-ahead is --prefetch-depth)")
+    group.add_argument("--prefetch-depth", default=2, type=int, metavar="N",
+                       help="device read-ahead depth for --prefetch-to-device: "
+                            "how many fully-prepared updates may sit in device "
+                            "memory ahead of the consumer")
+    group.add_argument("--prefetch-to-device", action="store_true",
+                       help="double-buffered device prefetch "
+                            "(data/prefetch.py): a producer thread collates "
+                            "and counts update N+1's micro-batches and "
+                            "issues the pinned host->device copy on a side "
+                            "stream while update N computes.  The first "
+                            "update of each epoch is synchronous")
+    group.add_argument("--data-stall-timeout", default=0.0, type=float,
+                       metavar="SECS",
+                       help="escalate the data-pipeline starvation warning: "
+                            "if the prefetch producer delivers nothing for "
+                            "this many seconds, raise a diagnosable error "
+                            "naming the dataset/epoch position instead of "
+                            "warning forever (0 disables)")
     group.add_argument("--length-bucket", default=0, type=int, metavar="N",
                        help="pad each batch's sequence length up into a "
                             "fixed set of at most N lengths covering "
@@ -285,6 +312,19 @@ def get_training_parser():
                             "this minimum")
     group.add_argument("--clip-norm", default=0.0, type=float, metavar="NORM",
                        help="clip threshold of gradients")
+    group.add_argument("--per-sample-clip-norm", default=0.0, type=float,
+                       metavar="PNORM",
+                       help="clip threshold of gradients, before gradient sync "
+                            "over workers (each row of a micro-batch runs its "
+                            "own batch-1 forward and backward)")
+    group.add_argument("--grad-accum", default="buffer", choices=["buffer", "adama"],
+                       help="gradient-accumulation strategy for --update-freq "
+                            "> 1: 'buffer' carries a full fp32 gradient buffer "
+                            "across the micro-batches; 'adama' (arXiv "
+                            "2305.19982) folds each micro-batch's gradient "
+                            "straight into Adam's moment accumulators.  "
+                            "Overflow contract: a non-finite micro-batch skips "
+                            "the update and leaves the moments as they were")
     group.add_argument("--update-freq", default="1",
                        type=lambda uf: _eval_str_list(uf, type=int),
                        metavar="N1,N2,...,N_K",

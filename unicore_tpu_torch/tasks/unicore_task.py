@@ -1,7 +1,8 @@
 """Task base class (counterpart of ``unicore_tpu/tasks/unicore_task.py``):
 construction, dataset access, the ``--length-bucket`` edges, the epoch
-batch iterator and model/loss construction.  The JAX package's
-checkpointable task state and loader threads are not ported."""
+batch iterator (with its loader threads, buffer and stall watchdog) and
+model/loss construction.  The JAX package's checkpointable task state is
+not ported."""
 
 import logging
 from argparse import Namespace
@@ -51,12 +52,15 @@ class UnicoreTask(object):
 
     def get_batch_iterator(self, dataset, batch_size=None,
                            required_batch_size_multiple=1, seed=1,
-                           num_shards=1, shard_id=0, epoch=1):
+                           num_shards=1, shard_id=0, num_workers=0, epoch=1,
+                           data_buffer_size=0, data_stall_timeout=0.0):
         """The epoch batch iterator over ``dataset``, planned as the JAX
         package plans it: the dataset sees its epoch first, its index
         order is drawn under the run seed, then chunked into batches.
         Epoch-invariant datasets reuse their iterator across epochs;
-        epoch-aware ones (per-epoch shuffles) rebuild it."""
+        epoch-aware ones (per-epoch shuffles) rebuild it.  ``num_workers``
+        loader threads, a ``data_buffer_size`` read-ahead and its
+        ``data_stall_timeout`` as ``EpochBatchIterator`` takes them."""
         assert isinstance(dataset, UnicoreDataset)
         cacheable = getattr(dataset, "can_reuse_epoch_itr_across_epochs", False)
         cached = self.dataset_to_epoch_iter.get(dataset) if cacheable else None
@@ -76,6 +80,9 @@ class UnicoreTask(object):
             num_shards=num_shards,
             shard_id=shard_id,
             epoch=epoch,
+            num_workers=num_workers,
+            buffer_size=data_buffer_size,
+            stall_timeout=data_stall_timeout,
         )
         if cacheable:
             self.dataset_to_epoch_iter[dataset] = epoch_iter

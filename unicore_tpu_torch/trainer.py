@@ -30,6 +30,22 @@ One update, as the JAX ``train_step`` / ``_forward_backward`` /
    (``--ema-decay``) of the master; the update count moves on and the
    scheduler sets the next lr.
 
+Variants, as the JAX trainer's: under ``--fused-adam`` the gradients
+accumulate in the optimizer's flat buffers, and steps 2-5 are the
+``multi_tensor_l2norm`` kernel (the norm of the gradients divided by the
+device scalar, nothing rewritten) and the ``fused_adam`` kernel per dtype
+group (clip, decay, moments, update, copy-back), which reads the norm on the
+device and skips itself on an overflow; under ``--grad-accum adama`` each
+micro-batch's gradient folds into the moment accumulators and the
+normalisation and clip are deferred into the moment recovery;
+``--per-sample-clip-norm`` runs each row of a micro-batch as its own
+batch-1 backward, clipped before the sum; ``--nan-rerun`` re-runs the first
+micro-batch of an update whose norm is non-finite under
+:class:`~unicore_tpu_torch.nan_detector.NanDetector` and raises
+``FloatingPointError`` naming what it found.  ``train_step`` also takes a
+:class:`~unicore_tpu_torch.data.prefetch.PreparedUpdate` from the device
+prefetcher (``maybe_prefetch`` / ``finish_prefetch``).
+
 The dropout key depends on the update count and nothing drawn before it,
 so a run resumed from a checkpoint draws the stream an uninterrupted run
 draws.  ``valid_step`` runs the forward in eval mode under
@@ -51,18 +67,21 @@ import logging
 import os
 import time
 from collections import OrderedDict
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from unicore_tpu_torch import checkpoint_utils, optim
+from unicore_tpu_torch.data.prefetch import DevicePrefetcher, PreparedUpdate
 from unicore_tpu_torch.ema import EMA
 from unicore_tpu_torch.logging import metrics
 from unicore_tpu_torch.modules import DropoutRng
 from unicore_tpu_torch.modules.dropout import fold_key
 from unicore_tpu_torch.optim import lr_scheduler as lr_sched_mod
+from unicore_tpu_torch.nan_detector import NanDetector
 from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
+from unicore_tpu_torch.optim.multi_tensor import clip_coef
 from unicore_tpu_torch.optim.unicore_optimizer import clip_grad_norm
 
 #: folded into the SR noise's key, apart from the dropout's (the JAX
@@ -75,7 +94,16 @@ logger = logging.getLogger(__name__)
 def _to_device(sample, device):
     if isinstance(sample, dict):
         return {k: _to_device(v, device) for k, v in sample.items()}
+    if isinstance(sample, torch.Tensor):
+        return sample.to(device, non_blocking=True)
     return torch.as_tensor(np.asarray(sample)).to(device, non_blocking=True)
+
+
+def _rows(sample, a, b):
+    """Rows a..b-1 of every batched tensor of a micro-batch."""
+    if isinstance(sample, dict):
+        return {k: _rows(v, a, b) for k, v in sample.items()}
+    return sample[a:b] if getattr(sample, "ndim", 0) > 0 else sample
 
 
 class Trainer(object):
@@ -99,10 +127,21 @@ class Trainer(object):
         self.params: Dict[str, torch.Tensor] = OrderedDict(
             (n, p) for n, p in self.model.named_parameters() if p.requires_grad
         )
+        self.grad_accum = getattr(args, "grad_accum", "buffer") or "buffer"
         self._optimizer = optim.build_optimizer(args)
-        self._optimizer.init_state(
-            self.params, checkpoint_utils.jax_param_names(self.model)
-        )
+        if self.grad_accum == "adama" and not self._optimizer.supports_accum:
+            raise ValueError(
+                f"--grad-accum adama folds micro-batch gradients into the "
+                f"optimizer's moment accumulators, which "
+                f"{type(self._optimizer).__name__} does not support — use "
+                "--optimizer adam or --grad-accum buffer")
+        self._jax_names = checkpoint_utils.jax_param_names(self.model)
+        self._optimizer.init_state(self.params, self._jax_names)
+        #: --fused-adam (not under adama, whose accumulators stay per
+        #: tensor): gradients accumulate in the flat buffers
+        self._fused = (getattr(self._optimizer, "use_fused", False)
+                       and self.grad_accum != "adama")
+        self._grad_views = self._optimizer.grad_buffers() if self._fused else None
         total_train_steps = args.max_update if args.max_update > 0 else None
         self._lr_scheduler = lr_sched_mod.build_lr_scheduler(
             args, self._optimizer, total_train_steps
@@ -127,6 +166,10 @@ class Trainer(object):
         self.update_lrs: List[float] = []
         self.update_loss_scales: List[float] = []
         self.update_gnorms: List[float] = []
+        #: the epoch iterator's consumed position after each update, and the
+        #: host clock at each update's end (the CLI's)
+        self.iterations_per_update: List[int] = []
+        self.update_done: List[float] = []
 
     def _master(self) -> Dict[str, torch.Tensor]:
         """The fp32 weights the optimizer updates and the EMA averages: the
@@ -139,12 +182,19 @@ class Trainer(object):
 
     # -- data ----------------------------------------------------------------
 
+    def _loader_args(self):
+        a = self.args
+        return dict(num_workers=getattr(a, "num_workers", 0),
+                    data_buffer_size=getattr(a, "data_buffer_size", 0),
+                    data_stall_timeout=getattr(a, "data_stall_timeout", 0.0))
+
     def get_train_iterator(self, epoch):
         return self.task.get_batch_iterator(
             dataset=self.task.dataset(self.args.train_subset),
             batch_size=self.args.batch_size,
             seed=self.args.seed,
             epoch=epoch,
+            **self._loader_args(),
         )
 
     def get_valid_iterator(self, subset):
@@ -155,6 +205,7 @@ class Trainer(object):
             batch_size=getattr(self.args, "batch_size_valid", None) or self.args.batch_size,
             seed=self.args.seed,
             epoch=1,
+            **self._loader_args(),
         )
 
     # -- lr schedule ----------------------------------------------------------
@@ -188,76 +239,168 @@ class Trainer(object):
 
     # -- the update ------------------------------------------------------------
 
-    def _forward_backward(self, sample, micro_i, grads):
+    def host_counts(self, sample):
+        """(non-pad tokens, rows, padded length) of a host micro-batch."""
+        src = np.asarray(self.task.token_array(sample))
+        pad = self.task.dictionary.pad()
+        return int((src != pad).sum()), int(src.shape[0]), int(src.shape[-1])
+
+    def _take_grads(self, fp32: bool = True) -> Dict[str, torch.Tensor]:
+        """Each parameter's gradient of the last backward, with ``.grad``
+        cleared: in fp32, or with ``fp32=False`` in the parameter's type
+        (autograd sums ``.grad`` in it: bf16 under ``--bf16``)."""
+        grads = OrderedDict()
+        for n, p in self.params.items():
+            g, p.grad = p.grad, None
+            if g is not None:
+                grads[n] = g.float() if fp32 else g
+        return grads
+
+    def _fold(self, acc, grads: Dict[str, torch.Tensor]) -> None:
+        """Add one backward's gradients into the update's fp32 accumulator:
+        the moment accumulators (``--grad-accum adama``), the flat buffers'
+        views (``--fused-adam``) or per-name tensors (an fp32 add of a bf16
+        gradient widens it exactly)."""
+        if self.grad_accum == "adama":
+            self._optimizer.accum_fold(acc, grads)
+            return
+        for n, g in grads.items():
+            if n in acc:
+                acc[n].add_(g)
+            else:
+                acc[n] = g.float()
+
+    def _forward_backward(self, sample, micro_i, acc):
         """One micro-batch: forward, the backward of the fp32 loss times
-        the loss scale, and its gradient added into the fp32 ``grads``."""
+        the loss scale, and its gradient folded into ``acc``; under
+        ``--per-sample-clip-norm`` row by row (:meth:`_per_sample`)."""
+        if getattr(self.args, "per_sample_clip_norm", 0.0) > 0:
+            return self._per_sample(sample, micro_i, acc)
         rng = DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i)
+        sample_size, logging_output = self._backward(sample, rng)
+        self._fold(acc, self._take_grads(fp32=self.grad_accum == "adama"))
+        return sample_size, logging_output
+
+    def _backward(self, sample, rng):
         loss, sample_size, logging_output = self.loss(self.model, sample, rng=rng)
         loss = loss.float()
         if self.use_loss_scale:
             loss = loss * torch.tensor(self.get_loss_scale(), dtype=torch.float32,
                                        device=loss.device)
         loss.backward()
-        for n, p in self.params.items():
-            g, p.grad = p.grad, None
-            if g is None:
-                continue
-            if n in grads:
-                grads[n].add_(g)
-            else:
-                grads[n] = g.float()
         return sample_size, logging_output
 
-    def _sr_generator(self):
-        """The copy-back's noise under ``--bf16-sr``: keyed on (``--seed``,
-        update), so a resumed run rounds as an uninterrupted one."""
+    def _per_sample(self, sample, micro_i, acc):
+        """Per-sample gradient clipping (the JAX
+        ``_forward_backward_per_sample``; the reference loops row by row, as
+        here): one batch-1 forward and backward per row of the micro-batch,
+        each row with its own dropout stream (seed, update, micro-batch,
+        row), its gradient clipped to ``--per-sample-clip-norm`` times the
+        loss scale, then summed into ``acc``."""
+        max_norm = self.args.per_sample_clip_norm * self.get_loss_scale()
+        rows = len(self.task.token_array(sample))
+        sample_size, logs = 0.0, []
+        for r in range(rows):
+            row = _rows(sample, r, r + 1)
+            rng = DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i, r)
+            ss, log = self._backward(row, rng)
+            grads = self._take_grads()
+            clip_grad_norm(grads, max_norm)
+            self._fold(acc, grads)
+            sample_size = sample_size + ss
+            logs.append(log)
+        return sample_size, {k: sum(log[k] for log in logs) for k in logs[0]}
+
+    def _sr_key(self) -> Optional[Tuple[int, int]]:
+        """The copy-back's noise key under ``--bf16-sr``, as two 32-bit
+        words: keyed on (``--seed``, update), so a resumed run rounds as an
+        uninterrupted one."""
         if not getattr(self.args, "bf16_sr", False) or self._optimizer.master is None:
             return None
         key = fold_key(self.args.seed, self.get_num_updates(), _SR_FOLD)
-        return torch.Generator(device=self.device).manual_seed(key)
+        return key & 0xFFFFFFFF, key >> 32
+
+    def _sr_generator(self):
+        """The per-tensor copy-back's noise generator, from :meth:`_sr_key`."""
+        key = self._sr_key()
+        if key is None:
+            return None
+        return torch.Generator(device=self.device).manual_seed(key[0] | key[1] << 32)
 
     def train_step(self, samples):
         """One update from a list of micro-batches (a GroupedIterator
-        chunk); returns the update's gradient norm (a float)."""
+        chunk) or a :class:`~unicore_tpu_torch.data.prefetch.PreparedUpdate`
+        (already on the device, counted on the host); returns the update's
+        gradient norm (a float)."""
         t0 = time.perf_counter()
         self.model.train()
         for p in self.params.values():
             p.grad = None
-        pad = self.task.dictionary.pad()
+        if isinstance(samples, PreparedUpdate):
+            batches, counts = samples.samples, samples.counts
+        else:
+            batches = [_to_device(s, self.device) for s in samples]
+            counts = [self.host_counts(s) for s in samples]
+        opt = self._optimizer
+        if self.grad_accum == "adama":
+            acc = opt.accum_init()
+        elif self._fused:
+            opt.zero_grad_buffers()
+            acc = dict(self._grad_views)
+        else:
+            acc = {}
         sample_size = torch.zeros((), dtype=torch.float32, device=self.device)
         logging_outputs = []
-        acc: Dict[str, torch.Tensor] = {}
         loss_scale = self.get_loss_scale()
-        for i, sample in enumerate(samples):
-            src = np.asarray(self.task.token_array(sample))
-            self.tokens += int((src != pad).sum())
-            self.samples += int(src.shape[0])
-            self.micro_batch_lengths.append(int(src.shape[-1]))
-            ss, log = self._forward_backward(_to_device(sample, self.device), i, acc)
+        for i, (sample, (tokens, rows, length)) in enumerate(zip(batches, counts)):
+            self.tokens += tokens
+            self.samples += rows
+            self.micro_batch_lengths.append(length)
+            ss, log = self._forward_backward(sample, i, acc)
             sample_size = sample_size + ss
             logging_outputs.append(log)
             self.micro_batches += 1
 
-        grads = OrderedDict(
-            (n, acc[n] if n in acc else torch.zeros_like(p, dtype=torch.float32))
-            for n, p in self.params.items()
-        )
         lr = self.get_lr()
+        clip = getattr(self.args, "clip_norm", 0.0) or 0.0
         denom = torch.clamp(sample_size, min=1e-8)
         if self.use_loss_scale:
             denom = denom * loss_scale
-        torch._foreach_div_(list(grads.values()), denom)
-        gnorm = float(clip_grad_norm(grads, getattr(self.args, "clip_norm", 0.0) or 0.0))
+        if self.grad_accum == "adama":
+            gnorm_t = opt.accum_gnorm(acc) / denom
+            gnorm = float(gnorm_t)
+        elif self._fused:
+            # K-a, then K-b reading the norm on the device; K-b skips the
+            # update itself on a non-finite norm
+            gnorm_t = opt.fused_grad_norm(denom)
+            with torch.profiler.record_function("optimizer"):
+                opt.fused_step(lr, denom, gnorm_t, clip, self._sr_key())
+            gnorm = float(gnorm_t)
+        else:
+            grads = OrderedDict(
+                (n, acc[n] if n in acc else torch.zeros_like(p, dtype=torch.float32))
+                for n, p in self.params.items()
+            )
+            torch._foreach_div_(list(grads.values()), denom)
+            gnorm = float(clip_grad_norm(grads, clip))
         overflow = not np.isfinite(gnorm)
         if self.use_loss_scale:
             self._step_loss_scale(overflow, gnorm)
         if not overflow:
             # the JAX trainer's named_scope("optimizer"): a profiler range
             with torch.profiler.record_function("optimizer"):
-                self._optimizer.step(self.params, grads, lr, self._sr_generator())
+                if self.grad_accum == "adama":
+                    coef = (clip_coef(gnorm_t, clip) if clip > 0
+                            else torch.ones_like(gnorm_t))
+                    opt.update_from_accum(acc, self.params, lr, denom, coef,
+                                          self._sr_generator())
+                elif not self._fused:
+                    opt.step(self.params, grads, lr, self._sr_generator())
                 if self.ema is not None:
                     self.ema.update(self._master())
         else:
+            if self._fused:
+                opt.unstep()
             self.overflows += 1
             if not self.use_loss_scale:
                 logger.warning(f"non-finite gradient norm {gnorm}: update skipped")
@@ -276,7 +419,69 @@ class Trainer(object):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.step_ms.append((time.perf_counter() - t0) * 1e3)
+        if getattr(self.args, "nan_rerun", False) and (
+                np.isnan(gnorm) if self.use_loss_scale else overflow):
+            # under --fp16 an inf norm is a routine scale overflow; a NaN
+            # survives every rescale (the JAX trainer keys on it too)
+            detail = self._localize_nan(batches)
+            raise FloatingPointError("non-finite gradients detected"
+                                     + (f": {detail}" if detail else ""))
         return gnorm
+
+    def _localize_nan(self, batches):
+        """Re-run the update's first micro-batch: a forward in eval mode
+        under the NaN detector names the first module whose output is
+        non-finite; a backward with the failed update's dropout names the
+        first parameter, in the JAX package's (sorted Flax-name) order,
+        whose gradient is.  Diagnostics never mask the original error."""
+        sample = batches[0]
+        det = NanDetector(self.model)
+        msgs = []
+        try:
+            hit = det.check_forward(lambda: self.loss(self.model, sample))
+            if hit:
+                msgs.append(hit)
+        except Exception as e:  # noqa: BLE001 -- a diagnostic, not the error
+            logger.warning(f"NaN forward localization failed: {e}")
+        try:
+            self.model.train()
+            rng = DropoutRng(self.args.seed, self.device,
+                             max(self.get_num_updates() - 1, 0), 0)
+            self._backward(sample, rng)
+            grads = self._take_grads()
+            order = sorted(grads, key=self._jax_names.__getitem__)
+            grads = OrderedDict((n, grads[n]) for n in order)
+            hit = det.check_grads(grads)
+            if hit:
+                msgs.append(hit)
+                det.dump_grad_norms(grads)
+        except Exception as e:  # noqa: BLE001
+            logger.warning(f"NaN gradient localization failed: {e}")
+        finally:
+            for p in self.params.values():
+                p.grad = None
+        return "; ".join(msgs) if msgs else None
+
+    # -- prefetch ------------------------------------------------------------
+
+    def maybe_prefetch(self, itr, epoch_itr=None):
+        """Wrap a grouped update iterator in the device prefetcher under
+        ``--prefetch-to-device`` (else return it as it is): a producer
+        thread collates, counts and copies update N+1 to the device while
+        update N runs."""
+        if not getattr(self.args, "prefetch_to_device", False):
+            return itr
+        pf = DevicePrefetcher(self, itr,
+                              depth=max(1, getattr(self.args, "prefetch_depth", 2) or 2))
+        if epoch_itr is not None:
+            pf.attach_epoch_itr(epoch_itr)
+        return pf.start()
+
+    def finish_prefetch(self, itr):
+        """Stop a prefetcher :meth:`maybe_prefetch` returned (no-op for a
+        plain iterator)."""
+        if isinstance(itr, DevicePrefetcher):
+            itr.close()
 
     def _step_loss_scale(self, overflow: bool, gnorm: float) -> None:
         """The fp16 schedule's step (the JAX ``_sched_overflow``); a NaN norm
