@@ -200,8 +200,10 @@ result line):
    then a 2-layer BERT-base checkpoint with a NaN in one named weight
    fine-tuned by the train CLI with ``--nan-rerun`` on the card and on the
    CPU: both exit non-zero naming that module (``nan_rerun``);
-12. the ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line
-   and, last, the ``{"ok": true, "device": ...}`` line.
+12. a ``missing_device_times`` line naming any phase-3 check whose device
+   time the profiler did not read (an empty profile is retried), the
+   ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
+   last, the ``{"ok": true, "device": ...}`` line.
 
 Phase 3 also holds the softmax(+dropout) kernels against
 ``softmax_dropout_plain``: Uni-Mol's (16 * 64, 128, 128) fp32 at rate 0.1,
@@ -210,7 +212,10 @@ PyTorch call takes the dropout), L=256 and 512, bf16, a ``bcast`` and a
 ``tile`` extra with their gradients, rows holding -inf, and the keep mask read off the card bit for
 bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
 rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
-D=128; and the four flash kernels (forward with its lse, dq with di,
+D=128 (the backward, #8 and #9, is one call: it is held through autograd
+and alone against ``fused_norm_bwd_plain``, the same bits twice, and timed
+warm and with the L2 flushed beside ``F.layer_norm``'s / ``F.rms_norm``'s
+backward and its device operations counted); and the four flash kernels (forward with its lse, dq with di,
 dk/dv with dbias folded into the same launch) against
 ``flash_attention_plain`` in fp32 and bf16 at phase 6a's
 triangle (256, 4, 256, 32) and MSA-row (32, 8, 256, 32) shapes with their
@@ -416,25 +421,63 @@ def time_ms(torch, fn, device, iters=100, warm=10, repeats=5):
     return runs[len(runs) // 2], [runs[0], runs[-1]]
 
 
-def device_ms(torch, fn, iters=20):
-    """Milliseconds of device work per call: the durations of the CUDA
-    kernels and memsets the calls launch, summed by ``torch.profiler``
-    (CUPTI) over ``iters`` warmed calls.  CUDA events around back-to-back
-    calls also count the host's time between launches, which is most of a
-    call of a few microseconds.  None where the profiler saw no device
-    work."""
+#: the kernel of :func:`l2_flush`'s pass, which :func:`device_profile` leaves out
+FLUSH_KERNEL = "bitwise_not"
+_FLUSH_BUFFERS = {}
+
+
+def l2_flush(torch, device, nbytes=64 << 20):
+    """A call that rewrites ``nbytes`` (64 MB, past the H100's 50 MB L2) on
+    ``device``, so the next kernel finds its inputs in device memory."""
+    if device not in _FLUSH_BUFFERS:
+        _FLUSH_BUFFERS[device] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    buf = _FLUSH_BUFFERS[device]
+    return lambda: buf.bitwise_not_()
+
+
+def device_profile(torch, fn, iters=20, flush=None, attempts=3):
+    """(milliseconds of device work a call, device operations a call): the
+    durations and the count of the CUDA kernels, memsets and copies the
+    calls launch, summed by ``torch.profiler`` (CUPTI) over ``iters`` warmed
+    calls, each after ``flush()`` when given (its kernel left out).  CUDA
+    events around back-to-back calls also count the host's time between
+    launches, which is most of a call of a few microseconds.  CUPTI drops
+    kernel events now and then (one of 40, or all of them), never adds any:
+    a profile whose count is not a whole number of operations a call, or
+    that saw no device work, is taken again with a fresh profiler, up to
+    ``attempts`` profiles, and the fullest kept; (None, None) when none saw
+    any.  A one-byte pass of the flush kernel opens each profile, where a
+    dropped first event costs nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    opener = torch.zeros(1, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / iters / 1e3 if total_us > 0 else None
+    best_us, best_ops = 0.0, 0
+    for _attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            opener.bitwise_not_()
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and FLUSH_KERNEL not in e.key]
+        ops = sum(e.count for e in events)
+        if ops > best_ops:
+            best_us, best_ops = sum(e.self_device_time_total for e in events), ops
+        if best_ops > 0 and best_ops % iters == 0:
+            break
+    if best_us <= 0:
+        return None, None
+    return best_us / iters / 1e3, best_ops / iters
+
+
+def device_ms(torch, fn, iters=20):
+    """Milliseconds of device work per call (:func:`device_profile`)."""
+    return device_profile(torch, fn, iters)[0]
 
 
 def timed(res, key, torch, fn, device, iters):
@@ -746,10 +789,18 @@ def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
 
 
 def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
-    """dx and dw/db kernels against autograd of the plain version, each
-    gradient in its input's type (dw, db in the weight's).  Their plain and
-    library times are the whole backward (dx, dw and db together), as
-    autograd computes it."""
+    """The norm backward (#8 dx and #9 dw/db as one call: a pass
+    over x and dy, then the partials' sum): through autograd against
+    autograd of the plain forward, each gradient in its input's type (dw,
+    db in the weight's); on the card also the kernel call alone against
+    ``fused_norm_bwd_plain`` on the forward kernel's statistics, the same
+    bits on a second call.  Times of that call: per call, device ms warm
+    and with the L2 flushed, device operations a call; its plain version;
+    the library's whole backward (``F.layer_norm`` / ``F.rms_norm``), warm
+    and flushed.  Bound: x and dy read and dx written once, the fp32
+    statistics the kernel reads (mean and rstd, 8 bytes a row; RMSNorm
+    rstd alone, 4), w read and dw (db) written.  Returns the
+    fused_norm_dx and fused_norm_dwdb rows, which share the call's times."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import fused_norm as fn
@@ -757,6 +808,8 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
     x, dy, w, b = norm_inputs(torch, device, N, D, dtype, wdtype)
     eps = 1e-6 if rms else 1e-5
     name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
+    name = f"norm bwd N={N} D={D} {dtype} weight {w.dtype} rms={rms}"
+    bb = None if rms else b
     leaves = [t.clone().requires_grad_(True) for t in ((x, w) if rms else (x, w, b))]
 
     def plain_fwd():
@@ -767,56 +820,75 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
             fn._fused_norm(leaves[0], leaves[1], None if rms else leaves[2], eps, rms),
             leaves, dy)
 
-    ref = torch.autograd.grad(plain_fwd(), leaves, dy)
-    got = public_grads()
-    if [g.dtype for g in got] != [t.dtype for t in leaves]:
-        raise AssertionError(f"norm bwd N={N} D={D} {dtype} weight {w.dtype}: gradient "
-                             f"types {[g.dtype for g in got]}, want their inputs'")
-    if device.type == "cuda":  # each kernel alone on the card
-        _, mean, rstd = fn._launch_fwd(x, w, None if rms else b, eps, rms, True, name_fn)
-        dx_call = lambda: fn._launch_dx(x, w, mean, rstd, dy, rms, name_fn)  # noqa: E731
-        dwdb_call = lambda: fn._launch_dwdb(x, mean, rstd, dy, not rms, name_fn)  # noqa: E731
+    pairs = list(zip(("dx", "dw", "db"), public_grads(), torch.autograd.grad(plain_fwd(),
+                                                                            leaves, dy)))
+    if [g.dtype for _, g, _ in pairs] != [t.dtype for t in leaves]:
+        raise AssertionError(f"{name}: gradient types {[g.dtype for _, g, _ in pairs]}, "
+                             "want their inputs'")
+    on_card = device.type == "cuda"
+    if on_card:  # the kernel call alone, on the forward kernel's statistics
+        _, mean, rstd = fn._launch_fwd(x, w, bb, eps, rms, True, name_fn)
+        call = lambda: fn._launch_bwd(x, w, mean, rstd, dy, rms, not rms, True, True,  # noqa: E731
+                                      name_fn)
+        plain = lambda: fn.fused_norm_bwd_plain(x, w, mean, rstd, dy, rms, not rms)  # noqa: E731
+        got, again = call(), call()
+        same_bits = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+        if not same_bits:
+            raise AssertionError(f"{name}: two calls of the kernel differ")
+        pairs += [(f"kernel_{n}", g, r) for n, g, r in zip(("dx", "dw", "db"), got, plain())
+                  if r is not None]
     else:
-        dx_call = dwdb_call = public_grads
-    out = {}
-    for kname, pairs in (("fused_norm_dx", [("dx", got[0], ref[0])]),
-                         ("fused_norm_dwdb", list(zip(("dw", "db"), got[1:], ref[1:])))):
-        errs, ratios = {}, {}
-        for gname, g, r in pairs:
-            errs[gname], ratios[gname] = grad_check(
-                torch, f"{kname} N={N} D={D} {dtype} weight {w.dtype} rms={rms}: {gname}",
-                g, r, TOL["norm_grad"])
-        out[kname] = {"shape": [N, D], "dtype": dtype_name(dtype),
-                      "weight_dtype": dtype_name(w.dtype), "rms": rms,
-                      "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
-                      "max_err_over_tol": max(ratios.values()),
-                      "tolerance": grad_tolerance(TOL["norm_grad"], pairs[0][1].dtype)}
-
-    both = {}
-    timed(both, "plain_ms", torch, backward_call(torch, plain_fwd, leaves, dy),
-          device, iters)
+        call = plain = public_grads
+        same_bits = None
+    errs, ratios = {}, {}
+    for gname, g, r in pairs:
+        errs[gname], ratios[gname] = grad_check(torch, f"{name}: {gname}", g, r,
+                                                TOL["norm_grad"])
+    shared = {"shape": [N, D], "dtype": dtype_name(dtype), "weight_dtype": dtype_name(w.dtype),
+              "rms": rms, "same_bits_twice": same_bits,
+              "launch": "fused_norm_bwd: one pass (dx, dw/db partials) + the partials' sum"}
+    timed(shared, "ms", torch, call, device, iters)
+    timed(shared, "plain_ms", torch, plain, device, iters)
     if rms and not hasattr(F, "rms_norm"):
-        both.update(library_ms=None, library_ms_spread=None, library_device_ms=None)
+        shared.update(library_ms=None, library_ms_spread=None, library_device_ms=None)
+        lib_call = None
     else:
         lw = w.to(dtype).clone().requires_grad_(True)
         lb = b.to(dtype).clone().requires_grad_(True)
         lx = x.clone().requires_grad_(True)
-        timed(both, "library_ms", torch, backward_call(
+        lib_call = backward_call(
             torch,
             (lambda: F.rms_norm(lx, (D,), lw, eps)) if rms else
             (lambda: F.layer_norm(lx, (D,), lw, lb, eps)),
-            [lx, lw] if rms else [lx, lw, lb], dy), device, iters)
+            [lx, lw] if rms else [lx, lw, lb], dy)
+        timed(shared, "library_ms", torch, lib_call, device, iters)
+    if on_card:
+        flush = l2_flush(torch, device)
+        _, shared["device_ops"] = device_profile(torch, call)
+        shared["device_ms_flushed"], _ = device_profile(torch, call, flush=flush)
+        if lib_call is not None:
+            shared["library_device_ms_flushed"], shared["library_device_ops"] = \
+                device_profile(torch, lib_call, flush=flush)
     item, witem = x.element_size(), w.element_size()
-    for kname, call, nbytes, flops in (
-        ("fused_norm_dx", dx_call, 3 * N * D * item + 2 * N * 4 + D * witem, 10 * N * D),
-        ("fused_norm_dwdb", dwdb_call,
-         2 * N * D * item + 2 * N * 4 + D * witem * (1 if rms else 2), 4 * N * D),
-    ):
-        res = out[kname]
-        timed(res, "ms", torch, call, device, iters)
-        res.update(both)
-        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, flops, "float32")
-        log(f"{kname} N={N} D={D} {dtype} weight {w.dtype} rms={rms}: {json.dumps(res)}")
+    nbytes = 3 * N * D * item + (4 if rms else 8) * N + D * witem * (2 if rms else 3)
+    shared["bound_ms"], shared["bound_by"] = bound_ms(nbytes, 12 * N * D, "float32")
+    for key in ("device_ms", "device_ms_flushed"):
+        if shared.get(key):
+            shared[f"bound_share_{key}"] = shared["bound_ms"] / shared[key]
+    out = {}
+    for kname, gnames, other in (("fused_norm_dx", ["dx", "kernel_dx"], "fused_norm_dwdb"),
+                                 ("fused_norm_dwdb", ["dw", "db", "kernel_dw", "kernel_db"],
+                                  "fused_norm_dx")):
+        gnames = [n for n in gnames if n in errs]
+        out[kname] = dict(shared, fused_with=other,
+                          max_abs_err=max(errs[n] for n in gnames),
+                          max_abs_err_by_grad={n: errs[n] for n in gnames},
+                          max_err_over_tol=max(ratios[n] for n in gnames),
+                          tolerance=grad_tolerance(TOL["norm_grad"],
+                                                   pairs[0][1].dtype if kname == "fused_norm_dx"
+                                                   else w.dtype))
+    log(f"{name}: {json.dumps(out['fused_norm_dx'])}")
+    log(f"{name} dw/db errors: {json.dumps(out['fused_norm_dwdb']['max_abs_err_by_grad'])}")
     return out
 
 
@@ -4206,7 +4278,18 @@ def main(argv=None):
                                                   "library_device_ms", "max_abs_err")}
         if name == "flash_attention_fwd":
             row["dropout_mask_check"] = flash_mask
+        if name in ("fused_norm_dx", "fused_norm_dwdb"):  # one call, its flushed time beside
+            row.update(fused_with=main_row["fused_with"],
+                       device_ms_flushed=main_row["device_ms_flushed"],
+                       library_device_ms_flushed=main_row.get("library_device_ms_flushed"),
+                       device_ops=main_row["device_ops"])
         kernels.append(row)
+    # every timed check's own device time was read (device_profile retries
+    # an empty profile); any still without one is named here (the
+    # one-element optimizer checks are not timed)
+    missing = [f"{name} {r.get('shape')} {r.get('dtype')}" for name, rows in checks.items()
+               for r in rows if "device_ms" in r and r["device_ms"] is None]
+    print("missing_device_times " + json.dumps(missing), flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 shapes the chip smoke does not reach (no bias, a shared bias, no mask,
 Lq != Lk, head dims 8/12/16/128, 1024 key rows — the most shared memory
 the kernels ask for inside the ``supported()`` gate; norm widths 8 to 8192
-and tiny row counts; softmax rows of 128 to 8192 with every extra layout),
+and tiny row counts, the one-pass norm backward at those widths, the
+pair rows of Uni-Mol and the Evoformer and rows of 5001 and 12288 (bit-equal twice, at most two
+kernels and no memset a backward); softmax rows of 128 to 8192 with every extra layout),
 forward and backward, with and without dropout; the four flash kernels
 (forward, dq, dk/dv, dbias) with every bias grouping, head dims 24 to 128,
 1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
@@ -406,6 +408,83 @@ def test_norm_backward_matches_plain(cuda, N, D, rms, dtype):
         assert gk.dtype == gr.dtype and gk.shape == gr.shape, name
         ratio = _grad_over_tol(gk, gr, GRAD_TOL["norm"])
         assert ratio <= 1.0, (name, ratio)
+
+
+@pytest.mark.parametrize("N,D", [(1, 8), (5, 33), (1000, 768), (129, 1024), (3, 4096),
+                                 (7, 8192), (16 * 128 * 128, 64), (256 * 256, 128),
+                                 (1000, 12288), (300, 5001)])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_fused_backward_matches_plain(cuda, N, D, rms, dtype):
+    """The one-pass backward (``_launch_bwd``: dx and the dw/db partials in
+    one launch, their sum in a second) against ``fused_norm_bwd_plain`` on
+    the forward kernel's statistics, at every width above plus Uni-Mol's
+    and the Evoformer's pair rows and two rows too wide for registers (the
+    column-tiled kernel, 16-byte and one-element loads, several rows a
+    block); the same bits on a second call, and dx
+    alone or dw/db alone equal to the full call's."""
+    g = torch.Generator(device=cuda).manual_seed(N * 13 + D)
+    x = (torch.randn(N, D, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    dy = torch.randn(N, D, generator=g, device=cuda).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    b = None if rms else 0.1 * torch.randn(D, generator=g, device=cuda)
+    eps = 1e-6 if rms else 1e-5
+    _, mean, rstd = fn._launch_fwd(x, w, b, eps, rms, True, "norm")
+    _kernels.reset_launch_counts()
+    got = fn._launch_bwd(x, w, mean, rstd, dy, rms, not rms, True, True, "norm")
+    assert (fn.DX_LAUNCHES.count, fn.DWDB_LAUNCHES.count) == (1, 1)
+    ref = fn.fused_norm_bwd_plain(x, w, mean, rstd, dy, rms, not rms)
+    for name, gk, gr in zip(("dx", "dw", "db"), got, ref):
+        if gr is None:
+            assert gk is None, name
+            continue
+        assert gk.dtype == gr.dtype and gk.shape == gr.shape, name
+        ratio = _grad_over_tol(gk, gr, GRAD_TOL["norm"])
+        assert ratio <= 1.0, (name, ratio)
+    again = fn._launch_bwd(x, w, mean, rstd, dy, rms, not rms, True, True, "norm")
+    for name, a, c in zip(("dx", "dw", "db"), got, again):
+        assert (a is None and c is None) or torch.equal(a, c), name
+    dx_only = fn._launch_bwd(x, w, mean, rstd, dy, rms, not rms, True, False, "norm")
+    assert dx_only[1] is None and dx_only[2] is None and torch.equal(dx_only[0], got[0])
+    dw_only = fn._launch_bwd(x, w, mean, rstd, dy, rms, not rms, False, True, "norm")
+    assert dw_only[0] is None and torch.equal(dw_only[1], got[1])
+    assert rms or torch.equal(dw_only[2], got[2])
+
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rms", [False, True])
+def test_norm_backward_two_kernels_in_weight_type(cuda, wdtype, rms):
+    """A norm backward of a --bf16 / --fp16 run through autograd (BERT's
+    (4096, 768), x, weight and bias in one type): dx in x's type, dw and db
+    in the weight's, within the plain version's tolerance, and on the
+    device at most two kernels and no memset or copy (the profiler's
+    view)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    N, D = 4096, 768
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = (torch.randn(N, D, generator=g, device=cuda) * 2 + 0.5).to(wdtype)
+    dy = torch.randn(N, D, generator=g, device=cuda).to(wdtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    b = (0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    eps = 1e-6 if rms else 1e-5
+    leaves = [t.clone().requires_grad_(True) for t in ((x, w) if rms else (x, w, b))]
+    y = (fn.fused_rms_norm(*leaves, eps) if rms else fn.fused_layer_norm(*leaves, eps))
+    torch.autograd.grad(y, leaves, dy, retain_graph=True)  # warm: the build, the plan
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    assert sum(e.count for e in device) <= 2, [(e.key, e.count) for e in device]
+    assert not any("emset" in e.key or "opy" in e.key for e in device), [e.key for e in device]
+    assert [t.dtype for t in got] == [wdtype] * len(leaves)
+    _, mean, rstd = fn._launch_fwd(x, w, None if rms else b, eps, rms, True, "norm")
+    ref = fn.fused_norm_bwd_plain(x, w, mean, rstd, dy, rms, not rms)
+    for name, gk, gr in zip(("dx", "dw", "db"), got, ref):
+        assert gk.dtype == gr.dtype, name
+        assert _grad_over_tol(gk, gr, GRAD_TOL["norm"]) <= 1.0, name
 
 
 @pytest.mark.parametrize("post_ln", [True, False])

@@ -7,8 +7,9 @@
 //                     outputs for training, and its int8 `scale_ref` variant
 //                     (:60-63, launched by `quant_layer_norm_pallas` :281,
 //                     `pallas_call` :124) as a kernel of its own below;
-//   `_ln_dx_kernel`   (:140, launched by `_ln_bwd` :176);
-//   `_ln_dwdb_kernel` (:157, launched by `_ln_bwd` :176).
+//   `_ln_dx_kernel`   (:140, `pallas_call` :181) and
+//   `_ln_dwdb_kernel` (:157, `pallas_call` :209), both launched by
+//                     `_ln_bwd` :176, as ONE backward pass below.
 //
 // What they compute, per row of x (N, D), statistics in fp32 whatever the
 // input type:
@@ -19,11 +20,11 @@
 //            asked for (training), not at all otherwise (serving);
 //   dx       x^ = (x - mean) * rstd, g = w * dy,
 //            dx = (g - mean(g) - x^ * mean(g * x^)) * rstd (RMS: no mean(g));
-//   dw, db   dw = sum over rows of dy * x^, db = sum over rows of dy, fp32.
+//   dw, db   dw = sum over rows of dy * x^, db = sum over rows of dy, fp32,
+//            rounded once to w's type.
 // x (and y, dy, dx) is fp32, bf16 or fp16; w and b are fp32, bf16 or fp16
 // (a --bf16 / --fp16 run casts them as the JAX trainer casts every floating
-// parameter), read in place and widened to fp32 in registers.  dw and db
-// stay fp32 sums; the wrapper returns them in w's type.
+// parameter), read in place and widened to fp32 in registers.
 //   quantized forward (LayerNorm only, no statistics written): the int8 row
 //            dequantized in the statistics pass, v = float(x) * scale, where
 //            `scale` points at one fp32 value or at (D,) of them and is read
@@ -32,24 +33,50 @@
 //            (4096, 768) the floor is 4.7 us.
 //
 // What bounds them on this card: bytes.  The forward reads x and writes y
-// (2 * N * D * itemsize), dx reads x and dy and writes dx (3 * N * D *
-// itemsize), dw/db reads x and dy (2 * N * D * itemsize); each does ~10
-// flops per element, far below the H100's 295 flops-per-byte ridge.  At the
-// training shape (N = 4096, D = 768, fp32) the floors are 7.5, 11.3 and
-// 7.5 us at 3.35 TB/s.
+// (2 * N * D * itemsize); the backward reads x and dy and writes dx
+// (3 * N * D * itemsize), plus the statistics (8 * N: mean and rstd;
+// RMSNorm reads rstd alone, 4 * N) and the weight bytes
+// (w read, dw and db written); each does ~10 flops per element, far below
+// the H100's 295 flops-per-byte ridge.  At BERT's (4096, 768) fp32 the
+// floors are 7.5 us forward and 11.3 us backward at 3.35 TB/s; at Uni-Mol's
+// pair norms (262144, 64) the backward's is 60 us in fp32, 30 us in bf16.
 //
-// What the design does about it: forward and dx take one warp per row, any
+// What the design does about it.  The forward takes one warp per row, any
 // row count (the TPU kernels' pad-to-8 rows is the TPU's sublane tiling and
-// is not carried over), neighbouring lanes on neighbouring addresses so
-// every pass is coalesced, and no shared memory or block-wide barrier: a
-// row's later passes re-read it through L1/L2 (a 768-wide fp32 row is 3 KB).
-// dw/db is a column reduction over all N rows, which the TPU kernel carries
-// across its sequential grid in the resident output block; Hopper blocks run
-// in no order, so it runs in two stages: blocks of 32 columns x 128 rows
-// write fp32 partial sums, then one thread per column adds its partials in
-// chunk order.  No atomics, so dw and db are the same bits on every run.
-// Vectorised 16-byte loads and register-resident rows are left to a later PR.
+// is not carried over), neighbouring lanes on neighbouring addresses, and
+// re-reads the row through L1/L2 for its later passes.
+// The backward is one pass over x and dy that writes dx and dw/db partial
+// sums, then a small second launch that adds the partials:
+//   * stage 1 (`fused_norm_bwd_kernel`) runs a persistent grid of at most
+//     kMaxBlocksPerSm blocks an SM; each block walks one contiguous range of
+//     rows.  A team of TPR threads (a power of two, 1 to 256) holds a row:
+//     at D <= 128 several rows share a warp (Uni-Mol's D = 64 fp32 row is
+//     16 lanes, bf16 8), wider rows take a warp or several.  Loads are 16
+//     bytes a thread (4 fp32 or 8 bf16/fp16 elements) when D allows it and
+//     x, dy and dx are 16-byte aligned, else one element (any D, such as
+//     33), in the same kernel.  Each thread keeps its K vectors of x and dy
+//     in registers, packed as loaded, between the row's two sums (a
+//     segmented shuffle, across warps through shared memory for TPR > 32)
+//     and its dx write, so x and dy are read once; w comes through L1 at
+//     each use, which leaves registers for more blocks an SM.  Its columns
+//     stay fixed across the rows it visits: it adds dy * x^ and dy for them
+//     in fp32 registers, and at the end the block's copies of each column
+//     are added in shared memory in a fixed order and written as ONE
+//     partial row per block (grid * D * 2 floats);
+//   * stage 2 (`fused_norm_bwd_finish_kernel`) adds the partial rows in a
+//     fixed order: 32 columns x 16 row groups a block, the groups combined
+//     by a fixed tree, and writes dw and db in w's type, rounded once.
+//   * rows too wide for K vectors a thread in registers (D > 8192 with
+//     16-byte loads, > 4096 with one element a load) take
+//     `fused_norm_bwd_wide_kernel`, the same design column-tiled: one row a
+//     block at a time, the row sums in a pass over x and dy, dx in a second
+//     that re-reads them through L1/L2, and the block's partial row added
+//     in place in the scratch (one owner a column), then the same stage 2.
+// No float atomics: dx, dw and db are the same bits on every run.  A null
+// dx skips the row sums and the dx write; a null dw skips the partials and
+// stage 2.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -57,10 +84,12 @@ namespace {
 
 using namespace unicore;
 
-constexpr int kWarpsPerBlock = 4;
-constexpr int kColTile = 32;        // dw/db stage 1: columns per block
-constexpr int kRowGroups = 8;       // dw/db stage 1: threads down a column
-constexpr int kRowsPerChunk = 128;  // dw/db stage 1: rows per block
+constexpr int kWarpsPerBlock = 4;     // forward: one warp a row
+constexpr int kBwdThreads = 256;      // backward stage 1: threads a block
+constexpr int kMaxBlocksPerSm = 4;    // backward stage 1: persistent blocks an SM
+constexpr int kMaxTprLog2 = 8;        // backward stage 1: at most 256 threads a row
+constexpr int kFinCols = 32;          // backward stage 2: columns a block
+constexpr int kFinRows = 16;          // backward stage 2: partial-row groups a block
 
 template <typename T, typename W>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -99,84 +128,388 @@ fused_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-template <typename T, typename W>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-fused_norm_dx_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                     const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
-                     const T* __restrict__ dy, T* __restrict__ dx, long long N, int D,
-                     int rms) {
-  const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= N) return;
-  const T* xr = x + row * D;
-  const T* gr = dy + row * D;
-  T* dr = dx + row * D;
-  const float mean = mean_in[row], rstd = rstd_in[row];
+// VEC elements of T as one access: 16 bytes (8 for a 16-bit weight beside
+// fp32 rows, 32 for an fp32 weight beside 16-bit rows), kept packed in
+// registers and widened to fp32 where used; VEC 1 is one element
+template <typename T, int VEC> struct Packed {
+  static constexpr int kWords = VEC * (int)sizeof(T) / 4;
+  uint32_t u[kWords];
+};
+template <typename T> struct Packed<T, 1> { T v; };
+
+template <typename T> __device__ __forceinline__ float2 widen2(uint32_t u);
+template <> __device__ __forceinline__ float2 widen2<__nv_bfloat16>(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+template <> __device__ __forceinline__ float2 widen2<__half>(uint32_t u) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&u));
+}
+template <typename T> __device__ __forceinline__ uint32_t narrow2(float a, float b);
+template <> __device__ __forceinline__ uint32_t narrow2<__nv_bfloat16>(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // nearest even, as from_f
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+template <> __device__ __forceinline__ uint32_t narrow2<__half>(float a, float b) {
+  const __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_packed(const T* p, Packed<T, VEC>& r) {
+  if constexpr (VEC == 1) {
+    r.v = *p;
+  } else if constexpr (Packed<T, VEC>::kWords == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    r.u[0] = t.x;
+    r.u[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < Packed<T, VEC>::kWords / 4; ++i) {
+      const uint4 t = reinterpret_cast<const uint4*>(p)[i];
+      r.u[4 * i] = t.x;
+      r.u[4 * i + 1] = t.y;
+      r.u[4 * i + 2] = t.z;
+      r.u[4 * i + 3] = t.w;
+    }
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void zero_packed(Packed<T, VEC>& r) {
+  if constexpr (VEC == 1) {
+    r.v = from_f<T>(0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < Packed<T, VEC>::kWords; ++i) r.u[i] = 0u;
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void widen(const Packed<T, VEC>& r, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = to_f(r.v);
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = __uint_as_float(r.u[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) {
+      const float2 f = widen2<T>(r.u[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    *p = from_f<T>(v[0]);
+  } else {
+    Packed<T, VEC> r;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) r.u[i] = __float_as_uint(v[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 2; ++i) r.u[i] = narrow2<T>(v[2 * i], v[2 * i + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < Packed<T, VEC>::kWords / 4; ++i)
+      reinterpret_cast<uint4*>(p)[i] =
+          make_uint4(r.u[4 * i], r.u[4 * i + 1], r.u[4 * i + 2], r.u[4 * i + 3]);
+  }
+}
+
+// w[c .. c + VEC) widened, or zeros past the row
+template <typename W, int VEC>
+__device__ __forceinline__ void load_w(const W* w, int c, bool in_row, float (&v)[VEC]) {
+  Packed<W, VEC> r;
+  if (in_row) {
+    load_packed<W, VEC>(w + c, r);
+  } else {
+    zero_packed<W, VEC>(r);
+  }
+  widen<W, VEC>(r, v);
+}
+
+// Stage 1.  Block b takes rows [b * rows_per_block, min(N, (b + 1) *
+// rows_per_block)); a team of 2**tpr_log2 threads holds a row; thread `sub`
+// of a team owns vectors j * TPR + sub (j < K) of every row it visits.
+// dx null: no row sums, no dx; part_w null: no dw/db partials.  part_b may
+// be null (RMSNorm, or no bias).
+template <typename T, typename W, int VEC, int K>
+__global__ void __launch_bounds__(kBwdThreads)
+fused_norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                      const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+                      const T* __restrict__ dy, T* __restrict__ dx,
+                      float* __restrict__ part_w, float* __restrict__ part_b, long long N,
+                      int D, int tpr_log2, long long rows_per_block, int rms) {
+  __shared__ float s_comb[2][kBwdThreads * 8];        // a column round's copies
+  __shared__ float s_red[2][kBwdThreads / 32][2];     // per-warp row sums, 2 buffers
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tpr = 1 << tpr_log2;
+  const int team = tid >> tpr_log2, sub = tid & (tpr - 1);
+  const int teams = kBwdThreads >> tpr_log2;
+  const int nv = D / VEC;
   const float inv_d = 1.f / (float)D;
+  const long long r_begin = (long long)blockIdx.x * rows_per_block;
+  const long long r_end = min(N, r_begin + rows_per_block);
+  const bool want_dx = dx != nullptr, want_dw = part_w != nullptr;
 
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane; c < D; c += 32) {
-    const float g = to_f(gr[c]) * to_f(w[c]);
-    s1 += g;
-    s2 += g * (to_f(xr[c]) - mean) * rstd;
+  float aw[K][VEC], ab[K][VEC];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) aw[j][e] = ab[j][e] = 0.f;
   }
-  const float c1 = rms ? 0.f : warp_sum(s1) * inv_d;
-  const float c2 = warp_sum(s2) * inv_d;
-  for (int c = lane; c < D; c += 32) {
-    const float g = to_f(gr[c]) * to_f(w[c]);
-    const float xhat = (to_f(xr[c]) - mean) * rstd;
-    dr[c] = from_f<T>((g - c1 - xhat * c2) * rstd);
+
+  const long long iters = (r_end - r_begin + teams - 1) / teams;  // the same for the block
+  for (long long it = 0; it < iters; ++it) {
+    // x and dy stay packed in registers (fewer registers, more blocks an
+    // SM) and are widened again for the dx write; w comes through L1
+    const long long row = r_begin + it * teams + team;
+    const bool ok = row < r_end;
+    const float m = ok && !rms ? mean_in[row] : 0.f, rs = ok ? rstd_in[row] : 0.f;
+    Packed<T, VEC> xr[K], dr[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int v = j * tpr + sub;
+      if (ok && v < nv) {
+        load_packed<T, VEC>(x + row * D + (long long)v * VEC, xr[j]);
+        load_packed<T, VEC>(dy + row * D + (long long)v * VEC, dr[j]);
+      } else {
+        zero_packed<T, VEC>(xr[j]);
+        zero_packed<T, VEC>(dr[j]);
+      }
+    }
+    // the row sums and the thread's dw/db sums (a row past the range or a
+    // column past D has dy = 0 and adds nothing)
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int v = j * tpr + sub;
+      float xv[VEC], dv[VEC], wv[VEC];
+      widen<T, VEC>(xr[j], xv);
+      widen<T, VEC>(dr[j], dv);
+      load_w<W, VEC>(w, v * VEC, v < nv, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = (xv[e] - m) * rs;
+        if (want_dw) {
+          aw[j][e] += dv[e] * xh;
+          ab[j][e] += dv[e];
+        }
+        const float g = dv[e] * wv[e];
+        s1 += g;
+        s2 += g * xh;
+      }
+    }
+    if (!want_dx) continue;
+    // the row sums over the team: a segmented shuffle in the warp, then
+    // across the team's warps through shared memory (double-buffered, so
+    // one barrier an iteration)
+    for (int o = 1; o < tpr && o < 32; o <<= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    if (tpr > 32) {
+      const int buf = (int)(it & 1), wpt = tpr >> 5, w0 = team * wpt;
+      if (lane == 0) {
+        s_red[buf][warp][0] = s1;
+        s_red[buf][warp][1] = s2;
+      }
+      __syncthreads();
+      s1 = s2 = 0.f;
+      for (int k = 0; k < wpt; ++k) {
+        s1 += s_red[buf][w0 + k][0];
+        s2 += s_red[buf][w0 + k][1];
+      }
+    }
+    if (!ok) continue;
+    const float c1 = rms ? 0.f : s1 * inv_d, c2 = s2 * inv_d;
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int v = j * tpr + sub;
+      if (v >= nv) continue;
+      float xv[VEC], dv[VEC], wv[VEC], out[VEC];
+      widen<T, VEC>(xr[j], xv);
+      widen<T, VEC>(dr[j], dv);
+      load_w<W, VEC>(w, v * VEC, true, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = (xv[e] - m) * rs;
+        out[e] = (dv[e] * wv[e] - c1 - xh * c2) * rs;
+      }
+      store_vec<T, VEC>(dx + row * D + (long long)v * VEC, out);
+    }
+  }
+  if (!want_dw) return;
+
+  // the block's partial row: teams sharing a warp add by shuffles, then the
+  // copies of each column (one a warp, or one a team when TPR >= 32) add in
+  // shared memory in copy order, one round of TPR * VEC columns per j
+  int copies = teams, copy = team;
+  bool writer = true;
+  if (tpr < 32) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        for (int o = tpr; o < 32; o <<= 1) {
+          aw[j][e] += __shfl_xor_sync(0xffffffffu, aw[j][e], o);
+          ab[j][e] += __shfl_xor_sync(0xffffffffu, ab[j][e], o);
+        }
+      }
+    }
+    copies = kBwdThreads / 32;
+    copy = warp;
+    writer = lane < tpr;
+  }
+  const int width = tpr * VEC;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    if (writer) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        s_comb[0][copy * width + sub * VEC + e] = aw[j][e];
+        s_comb[1][copy * width + sub * VEC + e] = ab[j][e];
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < width; c += kBwdThreads) {
+      const int col = j * width + c;
+      if (col < D) {
+        float a = 0.f, b = 0.f;
+        for (int k = 0; k < copies; ++k) {
+          a += s_comb[0][k * width + c];
+          b += s_comb[1][k * width + c];
+        }
+        part_w[(size_t)blockIdx.x * D + col] = a;
+        if (part_b != nullptr) part_b[(size_t)blockIdx.x * D + col] = b;
+      }
+    }
+    __syncthreads();
   }
 }
 
-// stage 1: partial[chunk][col] over rows [chunk * 128, chunk * 128 + 128)
-template <typename T>
-__global__ void __launch_bounds__(kColTile * kRowGroups)
-fused_norm_dwdb_partial_kernel(const T* __restrict__ x, const float* __restrict__ mean_in,
-                               const float* __restrict__ rstd_in, const T* __restrict__ dy,
-                               float* __restrict__ part_w, float* __restrict__ part_b,
-                               long long N, int D) {
-  __shared__ float sw[kRowGroups][kColTile + 1];
-  __shared__ float sb[kRowGroups][kColTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int col = blockIdx.x * kColTile + tx;
-  const long long r0 = (long long)blockIdx.y * kRowsPerChunk;
-  const long long r1 = min(N, r0 + kRowsPerChunk);
-  float aw = 0.f, ab = 0.f;
+// Stage 1 for rows too wide to stay in registers: the block holds one row at
+// a time and thread tid owns vectors tid, tid + 256, ... of every row.  One
+// pass over x, dy and w takes the row sums and adds dy * x^ and dy into the
+// block's partial row in place (each column has one owner, so no two
+// threads touch one value); a second pass re-reads x, dy and w through
+// L1/L2 for the dx write.  Arguments as fused_norm_bwd_kernel's.
+template <typename T, typename W, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+fused_norm_bwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                           const float* __restrict__ mean_in,
+                           const float* __restrict__ rstd_in, const T* __restrict__ dy,
+                           T* __restrict__ dx, float* __restrict__ part_w,
+                           float* __restrict__ part_b, long long N, int D,
+                           long long rows_per_block, int rms) {
+  __shared__ float s_red[2][kBwdThreads / 32][2];  // per-warp row sums, 2 buffers
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nv = D / VEC;
+  const float inv_d = 1.f / (float)D;
+  const long long r_begin = (long long)blockIdx.x * rows_per_block;
+  const long long r_end = min(N, r_begin + rows_per_block);
+  const bool want_dx = dx != nullptr;
+  float* pw = part_w == nullptr ? nullptr : part_w + (size_t)blockIdx.x * D;
+  float* pb = part_b == nullptr ? nullptr : part_b + (size_t)blockIdx.x * D;
+
+  for (long long row = r_begin; row < r_end; ++row) {
+    const float m = rms ? 0.f : mean_in[row], rs = rstd_in[row];
+    const T* xr = x + row * D;
+    const T* dyr = dy + row * D;
+    const bool first = row == r_begin;
+    float s1 = 0.f, s2 = 0.f;
+    for (int v = tid; v < nv; v += kBwdThreads) {
+      Packed<T, VEC> xp, dp;
+      load_packed<T, VEC>(xr + (long long)v * VEC, xp);
+      load_packed<T, VEC>(dyr + (long long)v * VEC, dp);
+      float xv[VEC], dv[VEC], wv[VEC];
+      widen<T, VEC>(xp, xv);
+      widen<T, VEC>(dp, dv);
+      load_w<W, VEC>(w, v * VEC, true, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = (xv[e] - m) * rs;
+        const int col = v * VEC + e;
+        if (pw != nullptr) pw[col] = first ? dv[e] * xh : pw[col] + dv[e] * xh;
+        if (pb != nullptr) pb[col] = first ? dv[e] : pb[col] + dv[e];
+        const float g = dv[e] * wv[e];
+        s1 += g;
+        s2 += g * xh;
+      }
+    }
+    if (!want_dx) continue;
+    // the row sums over the block: a shuffle in each warp, then the warps'
+    // sums in order through shared memory (double-buffered by row, so one
+    // barrier a row)
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    const int buf = (int)(row & 1);
+    if (lane == 0) {
+      s_red[buf][warp][0] = s1;
+      s_red[buf][warp][1] = s2;
+    }
+    __syncthreads();
+    s1 = s2 = 0.f;
+    for (int k = 0; k < kBwdThreads / 32; ++k) {
+      s1 += s_red[buf][k][0];
+      s2 += s_red[buf][k][1];
+    }
+    const float c1 = rms ? 0.f : s1 * inv_d, c2 = s2 * inv_d;
+    for (int v = tid; v < nv; v += kBwdThreads) {
+      Packed<T, VEC> xp, dp;
+      load_packed<T, VEC>(xr + (long long)v * VEC, xp);
+      load_packed<T, VEC>(dyr + (long long)v * VEC, dp);
+      float xv[VEC], dv[VEC], wv[VEC], out[VEC];
+      widen<T, VEC>(xp, xv);
+      widen<T, VEC>(dp, dv);
+      load_w<W, VEC>(w, v * VEC, true, wv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xh = (xv[e] - m) * rs;
+        out[e] = (dv[e] * wv[e] - c1 - xh * c2) * rs;
+      }
+      store_vec<T, VEC>(dx + row * D + (long long)v * VEC, out);
+    }
+  }
+}
+
+// Stage 2: out[col] = the partial rows' sum for col, in w's type.  Block
+// (x, 0) does dw's columns [32 x, 32 x + 32), block (x, 1) db's; thread
+// group `ty` adds rows ty, ty + 16, ... (four running sums, rows taken in
+// turn, combined in a fixed order), then the 16 groups add by a fixed tree.
+template <typename W>
+__global__ void __launch_bounds__(kFinCols * kFinRows)
+fused_norm_bwd_finish_kernel(const float* __restrict__ part_w,
+                             const float* __restrict__ part_b, int G, int D,
+                             W* __restrict__ dw, W* __restrict__ db) {
+  __shared__ float s[kFinRows][kFinCols + 1];
+  const float* part = blockIdx.y == 0 ? part_w : part_b;
+  W* out = blockIdx.y == 0 ? dw : db;
+  const int tx = threadIdx.x & (kFinCols - 1), ty = threadIdx.x / kFinCols;
+  const int col = blockIdx.x * kFinCols + tx;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
   if (col < D) {
-    for (long long r = r0 + ty; r < r1; r += kRowGroups) {
-      const float g = to_f(dy[r * D + col]);
-      aw += g * (to_f(x[r * D + col]) - mean_in[r]) * rstd_in[r];
-      ab += g;
+    for (int g = ty; g < G; g += 4 * kFinRows) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = g + q * kFinRows;
+        if (r < G) a[q] += part[(size_t)r * D + col];
+      }
     }
   }
-  sw[ty][tx] = aw;
-  sb[ty][tx] = ab;
+  s[ty][tx] = (a[0] + a[1]) + (a[2] + a[3]);
   __syncthreads();
-  if (ty == 0 && col < D) {
-    for (int r = 1; r < kRowGroups; ++r) {
-      aw += sw[r][tx];
-      ab += sb[r][tx];
-    }
-    part_w[(size_t)blockIdx.y * D + col] = aw;
-    if (part_b != nullptr) part_b[(size_t)blockIdx.y * D + col] = ab;
+#pragma unroll
+  for (int h = kFinRows / 2; h > 0; h >>= 1) {
+    if (ty < h) s[ty][tx] += s[ty + h][tx];
+    __syncthreads();
   }
-}
-
-// stage 2: dw[col] (and db[col]) = the column's partials added in chunk order
-__global__ void __launch_bounds__(256)
-fused_norm_dwdb_finish_kernel(const float* __restrict__ part_w,
-                              const float* __restrict__ part_b, float* __restrict__ dw,
-                              float* __restrict__ db, int chunks, int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
-  float aw = 0.f, ab = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    aw += part_w[(size_t)c * D + col];
-    if (db != nullptr) ab += part_b[(size_t)c * D + col];
-  }
-  dw[col] = aw;
-  if (db != nullptr) db[col] = ab;
+  if (ty == 0 && col < D) out[col] = from_f<W>(s[0][tx]);
 }
 
 // the quantized-input forward: x int8, scale[c * scale_stride] (stride 0: one
@@ -227,33 +560,165 @@ cudaError_t launch_fwd(const void* x, const void* w, const void* b, void* y, voi
   return cudaGetLastError();
 }
 
+// How stage 1 cuts a backward: vec (1 or 16 / sizeof(T)), K vectors a
+// thread, 2**tpr_log2 threads a row, rows a block, blocks; wide: the row
+// does not fit K vectors a thread, so the wide kernel takes it (one row a
+// block at a time); ok false for no rows or no columns
+struct BwdPlan {
+  bool ok, wide;
+  int vec, k, tpr_log2, grid;
+  long long rows_per_block;
+};
+
+int log2_ceil(long long n) {
+  int l = 0;
+  while ((1LL << l) < n) ++l;
+  return l;
+}
+
+// the smallest instantiated K >= k, or -1
+int round_k(int k, const int* set, int n) {
+  for (int i = 0; i < n; ++i)
+    if (k <= set[i]) return set[i];
+  return -1;
+}
+
+int sm_count() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (cached[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = n > 0 ? n : 132;
+  }
+  return cached[dev];
+}
+
+// blocks of `kernel` an SM holds, 1 to kMaxBlocksPerSm; K 0 names the wide
+// kernel
+template <typename T, typename W, int VEC, int K>
+int blocks_per_sm() {
+  static int cached = 0;
+  if (cached == 0) {
+    int n = 0;
+    if constexpr (K == 0) {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fused_norm_bwd_wide_kernel<T, W, VEC>, kBwdThreads, 0);
+    } else {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fused_norm_bwd_kernel<T, W, VEC, K>, kBwdThreads, 0);
+    }
+    cached = n < 1 ? 1 : (n > kMaxBlocksPerSm ? kMaxBlocksPerSm : n);
+  }
+  return cached;
+}
+
+// f(IntC<VEC>{}, IntC<K>{}) for the instantiated (vec, k) pairs: 16-byte
+// vectors with K 1-4 (fp32 also 6 and 8), single elements with K 4 and 16;
+// K 0, either vec: the wide kernel
+template <int V> using IntC = std::integral_constant<int, V>;
+
+template <typename T, typename F>
+cudaError_t dispatch_shape(int vec, int k, F&& f) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  if (vec == 1) {
+    if (k == 0) return f(IntC<1>{}, IntC<0>{});
+    if (k == 4) return f(IntC<1>{}, IntC<4>{});
+    if (k == 16) return f(IntC<1>{}, IntC<16>{});
+    return cudaErrorInvalidValue;
+  }
+  if (vec != kVec) return cudaErrorInvalidValue;
+  switch (k) {
+    case 0: return f(IntC<kVec>{}, IntC<0>{});
+    case 1: return f(IntC<kVec>{}, IntC<1>{});
+    case 2: return f(IntC<kVec>{}, IntC<2>{});
+    case 3: return f(IntC<kVec>{}, IntC<3>{});
+    case 4: return f(IntC<kVec>{}, IntC<4>{});
+    default: break;
+  }
+  if constexpr (kVec == 4) {
+    if (k == 6) return f(IntC<4>{}, IntC<6>{});
+    if (k == 8) return f(IntC<4>{}, IntC<8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename W>
-cudaError_t launch_dx(const void* x, const void* w, const void* mean, const void* rstd,
-                      const void* dy, void* dx, long long N, int D, int rms,
-                      cudaStream_t stream) {
-  fused_norm_dx_kernel<T, W><<<(unsigned)row_blocks(N), kWarpsPerBlock * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const T*>(dy), static_cast<T*>(dx), N, D, rms);
+BwdPlan make_plan(long long N, int D, bool aligned) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  static const int kSetF32[] = {1, 2, 3, 4, 6, 8}, kSet16[] = {1, 2, 3, 4}, kSet1[] = {4, 16};
+  BwdPlan p{false, false, 1, 0, 0, 1, 0};
+  if (N <= 0 || D <= 0) return p;
+  p.vec = aligned && D % kVec == 0 ? kVec : 1;
+  const long long nv = D / p.vec;
+  const int* set = p.vec == 1 ? kSet1 : (kVec == 4 ? kSetF32 : kSet16);
+  const int nset = p.vec == 1 ? 2 : (kVec == 4 ? 6 : 4);
+  int tl;
+  if (p.vec != 1 && nv <= 32) {
+    tl = log2_ceil(nv);  // rows share a warp
+  } else {
+    const int kmin = p.vec == 1 ? 4 : set[nset - 1];
+    tl = log2_ceil((nv + kmin - 1) / kmin);
+    if (p.vec != 1 && tl < 5) tl = 5;
+    if (tl > kMaxTprLog2) tl = kMaxTprLog2;
+  }
+  p.tpr_log2 = tl;
+  p.k = round_k((int)((nv + (1LL << tl) - 1) >> tl), set, nset);
+  if (p.k < 0) {  // too wide for the registers: one row a block at a time
+    p.wide = true;
+    p.k = 0;
+    p.tpr_log2 = kMaxTprLog2;
+    tl = kMaxTprLog2;
+  }
+  int occ = 0;
+  if (dispatch_shape<T>(p.vec, p.k, [&](auto vt, auto kt) {
+        occ = blocks_per_sm<T, W, decltype(vt)::value, decltype(kt)::value>();
+        return cudaSuccess;
+      }) != cudaSuccess)
+    return p;
+  const long long rows_per_iter = kBwdThreads >> tl;
+  const long long iters = (N + rows_per_iter - 1) / rows_per_iter;
+  const long long blocks = (long long)sm_count() * occ;
+  p.rows_per_block = (iters + blocks - 1) / blocks * rows_per_iter;
+  p.grid = (int)((N + p.rows_per_block - 1) / p.rows_per_block);
+  p.ok = true;
+  return p;
+}
+
+template <typename T, typename W>
+cudaError_t launch_bwd(const BwdPlan& p, const void* x, const void* w, const void* mean,
+                       const void* rstd, const void* dy, void* dx, void* dw, void* db,
+                       float* partial, long long N, int D, int rms, cudaStream_t stream) {
+  float* part_w = dw == nullptr ? nullptr : partial;
+  float* part_b = db == nullptr || dw == nullptr ? nullptr : partial + (size_t)p.grid * D;
+  cudaError_t err = dispatch_shape<T>(p.vec, p.k, [&](auto vt, auto kt) {
+    constexpr int VEC = decltype(vt)::value, K = decltype(kt)::value;
+    const T* xt = static_cast<const T*>(x);
+    const W* wt = static_cast<const W*>(w);
+    const float* mt = static_cast<const float*>(mean);
+    const float* rt = static_cast<const float*>(rstd);
+    const T* dyt = static_cast<const T*>(dy);
+    if constexpr (K == 0) {
+      fused_norm_bwd_wide_kernel<T, W, VEC><<<p.grid, kBwdThreads, 0, stream>>>(
+          xt, wt, mt, rt, dyt, static_cast<T*>(dx), part_w, part_b, N, D, p.rows_per_block,
+          rms);
+    } else {
+      fused_norm_bwd_kernel<T, W, VEC, K><<<p.grid, kBwdThreads, 0, stream>>>(
+          xt, wt, mt, rt, dyt, static_cast<T*>(dx), part_w, part_b, N, D, p.tpr_log2,
+          p.rows_per_block, rms);
+    }
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess || dw == nullptr) return err;
+  const dim3 grid((D + kFinCols - 1) / kFinCols, part_b == nullptr ? 1 : 2);
+  fused_norm_bwd_finish_kernel<W><<<grid, kFinCols * kFinRows, 0, stream>>>(
+      part_w, part_b, p.grid, D, static_cast<W*>(dw), static_cast<W*>(db));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dwdb(const void* x, const void* mean, const void* rstd, const void* dy,
-                        void* partial, void* dw, void* db, long long N, int D,
-                        cudaStream_t stream) {
-  const long long chunks = (N + kRowsPerChunk - 1) / kRowsPerChunk;
-  float* part_w = static_cast<float*>(partial);
-  float* part_b = db == nullptr ? nullptr : part_w + chunks * D;
-  const dim3 grid((D + kColTile - 1) / kColTile, (unsigned)chunks);
-  fused_norm_dwdb_partial_kernel<T><<<grid, dim3(kColTile, kRowGroups), 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(mean),
-      static_cast<const float*>(rstd), static_cast<const T*>(dy), part_w, part_b, N, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  fused_norm_dwdb_finish_kernel<<<(D + 255) / 256, 256, 0, stream>>>(
-      part_w, part_b, static_cast<float*>(dw), static_cast<float*>(db), (int)chunks, D);
-  return cudaGetLastError();
+bool aligned16(const void* a, const void* b, const void* c, const void* d) {
+  return (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c | (uintptr_t)d) & 15) == 0;
 }
 
 }  // namespace
@@ -293,37 +758,47 @@ extern "C" int unicore_quant_layer_norm_fwd(const void* x, const void* scale,
   return (int)cudaGetLastError();
 }
 
-extern "C" int unicore_fused_norm_dx(const void* x, const void* w, const void* mean,
-                                     const void* rstd, const void* dy, void* dx,
-                                     long long N, int D, int rms, int dtype, int wdtype,
-                                     void* stream) {
-  if (bad_rows(N, D)) return (int)cudaErrorInvalidValue;
+// fp32 scratch floats the backward needs for its dw/db partials (2 * grid *
+// D), given x's and w's type codes and whether x, dy, dx and w are all
+// 16-byte aligned; -1 for no rows or no columns, -2 for a bad type code
+extern "C" long long unicore_fused_norm_bwd_scratch(long long N, int D, int dtype,
+                                                    int wdtype, int aligned) {
+  long long out = -2;
+  dispatch_float(dtype, [&](auto xt) {
+    return dispatch_float(wdtype, [&](auto wt) {
+      using T = typename decltype(xt)::type;
+      using W = typename decltype(wt)::type;
+      const BwdPlan p = make_plan<T, W>(N, D, aligned != 0);
+      out = p.ok ? 2LL * p.grid * D : -1;
+      return cudaSuccess;
+    });
+  });
+  return out;
+}
+
+// The backward in one call: stage 1 and, when dw is not null, stage 2, on
+// `stream`.  dx (N, D) in x's type, or null for no dx; dw, db (D,) in w's
+// type, db null for RMSNorm / no bias, both null for no dw/db; `partial`
+// holds `partial_floats` fp32 (unicore_fused_norm_bwd_scratch's count).
+// mean (unread for RMSNorm) and rstd: the forward's fp32 (N,) statistics.
+extern "C" int unicore_fused_norm_bwd(const void* x, const void* w, const void* mean,
+                                      const void* rstd, const void* dy, void* dx, void* dw,
+                                      void* db, void* partial, long long partial_floats,
+                                      long long N, int D, int rms, int dtype, int wdtype,
+                                      void* stream) {
+  if (bad_rows(N, D) || (dx == nullptr && dw == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)dispatch_float(dtype, [&](auto xt) {
     return dispatch_float(wdtype, [&](auto wt) {
       using T = typename decltype(xt)::type;
       using W = typename decltype(wt)::type;
-      return launch_dx<T, W>(x, w, mean, rstd, dy, dx, N, D, rms, s);
+      const BwdPlan p = make_plan<T, W>(N, D, aligned16(x, dy, dx, w));
+      if (!p.ok || (dw != nullptr && (partial == nullptr ||
+                                      partial_floats < 2LL * p.grid * D)))
+        return cudaErrorInvalidValue;
+      return launch_bwd<T, W>(p, x, w, mean, rstd, dy, dx, dw, db,
+                              static_cast<float*>(partial), N, D, rms, s);
     });
-  });
-}
-
-// fp32 scratch floats the dw/db launch needs for N rows and D columns
-extern "C" long long unicore_fused_norm_dwdb_scratch(long long N, int D) {
-  return 2 * ((N + kRowsPerChunk - 1) / kRowsPerChunk) * (long long)D;
-}
-
-// dw, db: fp32 (D,); db may be null (RMSNorm).  `partial` holds
-// unicore_fused_norm_dwdb_scratch(N, D) floats.
-extern "C" int unicore_fused_norm_dwdb(const void* x, const void* mean, const void* rstd,
-                                       const void* dy, void* partial, void* dw, void* db,
-                                       long long N, int D, int dtype, void* stream) {
-  if (N <= 0 || D <= 0 || (N + kRowsPerChunk - 1) / kRowsPerChunk > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch_float(dtype, [&](auto xt) {
-    return launch_dwdb<typename decltype(xt)::type>(x, mean, rstd, dy, partial, dw, db, N, D,
-                                                    s);
   });
 }
 

@@ -154,10 +154,11 @@ def _bind(lib) -> None:
     fr_geom = [i] * 6 + [f, i, i, u, f, i, i, p]
     lib.unicore_fullrow_attention_fwd.argtypes = [p] * 7 + fr_geom
     lib.unicore_fullrow_attention_bwd.argtypes = [p] * 13 + fr_geom
-    # csrc/fused_norm.cu: ..., x's dtype, the weight's dtype, stream
+    # csrc/fused_norm.cu: ..., x's dtype, the weight's dtype, stream; the
+    # backward: x, w, mean, rstd, dy, dx, dw, db, partials, their floats,
+    # N, D, rms, ...
     lib.unicore_fused_norm_fwd.argtypes = [p, p, p, p, p, p, ll, i, f, i, i, i, p]
-    lib.unicore_fused_norm_dx.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, p]
-    lib.unicore_fused_norm_dwdb.argtypes = [p, p, p, p, p, p, p, ll, i, i, p]
+    lib.unicore_fused_norm_bwd.argtypes = [p] * 9 + [ll, ll, i, i, i, i, p]
     desc = ctypes.POINTER(ll)  # an extra's index map (csrc/softmax_dropout.cu)
     lib.unicore_softmax_dropout_fwd.argtypes = [
         p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,
@@ -195,8 +196,8 @@ def _bind(lib) -> None:
     lib.unicore_fused_adam.argtypes = [p, p, i, p, p, p, p, i, p, p] + [f] * 7 + [
         i, f, f, i, u, u, u, p]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
-               "unicore_fused_norm_fwd", "unicore_fused_norm_dx",
-               "unicore_fused_norm_dwdb", "unicore_softmax_dropout_fwd",
+               "unicore_fused_norm_fwd", "unicore_fused_norm_bwd",
+               "unicore_softmax_dropout_fwd",
                "unicore_softmax_dropout_bwd", "unicore_flash_attention_fwd",
                "unicore_flash_attention_dq", "unicore_flash_attention_dkv",
                "unicore_decode_attention",
@@ -204,8 +205,8 @@ def _bind(lib) -> None:
                "unicore_quant_softmax_dropout_fwd", "unicore_multi_tensor_l2norm",
                "unicore_fused_adam"):
         getattr(lib, fn).restype = i
-    lib.unicore_fused_norm_dwdb_scratch.argtypes = [ll, i]
-    lib.unicore_fused_norm_dwdb_scratch.restype = ll
+    lib.unicore_fused_norm_bwd_scratch.argtypes = [ll, i, i, i, i]
+    lib.unicore_fused_norm_bwd_scratch.restype = ll
     lib.unicore_flash_attention_dkv_scratch.argtypes = [i] * 9
     lib.unicore_flash_attention_dkv_scratch.restype = ll
     lib.unicore_cuda_error_string.argtypes = [i]

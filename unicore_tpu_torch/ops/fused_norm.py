@@ -11,7 +11,11 @@ no fallback between the two.
 On a CUDA tensor that needs a gradient the call is a
 :class:`torch.autograd.Function`, as the JAX package's ``jax.custom_vjp``:
 the forward kernel also writes the fp32 row statistics (mean, rstd), which
-the backward's two kernels read (dx per row; dw/db as a column reduction).
+the backward reads.  The backward is one C call that enqueues one pass over
+x and dy (dx, and each block's dw/db partial sums) and a small launch that
+adds the partials and writes dw and db in the weight's type; the JAX
+package's two kernels ``_ln_dx_kernel`` and ``_ln_dwdb_kernel`` compute the
+same function, which :func:`fused_norm_bwd_plain` states in torch ops.
 Without a gradient the forward writes no statistics.
 
 Statistics are fp32 whatever the input type.  x is fp32, bf16 or fp16
@@ -29,6 +33,8 @@ and :func:`quant_layer_norm_plain` on the CPU, routed by
 (one fp32 scale or (D,) of them, read on the device) is fused into the
 statistics pass; fp32 out, no statistics, no gradient.
 """
+
+import functools
 
 import torch
 
@@ -95,39 +101,76 @@ def _launch_fwd(x2, weight, bias, eps: float, rms: bool, want_stats: bool, name)
     return y, mean, rstd
 
 
-def _launch_dx(x2, weight, mean, rstd, dy2, rms: bool, name):
-    N, D = x2.shape
-    dx = torch.empty_like(x2)
-    if N == 0:
-        return dx
-    rc = _kernels.library().unicore_fused_norm_dx(
-        x2.data_ptr(), weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        dy2.data_ptr(), dx.data_ptr(), N, D, int(rms), _DTYPES[x2.dtype],
-        _DTYPES[weight.dtype], _kernels.stream_handle(x2.device),
-    )
-    _kernels.check(rc, f"{name} dx")
-    DX_LAUNCHES.add()
-    return dx
+def fused_norm_bwd_plain(x2, w, mean, rstd, dy2, rms: bool, has_bias: bool,
+                         need_dx: bool = True, need_dwdb: bool = True):
+    """The backward kernel's function in plain PyTorch, as the JAX
+    ``_ln_dx_kernel`` and ``_ln_dwdb_kernel`` compute it: x2, dy2 (N, D),
+    the forward's fp32 statistics mean and rstd ((N,) or (N, 1); mean 0 for
+    RMSNorm); x^ = (x - mean) * rstd and wdy = dy * w in fp32,
+    ``dx = (wdy - mean(wdy) - x^ * mean(wdy * x^)) * rstd`` (RMSNorm: no
+    ``mean(wdy)``) in x's type; dw = sum over rows of dy * x^ and db = sum
+    of dy, summed in fp32 and cast once to w's type.  Returns (dx, dw, db),
+    None for what is not asked for (db without ``has_bias``)."""
+    xf, dyf = x2.float(), dy2.float()
+    rstd = rstd.reshape(-1, 1)
+    xhat = (xf - mean.reshape(-1, 1)) * rstd
+    dx = dw = db = None
+    if need_dx:
+        wdy = dyf * w.float()
+        c2 = (wdy * xhat).mean(dim=-1, keepdim=True)
+        if rms:
+            dx = (wdy - xhat * c2) * rstd
+        else:
+            c1 = wdy.mean(dim=-1, keepdim=True)
+            dx = (wdy - c1 - xhat * c2) * rstd
+        dx = dx.to(x2.dtype)
+    if need_dwdb:
+        dw = (dyf * xhat).sum(dim=0).to(w.dtype)
+        db = dyf.sum(dim=0).to(w.dtype) if has_bias else None
+    return dx, dw, db
 
 
-def _launch_dwdb(x2, mean, rstd, dy2, has_bias: bool, name):
+@functools.lru_cache(maxsize=512)
+def _bwd_scratch(N: int, D: int, dtype: int, wdtype: int, aligned: bool) -> int:
+    """fp32 floats of the backward's dw/db partials for this shape; below 0
+    for a shape or type code the kernel does not take."""
+    return _kernels.library().unicore_fused_norm_bwd_scratch(N, D, dtype, wdtype,
+                                                            int(aligned))
+
+
+def _launch_bwd(x2, weight, mean, rstd, dy2, rms: bool, has_bias: bool, need_dx: bool,
+                need_dwdb: bool, name):
+    """The backward kernel on card tensors: (dx or None, dw or None, db or
+    None), dw and db in the weight's type.  One C call enqueues the pass
+    over x and dy and, for dw/db, the launch that adds the partials.  Raises
+    on a CPU tensor and on a shape or type the kernel does not take."""
+    _kernels.require_cuda(f"{name} backward", x2, weight, mean, rstd, dy2)
     N, D = x2.shape
     dev = x2.device
-    dw = torch.zeros(D, dtype=torch.float32, device=dev)
-    db = torch.zeros(D, dtype=torch.float32, device=dev) if has_bias else None
-    if N == 0:
-        return dw, db
-    lib = _kernels.library()
-    partial = torch.empty(lib.unicore_fused_norm_dwdb_scratch(N, D),
-                          dtype=torch.float32, device=dev)
-    rc = lib.unicore_fused_norm_dwdb(
-        x2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dy2.data_ptr(),
-        partial.data_ptr(), dw.data_ptr(), _kernels.ptr(db), N, D,
-        _DTYPES[x2.dtype], _kernels.stream_handle(dev),
+    dx = torch.empty_like(x2) if need_dx else None
+    dw = torch.empty(D, dtype=weight.dtype, device=dev) if need_dwdb else None
+    db = torch.empty(D, dtype=weight.dtype, device=dev) if need_dwdb and has_bias else None
+    if N == 0 or D == 0:  # no rows: dw and db are empty sums
+        return dx, None if dw is None else dw.zero_(), None if db is None else db.zero_()
+    ptrs = x2.data_ptr() | dy2.data_ptr() | weight.data_ptr()
+    aligned = (ptrs | (0 if dx is None else dx.data_ptr())) % 16 == 0
+    floats = _bwd_scratch(N, D, _DTYPES[x2.dtype], _DTYPES[weight.dtype], aligned)
+    if floats < 0:
+        raise ValueError(f"{name} backward: the kernel takes no ({N}, {D}) "
+                         f"{x2.dtype} rows with a {weight.dtype} weight")
+    partial = torch.empty(floats, dtype=torch.float32, device=dev) if need_dwdb else None
+    rc = _kernels.library().unicore_fused_norm_bwd(
+        x2.data_ptr(), weight.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        dy2.data_ptr(), _kernels.ptr(dx), _kernels.ptr(dw), _kernels.ptr(db),
+        _kernels.ptr(partial), floats if need_dwdb else 0, N, D, int(rms),
+        _DTYPES[x2.dtype], _DTYPES[weight.dtype], _kernels.stream_handle(dev),
     )
-    _kernels.check(rc, f"{name} dw/db")
-    DWDB_LAUNCHES.add()
-    return dw, db
+    _kernels.check(rc, f"{name} backward")
+    if need_dx:
+        DX_LAUNCHES.add()
+    if need_dwdb:
+        DWDB_LAUNCHES.add()
+    return dx, dw, db
 
 
 class _FusedNorm(torch.autograd.Function):
@@ -146,16 +189,13 @@ class _FusedNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x2, weight, mean, rstd = ctx.saved_tensors
         dy2 = dy.to(x2.dtype).reshape(x2.shape).contiguous()
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = _launch_dx(x2, weight, mean, rstd, dy2, ctx.rms,
-                            ctx.name).view(dy.shape)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
-            dw, db = _launch_dwdb(x2, mean, rstd, dy2, ctx.has_bias, ctx.name)
-            # the fp32 sums in the parameters' type
-            dw = dw.to(weight.dtype)
-            db = None if db is None else db.to(weight.dtype)
-        return dx, dw, db, None, None, None
+        need_dx = ctx.needs_input_grad[0]
+        need_dwdb = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        if not (need_dx or need_dwdb):
+            return None, None, None, None, None, None
+        dx, dw, db = _launch_bwd(x2, weight, mean, rstd, dy2, ctx.rms, ctx.has_bias,
+                                 need_dx, need_dwdb, ctx.name)
+        return None if dx is None else dx.view(dy.shape), dw, db, None, None, None
 
 
 def _fused_norm(x, weight, bias, eps: float, rms: bool):
