@@ -211,8 +211,13 @@ and at rate 0 beside ``torch.softmax`` (the like-for-like yardstick: no
 PyTorch call takes the dropout), L=256 and 512, bf16, a ``bcast`` and a
 ``tile`` extra with their gradients, rows holding -inf, and the keep mask read off the card bit for
 bit against ``philox_keep_plain``; the norms at D=64 over 16 * 128**2
-rows, the width of Uni-Mol's head norms, and at the Evoformer's D=256 and
-D=128 (the backward, #8 and #9, is one call: it is held through autograd
+rows, the width of Uni-Mol's head norms, at the Evoformer's D=256 and
+D=128 and at Uni-Mol's (2048, 512) layer norms (the forward, #7, in its
+serving and its training form, each timed warm and with the L2 flushed
+against its own bound -- the training form's counts the fp32 statistics --
+beside ``F.layer_norm`` / ``F.rms_norm``, with its statistics within 1e-5
+of the fp32 plain ones, the same bits twice and one device operation a
+call; the backward, #8 and #9, is one call: it is held through autograd
 and alone against ``fused_norm_bwd_plain``, the same bits twice, and timed
 warm and with the L2 flushed beside ``F.layer_norm``'s / ``F.rms_norm``'s
 backward and its device operations counted); and the four flash kernels (forward with its lse, dq with di,
@@ -262,7 +267,8 @@ attention, (8, 12, 512, 64): the rel-pos bias plus the ``triu`` of
 ``CAUSAL_NEG`` as one (1, 12, 512, 512) bias that needs a gradient, the key
 mask and dropout 0.1, with dbias exactly 0 at every entry above the
 diagonal.  And the inputs of a ``--bf16`` / ``--fp16`` run: the norms at
-(4096, 768) with bf16 and with fp16 x, weight and bias; the full-row
+(4096, 768) with bf16 and with fp16 x, weight and bias, and at Uni-Mol's
+and the Evoformer's D = 64 / 128 / 256 rows with bf16 ones; the full-row
 kernels at (8, 12, 512, 64) bf16 with a bf16 bias, with and without the
 causal triangle, dropout 0.1; the flash kernels at the triangle shape
 (256, 4, 256, 32) bf16 with a bf16 (1, 4, 256, 256) bias; each gradient in
@@ -744,6 +750,17 @@ def norm_inputs(torch, device, N, D, dtype, wdtype=None):
 
 
 def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
+    """The norm forward (#7) in its two forms against ``fused_norm_plain``:
+    serving (no gradient: y alone) and training (the autograd Function,
+    which also writes the fp32 row statistics); on the card the statistics
+    within 1e-5 of ``fused_norm_stats_plain``, the same bits on a second
+    call and one device operation a call.  Times of each form: per call
+    (host included) and device ms warm and with the L2 flushed; the plain
+    version; the library's forward (``F.layer_norm`` / ``F.rms_norm``),
+    warm and flushed.  Bounds: x read, y written and w (b) read once; in
+    training plus the statistics (8 bytes a row; RMSNorm 4, rstd alone,
+    which is all its backward reads).  The serving form is the row's
+    main entry; ``training`` holds the other."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import fused_norm as fn
@@ -752,38 +769,68 @@ def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
     eps = 1e-6 if rms else 1e-5
     bb = None if rms else b
     name_fn = "fused_rms_norm" if rms else "fused_layer_norm"
+    leaves = [t.clone().requires_grad_(True) for t in ((x, w) if rms else (x, w, b))]
     call = lambda: fn._fused_norm(x, w, bb, eps, rms)  # noqa: E731
+    train = lambda: fn._fused_norm(leaves[0], leaves[1], None if rms else leaves[2],  # noqa: E731
+                                   eps, rms)
     plain = lambda: fn.fused_norm_plain(x, w, bb, eps, rms)  # noqa: E731
     if rms:
         lib = (lambda: F.rms_norm(x, (D,), w.to(dtype), eps)) if hasattr(F, "rms_norm") else None  # noqa: E731
     else:
         lib = lambda: F.layer_norm(x, (D,), w.to(dtype), b.to(dtype), eps)  # noqa: E731
-    err = (call().float() - plain().float()).abs().max().item()
-    # the training forward's statistics against fp32 plain statistics
-    stat_err = 0.0
+    ref = plain().float()
+    y_train = train()
+    err = max((call().float() - ref).abs().max().item(),
+              (y_train.detach().float() - ref).abs().max().item())
+    # the training forward's statistics against the fp32 plain ones, and
+    # its bits on a second call
+    stat_err, same_bits = 0.0, None
     if device.type == "cuda":
-        _, mean, rstd = fn._launch_fwd(x, w, bb, eps, rms, True, name_fn)
-        xf = x.float()
-        ref_mean = torch.zeros_like(mean) if rms else xf.mean(-1)
-        ref_var = (xf - ref_mean[:, None]).square().mean(-1)
-        for got, ref in ((mean, ref_mean), (rstd, torch.rsqrt(ref_var + eps))):
-            err_s, scale = rel_err(got, ref)
+        got = fn._launch_fwd(x, w, bb, eps, rms, True, name_fn)
+        again = fn._launch_fwd(x, w, bb, eps, rms, True, name_fn)
+        same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+        for s, r in zip(got[1:], fn.fused_norm_stats_plain(x, eps, rms)):
+            err_s, scale = rel_err(s, r.reshape(-1))
             stat_err = max(stat_err, err_s / scale)
     tol = TOL["norm"][dtype_name(dtype)]
     name = f"{'rms' if rms else 'layer'}_norm fwd N={N} D={D} {dtype} weight {w.dtype}"
-    if not (err <= tol and stat_err <= 1e-5 and math.isfinite(err)):
+    if not (err <= tol and stat_err <= 1e-5 and math.isfinite(err) and same_bits is not False
+            and y_train.requires_grad):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol}), "
-                             f"statistics err {stat_err} (tol 1e-5)")
+                             f"statistics err {stat_err} (tol 1e-5), same bits twice "
+                             f"{same_bits}")
     res = {"shape": [N, D], "dtype": dtype_name(dtype), "weight_dtype": dtype_name(w.dtype),
-           "rms": rms, "max_abs_err": err, "tolerance": tol, "stats_rel_err": stat_err}
+           "rms": rms, "max_abs_err": err, "tolerance": tol, "stats_rel_err": stat_err,
+           "same_bits_twice": same_bits}
+    training = {}
     timed(res, "ms", torch, call, device, iters)
+    timed(training, "ms", torch, train, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     if lib is None:
         res["library_ms"] = res["library_ms_spread"] = res["library_device_ms"] = None
     else:
         timed(res, "library_ms", torch, lib, device, iters)
+    if device.type == "cuda":
+        flush = l2_flush(torch, device)
+        for form, out, fwd in (("serving", res, call), ("training", training, train)):
+            _, out["device_ops"] = device_profile(torch, fwd)
+            out["device_ms_flushed"], _ = device_profile(torch, fwd, flush=flush)
+            # one kernel a call and nothing beside it (CUPTI may drop an
+            # event, never add one, so a short count is no failure)
+            if out["device_ops"] is not None and out["device_ops"] > 1.0:
+                raise AssertionError(f"{name}: {out['device_ops']} device operations a "
+                                     f"{form} call, want one")
+        if lib is not None:
+            res["library_device_ms_flushed"], _ = device_profile(torch, lib, flush=flush)
     nbytes = 2 * N * D * x.element_size() + D * w.element_size() * (1 if rms else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * N * D, "float32")
+    training["bound_ms"], training["bound_by"] = bound_ms(nbytes + (4 if rms else 8) * N,
+                                                          8 * N * D, "float32")
+    for out in (res, training):
+        for key in ("device_ms", "device_ms_flushed"):
+            if out.get(key):
+                out[f"bound_share_{key}"] = out["bound_ms"] / out[key]
+    res["training"] = training
     log(f"{name}: {json.dumps(res)}")
     return res
 
@@ -1370,7 +1417,9 @@ def check_quant_matmul(torch, device, c, iters):
 def check_quant_norm(torch, device, N, D, per_channel, iters):
     """7q against ``quant_layer_norm_plain``: int8 (N, D) dequantized by one
     scale or (D,) of them; tolerance the fp32 norm's.  Yardstick: the
-    dequant multiply and one ``F.layer_norm``."""
+    dequant multiply and one ``F.layer_norm``.  On the card also device ms
+    with the L2 flushed (the kernel's and the yardstick's) and the device
+    operations a call."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import fused_norm as fn
@@ -1395,8 +1444,16 @@ def check_quant_norm(torch, device, N, D, per_channel, iters):
     timed(res, "ms", torch, call, device, iters)
     timed(res, "plain_ms", torch, plain, device, iters)
     timed(res, "library_ms", torch, library, device, iters)
+    if device.type == "cuda":
+        flush = l2_flush(torch, device)
+        _, res["device_ops"] = device_profile(torch, call)
+        res["device_ms_flushed"], _ = device_profile(torch, call, flush=flush)
+        res["library_device_ms_flushed"], _ = device_profile(torch, library, flush=flush)
     nbytes = N * D + 4 * N * D + 4 * D * (3 if per_channel else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 9 * N * D, "float32")
+    for key in ("device_ms", "device_ms_flushed"):
+        if res.get(key):
+            res[f"bound_share_{key}"] = res["bound_ms"] / res[key]
     log(f"{name}: {json.dumps(res)}")
     return res
 
@@ -2696,7 +2753,10 @@ def cpu_quant_reference(torch, path, mode, rows, bucket, pad_idx):
     return build_infer_fn("cpu")(model_q, arr)
 
 
-QUANT_GROUPS = (("quant_matmul", ("quant_matmul",)), ("quant_layer_norm", ("quant_layer_norm",)),
+#: (7q is the norm forward's template on int8 rows: ahead of ``fused_norm``)
+QUANT_GROUPS = (("quant_matmul", ("quant_matmul",)),
+                ("quant_layer_norm", ("fused_norm_fwd_kernel<signed char",
+                                      "fused_norm_fwd_wide_kernel<signed char")),
                 ("softmax_kernel", ("softmax_dropout_fwd",)),
                 ("fullrow_attention", ("fullrow_",))) + KERNEL_GROUPS
 
@@ -3762,9 +3822,10 @@ CHIP = {
     "attention_causal": (8, 12, 512, 64),
     "attention_bwd": [(8, 12, 512, 64), (8, 12, 384, 64), (8, 12, 128, 64)],
     # Uni-Mol's head norms: D = 64 over B * L**2 rows; the Evoformer's msa
-    # (32 rows x 256 residues, D = 256) and pair (256**2 rows, D = 128) norms
+    # (32 rows x 256 residues, D = 256) and pair (256**2 rows, D = 128) norms;
+    # Uni-Mol's layer norms (16 x 128 tokens, D = 512)
     "norm": [(4096, 768), (4097, 1024), (16 * 128 * 128, 64), (32 * 256, 256),
-             (256 * 256, 128)],
+             (256 * 256, 128), (2048, 512)],
     # Uni-Mol's micro-batch (16 x 64 heads, L = 128) first, fp32 then bf16
     "softmax": [
         {"shape": (16, 64, 128, 128), "rate": 0.1, "dtype": "float32"},
@@ -3901,10 +3962,15 @@ CHIP = {
                  "card_vs_cpu": {"updates": 3, "batch": 4,
                                  "lengths": [(256, 128, 0.1), (200, 8, 0.0)]}},
     # phase 3's mixed-precision inputs: the norms at BERT-base's (4096, 768)
-    # with bf16 and fp16 x, weight and bias; the full-row kernels at
-    # (8, 12, 512, 64) bf16 with a bf16 bias (with and without the causal
-    # triangle); the flash kernels at the triangle shape with a bf16 bias
-    "mixed": {"norm": [(4096, 768, "bfloat16", "bfloat16"), (4096, 768, "float16", "float16")],
+    # with bf16 and fp16 x, weight and bias, and at Uni-Mol's and the
+    # Evoformer's D = 64 / 128 / 256 rows in bf16 as --bf16 runs them; the
+    # full-row kernels at (8, 12, 512, 64) bf16 with a bf16 bias (with and
+    # without the causal triangle); the flash kernels at the triangle shape
+    # with a bf16 bias
+    "mixed": {"norm": [(4096, 768, "bfloat16", "bfloat16"), (4096, 768, "float16", "float16"),
+                       (16 * 128 * 128, 64, "bfloat16", "bfloat16"),
+                       (256 * 256, 128, "bfloat16", "bfloat16"),
+                       (32 * 256, 256, "bfloat16", "bfloat16")],
               "attention": (8, 12, 512, 64),
               "flash": {"name": "triangle", "shape": (256, 4, 256, 32),
                         "bias": (1, 4, 256, 256), "bias_dtype": "bfloat16"}},
@@ -4278,6 +4344,12 @@ def main(argv=None):
                                                   "library_device_ms", "max_abs_err")}
         if name == "flash_attention_fwd":
             row["dropout_mask_check"] = flash_mask
+        if name in ("fused_norm_fwd", "quant_layer_norm"):  # flushed times beside
+            row.update(device_ms_flushed=main_row.get("device_ms_flushed"),
+                       library_device_ms_flushed=main_row.get("library_device_ms_flushed"),
+                       device_ops=main_row.get("device_ops"))
+        if name == "fused_norm_fwd":
+            row["training"] = main_row["training"]
         if name in ("fused_norm_dx", "fused_norm_dwdb"):  # one call, its flushed time beside
             row.update(fused_with=main_row["fused_with"],
                        device_ms_flushed=main_row["device_ms_flushed"],

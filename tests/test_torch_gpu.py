@@ -4,7 +4,10 @@ Lq != Lk, head dims 8/12/16/128, 1024 key rows — the most shared memory
 the kernels ask for inside the ``supported()`` gate; norm widths 8 to 8192
 and tiny row counts, the one-pass norm backward at those widths, the
 pair rows of Uni-Mol and the Evoformer and rows of 5001 and 12288 (bit-equal twice, at most two
-kernels and no memset a backward); softmax rows of 128 to 8192 with every extra layout),
+kernels and no memset a backward); the norm forward at every team width
+(D 1 to 12288, the column-tiled rows among them) in fp32, bf16 and fp16,
+its statistics against the fp32 plain ones, the same bits twice, one
+kernel a call, unaligned views on the one-element route; softmax rows of 128 to 8192 with every extra layout),
 forward and backward, with and without dropout; the four flash kernels
 (forward, dq, dk/dv, dbias) with every bias grouping, head dims 24 to 128,
 1152 rows, Lq != Lk, fully masked rows and dropout, their Philox mask and
@@ -96,7 +99,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = {
     "attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
-    "norm": {torch.float32: 1e-5, torch.bfloat16: 6.25e-2},
+    # fp16: two ulps below 16 in magnitude (2**-7 each), as chip_smoke.py's
+    "norm": {torch.float32: 1e-5, torch.bfloat16: 6.25e-2, torch.float16: 1.5625e-2},
     "softmax": 1e-6,
 }
 GRAD_TOL = {"attention": 1e-4, "norm": 1e-5, "softmax": 1e-5}
@@ -485,6 +489,142 @@ def test_norm_backward_two_kernels_in_weight_type(cuda, wdtype, rms):
     for name, gk, gr in zip(("dx", "dw", "db"), got, ref):
         assert gk.dtype == gr.dtype, name
         assert _grad_over_tol(gk, gr, GRAD_TOL["norm"]) <= 1.0, name
+
+
+def _norm_forward_check(x, w, b, eps, rms):
+    """One forward route on ``x``: the training call (y, mean, rstd) and the
+    serving call, each twice; y within TOL["norm"] of ``fused_norm_plain``,
+    the statistics within 1e-5 (of max(1, |ref|)) of the fp32 plain ones,
+    the same bits on the second call, the serving y equal to the training
+    y, one launch a call.  Returns y."""
+    _kernels.reset_launch_counts()
+    y, mean, rstd = fn._launch_fwd(x, w, b, eps, rms, True, "norm")
+    y2, mean2, rstd2 = fn._launch_fwd(x, w, b, eps, rms, True, "norm")
+    served, none, _ = fn._launch_fwd(x, w, b, eps, rms, False, "norm")
+    assert fn.LAUNCHES.count == 3 and none is None
+    assert torch.equal(y, y2) and torch.equal(mean, mean2) and torch.equal(rstd, rstd2)
+    assert torch.equal(served, y)
+    ref = fn.fused_norm_plain(x, w, b, eps, rms)
+    assert y.dtype == x.dtype and y.shape == x.shape
+    err = (y.float() - ref.float()).abs().max().item()
+    assert err <= TOL["norm"][x.dtype], err
+    ref_mean, ref_rstd = fn.fused_norm_stats_plain(x, eps, rms)
+    for got, want in ((mean, ref_mean), (rstd, ref_rstd)):
+        assert got.dtype == torch.float32 and got.shape == want.shape[:-1]
+        assert _rel_err(got, want.reshape(-1)) <= 1e-5
+    return y
+
+
+@pytest.mark.parametrize("N,D", [(1, 1), (300, 2), (37, 8), (129, 16), (77, 33), (1001, 64),
+                                 (513, 96), (257, 128), (33, 256), (9, 512), (1000, 768),
+                                 (5, 1024), (3, 2048), (2, 4096), (7, 8192), (300, 5001),
+                                 (100, 12288), (16 * 128 * 128, 64), (256 * 256, 128)])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_norm_forward_routes_match_plain(cuda, N, D, rms, dtype):
+    """The forward at every team width (1 to 256 threads a row, several rows
+    a warp at D <= 128), row counts that fill no team or block, the
+    one-element route (odd D), and rows too wide for registers (5001 and
+    12288: the column-tiled kernel); statistics, bits and launches as
+    :func:`_norm_forward_check` holds them."""
+    g = torch.Generator(device=cuda).manual_seed(N * 7 + D)
+    x = (torch.randn(N, D, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    b = None if rms else 0.1 * torch.randn(D, generator=g, device=cuda)
+    _norm_forward_check(x, w, b, 1e-6 if rms else 1e-5, rms)
+
+
+@pytest.mark.parametrize("D", [516, 772, 2056])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("xdtype,wdtype", [(torch.float32, torch.bfloat16),
+                                           (torch.float32, torch.float16),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.float16, torch.float16)])
+def test_norm_forward_weight_types_match_plain(cuda, D, rms, xdtype, wdtype):
+    """Weights in another type than x where the block keeps them in shared
+    memory, at widths whose weight bytes are no multiple of 16 (the copy's
+    one-element tail), as :func:`_norm_forward_check` holds them."""
+    g = torch.Generator(device=cuda).manual_seed(D + 11)
+    x = (torch.randn(37, D, generator=g, device=cuda) * 2 + 0.5).to(xdtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    b = None if rms else (0.1 * torch.randn(D, generator=g, device=cuda)).to(wdtype)
+    _norm_forward_check(x, w, b, 1e-6 if rms else 1e-5, rms)
+
+
+@pytest.mark.parametrize("D", [64, 768, 4096])
+@pytest.mark.parametrize("rms", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_forward_unaligned_view_matches_vector_route(cuda, D, rms, dtype):
+    """x and w one element into their storage (not 16-byte aligned) take the
+    one-element route; its y equals the plain version's, and the 16-byte
+    route's on an aligned copy, within TOL["norm"]."""
+    N = 50
+    g = torch.Generator(device=cuda).manual_seed(D + 3)
+    x_store = (torch.randn(N * D + 1, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    w_store = 1 + 0.1 * torch.randn(D + 1, generator=g, device=cuda)
+    x, w = x_store[1:].view(N, D), w_store[1:]
+    assert x.data_ptr() % 16 and w.data_ptr() % 16
+    b = None if rms else 0.1 * torch.randn(D, generator=g, device=cuda)
+    eps = 1e-6 if rms else 1e-5
+    scalar = _norm_forward_check(x, w, b, eps, rms)
+    vector = _norm_forward_check(x.clone(), w.clone(), b, eps, rms)
+    assert (scalar.float() - vector.float()).abs().max().item() <= TOL["norm"][dtype]
+
+
+@pytest.mark.parametrize("N,D,dtype", [(16 * 128 * 128, 64, torch.bfloat16),
+                                       (4096, 768, torch.float32), (300, 5001, torch.float32)])
+def test_norm_forward_one_device_operation(cuda, N, D, dtype):
+    """Through the public path, serving (no gradient) and training (the
+    autograd Function, which also writes the statistics): one kernel a
+    call on the device, no memset or copy (the profiler's view)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda).manual_seed(N + D)
+    x = (torch.randn(N, D, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    w = (1 + 0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    b = (0.1 * torch.randn(D, generator=g, device=cuda)).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    calls = 10
+    for args in ((x, w, b), leaves):
+        fn.fused_layer_norm(*args)  # warm: the build, the occupancy
+        torch.cuda.synchronize()
+        # CUPTI drops kernel events now and then, never adds any: a profile
+        # short of events is taken again (as chip_smoke.py's device_profile)
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    y = fn.fused_layer_norm(*args)
+                torch.cuda.synchronize()
+            device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            if sum(e.count for e in device) >= calls:
+                break
+        assert sum(e.count for e in device) == calls, [(e.key, e.count) for e in device]
+        assert y.requires_grad == (args is leaves)
+
+
+@pytest.mark.parametrize("N,D", [(3, 1), (33, 64), (2048, 512), (300, 5001), (100, 12288)])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_quant_layer_norm_routes_match_plain(cuda, N, D, per_channel):
+    """The int8 LayerNorm (7q, the forward template with an int8 loader) at
+    one-element, 4-element and column-tiled widths, with one scale or D of
+    them: within 1e-5 of ``quant_layer_norm_plain``, the same bits twice,
+    and an unaligned view of x within 1e-5 too."""
+    g = torch.Generator(device=cuda).manual_seed(N * 3 + D)
+    x = _int8(g, (N, D), cuda)
+    scale = (torch.rand(D if per_channel else (), generator=g, device=cuda) * 0.05 + 0.01)
+    w = 1 + 0.1 * torch.randn(D, generator=g, device=cuda)
+    b = 0.1 * torch.randn(D, generator=g, device=cuda)
+    _kernels.reset_launch_counts()
+    out = fn.quant_layer_norm_kernel(x, scale, w, b)
+    again = fn.quant_layer_norm_kernel(x, scale, w, b)
+    assert fn.QUANT_LAUNCHES.count == 2 and torch.equal(out, again)
+    ref = fn.quant_layer_norm_plain(x, scale, w, b)
+    assert (out - ref).abs().max().item() <= TOL["norm"][torch.float32]
+    store = torch.zeros(N * D + 1, dtype=torch.int8, device=cuda)
+    store[1:] = x.reshape(-1)
+    shifted = fn.quant_layer_norm_kernel(store[1:].view(N, D), scale, w, b)
+    assert (shifted - ref).abs().max().item() <= TOL["norm"][torch.float32]
 
 
 @pytest.mark.parametrize("post_ln", [True, False])

@@ -1,6 +1,7 @@
 """The A/B tools of the port (unicore_tpu_torch/tools/flash_bwd_ab.py,
-fwd_ab.py and dense_decode_ab.py) build copies of a kernel source with one design choice undone
-by text edits.  Each edit's anchor must occur exactly once in the tree's
+fwd_ab.py, dense_decode_ab.py and norm_fwd_ab.py's ``--variants``) build
+copies of a kernel source with one design choice undone by text edits.
+Each edit's anchor must occur exactly once in the tree's
 csrc/ file, or a later change to the kernel would void the copy without a
 word (a copy that does not build, or that undoes the wrong thing).  Runs on
 the CPU: only the sources are read."""
@@ -8,7 +9,7 @@ the CPU: only the sources are read."""
 import pytest
 
 from unicore_tpu_torch.ops import _kernels
-from unicore_tpu_torch.tools import dense_decode_ab, flash_bwd_ab, fwd_ab
+from unicore_tpu_torch.tools import dense_decode_ab, flash_bwd_ab, fwd_ab, norm_fwd_ab
 
 #: dense_decode_ab's source copies as fwd_ab's: name -> (source, edits)
 DENSE_DECODE_COPIES = {name: (source, edits)
@@ -22,6 +23,8 @@ EDITS = (
     + [("dense_decode_ab", name, source, i, old)
        for name, (source, edits) in DENSE_DECODE_COPIES.items()
        for i, (old, _) in enumerate(edits)]
+    + [("norm_fwd_ab", name, "fused_norm.cu", i, old)
+       for name, edits in norm_fwd_ab.VARIANTS.items() for i, (old, _) in enumerate(edits)]
 )
 
 
@@ -38,7 +41,9 @@ def test_every_variant_undoes_something():
     for tool, variants in (("flash_bwd_ab", {n: ("flash_attention.cu", e) for n, e in
                                              flash_bwd_ab.VARIANTS.items()}),
                            ("fwd_ab", fwd_ab.VARIANTS),
-                           ("dense_decode_ab", DENSE_DECODE_COPIES)):
+                           ("dense_decode_ab", DENSE_DECODE_COPIES),
+                           ("norm_fwd_ab", {n: ("fused_norm.cu", e) for n, e in
+                                            norm_fwd_ab.VARIANTS.items()})):
         for name, (source, edits) in variants.items():
             text = (_kernels.CSRC / source).read_text()
             edited = text

@@ -231,9 +231,22 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
+#: torch's raw current-stream getter (None until first asked, False where
+#: the build has none)
+_raw_stream = None
+
+
 def stream_handle(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle: the raw
+    handle PyTorch keeps (no ``torch.cuda.Stream`` object built a call)
+    where the build exposes it."""
+    global _raw_stream
     import torch
 
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", False)
+    if _raw_stream and device.index is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -248,10 +261,12 @@ def require_cuda(name: str, *tensors) -> None:
     for t in tensors:
         if t is None:
             continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
-        dev = t.device
+        here = t.device
+        if here.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got {here}")
+        if dev is None:
+            dev = here
+        elif here != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {here}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")

@@ -65,13 +65,36 @@ def fused_norm_plain(x, weight, bias, eps: float, rms: bool):
     return y.to(x.dtype)
 
 
-def _check(x, weight, bias, rms: bool) -> str:
-    name = "fused_rms_norm" if rms else "fused_layer_norm"
-    if x.dtype not in _DTYPES:
+def fused_norm_stats_plain(x, eps: float, rms: bool):
+    """The forward kernel's fp32 row statistics in plain PyTorch, as
+    :func:`fused_norm_plain` computes them: (mean, rstd), each (..., 1);
+    RMSNorm's mean zeros."""
+    xf = x.float()
+    if rms:
+        mean = torch.zeros_like(xf[..., :1])
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    return mean, torch.rsqrt(var + eps)
+
+
+#: csrc/fused_norm.cu's forward entry point, bound at its first launch
+_fwd_entry = None
+
+
+def _launch_fwd(x, weight, bias, eps: float, rms: bool, want_stats: bool, name):
+    """The forward kernel on card tensors: y in x's shape and type and, with
+    ``want_stats``, the fp32 row statistics mean and rstd ((N,) each, N the
+    rows of x; RMSNorm's mean zeros), else None for both.  One launch.
+    Raises on a CPU tensor and on anything the kernel does not take."""
+    global _fwd_entry
+    code, wcode = _DTYPES.get(x.dtype), _DTYPES.get(weight.dtype)
+    if code is None:
         raise ValueError(f"{name}: dtype {x.dtype} unsupported (fp32/bf16/fp16)")
     D = x.shape[-1]
     for what, t in (("weight", weight), ("bias", bias)):
-        if t is not None and (t.dtype not in _DTYPES or tuple(t.shape) != (D,)):
+        if t is not None and (t.dtype not in _DTYPES or t.shape != (D,)):
             raise ValueError(
                 f"{name}: {what} must be fp32, bf16 or fp16 of shape ({D},), got "
                 f"{t.dtype} {tuple(t.shape)}"
@@ -79,24 +102,23 @@ def _check(x, weight, bias, rms: bool) -> str:
     if bias is not None and bias.dtype != weight.dtype:
         raise ValueError(f"{name}: weight {weight.dtype} and bias {bias.dtype} differ")
     _kernels.require_cuda(name, x, weight, bias)
-    return name
-
-
-def _launch_fwd(x2, weight, bias, eps: float, rms: bool, want_stats: bool, name):
-    N, D = x2.shape
-    y = torch.empty_like(x2)
+    y = torch.empty_like(x)
+    N = x.numel() // D if D else 0
     mean = rstd = None
     if want_stats:
-        mean = torch.empty(N, dtype=torch.float32, device=x2.device)
-        rstd = torch.empty_like(mean)
-    if N == 0 or D == 0:
+        mean, rstd = torch.empty((2, N), dtype=torch.float32, device=x.device).unbind()
+    if N == 0:
         return y, mean, rstd
-    rc = _kernels.library().unicore_fused_norm_fwd(
-        x2.data_ptr(), weight.data_ptr(), _kernels.ptr(bias), y.data_ptr(),
-        _kernels.ptr(mean), _kernels.ptr(rstd), N, D, float(eps), int(rms),
-        _DTYPES[x2.dtype], _DTYPES[weight.dtype], _kernels.stream_handle(x2.device),
+    if _fwd_entry is None:
+        _fwd_entry = _kernels.library().unicore_fused_norm_fwd
+    rc = _fwd_entry(
+        x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
+        y.data_ptr(), None if mean is None else mean.data_ptr(),
+        None if rstd is None else rstd.data_ptr(), N, D, eps, rms, code, wcode,
+        _kernels.stream_handle(x.device),
     )
-    _kernels.check(rc, name)
+    if rc:
+        _kernels.check(rc, name)
     LAUNCHES.add()
     return y, mean, rstd
 
@@ -179,15 +201,15 @@ class _FusedNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, rms, name):
-        x2 = x.reshape(-1, x.shape[-1])
-        y, mean, rstd = _launch_fwd(x2, weight, bias, eps, rms, True, name)
-        ctx.save_for_backward(x2, weight, mean, rstd)
+        y, mean, rstd = _launch_fwd(x, weight, bias, eps, rms, True, name)
+        ctx.save_for_backward(x, weight, mean, rstd)
         ctx.rms, ctx.name, ctx.has_bias = rms, name, bias is not None
-        return y.view(x.shape)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        x2, weight, mean, rstd = ctx.saved_tensors
+        x, weight, mean, rstd = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
         dy2 = dy.to(x2.dtype).reshape(x2.shape).contiguous()
         need_dx = ctx.needs_input_grad[0]
         need_dwdb = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
@@ -201,14 +223,11 @@ class _FusedNorm(torch.autograd.Function):
 def _fused_norm(x, weight, bias, eps: float, rms: bool):
     if x.device.type == "cpu":
         return fused_norm_plain(x, weight, bias, eps, rms)
-    name = _check(x, weight, bias, rms)
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, weight, bias)
-    ):
+    name = "fused_rms_norm" if rms else "fused_layer_norm"
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad or (
+            bias is not None and bias.requires_grad)):
         return _FusedNorm.apply(x, weight, bias, eps, rms, name)
-    y, _, _ = _launch_fwd(x.view(-1, x.shape[-1]), weight, bias, eps, rms,
-                          False, name)
-    return y.view(x.shape)
+    return _launch_fwd(x, weight, bias, eps, rms, False, name)[0]
 
 
 def fused_layer_norm(x, weight, bias, eps: float = 1e-5):

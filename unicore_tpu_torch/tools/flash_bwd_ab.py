@@ -99,7 +99,7 @@ def build_variant(name, edits, out, source="flash_attention.cu"):
         src = src.replace(old, new)
     (d / source).write_text(src)
     nvcc, objs = _kernels._nvcc(), []
-    for cu in (source, "fused_norm.cu"):
+    for cu in dict.fromkeys((source, "fused_norm.cu")):
         obj = d / f"{cu}.o"
         r = subprocess.run([nvcc, *_kernels.NVCC_FLAGS, "-I", str(d), "-c", str(d / cu),
                             "-o", str(obj)], capture_output=True, text=True)
