@@ -21,9 +21,11 @@ result line):
    in bf16; dropout 0 and 0.1), the LayerNorm/RMSNorm forward with its
    statistics, dx and dw/db; tolerances at ``TOL``.  Each with
    its time per call (CUDA events, warmed, the median of 5 repeats of
-   ``iters`` calls, with the min-max spread) and its device time (the
-   kernels' own durations from ``torch.profiler``, without the host's time
-   between calls), the same two for the plain version and for one PyTorch
+   ``iters`` calls -- fewer for a call over 0.5 ms, ~50 ms a repeat --,
+   with the min-max spread) and its device time (the
+   kernels' own durations from ``torch.profiler`` over 20 calls -- ~20 ms
+   of them for a call over 1 ms --, without the host's time between
+   calls), the same two for the plain version and for one PyTorch
    library call (a backward timed alone on a retained autograd graph), and
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the type's peak rate, whichever is larger; fp32 attention at the
@@ -200,7 +202,40 @@ result line):
    then a 2-layer BERT-base checkpoint with a NaN in one named weight
    fine-tuned by the train CLI with ``--nan-rerun`` on the card and on the
    CPU: both exit non-zero naming that module (``nan_rerun``);
-12. a ``missing_device_times`` line naming any phase-3 check whose device
+12. the training robustness plane, on 11a's cell (BERT-base, ``--bf16
+   --bf16-sr --fused-adam --num-workers 2 --prefetch-to-device``) for 40
+   updates (25 an epoch), saving at updates 20 and 40 -- 12a: the control,
+   unarmed (``--sentinel-interval 0``) under ``--fault-inject
+   bit-flip-checkpoint@35``; 12b: the health sentinel armed
+   (``--sentinel-interval 1 --snapshot-interval 10 --snapshot-keep 2
+   --sentinel-warmup 10 --loss-spike-window 16``) under ``--fault-inject
+   loss-spike:100@25``, through the train CLI with
+   ``Trainer.restore_health_snapshot`` wrapped (``REWIND_CHECK``): before
+   the spike (``robust_healthy``) no sentinel event, each loss within 1e-4
+   relative of 12a's, a snapshot every 10 updates whose copies ran on the
+   card (each snapshot's bytes, host ms and the side stream's device ms),
+   the update wall ms at the snapshot updates, at the ones after them and
+   at the others, in both runs; then (``robust_rewind``) exactly one
+   ``rewind`` by ``loss-spike`` to the snapshot at update 20, the restored
+   parameters, fp32 master, moments, step counts and lr scheduler bit for
+   bit equal to the run's own ``checkpoint_1_20.pt``, the event in
+   ``checkpoint_last.pt``'s ``extra_state["sentinel"]``, 40 updates with
+   finite losses, K-a and K-b once for every update run (``grad-explosion``
+   is left to the CPU tests and the card runs that recorded it, for the
+   time limit); 12c: a second process
+   resuming 12a's unarmed run with ``--checkpoint-write-version 1``: the
+   manifest mismatch of ``checkpoint_last.pt`` and ``checkpoint_2_40.pt``
+   named, the fallback to ``checkpoint_1_20.pt``, 40 updates; v2 write
+   seconds beside the v1 write, and the async publish's seconds
+   (``robust_corrupt``); 12d: SIGTERM after update 15 under
+   ``--preemption-save-deadline 60``: exit 0, one minimal
+   ``checkpoint_last.pt`` at the update it stopped at, resumed in a second
+   process to 40 with each loss within 1e-4 relative of 12a's;
+   ``--fault-inject raise@12 --emergency-save-on-error`` saving every 10: a
+   nonzero exit, ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``,
+   and the train CLI's restore decision picks the latter (update 10)
+   (``robust_preempt``);
+13. a ``missing_device_times`` line naming any phase-3 check whose device
    time the profiler did not read (an empty profile is retried), the
    ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
    last, the ``{"ok": true, "device": ...}`` line.
@@ -275,7 +310,7 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 11 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 12 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -400,10 +435,22 @@ def dtype_name(dtype):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def time_ms(torch, fn, device, iters=100, warm=10, repeats=5):
+def time_ms(torch, fn, device, iters=100, warm=10, repeats=5, budget_ms=50.0):
     """(median, [min, max]) milliseconds per call over ``repeats`` runs of
     ``iters`` warmed calls: CUDA events on the card, the host clock on the
-    CPU rehearsal."""
+    CPU rehearsal.  A call slower than ``budget_ms / iters`` (the plain
+    versions, mostly) warms and runs fewer calls a repeat, about
+    ``budget_ms`` of them and at least 5, so the yardsticks do not hold the
+    script's time limit."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        fit = int(budget_ms / max(one_ms, 1e-6))
+        iters, warm = max(5, min(iters, fit)), max(1, min(warm, fit // 10))
     for _ in range(warm):
         fn()
     runs = []
@@ -490,8 +537,10 @@ def timed(res, key, torch, fn, device, iters):
     """res[key], res[<key>_spread]: ms per call by :func:`time_ms`; on the
     card also res[<key with device_ms>]: :func:`device_ms`."""
     res[key], res[key.replace("ms", "ms_spread")] = time_ms(torch, fn, device, iters)
+    # a call over 1 ms (a plain version) is profiled over fewer calls, ~20 ms
+    n = 20 if res[key] <= 1.0 else max(4, int(20.0 / res[key]))
     res[key.replace("ms", "device_ms")] = (
-        device_ms(torch, fn) if device.type == "cuda" else None)
+        device_ms(torch, fn, n) if device.type == "cuda" else None)
 
 
 def backward_call(torch, fwd, leaves, grad_out):
@@ -1669,18 +1718,19 @@ def train_argv(cfg, data, save_dir, device):
     ]
 
 
-def run_train_cli(tag, argv, device, t, timeout_s, falling=True):
-    """``python -m unicore_tpu_torch.cli.train`` with ``argv``: its stats
-    line, checked -- the update count, every loss finite, the mean of the
-    last five below the first five (``falling``), and the launches per
-    micro-batch (``t["per_micro_batch"]``; none at all on the CPU
-    rehearsal)."""
+def run_train_cli(tag, argv, device, t, timeout_s, falling=True,
+                  launcher=("-m", "unicore_tpu_torch.cli.train")):
+    """``python -m unicore_tpu_torch.cli.train`` with ``argv`` (or
+    ``python`` + ``launcher`` + ``argv``): its stats line, checked -- the
+    update count, every loss finite, the mean of the last five below the
+    first five (``falling``), and the launches per micro-batch
+    (``t["per_micro_batch"]``; none at all on the CPU rehearsal)."""
     log_path = WORK / f"{tag}.log"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.monotonic()
     with open(log_path, "w") as f:
-        proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
+        proc = subprocess.run([sys.executable, *launcher, *argv],
                               stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
                               env=env, timeout=timeout_s)
     text = log_path.read_text()
@@ -3400,7 +3450,7 @@ def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
     v_rel = loss_rel_diffs([v["loss"] for v in stats["validations"]],
                            [v["loss"] for v in fp32_stats["validations"]])
     restore = save_dir / f"checkpoint_1_{interval}.pt"
-    state = torch.load(restore, map_location="cpu", weights_only=False)
+    state = load_state(restore)
     master = state["optimizer_state"]["master"]
     low_bits = sum(int((mt != state["model"][n].float()).sum()) for n, mt in master.items())
     total = sum(mt.numel() for mt in master.values())
@@ -3475,8 +3525,7 @@ def drive_fp16_training(torch, cfg, data, card, smi):
     over = run_train_cli("fp16_overflow", train_argv(cfg, data, save_dir, dev.type)
                          + flags + ["--fp16-init-scale", str(2 ** 120), "--max-update", "2"],
                          dev, t2, cfg["train"]["timeout_s"], falling=False)
-    steps = torch.load(save_dir / "checkpoint_last.pt", map_location="cpu",
-                       weights_only=False)["optimizer_state"]["num_steps"]
+    steps = load_state(save_dir / "checkpoint_last.pt")["optimizer_state"]["num_steps"]
     line = {
         "arch": cfg["arch"], "dtype": stats["dtype"], "updates": stats["updates"],
         "loss_per_update": stats["loss_per_update"], "loss_scale": stats["loss_scale"],
@@ -3814,6 +3863,389 @@ PHASE11 = {
 }
 
 # ---------------------------------------------------------------------------
+# phase 12: the training robustness plane (the health sentinel, verified v2
+# checkpoints with the corrupt-file fallback, the async publish, the
+# preemption and on-error emergency saves)
+# ---------------------------------------------------------------------------
+
+#: run in place of ``-m unicore_tpu_torch.cli.train`` for 12b: the train CLI
+#: with ``Trainer.restore_health_snapshot`` wrapped, so that right after the
+#: rewind the restored state is held bit for bit against the checkpoint the
+#: same run wrote at the snapshot's update; the verdict goes to argv[1]
+REWIND_CHECK = r"""
+import json, os, re, sys
+import torch
+from unicore_tpu_torch import checkpoint_utils
+from unicore_tpu_torch.cli import train
+from unicore_tpu_torch.trainer import Trainer
+
+out_path, ckpt_dir = sys.argv[1], sys.argv[2]
+restore = Trainer.restore_health_snapshot
+
+
+def checked(self, snap):
+    restore(self, snap)
+    if self.device.type == "cuda":
+        torch.cuda.synchronize(self.device)
+    got = self.state_dict()
+    (name,) = [n for n in os.listdir(ckpt_dir)
+               if re.fullmatch(rf"checkpoint_\d+_{snap.step}\.pt", n)]
+    want = checkpoint_utils.load_checkpoint_to_cpu(os.path.join(ckpt_dir, name))
+    pairs = [("model." + k, v, want["model"][k]) for k, v in got["model"].items()]
+    for group in ("state", "master"):
+        for n, slots in got["optimizer_state"].get(group, {}).items():
+            items = slots.items() if isinstance(slots, dict) else [("", slots)]
+            ref = want["optimizer_state"][group][n]
+            for k, v in items:
+                pairs.append((f"{group}.{n}.{k}", v, ref[k] if k else ref))
+    bad = [k for k, a, b in pairs
+           if not (a.dtype == b.dtype and torch.equal(a.detach().cpu(), b))]
+    res = {"checkpoint": name, "tensors": len(pairs), "mismatched": bad[:10],
+           "n_mismatched": len(bad),
+           "num_steps": [got["optimizer_state"]["num_steps"],
+                         want["optimizer_state"]["num_steps"]],
+           "num_updates": [self.get_num_updates(),
+                           want["optimizer_history"][-1]["num_updates"]],
+           "lr_scheduler_equal": got["optimizer_history"][-1]["lr_scheduler_state"]
+           == want["optimizer_history"][-1]["lr_scheduler_state"],
+           "bytes": snap.nbytes}
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+Trainer.restore_health_snapshot = checked
+sys.exit(train.cli_main(sys.argv[3:]))
+"""
+
+
+def robust_argv(cfg, data, save_dir, *extra, sentinel=True):
+    """Phase 11a's cell (BERT-base, ``--bf16 --bf16-sr --fused-adam
+    --num-workers 2 --prefetch-to-device``, no validation) for
+    ``p["updates"]`` updates, with the sentinel's flags unless
+    ``sentinel`` is False (``--sentinel-interval 0``)."""
+    p = cfg["phase12"]
+    n = str(p["updates"])
+    return (train_argv(cfg, data, save_dir, cfg["device"].type)
+            + ["--bf16", "--bf16-sr", "--disable-validation", *cfg["phase11"]["fused_flags"],
+               "--max-update", n, "--total-num-update", n]
+            + (p["sentinel_flags"] if sentinel else ["--sentinel-interval", "0"])
+            + list(extra))
+
+
+def robust_t(cfg, updates=None):
+    return {"updates": updates or cfg["phase12"]["updates"],
+            "per_micro_batch": cfg["train"]["per_micro_batch"]}
+
+
+def robust_launch_check(tag, stats):
+    """K-a and K-b once for every update the run took (rewound ones too)."""
+    launches = stats["kernel_launches"]
+    want = len(stats["update_ids"]) if stats["device"] != "cpu" else 0
+    for k in ("multi_tensor_l2norm", "fused_adam"):
+        if launches.get(k, 0) != want:
+            raise AssertionError(f"{tag}: {k}: {launches.get(k, 0)} launches for "
+                                 f"{len(stats['update_ids'])} updates run")
+
+
+def by_update(stats):
+    """The loss of each update number (the last run of it after a rewind)."""
+    return dict(zip(stats["update_ids"], stats["loss_per_update"]))
+
+
+def walls_at(stats, updates):
+    """The update wall ms of each update in ``updates`` (update u's wall
+    runs from u-1's end to u's), from its first run where a rewind ran it
+    twice."""
+    walls = {}
+    for u, ms in zip(stats["update_ids"][1:], stats["update_wall_ms"]):
+        walls.setdefault(u, ms)
+    return [walls[u] for u in updates if u in walls]
+
+
+def drive_robust_control(cfg, data):
+    """12a: the cell unarmed (``--sentinel-interval 0``) saving every two
+    ``snapshot_every`` (the last save at the end) with ``--fault-inject
+    bit-flip-checkpoint@flip_at``: the control whose losses and update
+    walls 12b's armed run is held against (a save or a rotten file changes
+    no loss), whose rotten files 12c resumes from, and whose losses 12d's
+    resume must reproduce.  Returns its stats and its ``--save-dir``."""
+    p = cfg["phase12"]
+    flip_dir = fresh_dir(WORK / "robust_corrupt")
+    off = run_train_cli("robust_flip", robust_argv(
+        cfg, data, flip_dir, "--save-interval-updates", str(2 * p["snapshot_every"]),
+        "--save-interval", "1000", "--fault-inject", f"bit-flip-checkpoint@{p['flip_at']}",
+        sentinel=False), cfg["device"], robust_t(cfg), cfg["train"]["timeout_s"])
+    robust_launch_check("robust_flip", off)
+    return off, flip_dir
+
+
+def drive_robust_rewind(cfg, data, off, card, smi):
+    """12b: the cell armed (interval 1, snapshots every ``snapshot_every``,
+    a ring of 2) with ``--fault-inject loss-spike:MAG@spike_at``, saving
+    where 12a's control saves, through the train CLI with
+    ``Trainer.restore_health_snapshot`` wrapped (``REWIND_CHECK``).
+
+    Before the spike it is the healthy control (``robust_healthy``): no
+    sentinel event, each update's loss within ``loss_rel`` relative of
+    12a's unarmed run (the same batches: the sentinel reads, it does not
+    perturb), a snapshot at every ``snapshot_every``-th update whose copies
+    ran on the card; the update wall time at the snapshot updates (the
+    capture's enqueue), at the updates after them (the copy overlapped with
+    the forward and backward) and at the others, in both runs, leaving out
+    the updates after a save and those the spike and the rewind touch; the
+    snapshot bytes and the capture's host and device ms.
+
+    The spike (``robust_rewind``): exactly one rewind, by ``loss-spike``,
+    to the snapshot before the spike; the restored state (parameters, the
+    fp32 master, the moments, the step counts, the lr scheduler) equal bit
+    for bit to the checkpoint the run wrote at that update; the event in
+    ``checkpoint_last.pt``'s ``extra_state["sentinel"]``; the run reaches
+    ``--max-update`` with finite losses.  Returns the armed run's stats."""
+    import numpy as np
+
+    p = cfg["phase12"]
+    dev = cfg["device"]
+    every = p["snapshot_every"]
+    save_every = 2 * every
+    save_dir = fresh_dir(WORK / "robust_spike")
+    target = p["spike_at"] // every * every
+    argv = robust_argv(cfg, data, save_dir, "--save-interval-updates", str(save_every),
+                       "--save-interval", "1000",
+                       "--fault-inject", f"loss-spike:{p['magnitude']}@{p['spike_at']}")
+    verdict = WORK / "robust_spike_restore.json"
+    if verdict.exists():
+        verdict.unlink()
+    on = run_train_cli("robust_spike", argv, dev, robust_t(cfg), cfg["train"]["timeout_s"],
+                       launcher=("-c", REWIND_CHECK, str(verdict), str(save_dir)))
+    robust_launch_check("robust_spike", on)
+    events = on["sentinel_events"]
+
+    # before the spike: the healthy control
+    first = {}
+    for u, loss in zip(on["update_ids"], on["loss_per_update"]):
+        first.setdefault(u, loss)
+    pre = [u for u in sorted(first) if u < p["spike_at"]]
+    rel = loss_rel_diffs([first[u] for u in pre], [by_update(off)[u] for u in pre])
+    snap_updates = list(range(every, p["updates"] + 1, every))
+    after = [u + 1 for u in snap_updates]
+    touched = set(range(save_every + 1, p["updates"] + 2, save_every)) | {
+        p["spike_at"], p["spike_at"] + 1}
+    others = [u for u in range(3, p["updates"] + 1)
+              if u not in snap_updates + after and u not in touched]
+    after = [u for u in after if u not in touched]
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    line = {
+        "updates": on["updates"], "sentinel_events_before_spike":
+            [e for e in events if e["step"] < p["spike_at"]],
+        "compared_updates": [pre[0], pre[-1]],
+        "loss_max_rel_diff_vs_unarmed": max(rel), "tolerance": p["loss_rel"],
+        "snapshots": on["snapshots"],
+        "snapshot_bytes": on["snapshots"][0]["bytes"] if on["snapshots"] else None,
+        "wall_ms_at_snapshot": walls_at(on, snap_updates),
+        "wall_ms_after_snapshot": walls_at(on, after),
+        "median_wall_ms_other": med(walls_at(on, others)),
+        "unarmed_wall_ms_at_snapshot": walls_at(off, snap_updates),
+        "unarmed_wall_ms_after_snapshot": walls_at(off, after),
+        "unarmed_median_wall_ms_other": med(walls_at(off, others)),
+        "median_step_ms": on["median_step_ms"], "unarmed_median_step_ms": off["median_step_ms"],
+        "card": card, "nvidia_smi": smi,
+    }
+    print("robust_healthy " + json.dumps(line), flush=True)
+    if (line["sentinel_events_before_spike"] or max(rel) > p["loss_rel"]
+            or [s["update"] for s in on["snapshots"]] != snap_updates):
+        raise AssertionError(f"robust_healthy: {line}")
+    if dev.type == "cuda" and not all(s["copy_ms"] is not None for s in on["snapshots"]):
+        raise AssertionError(f"robust_healthy: a capture did not run on the card: {line}")
+
+    # the spike
+    restore = json.loads(verdict.read_text()) if verdict.exists() else None
+    last = load_state(save_dir / "checkpoint_last.pt")["extra_state"]["sentinel"]
+    line = {"fault": "loss-spike", "magnitude": p["magnitude"], "spike_at": p["spike_at"],
+            "events": events, "updates": on["updates"],
+            "updates_run": len(on["update_ids"]), "update_ids": on["update_ids"],
+            "loss_per_update": on["loss_per_update"],
+            "gnorm_per_update": on["gnorm_per_update"], "restore": restore,
+            "checkpoint_last_sentinel": last, "launches": on["kernel_launches"],
+            "card": card, "nvidia_smi": smi}
+    print("robust_rewind " + json.dumps(line), flush=True)
+    if not (len(events) == 1 and events[0]["detector"] == "loss-spike"
+            and events[0]["action"] == "rewind" and events[0]["target_step"] == target
+            and all(math.isfinite(x) for x in on["loss_per_update"])
+            and restore is not None and restore["n_mismatched"] == 0
+            and restore["num_steps"][0] == restore["num_steps"][1]
+            and restore["num_updates"] == [target, target] and restore["lr_scheduler_equal"]
+            and restore["checkpoint"].endswith(f"_{target}.pt")
+            and last is not None and last["events"] == events):
+        raise AssertionError(f"robust_rewind: {line}")
+    return on
+
+
+def load_state(path):
+    from unicore_tpu_torch import checkpoint_utils
+
+    return checkpoint_utils.load_checkpoint_to_cpu(str(path))
+
+
+def drive_robust_corrupt(cfg, data, first, save_dir, card, smi):
+    """12c: 12a's unarmed run (``first``) saved every two
+    ``snapshot_every`` updates under ``--fault-inject
+    bit-flip-checkpoint@flip_at``: the interval checkpoint of the last
+    update and the ``checkpoint_last.pt`` published from it are rotten; a
+    resume in a second process (``--checkpoint-write-version 1``) names the
+    manifest mismatch of both, falls back to the newest intact checkpoint,
+    resumes from its update and reaches ``--max-update``.  The v2 write
+    seconds of the first run beside the v1 write of the second, and the
+    async publish's seconds off the training thread (``robust_corrupt``)."""
+    import re
+
+    p = cfg["phase12"]
+    every = 2 * p["snapshot_every"]
+    intact = (p["flip_at"] - 1) // every * every
+    resumed = run_train_cli("robust_fallback", robust_argv(
+        cfg, data, save_dir, "--save-interval-updates", str(every), "--save-interval", "1000",
+        "--checkpoint-write-version", "1", sentinel=False), cfg["device"], robust_t(cfg),
+        cfg["train"]["timeout_s"], falling=False)
+    text = (WORK / "robust_fallback.log").read_text()
+    corrupt = re.findall(r"CHECKPOINT CORRUPT: (\S+) failed to load \(CorruptCheckpointError: "
+                         r"[^)]*digest mismatch", text)
+    loaded = re.findall(r"Loaded checkpoint (\S+) \(@ (\d+) updates\)", text)
+    line = {"flip_at": p["flip_at"], "corrupt": [os.path.basename(c) for c in corrupt],
+            "loaded": loaded, "resumed_from_update": resumed["resumed_from_update"],
+            "updates": resumed["updates"],
+            "v2_write_s": first["checkpoint_seconds"]["write"],
+            "v2_publish_s": first["checkpoint_seconds"]["publish"],
+            "v1_write_s": resumed["checkpoint_seconds"]["write"],
+            "v1_publish_s": resumed["checkpoint_seconds"]["publish"],
+            "checkpoint_bytes": {n: (save_dir / n).stat().st_size
+                                 for n in sorted(os.listdir(save_dir))},
+            "card": card, "nvidia_smi": smi}
+    print("robust_corrupt " + json.dumps(line), flush=True)
+    last = f"checkpoint_{(p['updates'] - 1) // p['epoch_updates'] + 1}_{p['updates']}.pt"
+    if not (line["corrupt"][:2] == ["checkpoint_last.pt", last]
+            and resumed["resumed_from_update"] == intact
+            and resumed["updates"] == p["updates"]):
+        raise AssertionError(f"robust_corrupt: {line}")
+
+
+def drive_robust_preempt(cfg, data, control, card, smi):
+    """12d: the armed cell with ``--preemption-save-deadline 60``, SIGTERM
+    once update ``sigterm_after`` is logged: exit 0, a minimal
+    ``checkpoint_last.pt`` (its ``emergency_save`` kind ``preempt``) at
+    the update the run stopped at, nothing staged left behind; a second
+    process resumes it to ``--max-update``, each of its losses within
+    ``loss_rel`` of 12a's control at the same update (phase 9's resume
+    gate).  The resumes run unarmed: the detectors restart cold after a
+    resume (their bands are not checkpointed, as in the JAX package), and a
+    band of the few observations past the shortened warmup is too narrow
+    to judge.  Then ``--fault-inject raise@raise_at
+    --emergency-save-on-error`` saving every ``snapshot_every``: a nonzero
+    exit and ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``; the
+    train CLI's restore decision for the next resume picks
+    ``checkpoint_last.pt`` (the last save's) and never lists the emergency
+    file among its fallbacks (``robust_preempt``)."""
+    p = cfg["phase12"]
+    dev = cfg["device"]
+    save_dir = fresh_dir(WORK / "robust_preempt")
+    argv = robust_argv(cfg, data, save_dir, "--preemption-save-deadline", "60")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    log_path = WORK / "robust_sigterm.log"
+    mark = f"| update {p['sigterm_after']} |"
+    t0 = time.monotonic()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
+                                stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env)
+        try:
+            while mark not in log_path.read_text():
+                if proc.poll() is not None or time.monotonic() - t0 > cfg["train"]["timeout_s"]:
+                    raise AssertionError(f"robust_sigterm: never reached update "
+                                         f"{p['sigterm_after']}:\n{log_path.read_text()[-4000:]}")
+                time.sleep(0.02)
+            signalled = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=300)
+            exit_s = time.monotonic() - signalled
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = log_path.read_text()
+    stats = json.loads([ln for ln in text.splitlines()
+                        if ln.startswith("TRAIN stats ")][-1][len("TRAIN stats "):]) \
+        if "TRAIN stats " in text else {}
+    files = sorted(os.listdir(save_dir))
+    stopped = stats.get("updates")
+    saved = load_state(save_dir / "checkpoint_last.pt") if "checkpoint_last.pt" in files else {}
+    ok = (rc == 0 and stats.get("stop_signal") == "SIGTERM" and "checkpoint_last.pt" in files
+          and not any(n.endswith((".emg", ".tmp")) for n in files)
+          and saved.get("extra_state", {}).get("emergency_save", {}).get("kind") == "preempt"
+          and saved["optimizer_history"][-1]["num_updates"] == stopped)
+    if not ok:
+        raise AssertionError(f"robust_sigterm: exit {rc}, files {files}, stats "
+                             f"{ {k: stats.get(k) for k in ('updates', 'stop_signal')} }:\n"
+                             + text[-4000:])
+    resumed = run_train_cli("robust_resume", robust_argv(cfg, data, save_dir, "--no-save",
+                                                         sentinel=False),
+                            dev, robust_t(cfg), cfg["train"]["timeout_s"], falling=False)
+    want = by_update(control)
+    rel = loss_rel_diffs([v for u, v in by_update(resumed).items() if u > stopped],
+                         [want[u] for u in by_update(resumed) if u > stopped])
+    # the fatal error: raise at an update, with the emergency save on error
+    err_dir = fresh_dir(WORK / "robust_error")
+    err_argv = robust_argv(cfg, data, err_dir, "--save-interval-updates", str(p["snapshot_every"]),
+                           "--emergency-save-on-error", "--fault-inject", f"raise@{p['raise_at']}")
+    err_log = WORK / "robust_error.log"
+    with open(err_log, "w") as f:
+        err_rc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *err_argv],
+                                stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
+                                timeout=cfg["train"]["timeout_s"]).returncode
+    err_files = sorted(n for n in os.listdir(err_dir) if not n.endswith(".tmp"))
+    emergency = load_state(err_dir / "checkpoint_emergency.pt") \
+        if "checkpoint_emergency.pt" in err_files else {}
+    last_good = p["raise_at"] // p["snapshot_every"] * p["snapshot_every"]
+    # what the next resume loads: the train CLI's own restore decision
+    # (``restore_session`` -> ``load_checkpoint``: ``_resolve_restore``,
+    # then the fallback candidates of a corrupt file)
+    from unicore_tpu_torch import checkpoint_utils, options
+
+    err_args = options.parse_args_and_arch(options.get_training_parser(), err_argv)
+    pick, _ = checkpoint_utils._resolve_restore(err_args, err_args.checkpoint_suffix)
+    picked = load_state(pick)["optimizer_history"][-1]["num_updates"]
+    fallbacks = [os.path.basename(f) for f in
+                 checkpoint_utils._fallback_checkpoints(str(err_dir), "")]
+    line = {"sigterm_after": p["sigterm_after"], "stopped_at": stopped, "exit": rc,
+            "exit_s_after_signal": exit_s, "files": files,
+            "resumed_from_update": resumed["resumed_from_update"],
+            "resume_loss_max_rel_diff": max(rel) if rel else None, "tolerance": p["loss_rel"],
+            "error_exit": err_rc, "error_files": err_files,
+            "emergency_kind": emergency.get("extra_state", {}).get("emergency_save", {}).get(
+                "kind"),
+            "emergency_update": (emergency["optimizer_history"][-1]["num_updates"]
+                                 if emergency else None),
+            "error_resume_picks": [os.path.basename(pick), picked],
+            "error_fallback_candidates": fallbacks,
+            "card": card, "nvidia_smi": smi}
+    print("robust_preempt " + json.dumps(line), flush=True)
+    if not (resumed["resumed_from_update"] == stopped and rel and max(rel) <= p["loss_rel"]
+            and err_rc != 0 and "checkpoint_emergency.pt" in err_files
+            and "checkpoint_last.pt" in err_files and line["emergency_kind"] == "error"
+            and line["error_resume_picks"] == ["checkpoint_last.pt", last_good]
+            and "checkpoint_emergency.pt" not in fallbacks):
+        raise AssertionError(f"robust_preempt: {line}")
+
+
+#: phase 12's settings on the card (the rehearsal scales the updates down):
+#: BERT-base's 400-document corpus is 25 updates an epoch at batch 8 x 2
+PHASE12 = {
+    "updates": 40, "epoch_updates": 25, "snapshot_every": 10, "spike_at": 25,
+    "magnitude": 100, "flip_at": 35, "sigterm_after": 15, "raise_at": 12,
+    "loss_rel": 1e-4,
+    "sentinel_flags": ["--sentinel-interval", "1", "--snapshot-interval", "10",
+                       "--snapshot-keep", "2", "--sentinel-warmup", "10",
+                       "--loss-spike-window", "16"],
+}
+
+# ---------------------------------------------------------------------------
 
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
@@ -3986,6 +4418,7 @@ CHIP = {
     # length and one element; phase 11 (see its functions)
     "multi_tensor": [110_000_000, 1_000_003, 1],
     "phase11": PHASE11,
+    "phase12": PHASE12,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -4093,13 +4526,19 @@ REHEARSAL = {
                                  "fused_norm_dwdb": 6}},
     "multi_tensor": [4099, 1],
     "phase11": dict(PHASE11, adama_updates=6),
+    # 48 documents at batch 4 x 2: 6 updates an epoch
+    "phase12": dict(PHASE12, updates=16, epoch_updates=6, snapshot_every=4, spike_at=9,
+                    magnitude=1000, flip_at=13, sigterm_after=6, raise_at=5,
+                    sentinel_flags=["--sentinel-interval", "1", "--snapshot-interval", "4",
+                                    "--snapshot-keep", "2", "--sentinel-warmup", "4",
+                                    "--loss-spike-window", "8"]),
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 11 on the CPU at a tiny size, no card")
+                        help="phases 3 to 12 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -4297,11 +4736,24 @@ def main(argv=None):
     log(f"phase 11d done at {time.monotonic() - started:.0f}s")
     drive_optimizer_paths(torch, cfg, data)
     log(f"phase 11e done at {time.monotonic() - started:.0f}s")
+
+    # 12. the robustness plane on 11a's cell: the unarmed control (12a),
+    # the armed run, healthy up to an injected loss spike and rewound (12b),
+    # the corrupt-checkpoint fallback (12c), the preemption and on-error
+    # emergency saves (12d)
+    flip_stats, flip_dir = drive_robust_control(cfg, data)
+    log(f"phase 12a done at {time.monotonic() - started:.0f}s")
+    spike_stats = drive_robust_rewind(cfg, data, flip_stats, card, smi)
+    log(f"phase 12b done at {time.monotonic() - started:.0f}s")
+    drive_robust_corrupt(cfg, data, flip_stats, flip_dir, card, smi)
+    log(f"phase 12c done at {time.monotonic() - started:.0f}s")
+    drive_robust_preempt(cfg, data, flip_stats, card, smi)
+    log(f"phase 12d done at {time.monotonic() - started:.0f}s")
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 12. result lines: each kernel at its main path's shape (fp32, the
+    # 13. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -4314,7 +4766,8 @@ def main(argv=None):
                "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
                "lm_train": lm_train_launches, "lm_serve": lm_serve_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
-               "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"]}
+               "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"],
+               "robust_train": spike_stats["kernel_launches"]}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

@@ -31,7 +31,10 @@ bits from a generator with the same seed); and a tiny BERT, a tiny
 Uni-Mol and a 2-block Evoformer on the card
 against the same weights on the CPU, their outputs and every parameter's
 gradient, and a 2-layer full-width ``transformer_lm`` whose incremental
-decode on the card matches its full forward on the CPU.
+decode on the card matches its full forward on the CPU; the health
+sentinel's snapshot (pinned host buffers, a side stream) restored bit for
+bit under ``--fused-adam --bf16``, and an injected loss spike's
+denominator through the optimizer kernels against their plain versions.
 
 Marked ``gpu``: each test takes the ``cuda`` fixture, which skips without a
 card, so on the CPU every test here is skipped.  On a machine with a card
@@ -1549,3 +1552,110 @@ def test_l2norm_kernel_matches_and_repeats(cuda, sizes):
     with pytest.raises(ValueError):
         mt.multi_tensor_l2norm([bufs[0][1:]] if bufs[0].numel() > 1 else
                                [torch.zeros(3, dtype=torch.float64, device=cuda)])
+
+
+def _fused_bf16_trainer(device, ema=True):
+    """A 2-layer BERT trainer on the card under ``--fused-adam --bf16``
+    with the sentinel armed (no task: the state is what matters here)."""
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.trainer import Trainer
+
+    argv = ["unused", "--arch", "bert_tiny", "--optimizer", "adam", "--fused-adam", "--bf16",
+            "--lr", "1e-3", "--sentinel-interval", "1", "--snapshot-interval", "1",
+            "--snapshot-keep", "2"] + (["--ema-decay", "0.9"] if ema else [])
+    args = options.parse_args_and_arch(options.get_training_parser(), argv)
+    gen = torch.Generator().manual_seed(11)
+    model = BertModel(vocab_size=50, padding_idx=1, encoder_layers=2, encoder_embed_dim=64,
+                      encoder_ffn_embed_dim=128, encoder_attention_heads=4, max_seq_len=256,
+                      generator=gen)
+    return Trainer(args, None, model, None, device)
+
+
+def _scramble(tr, seed):
+    """Move every tensor of the training state, as updates would."""
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    with torch.no_grad():
+        for t in tr._live_state().values():
+            t.add_(torch.randn(t.shape, generator=g, device=t.device).to(t.dtype))
+    tr._optimizer.num_steps += 3
+    tr.set_num_updates(tr.get_num_updates() + 3)
+
+
+def test_health_snapshot_round_trip_on_card(cuda):
+    """Capture (pinned host buffers, side stream) and restore (in place)
+    bit for bit under ``--fused-adam --bf16`` with the EMA: the flat
+    buffers, the EMA, the step counts; the parameters still views into
+    their flat buffer; a second capture reuses the ring slot's buffers once
+    the ring is full."""
+    tr = _fused_bf16_trainer(cuda)
+    _scramble(tr, 1)
+    want = {k: v.clone() for k, v in tr._live_state().items()}
+    steps = (tr.get_num_updates(), tr._optimizer.num_steps)
+    snap = tr.capture_health_snapshot()
+    tr.sentinel.ring.add(snap)
+    assert all(t.is_pinned() and t.device.type == "cpu" for t in snap.state.values())
+    assert snap.extra["event"] is not None and snap.nbytes == sum(
+        t.numel() * t.element_size() for t in want.values())
+    tr._await_snapshot()  # what the next optimizer step does before it writes
+    _scramble(tr, 2)
+    tr.restore_health_snapshot(snap)
+    torch.cuda.synchronize()
+    live = tr._live_state()
+    for k, v in live.items():
+        assert torch.equal(v.view(torch.int16) if v.element_size() == 2 else v.view(torch.int32),
+                           want[k].view(torch.int16) if v.element_size() == 2
+                           else want[k].view(torch.int32)), k
+    assert (tr.get_num_updates(), tr._optimizer.num_steps) == steps
+    opt = tr._optimizer
+    for group, bufs in zip(opt.plan.groups, opt.flat):
+        for seg in group.segments:
+            p = tr.params[seg.name]
+            assert p.data_ptr() == bufs["param"][seg.start:].data_ptr(), seg.name
+            assert opt.master[seg.name].data_ptr() == bufs["master"][seg.start:].data_ptr()
+    # the ring's slots: two allocated, then the oldest's reused
+    first = snap.state
+    tr.sentinel.ring.add(tr.capture_health_snapshot())
+    third = tr.capture_health_snapshot()
+    assert third.state is first and len(tr._snap_slots) == 2
+    assert all(r["copy_ms"] is not None for r in tr.snapshot_timings())
+
+
+def test_fault_multipliers_through_the_optimizer_kernels(cuda):
+    """An injected loss spike's denominator through K-a and K-b (the
+    ``--fused-adam`` kernels) against their plain versions: the norm within
+    1e-6 relative, the update bit for bit, 100x the norm of the unscaled
+    gradient."""
+    from argparse import Namespace
+
+    from unicore_tpu_torch.distributed import chaos
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    chaos.configure(Namespace(fault_inject="loss-spike:100@4"))
+    try:
+        loss_mul, grad_mul = chaos.fault_multipliers(4)
+    finally:
+        chaos.reset()
+    assert (loss_mul, grad_mul) == (100.0, 1.0)
+    n = 3 * 8192 + 5
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grad = torch.randn(n, generator=g, device=cuda)
+    master = torch.randn(n, generator=g, device=cuda)
+    m = torch.zeros(n, device=cuda)
+    v = torch.zeros(n, device=cuda)
+    param = master.to(torch.bfloat16)
+    denom = torch.tensor(16.0, device=cuda) / (loss_mul * grad_mul)
+    gnorm = mt.multi_tensor_l2norm([grad], denom)
+    ref_norm = mt.multi_tensor_l2norm_plain([grad.cpu()], denom.cpu())
+    assert abs(gnorm.item() - ref_norm.item()) <= 1e-6 * ref_norm.item()
+    base = mt.multi_tensor_l2norm([grad], torch.tensor(16.0, device=cuda))
+    assert gnorm.item() == pytest.approx(100.0 * base.item(), rel=1e-6)
+    segs = [(0, n, True)]
+    hp = mt.AdamHyper(0.9, 0.98, 1e-6, 1e-3, 1e-4, 1.0 - 1e-3 * 1e-4)
+    kw = dict(denom=denom, gnorm=gnorm, max_norm=1.0, sr_key=None, buffer_id=0)
+    got = [t.clone() for t in (master, m, v, param)]
+    ref = [t.clone() for t in (master, m, v, param)]
+    mt.fused_adam(got[0], got[1], got[2], grad, mt.chunk_table(segs, cuda), hp, got[3], **kw)
+    mt.fused_adam_plain(ref[0], ref[1], ref[2], grad, segs, hp, ref[3], **kw)
+    for x, y in zip(got, ref):
+        view = torch.int16 if x.element_size() == 2 else torch.int32
+        assert torch.equal(x.view(view), y.view(view))

@@ -1,6 +1,17 @@
-"""Deadlines (counterpart of ``unicore_tpu/checkpoint/emergency.py``; this
-slice ports the countdown the serving plane uses for per-request and drain
-deadlines).  The emergency-save path waits for the trainer slice."""
+"""Deadline-bounded emergency saves (counterpart of
+``unicore_tpu/checkpoint/emergency.py``).
+
+A preemption notice (SIGTERM) comes with a grace budget of seconds; a full
+save (stage in ``--tmp-save-dir``, publish every name, prune, verify) can
+blow it and leave no checkpoint at all.  ``--preemption-save-deadline
+SECS`` arms the minimal path (``checkpoint_utils._emergency_save_checkpoint``):
+one fsync'd ``checkpoint_last`` straight into ``--save-dir``.  The
+:class:`Deadline` is published through a process-global scope that
+``persistent_save`` reads to drop its retries and read-back verification:
+retries eat a budget that exists once.  The deadline is advisory at the
+write layer: a started write runs to its end (aborting it would leave no
+checkpoint), and an over-budget finish logs a warning.  The serving plane
+uses the same countdown for per-request and drain deadlines."""
 
 import contextlib
 import math
@@ -34,7 +45,8 @@ _active: Optional[Deadline] = None
 
 
 def active_deadline() -> Optional[Deadline]:
-    """The deadline currently in scope, else None."""
+    """The emergency deadline currently in scope, else None: a write inside
+    one makes one attempt, with no backoff and no read-back verification."""
     return _active
 
 

@@ -44,8 +44,21 @@ matrix unit accumulates.
 Batches load on ``--num-workers`` threads behind a ``--data-buffer-size``
 read-ahead; ``--prefetch-to-device`` adds the device prefetcher
 (``data/prefetch.py``), which the trainer's ``maybe_prefetch`` /
-``finish_prefetch`` start and stop around each epoch.  The JAX CLI's
-signal guard, elastic restarts and telemetry are not ported.
+``finish_prefetch`` start and stop around each epoch.
+
+The robustness plane, as the JAX CLI's: SIGTERM and SIGINT
+(``distributed/guard.py``) stop the run after the update in flight with a
+checkpoint (through the minimal emergency path under
+``--preemption-save-deadline``; no validation) and exit 0, a second SIGINT
+aborts; after each update ``trainer.health_check`` runs the health
+sentinel (``--sentinel-interval``), whose ``TrainingHealthError`` ends the
+run with a nonzero exit; ``--emergency-save-on-error`` writes
+``checkpoint_emergency.pt`` before a fatal error unwinds; checkpoints are
+published on a copy thread under ``--async-checkpoint``.  The stats line
+adds the update counter after each update (``update_ids``: a rewind steps
+it back), the sentinel's ``sentinel_events``, each snapshot's bytes and
+times (``snapshots``), the checkpoint write and publish seconds and the
+stop signal.  The JAX CLI's elastic restarts and telemetry are not ported.
 """
 
 import json
@@ -97,6 +110,8 @@ class TrainSession:
     save / validate / stop cadence."""
 
     def __init__(self, args, trainer, task):
+        from unicore_tpu_torch import checkpoint_utils
+
         self.args = args
         self.trainer = trainer
         self.task = task
@@ -104,9 +119,18 @@ class TrainSession:
                                            args.maximize_best_checkpoint_metric)
         self.valid_subsets = args.valid_subset.split(",")
         self.validations: List[dict] = []
+        #: the publish thread of --async-checkpoint
+        self.copy_pool = (checkpoint_utils.make_copy_pool()
+                          if getattr(args, "async_checkpoint", False) else None)
+        self.stop_signal: Optional[str] = None
 
-    def hard_stop_reason(self) -> Optional[str]:
-        """The budget limits, checked after every update."""
+    def hard_stop_reason(self, preempt_sig: Optional[str] = None) -> Optional[str]:
+        """The stop conditions checked after every update: a graceful-stop
+        signal (``preempt_sig``, the decision every rank shares), the update
+        budget and the wall-clock budget."""
+        if preempt_sig:
+            return (f"received {preempt_sig}: graceful stop — the in-flight update "
+                    "finished; saving a checkpoint and exiting 0")
         n = self.trainer.get_num_updates()
         if self.args.max_update and n >= self.args.max_update:
             return f"num_updates: {n} hit --max-update ({self.args.max_update})"
@@ -151,16 +175,24 @@ class TrainSession:
     def checkpoint_and_validate(self, epoch_itr, end_of_epoch: bool):
         """After an update: the stop conditions, validation, at the end of
         an epoch the epoch-level lr step, and the checkpoint by the
-        cadence; returns (validation losses, stop?)."""
+        cadence; returns (validation losses, stop?).  A stop signal skips
+        validation (the grace period is short) and saves through the
+        minimal emergency path under ``--preemption-save-deadline``."""
         from unicore_tpu_torch import checkpoint_utils
+        from unicore_tpu_torch.distributed import guard
 
-        reason = self.hard_stop_reason()
+        preempt_sig = guard.stop_requested_global()
+        reason = self.hard_stop_reason(preempt_sig)
         if reason:
             logger.info(f"stopping training: {reason}")
         stopping = reason is not None
         do_save, do_validate = self.cadence(epoch_itr.epoch, end_of_epoch, stopping)
+        if preempt_sig:
+            self.stop_signal = preempt_sig
+            do_validate = False
         valid_losses: List[Optional[float]] = [None]
         if do_validate:
+            self.trainer.flush_metric_sums()
             valid_losses = validate(self.args, self.trainer, self.task,
                                     self.valid_subsets, self.validations)
         if self.early_stop.should_stop(valid_losses[0]):
@@ -172,9 +204,41 @@ class TrainSession:
         if end_of_epoch:  # epoch-level schedules key off the first subset
             self.trainer.lr_step(epoch_itr.epoch, valid_losses[0])
         if do_save or stopping:
+            emergency = ("preempt" if preempt_sig
+                         and getattr(self.args, "preemption_save_deadline", 0) > 0 else None)
             checkpoint_utils.save_checkpoint(self.args, self.trainer, epoch_itr,
-                                             valid_losses[0])
+                                             valid_losses[0], self.copy_pool,
+                                             emergency=emergency)
+            if emergency is not None:
+                # the emergency path drained and closed the pool
+                self.copy_pool = None
         return valid_losses, stopping
+
+    def close(self):
+        """Let the publish thread finish what it holds."""
+        if self.copy_pool is not None:
+            self.copy_pool.close()
+            self.copy_pool.join()
+            self.copy_pool = None
+
+
+def _maybe_emergency_save_on_error(args, trainer, epoch_itr, err) -> None:
+    """``--emergency-save-on-error``: before a fatal error unwinds the
+    process, one minimal save to ``checkpoint_emergency.pt``, a name apart
+    (the crashing state may be the problem: it must neither clobber
+    ``checkpoint_last`` nor be resumed).  Best effort: a second failure
+    here must not mask the first."""
+    if not getattr(args, "emergency_save_on_error", False):
+        return
+    from unicore_tpu_torch import checkpoint_utils
+
+    logger.error(f"fatal trainer exception ({type(err).__name__}: {err}); attempting an "
+                 "emergency checkpoint before aborting (--emergency-save-on-error)")
+    try:
+        checkpoint_utils.save_checkpoint(args, trainer, epoch_itr, None, None,
+                                         emergency="error")
+    except Exception:
+        logger.exception("emergency save failed; aborting without it")
 
 
 def restore_session(args, trainer):
@@ -211,10 +275,14 @@ def train_epoch(args, session, epoch_itr):
     try:
         for samples in itr:
             gnorm = trainer.train_step(samples)
+            # the sentinel's tick: before the sums' flush, so they hold
+            # this update; a rewind skips `itr` ahead
+            trainer.health_check(epoch_itr, itr)
             trainer.update_done.append(time.perf_counter())
             trainer.flush_metrics()
             num_updates = trainer.get_num_updates()
             if num_updates % args.log_interval == 0:
+                trainer.flush_metric_sums()
                 stats = metrics.get_smoothed_values("train_inner")
                 scale = (f" | loss_scale {stats['loss_scale']:.4f}"
                          if "loss_scale" in stats else "")
@@ -232,6 +300,7 @@ def train_epoch(args, session, epoch_itr):
                 break
     finally:
         trainer.finish_prefetch(itr)
+    trainer.flush_metric_sums()
     stats = metrics.get_smoothed_values("train")
     logger.info(f"end of epoch {epoch}: loss {stats.get('loss', float('nan')):.3f}")
     metrics.reset_meters("train")
@@ -288,6 +357,18 @@ def validate(args, trainer, task, subsets, records):
 
 
 def main(args, device) -> dict:
+    from unicore_tpu_torch.distributed import guard
+
+    # SIGTERM/SIGINT: finish the update in flight, save, exit 0 (a second
+    # SIGINT aborts); the caller's handlers come back when the run ends
+    guard.install_signal_handlers()
+    try:
+        return _train(args, device)
+    finally:
+        guard.restore_signal_handlers()
+
+
+def _train(args, device) -> dict:
     import numpy as np
     import torch
 
@@ -306,6 +387,7 @@ def main(args, device) -> dict:
     np.random.seed(args.seed)
     metrics.reset()
     checkpoint_utils.set_best_score(None)
+    checkpoint_utils.reset_save_seconds()
     logger.info(args)
 
     task = tasks.setup_task(args)
@@ -327,10 +409,16 @@ def main(args, device) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     started = time.time()
     last_epoch = args.max_epoch or math.inf
-    while epoch_itr.next_epoch_idx <= last_epoch:
-        if train_epoch(args, session, epoch_itr):
-            break
-        epoch_itr = trainer.get_train_iterator(epoch_itr.next_epoch_idx)
+    try:
+        while epoch_itr.next_epoch_idx <= last_epoch:
+            if train_epoch(args, session, epoch_itr):
+                break
+            epoch_itr = trainer.get_train_iterator(epoch_itr.next_epoch_idx)
+    except Exception as err:
+        _maybe_emergency_save_on_error(args, trainer, epoch_itr, err)
+        raise
+    finally:
+        session.close()
     wall = time.time() - started
 
     steady = trainer.step_ms[1:] or trainer.step_ms or [float("nan")]
@@ -369,6 +457,12 @@ def main(args, device) -> dict:
         "gnorm_per_update": trainer.update_gnorms,
         "overflows": trainer.overflows,
         "iterations_in_epoch": trainer.iterations_per_update,
+        "update_ids": trainer.update_ids,
+        "sentinel_events": (trainer.sentinel.events if trainer.sentinel is not None
+                            else []),
+        "snapshots": trainer.snapshot_timings(),
+        "checkpoint_seconds": checkpoint_utils.save_seconds(),
+        "stop_signal": session.stop_signal,
         "wall_s": wall,
     }
     logger.info(f"done training in {wall:.1f} seconds")

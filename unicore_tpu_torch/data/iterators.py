@@ -17,6 +17,7 @@ consumed position through ``position_source``), and ``load_state_dict``
 plans the same epoch and starts it past them.
 """
 
+import contextlib
 import itertools
 import logging
 import math
@@ -30,6 +31,27 @@ import numpy as np
 from . import data_utils
 
 logger = logging.getLogger(__name__)
+
+# Depth of the consumer's skip() fast-forwards in progress.  While > 0 the
+# BufferedIterator's --data-stall-timeout budget is relaxed (x10): in steady
+# state the buffer hides a slow batch, but a tight skip loop drains it and
+# exposes each batch's raw production time to the stall clock.  Relaxed,
+# not suspended: a producer that wedges mid-skip still raises.  One
+# consumer thread: a plain counter suffices.
+_stall_relaxed = 0
+_SKIP_STALL_BUDGET_MULTIPLIER = 10.0
+
+
+@contextlib.contextmanager
+def relaxed_stall_watchdog():
+    """Relax the BufferedIterator stall budget (x10) for the enclosed
+    fast-forward (re-entrant)."""
+    global _stall_relaxed
+    _stall_relaxed += 1
+    try:
+        yield
+    finally:
+        _stall_relaxed -= 1
 
 
 class CountingIterator(object):
@@ -61,9 +83,13 @@ class CountingIterator(object):
         return self.n < self.total
 
     def skip(self, num_to_skip):
-        """Consume and discard ``num_to_skip`` items."""
-        for _ in itertools.islice(self, num_to_skip):
-            pass
+        """Consume and discard ``num_to_skip`` items, with the data-stall
+        budget relaxed (x10) meanwhile: a fast-forward (the health
+        sentinel's post-rewind skip) waits on each batch's production with
+        no buffer to hide it."""
+        with relaxed_stall_watchdog():
+            for _ in itertools.islice(self, num_to_skip):
+                pass
         return self
 
 
@@ -298,16 +324,18 @@ class BufferedIterator(object):
                      "(--num-workers) may help.")
         self._last_warn = now
 
-    def _get_with_stall_watchdog(self):
-        deadline = time.time() + self._stall_timeout
+    def _get_with_stall_watchdog(self, budget):
+        deadline = time.time() + budget
         while True:
             remaining = deadline - time.time()
             if remaining <= 0:
                 where = f" of {self._context}" if self._context else ""
                 alive = self._producer is not None and self._producer.is_alive()
+                relaxed = (" (relaxed x10 budget: this happened DURING a skip "
+                           "fast-forward)" if budget > self._stall_timeout else "")
                 raise DataStallError(
                     f"data pipeline stalled: the prefetch producer delivered nothing for "
-                    f"{self._stall_timeout:.0f}s (--data-stall-timeout) at position "
+                    f"{budget:.0f}s (--data-stall-timeout){relaxed} at position "
                     f"{self._delivered}/{self.total}{where}; producer thread "
                     f"{'is still alive but wedged' if alive else 'has DIED'}.  Check the "
                     "dataset storage (mount, LMDB file, remote store) -- a merely-slow "
@@ -326,7 +354,9 @@ class BufferedIterator(object):
             self._start_producer()
         self._maybe_warn_starved()
         if self._stall_timeout > 0:
-            item = self._get_with_stall_watchdog()
+            budget = self._stall_timeout * (
+                _SKIP_STALL_BUDGET_MULTIPLIER if _stall_relaxed else 1.0)
+            item = self._get_with_stall_watchdog(budget)
         else:
             item = self._queue.get(True)
         if isinstance(item, Exception):

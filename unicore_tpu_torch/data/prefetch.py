@@ -16,7 +16,8 @@ is handed over as the raw micro-batches.  At most ``depth``
 (``--prefetch-depth``) prepared updates wait in the queue.  The iterator
 position a checkpoint records is what the training thread CONSUMED
 (:meth:`attach_epoch_itr`), not what the producer read ahead, so a
-mid-epoch resume does not skip the buffered updates.  :meth:`close` stops
+mid-epoch resume does not skip the buffered updates; :meth:`skip` discards
+updates as consumed (the health sentinel's skip-ahead).  :meth:`close` stops
 the producer on every exit path; the trainer's ``finish_prefetch`` calls
 it.
 
@@ -155,6 +156,19 @@ class DevicePrefetcher:
 
     def has_next(self) -> bool:
         return not self._finished and self._consumed_items < self._expect
+
+    def skip(self, num_to_skip):
+        """Consume and discard ``num_to_skip`` update chunks (the health
+        sentinel's post-rewind fast-forward).  They are pulled through the
+        queue, so the producer's order holds, and counted as consumed;
+        the data-stall budget is relaxed as in
+        :meth:`~unicore_tpu_torch.data.iterators.CountingIterator.skip`."""
+        from unicore_tpu_torch.data.iterators import relaxed_stall_watchdog
+
+        with relaxed_stall_watchdog():
+            for _ in itertools.islice(self, num_to_skip):
+                pass
+        return self
 
     def __next__(self):
         if self._finished or self._consumed_items >= self._expect:

@@ -1,0 +1,309 @@
+"""Fault injection for training and checkpoint storage (counterpart of the
+training half of ``unicore_tpu/distributed/chaos.py``):
+``--fault-inject KIND[:PARAM]@STEP[@RANK]``.
+
+The robustness plane exists to survive loss spikes and torn or rotten
+checkpoints, which never happen in a healthy test run; these hooks make
+them on demand, so a test or ``chip_smoke.py`` proves each guard fires.
+
+Kinds (persistent from STEP onward unless noted):
+
+``truncate-checkpoint``
+    Checkpoint files written from STEP on are cut to half their size after
+    the atomic rename: the torn file the resume fallback must survive.
+``bit-flip-checkpoint[:NBYTES]``
+    NBYTES (default 1) payload bytes of each checkpoint are flipped after
+    every write-side check: bit rot at rest.  A bare ``torch.save`` file
+    may still load (into wrong weights); the v2 manifest must reject it.
+``disk-full``
+    Checkpoint write attempts raise ENOSPC (the ``--on-save-failure``
+    ladder).
+``slow-disk[:SECS]``
+    Checkpoint writes stall SECS (default 5) first (the
+    ``--preemption-save-deadline`` over-budget diagnosis).
+``raise``
+    :class:`ChaosError` out of ``train_step`` at exactly STEP (one-shot).
+``loss-spike[:MAGNITUDE]``
+    At exactly STEP the update's gradients AND its reported loss are
+    scaled by MAGNITUDE (default 100), through the update's normalisation
+    denominator (so under ``--fused-adam`` through the ``multi_tensor_l2norm``
+    and ``fused_adam`` kernels): the divergence the health sentinel must
+    detect, rewind and skip past.  Consumed once the update counter moves
+    past STEP, so a rewind that replays the counter cannot refire it.
+``grad-explosion[:SCALE]``
+    The same, the gradients only: the loss stays healthy and the grad-norm
+    detector must fire on its own.
+
+STEP counts updates: the hooks of an update read the counter before it
+(``fault_multipliers``, ``maybe_raise``), those of a checkpoint write the
+counter after the last update (:func:`note_step`).  RANK defaults to 0, the
+one process the port runs; a fault aimed at another rank never fires.
+
+The JAX package's other kinds raise ``NotImplementedError`` naming where
+they are queued: the host-desync, collective and elastic kinds
+(``seed-skew``, ``geometry-skew``, ``collective-delay``,
+``collective-order-skew``, ``host-loss``, ``heartbeat-stall``,
+``kv-outage``) wait for the parallelism slice (ROADMAP queue A item 4); the
+serving kinds (``request-flood``, ``slow-client``, ``corrupt-reload``,
+``replica-loss``, ``replica-stall``) for the rest of serving (queue A item
+2).  A plan is process-global (:func:`configure`); :func:`reset` clears it.
+With no ``--fault-inject`` every hook is a cheap no-op.
+"""
+
+import errno
+import logging
+import os
+import time
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+KINDS = (
+    "seed-skew",
+    "geometry-skew",
+    "collective-delay",
+    "truncate-checkpoint",
+    "bit-flip-checkpoint",
+    "disk-full",
+    "slow-disk",
+    "raise",
+    "loss-spike",
+    "grad-explosion",
+    "host-loss",
+    "heartbeat-stall",
+    "kv-outage",
+    "collective-order-skew",
+    "request-flood",
+    "slow-client",
+    "corrupt-reload",
+    "replica-loss",
+    "replica-stall",
+)
+
+#: the kinds this port runs
+PORTED_KINDS = (
+    "truncate-checkpoint",
+    "bit-flip-checkpoint",
+    "disk-full",
+    "slow-disk",
+    "raise",
+    "loss-spike",
+    "grad-explosion",
+)
+
+#: where each kind that is not ported waits
+_QUEUED = {
+    **{k: "the parallelism slice (ROADMAP queue A item 4: cross-host agreement, "
+          "collectives and the elastic run control)"
+       for k in ("seed-skew", "geometry-skew", "collective-delay", "collective-order-skew",
+                 "host-loss", "heartbeat-stall", "kv-outage")},
+    **{k: "the rest of serving (ROADMAP queue A item 2)"
+       for k in ("request-flood", "slow-client", "corrupt-reload", "replica-loss",
+                 "replica-stall")},
+}
+
+# metric faults feed every rank's update identically: @RANK is refused
+_ALL_RANK_KINDS = ("loss-spike", "grad-explosion")
+
+# checkpoint-storage kinds act where checkpoints are written (rank 0)
+_CKPT_WRITER_KINDS = ("truncate-checkpoint", "bit-flip-checkpoint", "disk-full", "slow-disk")
+
+_DEFAULT_FAULT_MAGNITUDE = 100.0
+_DEFAULT_FLIP_BYTES = 1
+_DEFAULT_SLOW_DISK_SECONDS = 5.0
+
+#: this process's rank and the world's size (one process until the
+#: parallelism slice)
+_RANK = 0
+_WORLD_SIZE = 1
+
+
+class ChaosError(RuntimeError):
+    """The injected mid-update failure (``raise`` kind)."""
+
+
+class FaultPlan:
+    """One parsed ``KIND[:PARAM]@STEP[@RANK]`` spec."""
+
+    def __init__(self, kind: str, step: int, rank: Optional[int] = None,
+                 param: Optional[float] = None):
+        if kind not in KINDS:
+            raise ValueError(f"unknown fault kind '{kind}' (choose from {', '.join(KINDS)})")
+        if kind in _QUEUED:
+            raise NotImplementedError(
+                f"--fault-inject '{kind}' is not ported to unicore_tpu_torch; it waits "
+                f"for {_QUEUED[kind]}.  Ported kinds: {', '.join(PORTED_KINDS)}")
+        if kind in _ALL_RANK_KINDS and rank is not None:
+            raise ValueError(
+                f"'{kind}' fires on every rank (its multipliers feed every rank's "
+                "update alike — a per-rank value would desync the ranks); drop the "
+                "@RANK part")
+        self.kind = kind
+        self.step = step
+        self._rank = rank
+        self.param = param
+        #: one-shot metric faults never refire after the counter has moved
+        #: past STEP (a sentinel rewind replays the counter through it)
+        self.consumed = False
+
+    @property
+    def rank(self) -> int:
+        if self._rank is not None:
+            return self._rank
+        if self.kind in _CKPT_WRITER_KINDS:
+            return 0
+        return _WORLD_SIZE - 1
+
+    def on_this_rank(self) -> bool:
+        return self.kind in _ALL_RANK_KINDS or _RANK == self.rank
+
+    def active(self, step: int) -> bool:
+        """Persistent kinds stay on from ``self.step`` onward."""
+        return step >= self.step and self.on_this_rank()
+
+    def __repr__(self):
+        if self.kind in _ALL_RANK_KINDS:
+            return f"FaultPlan({self.kind}@{self.step}@all-ranks)"
+        if self._rank is not None:
+            rank = self._rank
+        elif self.kind in _CKPT_WRITER_KINDS:
+            rank = "<writer:0>"
+        else:
+            rank = "<last>"
+        return f"FaultPlan({self.kind}@{self.step}@rank{rank})"
+
+
+def parse_fault_spec(spec: str) -> FaultPlan:
+    """``KIND[:PARAM]@STEP[@RANK]`` -> :class:`FaultPlan`."""
+    parts = spec.split("@")
+    if len(parts) not in (2, 3):
+        raise ValueError(f"--fault-inject expects KIND[:PARAM]@STEP[@RANK], got '{spec}'")
+    kind = parts[0]
+    param = None
+    if ":" in kind:
+        kind, raw = kind.split(":", 1)
+        param = float(raw)
+    step = int(parts[1])
+    rank = int(parts[2]) if len(parts) == 3 else None
+    return FaultPlan(kind, step, rank, param)
+
+
+_plan: Optional[FaultPlan] = None
+_last_step: int = 0
+
+
+def configure(args) -> Optional[FaultPlan]:
+    """Install the process-global plan from ``--fault-inject``, or disarm
+    a stale one when the flag is unset (an in-process caller running two
+    trainers in a row must not leak the first one's fault)."""
+    global _plan
+    spec = getattr(args, "fault_inject", None)
+    if not spec:
+        _plan = None
+        return None
+    _plan = parse_fault_spec(spec)
+    logger.warning(f"fault injection ARMED: {_plan} (this is a chaos run)")
+    return _plan
+
+
+def reset() -> None:
+    global _plan, _last_step
+    _plan = None
+    _last_step = 0
+
+
+def note_step(step: int) -> None:
+    """Record the update counter for the hooks outside the update proper
+    (the checkpoint writes), and consume a one-shot metric fault once the
+    counter has moved past its step."""
+    global _last_step
+    _last_step = step
+    if _plan is not None and _plan.kind in _ALL_RANK_KINDS and step > _plan.step:
+        _plan.consumed = True
+
+
+def fault_multipliers(step: int):
+    """``(loss_mul, grad_mul)`` of the update that starts at counter
+    ``step``: both 1.0 except at exactly the armed ``loss-spike`` /
+    ``grad-explosion`` step, and never again once it is consumed."""
+    if (_plan is None or _plan.kind not in _ALL_RANK_KINDS or _plan.consumed
+            or step != _plan.step):
+        return 1.0, 1.0
+    mag = float(_plan.param if _plan.param is not None else _DEFAULT_FAULT_MAGNITUDE)
+    logger.warning(f"chaos: injecting {_plan.kind} x{mag:g} into update {step}")
+    if _plan.kind == "loss-spike":
+        return mag, 1.0
+    return 1.0, mag
+
+
+def maybe_truncate_checkpoint(path: str) -> None:
+    """Cut a just-written checkpoint to half its size (a torn write that
+    survived the rename)."""
+    if _plan is None or _plan.kind != "truncate-checkpoint" or not _plan.active(_last_step):
+        return
+    try:
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.truncate(size // 2)
+        logger.warning(f"chaos: truncated checkpoint {path} from {size} to {size // 2} bytes")
+    except OSError as e:
+        logger.warning(f"chaos: could not truncate {path}: {e}")
+
+
+def maybe_bit_flip_checkpoint(path: str) -> None:
+    """Flip payload bytes of a just-written checkpoint, after every
+    write-side check (fsync, rename, read-back), as real rot would: only
+    the verified load can catch it."""
+    if _plan is None or _plan.kind != "bit-flip-checkpoint" or not _plan.active(_last_step):
+        return
+    nbytes = int(_plan.param) if _plan.param is not None else _DEFAULT_FLIP_BYTES
+    try:
+        _flip_payload_bytes(path, nbytes)
+        logger.warning(
+            f"chaos: flipped {nbytes} payload byte(s) of checkpoint {path} (silent bit "
+            "rot at rest; a bare torch.save file might load it — the v2 manifest must "
+            "reject it)")
+    except OSError as e:
+        logger.warning(f"chaos: could not bit-flip {path}: {e}")
+
+
+def _flip_payload_bytes(path: str, nbytes: int) -> None:
+    """Flip ``nbytes`` bytes, spread evenly (the midpoints of ``nbytes``
+    equal slices), inside the manifested payload of a v2 file, or inside
+    the last three quarters of any other file."""
+    from unicore_tpu_torch.checkpoint import format as ckpt_format
+
+    size = os.path.getsize(path)
+    bounds = ckpt_format.payload_bounds(path)
+    lo, hi = bounds if bounds is not None else (size // 4, size)
+    span = max(1, hi - lo)
+    with open(path, "r+b") as f:
+        for i in range(nbytes):
+            off = lo + (span * (2 * i + 1)) // (2 * nbytes)
+            f.seek(off)
+            byte = f.read(1)
+            f.seek(off)
+            f.write(bytes([byte[0] ^ 0x01]))
+
+
+def maybe_disk_full(path: str) -> None:
+    """Raise ENOSPC out of a checkpoint write attempt."""
+    if _plan is None or _plan.kind != "disk-full" or not _plan.active(_last_step):
+        return
+    logger.warning(f"chaos: injecting ENOSPC into checkpoint write {path}")
+    raise OSError(errno.ENOSPC, f"chaos: injected disk-full writing {path}")
+
+
+def maybe_slow_disk(path: str) -> None:
+    """Stall a checkpoint write (default 5 s)."""
+    if _plan is None or _plan.kind != "slow-disk" or not _plan.active(_last_step):
+        return
+    delay = float(_plan.param) if _plan.param is not None else _DEFAULT_SLOW_DISK_SECONDS
+    logger.warning(f"chaos: slow disk — delaying checkpoint write {path} by {delay:.1f}s")
+    time.sleep(delay)
+
+
+def maybe_raise(step: int) -> None:
+    if (_plan is not None and _plan.kind == "raise" and _plan.on_this_rank()
+            and step == _plan.step):
+        raise ChaosError(f"injected mid-update failure at step {step} (--fault-inject)")

@@ -4,6 +4,8 @@ serving parser, the training parser and its two-phase
 
 import argparse
 
+from unicore_tpu_torch.utils import str_to_bool
+
 
 def get_serving_parser():
     """Parser for ``unicore-tpu-torch-serve``.
@@ -348,10 +350,11 @@ def get_training_parser():
     group = parser.add_argument_group("checkpoint")
     group.add_argument("--save-dir", metavar="DIR", default="checkpoints",
                        help="path to save checkpoints")
-    group.add_argument("--tmp-save-dir", metavar="DIR", default="./",
-                       help="accepted for the JAX CLI's scripts; each "
-                            "checkpoint is written to a temporary name in "
-                            "--save-dir and renamed into place")
+    group.add_argument("--tmp-save-dir", metavar="DIR", default=None,
+                       help="fast local dir to write checkpoints in before "
+                            "they are published to --save-dir (default: "
+                            "--save-dir itself; the JAX CLI's ./ would stage "
+                            "in the working directory, where runs collide)")
     group.add_argument("--restore-file", default="checkpoint_last.pt",
                        help="filename from which to load checkpoint")
     group.add_argument("--finetune-from-model", default=None, type=str,
@@ -405,9 +408,122 @@ def get_training_parser():
                             "improve for N consecutive validation runs")
     group.add_argument("--checkpoint-suffix", type=str, default="",
                        help="suffix to add to the checkpoint file name")
+    group.add_argument("--async-checkpoint", type=str_to_bool, default=True,
+                       help="publish checkpoints under their other names (and "
+                            "prune) on a background thread")
+    group.add_argument("--checkpoint-format", default="pickle",
+                       choices=["pickle", "orbax"],
+                       help="pickle: one file per checkpoint (the port's "
+                            "torch.save payload); orbax (the JAX package's "
+                            "sharded tensorstore checkpoints) is not ported "
+                            "and is refused")
+    group.add_argument("--checkpoint-write-version", type=int, default=2,
+                       choices=[1, 2],
+                       help="on-disk envelope of checkpoint writes: 2 "
+                            "(default) wraps the torch.save payload in a "
+                            "header (step, suffix) and a chunked CRC32 "
+                            "integrity manifest verified before any load "
+                            "trusts the payload; 1 writes a bare torch.save "
+                            "file.  Both versions always READ back")
+    group.add_argument("--verify-checkpoint-writes", action="store_true",
+                       help="re-open and CRC-verify every staged checkpoint "
+                            "write against its integrity manifest before "
+                            "publishing it — catches storage that "
+                            "acknowledges writes it corrupted, at the cost "
+                            "of one extra read pass per save")
+    group.add_argument("--on-save-failure", choices=["warn", "abort"], default="warn",
+                       help="escalation for a TERMINAL checkpoint-save "
+                            "failure (retries exhausted, ENOSPC, failed "
+                            "read-back verification): 'warn' logs and "
+                            "trains on without a fresh checkpoint; 'abort' "
+                            "raises CheckpointWriteError into the training "
+                            "loop")
+    group.add_argument("--preemption-save-deadline", type=float, default=0.0,
+                       metavar="SECS",
+                       help="time budget for the SIGTERM/SIGINT graceful-"
+                            "stop checkpoint: when set, preemption writes a "
+                            "MINIMAL fsync'd checkpoint_last straight into "
+                            "--save-dir (no publish copies, no best-score "
+                            "bookkeeping, no retention pruning, no retries, "
+                            "no read-back verification) and warns loudly if "
+                            "even that exceeded the budget (0 keeps the "
+                            "full save path on preemption)")
+    group.add_argument("--emergency-save-on-error", action="store_true",
+                       help="on a fatal trainer exception, attempt a minimal "
+                            "emergency save to a SEPARATE "
+                            "checkpoint_emergency.pt before re-raising — "
+                            "never clobbers checkpoint_last and is never "
+                            "auto-resumed")
+    group.add_argument("--fault-inject", type=str, default=None,
+                       metavar="KIND[:PARAM]@STEP[@RANK]",
+                       help="chaos harness (distributed/chaos.py), training "
+                            "and checkpoint-storage kinds: "
+                            "truncate-checkpoint, bit-flip-checkpoint[:N], "
+                            "disk-full, slow-disk[:SECS] from STEP on; raise "
+                            "at STEP; loss-spike[:MAGNITUDE] and "
+                            "grad-explosion[:SCALE] at exactly STEP (once), "
+                            "to prove the health sentinel detects, rewinds "
+                            "and heals")
 
+    add_training_health_args(parser)
     add_model_args(parser)
     return parser
+
+
+def add_training_health_args(parser):
+    """The training-health sentinel (``health/``): loss-spike /
+    grad-explosion / loss-scale-collapse detection with an in-memory rewind
+    and a data skip-ahead (the JAX package's flags and defaults)."""
+    group = parser.add_argument_group("training_health")
+    group.add_argument("--sentinel-interval", type=int, default=0, metavar="N",
+                       help="observe the per-update training metrics (loss, "
+                            "grad norm, loss scale) every N updates and arm "
+                            "the health sentinel's detect-rewind-skip "
+                            "recovery ladder (0 disables the sentinel "
+                            "entirely)")
+    group.add_argument("--snapshot-interval", type=int, default=200, metavar="N",
+                       help="updates between host-RAM rewind snapshots of "
+                            "the full train state (params, optimizer, EMA, "
+                            "scalars); each is one device->host copy on a "
+                            "side stream (0 disables snapshots — an anomaly "
+                            "then escalates straight to abort)")
+    group.add_argument("--snapshot-keep", type=int, default=2, metavar="K",
+                       help="host-RAM snapshot ring size (oldest evicted "
+                            "first); pinned RAM cost is K x the train state")
+    group.add_argument("--sentinel-warmup", type=int, default=50, metavar="N",
+                       help="grace period: no anomaly is ever flagged in "
+                            "the first N updates")
+    group.add_argument("--loss-spike-zmax", type=float, default=6.0, metavar="Z",
+                       help="flag a loss sitting more than Z standard "
+                            "deviations above its EMA band as a spike")
+    group.add_argument("--loss-spike-window", type=int, default=64, metavar="N",
+                       help="EMA window (in observations) for the loss and "
+                            "grad-norm streaming statistics")
+    group.add_argument("--gnorm-explosion-factor", type=float, default=10.0,
+                       metavar="F",
+                       help="flag a pre-clip grad norm above F times its "
+                            "EMA mean as an explosion")
+    group.add_argument("--scale-collapse-halvings", type=int, default=8, metavar="N",
+                       help="fp16 only: flag N consecutive downward loss-"
+                            "scale rescales with no recovery in between as "
+                            "a collapse")
+    group.add_argument("--spike-skip-updates", type=int, default=2, metavar="N",
+                       help="after a rewind, fast-forward the data iterator "
+                            "N update chunks past the offending window (the "
+                            "stall budget is relaxed x10 for the skip)")
+    group.add_argument("--spike-cooldown-updates", type=int, default=100, metavar="N",
+                       help="a repeat anomaly within N updates of the last "
+                            "rewind escalates to rewind + lr cooldown for N "
+                            "updates; a clean cooldown de-escalates the "
+                            "ladder")
+    group.add_argument("--spike-cooldown-factor", type=float, default=0.1, metavar="F",
+                       help="lr multiplier applied during a post-rewind "
+                            "cooldown window")
+    group.add_argument("--max-rewinds", type=int, default=3, metavar="N",
+                       help="abort with a diagnosis (detector, step, "
+                            "statistic) once N rewinds have been spent "
+                            "without the run stabilizing")
+    return group
 
 
 def parse_args_and_arch(parser, input_args=None):
@@ -432,6 +548,10 @@ def parse_args_and_arch(parser, input_args=None):
                           (LR_SCHEDULER_REGISTRY, args.lr_scheduler)):
         registry[key].add_args(parser)
     args = parser.parse_args(input_args)
+    if getattr(args, "checkpoint_format", "pickle") == "orbax":
+        parser.error("--checkpoint-format orbax (the JAX package's sharded tensorstore "
+                     "checkpoints) is not ported: unicore_tpu_torch writes one file "
+                     "per checkpoint (--checkpoint-format pickle)")
     if getattr(args, "batch_size_valid", None) is None and hasattr(args, "batch_size"):
         args.batch_size_valid = args.batch_size
     if getattr(args, "memory_efficient_fp16", False):

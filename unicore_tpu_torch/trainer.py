@@ -58,11 +58,24 @@ and the loss scale -- here with the schedule's counters too, which the JAX
 package's pickled checkpoint drops, so an fp16 run resumes as it would
 have gone on.
 
-The JAX trainer's parallel, health, chaos, telemetry and orbax machinery
-is not ported.
+The robustness plane, as the JAX trainer's: ``--fault-inject``
+(``distributed/chaos.py``) raises at an update or folds a loss spike or a
+gradient explosion into the update's denominator (so under
+``--fused-adam`` through the two kernels), the durable-write policy
+(``checkpoint/durable.py``) is configured here, and with
+``--sentinel-interval`` > 0 the health sentinel (``health/``) judges the
+running metric sums (``_macc``, host floats under the JAX keys, reset only
+by :meth:`flush_metric_sums`) after each update (:meth:`health_check`),
+snapshots the training state into pinned host buffers on a side stream
+(:meth:`capture_health_snapshot`), rewinds in place
+(:meth:`restore_health_snapshot`) and scales the lr during a cooldown;
+its history rides the checkpoint's ``extra_state["sentinel"]``.
+
+The JAX trainer's parallel, telemetry and orbax machinery is not ported.
 """
 
 import contextlib
+import copy
 import logging
 import os
 import time
@@ -72,8 +85,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from unicore_tpu_torch import checkpoint_utils, optim
+from unicore_tpu_torch import checkpoint_utils, health, optim
+from unicore_tpu_torch.checkpoint import durable
 from unicore_tpu_torch.data.prefetch import DevicePrefetcher, PreparedUpdate
+from unicore_tpu_torch.distributed import chaos
 from unicore_tpu_torch.ema import EMA
 from unicore_tpu_torch.logging import metrics
 from unicore_tpu_torch.modules import DropoutRng
@@ -170,6 +185,24 @@ class Trainer(object):
         #: host clock at each update's end (the CLI's)
         self.iterations_per_update: List[int] = []
         self.update_done: List[float] = []
+        #: the update counter after each update (a rewind steps it back)
+        self.update_ids: List[int] = []
+        #: the running metric sums since the last flush (the JAX trainer's
+        #: device-side ``_macc``, here host floats): a new dict each update
+        self._macc: Optional[Dict[str, float]] = None
+        # the robustness plane: the fault plan, the durable-write policy and
+        # the health sentinel (None unless --sentinel-interval > 0)
+        chaos.configure(args)
+        durable.configure(args)
+        self.sentinel = health.build_sentinel(args)
+        #: host buffers of the snapshot ring's slots (allocated once each),
+        #: the side stream the captures run on, and the last capture's
+        #: event, which the next write of the state waits for
+        self._snap_slots: List[Dict[str, torch.Tensor]] = []
+        self._snap_stream = None
+        self._snap_pending = None
+        #: (update, bytes, host enqueue ms, start event, end event) per capture
+        self._snap_records: List[tuple] = []
 
     def _master(self) -> Dict[str, torch.Tensor]:
         """The fp32 weights the optimizer updates and the EMA averages: the
@@ -333,6 +366,7 @@ class Trainer(object):
         (already on the device, counted on the host); returns the update's
         gradient norm (a float)."""
         t0 = time.perf_counter()
+        chaos.maybe_raise(self.get_num_updates())
         self.model.train()
         for p in self.params.values():
             p.grad = None
@@ -361,11 +395,25 @@ class Trainer(object):
             logging_outputs.append(log)
             self.micro_batches += 1
 
+        step = self.get_num_updates()
         lr = self.get_lr()
+        if self.sentinel is not None:
+            # the post-rewind cooldown (ladder level 2); 1.0 outside it
+            lr = lr * self.sentinel.lr_scale(step)
         clip = getattr(self.args, "clip_norm", 0.0) or 0.0
         denom = torch.clamp(sample_size, min=1e-8)
         if self.use_loss_scale:
             denom = denom * loss_scale
+        # --fault-inject loss-spike / grad-explosion: folded into the
+        # denominator (no work when healthy); a loss spike scales the logged
+        # loss too, so the sentinel sees what a real divergence shows
+        loss_mul, grad_mul = chaos.fault_multipliers(step)
+        if loss_mul * grad_mul != 1.0:
+            denom = denom / (loss_mul * grad_mul)
+        if loss_mul != 1.0:
+            for log in logging_outputs:
+                log["loss"] = log["loss"] * loss_mul
+        self._await_snapshot()  # the optimizer writes what a capture reads
         if self.grad_accum == "adama":
             gnorm_t = opt.accum_gnorm(acc) / denom
             gnorm = float(gnorm_t)
@@ -405,6 +453,8 @@ class Trainer(object):
             if not self.use_loss_scale:
                 logger.warning(f"non-finite gradient norm {gnorm}: update skipped")
         self.set_num_updates(self.get_num_updates() + 1)
+        chaos.note_step(self.get_num_updates())
+        self.update_ids.append(self.get_num_updates())
 
         with metrics.aggregate("train"), metrics.aggregate("train_inner"):
             self.task.reduce_metrics(logging_outputs, self.loss)
@@ -412,6 +462,7 @@ class Trainer(object):
             if self.use_loss_scale:
                 metrics.log_scalar("loss_scale", loss_scale, priority=700, round=4)
         loss_sum = sum(float(log["loss"]) for log in logging_outputs)
+        self._accumulate_metrics(loss_sum, float(sample_size), gnorm, loss_scale, overflow)
         self.update_losses.append(loss_sum / max(float(sample_size), 1e-8) / np.log(2))
         self.update_lrs.append(lr)
         self.update_loss_scales.append(loss_scale)
@@ -513,6 +564,133 @@ class Trainer(object):
                 "Your loss is probably exploding. Try lowering the learning "
                 "rate, using gradient clipping or increasing the batch size.")
 
+    def _accumulate_metrics(self, loss: float, sample_size: float, gnorm: float,
+                            loss_scale: float, overflow: bool) -> None:
+        """Fold one update into the running sums the sentinel reads (the
+        JAX ``accumulate`` of ``_macc``: the update count, the loss in the
+        loss's own units, the norm, the loss scale, the overflow count, the
+        sample size); a new dict each time, so a held one keeps its values."""
+        upd = {"_n": 1.0, "loss": loss, "gnorm": gnorm, "loss_scale": loss_scale,
+               "overflow": float(overflow), "sample_size": sample_size}
+        old = self._macc
+        self._macc = upd if old is None else {k: old.get(k, 0.0) + v for k, v in upd.items()}
+
+    def flush_metric_sums(self) -> None:
+        """Restart the running sums, where the JAX CLI flushes its ``_macc``:
+        at ``--log-interval``, before a validation and at the end of an
+        epoch."""
+        self._macc = None
+
+    # -- the health sentinel ----------------------------------------------------
+
+    def health_check(self, epoch_itr=None, update_itr=None):
+        """The sentinel's tick, called by the CLI right after ``train_step``
+        (before the log-interval flush, so the sums hold this update):
+        judge the held sums, rewind ``self`` and skip ``update_itr`` ahead
+        on a confirmed anomaly, and capture snapshots on the
+        ``--snapshot-interval`` cadence."""
+        if self.sentinel is None:
+            return
+        self.sentinel.after_update(self, epoch_itr, update_itr)
+
+    def _live_state(self) -> Dict[str, torch.Tensor]:
+        """Every tensor of the training state a rewind restores, by a
+        stable name: under ``--fused-adam`` the flat buffers (master,
+        low-precision parameters, moments; the parameters and slots are
+        views into them), else each parameter, slot and master tensor; and
+        the EMA's shadow."""
+        live: Dict[str, torch.Tensor] = OrderedDict()
+        opt = self._optimizer
+        if self._fused:
+            for i, bufs in enumerate(opt.flat):
+                for k in ("master", "param", "m", "v"):
+                    if bufs.get(k) is not None:
+                        live[f"flat.{i}.{k}"] = bufs[k]
+        else:
+            for n, p in self.params.items():
+                live[f"param.{n}"] = p.data
+            for n, slots in opt.state.items():
+                for k, v in slots.items():
+                    live[f"slot.{n}.{k}"] = v
+            for n, m in (opt.master or {}).items():
+                live[f"master.{n}"] = m
+        if self.ema is not None:
+            for n, e in self.ema.shadow.items():
+                live[f"ema.{n}"] = e
+        return live
+
+    def _await_snapshot(self) -> None:
+        """Make the current stream wait for the last capture's copies
+        before anything writes the state they read (no host wait)."""
+        if self._snap_pending is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._snap_pending)
+            self._snap_pending = None
+
+    def capture_health_snapshot(self, epoch_itr=None):
+        """A host-RAM rewind point: the training state copied into a ring
+        slot's pinned buffers (a slot no snapshot of the ring holds, else
+        the oldest's, which the ring evicts next), enqueued on a side stream
+        so it overlaps the next update; the lr scheduler, the optimizer's
+        step count, the loss-scale state and the iterator position
+        (recorded: recovery skips forward) beside it."""
+        ring = self.sentinel.ring
+        held = {id(snap.state) for snap in ring}
+        slot = next((sl for sl in self._snap_slots if id(sl) not in held), None)
+        if slot is None and len(self._snap_slots) >= ring.keep:
+            slot = next(iter(ring)).state
+        start = None
+        if self.device.type == "cuda":
+            if self._snap_stream is None:
+                self._snap_stream = torch.cuda.Stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        host, done = health.host_copy_tree(self._live_state(), slot, self._snap_stream, start)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        if all(host is not sl for sl in self._snap_slots):
+            self._snap_slots.append(host)
+        self._snap_pending = done
+        snap = health.HealthSnapshot(
+            step=self.get_num_updates(), state=host,
+            lr_sched_state=copy.deepcopy(self._lr_scheduler.state_dict()),
+            iterator_state=epoch_itr.state_dict() if epoch_itr is not None else None,
+            extra={"num_steps": self._optimizer.num_steps,
+                   "scale_state": dict(self.scale_state), "event": done})
+        self._snap_records.append((snap.step, snap.nbytes, enqueue_ms, start, done))
+        return snap
+
+    def restore_health_snapshot(self, snap):
+        """Put the run back at ``snap.step`` in memory: the state copied
+        back IN PLACE (the ``--fused-adam`` views keep aliasing their flat
+        buffers), the optimizer's step count, the loss-scale state, the lr
+        scheduler and the update counter (the dropout and SR streams are
+        keyed on it, so they replay).  The running sums are dropped: they
+        describe the abandoned trajectory."""
+        self._await_snapshot()
+        event = snap.extra.get("event")
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+        health.device_restore_tree(snap.state, self._live_state())
+        self._optimizer.num_steps = snap.extra["num_steps"]
+        self.scale_state = dict(snap.extra["scale_state"])
+        self._macc = None
+        if snap.lr_sched_state is not None:
+            self._lr_scheduler.load_state_dict(copy.deepcopy(snap.lr_sched_state))
+        self.set_num_updates(snap.step)
+
+    def snapshot_timings(self) -> List[dict]:
+        """Each capture's update, bytes, host ms (the first capture of a
+        slot allocates its pinned buffers) and, on the card, the copies'
+        device ms on the side stream (waits for them)."""
+        out = []
+        for step, nbytes, enqueue_ms, start, done in self._snap_records:
+            copy_ms = None
+            if start is not None:
+                done.synchronize()
+                copy_ms = start.elapsed_time(done)
+            out.append({"update": step, "bytes": nbytes, "enqueue_ms": enqueue_ms,
+                        "copy_ms": copy_ms})
+        return out
+
     # -- validation ----------------------------------------------------------
 
     @torch.no_grad()
@@ -534,6 +712,7 @@ class Trainer(object):
         if self.ema is None or not getattr(self.args, "validate_with_ema", False):
             yield
             return
+        self._await_snapshot()
         params = list(self.params.values())
         saved = [p.detach().clone() for p in params]
         with torch.no_grad():
@@ -570,6 +749,10 @@ class Trainer(object):
                 "loss_scale": self.get_loss_scale(),
                 "loss_scale_state": {k: (float(v) if k == "scale" else v)
                                      for k, v in self.scale_state.items()},
+                # the sentinel's recovery history: which detectors fired,
+                # when, and what the ladder did
+                "sentinel": (self.sentinel.state_dict() if self.sentinel is not None
+                             else None),
             },
         }
         if self.ema is not None:
@@ -578,12 +761,16 @@ class Trainer(object):
 
     def save_checkpoint(self, filename, extra_state):
         """Write :meth:`state_dict` with ``extra_state`` (the iterator
-        position, the validation loss, the best score) merged in."""
+        position, the validation loss, the best score) merged in; returns
+        :func:`~unicore_tpu_torch.checkpoint_utils.persistent_save`'s result
+        (False: the write did not land, under ``--on-save-failure warn``)."""
         state = self.state_dict()
         state["extra_state"].update(extra_state)
-        checkpoint_utils.write_checkpoint(filename, state.pop("args"), state.pop("model"),
-                                          **state)
-        logger.info(f"saved checkpoint {filename} (update {self.get_num_updates()})")
+        saved = checkpoint_utils.write_checkpoint(filename, state.pop("args"),
+                                                  state.pop("model"), **state)
+        if saved:
+            logger.info(f"saved checkpoint {filename} (update {self.get_num_updates()})")
+        return saved
 
     def load_checkpoint(self, filename, reset_optimizer=False, reset_lr_scheduler=False,
                         reset_dataloader=False, optimizer_overrides=None,
@@ -605,6 +792,7 @@ class Trainer(object):
             return None
         logger.info(f"Preparing to load checkpoint {filename}")
         state = checkpoint_utils.upgrade_state(checkpoint_utils.load_checkpoint_to_cpu(filename))
+        self._await_snapshot()
         extra_state = state.get("extra_state")
         lacking = [k for k in ("optimizer_state", "optimizer_history", "extra_state")
                    if state.get(k) is None]
@@ -648,6 +836,8 @@ class Trainer(object):
                 self.set_num_updates(last["num_updates"])
                 self.resumed_from_update = last["num_updates"]
         if extra_state is not None:
+            if self.sentinel is not None:
+                self.sentinel.load_state_dict(extra_state.get("sentinel"))
             if not reset_meters and "metrics" in extra_state:
                 metrics.load_state_dict(extra_state["metrics"])
             self._previous_training_time = extra_state.get("previous_training_time", 0.0)
