@@ -26,7 +26,10 @@ result line):
    kernels' own durations from ``torch.profiler`` over 20 calls -- ~20 ms
    of them for a call over 1 ms --, without the host's time between
    calls), the same two for the plain version and for one PyTorch
-   library call (a backward timed alone on a retained autograd graph), and
+   library call (a backward timed alone on a retained autograd graph) --
+   past each kernel's first two checks, a plain version over 0.5 ms a call
+   and the library call's L2-flushed profile are not measured, for the
+   time limit --, and
    the least time the card could take (bytes over 3.35 TB/s or operations
    over the type's peak rate, whichever is larger; fp32 attention at the
    3xTF32 rate, 495 / 3 TFLOP/s, the least for fp32 accuracy on tensor
@@ -50,10 +53,15 @@ result line):
    parameters within 1e-5 absolute, no launch in the CPU run;
 4. serving — the checkpoint 4a wrote, served by ``python -m
    unicore_tpu_torch.cli.serve --device cuda`` (batch 8, buckets
-   128/256/384/512); requests of every bucket, some concurrent; per-batch
-   kernel launches read from ``/stats`` (12 attention, 26 norm); two
-   128-bucket answers held against the same checkpoint run in this process
-   on the CPU; SIGTERM -> drain -> exit 0;
+   128/256/384/512) under ``--fault-inject slow-client:3@2
+   --request-read-timeout 1``; requests of every bucket, some concurrent;
+   the one request the slow client stalls answered 408 with its named
+   reason and sent again, the rest 200; per-batch kernel launches read from
+   ``/stats`` (12 attention, 26 norm); ``GET /metrics`` parsed, its served,
+   batch and shed counters equal to ``/stats``'s; two 128-bucket answers
+   held against the same checkpoint run in this process on the CPU;
+   SIGTERM -> drain -> exit 0; the journal beside the checkpoint holds the
+   run's start, the slow client's shed and the drain;
 5a. Uni-Mol training — ``python -m unicore_tpu_torch.cli.train --task
    unimol --arch unimol --device cuda`` (15 layers, 512 wide, 64 heads, FFN
    2048, 128 Gaussian kernels; weights from ``--seed``) over an indexed
@@ -116,14 +124,27 @@ result line):
    the JAX package's int8 bound, 0.05 of the logit absmax; every request's
    drift sampled) and exactly 49 W8A8 dense, 12 int8 softmax, 1 int8
    LayerNorm and 25 norm launches per batch and no full-row attention (the
-   drift probe's launches, counted apart, subtracted; the probe's own held
+   drift probe's launches counted apart; the probe's own held
    to the quantized plus the fp32 forward's); two answers held against the
    same checkpoint quantized in this process on the CPU from the server's
    sidecar (ids 99% equal, scores 1e-3 relative); in this process the
    served forward of a full top-bucket batch, int8 and fp32 on the same
    weights, timed and profiled (``quant_profile``: device ms by kernel
    group, idle share); then a ``--serve-quantize fp8`` server (4 requests; drift below 0.15; 12 full-row and 25 norm
-   launches per batch, no W8A8 dense); each drains on SIGTERM and exits 0;
+   launches per batch, no W8A8 dense); each drains on SIGTERM and exits 0.
+   The int8 server serves a copy of the checkpoint with ``--reload-interval
+   0.5``: after its main path, 4a's weights moved by a seeded 0.01 N(0, 1)
+   are published onto it (copy + ``os.replace``) while requests are in
+   flight: the ``QUANT-PATH ... reload candidate re-calibrated`` line,
+   ``RELOAD SWAPPED``, ``reloads_applied`` 1, the candidate's calibration
+   drift below 0.05, every request in flight answered 200, phase 8's int8
+   launches in each of 4 batches after the swap, two answers after the
+   swap against the candidate quantized on the CPU (scores 5e-3 relative,
+   above the 1.25e-3 measured on the card; the distance from the fp32
+   candidate is printed beside it; ids 99% where the CPU's top-2 gap
+   exceeds twice that of the logit absmax), the journal's ``reload-calibrated``, ``swapped`` and
+   ``swapped-in``, the device memory's peak (``quant_serve_int8``'s
+   ``reload``);
 9. causal-LM training with the run control — 9a: ``python -m
    unicore_tpu_torch.cli.train --task causal_lm --arch transformer_lm
    --loss lm_cross_entropy --device cuda`` (6 layers, 768 wide, 12 heads,
@@ -145,9 +166,7 @@ result line):
    ``--save-dir`` for updates 11-20: ``resumed_from_update`` 10, lrs equal
    to 9a's, per-update losses and the update-20 valid loss within 1e-4
    relative (the full-row backward sums dbias by atomics, so the card is
-   not bit-exact run to run); 9c: 9a's ``checkpoint_last.pt`` served as
-   phase 7 serves its checkpoint, 8 ``/v1/generate`` requests covering
-   every cache bucket, two held against the CPU teacher-forced; 9d: a
+   not bit-exact run to run); 9d: a
    2-layer full-width ``transformer_lm`` trained on the card and on the CPU
    from the same weights and batches, 3 updates at L=256 (the full-row
    kernels, attention dropout 0.1) and 3 at L=200 with
@@ -235,7 +254,35 @@ result line):
    nonzero exit, ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``,
    and the train CLI's restore decision picks the latter (update 10)
    (``robust_preempt``);
-13. a ``missing_device_times`` line naming any phase-3 check whose device
+13. the serving control plane -- 13a: 10a's ``checkpoint_last.pt`` (bf16
+   weights) served in bf16 (batch 8, buckets 128/256/384/512) under
+   ``--fault-inject request-flood:400@2 --admission-capacity 16
+   --default-deadline-ms 40``: the log names the bf16 weights served in
+   bf16; phase 4's launches per batch (12 full-row, 26 norm forwards) in
+   bf16; during the flood's 10 s, probes of 200 ms every 0.1 s answered
+   within their deadlines or shed with named reasons, sheds in ``/stats``,
+   ``/metrics`` and the journal; then phase 4's requests as phase 4 sends
+   them (client p50/p99 beside phase 4's fp32 server); two answers held
+   against the same checkpoint served in bf16 on the CPU (ids 99%, scores
+   2e-2 relative, the measured error printed); SIGTERM -> exit 0
+   (``bf16_serve``); 13b: 10b's ``checkpoint_1_10.pt`` served over
+   ``/v1/generate`` with phase 7's engine settings, ``--reload-interval
+   0.5 --fault-inject corrupt-reload@1``: 8 requests over every cache
+   bucket, exactly 6 launches of the decode attention's bf16-query variant
+   a decode step (a bf16 q and bias row against the fp32 pool), 6 full-row
+   forwards a prefill batch, 14 norm forwards a dispatch; two generations
+   teacher-forced on the CPU in bf16 (top-2 gap 0.5); 10b's resumed
+   ``checkpoint_last.pt`` published while generations are in flight:
+   ``RELOAD ROLLBACK (rejected:verify)``, re-published: ``RELOAD
+   SWAPPED``, every generation answered 200; the journal's
+   ``rejected:verify``, ``swapped`` and ``swapped-in``; 10b's first
+   checkpoint re-published (a second swap); the ``/metrics`` decode
+   gauges; the device memory after the swap within 5% of before, and after
+   the second swap within 0.5% of after the first (no leak per reload);
+   tokens/s and token p50/p99 beside phase 7's fp32 server
+   (``lm_bf16_serve``);
+14. a ``phase_seconds`` line (every phase's seconds), a
+   ``missing_device_times`` line naming any phase-3 check whose device
    time the profiler did not read (an empty profile is retried), the
    ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
    last, the ``{"ok": true, "device": ...}`` line.
@@ -272,7 +319,11 @@ positions and junk rows past them, and at the 128 bucket, each with the
 split count its wrapper chose, and a second call on the same inputs
 (mixed positions, a chunk of -inf bias) that must equal the first bit for
 bit; its yardstick is SDPA over the single query row with the bias row and
-the dead rows in a float mask (int8: the dequant, then SDPA).  And it holds
+the dead rows in a float mask (int8: the dequant, then SDPA).  Its
+bf16-query variant (a bf16 LM's step: a bf16 q and a bf16 bias row
+against the fp32 pool, and against int8 caches) at the same shape, with
+mixed positions and the repeat; its yardstick SDPA in fp32 on the query
+cast (the ``decode_attention_bf16q`` row of the ``kernels`` line).  And it holds
 the three int8 serving kernels at BERT-base serving shapes (8 x 512 = 4096
 rows): the W8A8 dense against ``quant_matmul_plain`` at every dense site
 of a served batch -- ``in_proj`` (768 -> 2304), ``out_proj`` (768 -> 768),
@@ -310,7 +361,7 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 12 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 13 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -320,6 +371,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -395,6 +447,11 @@ KERNELS = {
                            "unicore_tpu_torch/csrc/flash_attention.cu", "evoformer_train"),
     "decode_attention": ("unicore_tpu/ops/decode_attention.py:98",
                          "unicore_tpu_torch/csrc/decode_attention.cu", "decode_serve"),
+    # the same TPU kernel's bf16-query variant (a bf16 q and bias against the
+    # fp32 pool), on the bf16 LM's served decode step (phase 13b)
+    "decode_attention_bf16q": ("unicore_tpu/ops/decode_attention.py:98",
+                               "unicore_tpu_torch/csrc/decode_attention.cu",
+                               "lm_bf16_serve"),
     "quant_matmul": ("unicore_tpu/ops/quant_matmul.py:147",
                      "unicore_tpu_torch/csrc/quant_matmul.cu", "quant_serve"),
     "quant_layer_norm": ("unicore_tpu/ops/fused_norm.py:281",
@@ -409,8 +466,12 @@ KERNELS = {
 }
 
 
+#: the monotonic clock when the script started, for each log line's stamp
+T0 = time.monotonic()
+
+
 def log(msg):
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke {time.monotonic() - T0:.1f}s] {msg}", flush=True)
 
 
 def nvidia_smi():
@@ -533,10 +594,38 @@ def device_ms(torch, fn, iters=20):
     return device_profile(torch, fn, iters)[0]
 
 
-def timed(res, key, torch, fn, device, iters):
+#: past a kernel's first two checks (the main path's shape, whose numbers the
+#: ``kernels`` line carries, and the next), a check is lean: a plain version
+#: slower than this a call goes unmeasured, and the library call's flushed
+#: profile too, for the script's time limit; the library call is always timed
+LEAN_PLAIN_MS = 0.5
+
+
+def too_slow(torch, fn, device):
+    """Whether one warmed call of ``fn`` on the card takes over
+    :data:`LEAN_PLAIN_MS`."""
+    if device.type != "cuda":
+        return False
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize(device)
+    return (time.perf_counter() - t0) * 1e3 > LEAN_PLAIN_MS
+
+
+def timed(res, key, torch, fn, device, iters, lean=False):
     """res[key], res[<key>_spread]: ms per call by :func:`time_ms`; on the
-    card also res[<key with device_ms>]: :func:`device_ms`."""
-    res[key], res[key.replace("ms", "ms_spread")] = time_ms(torch, fn, device, iters)
+    card also res[<key with device_ms>]: :func:`device_ms`.  With ``lean``, a
+    call of ``fn`` over :data:`LEAN_PLAIN_MS` is not measured (all three
+    None), and a faster one over 3 repeats of ~25 ms."""
+    if lean and too_slow(torch, fn, device):
+        res[key] = res[key.replace("ms", "ms_spread")] = None
+        res[key.replace("ms", "device_ms")] = None
+        return
+    res[key], res[key.replace("ms", "ms_spread")] = (
+        time_ms(torch, fn, device, iters, repeats=3, budget_ms=25.0) if lean
+        else time_ms(torch, fn, device, iters))
     # a call over 1 ms (a plain version) is profiled over fewer calls, ~20 ms
     n = 20 if res[key] <= 1.0 else max(4, int(20.0 / res[key]))
     res[key.replace("ms", "device_ms")] = (
@@ -631,7 +720,7 @@ def attention_inputs(torch, device, B, H, L, D, dtype, seed, causal=False,
 
 
 def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234,
-                    causal=False, bias_dtype=None):
+                    causal=False, bias_dtype=None, lean=False):
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import attention_fullrow as fr
@@ -664,7 +753,7 @@ def check_attention(torch, device, B, H, L, D, dtype, iters, rate=0.0, seed=1234
            "tolerance": tol if dtype != torch.bfloat16 else
            f"{tol} + {BF16_ULPS} x |ref| (bf16)"}
     timed(res, "ms", torch, call, device, iters)
-    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
     timed(res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=attn_mask, scale=1.0, dropout_p=rate), device, iters)
     nbytes = (4 * B * H * L * D * q.element_size() + bias.numel() * bias.element_size()
@@ -698,7 +787,7 @@ def check_dropout_mask(torch, device, B, H, rate, seed):
 
 
 def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321,
-                        causal=False, bias_dtype=None):
+                        causal=False, bias_dtype=None, lean=False):
     """The backward against autograd of the plain version (fp32) or the
     plain backward with the kernel's roundings (bf16); with ``causal``
     (the LM's bias, which needs a gradient) also dbias exactly 0 above the
@@ -772,7 +861,7 @@ def check_attention_bwd(torch, device, B, H, L, D, dtype, iters, rate, seed=4321
     timed(res, "plain_ms", torch, backward_call(
         torch, lambda: fr.fullrow_attention_plain(*leaves[:3], leaves[3], mask, 1.0,
                                                   rate, seed),
-        leaves, do), device, slow_iters)
+        leaves, do), device, slow_iters, lean=lean)
     lib_mask = attn_mask.clone().requires_grad_(True)
     timed(res, "library_ms", torch, backward_call(
         torch, lambda: F.scaled_dot_product_attention(
@@ -798,7 +887,7 @@ def norm_inputs(torch, device, N, D, dtype, wdtype=None):
     return x, dy, w, b
 
 
-def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
+def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None, lean=False):
     """The norm forward (#7) in its two forms against ``fused_norm_plain``:
     serving (no gradient: y alone) and training (the autograd Function,
     which also writes the fp32 row statistics); on the card the statistics
@@ -854,7 +943,7 @@ def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
     training = {}
     timed(res, "ms", torch, call, device, iters)
     timed(training, "ms", torch, train, device, iters)
-    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
     if lib is None:
         res["library_ms"] = res["library_ms_spread"] = res["library_device_ms"] = None
     else:
@@ -869,7 +958,7 @@ def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
             if out["device_ops"] is not None and out["device_ops"] > 1.0:
                 raise AssertionError(f"{name}: {out['device_ops']} device operations a "
                                      f"{form} call, want one")
-        if lib is not None:
+        if lib is not None and not lean:
             res["library_device_ms_flushed"], _ = device_profile(torch, lib, flush=flush)
     nbytes = 2 * N * D * x.element_size() + D * w.element_size() * (1 if rms else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 8 * N * D, "float32")
@@ -884,7 +973,7 @@ def check_norm(torch, device, N, D, dtype, rms, iters, wdtype=None):
     return res
 
 
-def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
+def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None, lean=False):
     """The norm backward (#8 dx and #9 dw/db as one call: a pass
     over x and dy, then the partials' sum): through autograd against
     autograd of the plain forward, each gradient in its input's type (dw,
@@ -944,7 +1033,7 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
               "rms": rms, "same_bits_twice": same_bits,
               "launch": "fused_norm_bwd: one pass (dx, dw/db partials) + the partials' sum"}
     timed(shared, "ms", torch, call, device, iters)
-    timed(shared, "plain_ms", torch, plain, device, iters)
+    timed(shared, "plain_ms", torch, plain, device, iters, lean=lean)
     if rms and not hasattr(F, "rms_norm"):
         shared.update(library_ms=None, library_ms_spread=None, library_device_ms=None)
         lib_call = None
@@ -962,7 +1051,7 @@ def check_norm_bwd(torch, device, N, D, dtype, rms, iters, wdtype=None):
         flush = l2_flush(torch, device)
         _, shared["device_ops"] = device_profile(torch, call)
         shared["device_ms_flushed"], _ = device_profile(torch, call, flush=flush)
-        if lib_call is not None:
+        if lib_call is not None and not lean:
             shared["library_device_ms_flushed"], shared["library_device_ops"] = \
                 device_profile(torch, lib_call, flush=flush)
     item, witem = x.element_size(), w.element_size()
@@ -1007,7 +1096,7 @@ def softmax_inputs(torch, device, c, dtype, seed):
     return x, mask, bias, dy
 
 
-def check_softmax(torch, device, c, dtype, iters, seed=1234):
+def check_softmax(torch, device, c, dtype, iters, seed=1234, lean=False):
     """The softmax(+dropout) forward and backward kernels against
     ``softmax_dropout_plain`` (autograd for the backward in fp32; in bf16
     ``softmax_dropout_bwd_plain``, which keeps dp in fp32 as the kernel
@@ -1073,7 +1162,7 @@ def check_softmax(torch, device, c, dtype, iters, seed=1234):
 
     slow_iters = max(iters // 4, 2)
     timed(f_res, "ms", torch, call_fwd, device, iters)
-    timed(f_res, "plain_ms", torch, call_plain, device, slow_iters)
+    timed(f_res, "plain_ms", torch, call_plain, device, slow_iters, lean=lean)
     # no single PyTorch call takes softmax and dropout: torch.softmax at rate 0
     timed(f_res, "library_ms", torch, lambda: torch.softmax(x, -1), device, iters)
     f_res["bound_ms"], f_res["bound_by"] = bound_ms(2 * n * item + extra_bytes, 5 * n,
@@ -1091,7 +1180,7 @@ def check_softmax(torch, device, c, dtype, iters, seed=1234):
     lb = next(it) if bias is not None else None
     timed(b_res, "plain_ms", torch, backward_call(
         torch, lambda: sd.softmax_dropout_plain(leaves[0], rate, lm, lb, seed), leaves, dy),
-        device, slow_iters)
+        device, slow_iters, lean=lean)
     lx = x.clone().requires_grad_(True)
     timed(b_res, "library_ms", torch, backward_call(
         torch, lambda: torch.softmax(lx, -1), [lx], dy), device, slow_iters)
@@ -1147,7 +1236,7 @@ def flash_inputs(torch, device, c, dtype, seed):
     return q, k, v, do, bias, mask, lib.to(dtype)
 
 
-def check_flash(torch, device, c, dtype, iters, seed=4321):
+def check_flash(torch, device, c, dtype, iters, seed=4321, lean=False):
     """The four flash kernels against ``flash_attention_plain``: the forward
     and its lse, then dq, dk, dv and dbias (fp32: against autograd of the
     plain version; bf16: against ``flash_attention_bwd_plain`` from the
@@ -1226,12 +1315,12 @@ def check_flash(torch, device, c, dtype, iters, seed=4321):
     timed(f_res, "ms", torch, lambda: public(q, k, v, *([bias] if bias is not None else [])),
           device, iters)
     timed(f_res, "plain_ms", torch, lambda: plain(q, k, v, *([bias] if bias is not None else [])),
-          device, slow_iters)
+          device, slow_iters, lean=lean)
     timed(f_res, "library_ms", torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=lib, scale=1.0, dropout_p=rate), device, iters)
     both = {}
     timed(both, "plain_ms", torch, backward_call(torch, lambda: plain(*leaves), leaves, do),
-          device, slow_iters)
+          device, slow_iters, lean=lean)
     lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, lib)]
     timed(both, "library_ms", torch, backward_call(
         torch, lambda: F.scaled_dot_product_attention(*lib_leaves[:3], attn_mask=lib_leaves[3],
@@ -1321,9 +1410,12 @@ def decode_inputs(torch, device, c, seed):
     """q (B, H, D) pre-scaled, caches (B, H, L, D), positions, a bias row and,
     for int8 caches, their (H, D) scales.  Every position is L - 1 unless
     ``mixed`` (0 .. L - 1 over the batch, with junk past each position: K
-    +1e6 / V -1e6, int8 +127 / -127).  Also the live rows over the batch."""
+    +1e6 / V -1e6, int8 +127 / -127).  Also the live rows over the batch.
+    The caches are in q's type unless ``kv`` names theirs, the bias fp32
+    unless ``bias`` names its type."""
     B, H, L, D = c["shape"]
     dtype = getattr(torch, c["dtype"])
+    kv_dtype = getattr(torch, c.get("kv", c["dtype"]))
     g = torch.Generator(device=device).manual_seed(seed)
     q = (torch.randn(B, H, D, generator=g, device=device) * D ** -0.5).to(dtype)
     k = torch.randn(B, H, L, D, generator=g, device=device)
@@ -1346,19 +1438,21 @@ def decode_inputs(torch, device, c, seed):
                         -127.0).to(torch.int8)
         scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
     else:
-        k = torch.where(live, k, 1e6).to(dtype)
-        v = torch.where(live, v, -1e6).to(dtype)
+        k = torch.where(live, k, 1e6).to(kv_dtype)
+        v = torch.where(live, v, -1e6).to(kv_dtype)
+    bias = bias.to(getattr(torch, c.get("bias", "float32")))
     return q, k, v, pos, bias, scales, int(pos.long().sum().item()) + B
 
 
-def check_decode(torch, device, c, iters, seed=5150):
+def check_decode(torch, device, c, iters, seed=5150, lean=False):
     """The decode attention against ``decode_attention_plain`` on the same
     inputs.  Its library yardstick is one ``scaled_dot_product_attention``
     over the (B, H, 1, D) query with the bias row and the dead rows folded
     into a float mask (int8: the dequant multiplies, then SDPA -- no one
-    PyTorch call fuses the dequant into the read).  The bound counts what
-    the kernel must move: q and out, every live K and V row with its bias
-    entry, the positions and the scales."""
+    PyTorch call fuses the dequant into the read; a bf16 q against fp32 or
+    int8 caches goes to SDPA cast to fp32, the one type SDPA takes for all
+    three).  The bound counts what the kernel must move: q and out, every
+    live K and V row with its bias entry, the positions and the scales."""
     import torch.nn.functional as F
 
     from unicore_tpu_torch.ops import decode_attention as da
@@ -1368,16 +1462,18 @@ def check_decode(torch, device, c, iters, seed=5150):
     call = lambda: da.decode_attention(q, k, v, pos, bias=bias, **scales)  # noqa: E731
     plain = lambda: da.decode_attention_plain(q, k, v, pos, bias=bias, **scales)  # noqa: E731
     dead = torch.arange(L, device=device)[None, None, None, :] > pos.long()[:, None, None, None]
-    mask = (bias[:, :, None] + torch.where(dead, float("-inf"), 0.0)).to(q.dtype)
+    # a bf16 q beside fp32 or int8 caches: SDPA in fp32 on the query cast
+    lib_dtype = torch.float32 if "bias" in c else q.dtype
+    mask = (bias.float()[:, :, None] + torch.where(dead, float("-inf"), 0.0)).to(lib_dtype)
     if scales:
         def lib():
-            kf = (k.float() * scales["k_scale"][None, :, None]).to(q.dtype)
-            vf = (v.float() * scales["v_scale"][None, :, None]).to(q.dtype)
-            return F.scaled_dot_product_attention(q[:, :, None], kf, vf, attn_mask=mask,
-                                                  scale=1.0)
+            kf = (k.float() * scales["k_scale"][None, :, None]).to(lib_dtype)
+            vf = (v.float() * scales["v_scale"][None, :, None]).to(lib_dtype)
+            return F.scaled_dot_product_attention(q[:, :, None].to(lib_dtype), kf, vf,
+                                                  attn_mask=mask, scale=1.0)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q[:, :, None], k, v, attn_mask=mask, scale=1.0)
+            q[:, :, None].to(lib_dtype), k, v, attn_mask=mask, scale=1.0)
     out, ref = call(), plain()
     bitwise = None
     if c.get("repeat"):  # the split partials combine in a fixed order
@@ -1396,21 +1492,23 @@ def check_decode(torch, device, c, iters, seed=5150):
     if not (ok and math.isfinite(err) and out.float().abs().max().item() < 100):
         raise AssertionError(f"{name}: kernel vs plain max abs err {err} (tol {tol})")
     res = {"name": c["name"], "shape": [B, H, L, D], "dtype": c["dtype"],
-           "kv": "int8" if scales else c["dtype"], "live_rows": live_rows,
+           "kv": "int8" if scales else c.get("kv", c["dtype"]),
+           "bias": c.get("bias", "float32"), "live_rows": live_rows,
            "splits": da.choose_splits(B * H, L), "max_abs_err": err, "tolerance": tol}
     if bitwise is not None:
         res["repeat_bitwise"] = bitwise
     timed(res, "ms", torch, call, device, iters)
-    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
     timed(res, "library_ms", torch, lib, device, iters)
     nbytes = (2 * q.numel() * q.element_size() + 4 * B
-              + live_rows * H * (2 * D * k.element_size() + 4) + 8 * H * D * bool(scales))
+              + live_rows * H * (2 * D * k.element_size() + bias.element_size())
+              + 8 * H * D * bool(scales))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 4 * live_rows * H * D, "float32")
     log(f"{name}: {json.dumps(res)}")
     return res
 
 
-def check_quant_matmul(torch, device, c, iters):
+def check_quant_matmul(torch, device, c, iters, lean=False):
     """#13 against ``quant_matmul_plain`` at one BERT-base dense site: int8
     x (M, K) and w (N, K), the combined scale, the site's bias and
     activation; fp32 out within 1e-6 of its absmax.  Yardstick: one
@@ -1447,7 +1545,7 @@ def check_quant_matmul(torch, device, c, iters):
            "bias": bool(c["bias"]), "tile": [qm.TILE_M, qm.choose_tile_n(M, N, K)],
            "max_abs_err": err, "tolerance": "1e-6 x max|ref|"}
     timed(res, "ms", torch, call, device, iters)
-    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2))
+    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2), lean=lean)
     try:
         library()
         timed(res, "library_ms", torch, library, device, iters)
@@ -1463,7 +1561,7 @@ def check_quant_matmul(torch, device, c, iters):
     return res
 
 
-def check_quant_norm(torch, device, N, D, per_channel, iters):
+def check_quant_norm(torch, device, N, D, per_channel, iters, lean=False):
     """7q against ``quant_layer_norm_plain``: int8 (N, D) dequantized by one
     scale or (D,) of them; tolerance the fp32 norm's.  Yardstick: the
     dequant multiply and one ``F.layer_norm``.  On the card also device ms
@@ -1491,13 +1589,14 @@ def check_quant_norm(torch, device, N, D, per_channel, iters):
     res = {"shape": [N, D], "dtype": "int8", "per_channel_scale": per_channel,
            "max_abs_err": err, "tolerance": tol}
     timed(res, "ms", torch, call, device, iters)
-    timed(res, "plain_ms", torch, plain, device, iters)
+    timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
     timed(res, "library_ms", torch, library, device, iters)
     if device.type == "cuda":
         flush = l2_flush(torch, device)
         _, res["device_ops"] = device_profile(torch, call)
         res["device_ms_flushed"], _ = device_profile(torch, call, flush=flush)
-        res["library_device_ms_flushed"], _ = device_profile(torch, library, flush=flush)
+        if not lean:
+            res["library_device_ms_flushed"], _ = device_profile(torch, library, flush=flush)
     nbytes = N * D + 4 * N * D + 4 * D * (3 if per_channel else 2)
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 9 * N * D, "float32")
     for key in ("device_ms", "device_ms_flushed"):
@@ -1507,7 +1606,7 @@ def check_quant_norm(torch, device, N, D, per_channel, iters):
     return res
 
 
-def check_quant_softmax(torch, device, c, iters):
+def check_quant_softmax(torch, device, c, iters, lean=False):
     """10q against ``quant_softmax_dropout_plain``: int32 (or int8) scores of
     BERT serving, one device scale, the ``finfo.min`` key mask of padded
     rows (B, 1, 1, L) and the rel-pos bias (1, H, L, L); tolerance the fp32
@@ -1540,7 +1639,7 @@ def check_quant_softmax(torch, device, c, iters):
     res = {"shape": list(shape), "dtype": c["dtype"], "mask": list(mask.shape),
            "bias": list(bias.shape), "max_abs_err": err, "tolerance": tol}
     timed(res, "ms", torch, call, device, iters)
-    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2))
+    timed(res, "plain_ms", torch, plain, device, max(iters // 4, 2), lean=lean)
     timed(res, "library_ms", torch, library, device, max(iters // 4, 2))
     n = x.numel()
     nbytes = n * x.element_size() + 4 * n + 4 * (mask.numel() + bias.numel())
@@ -1556,7 +1655,7 @@ def _bits_equal(torch, a, b):
     return bool(torch.equal(a.view(view), b.view(view)))
 
 
-def check_l2norm(torch, device, n, iters):
+def check_l2norm(torch, device, n, iters, lean=False):
     """K-a (``multi_tensor_l2norm``) on an fp32 buffer of ``n`` elements,
     each divided by a device scalar inside the reduction, against its plain
     version and ``torch.linalg.vector_norm`` of the divided buffer (1e-6
@@ -1581,14 +1680,14 @@ def check_l2norm(torch, device, n, iters):
     if n >= 1_000_000 or device.type != "cuda":
         iters = min(iters, 20)
         timed(res, "ms", torch, call, device, iters)
-        timed(res, "plain_ms", torch, plain, device, iters)
+        timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
         timed(res, "library_ms", torch, lib, device, iters)
     res["bound_ms"], res["bound_by"] = bound_ms(4 * n, 2 * n, "float32")
     log(f"multi_tensor_l2norm n={n}: {json.dumps(res)}")
     return res
 
 
-def check_fused_adam(torch, device, n, kind, iters):
+def check_fused_adam(torch, device, n, kind, iters, lean=False):
     """K-b (``fused_adam``) on a flat group of ``n`` elements -- two
     segments, the first decayed, the clip read from K-a's norm, the
     gradient divided by a device scalar -- with fp32 parameters (the master
@@ -1648,8 +1747,12 @@ def check_fused_adam(torch, device, n, kind, iters):
         plain = lambda: mt.fused_adam_plain(bufs[0], bufs[1], bufs[2], grad, segs, hp,  # noqa
                                             bufs[3], **kw)
         timed(res, "ms", torch, call, device, iters)
-        res["plain_ms"], res["plain_ms_spread"] = time_ms(torch, plain, device, 2, 1, 3)
-        res["plain_device_ms"] = device_ms(torch, plain, 2) if device.type == "cuda" else None
+        if lean and too_slow(torch, plain, device):
+            res["plain_ms"] = res["plain_ms_spread"] = res["plain_device_ms"] = None
+        else:
+            res["plain_ms"], res["plain_ms_spread"] = time_ms(torch, plain, device, 2, 1, 3)
+            res["plain_device_ms"] = (device_ms(torch, plain, 2) if device.type == "cuda"
+                                      else None)
         timed(res, "library_ms", torch, foreach_path, device, iters)
     # g read; m, v, master read and written; a bf16 parameter written
     nbytes = n * (4 + 8 + 8 + 8 + (2 if param is not None else 0))
@@ -2375,19 +2478,26 @@ def http(method, url, payload=None, timeout=120.0):
         return err.code, json.loads(err.read())
 
 
-def cpu_reference(torch, path, rows, bucket, pad_idx):
-    """ids/score for ``rows`` padded to ``bucket``: the same checkpoint
-    loaded in this process on the CPU, through the plain versions."""
-    import numpy as np
-
+def load_serving_model_cpu(torch, path):
+    """The checkpoint's model on the CPU in its own dtype, as the server
+    loads it, in eval mode."""
     from unicore_tpu_torch import checkpoint_utils, tasks
-    from unicore_tpu_torch.serve import build_infer_fn
 
     state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
-    task = tasks.setup_task(state["args"])
-    model = task.build_model(state["args"])
-    model.load_state_dict(state["model"])
-    model.eval()
+    model = tasks.setup_task(state["args"]).build_model(state["args"])
+    model.load_state_dict(state["model"], assign=True)
+    return model.eval()
+
+
+def cpu_reference(torch, path, rows, bucket, pad_idx):
+    """ids/score for ``rows`` padded to ``bucket``: the same checkpoint
+    loaded in this process on the CPU in its own dtype (as the server loads
+    it), through the plain versions."""
+    import numpy as np
+
+    from unicore_tpu_torch.serve import build_infer_fn
+
+    model = load_serving_model_cpu(torch, path)
     arr = np.full((len(rows), bucket), pad_idx, np.int32)
     for i, r in enumerate(rows):
         arr[i, : len(r)] = r
@@ -2396,7 +2506,8 @@ def cpu_reference(torch, path, rows, bucket, pad_idx):
 
 class Server:
     """``python -m unicore_tpu_torch.cli.serve`` on ``path``: batch size
-    and buckets from ``argv`` (the BERT serving path's by default)."""
+    and buckets from ``argv`` (the BERT serving path's by default), which
+    come after the deadline defaults and so may override them."""
 
     def __init__(self, path, cfg, argv=None, name="serve"):
         self.log_path = WORK / f"{name}.log"
@@ -2408,8 +2519,8 @@ class Server:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "unicore_tpu_torch.cli.serve",
              "--path", str(path), "--device", cfg["device"].type, "--port", "0",
-             *argv, "--default-deadline-ms", "120000",
-             "--max-deadline-ms", "120000", "--drain-deadline", "120"],
+             "--default-deadline-ms", "120000", "--max-deadline-ms", "120000",
+             "--drain-deadline", "120", *argv],
             stdout=self._log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
         )
         self.base = None
@@ -2444,6 +2555,91 @@ class Server:
         self._log.close()
 
 
+def scrape_metrics(base):
+    """``GET /metrics`` parsed: {name or name{labels}: value}.  Raises on a
+    line that is not a comment or one sample."""
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        if not r.headers["Content-Type"].startswith("text/plain; version=0.0.4"):
+            raise AssertionError(f"/metrics content type {r.headers['Content-Type']}")
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, value = line.rsplit(" ", 1)
+        out[key] = float(value)
+    return out
+
+
+def metrics_match_stats(m, stats):
+    """The served, batch and shed counters of ``/metrics`` equal ``/stats``'s."""
+    shed = {k[len('unicore_tpu_serve_shed_total{reason="'):-2]: v for k, v in m.items()
+            if k.startswith("unicore_tpu_serve_shed_total{")}
+    if (m.get("unicore_tpu_serve_served_total") != stats["served"]
+            or m.get("unicore_tpu_serve_batches_total") != stats["batches"]
+            or shed != {k: float(v) for k, v in stats["shed"].items()}):
+        raise AssertionError(f"/metrics {m} against /stats {stats}")
+
+
+def journal_events(path):
+    """The serve journal beside the served checkpoint (the CLI's default
+    ``<dirname(--path)>/telemetry``)."""
+    jpath = Path(path).parent / "telemetry" / "events_rank0_serve.jsonl"
+    return [json.loads(line) for line in jpath.read_text().splitlines() if line.strip()]
+
+
+def publish(src, dst):
+    """A checkpoint published as training publishes one: copy, then
+    ``os.replace`` (a new inode)."""
+    tmp = Path(str(dst) + ".publishing")
+    shutil.copy(src, tmp)
+    os.replace(tmp, dst)
+
+
+def wait_log(server, text, budget=300.0, count=1):
+    """Wait until ``text`` stands in the server's log ``count`` times."""
+    deadline = time.monotonic() + budget
+    while time.monotonic() < deadline:
+        if server.log_text().count(text) >= count:
+            return
+        if server.proc.poll() is not None:
+            break
+        time.sleep(0.2)
+    raise AssertionError(f"{text!r} never logged:\n{server.log_text()[-6000:]}")
+
+
+class KeepSending:
+    """Requests sent back to back from ``workers`` threads until
+    :meth:`stop`: the traffic in flight across a hot reload.  ``stop``
+    returns every (code, body)."""
+
+    def __init__(self, url, payloads, workers=4):
+        import threading
+
+        self._stop = threading.Event()
+        self.results = []
+        self._lock = threading.Lock()
+
+        def run(k):
+            i = k
+            while not self._stop.is_set():
+                res = http("POST", url, payloads[i % len(payloads)])
+                with self._lock:
+                    self.results.append(res)
+                i += workers
+
+        self._threads = [threading.Thread(target=run, args=(k,), daemon=True)
+                         for k in range(workers)]
+        for t in self._threads:
+            t.start()
+
+    def stop(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=300)
+        return self.results
+
+
 def drive_slice(torch, cfg, path, card, smi):
     import numpy as np
 
@@ -2455,7 +2651,11 @@ def drive_slice(torch, cfg, path, card, smi):
     task = tasks.setup_task(state["args"])
     vocab, pad = len(task.dictionary), task.dictionary.pad()
     del state
-    server = Server(path, cfg)
+    # the chaos plane's slow client: the first request after the second
+    # batch stalls 3 s mid-body against a 1 s read budget
+    server = Server(path, cfg, ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets",
+                                "4", "--fault-inject", "slow-client:3@2",
+                                "--request-read-timeout", "1"])
     try:
         server.wait_ready(cfg["ready_budget_s"])
         log(f"server ready at {server.base} after {time.monotonic() - t0:.1f}s")
@@ -2470,13 +2670,20 @@ def drive_slice(torch, cfg, path, card, smi):
             code, body = http("POST", server.base + "/v1/infer", {"tokens": toks})
             return code, body, (time.monotonic() - t) * 1e3
 
-        # the first half one at a time, the rest concurrently
+        # the first half one at a time, the rest concurrently; the one
+        # request the slow client stalled is answered 408 with its reason
+        # and sent again
         half = len(reqs) // 2
         results = [send(r) for r in reqs[:half]]
+        slow = [i for i, (code, _, _) in enumerate(results) if code == 408]
+        if len(slow) != 1 or results[slow[0]][1] != {"status": "shed", "reason": "slow-client"}:
+            raise AssertionError(f"want one 408 slow-client answer: {[r[:2] for r in results]}")
+        results[slow[0]] = send(reqs[slow[0]])
         with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
             results += list(pool.map(send, reqs[half:]))
         code, after = http("GET", server.base + "/stats")
         assert code == 200, after
+        metrics_match_stats(scrape_metrics(server.base), after)
 
         buckets = set()
         for toks, (code, body, _) in zip(reqs, results):
@@ -2528,16 +2735,24 @@ def drive_slice(torch, cfg, path, card, smi):
         rc = server.proc.wait(timeout=180)
         if rc != 0:
             raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
+        kinds = [(e["kind"], e.get("role") or e.get("reason") or e.get("outcome"))
+                 for e in journal_events(path)]
+        for want in (("run-start", "serve"), ("serve-shed", "slow-client"),
+                     ("serve-drain", "complete")):
+            if want not in kinds:
+                raise AssertionError(f"journal lacks {want}: {kinds}")
         lat = np.asarray([r[2] for r in results])
         serve = {
             "requests": len(reqs), "batches": batches,
             "client_p50_ms": float(np.percentile(lat, 50)),
             "client_p99_ms": float(np.percentile(lat, 99)),
             "server_p50_ms": after.get("p50_ms"), "server_p99_ms": after.get("p99_ms"),
+            "slow_client_408": slow[0], "metrics_match_stats": True,
+            "journal_events": len(kinds),
             "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
         }
         print("serve " + json.dumps(serve), flush=True)
-        return launches
+        return serve
     finally:
         server.stop()
 
@@ -2569,26 +2784,23 @@ def write_lm_checkpoint(torch, cfg, data):
 
 
 def load_lm(torch, path, device):
-    from unicore_tpu_torch import checkpoint_utils, tasks
-
-    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
-    model = tasks.setup_task(state["args"]).build_model(state["args"])
-    model.load_state_dict(state["model"])
-    return model.to(device).eval()
+    return load_serving_model_cpu(torch, path).to(device)
 
 
-def decode_launch_check(cfg, before, after):
+def decode_launch_check(cfg, before, after, decode="decode_attention"):
     """The server's launches between two ``/stats`` reads against the decode
-    arithmetic: per decode step one decode attention a layer; per prefill
-    batch one full-row attention forward a layer; per dispatch (either) two
-    norm forwards a layer plus the embedding and final norms; no other
-    launch (no backward, no flash or softmax kernel).  On the CPU: none."""
+    arithmetic: per decode step one decode attention a layer (``decode``
+    names the counter: the bf16-query variant's for a bf16 model); per
+    prefill batch one full-row attention forward a layer; per dispatch
+    (either) two norm forwards a layer plus the embedding and final norms;
+    no other launch (no backward, no flash or softmax kernel).  On the CPU:
+    none."""
     layers = cfg["decode"]["layers"]
     steps = after["decode_steps"] - before["decode_steps"]
     prefills = after["prefill_batches"] - before["prefill_batches"]
     launches = {k: n - before["kernel_launches"].get(k, 0)
                 for k, n in after["kernel_launches"].items()}
-    want = {"decode_attention": layers * steps, "fullrow_attention_fwd": layers * prefills,
+    want = {decode: layers * steps, "fullrow_attention_fwd": layers * prefills,
             "fused_norm_fwd": (2 * layers + 2) * (steps + prefills)}
     if cfg["device"].type != "cuda":
         want = {}
@@ -2637,7 +2849,7 @@ def drive_decode_serving(torch, cfg, path, lm, card, smi, kv, lengths=None, tag=
     launch arithmetic from ``/stats``; with fp32 KV two served generations
     held against the CPU; SIGTERM drains and exits 0.  Prints the ``tag``
     line (``decode_serve`` / ``decode_serve_int8`` by default) and returns
-    the server's launches."""
+    it (the server's launches under ``launches``)."""
     import threading
 
     import numpy as np
@@ -2744,7 +2956,7 @@ def drive_decode_serving(torch, cfg, path, lm, card, smi, kv, lengths=None, tag=
             "arch": d["arch"], "card": card, "nvidia_smi": smi,
         }
         print(f"{tag} " + json.dumps(res), flush=True)
-        return launches
+        return res
     finally:
         server.stop()
 
@@ -2786,6 +2998,38 @@ def load_quantized(torch, path, mode, device):
         model.clone(quantize=mode),
         calibrate.prepare(model.state_dict(), doc["sites"], mode))
     return model.to(device), model_q.to(device)
+
+
+def cpu_logits(torch, model, rows, bucket, pad_idx):
+    """(logits, ids, score) of ``model`` on the CPU for ``rows`` padded to
+    ``bucket``: the engine's ids and score, and the fp32 logits behind them."""
+    import numpy as np
+
+    arr = np.full((len(rows), bucket), pad_idx, np.int32)
+    for i, r in enumerate(rows):
+        arr[i, : len(r)] = r
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(arr, dtype=torch.long)).float()
+    ids = logits.argmax(dim=-1).numpy()
+    score = logits.amax(dim=-1).mean(dim=-1).numpy()
+    return logits.numpy(), ids, score
+
+
+def gapped_agreement(answers, logits, ids, gap):
+    """Served ids against the CPU's at the positions whose CPU top-2 logit
+    gap exceeds ``gap`` (a near tie may break either way under the path's
+    own rounding): (equal, compared, excluded)."""
+    import numpy as np
+
+    agree = total = excluded = 0
+    for row, body in enumerate(answers):
+        got = np.asarray(body["output"])
+        top2 = np.sort(logits[row, : len(got)], axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > gap
+        agree += int((got[clear] == ids[row, : len(got)][clear]).sum())
+        total += int(clear.sum())
+        excluded += int((~clear).sum())
+    return agree, total, excluded
 
 
 def cpu_quant_reference(torch, path, mode, rows, bucket, pad_idx):
@@ -2866,13 +3110,126 @@ def profile_serve_batches(torch, cfg, path, card, smi):
     print("quant_profile " + json.dumps(out), flush=True)
 
 
+def write_moved_checkpoint(torch, src, dst, seed, scale=0.01):
+    """``src``'s checkpoint with every float weight moved by
+    ``scale`` * N(0, 1) drawn from ``seed``: a hot-reload candidate of the
+    same arch whose scales must be re-derived."""
+    from unicore_tpu_torch import checkpoint_utils
+
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(src))
+    g = torch.Generator().manual_seed(seed)
+    weights = {k: (v + scale * torch.randn(v.shape, generator=g)).to(v.dtype)
+               if v.is_floating_point() else v for k, v in state["model"].items()}
+    checkpoint_utils.write_checkpoint(str(dst), state["args"], weights,
+                                      optimizer_history=[{"num_updates": 1000 + seed}])
+    return dst
+
+
+def quant_reload(torch, cfg, server, path, reqs, vocab, pad):
+    """Phase 8's hot reload of the int8 server: 4a's weights moved by a
+    seeded 0.01 N(0, 1), published onto ``--path`` while requests are in
+    flight; the candidate re-calibrated on the card while the old twin
+    serves, swapped on a batch boundary; every request in flight answered
+    200; the int8 path's launches in each batch after the swap; two answers
+    after the swap against the candidate quantized on the CPU from the
+    re-derived sidecar.  Returns the ``reload`` record."""
+    import numpy as np
+
+    q = cfg["quant_serve"]
+    cand = write_moved_checkpoint(torch, path, Path(path).parent / "candidate.pt",
+                                  cfg["seed"] + 80)
+    in_flight = KeepSending(server.base + "/v1/infer",
+                            [{"tokens": r} for r in reqs], workers=4)
+    t0 = time.monotonic()
+    try:
+        publish(cand, path)
+        wait_log(server, "RELOAD SWAPPED")
+    finally:
+        answered = in_flight.stop()
+    reload_s = time.monotonic() - t0
+    text = server.log_text()
+    recal = next((ln for ln in text.splitlines()
+                  if "QUANT-PATH int8: reload candidate re-calibrated" in ln), None)
+    if recal is None:
+        raise AssertionError(f"no reload-calibrated QUANT-PATH line:\n{text[-6000:]}")
+    bad = [(c, b) for c, b in answered if c != 200]
+    if bad or not answered:
+        raise AssertionError(f"requests in flight across the reload: {len(answered)} sent, "
+                             f"not 200: {bad[:5]}")
+    code, st = http("GET", server.base + "/stats")
+    quant = st["quant"]
+    if st["reloads_applied"] != 1 or quant["source"] != "calibrated" \
+            or quant["rel_drift"] >= q["rel_drift_bound"]["int8"]:
+        raise AssertionError(f"after the reload: reloads_applied {st['reloads_applied']}, "
+                             f"quant {quant}")
+    # the swapped-in twin's launches over a few batches: the int8 path's
+    # (the drift probe's and the reload thread's counted apart)
+    small = sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:2]
+    more = sorted(range(len(reqs)), key=lambda i: -len(reqs[i]))[:2]
+    code, before = http("GET", server.base + "/stats")
+    after = [http("POST", server.base + "/v1/infer", {"tokens": reqs[i]})[1]
+             for i in small + more][:2]
+    code, st2 = http("GET", server.base + "/stats")
+    batches = st2["batches"] - before["batches"]
+    launches = {k: n - before["kernel_launches"].get(k, 0)
+                for k, n in st2["kernel_launches"].items()}
+    per_batch = quant_per_batch(q["layers"], "int8")
+    if cfg["device"].type == "cuda":
+        for k, n in per_batch.items():
+            if batches <= 0 or launches.get(k, 0) != n * batches:
+                raise AssertionError(f"after the swap {k}: {launches.get(k, 0)} launches for "
+                                     f"{batches} batches, want {n} per batch")
+    # the candidate's answers against it quantized on the CPU from the
+    # sidecar the reload re-derived (ids where the CPU's top-2 gap exceeds
+    # twice the score bound of the logit absmax; the score relative), and
+    # their distance from the fp32 candidate on the CPU, for the record
+    bucket = min(b["bucket"] for b in after)
+    model, model_q = load_quantized(torch, path, "int8", "cpu")
+    rows = [reqs[i] for i in small]
+    logits, ids, score = cpu_logits(torch, model_q, rows, bucket, pad)
+    score_fp32 = cpu_logits(torch, model, rows, bucket, pad)[2]
+    del model, model_q
+    bound = q["reload_score_rel"]
+    gap = 2 * bound * float(np.abs(logits).max())
+    agree, total, excluded = gapped_agreement(after, logits, ids, gap)
+    rel = [abs(b["score"] - float(score[row])) / max(abs(float(score[row])), 1e-6)
+           for row, b in enumerate(after)]
+    rel_fp32 = [abs(b["score"] - float(score_fp32[row])) / max(abs(float(score_fp32[row])), 1e-6)
+                for row, b in enumerate(after)]
+    if not total or agree < 0.99 * total or max(rel) > bound:
+        raise AssertionError(f"after the reload vs the CPU: ids {agree}/{total} past a "
+                             f"top-2 gap of {gap} ({excluded} closer), score rel err "
+                             f"{max(rel)} (bound {bound}; the fp32 candidate's "
+                             f"{max(rel_fp32)})")
+    swapped = next(ln for ln in text.splitlines() if "RELOAD SWAPPED" in ln)
+    events = [e.get("event") or e.get("outcome") for e in journal_events(path)
+              if e["kind"] in ("quant-path", "serve-reload")]
+    for want in ("reload-calibrated", "swapped", "swapped-in"):
+        if want not in events:
+            raise AssertionError(f"journal lacks {want}: {events}")
+    res = {"reload_s": reload_s, "in_flight_answered_200": len(answered),
+           "rel_drift": quant["rel_drift"], "max_abs_logit_drift": quant["max_abs_logit_drift"],
+           "launches_after_swap": launches, "batches_after_swap": batches,
+           "per_batch_want": per_batch,
+           "cpu_agreement": {"ids_equal": agree, "ids": total, "ids_within_gap": excluded,
+                             "gap": gap, "score_rel_err": max(rel),
+                             "score_rel_bound": bound,
+                             "score_rel_err_vs_fp32_candidate": max(rel_fp32)},
+           "recalibrated": recal.split("QUANT-PATH", 1)[1].strip(),
+           "swapped": swapped.split("RELOAD SWAPPED: ", 1)[1].strip(),
+           "device_memory_mib": st.get("device_memory_mib"),
+           "device_memory_peak_mib": st.get("device_memory_peak_mib")}
+    log(f"int8 reload: {json.dumps(res)}")
+    return res
+
+
 def drive_quant_serving(torch, cfg, path, card, smi, mode):
     """``python -m unicore_tpu_torch.cli.serve --serve-quantize <mode>
     --quant-drift-sample 1`` on phase 4a's checkpoint: the ``QUANT-PATH``
     line, the sidecar, /stats' ``precision`` and ``quant`` block with every
     request's drift sampled, the calibration drift within the JAX package's
-    bound, the serving path's launches per batch (the drift probe's, counted
-    apart, subtracted), for int8 two answers against this process's CPU on
+    bound, the serving path's launches per batch (the drift probe's counted
+    apart), for int8 two answers against this process's CPU on
     the same sidecar; SIGTERM drains and exits 0.  Prints the
     ``quant_serve`` line and returns the serving path's launches."""
     import numpy as np
@@ -2887,9 +3244,11 @@ def drive_quant_serving(torch, cfg, path, card, smi, mode):
     vocab, pad = len(task.dictionary), task.dictionary.pad()
     del state
     t0 = time.monotonic()
-    server = Server(path, cfg, ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets",
-                                "4", "--serve-quantize", mode, "--quant-drift-sample", "1"],
-                    name=f"quant_serve_{mode}")
+    argv = ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets", "4",
+            "--serve-quantize", mode, "--quant-drift-sample", "1"]
+    if mode == "int8":
+        argv += ["--reload-interval", "0.5"]  # the hot reload after the main path
+    server = Server(path, cfg, argv, name=f"quant_serve_{mode}")
     try:
         server.wait_ready(cfg["ready_budget_s"])
         startup_s = time.monotonic() - t0
@@ -2942,8 +3301,7 @@ def drive_quant_serving(torch, cfg, path, card, smi, mode):
             a, b = after.get(key, {}), before.get(key, {})
             return {k: a.get(k, 0) - b.get(k, 0) for k in a}
 
-        total, probe = delta("kernel_launches"), delta("probe_kernel_launches")
-        launches = {k: n - probe.get(k, 0) for k, n in total.items()}
+        launches, probe = delta("kernel_launches"), delta("probe_kernel_launches")
         want = quant_per_batch(q["layers"], mode)
         log(f"quant main path ({mode}): {len(reqs)} requests in {batches} batches, "
             f"serving launches {launches}, drift probe launches {probe} "
@@ -2984,6 +3342,8 @@ def drive_quant_serving(torch, cfg, path, card, smi, mode):
             agreement = {"requests": len(small), "ids_equal": agree, "ids": total_ids,
                          "score_rel_err": worst}
             log(f"quant CPU agreement: {json.dumps(agreement)}")
+        reload = quant_reload(torch, cfg, server, path, reqs, vocab, pad) \
+            if mode == "int8" else None
 
         server.proc.send_signal(signal.SIGTERM)
         rc = server.proc.wait(timeout=180)
@@ -3001,7 +3361,7 @@ def drive_quant_serving(torch, cfg, path, card, smi, mode):
                 "mean_abs_logit_drift", "ref_logit_absmax", "batches")},
             "request_drift": quant["request_drift"], "launches": launches,
             "probe_launches": probe, "per_batch_want": want, "cpu_agreement": agreement,
-            "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+            "reload": reload, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
         }
         print(f"quant_serve_{mode} " + json.dumps(res), flush=True)
         return launches
@@ -4246,6 +4606,325 @@ PHASE12 = {
 }
 
 # ---------------------------------------------------------------------------
+# phase 13: the serving control plane
+# ---------------------------------------------------------------------------
+
+#: 13a: the flood (``request-flood:QPS@BATCH``) against a queue of 16 and
+#: 40 ms default deadlines, probed every 0.1 s with 200 ms requests; a bf16
+#: card-vs-CPU score bound.  13b: the bf16 teacher-forced gap (8 bf16 ulps of
+#: a logit in [4, 8)) and the device memory across the swap.
+PHASE13 = {"flood": "request-flood:400@2", "admission_capacity": 16, "flood_deadline_ms": 40,
+           "probe_deadline_ms": 200, "probe_every_s": 0.1, "window_s": 10.0,
+           "score_rel": 2e-2, "bf16_gap": 0.5, "memory_rel": 0.05,
+           # a second swap's device memory against the first's: a per-reload
+           # leak of a tenth of the first swap's +36 MiB step would show
+           "memory_repeat_rel": 0.005, "reload_new_tokens": 8}
+SHED_REASONS = ("queue-full", "deadline-unmeetable", "too-long", "draining", "not-ready",
+                "cache-oom", "expired-in-queue", "expired-at-admission",
+                "expired-at-response")
+
+
+def drive_bf16_serving(torch, cfg, path, fp32_serve, card, smi):
+    """13a: 10a's bf16 BERT-base checkpoint served in bf16 (phase 4's batch
+    and buckets) under ``request-flood``: the log names the dtype; phase 4's
+    launches per batch; during the flood's 10 s, sheds with named reasons in
+    ``/metrics`` and the journal while admitted requests keep their
+    deadlines; after it, phase 4's requests as phase 4 sends them (client
+    p50/p99 beside phase 4's fp32 server), two answers against the same
+    checkpoint served in bf16 on the CPU; SIGTERM drains and exits 0.
+    Prints ``bf16_serve`` and returns the server's launches."""
+    import numpy as np
+
+    from unicore_tpu_torch import checkpoint_utils, tasks
+
+    p = cfg["phase13"]
+    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+    task = tasks.setup_task(state["args"])
+    vocab, pad = len(task.dictionary), task.dictionary.pad()
+    del state
+    t0 = time.monotonic()
+    server = Server(path, cfg, [
+        "--serve-batch-size", str(cfg["batch"]), "--serve-buckets", "4",
+        "--fault-inject", p["flood"], "--admission-capacity", str(p["admission_capacity"]),
+        "--default-deadline-ms", str(p["flood_deadline_ms"])], name="bf16_serve")
+    try:
+        server.wait_ready(cfg["ready_budget_s"])
+        startup_s = time.monotonic() - t0
+        if "checkpoint weights in bfloat16: served in bfloat16" not in server.log_text():
+            raise AssertionError(f"the log names no bf16 serving:\n{server.log_text()[-4000:]}")
+        rng = np.random.default_rng(cfg["seed"])  # phase 4's requests
+        reqs = [rng.integers(5, vocab, size=n).tolist() for n in cfg["lengths"]]
+        code, before = http("GET", server.base + "/stats")
+        assert code == 200, before
+
+        def send(toks, deadline_ms=120000.0):
+            t = time.monotonic()
+            code, body = http("POST", server.base + "/v1/infer",
+                              {"tokens": toks, "deadline_ms": deadline_ms})
+            return code, body, (time.monotonic() - t) * 1e3
+
+        opening = [send(reqs[0]), send(reqs[1])]  # two batches open the window
+        wait_log(server, "request-flood window OPEN", budget=60)
+        t_open = time.monotonic()
+        probes = []
+        while time.monotonic() - t_open < p["window_s"] - 1.0:
+            probes.append(send(reqs[len(probes) % len(reqs)], p["probe_deadline_ms"]))
+            time.sleep(p["probe_every_s"])
+        time.sleep(max(0.0, p["window_s"] + 1.0 - (time.monotonic() - t_open)))
+        deadline = time.monotonic() + 60
+        while http("GET", server.base + "/stats")[1]["depth"] and time.monotonic() < deadline:
+            time.sleep(0.1)
+        code, flood = http("GET", server.base + "/stats")
+        # phase 4's requests, as phase 4 sends them
+        half = len(reqs) // 2
+        results = [send(r) for r in reqs[:half]]
+        with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
+            results += list(pool.map(send, reqs[half:]))
+        code, after = http("GET", server.base + "/stats")
+        assert code == 200, after
+        metrics = scrape_metrics(server.base)
+        metrics_match_stats(metrics, after)
+
+        for toks, (code, body, _) in zip(reqs[:2] + reqs, opening + results):
+            if code != 200 or len(body["output"]) != len(toks) \
+                    or not math.isfinite(body["score"]):
+                raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
+        outcomes = {}
+        for code, body, _ in probes:
+            key = body.get("reason") or body.get("status") if code != 200 else "ok"
+            outcomes[f"{code} {key}"] = outcomes.get(f"{code} {key}", 0) + 1
+            if code == 200 and body["latency_ms"] > p["probe_deadline_ms"]:
+                raise AssertionError(f"an admitted probe answered past its deadline: {body}")
+            if code != 200 and (code not in (429, 503, 504)
+                                or body.get("reason") not in SHED_REASONS):
+                raise AssertionError(f"a probe answered {code} {body}")
+        shed = flood["shed"]
+        if not sum(shed.values()) or not set(shed) <= set(SHED_REASONS):
+            raise AssertionError(f"the flood shed {shed}")
+        journal_shed = {e["reason"] for e in journal_events(path) if e["kind"] == "serve-shed"}
+        if not journal_shed or not journal_shed <= set(SHED_REASONS):
+            raise AssertionError(f"journal sheds {journal_shed}")
+
+        batches = after["batches"] - before["batches"]
+        launches = {k: n - before["kernel_launches"].get(k, 0)
+                    for k, n in after["kernel_launches"].items()}
+        if cfg["device"].type == "cuda":
+            for k, n in cfg["per_batch"].items():
+                if launches.get(k) != n * batches:
+                    raise AssertionError(f"bf16 {k}: {launches.get(k)} launches for "
+                                         f"{batches} batches, want {n} per batch")
+        # two answers against the checkpoint served in bf16 on the CPU: ids
+        # where the CPU's top-2 gap exceeds 4 bf16 ulps of the largest logit
+        # (each module rounds its output to bf16, on the card and on the CPU
+        # in other places), the score within score_rel
+        small = sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:2]
+        bucket = min(results[i][1]["bucket"] for i in small)
+        cpu_model = load_serving_model_cpu(torch, path)
+        logits, ids, score = cpu_logits(torch, cpu_model, [reqs[i] for i in small], bucket, pad)
+        del cpu_model
+        gap = 4 * 2.0 ** -8 * float(np.abs(logits).max())
+        answers = [results[i][1] for i in small]
+        agree, total, excluded = gapped_agreement(answers, logits, ids, gap)
+        worst = max(abs(b["score"] - float(score[row])) / max(abs(float(score[row])), 1e-6)
+                    for row, b in enumerate(answers))
+        if not total or agree < 0.99 * total or worst > p["score_rel"]:
+            raise AssertionError(f"bf16 answers vs the CPU in bf16: ids {agree}/{total} past a "
+                                 f"top-2 gap of {gap} ({excluded} closer), score rel err "
+                                 f"{worst} (bound {p['score_rel']})")
+
+        server.proc.send_signal(signal.SIGTERM)
+        rc = server.proc.wait(timeout=180)
+        if rc != 0 or "DRAIN complete" not in server.log_text():
+            raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
+        lat = np.asarray([r[2] for r in results])
+        res = {
+            "requests": len(reqs), "batches": batches, "startup_s": startup_s,
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99)),
+            "fp32_client_p50_ms": fp32_serve["client_p50_ms"],
+            "fp32_client_p99_ms": fp32_serve["client_p99_ms"],
+            "flood": {"spec": p["flood"], "window_s": p["window_s"],
+                      "admitted": flood["admitted"] - before["admitted"],
+                      "served": flood["served"] - before["served"],
+                      "shed": shed, "probes": outcomes, "journal_shed_reasons":
+                          sorted(journal_shed)},
+            "metrics_shed": {k: v for k, v in metrics.items() if "shed_total" in k},
+            "cpu_agreement": {"requests": len(small), "ids_equal": agree, "ids": total,
+                              "ids_within_gap": excluded, "gap": gap,
+                              "score_rel_err": worst, "bound": p["score_rel"]},
+            "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+        }
+        print("bf16_serve " + json.dumps(res), flush=True)
+        return launches
+    finally:
+        server.stop()
+
+
+def drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi):
+    """13b: 10b's bf16 ``checkpoint_1_<interval>.pt`` served over
+    ``/v1/generate`` with phase 7's engine settings, ``--reload-interval
+    0.5 --fault-inject corrupt-reload@1``: six launches of the bf16-query
+    decode kernel a step; two generations teacher-forced on the CPU in bf16;
+    10b's resumed ``checkpoint_last.pt`` published (rotten: ``RELOAD
+    ROLLBACK (rejected:verify)``) and re-published (``RELOAD SWAPPED``)
+    while generations are in flight, every one answered 200; then 10b's
+    first checkpoint re-published (a second ``RELOAD SWAPPED``); the
+    journal's outcomes; the decode gauges of ``/metrics``; the device
+    memory after the swap within 5% of before, and after the second swap
+    within 0.5% of after the first.  Prints ``lm_bf16_serve`` (tokens/s and token
+    p50/p99 beside phase 7's fp32 server) and returns the server's
+    launches."""
+    import numpy as np
+
+    d, p = cfg["decode"], cfg["phase13"]
+    vocab, eos = lm["vocab"], lm["eos"]
+    src = WORK / "lm_bf16_ckpt" / f"checkpoint_1_{cfg['lm_train']['interval']}.pt"
+    cand = WORK / "lm_bf16_resume_ckpt" / "checkpoint_last.pt"
+    path = fresh_dir(WORK / "lm_bf16_serve") / "checkpoint.pt"
+    shutil.copy(src, path)
+    t0 = time.monotonic()
+    server = Server(path, cfg, [
+        "--serve-batch-size", str(d["prefill_batch"]),
+        "--decode-batch-size", str(d["decode_batch"]), "--serve-buckets", "4",
+        "--cache-pages", str(d["cache_pages"]), "--max-new-tokens", str(d["max_new"]),
+        "--reload-interval", "0.5", "--fault-inject", "corrupt-reload@1"],
+        name="lm_bf16_serve")
+    try:
+        server.wait_ready(d["ready_budget_s"])
+        startup_s = time.monotonic() - t0
+        if "checkpoint weights in bfloat16: served in bfloat16" not in server.log_text():
+            raise AssertionError(f"the log names no bf16 serving:\n{server.log_text()[-4000:]}")
+        rng = np.random.default_rng(d["seed"])
+        prompts = [rng.integers(5, vocab, size=n).tolist()
+                   for n in cfg["lm_train"]["serve_lengths"]]
+        code, before = http("GET", server.base + "/stats")
+        assert code == 200, before
+
+        def send(toks):
+            t = time.monotonic()
+            code, body = http("POST", server.base + "/v1/generate",
+                              {"tokens": toks, "max_new_tokens": d["max_new"]})
+            return code, body, (time.monotonic() - t) * 1e3
+
+        t_req = time.monotonic()
+        half = len(prompts) // 2
+        results = [send(q) for q in prompts[:half]]
+        with ThreadPoolExecutor(max_workers=len(prompts) - half) as pool:
+            results += list(pool.map(send, prompts[half:]))
+        wall = time.monotonic() - t_req
+        code, after = http("GET", server.base + "/stats")
+        assert code == 200, after
+        for toks, (code, body, _) in zip(prompts, results):
+            out = body.get("output") if code == 200 else None
+            if not out or len(out) > d["max_new"] or not all(0 <= t < vocab for t in out):
+                raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
+        steps, prefills, launches = decode_launch_check(cfg, before, after,
+                                                        decode="decode_attention_bf16q")
+        cpu_model = load_lm(torch, path, "cpu")
+        if {q.dtype for q in cpu_model.parameters()} != {torch.bfloat16}:
+            raise AssertionError("the CPU reference is not bf16")
+        order = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))[:2]
+        checked = sum(teacher_forced_check(torch, cpu_model, prompts[i],
+                                           results[i][1]["output"], p["bf16_gap"])
+                      for i in order)
+        del cpu_model
+        if not checked:
+            raise AssertionError("no served step had a CPU top-2 gap past the bound")
+        agreement = {"requests": len(order), "checked_steps": checked,
+                     "steps": sum(len(results[i][1]["output"]) for i in order),
+                     "gap": p["bf16_gap"]}
+
+        # the hot reload, generations in flight: a rotten candidate rolls
+        # back, the same re-published swaps in
+        mem_before = after.get("device_memory_mib")
+        in_flight = KeepSending(server.base + "/v1/generate",
+                                [{"tokens": q, "max_new_tokens": p["reload_new_tokens"]}
+                                 for q in prompts], workers=4)
+        t_pub = time.monotonic()
+        try:
+            publish(cand, path)
+            wait_log(server, "RELOAD ROLLBACK (rejected:verify)")
+            rollback_s = time.monotonic() - t_pub
+            publish(cand, path)
+            wait_log(server, "RELOAD SWAPPED")
+            swap_s = time.monotonic() - t_pub - rollback_s
+            time.sleep(1.0)  # generations on the swapped model
+        finally:
+            answered = in_flight.stop()
+        bad = [(c, b) for c, b in answered if c != 200]
+        if bad or not answered:
+            raise AssertionError(f"generations across the reload: {len(answered)} sent, "
+                                 f"not 200: {bad[:5]}")
+        code, swapped = http("GET", server.base + "/stats")
+        mem_after = swapped.get("device_memory_mib")
+        if swapped["reloads_applied"] != 1:
+            raise AssertionError(f"reloads_applied {swapped['reloads_applied']}")
+        # a second swap, back to the first checkpoint: its memory equals the
+        # first swap's, so what the first added is a one-time cost of the
+        # reload thread, not a leak per reload
+        t_pub = time.monotonic()
+        publish(src, path)
+        wait_log(server, "RELOAD SWAPPED", count=2)
+        swap2_s = time.monotonic() - t_pub
+        time.sleep(1.0)  # as after the first
+        code, swapped = http("GET", server.base + "/stats")
+        mem_after2 = swapped.get("device_memory_mib")
+        if swapped["reloads_applied"] != 2:
+            raise AssertionError(f"reloads_applied {swapped['reloads_applied']}")
+        if cfg["device"].type == "cuda" and not (
+                abs(mem_after - mem_before) <= p["memory_rel"] * mem_before
+                and abs(mem_after2 - mem_after) <= p["memory_repeat_rel"] * mem_after):
+            raise AssertionError(f"device memory {mem_before} MiB before the swap, "
+                                 f"{mem_after} after it, {mem_after2} after a second")
+        metrics = scrape_metrics(server.base)
+        metrics_match_stats(metrics, swapped)
+        gauges = ("tokens_generated_total", "tokens_per_second", "cache_page_occupancy",
+                  "cache_pages_free", "active_sequences", "preempted_total",
+                  "requeued_total", "decode_steps_total", "prefill_batches_total")
+        missing = [g for g in gauges if f"unicore_tpu_serve_{g}" not in metrics]
+        if missing:
+            raise AssertionError(f"/metrics lacks {missing}")
+
+        server.proc.send_signal(signal.SIGTERM)
+        rc = server.proc.wait(timeout=180)
+        if rc != 0 or "DRAIN complete" not in server.log_text():
+            raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
+        # the chaos flip rewrites the published file, so the watcher may see
+        # the rotten file's new signature once more (and reject it again, as
+        # the JAX watcher would) before the re-publish
+        outcomes = [e["outcome"] for e in journal_events(path) if e["kind"] == "serve-reload"]
+        if (outcomes[-4:] != ["swapped", "swapped-in"] * 2 or not outcomes[:-4]
+                or set(outcomes[:-4]) != {"rejected:verify"}):
+            raise AssertionError(f"journal reload outcomes {outcomes}")
+        tokens = after["tokens_generated"] - before["tokens_generated"]
+        lat = np.asarray([r[2] for r in results])
+        res = {
+            "requests": len(prompts), "startup_s": startup_s,
+            "tokens_generated": tokens, "request_wall_s": wall,
+            "tokens_per_s": tokens / wall, "server_tokens_per_s": after["tokens_per_s"],
+            "token_p50_ms": after.get("token_p50_ms"), "token_p99_ms": after.get("token_p99_ms"),
+            "client_p50_ms": float(np.percentile(lat, 50)),
+            "client_p99_ms": float(np.percentile(lat, 99)),
+            "fp32": {k: fp32_decode[k] for k in ("tokens_per_s", "token_p50_ms",
+                                                  "token_p99_ms", "requests")},
+            "decode_steps": steps, "prefill_batches": prefills,
+            "cpu_agreement": agreement,
+            "reload": {"rollback_s": rollback_s, "swap_s": swap_s, "swap2_s": swap2_s,
+                       "in_flight_answered_200": len(answered), "journal": outcomes,
+                       "device_memory_mib_before": mem_before,
+                       "device_memory_mib_after": mem_after,
+                       "device_memory_mib_after_second_swap": mem_after2,
+                       "device_memory_peak_mib": swapped.get("device_memory_peak_mib"),
+                       "reload_kernel_launches": swapped.get("reload_kernel_launches")},
+            "launches": launches, "arch": d["arch"], "card": card, "nvidia_smi": smi,
+        }
+        print("lm_bf16_serve " + json.dumps(res), flush=True)
+        return launches
+    finally:
+        server.stop()
+
+
+# ---------------------------------------------------------------------------
 
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
@@ -4299,6 +4978,18 @@ CHIP = {
         {"name": "repeat", "shape": (8, 12, 512, 64), "dtype": "float32", "mixed": True,
          "neg_inf": True, "repeat": True},
     ],
+    # the bf16-query variant at phase 7's bucket-512 shape, as a bf16 LM's
+    # decode step gives it: a bf16 q and bias row against the fp32 pool,
+    # then against int8 caches
+    "decode_bf16q_checks": [
+        {"name": "serve_bf16q", "shape": (8, 12, 512, 64), "dtype": "bfloat16",
+         "kv": "float32", "bias": "bfloat16"},
+        {"name": "serve_bf16q_int8", "shape": (8, 12, 512, 64), "dtype": "bfloat16",
+         "int8": True, "bias": "bfloat16"},
+        {"name": "mixed_bf16q", "shape": (8, 12, 512, 64), "dtype": "bfloat16",
+         "kv": "float32", "bias": "bfloat16", "mixed": True, "neg_inf": True,
+         "repeat": True},
+    ],
     # the int8 serving kernels at BERT-base serving shapes, batch 8 x 512
     # rows: the denses in_proj, out_proj, fc1 (GELU), fc2, the LM head's
     # (GELU), and an M that is not a multiple of 16; the LM head's norm with a scalar and a
@@ -4318,7 +5009,9 @@ CHIP = {
     # phase 8: 12 requests over every bucket of 128/256/384/512, 4 at fp8
     "quant_serve": {"layers": 12, "fp8_requests": 4, "profile_batches": 10,
                     "lengths": [30, 200, 300, 450, 128, 256, 384, 512, 90, 250, 380, 500],
-                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15}},
+                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15},
+                    # the swapped-in int8 twin's scores against the CPU's
+                    "reload_score_rel": 5e-3},
     "iters": 100,
     "arch": "bert_base", "symbols": 30000, "batch": 8, "seed": 0,
     "docs": 400, "doc_words": (380, 510),
@@ -4419,6 +5112,7 @@ CHIP = {
     "multi_tensor": [110_000_000, 1_000_003, 1],
     "phase11": PHASE11,
     "phase12": PHASE12,
+    "phase13": PHASE13,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -4451,6 +5145,12 @@ REHEARSAL = {
         {"name": "repeat", "shape": (3, 2, 64, 16), "dtype": "float32", "mixed": True,
          "neg_inf": True, "repeat": True},
     ],
+    "decode_bf16q_checks": [
+        {"name": "serve_bf16q", "shape": (2, 2, 64, 16), "dtype": "bfloat16",
+         "kv": "float32", "bias": "bfloat16"},
+        {"name": "serve_bf16q_int8", "shape": (2, 2, 64, 16), "dtype": "bfloat16",
+         "int8": True, "bias": "bfloat16"},
+    ],
     "quant_matmul": [
         {"name": "in_proj", "M": 256, "K": 64, "N": 192, "act": "", "bias": True},
         {"name": "out_proj", "M": 256, "K": 64, "N": 64, "act": "", "bias": True},
@@ -4462,7 +5162,9 @@ REHEARSAL = {
                       {"shape": (2, 4, 128, 128), "dtype": "int8"}],
     "quant_serve": {"layers": 2, "fp8_requests": 4, "profile_batches": 2,
                     "lengths": [10, 40, 70, 100, 32, 64, 96, 128],
-                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15}},
+                    "rel_drift_bound": {"int8": 0.05, "fp8": 0.15},
+                    # the swapped-in int8 twin's scores against the CPU's
+                    "reload_score_rel": 5e-3},
     "iters": 2,
     "arch": "bert_tiny", "symbols": 200, "batch": 4, "seed": 0,
     "docs": 48, "doc_words": (60, 126),
@@ -4532,13 +5234,14 @@ REHEARSAL = {
                     sentinel_flags=["--sentinel-interval", "1", "--snapshot-interval", "4",
                                     "--snapshot-keep", "2", "--sentinel-warmup", "4",
                                     "--loss-spike-window", "8"]),
+    "phase13": PHASE13,
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 12 on the CPU at a tiny size, no card")
+                        help="phases 3 to 13 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -4557,6 +5260,15 @@ def main(argv=None):
     cfg["device"] = torch.device("cpu") if opts.cpu_rehearsal else torch.device("cuda", 0)
     WORK.mkdir(parents=True, exist_ok=True)
     started = time.monotonic()
+    phase_seconds = {}
+    last = [started]
+
+    def done(phase):
+        """Log the phase's end and keep its seconds for ``phase_seconds``."""
+        now = time.monotonic()
+        phase_seconds[phase] = round(now - last[0], 1)
+        last[0] = now
+        log(f"phase {phase} done at {now - started:.0f}s")
 
     # 1. device
     card = "cpu" if opts.cpu_rehearsal else torch.cuda.get_device_name(0)
@@ -4581,48 +5293,70 @@ def main(argv=None):
     checks = {name: [] for name in KERNELS}
     dtypes = [torch.float32, torch.bfloat16]
     dev, iters = cfg["device"], cfg["iters"]
-    checks["fullrow_attention_fwd"].append(
-        check_attention(torch, dev, *cfg["attention"][0], torch.float32, iters, rate=0.1))
+
+    def check(name, fn, *a, **kw):
+        """``fn``'s check of kernel ``name``, lean past the kernel's first
+        two checks (:data:`LEAN_PLAIN_MS`)."""
+        return fn(*a, lean=len(checks[name]) >= 2, **kw)
+
+    checks["fullrow_attention_fwd"].append(check(
+        "fullrow_attention_fwd", check_attention, torch, dev, *cfg["attention"][0],
+        torch.float32, iters, rate=0.1))
     for shape in cfg["attention"]:
         for dt in dtypes:
-            checks["fullrow_attention_fwd"].append(check_attention(torch, dev, *shape, dt, iters))
+            checks["fullrow_attention_fwd"].append(check(
+                "fullrow_attention_fwd", check_attention, torch, dev, *shape, dt, iters))
     mask_check = check_dropout_mask(torch, dev, cfg["attention"][0][0],
                                     cfg["attention"][0][1], 0.1, 2024)
     for shape in cfg["attention_bwd"]:
         for rate in (0.1, 0.0):
             for dt in dtypes:
-                checks["fullrow_attention_bwd"].append(
-                    check_attention_bwd(torch, dev, *shape, dt, iters, rate))
+                checks["fullrow_attention_bwd"].append(check(
+                    "fullrow_attention_bwd", check_attention_bwd, torch, dev, *shape, dt,
+                    iters, rate))
     # the causal LM's attention: the rel-pos bias plus the causal triangle
-    checks["fullrow_attention_fwd"].append(check_attention(
-        torch, dev, *cfg["attention_causal"], torch.float32, iters, rate=0.1, causal=True))
+    checks["fullrow_attention_fwd"].append(check(
+        "fullrow_attention_fwd", check_attention, torch, dev, *cfg["attention_causal"],
+        torch.float32, iters, rate=0.1, causal=True))
     for dt in dtypes:
-        checks["fullrow_attention_bwd"].append(check_attention_bwd(
-            torch, dev, *cfg["attention_causal"], dt, iters, 0.1, causal=True))
+        checks["fullrow_attention_bwd"].append(check(
+            "fullrow_attention_bwd", check_attention_bwd, torch, dev, *cfg["attention_causal"],
+            dt, iters, 0.1, causal=True))
     for shape in cfg["norm"]:
         for dt in dtypes:
             for rms in (False, True):
-                checks["fused_norm_fwd"].append(check_norm(torch, dev, *shape, dt, rms, iters))
-                for kname, res in check_norm_bwd(torch, dev, *shape, dt, rms, iters).items():
+                checks["fused_norm_fwd"].append(check(
+                    "fused_norm_fwd", check_norm, torch, dev, *shape, dt, rms, iters))
+                for kname, res in check("fused_norm_dx", check_norm_bwd, torch, dev, *shape,
+                                        dt, rms, iters).items():
                     checks[kname].append(res)
     for c in cfg["softmax"]:
-        f_res, b_res = check_softmax(torch, dev, c, getattr(torch, c["dtype"]), iters)
+        f_res, b_res = check("softmax_dropout_fwd", check_softmax, torch, dev, c,
+                             getattr(torch, c["dtype"]), iters)
         checks["softmax_dropout_fwd"].append(f_res)
         checks["softmax_dropout_bwd"].append(b_res)
     softmax_mask = check_softmax_mask(torch, dev, *cfg["softmax_mask"], 0.1, 2025)
     for c in cfg["flash"]:
         for dt in dtypes:
-            for kname, res in check_flash(torch, dev, c, dt, iters).items():
+            for kname, res in check("flash_attention_fwd", check_flash, torch, dev, c, dt,
+                                    iters).items():
                 checks[kname].append(res)
     flash_mask = check_flash_mask(torch, dev, *cfg["flash_mask"], 0.1, 2026)
     for c in cfg["decode_checks"]:
-        checks["decode_attention"].append(check_decode(torch, dev, c, iters))
+        checks["decode_attention"].append(check(
+            "decode_attention", check_decode, torch, dev, c, iters))
+    for c in cfg["decode_bf16q_checks"]:
+        checks["decode_attention_bf16q"].append(check(
+            "decode_attention_bf16q", check_decode, torch, dev, c, iters))
     for c in cfg["quant_matmul"]:
-        checks["quant_matmul"].append(check_quant_matmul(torch, dev, c, iters))
+        checks["quant_matmul"].append(check("quant_matmul", check_quant_matmul, torch, dev, c,
+                                            iters))
     for N, D, per_channel in cfg["quant_norm"]:
-        checks["quant_layer_norm"].append(check_quant_norm(torch, dev, N, D, per_channel, iters))
+        checks["quant_layer_norm"].append(check(
+            "quant_layer_norm", check_quant_norm, torch, dev, N, D, per_channel, iters))
     for c in cfg["quant_softmax"]:
-        checks["quant_softmax_dropout_fwd"].append(check_quant_softmax(torch, dev, c, iters))
+        checks["quant_softmax_dropout_fwd"].append(check(
+            "quant_softmax_dropout_fwd", check_quant_softmax, torch, dev, c, iters))
     # the inputs of a --bf16 / --fp16 run (phase 10): the norms with their
     # weight and bias in the run's type, the attention kernels with a bf16
     # bias, every gradient in its input's type
@@ -4630,130 +5364,148 @@ def main(argv=None):
     for N, D, xd, wd in mixed["norm"]:
         xd, wd = getattr(torch, xd), getattr(torch, wd)
         for rms in (False, True):
-            checks["fused_norm_fwd"].append(check_norm(torch, dev, N, D, xd, rms, iters, wd))
-            for kname, res in check_norm_bwd(torch, dev, N, D, xd, rms, iters, wd).items():
+            checks["fused_norm_fwd"].append(check(
+                "fused_norm_fwd", check_norm, torch, dev, N, D, xd, rms, iters, wd))
+            for kname, res in check("fused_norm_dx", check_norm_bwd, torch, dev, N, D, xd, rms,
+                                    iters, wd).items():
                 checks[kname].append(res)
     # (the forward with an fp32 bias at rate 0.1 too: the backward's is in
     # the loop above, the flash kernels' at "triangle" there)
     for causal, bias_dtype in ((False, torch.float32), (False, torch.bfloat16),
                                (True, torch.bfloat16)):
-        checks["fullrow_attention_fwd"].append(check_attention(
-            torch, dev, *mixed["attention"], torch.bfloat16, iters, rate=0.1, causal=causal,
-            bias_dtype=bias_dtype))
+        checks["fullrow_attention_fwd"].append(check(
+            "fullrow_attention_fwd", check_attention, torch, dev, *mixed["attention"],
+            torch.bfloat16, iters, rate=0.1, causal=causal, bias_dtype=bias_dtype))
     for causal in (False, True):
-        checks["fullrow_attention_bwd"].append(check_attention_bwd(
-            torch, dev, *mixed["attention"], torch.bfloat16, iters, 0.1, causal=causal,
-            bias_dtype=torch.bfloat16))
-    for kname, res in check_flash(torch, dev, mixed["flash"], torch.bfloat16, iters).items():
+        checks["fullrow_attention_bwd"].append(check(
+            "fullrow_attention_bwd", check_attention_bwd, torch, dev, *mixed["attention"],
+            torch.bfloat16, iters, 0.1, causal=causal, bias_dtype=torch.bfloat16))
+    for kname, res in check("flash_attention_fwd", check_flash, torch, dev, mixed["flash"],
+                            torch.bfloat16, iters).items():
         checks[kname].append(res)
     # the optimizer plane's kernels: K-a, then K-b with fp32 parameters,
     # bf16 ones rounded to nearest even, and bf16 ones under SR
     for n in cfg["multi_tensor"]:
-        checks["multi_tensor_l2norm"].append(check_l2norm(torch, dev, n, iters))
+        checks["multi_tensor_l2norm"].append(check(
+            "multi_tensor_l2norm", check_l2norm, torch, dev, n, iters))
         for kind in ("float32", "bfloat16", "bfloat16_sr"):
-            checks["fused_adam"].append(check_fused_adam(torch, dev, n, kind, iters))
-    log(f"phase 3 done at {time.monotonic() - started:.0f}s")
+            checks["fused_adam"].append(check("fused_adam", check_fused_adam, torch, dev, n,
+                                              kind, iters))
+    done("3")
 
     # 4a. training through the CLI; 4b. card against CPU; 4. serving
     data = write_corpus(cfg)
     ckpt, train_stats = drive_training(torch, cfg, data, card, smi)
     train_launches = train_stats["kernel_launches"]
-    log(f"phase 4a done at {time.monotonic() - started:.0f}s")
+    done("4a")
     drive_card_vs_cpu(torch, cfg, data)
-    log(f"phase 4b done at {time.monotonic() - started:.0f}s")
-    serve_launches = drive_slice(torch, cfg, ckpt, card, smi)
-    log(f"phase 4 done at {time.monotonic() - started:.0f}s")
+    done("4b")
+    fp32_serve = drive_slice(torch, cfg, ckpt, card, smi)
+    serve_launches = fp32_serve["launches"]
+    done("4")
 
     # 5a. Uni-Mol training through the CLI; 5b. card against CPU
     um_data = write_conformers(cfg["unimol"])
     unimol_stats = drive_unimol_training(cfg, um_data, card, smi)
     unimol_launches = unimol_stats["kernel_launches"]
-    log(f"phase 5a done at {time.monotonic() - started:.0f}s")
+    done("5a")
     drive_unimol_card_vs_cpu(torch, cfg, um_data)
-    log(f"phase 5b done at {time.monotonic() - started:.0f}s")
+    done("5b")
 
     # 6a. Evoformer training through the CLI; 6b. card against CPU
     evo_data = write_msas(cfg["evoformer"], "evoformer_data")
     evoformer_launches = drive_evoformer_training(torch, cfg, evo_data, card, smi)
-    log(f"phase 6a done at {time.monotonic() - started:.0f}s")
+    done("6a")
     drive_evoformer_card_vs_cpu(torch, cfg, evo_data)
-    log(f"phase 6b done at {time.monotonic() - started:.0f}s")
+    done("6b")
 
     # 7. incremental-decode serving of the causal LM: fp32 KV, the card's
     # parity, int8 KV, a profile of the decode step
     lm_path, vocab, pad, eos = write_lm_checkpoint(torch, cfg, data)
     lm = {"vocab": vocab, "pad": pad, "eos": eos}
-    decode_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "fp32")
+    fp32_decode = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "fp32")
+    decode_launches = fp32_decode["launches"]
     check_decode_parity(torch, cfg, lm_path)
-    decode8_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi, "int8")
+    decode8_launches = drive_decode_serving(torch, cfg, lm_path, lm, card, smi,
+                                            "int8")["launches"]
     profile_decode_steps(torch, cfg, lm_path, lm, card, smi)
-    log(f"phase 7 done at {time.monotonic() - started:.0f}s")
+    done("7")
 
-    # 8. quantized serving of phase 4a's checkpoint: int8, then fp8
-    # (the profile reads the int8 sidecar, which the fp8 server replaces)
-    quant_launches = drive_quant_serving(torch, cfg, ckpt, card, smi, "int8")
-    profile_serve_batches(torch, cfg, ckpt, card, smi)
+    # 8. quantized serving of phase 4a's checkpoint: int8 (from a copy,
+    # which its hot reload replaces; the profile reads the copy and the
+    # sidecar the reload re-derived), then fp8
+    quant_path = fresh_dir(WORK / "quant_int8") / "checkpoint_last.pt"
+    shutil.copy(ckpt, quant_path)
+    quant_launches = drive_quant_serving(torch, cfg, quant_path, card, smi, "int8")
+    profile_serve_batches(torch, cfg, quant_path, card, smi)
     quant8_launches = drive_quant_serving(torch, cfg, ckpt, card, smi, "fp8")
-    log(f"phase 8 done at {time.monotonic() - started:.0f}s")
+    done("8")
 
     # 9. causal-LM training through the CLI with validation, the EMA and
-    # checkpoints (9a), resumed mid-epoch (9b), served (9c), card against
-    # CPU (9d)
-    lm_dir, lm_stats = drive_lm_training(torch, cfg, data, card, smi)
+    # checkpoints (9a), resumed mid-epoch (9b), card against CPU (9d); its
+    # checkpoint is served in 13b, in bf16
+    _, lm_stats = drive_lm_training(torch, cfg, data, card, smi)
     lm_train_launches = lm_stats["kernel_launches"]
-    log(f"phases 9a-9b done at {time.monotonic() - started:.0f}s")
-    lm_serve_launches = drive_decode_serving(
-        torch, cfg, lm_dir / "checkpoint_last.pt", lm, card, smi, "fp32",
-        lengths=cfg["lm_train"]["serve_lengths"], tag="lm_serve")
-    log(f"phase 9c done at {time.monotonic() - started:.0f}s")
+    done("9a-9b")
     drive_lm_card_vs_cpu(torch, cfg, data)
-    log(f"phase 9d done at {time.monotonic() - started:.0f}s")
+    done("9d")
 
     # 10. mixed precision: BERT-base in bf16 with SR against 4a (10a), the
     # LM in bf16 against 9a and resumed (10b), fp16 with the loss scale
     # (10c), bf16 card against CPU for the four families (10d)
     bf16_stats = drive_bf16_training(torch, cfg, data, train_stats, card, smi)
     bf16_launches = bf16_stats["kernel_launches"]
-    log(f"phase 10a done at {time.monotonic() - started:.0f}s")
+    done("10a")
     lm_bf16_launches = drive_lm_bf16_training(torch, cfg, data, lm_stats, card, smi)
-    log(f"phase 10b done at {time.monotonic() - started:.0f}s")
+    done("10b")
     fp16_launches = drive_fp16_training(torch, cfg, data, card, smi)
-    log(f"phase 10c done at {time.monotonic() - started:.0f}s")
+    done("10c")
     drive_bf16_card_vs_cpu(torch, cfg, data, um_data, evo_data)
-    log(f"phase 10d done at {time.monotonic() - started:.0f}s")
+    done("10d")
 
     # 11. the optimizer and loader plane: 10a with --fused-adam, workers
     # and the device prefetcher (11a); --fused-adam card against CPU and
     # its cross-flag resume (11b); adama (11c); 5a with the loader threads
     # and the prefetcher (11d); per-sample clip, sgd, --nan-rerun (11e)
     fused_stats = drive_fused_training(torch, cfg, data, bf16_stats, card, smi)
-    log(f"phase 11a done at {time.monotonic() - started:.0f}s")
+    done("11a")
     drive_fused_card_vs_cpu(torch, cfg, data)
-    log(f"phase 11b done at {time.monotonic() - started:.0f}s")
+    done("11b")
     drive_adama(torch, cfg, data, card, smi)
-    log(f"phase 11c done at {time.monotonic() - started:.0f}s")
+    done("11c")
     drive_loader(cfg, um_data, unimol_stats, card, smi)
-    log(f"phase 11d done at {time.monotonic() - started:.0f}s")
+    done("11d")
     drive_optimizer_paths(torch, cfg, data)
-    log(f"phase 11e done at {time.monotonic() - started:.0f}s")
+    done("11e")
 
     # 12. the robustness plane on 11a's cell: the unarmed control (12a),
     # the armed run, healthy up to an injected loss spike and rewound (12b),
     # the corrupt-checkpoint fallback (12c), the preemption and on-error
     # emergency saves (12d)
     flip_stats, flip_dir = drive_robust_control(cfg, data)
-    log(f"phase 12a done at {time.monotonic() - started:.0f}s")
+    done("12a")
     spike_stats = drive_robust_rewind(cfg, data, flip_stats, card, smi)
-    log(f"phase 12b done at {time.monotonic() - started:.0f}s")
+    done("12b")
     drive_robust_corrupt(cfg, data, flip_stats, flip_dir, card, smi)
-    log(f"phase 12c done at {time.monotonic() - started:.0f}s")
+    done("12c")
     drive_robust_preempt(cfg, data, flip_stats, card, smi)
-    log(f"phase 12d done at {time.monotonic() - started:.0f}s")
+    done("12d")
+
+    # 13. the serving control plane: 10a's bf16 checkpoint served in bf16
+    # under a request flood (13a); 10b's bf16 LM served over /v1/generate
+    # through the bf16-query decode kernel, a rotten hot reload rolled back
+    # and the re-published one swapped in (13b)
+    bf16_serve_launches = drive_bf16_serving(
+        torch, cfg, WORK / "bf16_ckpt" / "checkpoint_last.pt", fp32_serve, card, smi)
+    done("13a")
+    lm_bf16_serve_launches = drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi)
+    done("13b")
+    print("phase_seconds " + json.dumps(phase_seconds), flush=True)
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 13. result lines: each kernel at its main path's shape (fp32, the
+    # 14. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -4764,7 +5516,8 @@ def main(argv=None):
                "unimol_train": unimol_launches, "evoformer_train": evoformer_launches,
                "decode_serve": decode_launches, "decode_serve_int8": decode8_launches,
                "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
-               "lm_train": lm_train_launches, "lm_serve": lm_serve_launches,
+               "lm_train": lm_train_launches, "bf16_serve": bf16_serve_launches,
+               "lm_bf16_serve": lm_bf16_serve_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
                "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"],
                "robust_train": spike_stats["kernel_launches"]}

@@ -13,8 +13,9 @@ validated every 2 updates, as ``tests/test_torch_resume.py``).
    parameters (moments and step count at zero); a ``--bf16`` fine-tune of
    an fp32 checkpoint starts its master from the bf16-rounded weights.
 3. ``cli.train --device cpu --bf16`` on ``bert`` writes a checkpoint of
-   bf16 weights that ``cli.serve --device cpu`` loads into its fp32 model
-   (saying so in its log) and answers one ``/v1/infer`` from.
+   bf16 weights that ``cli.serve --device cpu`` serves in bf16, as the JAX
+   server applies the tree in its own type (saying so in its log), and
+   answers one ``/v1/infer`` from.
 """
 
 import json
@@ -116,7 +117,7 @@ def test_bf16_checkpoint_serves_upcast(tmp_path):
         code, body = _post(srv.base + "/v1/infer", {"tokens": [2, 7, 8, 9, 3]})
         assert code == 200 and len(body["output"]) == 5, body
         assert np.isfinite(body["score"])
-        assert "checkpoint weights in bfloat16: upcast exactly" in srv.log()
+        assert "checkpoint weights in bfloat16: served in bfloat16" in srv.log()
         srv.proc.send_signal(signal.SIGTERM)
         assert srv.proc.wait(timeout=60) == 0, srv.log()[-4000:]
     finally:

@@ -43,6 +43,7 @@ from unicore_tpu.losses.masked_msa import MaskedMSALoss as JaxMSALoss
 from unicore_tpu.losses.unimol import UniMolLoss as JaxUniMolLoss
 from unicore_tpu.models.bert import BertModel as JaxBert
 from unicore_tpu.models.unimol import UniMolModel as JaxUniMol
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.msa_pretrain import MSAPretrainTask as JaxMSATask
 from unicore_tpu.tasks.unicore_task import UnicoreTask as JaxTask
 from unicore_tpu.tasks.unimol import UniMolTask as JaxUniMolTask
@@ -68,6 +69,16 @@ from test_torch_train import TINY as BERT_TINY
 from test_torch_train import train_args
 from test_torch_train_data import write_corpus
 from test_torch_unimol import write_conformers
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 STEPS, UPDATE_FREQ = 3, 2
 LOSS_TOL, GNORM_TOL, MASTER_TOL = 2e-2, 5e-2, 0.1

@@ -10,9 +10,9 @@ leak into either output.
 
 Tolerances: fp32 1e-5 absolute (both sides take an fp32 softmax and differ
 in summation order); int8 caches 1e-5 against the JAX kernel's fused
-dequant; bf16 two bf16 ulps of the element (2 x 2**-7 of it) plus 1e-6
-(both sides compute in fp32 and round once; last-bit fp32 differences may
-round to a neighbouring bf16 value).
+dequant; a bf16 / fp16 output two ulps of its type of the element
+(2 x 2**-7 / 2 x 2**-10 of it) plus 1e-6 (both sides compute in fp32 and
+round once; last-bit fp32 differences may round to a neighbouring value).
 """
 
 import importlib
@@ -33,6 +33,8 @@ jax_da = importlib.import_module("unicore_tpu.ops.decode_attention")
 
 FP32_TOL = 1e-5
 BF16_ULPS = 2 * 2.0 ** -7
+#: two ulps of a 16-bit output type, relative
+ULPS = {"bfloat16": BF16_ULPS, "float16": 2 * 2.0 ** -10}
 
 
 @pytest.fixture
@@ -93,7 +95,7 @@ def test_plain_matches_jax_kernel(pallas_on, dtype, with_bias, L):
 
 
 @pytest.mark.parametrize("L", [32, 64])
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16", "float16"])
 def test_plain_int8_matches_jax_kernel(pallas_on, qdtype, L):
     q, kf, vf, pos, bias = _inputs(3, 2, L, 16, seed=7 * L, with_bias=True)
     for b, p in enumerate(pos):  # real rows only: the scales see no junk
@@ -117,10 +119,33 @@ def test_plain_int8_matches_jax_kernel(pallas_on, qdtype, L):
     if qdtype == "float32":
         np.testing.assert_allclose(got, want, atol=FP32_TOL, rtol=0)
     else:
-        assert np.all(np.abs(got - want) <= BF16_ULPS * np.abs(want) + 1e-6)
+        assert np.all(np.abs(got - want) <= ULPS[qdtype] * np.abs(want) + 1e-6)
     # dequantized fp32 caches give the same answer to quantization error
     fp = _port(q, kf, vf, pos, bias, getattr(torch, qdtype))
     assert np.max(np.abs(fp - got)) < 0.05
+
+
+@pytest.mark.parametrize("bias_dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("qdtype", ["bfloat16", "float16"])
+def test_plain_16bit_q_against_fp32_cache_matches_jax(pallas_on, qdtype, bias_dtype):
+    """A bf16 or fp16 model's step against the fp32 pool: a 16-bit q and
+    bias against fp32 caches, every operand read as fp32, the output in q's
+    type (the JAX kernel in interpret mode for bf16; its reference for
+    fp16, which the JAX dispatch sends past the kernel)."""
+    q, k, v, pos, bias = _inputs(3, 2, 64, 16, seed=5, with_bias=True)
+    jq, jb = getattr(jnp, qdtype), getattr(jnp, bias_dtype)
+    want = np.asarray(jax_da.decode_attention(
+        jnp.asarray(q, jq), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+        bias=jnp.asarray(bias, jb)).astype(jnp.float32))
+    t = torch.as_tensor
+    _kernels.reset_launch_counts()
+    out = port_da.decode_attention(t(q).to(getattr(torch, qdtype)), t(k), t(v), t(pos),
+                                   bias=t(bias).to(getattr(torch, bias_dtype)))
+    assert sum(_kernels.launch_counts().values()) == 0  # CPU: the plain version
+    assert out.dtype == getattr(torch, qdtype)
+    got = out.float().numpy()
+    assert np.all(np.isfinite(got)) and np.all(np.abs(got) < 100)  # no junk leaked
+    assert np.all(np.abs(got - want) <= ULPS[qdtype] * np.abs(want) + 1e-6)
 
 
 def test_plain_matches_live_prefix_softmax():

@@ -34,6 +34,7 @@ import torch
 
 from unicore_tpu.losses.masked_msa import MaskedMSALoss as JaxLoss
 from unicore_tpu.models.evoformer_model import EvoformerModel as JaxEvoformer
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.msa_pretrain import MSAPretrainTask as JaxTask
 from unicore_tpu.trainer import Trainer as JaxTrainer
 
@@ -46,6 +47,16 @@ from unicore_tpu_torch.trainer import Trainer as PortTrainer
 
 from test_torch_serve import REPO, _env
 from test_torch_train import train_args
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 AA = list("ACDEFGHIKLMNPQRSTVWY") + ["-"]
 SPECIALS = ["[CLS]", "[PAD]", "[SEP]", "[UNK]"]

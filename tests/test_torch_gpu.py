@@ -15,7 +15,10 @@ the dbias sum's repeatability; the decode attention (fp32, bf16, int8 caches
 with fp32 and bf16 q, head dims 4 to 256, L of 1 to 512, mixed positions
 with junk rows past them; the split edges -- positions 0, a middle one and
 L - 1 in one batch, a chunk of -inf bias, L 1 / 37 / 512 -- bit-equal
-across two calls) and the shapes it refuses; the int8 serving
+across two calls; its bf16-query variant, a bf16 q against fp32 or int8
+caches with an fp32, bf16 or fp16 bias row or none) and the shapes it
+refuses; a hot swap of the serving engine on the card (the answers switch
+to the bf16 candidate's, the old model's memory released); the int8 serving
 kernels (the W8A8 dense at every activation, with and without bias, odd M,
 every dense site of a served BERT-base batch, and an exact-sum check past
 2**24 at each tile width; the int8 LayerNorm with a scalar and a
@@ -62,8 +65,8 @@ positions (a rare activation may round to the neighbouring int8 step).
 
 Decode attention, kernel vs ``decode_attention_plain``: fp32 q 1e-5
 absolute (int8 caches included: both dequantize in fp32 and differ only in
-summation order); bf16 q two bf16 ulps of the element plus 1e-6 (both round
-one fp32 result once).  Incremental decode of the 2-layer LM on the card vs
+summation order); bf16 / fp16 q two ulps of its type of the element plus
+1e-6 (both round one fp32 result once).  Incremental decode of the 2-layer LM on the card vs
 its full forward on the CPU: 1e-4 absolute and relative on logits, as the
 JAX package's parity test holds it.
 
@@ -1016,11 +1019,14 @@ def test_tiny_evoformer_gradients_on_card_match_cpu(cuda):
         (2, 2, 300, 128, torch.float32, "same", True),
         (2, 2, 100, 192, torch.bfloat16, "same", True),  # two loads a lane
         (2, 2, 64, 256, torch.float32, "int8", True),
+        (8, 12, 512, 64, torch.float16, "same", True),
+        (3, 4, 128, 64, torch.float16, "int8", False),
     ],
 )
 def test_decode_attention_kernel_matches_plain(cuda, B, H, L, D, dtype, kv, with_bias):
     """Mixed positions (0, a middle one, L - 1) with junk past each one
-    (K +1e6 / V -1e6, int8 +127 / -127), which must not leak."""
+    (K +1e6 / V -1e6, fp16 +-6e4 to stay finite, int8 +127 / -127), which
+    must not leak."""
     from unicore_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device=cuda).manual_seed(L * 7 + D)
@@ -1039,8 +1045,9 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, L, D, dtype, kv, with
                         -127.0).to(torch.int8)
         scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
     else:
-        k = torch.where(live, k, 1e6).to(dtype)
-        v = torch.where(live, v, -1e6).to(dtype)
+        junk = 6e4 if dtype == torch.float16 else 1e6
+        k = torch.where(live, k, junk).to(dtype)
+        v = torch.where(live, v, -junk).to(dtype)
     bias = torch.randn(B, H, L, generator=g, device=cuda) if with_bias else None
     _kernels.reset_launch_counts()
     out = da.decode_attention(q, k, v, pos, bias=bias, **scales)
@@ -1053,7 +1060,11 @@ def test_decode_attention_kernel_matches_plain(cuda, B, H, L, D, dtype, kv, with
     if dtype == torch.float32:
         assert err.max().item() <= 1e-5, err.max().item()
     else:
-        assert (err <= 2 * 2.0 ** -7 * ref.float().abs() + 1e-6).all(), err.max().item()
+        assert (err <= 2 * _ULP[dtype] * ref.float().abs() + 1e-6).all(), err.max().item()
+
+
+#: a 16-bit type's unit in the last place, relative
+_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
 
 
 @pytest.mark.parametrize("L", [1, 37, 512])
@@ -1101,6 +1112,58 @@ def test_decode_attention_split_edges_repeat_bit_for_bit(cuda, L, dtype, kv):
         assert (err <= 2 * 2.0 ** -7 * ref.float().abs() + 1e-6).all(), err.max().item()
 
 
+@pytest.mark.parametrize("L", [37, 512])
+@pytest.mark.parametrize("kv", ["float32", "int8"])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32, torch.float16, None])
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float16])
+def test_decode_attention_16bit_q_matches_plain(cuda, L, kv, bias_dtype, qdtype):
+    """The 16-bit-query variants (a bf16 or fp16 LM's step): a bf16 or fp16
+    q against fp32 or int8 caches, the bias row in any float type, read as
+    fp32; mixed positions with junk past them and a chunk of -inf bias;
+    against the plain version (which upcasts every operand), twice
+    bit-equal, and a bf16 q against fp32 caches counted as
+    ``decode_attention_bf16q``, every other call as ``decode_attention``."""
+    from unicore_tpu_torch.ops import decode_attention as da
+
+    B, H, D = 8, 12, 64
+    g = torch.Generator(device=cuda).manual_seed(L + 3)
+    q = (torch.randn(B, H, D, generator=g, device=cuda) * D ** -0.5).to(qdtype)
+    k = torch.randn(B, H, L, D, generator=g, device=cuda)
+    v = torch.randn(B, H, L, D, generator=g, device=cuda)
+    pos = torch.linspace(0, L - 1, B, device=cuda).to(torch.int32)
+    live = torch.arange(L, device=cuda)[None, None, :, None] <= pos[:, None, None, None].long()
+    scales = {}
+    if kv == "int8":
+        ks = k.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        vs = v.abs().amax(dim=(0, 2)) / 127.0 + 1e-8
+        k = torch.where(live, torch.round(k / ks[None, :, None]).clamp(-127, 127),
+                        127.0).to(torch.int8)
+        v = torch.where(live, torch.round(v / vs[None, :, None]).clamp(-127, 127),
+                        -127.0).to(torch.int8)
+        scales = {"k_scale": ks.contiguous(), "v_scale": vs.contiguous()}
+    else:
+        k = torch.where(live, k, 1e6)
+        v = torch.where(live, v, -1e6)
+    bias = None
+    if bias_dtype is not None:
+        bias = torch.randn(B, H, L, generator=g, device=cuda)
+        bias[-1, -1, :min(32, L - 1)] = float("-inf")
+        bias = bias.to(bias_dtype)
+    _kernels.reset_launch_counts()
+    out = da.decode_attention(q, k, v, pos, bias=bias, **scales)
+    again = da.decode_attention(q, k, v, pos, bias=bias, **scales)
+    torch.cuda.synchronize()
+    mixed = kv == "float32" and qdtype == torch.bfloat16
+    assert da.LAUNCHES_BF16Q.count == (2 if mixed else 0)
+    assert da.LAUNCHES.count == (0 if mixed else 2)
+    assert torch.equal(out, again)
+    ref = da.decode_attention_plain(q, k, v, pos, bias=bias, **scales)
+    assert out.dtype == qdtype and out.shape == (B, H, D)
+    assert torch.isfinite(out.float()).all() and out.float().abs().max() < 100
+    err = (out.float() - ref.float()).abs()
+    assert (err <= 2 * _ULP[qdtype] * ref.float().abs() + 1e-6).all(), err.max().item()
+
+
 def test_decode_attention_refusals(cuda):
     """A CUDA call launches the kernel or raises, naming what it refuses."""
     from unicore_tpu_torch.ops import decode_attention as da
@@ -1116,21 +1179,78 @@ def test_decode_attention_refusals(cuda):
         call(D=6)
     with pytest.raises(NotImplementedError, match="at most 256"):
         call(D=260)
-    with pytest.raises(NotImplementedError, match="q's type or int8"):
+    with pytest.raises(NotImplementedError, match="q's type, fp32 or int8"):
         call(cache=torch.bfloat16)
-    with pytest.raises(ValueError, match="fp32/bf16"):
-        call(dtype=torch.float16, cache=torch.float16)
+    with pytest.raises(NotImplementedError, match="q's type, fp32 or int8"):
+        call(dtype=torch.bfloat16, cache=torch.float16)
+    with pytest.raises(ValueError, match="fp32/bf16/fp16"):
+        call(dtype=torch.float64, cache=torch.float64)
     with pytest.raises(ValueError, match="int32"):
         call(pos=torch.zeros(2, dtype=torch.int64, device=cuda))
     with pytest.raises(ValueError, match="CUDA tensor"):
         call(pos=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(ValueError, match="bias must be fp32"):
-        call(bias=torch.zeros(2, 2, 32, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="bias must be fp32, bf16 or fp16"):
+        call(bias=torch.zeros(2, 2, 32, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="bias must be fp32, bf16 or fp16"):
+        call(bias=torch.zeros(2, 2, 31, device=cuda))
     with pytest.raises(ValueError, match="together"):
         call(k_scale=torch.ones(2, 64, device=cuda))
     assert da.LAUNCHES.count == 0  # refused calls launch nothing
     call()
     assert da.LAUNCHES.count == 1
+
+
+def test_engine_swap_on_card_switches_answers_and_releases_memory(cuda):
+    """A hot swap on the card: an fp32 BERT (768 wide, 2 layers) serving,
+    a bf16 candidate of other weights staged by the reloader's make_model,
+    verified and probed by the reloader, swapped on the loop's boundary:
+    the answers switch to the candidate's own, and the old model's device
+    memory is released at the swap."""
+    import numpy as np
+
+    from unicore_tpu_torch.models.bert import BertModel
+    from unicore_tpu_torch.serve import HotReloader, ServeEngine, build_infer_fn
+
+    def bert(seed):
+        return BertModel(vocab_size=1000, padding_idx=1, encoder_layers=2,
+                         generator=torch.Generator().manual_seed(seed)).eval()
+
+    def make_model(weights):
+        m = bert(0)
+        m.load_state_dict(weights, assign=True)
+        return m.to(cuda).eval()
+
+    infer = build_infer_fn(cuda)
+    engine = ServeEngine(bert(0).to(cuda), infer, bucket_edges=(128,), batch_size=2,
+                         pad_idx=1, vocab_size=1000)
+    engine.warmup()
+    old_bytes = sum(p.numel() * p.element_size() for p in engine.model.parameters())
+    tokens = list(range(5, 45))
+
+    def answer():
+        r = engine.submit(tokens, 60.0)
+        while not r.done():
+            engine.step(timeout=0.01)
+        return r.response
+
+    before = answer()
+    cand = {k: v.to(torch.bfloat16) for k, v in bert(1).state_dict().items()}
+    reloader = HotReloader(engine, loader=lambda path: {"model": cand}, make_model=make_model)
+    assert reloader.consider("candidate.pt") == "swapped"
+    torch.cuda.synchronize()
+    staged = torch.cuda.memory_allocated(cuda)
+    engine._apply_pending_swap()
+    torch.cuda.synchronize()
+    released = staged - torch.cuda.memory_allocated(cuda)
+    assert released >= 0.9 * old_bytes, (released, old_bytes)
+    assert {p.dtype for p in engine.model.parameters()} == {torch.bfloat16}
+    after = answer()
+    arr = np.full((2, 128), 1, np.int32)
+    arr[0, :len(tokens)] = tokens
+    ids, score = infer(engine.model, arr)
+    assert after.output == ids[0, :len(tokens)].tolist() and after.score == float(score[0])
+    assert after.output != before.output
+    assert engine.stats()["reloads_applied"] == 1
 
 
 def test_transformer_lm_incremental_decode_on_card_matches_cpu(cuda):

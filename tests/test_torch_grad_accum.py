@@ -13,10 +13,21 @@
 import pytest
 import torch
 
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.trainer import Trainer as JaxTrainer
 
 from torch_trainer_pair import (assert_close_losses, max_param_diff, port_trainer, run_both,
                                 setup)
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 UF, UPDATES = 3, 3
 

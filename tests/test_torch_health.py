@@ -380,7 +380,7 @@ def test_bad_fault_specs_rejected_as_jax(spec):
 
 
 @pytest.mark.parametrize("spec", ["seed-skew@1", "collective-delay:2@1", "host-loss@3",
-                                  "request-flood:10@0", "replica-stall@1@0"])
+                                  "replica-loss@2", "replica-stall@1@0"])
 def test_unported_fault_kinds_name_their_queue(spec):
     jax_chaos.parse_fault_spec(spec)  # a kind the JAX package runs
     with pytest.raises(NotImplementedError, match="queue A item"):

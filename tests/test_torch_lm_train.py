@@ -29,6 +29,7 @@ import torch
 
 from unicore_tpu.losses import LOSS_REGISTRY as JAX_LOSSES
 from unicore_tpu.models.transformer_lm import TransformerLMModel as JaxLM
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.bert import BertTask as JaxBertTask
 from unicore_tpu.tasks.causal_lm import CausalLMTask as JaxCausalLMTask
 from unicore_tpu.tasks.unicore_task import UnicoreTask as JaxTask
@@ -44,6 +45,16 @@ from unicore_tpu_torch.trainer import Trainer as PortTrainer
 
 from test_torch_serve import REPO, PortServer, _env, _post
 from test_torch_train_data import VOCAB, WORDS, batches, task_args
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 LR, STEPS, UPDATE_FREQ = 1e-3, 3, 2
 TINY = dict(decoder_layers=2, decoder_embed_dim=64, decoder_ffn_embed_dim=128,

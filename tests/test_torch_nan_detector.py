@@ -21,10 +21,22 @@ import jax
 import numpy as np
 import pytest
 
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
+
 from unicore_tpu_torch import checkpoint_utils
 from unicore_tpu_torch.trainer import _to_device
 
 from torch_trainer_pair import port_trainer, setup
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 POISON = {"in_proj": ("self_attn", "in_proj"), "fc1": ("fc1",)}
 

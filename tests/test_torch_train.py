@@ -23,10 +23,12 @@ from argparse import Namespace
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from unicore_tpu.losses import LOSS_REGISTRY as JAX_LOSSES
 from unicore_tpu.models.bert import BertModel as JaxBert
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.unicore_task import UnicoreTask as JaxTask
 from unicore_tpu.trainer import Trainer as JaxTrainer
 
@@ -38,6 +40,16 @@ from unicore_tpu_torch.trainer import Trainer as PortTrainer
 
 from test_torch_serve import REPO, PortServer, _env, _post
 from test_torch_train_data import write_corpus
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 LR, STEPS, UPDATE_FREQ = 1e-3, 3, 2
 TINY = dict(encoder_layers=2, encoder_embed_dim=64, encoder_ffn_embed_dim=128,

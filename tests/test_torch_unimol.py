@@ -37,6 +37,7 @@ import torch
 
 from unicore_tpu.losses.unimol import UniMolLoss as JaxUniMolLoss
 from unicore_tpu.models.unimol import UniMolModel as JaxUniMol
+from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.unimol import UniMolTask as JaxUniMolTask
 from unicore_tpu.trainer import Trainer as JaxTrainer
 
@@ -52,6 +53,16 @@ from unicore_tpu_torch.trainer import Trainer as PortTrainer
 from test_torch_serve import REPO, _env
 from test_torch_softmax_dropout import pallas_on  # noqa: F401  (fixture)
 from test_torch_train import train_args
+
+
+@pytest.fixture(autouse=True)
+def _restore_parallel_plan():
+    # a JAX Trainer sets the JAX package's process-global parallel plan:
+    # put back what was there, so later tests in this process see it
+    plan = get_global_plan()
+    yield
+    set_global_plan(plan)
+
 
 ATOMS = ["C", "N", "O", "S", "H", "F", "Cl", "Br", "P"]
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]"] + ATOMS

@@ -24,14 +24,24 @@ Boot sequence, each stage with the JAX server's failure exit code:
    or the flag on a decode-plane checkpoint, exits **76**;
 4. serve until signalled: SIGTERM/SIGINT drains — admission stops,
    in-flight batches flush under ``--drain-deadline``, exit **0**; a blown
-   drain budget exits **77**; a second signal aborts (also 77).
+   drain budget exits **77**; a second signal aborts (also 77).  The
+   reload and flood planes stop before the drain.
 
-Precision is fp32 end to end: TF32 is switched off for matmuls and
-convolutions.  A checkpoint of a ``--bf16`` or ``--fp16`` run holds its
-weights in that type; they load into the fp32 model by an exact upcast,
-and the log says so.  (The JAX server applies such weights in their own
-type; serving in the checkpoint's dtype is not ported yet.)  Quantized
-serving changes only what ``--serve-quantize`` names.
+``--reload-interval`` arms hot checkpoint reload (``serve/reload.py``:
+verify, probe, swap on a batch boundary, or roll back); ``--fault-inject``
+arms the serving chaos kinds (``request-flood``, ``slow-client``,
+``corrupt-reload``); the event journal goes to ``--telemetry-dir`` (default
+``<dirname(--path)>/telemetry``) and ``GET /metrics`` exposes the counters.
+
+Precision: a checkpoint is served in its own dtype, as the JAX server
+applies the loaded tree as it is: the weights of a ``--bf16`` or ``--fp16``
+run keep their type, and the eval forward, prefill and decode step run in
+it (the log names the type); an fp32 checkpoint runs in fp32 with TF32 off
+for matmuls and convolutions.  A hot-reload candidate serves in its own
+dtype too.  Quantized serving (``--serve-quantize``) calibrates and serves
+an fp32 model: a low-precision checkpoint's weights are upcast exactly for
+it (the JAX server quantizes the dense sites of the tree as it is and runs
+the rest in the tree's type; that difference is listed in ROADMAP.md).
 """
 
 import logging
@@ -94,9 +104,30 @@ def resolve_device(name: str):
     return torch.device("cpu")
 
 
+def build_serving_model(task, ckpt_args, weights, device, dtype=None):
+    """A new model of the checkpoint's arch on ``device`` in eval mode,
+    holding ``weights`` in their own types (assigned, not copied into the
+    initialised parameters, which would cast them), or cast to ``dtype``
+    when one is given."""
+    model = task.build_model(ckpt_args)
+    if dtype is not None:
+        weights = {k: v.to(dtype) if v.is_floating_point() else v
+                   for k, v in weights.items()}
+    model.load_state_dict(weights, strict=True, assign=True)
+    return model.to(device).eval()
+
+
 def load_serving_model(args, device):
-    """Checkpoint load + model/task rebuild from the saved args.  Any
-    failure here is exit 76 territory — there is nothing to serve."""
+    """Checkpoint load + model/task rebuild from the saved args: ``(model,
+    pad_idx, max_seq_len, vocab_size, eos_idx)``, the model in the
+    checkpoint's dtype (fp32 under ``--serve-quantize``).  Any failure here
+    is exit 76 territory — there is nothing to serve."""
+    return open_serving_checkpoint(args, device)[:5]
+
+
+def open_serving_checkpoint(args, device):
+    """:func:`load_serving_model`'s five, and ``make_model``: a reload
+    candidate's weights -> a new instance of the arch on the device."""
     import torch
 
     from unicore_tpu_torch import checkpoint_utils, tasks
@@ -114,14 +145,20 @@ def load_serving_model(args, device):
     if weights is None:
         raise ValueError(f"checkpoint {args.path} holds no model weights")
     task = tasks.setup_task(ckpt_args)
-    model = task.build_model(ckpt_args)
-    low = sorted({str(t.dtype).replace("torch.", "") for t in weights.values()
-                  if t.dtype in (torch.bfloat16, torch.float16)})
-    if low:
-        logger.info(f"checkpoint weights in {', '.join(low)}: upcast exactly to "
-                    "the fp32 model")
-    model.load_state_dict(weights)
-    model = model.to(device).eval()
+    # quantized serving calibrates an fp32 model: upcast exactly
+    dtype = torch.float32 if getattr(args, "serve_quantize", "off") != "off" else None
+    model = build_serving_model(task, ckpt_args, weights, device, dtype)
+
+    def dtypes(tensors):
+        return ", ".join(sorted({str(t.dtype).replace("torch.", "") for t in tensors
+                                 if t.is_floating_point()}))
+
+    logger.info(f"checkpoint weights in {dtypes(weights.values())}: served in "
+                f"{dtypes(model.parameters())}")
+
+    def make_model(candidate):
+        return build_serving_model(task, ckpt_args, candidate, device, dtype)
+
     pad_idx = task.dictionary.pad()
     eos_idx = task.dictionary.eos()
     vocab_size = len(task.dictionary)
@@ -131,7 +168,7 @@ def load_serving_model(args, device):
         f"arch {getattr(ckpt_args, 'arch', '?')}, max_seq_len {max_seq_len}, "
         f"vocab {vocab_size}, device {device})"
     )
-    return model, pad_idx, max_seq_len, vocab_size, eos_idx
+    return model, pad_idx, max_seq_len, vocab_size, eos_idx, make_model
 
 
 def decode_serving_requested(args, model) -> bool:
@@ -206,13 +243,23 @@ def serve_buckets(args, max_seq_len):
 def setup_quantized_serving(args, model, pad_idx, vocab_size, edges, device):
     """Startup calibration for ``--serve-quantize``: calibrate (or reuse
     digest-verified persisted scales), prepare the quantized twin, build
-    the sampled drift probe.  Returns ``(model_q, engine_kwargs)``; any
-    failure is exit-76 territory (nothing safe to serve at the requested
-    precision).  The fp32 model stays on the device only when
-    ``--quant-drift-sample`` > 0, for the probe."""
+    the sampled drift probe and the hot-reload preparer.  Returns
+    ``(model_q, engine_kwargs, reload_kwargs)``; any failure is exit-76
+    territory (nothing safe to serve at the requested precision).  The fp32
+    model stays on the device only when ``--quant-drift-sample`` > 0, for
+    the probe.
+
+    The probe's (quantized, fp32) pair follows hot swaps: ``preparer``
+    stages a candidate's pair, the engine's ``swap_hook`` commits it only
+    when THAT twin swaps in, and ``preparer_abort`` releases a
+    probe-rejected candidate's pair, so it neither holds device memory nor
+    ever re-pairs the probe."""
+    import threading
+
     import numpy as np
     import torch
 
+    from unicore_tpu_torch import telemetry
     from unicore_tpu_torch.quant import calibrate
 
     mode = args.serve_quantize
@@ -245,41 +292,165 @@ def setup_quantized_serving(args, model, pad_idx, vocab_size, edges, device):
     )
     public = {k: v for k, v in info.items() if k != "weights_digest"}
     logger.info(f"quant-path calibrated: {public}")
+    telemetry.emit("quant-path", event="calibrated", **public)
+    # the fp32 model's names and shapes: what a reload candidate must match
+    structure = {k: torch.empty(tuple(v.shape), device="meta")
+                 for k, v in model.state_dict().items()}
 
-    drift_probe = None
-    if args.quant_drift_sample > 0:
-        def drift_probe(tokens):
-            """Per-row max |logit_q - logit_f32| over the real (non-pad)
-            positions, the only ones a response is cut from."""
-            with torch.inference_mode():
-                toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
-                                       device=device)
-                d = (model_q(toks).float() - model(toks).float()).abs()
-                d = d * (toks != pad_idx)[..., None].to(d.dtype)
-                return d.amax(dim=tuple(range(1, d.ndim))).cpu().numpy()
-    else:
+    sampling = args.quant_drift_sample > 0
+    oracle = {"q": model_q, "f": model if sampling else None, "staged": []}
+    oracle_lock = threading.Lock()
+    if not sampling:
         model.to("cpu")  # only the probe needs it on the device
-    return model_q, {
+
+    def drift_probe(tokens):
+        """Per-row max |logit_q - logit_f32| over the real (non-pad)
+        positions, the only ones a response is cut from."""
+        with oracle_lock:
+            mq, mf = oracle["q"], oracle["f"]
+        with torch.inference_mode():
+            toks = torch.as_tensor(np.asarray(tokens), dtype=torch.long,
+                                   device=device)
+            d = (mq(toks).float() - mf(toks).float()).abs()
+            d = d * (toks != pad_idx)[..., None].to(d.dtype)
+            return d.amax(dim=tuple(range(1, d.ndim))).cpu().numpy()
+
+    # filled once the engine exists: the hook pushes a committed
+    # candidate's calibration into /stats
+    engine_cell = {}
+
+    def swap_hook(swapped, tag):
+        committed = None
+        with oracle_lock:
+            staged = oracle["staged"]
+            for i, (q, f, new_info) in enumerate(staged):
+                if q is swapped:
+                    oracle["q"], oracle["f"] = q, f
+                    committed = new_info
+                    # pairs staged before the applied one are superseded
+                    # (request_swap is latest-wins); later ones stay staged
+                    del staged[: i + 1]
+                    break
+        eng = engine_cell.get("engine")
+        if committed is not None and eng is not None:
+            eng.update_quant_info({k: v for k, v in committed.items()
+                                   if k != "weights_digest"})
+
+    def preparer(candidate):
+        """Hot-reload calibration stage: re-verify (digest) or re-derive the
+        scales for the candidate's weights on the card while the old twin
+        serves; any failure becomes a rejected:calibration rollback."""
+        new_q, new_info = calibrate.calibrate_for_serving(
+            candidate.clone(quantize=mode), candidate,
+            mode=mode,
+            snapshot_path=args.path,
+            vocab_size=vocab_size,
+            pad_idx=pad_idx,
+            bucket_edges=edges,
+            batch_size=args.serve_batch_size,
+            n_batches=args.calibration_batches,
+        )
+        peak = (f", device memory peak {torch.cuda.max_memory_allocated(device) / 2**20:.1f} MiB"
+                if device.type == "cuda" else "")
+        logger.info(
+            f"QUANT-PATH {mode}: reload candidate re-calibrated "
+            f"(scales {new_info['source']}, max |logit drift| "
+            f"{new_info['max_abs_logit_drift']:.5f}){peak}"
+        )
+        telemetry.emit(
+            "quant-path", event="reload-calibrated",
+            **{k: v for k, v in new_info.items() if k != "weights_digest"},
+        )
+        with oracle_lock:
+            oracle["staged"].append((new_q, candidate if sampling else None, new_info))
+        return new_q
+
+    def preparer_abort():
+        """The probe rejected the candidate this preparer just staged: drop
+        its pair (the most recent entry)."""
+        with oracle_lock:
+            if oracle["staged"]:
+                oracle["staged"].pop()
+
+    engine_kwargs = {
         "precision": mode,
         "quant_info": public,
-        "drift_probe": drift_probe,
+        "drift_probe": drift_probe if sampling else None,
         "drift_sample_every": args.quant_drift_sample,
+        "swap_hook": swap_hook,
     }
+    reload_kwargs = {"preparer": preparer, "preparer_abort": preparer_abort,
+                     "structure_ref": structure, "engine_cell": engine_cell}
+    return model_q, engine_kwargs, reload_kwargs
+
+
+def _start_flood_generator(args, engine, stop_event):
+    """Synthetic traffic for the ``request-flood`` chaos kind: offers
+    ``chaos.serve_flood_qps()`` requests a second straight into admission
+    while the flood window is open (on the decode engine, generations).
+    Request lengths cycle the bucket set, so the flood reaches every
+    bucket."""
+    from unicore_tpu_torch.distributed import chaos
+
+    def run():
+        i = 0
+        while not stop_event.is_set():
+            if not engine.ready():
+                # no flood against a warming or reloading server: the chaos
+                # proves admission control, not that a cold server sheds
+                stop_event.wait(timeout=0.1)
+                continue
+            qps = chaos.serve_flood_qps()
+            if qps <= 0:
+                stop_event.wait(timeout=0.1)
+                continue
+            edge = engine.bucket_edges[i % len(engine.bucket_edges)]
+            length = max(1, edge - 1)
+            engine.submit([5] * length, args.default_deadline_ms / 1000.0,
+                          request_id=f"flood{i}")
+            i += 1
+            stop_event.wait(timeout=1.0 / qps)
+
+    t = threading.Thread(target=run, name="serve-flood", daemon=True)
+    t.start()
+    return t
 
 
 def main(args) -> int:
     import torch
 
+    from unicore_tpu_torch import checkpoint_utils, telemetry
     from unicore_tpu_torch.checkpoint.emergency import Deadline, deadline_scope
+    from unicore_tpu_torch.distributed import chaos
     from unicore_tpu_torch.modules import configure_fused_norm
-    from unicore_tpu_torch.serve import ServeEngine, build_infer_fn
+    from unicore_tpu_torch.serve import (
+        CheckpointWatcher,
+        HotReloader,
+        ReloadRunner,
+        ServeEngine,
+        build_infer_fn,
+    )
     from unicore_tpu_torch.serve.http import bind_server
 
-    # fp32 end to end: the JAX server runs at checkpoint precision
+    # an fp32 checkpoint runs in fp32: the JAX server runs at the
+    # checkpoint's precision
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     configure_fused_norm(args.fused_norm)
+    try:
+        chaos.configure(args)
+    except (ValueError, NotImplementedError) as err:
+        logger.error(f"FATAL: --fault-inject {args.fault_inject!r}: {err}")
+        return EXIT_SERVE_MODEL_LOAD
+    chaos.set_replica_index(0)
     logger.info(args)
+
+    # the serve plane's event journal (sheds, reload outcomes, drains),
+    # beside the served checkpoint unless --telemetry-dir names a place
+    if not args.telemetry_dir:
+        args.telemetry_dir = os.path.join(
+            os.path.dirname(os.path.abspath(args.path)) or ".", "telemetry")
+    telemetry.configure(args, rank=0, role="serve")
 
     # 0. device ----------------------------------------------------------
     try:
@@ -292,10 +463,10 @@ def main(args) -> int:
         return EXIT_SERVE_MODEL_LOAD
 
     # 1. model load ------------------------------------------------------
+    reload_kwargs = {}
     try:
-        model, pad_idx, max_seq_len, vocab_size, eos_idx = load_serving_model(
-            args, device
-        )
+        model, pad_idx, max_seq_len, vocab_size, eos_idx, make_model = \
+            open_serving_checkpoint(args, device)
         device_name = (
             torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         )
@@ -315,7 +486,7 @@ def main(args) -> int:
             edges = serve_buckets(args, max_seq_len)
             serve_model, quant_kwargs = model, {}
             if args.serve_quantize != "off":
-                serve_model, quant_kwargs = setup_quantized_serving(
+                serve_model, quant_kwargs, reload_kwargs = setup_quantized_serving(
                     args, model, pad_idx, vocab_size, edges, device
                 )
             engine = ServeEngine(
@@ -329,6 +500,12 @@ def main(args) -> int:
                 device=device_name,
                 **quant_kwargs,
             )
+            if reload_kwargs:
+                reload_kwargs.pop("engine_cell")["engine"] = engine
+            del serve_model
+        # the engine owns the served model from here: a hot swap must be
+        # able to free it
+        del model
     except Exception as err:
         logger.error(
             f"FATAL: model load failed ({type(err).__name__}: {err}) — "
@@ -369,6 +546,21 @@ def main(args) -> int:
 
     # 4. serve -----------------------------------------------------------
     engine.start()
+    reload_runner = None
+    if args.reload_interval > 0:
+        reloader = HotReloader(engine, checkpoint_utils.load_checkpoint_to_cpu,
+                               make_model=make_model, **reload_kwargs)
+        reload_runner = ReloadRunner(CheckpointWatcher(args.path), reloader,
+                                     args.reload_interval)
+        reload_runner.start()
+    flood_stop = threading.Event()
+    flood_thread = _start_flood_generator(args, engine, flood_stop)
+
+    def stop_planes():
+        flood_stop.set()
+        if reload_runner is not None:
+            reload_runner.stop()
+
     started = time.monotonic()
     while not _drain_requested.is_set():
         if not engine.healthy():
@@ -377,6 +569,7 @@ def main(args) -> int:
                 f"({type(engine.fatal_error).__name__ if engine.fatal_error else 'thread exit'}: "
                 f"{engine.fatal_error}) — exiting 1"
             )
+            stop_planes()
             server.shutdown()
             return 1
         if (
@@ -391,10 +584,15 @@ def main(args) -> int:
         _drain_requested.wait(timeout=0.2)
 
     # 5. drain -----------------------------------------------------------
+    # the reload and flood planes stop first: a reload landing mid-drain
+    # would race the readiness state, a flood would fight the flush for the
+    # drain budget
+    stop_planes()
     deadline = Deadline(args.drain_deadline)
     with deadline_scope(deadline):
         drained = engine.drain(deadline)
     server.shutdown()
+    flood_thread.join(timeout=2.0)
     logger.info(f"final serve stats: {engine.stats()}")
     if not drained:
         logger.error(

@@ -11,9 +11,12 @@
 //   rows l > positions[b] are dead (-1e30 in the reference)
 //   p = softmax(s) over the row; out[b, h, :] = sum_l p_l v_l (v dequantized
 //   as k), cast once to q's type.
-// The caches are (B, H, L, D) fp32/bf16 (q's type) or int8 with (H, D) fp32
-// scales; positions (B,) int32 is read on the device (no host sync); bias
-// (B, H, L) fp32 or null.  Dead rows are skipped, not read: the reference
+// q is fp32, bf16 or fp16; the caches are (B, H, L, D) in q's type, fp32
+// (a bf16 or fp16 model's decode step against the fp32 pool), or int8 with
+// (H, D) fp32 scales; positions (B,) int32 is read on the device (no host
+// sync); bias (B, H, L) fp32, bf16 or fp16, or null.  Every operand is read
+// as fp32 in registers, as the TPU kernel upcasts its refs: no cast launch
+// goes ahead of the kernel.  Dead rows are skipped, not read: the reference
 // masks them to -1e30, and exp(-1e30 - m) is exactly 0 in fp32 because the
 // query's own row (positions[b]) is live and m is finite, so skipping gives
 // the same result and keeps junk in unwritten pages out of the read.
@@ -49,6 +52,7 @@
 // second combine launch or a counter memset would cost a launch.  With
 // S = 1 the block writes the output itself.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -86,6 +90,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 __device__ __forceinline__ float4 load4(const int8_t* p) {
   const char4 c = *reinterpret_cast<const char4*>(p);
   return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
@@ -113,13 +123,14 @@ __device__ __forceinline__ Span span_of(const void* p, int bytes) {
 
 // tile rows [r, r + n) of this (b, h) into stage `dst`, completing on `bar`
 // (every thread calls it with the same arguments)
-template <typename TKV>
+template <typename TKV, typename TB>
 __device__ __forceinline__ void load_tile(char* dst, uint64_t* bar, const TKV* kc, const TKV* vc,
-                                          const float* bias, long long row, int n, int D) {
+                                          const TB* bias, long long row, int n, int D) {
   const int rb = D * (int)sizeof(TKV);
   const Span sk = span_of(kc + row * D, n * rb);
   const Span sv = span_of(vc + row * D, n * rb);
-  const Span sb = bias != nullptr ? span_of(bias + row, n * 4) : Span{nullptr, 0, 0};
+  const Span sb =
+      bias != nullptr ? span_of(bias + row, n * (int)sizeof(TB)) : Span{nullptr, 0, 0};
   // K at dst, V after K's span, the bias after V's
   if (threadIdx.x == 0) {
     mbar_arrive_expect_tx(bar, (uint32_t)(sk.bytes + sv.bytes + sb.bytes));
@@ -129,11 +140,11 @@ __device__ __forceinline__ void load_tile(char* dst, uint64_t* bar, const TKV* k
   }
 }
 
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, typename TB, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                         const TKV* __restrict__ vc, const int* __restrict__ positions,
-                        const float* __restrict__ bias, const float* __restrict__ k_scale,
+                        const TB* __restrict__ bias, const float* __restrict__ k_scale,
                         const float* __restrict__ v_scale, TQ* __restrict__ out,
                         float* __restrict__ partials, int* __restrict__ counters, int H, int L,
                         int D, int T, int S) {
@@ -192,10 +203,10 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     const Span sv = span_of(vc + row * D, rbytes);
     const char* kt = s_stage[st] + sk.off;
     const char* vt = s_stage[st] + sk.bytes + sv.off;
-    const float* bt = nullptr;
+    const TB* bt = nullptr;
     if (bias != nullptr)
-      bt = reinterpret_cast<const float*>(s_stage[st] + sk.bytes + sv.bytes +
-                                          span_of(bias + row, nr * 4).off);
+      bt = reinterpret_cast<const TB*>(s_stage[st] + sk.bytes + sv.bytes +
+                                       span_of(bias + row, nr * (int)sizeof(TB)).off);
     mbar_wait(&s_bar[st], (i >> 1) & 1);
 
     // scores: every lane reaches the shuffles (P divides 32)
@@ -213,7 +224,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
         }
       }
       for (int off = P >> 1; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (valid && sl == 0) s_p[srow] = dot + (bt != nullptr ? bt[srow] : 0.f);
+      if (valid && sl == 0) s_p[srow] = dot + (bt != nullptr ? to_f(bt[srow]) : 0.f);
     }
     __syncthreads();
 
@@ -317,7 +328,7 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   }
 }
 
-template <typename TQ, typename TKV, bool kQuant>
+template <typename TQ, typename TKV, typename TB, bool kQuant>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* positions,
                    const void* bias, const void* k_scale, const void* v_scale, void* out,
                    void* partials, void* counters, int B, int H, int L, int D, int S,
@@ -326,29 +337,32 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* posi
   const dim3 grid((unsigned)((long long)B * H * S));
 #define UNICORE_DECODE_ARGS                                                              \
   static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),     \
-      static_cast<const int*>(positions), static_cast<const float*>(bias),               \
+      static_cast<const int*>(positions), static_cast<const TB*>(bias),                  \
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),            \
       static_cast<TQ*>(out), static_cast<float*>(partials), static_cast<int*>(counters), \
       H, L, D, T, S
-  decode_attention_kernel<TQ, TKV, kQuant><<<grid, kThreads, 0, stream>>>(UNICORE_DECODE_ARGS);
+  decode_attention_kernel<TQ, TKV, TB, kQuant><<<grid, kThreads, 0, stream>>>(
+      UNICORE_DECODE_ARGS);
 #undef UNICORE_DECODE_ARGS
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, out: (B, H, D) in `dtype` (0 fp32, 1 bf16); k, v: (B, H, L, D) in q's
-// type, or int8 when `quant` (then k_scale, v_scale: (H, D) fp32, else
-// null); positions: (B,) int32; bias: (B, H, L) fp32 or null.  All
-// contiguous.  D must be a multiple of 4 and at most 256.  splits: the
-// blocks a (b, h), 1 to min(L, 512); above 1, partials holds
-// B * H * splits * (D + 2) fp32 and counters B * H int32 zeros, which the
-// kernel leaves at zero (one launch at a time may use them).
+// q, out: (B, H, D) in `dtype` (0 fp32, 1 bf16, 4 fp16); k, v: (B, H, L, D)
+// in `kv_dtype` (q's type, or fp32), or int8 when `quant` (then
+// k_scale, v_scale: (H, D) fp32, else null; `kv_dtype` is not read);
+// positions: (B,) int32; bias: (B, H, L) in `bias_dtype` (0 fp32, 1 bf16,
+// 4 fp16) or null.  All contiguous.  D must be a multiple of 4 and at most
+// 256.  splits: the blocks a (b, h), 1 to min(L, 512); above 1, partials
+// holds B * H * splits * (D + 2) fp32 and counters B * H int32 zeros, which
+// the kernel leaves at zero (one launch at a time may use them).
 extern "C" int unicore_decode_attention(const void* q, const void* k, const void* v,
                                         const void* positions, const void* bias,
                                         const void* k_scale, const void* v_scale, void* out,
                                         void* partials, void* counters, int B, int H, int L,
-                                        int D, int dtype, int quant, int splits, void* stream) {
+                                        int D, int dtype, int kv_dtype, int bias_dtype, int quant,
+                                        int splits, void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || D <= 0 || D % 4 != 0 || D > kMaxHeadDim ||
       splits < 1 || splits > kMaxSplits || splits > L ||
       (long long)B * H * splits > 0x7fffffffLL || (quant != 0) != (k_scale != nullptr) ||
@@ -356,17 +370,30 @@ extern "C" int unicore_decode_attention(const void* q, const void* k, const void
       (splits > 1 && (partials == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define UNICORE_DECODE_CALL(TQ, TKV, QUANT)                                                   \
-  return (int)launch<TQ, TKV, QUANT>(q, k, v, positions, bias, k_scale, v_scale, out, partials, \
-                                     counters, B, H, L, D, splits, s)
-  if (dtype == kFloat32) {
-    if (quant) UNICORE_DECODE_CALL(float, int8_t, true);
-    UNICORE_DECODE_CALL(float, float, false);
-  }
-  if (dtype == kBFloat16) {
-    if (quant) UNICORE_DECODE_CALL(__nv_bfloat16, int8_t, true);
-    UNICORE_DECODE_CALL(__nv_bfloat16, __nv_bfloat16, false);
-  }
-#undef UNICORE_DECODE_CALL
-  return (int)cudaErrorInvalidValue;
+  // the bias's type, then the caches' under q's
+  auto with_bias = [&](auto tq, auto tkv, auto quant_tag) -> int {
+    using TQ = typename decltype(tq)::type;
+    using TKV = typename decltype(tkv)::type;
+    constexpr bool kQ = decltype(quant_tag)::value;
+    if (bias == nullptr || bias_dtype == kFloat32)
+      return (int)launch<TQ, TKV, float, kQ>(q, k, v, positions, bias, k_scale, v_scale, out,
+                                             partials, counters, B, H, L, D, splits, s);
+    if (bias_dtype == kBFloat16)
+      return (int)launch<TQ, TKV, __nv_bfloat16, kQ>(q, k, v, positions, bias, k_scale, v_scale,
+                                                     out, partials, counters, B, H, L, D,
+                                                     splits, s);
+    if (bias_dtype == kFloat16)
+      return (int)launch<TQ, TKV, __half, kQ>(q, k, v, positions, bias, k_scale, v_scale, out,
+                                              partials, counters, B, H, L, D, splits, s);
+    return (int)cudaErrorInvalidValue;
+  };
+  using QuantOn = std::integral_constant<bool, true>;
+  using QuantOff = std::integral_constant<bool, false>;
+  // the caches under q's type: int8, q's own type, or fp32
+  return (int)dispatch_float(dtype, [&](auto tq) -> cudaError_t {
+    if (quant) return (cudaError_t)with_bias(tq, Tag<int8_t>{}, QuantOn{});
+    if (kv_dtype == dtype) return (cudaError_t)with_bias(tq, tq, QuantOff{});
+    if (kv_dtype == kFloat32) return (cudaError_t)with_bias(tq, Tag<float>{}, QuantOff{});
+    return cudaErrorInvalidValue;
+  });
 }

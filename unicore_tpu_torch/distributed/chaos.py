@@ -1,5 +1,5 @@
-"""Fault injection for training and checkpoint storage (counterpart of the
-training half of ``unicore_tpu/distributed/chaos.py``):
+"""Fault injection for training, checkpoint storage and the serving plane
+(counterpart of ``unicore_tpu/distributed/chaos.py``):
 ``--fault-inject KIND[:PARAM]@STEP[@RANK]``.
 
 The robustness plane exists to survive loss spikes and torn or rotten
@@ -33,21 +33,39 @@ Kinds (persistent from STEP onward unless noted):
 ``grad-explosion[:SCALE]``
     The same, the gradients only: the loss stays healthy and the grad-norm
     detector must fire on its own.
+``request-flood[:QPS]@STEP``
+    Serving plane: from serve batch STEP on, the serve CLI's synthetic
+    traffic generator offers QPS (default 200) requests a second for a
+    fixed 10 s window: the admission queue must shed with named reasons
+    while admitted requests keep their deadlines.
+``slow-client[:SECS]@STEP``
+    Serving plane: ONE request after serve batch STEP arrives from a client
+    that stalls SECS (default 5) mid-body; the bounded read must answer it
+    408 with a named reason instead of wedging a worker.  Consumed after
+    one request.
+``corrupt-reload@STEP``
+    Serving plane: the NEXT hot-reload candidate picked up after serve
+    batch STEP gets payload bytes flipped before the verified load reads it
+    (the ``bit-flip-checkpoint`` machinery); verify-then-swap must roll back
+    and keep serving the old snapshot.  Consumed after one candidate.
 
 STEP counts updates: the hooks of an update read the counter before it
 (``fault_multipliers``, ``maybe_raise``), those of a checkpoint write the
-counter after the last update (:func:`note_step`).  RANK defaults to 0, the
-one process the port runs; a fault aimed at another rank never fires.
+counter after the last update (:func:`note_step`).  The serving kinds count
+dispatched serve batches instead (:func:`note_serve_batch`; ``@0`` = from
+start-up) and take no RANK: serving is one process.  RANK defaults to 0,
+the one process the port runs; a fault aimed at another rank never fires.
 
 The JAX package's other kinds raise ``NotImplementedError`` naming where
 they are queued: the host-desync, collective and elastic kinds
 (``seed-skew``, ``geometry-skew``, ``collective-delay``,
 ``collective-order-skew``, ``host-loss``, ``heartbeat-stall``,
 ``kv-outage``) wait for the parallelism slice (ROADMAP queue A item 4); the
-serving kinds (``request-flood``, ``slow-client``, ``corrupt-reload``,
-``replica-loss``, ``replica-stall``) for the rest of serving (queue A item
-2).  A plan is process-global (:func:`configure`); :func:`reset` clears it.
-With no ``--fault-inject`` every hook is a cheap no-op.
+fleet kinds (``replica-loss``, ``replica-stall``) for the serving fleet and
+its router (queue A item 2's next slice).  :func:`set_replica_index` records
+which fleet replica this process is, as the JAX serve CLI does.  A plan is
+process-global (:func:`configure`); :func:`reset` clears it.  With no
+``--fault-inject`` every hook is a cheap no-op.
 """
 
 import errno
@@ -89,6 +107,9 @@ PORTED_KINDS = (
     "raise",
     "loss-spike",
     "grad-explosion",
+    "request-flood",
+    "slow-client",
+    "corrupt-reload",
 )
 
 #: where each kind that is not ported waits
@@ -97,10 +118,13 @@ _QUEUED = {
           "collectives and the elastic run control)"
        for k in ("seed-skew", "geometry-skew", "collective-delay", "collective-order-skew",
                  "host-loss", "heartbeat-stall", "kv-outage")},
-    **{k: "the rest of serving (ROADMAP queue A item 2)"
-       for k in ("request-flood", "slow-client", "corrupt-reload", "replica-loss",
-                 "replica-stall")},
+    **{k: "the serving fleet and its router (ROADMAP queue A item 2's next slice)"
+       for k in ("replica-loss", "replica-stall")},
 }
+
+# serving-plane kinds: serving is one process, so they fire on "this" rank
+# and @RANK is refused
+_SERVE_KINDS = ("request-flood", "slow-client", "corrupt-reload")
 
 # metric faults feed every rank's update identically: @RANK is refused
 _ALL_RANK_KINDS = ("loss-spike", "grad-explosion")
@@ -138,6 +162,9 @@ class FaultPlan:
                 f"'{kind}' fires on every rank (its multipliers feed every rank's "
                 "update alike — a per-rank value would desync the ranks); drop the "
                 "@RANK part")
+        if kind in _SERVE_KINDS and rank is not None:
+            raise ValueError(
+                f"'{kind}' targets the single-process serving plane; drop the @RANK part")
         self.kind = kind
         self.step = step
         self._rank = rank
@@ -155,13 +182,15 @@ class FaultPlan:
         return _WORLD_SIZE - 1
 
     def on_this_rank(self) -> bool:
-        return self.kind in _ALL_RANK_KINDS or _RANK == self.rank
+        return self.kind in _ALL_RANK_KINDS or self.kind in _SERVE_KINDS or _RANK == self.rank
 
     def active(self, step: int) -> bool:
         """Persistent kinds stay on from ``self.step`` onward."""
         return step >= self.step and self.on_this_rank()
 
     def __repr__(self):
+        if self.kind in _SERVE_KINDS:
+            return f"FaultPlan({self.kind}@{self.step}@serve)"
         if self.kind in _ALL_RANK_KINDS:
             return f"FaultPlan({self.kind}@{self.step}@all-ranks)"
         if self._rank is not None:
@@ -190,6 +219,11 @@ def parse_fault_spec(spec: str) -> FaultPlan:
 
 _plan: Optional[FaultPlan] = None
 _last_step: int = 0
+# the monotonic clock when the request-flood window opened
+_window_started: Optional[float] = None
+# which fleet replica this process is (the serve CLI's --replica-index, 0
+# until the fleet is ported)
+_replica_index: int = 0
 
 
 def configure(args) -> Optional[FaultPlan]:
@@ -207,9 +241,18 @@ def configure(args) -> Optional[FaultPlan]:
 
 
 def reset() -> None:
-    global _plan, _last_step
+    global _plan, _last_step, _window_started, _replica_index
     _plan = None
     _last_step = 0
+    _window_started = None
+    _replica_index = 0
+
+
+def set_replica_index(index: int) -> None:
+    """Record which fleet replica this process is (the @IDX target of the
+    fleet kinds, which wait for the fleet slice)."""
+    global _replica_index
+    _replica_index = int(index)
 
 
 def note_step(step: int) -> None:
@@ -307,3 +350,72 @@ def maybe_raise(step: int) -> None:
     if (_plan is not None and _plan.kind == "raise" and _plan.on_this_rank()
             and step == _plan.step):
         raise ChaosError(f"injected mid-update failure at step {step} (--fault-inject)")
+
+
+# ---------------------------------------------------------------------------
+# serving-plane kinds (serve/, cli/serve.py)
+# ---------------------------------------------------------------------------
+
+_DEFAULT_FLOOD_QPS = 200.0
+_FLOOD_WINDOW_SECONDS = 10.0
+_DEFAULT_SLOW_CLIENT_SECONDS = 5.0
+
+
+def note_serve_batch(seq: int) -> None:
+    """Record serving progress: the serving kinds' STEP counts dispatched
+    serve batches."""
+    global _last_step
+    _last_step = seq
+
+
+def serve_flood_qps() -> float:
+    """``request-flood``: the synthetic request rate while the flood window
+    is open, else 0.0.  The [:QPS] param is the rate (default 200/s); the
+    window is a fixed 10 s from the first call at or after STEP."""
+    global _window_started
+    if _plan is None or _plan.kind != "request-flood" or not _plan.active(_last_step):
+        return 0.0
+    qps = float(_plan.param if _plan.param is not None else _DEFAULT_FLOOD_QPS)
+    if _window_started is None:
+        _window_started = time.monotonic()
+        logger.warning(
+            f"chaos: request-flood window OPEN at serve batch {_last_step} "
+            f"({qps:g} req/s for {_FLOOD_WINDOW_SECONDS:g}s)")
+    if time.monotonic() - _window_started >= _FLOOD_WINDOW_SECONDS:
+        return 0.0
+    return qps
+
+
+def take_slow_client_delay() -> float:
+    """``slow-client``: the stall (seconds) to inject into the NEXT
+    request's body read, else 0.0.  Consumed once."""
+    if (_plan is None or _plan.kind != "slow-client" or _plan.consumed
+            or not _plan.active(_last_step)):
+        return 0.0
+    _plan.consumed = True
+    delay = float(_plan.param if _plan.param is not None else _DEFAULT_SLOW_CLIENT_SECONDS)
+    logger.warning(
+        f"chaos: slow-client — the next request's body stalls {delay:.1f}s mid-read "
+        "(the bounded read path must 408 it, not wedge a worker)")
+    return delay
+
+
+def maybe_corrupt_reload(path: str) -> bool:
+    """``corrupt-reload``: flip payload bytes of a hot-reload candidate
+    before the verified load reads it; True when the flip happened.
+    Consumed once: the reload must reject THIS candidate, roll back and
+    keep serving."""
+    if (_plan is None or _plan.kind != "corrupt-reload" or _plan.consumed
+            or not _plan.active(_last_step)):
+        return False
+    _plan.consumed = True
+    try:
+        _flip_payload_bytes(path, _DEFAULT_FLIP_BYTES)
+    except OSError as e:
+        logger.warning(f"chaos: could not corrupt reload candidate {path}: {e}")
+        return False
+    logger.warning(
+        f"chaos: corrupt-reload — flipped payload byte(s) of reload candidate {path}; "
+        "the verified load must reject it and the server must keep serving the old "
+        "snapshot")
+    return True

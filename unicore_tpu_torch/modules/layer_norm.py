@@ -19,8 +19,9 @@ the statistics pass, fp32 out, as the JAX ``LayerNorm`` routes it.
 Semantics on every path: eps defaults (1e-5 LN / 1e-6 RMS),
 elementwise affine (weight=1, bias=0 init), fp32 statistics whatever the
 input type, output cast back to the input type.  The JAX package also
-journals each module's chosen path through its telemetry plane; that plane
-is not ported yet.
+journals each module's chosen path once a trace (``fused-norm-path``); the
+port's journal does not carry it (the choice follows the flag and the
+tensor's device on every call).
 """
 
 from typing import Optional

@@ -12,9 +12,14 @@ name and ``os.replace``d into place, so two processes building at once
 
 Each kernel wrapper keeps a plain integer launch count (:class:`LaunchCounter`),
 raised by one exactly where the wrapper launches its kernel: a run reads the
-counts to show its main path went through the kernels.
+counts to show its main path went through the kernels.  A thread inside
+:func:`counted_apart` adds its launches to a dict of its own instead (the
+serve plane's hot reload probes and calibrates a candidate on its own
+thread while the loop serves, and the quantized server's drift probe runs
+between batches: the per-batch counts stay the serving path's alone).
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +39,8 @@ NVCC_FLAGS = [
 
 _lib = None
 _lib_lock = threading.Lock()
+#: the launch dict of a thread inside counted_apart
+_apart = threading.local()
 
 
 class LaunchCounter:
@@ -45,8 +52,12 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def add(self) -> None:
+        sink = getattr(_apart, "sink", None)
         with self._lock:
-            self.count += 1
+            if sink is None:
+                self.count += 1
+            else:
+                sink[self.name] = sink.get(self.name, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
@@ -69,6 +80,18 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+@contextlib.contextmanager
+def counted_apart(sink: Dict[str, int]):
+    """This thread's launches go to ``sink`` (kernel name -> count), not to
+    the process counts, for the duration."""
+    prev = getattr(_apart, "sink", None)
+    _apart.sink = sink
+    try:
+        yield sink
+    finally:
+        _apart.sink = prev
 
 
 def sources() -> List[Path]:
@@ -174,8 +197,9 @@ def _bind(lib) -> None:
     lib.unicore_flash_attention_dq.argtypes = [p] * 10 + geom
     lib.unicore_flash_attention_dkv.argtypes = [p] * 12 + geom
     # csrc/decode_attention.cu: tensors (partials and counters among them),
-    # (B, H, L, D), dtype, quant, splits, stream
-    lib.unicore_decode_attention.argtypes = [p] * 10 + [i] * 7 + [p]
+    # (B, H, L, D), q's, the caches' and the bias's dtypes, quant, splits,
+    # stream
+    lib.unicore_decode_attention.argtypes = [p] * 10 + [i] * 9 + [p]
     # the quantized serving path: csrc/quant_matmul.cu (x, w, scale, bias, y,
     # M, N, K, activation, tile width), the int8 LayerNorm of
     # csrc/fused_norm.cu and the int8/int32 softmax of csrc/softmax_dropout.cu

@@ -4,12 +4,15 @@
 
 Incremental decode attends ONE query row per sequence against that
 sequence's K/V cache: q is ``(B, H, D)``, pre-scaled; the gathered caches
-are ``(B, H, L, D)`` (``L`` the cache-length bucket), fp32/bf16 or int8;
+are ``(B, H, L, D)`` (``L`` the cache-length bucket), in q's type, fp32
+(a bf16 or fp16 model's step against the fp32 pool, as the JAX kernel reads
+a bf16 query against an fp32 cache), or int8;
 ``positions[b]`` names the current token's row, and rows beyond it are dead
 (pad junk or pages not yet written).  int8 caches come with per-(head,
 channel) fp32 dequant scales ``(H, D)``, multiplied in as each row is read.
-The output is ``(B, H, D)`` in q's type.  Forward only: the cache read path
-never trains.
+The bias row is any float type; every operand is read as fp32.  The output
+is ``(B, H, D)`` in q's type.  Forward only: the cache read path never
+trains.
 
 A CPU tensor goes through :func:`decode_attention_plain`, the JAX package's
 ``decode_attention_reference`` in plain PyTorch; a CUDA tensor goes through
@@ -21,8 +24,11 @@ arrival counters that every launch leaves at zero: one launch at a time
 may use a device's counters, as the port's single stream does.  The TPU kernel's eligibility rule (L a
 multiple of the cache type's sublane tile) is the TPU's tiling and is not
 carried over: the CUDA kernel takes every L, and refuses only a head dim
-that is not a multiple of 4 or is above 256, and type pairs other than q and
-caches of one type or int8 caches.
+that is not a multiple of 4 or is above 256, q types other than fp32,
+bf16 and fp16, and caches of a 16-bit type other than q's.  The launches of
+a bf16 q against fp32 caches count apart (``decode_attention_bf16q``), so a
+bf16 model's served step shows which variant it ran; every other launch
+counts as ``decode_attention``.
 """
 
 from typing import Optional
@@ -36,8 +42,11 @@ NEG = -1e30
 #: the kernel's limits: 4-element loads, at most 2 per lane of a warp
 MAX_HEAD_DIM = 256
 
-_QDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's q, cache and bias float types (the C entry point's codes)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 4}
 LAUNCHES = _kernels.counter("decode_attention")
+#: launches of the bf16-query variant: a bf16 q against fp32 caches
+LAUNCHES_BF16Q = _kernels.counter("decode_attention_bf16q")
 
 #: blocks a call aims for (several an SM of a 132-SM card), and the fewest
 #: rows a block takes once the rows are split
@@ -101,12 +110,12 @@ def decode_attention_plain(
 
 def _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale):
     B, H, L, D = k_cache.shape
-    if q.dtype not in _QDTYPES:
-        raise ValueError(f"decode_attention: q dtype {q.dtype} unsupported (fp32/bf16)")
-    if k_cache.dtype != torch.int8 and k_cache.dtype != q.dtype:
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"decode_attention: q dtype {q.dtype} unsupported (fp32/bf16/fp16)")
+    if k_cache.dtype not in (torch.int8, q.dtype, torch.float32):
         raise NotImplementedError(
             f"decode_attention: caches of {k_cache.dtype} with q of {q.dtype}; the "
-            "kernel takes caches of q's type or int8"
+            "kernel takes caches of q's type, fp32 or int8"
         )
     if v_cache.dtype != k_cache.dtype or tuple(v_cache.shape) != (B, H, L, D):
         raise ValueError("decode_attention: k and v caches differ in type or shape")
@@ -123,10 +132,11 @@ def _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale):
         )
     if positions.dtype != torch.int32:
         raise ValueError(f"decode_attention: positions must be int32, got {positions.dtype}")
-    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (B, H, L)):
+    if bias is not None and (bias.dtype not in _DTYPES
+                             or tuple(bias.shape) != (B, H, L)):
         raise ValueError(
-            f"decode_attention: bias must be fp32 (B, H, L) = {(B, H, L)}, got "
-            f"{bias.dtype} {tuple(bias.shape)}"
+            f"decode_attention: bias must be fp32, bf16 or fp16 (B, H, L) = {(B, H, L)}, "
+            f"got {bias.dtype} {tuple(bias.shape)}"
         )
     for what, s in (("k_scale", k_scale), ("v_scale", v_scale)):
         if s is not None and (s.dtype != torch.float32 or tuple(s.shape) != (H, D)):
@@ -148,11 +158,13 @@ def _launch(q, k_cache, v_cache, positions, bias, k_scale, v_scale):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), positions.data_ptr(),
         _kernels.ptr(bias), _kernels.ptr(k_scale), _kernels.ptr(v_scale),
         out.data_ptr(), _kernels.ptr(partials), _kernels.ptr(counters), B, H, L, D,
-        _QDTYPES[q.dtype], int(k_cache.dtype == torch.int8), splits,
-        _kernels.stream_handle(q.device),
+        _DTYPES[q.dtype], _DTYPES.get(k_cache.dtype, 0),
+        _DTYPES[bias.dtype] if bias is not None else 0,
+        int(k_cache.dtype == torch.int8), splits, _kernels.stream_handle(q.device),
     )
     _kernels.check(rc, "decode_attention")
-    LAUNCHES.add()
+    mixed = q.dtype == torch.bfloat16 and k_cache.dtype == torch.float32
+    (LAUNCHES_BF16Q if mixed else LAUNCHES).add()
     return out
 
 
@@ -168,7 +180,7 @@ def decode_attention(
     """One decode step of attention: ``softmax(q k^T + bias, live-mask) v``
     with ``q`` (B, H, D) pre-scaled, caches (B, H, L, D), ``positions``
     (B,) int32 naming each row's current token (each in [0, L): cache rows
-    beyond it are masked out), ``bias`` (B, H, L) fp32 or None.
+    beyond it are masked out), ``bias`` (B, H, L) of any float type, or None.
 
     ``k_scale``/``v_scale`` (H, D) fp32: static per-(head, channel) dequant
     scales for int8 caches.  Scales must come paired with int8 caches and

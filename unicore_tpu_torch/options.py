@@ -76,6 +76,29 @@ def add_serving_args(parser):
                        metavar="SECS",
                        help="auto-drain and exit after this long "
                             "(0 = serve until signalled)")
+    group.add_argument("--reload-interval", type=float, default=0.0,
+                       metavar="SECS",
+                       help="hot checkpoint reload: poll --path's "
+                            "publish signature this often and "
+                            "verify-then-swap new checkpoints on a batch "
+                            "boundary, rolling back (and continuing to "
+                            "serve the old snapshot) if verification or "
+                            "the probe batch fails (0 disables)")
+    group.add_argument("--fault-inject", type=str, default=None,
+                       metavar="KIND[:PARAM]@STEP",
+                       help="serving chaos harness (distributed/chaos.py):"
+                            " request-flood[:QPS] (synthetic overload, "
+                            "proves named-reason shedding), "
+                            "slow-client[:SECS] (one stalled body read, "
+                            "proves the bounded read path), "
+                            "corrupt-reload (bit rot on the next reload "
+                            "candidate, proves verify-then-swap rollback);"
+                            " STEP counts dispatched serve batches")
+    group.add_argument("--telemetry-dir", metavar="DIR", default=None,
+                       help="per-process event journal for serve-plane "
+                            "events (sheds, reload outcomes, drains); "
+                            "default: the served checkpoint's directory + "
+                            "/telemetry.  Merge with unicore-tpu-trace")
     group.add_argument("--seed", type=int, default=1, metavar="N",
                        help="accepted for script compatibility; serving "
                             "is deterministic and consumes no rng")

@@ -24,8 +24,9 @@ the checkpoint.
 4. **drift** -- :func:`logit_drift` runs the same batches through both
    precisions and reports the max/mean absolute logit drift.
 
-The JAX package re-runs this pass on hot reload; the port's hot reload is
-not ported yet.
+Hot reload re-runs this pass for each candidate (the serve CLI's
+``preparer``): scales reused when the candidate's digest matches the
+sidecar, re-derived otherwise.
 """
 
 import hashlib

@@ -19,8 +19,9 @@ marks a late result ``expired-at-response``).  Batch formation is
 bucket-affine: the head request picks the shape bucket and the queue is
 scanned FIFO for more requests snapping to the same bucket.
 
-The JAX package also journals sheds through its telemetry plane; the
-telemetry journal is not ported yet, so sheds are logged and counted only.
+Sheds are counted per reason (``/stats``, ``/metrics``); the first five of
+each reason, then every hundredth, are logged and journalled
+(``serve-shed``), as the JAX queue samples them.
 """
 
 import logging
@@ -29,6 +30,7 @@ import time
 from collections import deque
 from typing import List, Optional, Sequence, Tuple
 
+from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.data.data_utils import bucket_for
 from unicore_tpu_torch.serve import request as rq
 
@@ -240,13 +242,19 @@ class AdmissionQueue:
             req.expire(reason)
         else:
             req.shed(reason)
-        # a flood sheds thousands of times in seconds: log the first few
-        # per reason then sample; the per-reason counters stay exact
+        # a flood sheds thousands of times in seconds: log (and journal)
+        # the first few per reason then sample; the per-reason counters
+        # stay exact
         if count <= 5 or count % 100 == 0:
             logger.warning(
                 f"SHED request {req.request_id}: {reason} #{count} "
                 f"(depth {depth}/{self.capacity}, est-delay {est:.3f}s, "
                 f"deadline-left {req.deadline.remaining():.3f}s)"
+            )
+            telemetry.emit(
+                "serve-shed", reason=str(reason), count=int(count),
+                request_id=req.request_id, depth=int(depth),
+                estimated_delay_s=round(est, 4),
             )
         return False
 

@@ -22,11 +22,17 @@ Every dispatch runs eagerly under ``torch.inference_mode()`` entered in the
 thread that calls it (the loop thread in service).  Eager PyTorch compiles
 nothing per shape, so the JAX engine's recompile-after-warm-up watchdog has
 no counterpart.  Every blocking wait is deadline-bounded; deadlines are
-enforced at admission, before every decode step, and at response; drain
-and readiness are the base engine's.  The JAX package journals
-``decode-step`` and ``serve-shed`` events through its telemetry plane and
-injects faults through its chaos plane; neither plane is ported, so the
-events are logged.
+enforced at admission, before every decode step, and at response; drain,
+readiness and hot reload are the base engine's.  A hot swap applies between
+steps: sequences in flight keep their pages (their cached rows came from
+the old weights, as in the JAX engine).  Every ``decode_sample_every``-th
+step is journalled (``decode-step``), as is each ``cache-oom`` shed
+(``serve-shed``).
+
+Dtypes, as the JAX engine's programs: a bf16 (or fp16) model runs its
+prefill and step in its own type; the pool stays fp32 (or int8), and the
+prefill's K/V and each step's rows are cast into it; the next token is the
+argmax of the logits and the score their max in fp32.
 """
 
 import logging
@@ -37,7 +43,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.checkpoint.emergency import Deadline
+from unicore_tpu_torch.distributed import chaos
 from unicore_tpu_torch.serve import request as rq
 from unicore_tpu_torch.serve.admission import AdmissionQueue
 from unicore_tpu_torch.serve.engine import (
@@ -46,6 +54,8 @@ from unicore_tpu_torch.serve.engine import (
     PHASE_SERVING,
     PHASE_WARMING,
     ServeEngine,
+    _report_drain,
+    probe_batch,
 )
 from unicore_tpu_torch.serve.kv_cache import (
     DEFAULT_PAGE_SIZE,
@@ -121,6 +131,7 @@ class DecodeEngine(ServeEngine):
         precision: str = "",
         decode_sample_every: int = 64,
         device: str = "",
+        swap_hook=None,
     ):
         if kv_dtype not in ("fp32", "int8"):
             raise ValueError(f"kv_dtype must be 'fp32' or 'int8', got {kv_dtype!r}")
@@ -148,6 +159,7 @@ class DecodeEngine(ServeEngine):
             queue=queue,
             precision=precision,
             device=device,
+            swap_hook=swap_hook,
         )
         #: where the model's weights, the pools and every dispatch live
         self.torch_device = next(model.parameters()).device
@@ -225,7 +237,8 @@ class DecodeEngine(ServeEngine):
             table = np.full((self.batch_size, edge // self.page_size), sentinel, np.int32)
             self._dispatch_decode_arrays(dtoks, dpos, table)
             self._dispatch_decode_arrays(dtoks, dpos, table)
-        self.probe()
+        # the reload probe's forward warms too
+        self.probe(self.model)
         shapes = 2 * len(self.bucket_edges)
         logger.info(
             f"decode warm-up complete: {shapes} shape(s) (prefill+decode) for "
@@ -284,14 +297,16 @@ class DecodeEngine(ServeEngine):
 
     # -- probe -----------------------------------------------------------
 
-    def probe(self) -> None:
-        """Full-forward canary on the smallest bucket (shape and finite
-        scores), never touching the pools."""
+    def probe(self, model) -> None:
+        """Full-forward canary of ``model`` (the served one at warm-up, a
+        reload candidate after) on the smallest bucket's
+        :func:`~unicore_tpu_torch.serve.engine.probe_batch`: shape and
+        finite scores, never touching the pools."""
         edge = self.bucket_edges[0]
         with torch.inference_mode():
-            dummy = torch.full((self.prefill_batch, edge), self.pad_idx,
-                               dtype=torch.long, device=self.torch_device)
-            logits = self.model(dummy)
+            dummy = torch.as_tensor(probe_batch(self.prefill_batch, edge, self.pad_idx),
+                                    dtype=torch.long, device=self.torch_device)
+            logits = model(dummy)
             ids = logits.argmax(dim=-1)
             score = logits.float().amax(dim=-1).mean(dim=-1)
         if tuple(ids.shape) != (self.prefill_batch, edge):
@@ -324,6 +339,7 @@ class DecodeEngine(ServeEngine):
         batch if any sequence is ready, otherwise one prefill batch
         (preempted sequences first, then admission).  Returns the number of
         sequences FINISHED this iteration."""
+        chaos.note_serve_batch(self._batch_seq)
         batch = self._take_decode_batch()
         if batch is not None:
             return self._run_decode_step(*batch)
@@ -348,6 +364,11 @@ class DecodeEngine(ServeEngine):
         logger.warning(
             f"SHED request {req.request_id}: {rq.SHED_CACHE_OOM} (page "
             f"occupancy {self.cache.occupancy():.4f})"
+        )
+        telemetry.emit(
+            "serve-shed", reason=rq.SHED_CACHE_OOM,
+            request_id=req.request_id,
+            occupancy=round(self.cache.occupancy(), 4),
         )
 
     def _preempt_youngest(self, exclude) -> bool:
@@ -468,7 +489,7 @@ class DecodeEngine(ServeEngine):
                 s.bucket = bucket_for(s.next_pos + 1, self.bucket_edges)
                 self._decode_ready.append(s)
                 self.requeued_steps += 1
-        self._maybe_log_step(bucket, len(seqs), step_ms)
+        self._maybe_journal_step(bucket, len(seqs), step_ms)
         return served
 
     def _finish(self, s: DecodeSequence, final: Optional[int]) -> None:
@@ -496,16 +517,18 @@ class DecodeEngine(ServeEngine):
                     del self._latencies_ms[: _LATENCY_WINDOW // 4]
         self._release(s)
 
-    def _maybe_log_step(self, bucket, live, step_ms) -> None:
-        """Every ``decode_sample_every``-th step, the line the JAX package
-        journals as a ``decode-step`` event."""
+    def _maybe_journal_step(self, bucket, live, step_ms) -> None:
+        """Every ``decode_sample_every``-th step, a ``decode-step`` event."""
         if (self._decode_sample_every <= 0
                 or self.decode_steps % self._decode_sample_every != 0):
             return
-        logger.info(
-            f"decode-step {self.decode_steps}: bucket {bucket}, live {live}, "
-            f"service {step_ms:.3f} ms, occupancy {self.cache.occupancy():.4f}, "
-            f"tokens {self.tokens_generated}, preempted {self.preempted_seqs}"
+        telemetry.emit(
+            "decode-step", step=int(self.decode_steps),
+            bucket=int(bucket), live=int(live),
+            service_ms=round(step_ms, 3),
+            occupancy=round(self.cache.occupancy(), 4),
+            tokens_generated=int(self.tokens_generated),
+            preempted=int(self.preempted_seqs),
         )
 
     # ... prefill side ...................................................
@@ -649,17 +672,7 @@ class DecodeEngine(ServeEngine):
         except retry.WaitTimeoutError:
             drained = False
         self.stop()
-        if drained:
-            logger.info(
-                f"DRAIN complete: in-flight work flushed in {deadline.elapsed():.2f}s"
-            )
-        else:
-            leftovers = self._flush_undrained()
-            logger.error(
-                f"DRAIN deadline exceeded: {leftovers} request(s) abandoned "
-                f"after {deadline.elapsed():.2f}s (each got a terminal "
-                "'draining' response)"
-            )
+        _report_drain(drained, deadline, depth, self._flush_undrained)
         return drained
 
     def _flush_undrained(self) -> int:

@@ -12,6 +12,13 @@ fixed set of shape buckets) → **respond** (deadline checked one last time).
   warm-up; eager PyTorch compiles nothing per shape, so that watchdog has
   no counterpart here.
 * **Bounded waits**: every blocking wait is sliced and deadline-bounded.
+* **Swap on a batch boundary**: hot reload (``serve/reload.py``) hands a
+  verified and probed candidate MODEL to :meth:`request_swap`; the loop
+  applies it between batches, so no batch ever computes against half-swapped
+  weights.  The candidate is a second model instance on the device, holding
+  the checkpoint's tensors in their own types (a swap may change the served
+  dtype, as the JAX engine serves whatever tree it is handed); the old
+  instance is dropped at the swap and its device memory returns.
 * **Drain, don't drop**: SIGTERM stops admission and flushes in-flight
   work under a deadline (:meth:`drain`).
 
@@ -24,9 +31,11 @@ Quantized serving (``--serve-quantize``): ``precision`` names the mode,
 drift| of each real request row against the fp32 model) show in /stats
 under ``quant``, with the JAX field names.  The probe's own kernel launches
 are counted apart (``probe_kernel_launches``), so the serving path's
-launches per batch stay readable.  The JAX package journals the samples as
-``quant-path`` events; the port's journal is not ported, so they are
-logged.  Hot reload is not ported yet.
+launches per batch stay readable; so are the reload thread's
+(``reload_kernel_launches``: the candidate's probe and calibration).  The
+drift samples, swaps and drains are journalled (``quant-path``,
+``serve-reload``, ``serve-drain``) through ``unicore_tpu_torch.telemetry``,
+as the JAX engine journals them.
 """
 
 import logging
@@ -37,7 +46,9 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.checkpoint.emergency import Deadline
+from unicore_tpu_torch.distributed import chaos
 from unicore_tpu_torch.ops import _kernels
 from unicore_tpu_torch.serve import request as rq
 from unicore_tpu_torch.serve.admission import AdmissionQueue
@@ -48,6 +59,7 @@ logger = logging.getLogger(__name__)
 #: engine phases surfaced by the readiness probe
 PHASE_WARMING = "warming-up"
 PHASE_SERVING = "serving"
+PHASE_RELOADING = "reloading"
 PHASE_DRAINING = "draining"
 PHASE_STOPPED = "stopped"
 
@@ -96,6 +108,7 @@ class ServeEngine:
         quant_info: Optional[dict] = None,
         drift_probe: Optional[Callable] = None,
         drift_sample_every: int = 64,
+        swap_hook: Optional[Callable] = None,
     ):
         if not bucket_edges:
             raise ValueError("bucket_edges must name at least one length")
@@ -131,6 +144,12 @@ class ServeEngine:
         self._drift_probe_dead = False
         #: kernel launches made by the drift probe (not the serving path)
         self._probe_launches = {}
+        #: called with (model, tag) right after a hot swap applies: the
+        #: quantized CLI re-pairs its drift probe here
+        self._swap_hook = swap_hook
+        #: kernel launches of the reload thread (candidates' probes and
+        #: calibration), counted apart from the serving path's
+        self.reload_launches = {}
         self._phase = PHASE_WARMING
         self._ready = False
         self._stop = threading.Event()
@@ -139,6 +158,10 @@ class ServeEngine:
         self.expired_at_response = 0
         self._latencies_ms: List[float] = []
         self._lock = threading.Lock()
+        # hot-reload handoff: (model, tag) applied on a batch boundary
+        self._pending_swap = None
+        self._swap_tag = None
+        self.reloads_applied = 0
         self._thread: Optional[threading.Thread] = None
         #: the exception that killed the loop thread, if any — the CLI
         #: polls this and exits rather than linger with liveness green
@@ -219,6 +242,64 @@ class ServeEngine:
             )
         return req
 
+    # -- hot reload ------------------------------------------------------
+
+    def probe(self, model) -> None:
+        """One dummy batch at the first bucket through the candidate
+        ``model`` (:func:`probe_batch`); raises on an ill-shaped output or a
+        non-finite score."""
+        edge = self.bucket_edges[0]
+        dummy = probe_batch(self.batch_size, edge, self.pad_idx)
+        ids, score = self.infer_fn(model, dummy)
+        ids, score = np.asarray(ids), np.asarray(score)
+        if ids.shape != (self.batch_size, edge):
+            raise ValueError(
+                f"probe batch produced shape {ids.shape}, "
+                f"expected {(self.batch_size, edge)}"
+            )
+        if not np.all(np.isfinite(score)):
+            raise ValueError(
+                "probe batch produced non-finite scores (poisoned weights?)"
+            )
+
+    def request_swap(self, model, tag: str) -> None:
+        """Hand a verified and probed candidate model to the loop; it is
+        applied on the next batch boundary (never mid-batch)."""
+        with self._lock:
+            self._pending_swap = model
+            self._swap_tag = tag
+
+    def _apply_pending_swap(self) -> None:
+        with self._lock:
+            pending, tag = self._pending_swap, self._swap_tag
+            self._pending_swap = self._swap_tag = None
+        if pending is None:
+            return
+        before = _memory_stats(pending)
+        old, self.model = self.model, pending
+        del old  # the old instance's memory returns
+        if self._swap_hook is not None:
+            try:
+                self._swap_hook(pending, tag)
+            except Exception:
+                logger.exception("swap hook failed (swap stands)")
+        memory = ""
+        if before:
+            torch.cuda.empty_cache()
+            after = _memory_stats(pending)
+            memory = (f"; device memory allocated {before['device_memory_mib']} -> "
+                      f"{after['device_memory_mib']} MiB, peak "
+                      f"{after['device_memory_peak_mib']} MiB")
+        self.reloads_applied += 1
+        logger.warning(
+            f"RELOAD SWAPPED: serving snapshot replaced on batch boundary "
+            f"{self._batch_seq} ({tag}){memory}"
+        )
+        telemetry.emit(
+            "serve-reload", outcome="swapped-in",
+            batch=int(self._batch_seq), tag=str(tag),
+        )
+
     # -- the loop --------------------------------------------------------
 
     def start(self) -> None:
@@ -230,6 +311,7 @@ class ServeEngine:
     def run(self) -> None:
         try:
             while not self._stop.is_set():
+                self._apply_pending_swap()
                 self.step(timeout=0.05)
         except Exception as err:
             logger.exception("serve engine loop died")
@@ -251,6 +333,7 @@ class ServeEngine:
         batch = self.queue.take_batch(
             self.bucket_edges, timeout, max_len=self.bucket_edges[-1]
         )
+        chaos.note_serve_batch(self._batch_seq)
         if batch is None:
             return 0
         reqs, padded = batch
@@ -307,23 +390,20 @@ class ServeEngine:
             or self._batch_seq % self._drift_every != 0
         ):
             return
-        before = _kernels.launch_counts()
+        launched = {}
         try:
-            per_row = np.asarray(self._drift_probe(arr), np.float32)
+            # the probe's launches count apart from the serving path's
+            with _kernels.counted_apart(launched):
+                per_row = np.asarray(self._drift_probe(arr), np.float32)
         except Exception:
             self._drift_probe_dead = True
             logger.exception("quant drift probe died; per-request drift sampling "
                              "disabled (serving continues)")
             return
         finally:
-            # the probe runs on this thread between dispatches: the counts'
-            # difference is its launches alone
-            after = _kernels.launch_counts()
             with self._lock:
-                for k, n in after.items():
-                    if n - before.get(k, 0):
-                        self._probe_launches[k] = (self._probe_launches.get(k, 0)
-                                                   + n - before.get(k, 0))
+                for k, n in launched.items():
+                    self._probe_launches[k] = self._probe_launches.get(k, 0) + n
         rows = per_row[:n_real] if per_row.ndim else per_row.reshape(1)
         if rows.size == 0:
             return
@@ -338,9 +418,11 @@ class ServeEngine:
             d["mean_abs"] = (mean if d["samples"] <= n_real
                              else 0.1 * mean + 0.9 * d["mean_abs"])
             running = d["max_abs"]
-        logger.info(
-            f"quant-path drift-sample: batch {self._batch_seq}, {n_real} request(s), "
-            f"max |logit drift| {batch_max:.6f} (running max {running:.6f})"
+        telemetry.emit(
+            "quant-path", event="drift-sample", batch=int(self._batch_seq),
+            requests=int(n_real),
+            max_abs_logit_drift=round(batch_max, 6),
+            running_max=round(running, 6),
         )
 
     # -- drain / stop ----------------------------------------------------
@@ -367,18 +449,7 @@ class ServeEngine:
         except retry.WaitTimeoutError:
             drained = False
         self.stop()
-        if drained:
-            logger.info(
-                f"DRAIN complete: in-flight work flushed in "
-                f"{deadline.elapsed():.2f}s"
-            )
-        else:
-            leftovers = self._flush_undrained()
-            logger.error(
-                f"DRAIN deadline exceeded: {leftovers} request(s) abandoned "
-                f"after {deadline.elapsed():.2f}s (each got a terminal "
-                "'draining' response)"
-            )
+        _report_drain(drained, deadline, depth, self._flush_undrained)
         return drained
 
     def _flush_undrained(self) -> int:
@@ -417,9 +488,9 @@ class ServeEngine:
         }
 
     def update_quant_info(self, info: dict) -> None:
-        """/stats must describe the snapshot actually serving: the
-        calibration block is replaced and the drift aggregate starts over
-        (the JAX hot reload's hook; the port's hot reload is not ported)."""
+        """A hot swap committed a re-calibrated snapshot: /stats must
+        describe the snapshot actually serving, so the calibration block is
+        replaced and the drift aggregate starts over."""
         with self._lock:
             self.quant_info = dict(info)
             self._drift = {"samples": 0, "max_abs": 0.0, "mean_abs": 0.0,
@@ -445,9 +516,62 @@ class ServeEngine:
             "buckets": list(self.bucket_edges),
             "batch_size": self.batch_size,
             "estimated_delay_s": round(self.queue.estimated_delay(), 4),
-            #: per-kernel launch counts of this process (ops/_kernels.py)
+            "reloads_applied": self.reloads_applied,
+            #: per-kernel launch counts of this process's serving path
+            #: (ops/_kernels.py); the reload thread's and the drift probe's
+            #: are counted apart, below
             "kernel_launches": _kernels.launch_counts(),
-            #: the part of them the quantized drift probe made
+            "reload_kernel_launches": dict(self.reload_launches),
+            **_memory_stats(self.model),
             **({"probe_kernel_launches": probe} if probe is not None else {}),
             **self.latency_percentiles(),
         }
+
+
+def probe_batch(batch: int, length: int, pad_idx: int) -> np.ndarray:
+    """The reload probe's dummy batch: pads, but for one live token at the
+    head of each row.  The JAX engine probes an all-pad batch, whose every
+    key is masked: with the fp32 minimum cast to bf16 or fp16 (-inf) each
+    row softmaxes to NaN, so its probe rejects every low-precision model.
+    A live key per row keeps the canary's verdict (shape, finite scores)
+    about the weights."""
+    dummy = np.full((batch, length), pad_idx, dtype=np.int32)
+    dummy[:, 0] = 0 if pad_idx != 0 else 1
+    return dummy
+
+
+def _report_drain(drained: bool, deadline: Deadline, depth: int, flush) -> None:
+    """The drain's verdict, logged and journalled (``serve-drain``) as the
+    JAX engine does; ``flush`` resolves the leftovers of a blown budget."""
+    if drained:
+        logger.info(
+            f"DRAIN complete: in-flight work flushed in "
+            f"{deadline.elapsed():.2f}s"
+        )
+        telemetry.emit(
+            "serve-drain", outcome="complete",
+            seconds=round(deadline.elapsed(), 3), queued=depth,
+        )
+        return
+    leftovers = flush()
+    logger.error(
+        f"DRAIN deadline exceeded: {leftovers} request(s) abandoned "
+        f"after {deadline.elapsed():.2f}s (each got a terminal "
+        "'draining' response)"
+    )
+    telemetry.emit(
+        "serve-drain", outcome="deadline-exceeded",
+        seconds=round(deadline.elapsed(), 3), abandoned=int(leftovers),
+    )
+
+
+def _memory_stats(model) -> dict:
+    """The device memory of the card a model lies on (MiB allocated, live
+    and peak), for /stats and the swap's log line: what a hot swap
+    releases.  Empty off the card."""
+    p = next(iter(model.parameters()), None) if hasattr(model, "parameters") else None
+    dev = p.device if p is not None and p.device.type == "cuda" else None
+    if dev is None:
+        return {}
+    return {"device_memory_mib": round(torch.cuda.memory_allocated(dev) / 2**20, 1),
+            "device_memory_peak_mib": round(torch.cuda.max_memory_allocated(dev) / 2**20, 1)}

@@ -7,6 +7,8 @@ in the engine/admission layer; this module only maps outcomes onto HTTP:
 * ``GET /healthz``  → 200 while the process lives (liveness);
 * ``GET /readyz``   → 200 only when the engine is warmed and not draining;
 * ``GET /stats``    → JSON counters, latency percentiles, kernel launches;
+* ``GET /metrics``  → Prometheus text exposition of the same counters
+  (``telemetry/prometheus.py``, the JAX package's metric names);
 * ``POST /v1/infer`` → ``{"tokens": [...], "deadline_ms": N, "id": "..."}``
   → 200 ok / 429 shed (named reason) / 400 too long or malformed /
   503 not-ready-or-draining / 504 expired / 408 slow client;
@@ -15,13 +17,17 @@ in the engine/admission layer; this module only maps outcomes onto HTTP:
   the JAX server takes it; else 400) → the generated ids,
   on an engine that declares ``supports_generate`` (``serve/decode.py``);
   404 on any other engine.  ``/v1/infer`` on a decode engine generates
-  with the engine's default budget.
+  with the engine's default budget;
+* ``POST /v1/reload`` → run this server's own verify→probe→swap on its
+  served checkpoint now and answer the named outcome (200), 409 while
+  another one is in flight; 404 unless a reloader is set (as in the JAX
+  server, only a fleet replica sets one: the fleet waits for its slice).
 
 Every 503 carries ``Retry-After``.  The body read is deadline-bounded (a
-client that trickles its request gets a 408 instead of wedging a worker),
-the response wait goes through ``utils/retry.bounded_wait``, and each
-connection carries a socket timeout as the OS-level backstop.  The JAX
-package's ``/metrics``, ``/v1/reload`` and chaos hooks are not ported yet.
+client that trickles its request, chaos ``slow-client``, gets a 408 with
+the named reason instead of wedging a worker), the response wait goes
+through ``utils/retry.bounded_wait``, and each connection carries a socket
+timeout as the OS-level backstop.
 """
 
 import json
@@ -30,10 +36,14 @@ import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 import numpy as np
 
+from unicore_tpu_torch import telemetry
+from unicore_tpu_torch.distributed import chaos
 from unicore_tpu_torch.serve import request as rq
+from unicore_tpu_torch.telemetry import prometheus
 from unicore_tpu_torch.utils import retry
 
 logger = logging.getLogger(__name__)
@@ -57,12 +67,18 @@ class ServeHTTPServer(ThreadingHTTPServer):
     def __init__(self, addr, engine, *, read_timeout_s: float = 10.0,
                  max_body_bytes: int = 1 << 20,
                  default_deadline_ms: float = 1000.0,
-                 max_deadline_ms: float = 60000.0):
+                 max_deadline_ms: float = 60000.0,
+                 reloader=None, reload_path: Optional[str] = None):
         self.engine = engine
         self.read_timeout_s = float(read_timeout_s)
         self.max_body_bytes = int(max_body_bytes)
         self.default_deadline_ms = float(default_deadline_ms)
         self.max_deadline_ms = float(max_deadline_ms)
+        #: POST /v1/reload runs this reloader on reload_path, one at a time
+        #: (the lock: a second request mid-reload answers 409)
+        self.reloader = reloader
+        self.reload_path = reload_path
+        self.reload_lock = threading.Lock()
         super().__init__(addr, ServeHandler)
 
     def start(self) -> threading.Thread:
@@ -156,20 +172,45 @@ class ServeHandler(BaseHTTPRequestHandler):
             )
         elif self.path == "/stats":
             self._send_json(200, engine.stats())
+        elif self.path == "/metrics":
+            body = prometheus.render_engine(engine).encode("utf-8")
+            self.send_response(200)
+            self.send_header("Content-Type", prometheus.CONTENT_TYPE)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
         else:
             self._send_json(404, {"error": f"unknown path {self.path}"})
 
     # -- inference -------------------------------------------------------
 
+    def _read_body(self) -> bytes:
+        # chaos 'slow-client': the bytes "arrive" only after the injected
+        # stall; the bounded wait must 408 a stall longer than the read
+        # budget instead of blocking a worker for its length
+        stall = chaos.take_slow_client_delay()
+        if stall > 0:
+            arrive_at = time.monotonic() + stall
+            try:
+                retry.bounded_wait(
+                    lambda: time.monotonic() >= arrive_at,
+                    timeout=self.server.read_timeout_s,
+                    poll_s=0.05,
+                    describe="request body read (slow client)",
+                )
+            except retry.WaitTimeoutError as err:
+                raise SlowClientError(str(err)) from None
+        return read_bounded_body(
+            self,
+            max_body_bytes=self.server.max_body_bytes,
+            read_timeout_s=self.server.read_timeout_s,
+        )
+
     def _parse_infer(self):
         """(tokens, deadline_ms, id, max_new_tokens) from the body;
         ValueError/KeyError for anything malformed."""
         server = self.server
-        body = read_bounded_body(
-            self,
-            max_body_bytes=server.max_body_bytes,
-            read_timeout_s=server.read_timeout_s,
-        )
+        body = self._read_body()
         payload = json.loads(body.decode("utf-8"))
         tokens = payload["tokens"]
         if not isinstance(tokens, list) or not tokens:
@@ -213,6 +254,9 @@ class ServeHandler(BaseHTTPRequestHandler):
         return tokens, deadline_ms, payload.get("id"), max_new
 
     def do_POST(self):
+        if self.path == "/v1/reload":
+            self._handle_reload()
+            return
         if self.path not in ("/v1/infer", "/v1/generate"):
             self._send_json(404, {"error": f"unknown path {self.path}"})
             return
@@ -238,6 +282,7 @@ class ServeHandler(BaseHTTPRequestHandler):
             # leftover body bytes would desync the keep-alive stream
             self.close_connection = True
             logger.warning(f"SHED request: slow-client ({err})")
+            telemetry.emit("serve-shed", reason="slow-client", message=str(err))
             self._send_json(
                 408, {"status": rq.STATUS_SHED, "reason": "slow-client"}
             )
@@ -275,6 +320,44 @@ class ServeHandler(BaseHTTPRequestHandler):
             code = 500
         self._send_json(code, resp.to_json())
 
+    # -- reload on request -----------------------------------------------
+
+    def _handle_reload(self):
+        """One synchronous verify→probe→swap on this server's own
+        checkpoint, answered with the named outcome."""
+        server = self.server
+        if server.reloader is None or server.reload_path is None:
+            # the body stays unread: close rather than desync keep-alive
+            self.close_connection = True
+            self._send_json(
+                404, {"error": "this server is not reloadable on request "
+                               "(only a fleet replica is)"},
+            )
+            return
+        try:
+            # the body is advisory (the server reloads its OWN path); read
+            # it to keep the connection in sync
+            self._read_body()
+        except (SlowClientError, ValueError):
+            self.close_connection = True
+        if not server.reload_lock.acquire(blocking=False):
+            self._send_json(
+                409, {"outcome": "reload-in-progress",
+                      "error": "another reload is mid-flight"},
+            )
+            return
+        try:
+            outcome = server.reloader.consider(server.reload_path)
+        except Exception as err:  # the reload plane answers, never raises
+            logger.exception("reload request failed")
+            self._send_json(
+                500, {"outcome": "error", "error": f"{type(err).__name__}: {err}"},
+            )
+            return
+        finally:
+            server.reload_lock.release()
+        self._send_json(200, {"outcome": outcome})
+
 
 def bind_server(host: str, port: int, engine, **kw) -> ServeHTTPServer:
     """Bind (raises OSError on an unbindable host/port — the CLI maps it
@@ -283,7 +366,7 @@ def bind_server(host: str, port: int, engine, **kw) -> ServeHTTPServer:
     server = ServeHTTPServer((host, port), engine, **kw)
     logger.info(
         f"SERVE listening on http://{server.server_address[0]}:"
-        f"{server.server_address[1]} (/healthz /readyz /stats /v1/infer"
+        f"{server.server_address[1]} (/healthz /readyz /stats /metrics /v1/infer"
         f"{' /v1/generate' if getattr(engine, 'supports_generate', False) else ''})"
     )
     return server

@@ -119,7 +119,7 @@ def load(path):
         lib.unicore_quant_matmul.argtypes = [p] * 5 + [ll, i, i, i, i, p]
         lib.unicore_quant_matmul.restype = i
     if hasattr(lib, "unicore_decode_attention"):
-        lib.unicore_decode_attention.argtypes = [p] * 10 + [i] * 7 + [p]
+        lib.unicore_decode_attention.argtypes = [p] * 10 + [i] * 9 + [p]
         lib.unicore_decode_attention.restype = i
     lib.unicore_cuda_error_string.argtypes = [i]
     lib.unicore_cuda_error_string.restype = ctypes.c_char_p
