@@ -51,17 +51,21 @@ result line):
    card (kernels) and on the CPU (plain versions) from the same weights and
    batches: per-update loss 1e-4 relative, gradient norm 1e-3 relative,
    parameters within 1e-5 absolute, no launch in the CPU run;
-4. serving — the checkpoint 4a wrote, served by ``python -m
+4. serving — a copy of the checkpoint 4a wrote, served by ``python -m
    unicore_tpu_torch.cli.serve --device cuda`` (batch 8, buckets
    128/256/384/512) under ``--fault-inject slow-client:3@2
-   --request-read-timeout 1``; requests of every bucket, some concurrent;
+   --request-read-timeout 1`` as replica 0 of phase 14's fleet, which
+   starts with it and runs right after it (the requests go to the replica
+   directly, with the other replica and the router idle); requests of
+   every bucket, some concurrent;
    the one request the slow client stalls answered 408 with its named
    reason and sent again, the rest 200; per-batch kernel launches read from
    ``/stats`` (12 attention, 26 norm); ``GET /metrics`` parsed, its served,
    batch and shed counters equal to ``/stats``'s; two 128-bucket answers
    held against the same checkpoint run in this process on the CPU;
-   SIGTERM -> drain -> exit 0; the journal beside the checkpoint holds the
-   run's start, the slow client's shed and the drain;
+   SIGTERM -> drain -> exit 0 and the journal beside the checkpoint with
+   the run's start, the slow client's shed and the drain, at the end of
+   phase 14;
 5a. Uni-Mol training — ``python -m unicore_tpu_torch.cli.train --task
    unimol --arch unimol --device cuda`` (15 layers, 512 wide, 64 heads, FFN
    2048, 128 Gaussian kernels; weights from ``--seed``) over an indexed
@@ -222,37 +226,37 @@ result line):
    fine-tuned by the train CLI with ``--nan-rerun`` on the card and on the
    CPU: both exit non-zero naming that module (``nan_rerun``);
 12. the training robustness plane, on 11a's cell (BERT-base, ``--bf16
-   --bf16-sr --fused-adam --num-workers 2 --prefetch-to-device``) for 40
-   updates (25 an epoch), saving at updates 20 and 40 -- 12a: the control,
+   --bf16-sr --fused-adam --num-workers 2 --prefetch-to-device``) for 20
+   updates (25 an epoch), saving at updates 10 and 20 -- 12a: the control,
    unarmed (``--sentinel-interval 0``) under ``--fault-inject
-   bit-flip-checkpoint@35``; 12b: the health sentinel armed
-   (``--sentinel-interval 1 --snapshot-interval 10 --snapshot-keep 2
+   bit-flip-checkpoint@15``; 12b: the health sentinel armed
+   (``--sentinel-interval 1 --snapshot-interval 5 --snapshot-keep 2
    --sentinel-warmup 10 --loss-spike-window 16``) under ``--fault-inject
-   loss-spike:100@25``, through the train CLI with
+   loss-spike:100@13``, through the train CLI with
    ``Trainer.restore_health_snapshot`` wrapped (``REWIND_CHECK``): before
    the spike (``robust_healthy``) no sentinel event, each loss within 1e-4
-   relative of 12a's, a snapshot every 10 updates whose copies ran on the
+   relative of 12a's, a snapshot every 5 updates whose copies ran on the
    card (each snapshot's bytes, host ms and the side stream's device ms),
    the update wall ms at the snapshot updates, at the ones after them and
    at the others, in both runs; then (``robust_rewind``) exactly one
-   ``rewind`` by ``loss-spike`` to the snapshot at update 20, the restored
+   ``rewind`` by ``loss-spike`` to the snapshot at update 10, the restored
    parameters, fp32 master, moments, step counts and lr scheduler bit for
-   bit equal to the run's own ``checkpoint_1_20.pt``, the event in
-   ``checkpoint_last.pt``'s ``extra_state["sentinel"]``, 40 updates with
+   bit equal to the run's own ``checkpoint_1_10.pt``, the event in
+   ``checkpoint_last.pt``'s ``extra_state["sentinel"]``, 20 updates with
    finite losses, K-a and K-b once for every update run (``grad-explosion``
    is left to the CPU tests and the card runs that recorded it, for the
    time limit); 12c: a second process
    resuming 12a's unarmed run with ``--checkpoint-write-version 1``: the
-   manifest mismatch of ``checkpoint_last.pt`` and ``checkpoint_2_40.pt``
-   named, the fallback to ``checkpoint_1_20.pt``, 40 updates; v2 write
+   manifest mismatch of ``checkpoint_last.pt`` and ``checkpoint_1_20.pt``
+   named, the fallback to ``checkpoint_1_10.pt``, 20 updates; v2 write
    seconds beside the v1 write, and the async publish's seconds
    (``robust_corrupt``); 12d: SIGTERM after update 15 under
    ``--preemption-save-deadline 60``: exit 0, one minimal
    ``checkpoint_last.pt`` at the update it stopped at, resumed in a second
-   process to 40 with each loss within 1e-4 relative of 12a's;
-   ``--fault-inject raise@12 --emergency-save-on-error`` saving every 10: a
+   process to 20 with each loss within 1e-4 relative of 12a's;
+   ``--fault-inject raise@7 --emergency-save-on-error`` saving every 5: a
    nonzero exit, ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``,
-   and the train CLI's restore decision picks the latter (update 10)
+   and the train CLI's restore decision picks the latter (update 5)
    (``robust_preempt``);
 13. the serving control plane -- 13a: 10a's ``checkpoint_last.pt`` (bf16
    weights) served in bf16 (batch 8, buckets 128/256/384/512) under
@@ -278,10 +282,46 @@ result line):
    ``rejected:verify``, ``swapped`` and ``swapped-in``; 10b's first
    checkpoint re-published (a second swap); the ``/metrics`` decode
    gauges; the device memory after the swap within 5% of before, and after
-   the second swap within 0.5% of after the first (no leak per reload);
+   the second swap (10b's first checkpoint served again) within 0.5% of
+   before the first (no leak over two reloads);
    tokens/s and token p50/p99 beside phase 7's fp32 server
    (``lm_bf16_serve``);
-14. a ``phase_seconds`` line (every phase's seconds), a
+14. the serving fleet (run right after phase 4, whose server is its
+   replica 0) -- phase 4a's checkpoint copied to a fleet path and
+   served by two replicas at once (``python -m unicore_tpu_torch.cli.serve
+   --device cuda --advertise auto --fleet-kv DIR --replica-index 0|1
+   --fleet-interval 0.5``, phase 4's engine settings, one journal
+   directory; replica 0 under phase 4's slow client, replica 1 under
+   ``--fault-inject replica-loss@150@1``)
+   behind ``python -m unicore_tpu_torch.cli.router --fleet-timeout 3
+   --path <the fleet path> --reload-interval 0.5``: each replica registered
+   before it was ready, 2 routable; 24 requests over every bucket and phase
+   4's two CPU-checked rows through the router, half one at a time and half
+   concurrent, all 200, both replicas serving (the split printed), each
+   replica's ``/stats`` exactly 12 full-row and 26 norm launches a batch and
+   nothing else, the two rows against phase 4's CPU reference (ids 99%,
+   scores 1e-3 relative), the router's ``/metrics`` counters equal to its
+   ``/stats``; 4a's weights moved by a seeded 0.01 N(0, 1) published onto
+   the fleet path with requests in flight: ``ROLLING RELOAD COMPLETE``
+   2/2, every request in flight 200, both leases' digests equal and new,
+   each replica's device memory after its swap within 5% of before; a
+   rotten copy published: ``ROLLING RELOAD HALT`` after one rollback,
+   replica 1 never asked, the digests kept; traffic until replica 1 exits
+   74: the router's ``REPLICA-LOSS`` verdict within the fleet timeout plus
+   two lease intervals (the replica's beat and the router's poll) and half a
+   second of the exit, every answer 200 or a named outcome and every one
+   sent after the verdict 200, 1 routable; SIGTERM on replica 0: exit 0,
+   ``FLEET DEREGISTERED`` in both logs, then the router's 503
+   ``no-ready-replica`` with ``Retry-After``; SIGTERM on the router: exit
+   0; the journal directory holds the router's and both replicas' files,
+   the router's with the loss verdict, the complete and the halted roll and
+   the goodbye (``fleet_serve``: the split, the router's client p50/p99
+   beside phase 4's -- the two replicas time-share one card --, the roll
+   and halt seconds, the verdict latency, the outcomes and sheds by
+   reason).  The JAX package's trace merger is held on this journal in
+   the CPU tests (``tests/test_torch_fleet_cli.py``): this script runs
+   nothing of the JAX package;
+15. a ``phase_seconds`` line (every phase's seconds), a
    ``missing_device_times`` line naming any phase-3 check whose device
    time the profiler did not read (an empty profile is retried), the
    ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
@@ -361,7 +401,7 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 13 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 14 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -2609,11 +2649,11 @@ def wait_log(server, text, budget=300.0, count=1):
 
 
 class KeepSending:
-    """Requests sent back to back from ``workers`` threads until
-    :meth:`stop`: the traffic in flight across a hot reload.  ``stop``
-    returns every (code, body)."""
+    """Requests sent back to back (or ``pace_s`` apart) from ``workers``
+    threads until :meth:`stop`: the traffic in flight across a hot reload.
+    ``stop`` returns every (code, body)."""
 
-    def __init__(self, url, payloads, workers=4):
+    def __init__(self, url, payloads, workers=4, pace_s=0.0):
         import threading
 
         self._stop = threading.Event()
@@ -2627,6 +2667,7 @@ class KeepSending:
                 with self._lock:
                     self.results.append(res)
                 i += workers
+                self._stop.wait(pace_s)
 
         self._threads = [threading.Thread(target=run, args=(k,), daemon=True)
                          for k in range(workers)]
@@ -2640,121 +2681,103 @@ class KeepSending:
         return self.results
 
 
-def drive_slice(torch, cfg, path, card, smi):
+def drive_slice(torch, cfg, fleet, card, smi):
+    """Phase 4 on phase 14's replica 0 (``start_fleet``), which serves a copy
+    of 4a's checkpoint under the slow client: the requests go to it
+    directly.  Its drain and journal are checked when phase 14 ends it."""
     import numpy as np
 
-    from unicore_tpu_torch import checkpoint_utils, tasks
     from unicore_tpu_torch.ops import _kernels
 
-    t0 = time.monotonic()
-    state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
-    task = tasks.setup_task(state["args"])
-    vocab, pad = len(task.dictionary), task.dictionary.pad()
-    del state
-    # the chaos plane's slow client: the first request after the second
-    # batch stalls 3 s mid-body against a 1 s read budget
-    server = Server(path, cfg, ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets",
-                                "4", "--fault-inject", "slow-client:3@2",
-                                "--request-read-timeout", "1"])
-    try:
-        server.wait_ready(cfg["ready_budget_s"])
-        log(f"server ready at {server.base} after {time.monotonic() - t0:.1f}s")
-        rng = np.random.default_rng(cfg["seed"])
-        reqs = [rng.integers(5, vocab, size=n).tolist() for n in cfg["lengths"]]
-        _kernels.reset_launch_counts()
-        code, before = http("GET", server.base + "/stats")
-        assert code == 200, before
+    server, path = fleet["reps"][0], fleet["path"]
+    vocab, pad = fleet["vocab"], fleet["pad"]
+    wait_fleet_ready(cfg, fleet)
+    log(f"server ready at {server.base} after {fleet['startup_s']:.1f}s")
+    rng = np.random.default_rng(cfg["seed"])
+    reqs = [rng.integers(5, vocab, size=n).tolist() for n in cfg["lengths"]]
+    _kernels.reset_launch_counts()
+    code, before = http("GET", server.base + "/stats")
+    assert code == 200, before
 
-        def send(toks):
-            t = time.monotonic()
-            code, body = http("POST", server.base + "/v1/infer", {"tokens": toks})
-            return code, body, (time.monotonic() - t) * 1e3
+    def send(toks):
+        t = time.monotonic()
+        code, body = http("POST", server.base + "/v1/infer", {"tokens": toks})
+        return code, body, (time.monotonic() - t) * 1e3
 
-        # the first half one at a time, the rest concurrently; the one
-        # request the slow client stalled is answered 408 with its reason
-        # and sent again
-        half = len(reqs) // 2
-        results = [send(r) for r in reqs[:half]]
-        slow = [i for i, (code, _, _) in enumerate(results) if code == 408]
-        if len(slow) != 1 or results[slow[0]][1] != {"status": "shed", "reason": "slow-client"}:
-            raise AssertionError(f"want one 408 slow-client answer: {[r[:2] for r in results]}")
-        results[slow[0]] = send(reqs[slow[0]])
-        with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
-            results += list(pool.map(send, reqs[half:]))
-        code, after = http("GET", server.base + "/stats")
-        assert code == 200, after
-        metrics_match_stats(scrape_metrics(server.base), after)
+    # the first half one at a time, the rest concurrently; the one
+    # request the slow client stalled is answered 408 with its reason
+    # and sent again
+    half = len(reqs) // 2
+    results = [send(r) for r in reqs[:half]]
+    slow = [i for i, (code, _, _) in enumerate(results) if code == 408]
+    if len(slow) != 1 or results[slow[0]][1] != {"status": "shed", "reason": "slow-client"}:
+        raise AssertionError(f"want one 408 slow-client answer: {[r[:2] for r in results]}")
+    results[slow[0]] = send(reqs[slow[0]])
+    with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
+        results += list(pool.map(send, reqs[half:]))
+    code, after = http("GET", server.base + "/stats")
+    assert code == 200, after
+    metrics_match_stats(scrape_metrics(server.base), after)
 
-        buckets = set()
-        for toks, (code, body, _) in zip(reqs, results):
-            if code != 200:
-                raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
-            if len(body["output"]) != len(toks) or not math.isfinite(body["score"]):
-                raise AssertionError(f"bad answer for {len(toks)} tokens: {body}")
-            buckets.add(body["bucket"])
-        if buckets != set(after["buckets"]):
-            raise AssertionError(f"buckets hit {sorted(buckets)} != {after['buckets']}")
+    buckets = set()
+    for toks, (code, body, _) in zip(reqs, results):
+        if code != 200:
+            raise AssertionError(f"request of {len(toks)} tokens: {code} {body}")
+        if len(body["output"]) != len(toks) or not math.isfinite(body["score"]):
+            raise AssertionError(f"bad answer for {len(toks)} tokens: {body}")
+        buckets.add(body["bucket"])
+    if buckets != set(after["buckets"]):
+        raise AssertionError(f"buckets hit {sorted(buckets)} != {after['buckets']}")
 
-        batches = after["batches"] - before["batches"]
-        launches = {
-            k: after["kernel_launches"][k] - before["kernel_launches"].get(k, 0)
-            for k in after["kernel_launches"]
-        }
-        per_batch = cfg["per_batch"]
-        log(f"main path: {len(reqs)} requests in {batches} batches, server "
-            f"launches {launches} (want per batch {per_batch})")
-        if batches <= 0:
-            raise AssertionError("no batch was served")
-        if cfg["device"].type == "cuda":
-            for k, n in per_batch.items():
-                if launches.get(k) != n * batches:
-                    raise AssertionError(
-                        f"{k}: {launches.get(k)} launches for {batches} batches, "
-                        f"want {n} per batch"
-                    )
+    batches = after["batches"] - before["batches"]
+    launches = {
+        k: after["kernel_launches"][k] - before["kernel_launches"].get(k, 0)
+        for k in after["kernel_launches"]
+    }
+    per_batch = cfg["per_batch"]
+    log(f"main path: {len(reqs)} requests in {batches} batches, server "
+        f"launches {launches} (want per batch {per_batch})")
+    if batches <= 0:
+        raise AssertionError("no batch was served")
+    if cfg["device"].type == "cuda":
+        for k, n in per_batch.items():
+            if launches.get(k) != n * batches:
+                raise AssertionError(
+                    f"{k}: {launches.get(k)} launches for {batches} batches, "
+                    f"want {n} per batch"
+                )
 
-        # two 128-bucket answers against this process's CPU run
-        small = [i for i, (_, b, _) in enumerate(results) if b["bucket"] == min(buckets)][:2]
-        ids, score = cpu_reference(torch, path, [reqs[i] for i in small],
-                                   min(buckets), pad)
-        agree, total = 0, 0
-        for row, i in enumerate(small):
-            got = np.asarray(results[i][1]["output"])
-            agree += int((got == ids[row, : len(got)]).sum())
-            total += len(got)
-            rel = abs(results[i][1]["score"] - float(score[row])) / max(abs(float(score[row])), 1e-6)
-            if rel > 1e-3:
-                raise AssertionError(f"score {results[i][1]['score']} vs CPU {score[row]}")
-        if agree < 0.99 * total:
-            raise AssertionError(f"ids agree with the CPU run on {agree}/{total}")
-        if sum(_kernels.launch_counts().values()):
-            raise AssertionError("the CPU reference launched a kernel")
-        log(f"CPU agreement: ids {agree}/{total}, scores within 1e-3 relative")
-
-        server.proc.send_signal(signal.SIGTERM)
-        rc = server.proc.wait(timeout=180)
-        if rc != 0:
-            raise AssertionError(f"drain exit {rc}:\n{server.log_text()[-6000:]}")
-        kinds = [(e["kind"], e.get("role") or e.get("reason") or e.get("outcome"))
-                 for e in journal_events(path)]
-        for want in (("run-start", "serve"), ("serve-shed", "slow-client"),
-                     ("serve-drain", "complete")):
-            if want not in kinds:
-                raise AssertionError(f"journal lacks {want}: {kinds}")
-        lat = np.asarray([r[2] for r in results])
-        serve = {
-            "requests": len(reqs), "batches": batches,
-            "client_p50_ms": float(np.percentile(lat, 50)),
-            "client_p99_ms": float(np.percentile(lat, 99)),
-            "server_p50_ms": after.get("p50_ms"), "server_p99_ms": after.get("p99_ms"),
-            "slow_client_408": slow[0], "metrics_match_stats": True,
-            "journal_events": len(kinds),
-            "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
-        }
-        print("serve " + json.dumps(serve), flush=True)
-        return serve
-    finally:
-        server.stop()
+    # two 128-bucket answers against this process's CPU run
+    small = [i for i, (_, b, _) in enumerate(results) if b["bucket"] == min(buckets)][:2]
+    ids, score = cpu_reference(torch, path, [reqs[i] for i in small],
+                               min(buckets), pad)
+    agree, total = 0, 0
+    for row, i in enumerate(small):
+        got = np.asarray(results[i][1]["output"])
+        agree += int((got == ids[row, : len(got)]).sum())
+        total += len(got)
+        rel = abs(results[i][1]["score"] - float(score[row])) / max(abs(float(score[row])), 1e-6)
+        if rel > 1e-3:
+            raise AssertionError(f"score {results[i][1]['score']} vs CPU {score[row]}")
+    if agree < 0.99 * total:
+        raise AssertionError(f"ids agree with the CPU run on {agree}/{total}")
+    if sum(_kernels.launch_counts().values()):
+        raise AssertionError("the CPU reference launched a kernel")
+    log(f"CPU agreement: ids {agree}/{total}, scores within 1e-3 relative")
+    lat = np.asarray([r[2] for r in results])
+    serve = {
+        "requests": len(reqs), "batches": batches,
+        "client_p50_ms": float(np.percentile(lat, 50)),
+        "client_p99_ms": float(np.percentile(lat, 99)),
+        "server_p50_ms": after.get("p50_ms"), "server_p99_ms": after.get("p99_ms"),
+        "slow_client_408": slow[0], "metrics_match_stats": True,
+        "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+    }
+    print("serve " + json.dumps(serve), flush=True)
+    # phase 14 routes the same two rows and holds them to this reference
+    serve["cpu_ref"] = [(reqs[i], ids[row, : len(reqs[i])].tolist(), float(score[row]))
+                        for row, i in enumerate(small)]
+    return serve
 
 
 # ---------------------------------------------------------------------------
@@ -4595,12 +4618,14 @@ def drive_robust_preempt(cfg, data, control, card, smi):
 
 
 #: phase 12's settings on the card (the rehearsal scales the updates down):
-#: BERT-base's 400-document corpus is 25 updates an epoch at batch 8 x 2
+#: BERT-base's 400-document corpus is 25 updates an epoch at batch 8 x 2;
+#: 20 updates, snapshots every 5, saves every 10 (each a 1.5 GB write of
+#: ~4-5 s), the spike rewound to the snapshot at 10, the save at 20 rotten
 PHASE12 = {
-    "updates": 40, "epoch_updates": 25, "snapshot_every": 10, "spike_at": 25,
-    "magnitude": 100, "flip_at": 35, "sigterm_after": 15, "raise_at": 12,
+    "updates": 20, "epoch_updates": 25, "snapshot_every": 5, "spike_at": 13,
+    "magnitude": 100, "flip_at": 15, "sigterm_after": 15, "raise_at": 7,
     "loss_rel": 1e-4,
-    "sentinel_flags": ["--sentinel-interval", "1", "--snapshot-interval", "10",
+    "sentinel_flags": ["--sentinel-interval", "1", "--snapshot-interval", "5",
                        "--snapshot-keep", "2", "--sentinel-warmup", "10",
                        "--loss-spike-window", "16"],
 }
@@ -4616,8 +4641,10 @@ PHASE12 = {
 PHASE13 = {"flood": "request-flood:400@2", "admission_capacity": 16, "flood_deadline_ms": 40,
            "probe_deadline_ms": 200, "probe_every_s": 0.1, "window_s": 10.0,
            "score_rel": 2e-2, "bf16_gap": 0.5, "memory_rel": 0.05,
-           # a second swap's device memory against the first's: a per-reload
-           # leak of a tenth of the first swap's +36 MiB step would show
+           # the first checkpoint served again after two swaps against its
+           # memory before them: a leak of ~2 MiB a reload would show.  (Two
+           # different checkpoints of one arch read ~3 MiB apart on the
+           # card, so the swaps' memory is compared checkpoint for checkpoint)
            "memory_repeat_rel": 0.005, "reload_new_tokens": 8}
 SHED_REASONS = ("queue-full", "deadline-unmeetable", "too-long", "draining", "not-ready",
                 "cache-oom", "expired-in-queue", "expired-at-admission",
@@ -4771,7 +4798,8 @@ def drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi):
     first checkpoint re-published (a second ``RELOAD SWAPPED``); the
     journal's outcomes; the decode gauges of ``/metrics``; the device
     memory after the swap within 5% of before, and after the second swap
-    within 0.5% of after the first.  Prints ``lm_bf16_serve`` (tokens/s and token
+    (the first checkpoint again) within 0.5% of before the first.  Prints
+    ``lm_bf16_serve`` (tokens/s and token
     p50/p99 beside phase 7's fp32 server) and returns the server's
     launches."""
     import numpy as np
@@ -4859,9 +4887,8 @@ def drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi):
         mem_after = swapped.get("device_memory_mib")
         if swapped["reloads_applied"] != 1:
             raise AssertionError(f"reloads_applied {swapped['reloads_applied']}")
-        # a second swap, back to the first checkpoint: its memory equals the
-        # first swap's, so what the first added is a one-time cost of the
-        # reload thread, not a leak per reload
+        # a second swap, back to the first checkpoint: its memory equals its
+        # memory before the two reloads, so they leaked nothing
         t_pub = time.monotonic()
         publish(src, path)
         wait_log(server, "RELOAD SWAPPED", count=2)
@@ -4873,7 +4900,7 @@ def drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi):
             raise AssertionError(f"reloads_applied {swapped['reloads_applied']}")
         if cfg["device"].type == "cuda" and not (
                 abs(mem_after - mem_before) <= p["memory_rel"] * mem_before
-                and abs(mem_after2 - mem_after) <= p["memory_repeat_rel"] * mem_after):
+                and abs(mem_after2 - mem_before) <= p["memory_repeat_rel"] * mem_before):
             raise AssertionError(f"device memory {mem_before} MiB before the swap, "
                                  f"{mem_after} after it, {mem_after2} after a second")
         metrics = scrape_metrics(server.base)
@@ -4922,6 +4949,399 @@ def drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi):
         return launches
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the serving fleet and its router
+# ---------------------------------------------------------------------------
+
+#: two replicas of phase 4a's checkpoint at phase 4's engine settings behind
+#: the router; leases every 0.5 s, a 3 s fleet timeout; replica 1 hard-exits
+#: after its ``loss_batch``-th batch, past every batch steps 2-3 send it
+#: (their in-flight traffic is paced by ``pace_s`` a worker); the rolled
+#: candidate is 4a's weights moved by a seeded 0.01 N(0, 1)
+PHASE14 = {"interval": 0.5, "timeout": 3.0, "loss_batch": 150, "moved_seed": 14,
+           "pace_s": 0.1, "memory_rel": 0.05,
+           # every bucket of 128/256/384/512, twice, and a few more
+           "lengths": [1, 64, 128, 129, 200, 256, 257, 300, 384, 385, 450, 512,
+                       17, 100, 127, 140, 230, 255, 270, 333, 383, 400, 480, 511]}
+
+
+class Router:
+    """``python -m unicore_tpu_torch.cli.router --port 0`` with ``argv``."""
+
+    def __init__(self, argv, name="fleet_router"):
+        self.log_path = WORK / f"{name}.log"
+        self._log = open(self.log_path, "w")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "unicore_tpu_torch.cli.router", "--port", "0",
+             "--default-deadline-ms", "120000", "--max-deadline-ms", "120000", *argv],
+            stdout=self._log, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
+        )
+        self.base = None
+
+    def log_text(self):
+        return self.log_path.read_text()
+
+    def wait_listening(self, budget):
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"router exited {self.proc.returncode}:\n"
+                                   f"{self.log_text()[-6000:]}")
+            for line in self.log_text().splitlines():
+                if "ROUTER listening on http://" in line:
+                    self.base = "http://" + line.split("http://", 1)[1].split()[0]
+                    return
+            time.sleep(0.2)
+        raise RuntimeError(f"router not listening in {budget}s:\n{self.log_text()[-6000:]}")
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self._log.close()
+
+
+def wait_until(what, pred, budget, poll_s=0.1):
+    """Poll ``pred`` until it is true; AssertionError naming ``what`` after
+    ``budget`` seconds."""
+    deadline = time.monotonic() + budget
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{what}: not within {budget}s")
+        time.sleep(poll_s)
+
+
+def corrupt_copy(src, dst):
+    """``src`` with one payload byte flipped (at 60% of the file), as the JAX
+    fleet test rots a candidate."""
+    shutil.copy(src, dst)
+    size = os.path.getsize(dst)
+    with open(dst, "r+b") as f:
+        f.seek(int(size * 0.6))
+        byte = f.read(1)
+        f.seek(int(size * 0.6))
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return dst
+
+
+def start_fleet(torch, cfg, src):
+    """Phase 14's fleet, started with phase 4 (whose server is its replica
+    0, so the two phases share a start-up): 4a's checkpoint copied to a
+    fleet path and served by two replicas (``--advertise auto``, one fleet
+    KV, one journal directory beside the path; replica 0 under phase 4's
+    slow client, replica 1 under ``replica-loss``) behind the router
+    (``--path`` watched for rolling reloads).  The rolled and the rotten
+    candidates are written while the replicas warm up.  Returns the fleet's
+    handles (:func:`stop_fleet` ends them)."""
+    from unicore_tpu_torch import checkpoint_utils, tasks
+
+    p = cfg["phase14"]
+    t0 = time.monotonic()
+    root = fresh_dir(WORK / "fleet")
+    path, kv, tele = root / "checkpoint_last.pt", root / "kv", root / "telemetry"
+    shutil.copy(src, path)
+    fleet_argv = ["--serve-batch-size", str(cfg["batch"]), "--serve-buckets", "4",
+                  "--advertise", "auto", "--fleet-kv", str(kv),
+                  "--fleet-interval", str(p["interval"]), "--telemetry-dir", str(tele)]
+    # phase 4's slow client: the first request after the second batch
+    # stalls 3 s mid-body against a 1 s read budget
+    fleet = {"root": root, "path": path, "tele": tele, "t0": t0, "reps": [
+        Server(path, cfg, fleet_argv + ["--replica-index", "0", "--fault-inject",
+                                        "slow-client:3@2", "--request-read-timeout", "1"],
+               name="fleet_r0"),
+        Server(path, cfg, fleet_argv + ["--replica-index", "1", "--fault-inject",
+                                        f"replica-loss@{p['loss_batch']}@1"], name="fleet_r1")]}
+    fleet["router"] = Router(["--fleet-kv", str(kv), "--fleet-interval", str(p["interval"]),
+                              "--fleet-timeout", str(p["timeout"]), "--path", str(path),
+                              "--reload-interval", "0.5", "--reload-timeout", "300",
+                              "--telemetry-dir", str(tele)])
+    try:
+        state = checkpoint_utils.load_checkpoint_to_cpu(str(path))
+        task = tasks.setup_task(state["args"])
+        fleet["vocab"], fleet["pad"] = len(task.dictionary), task.dictionary.pad()
+        del state
+        fleet["moved"] = write_moved_checkpoint(torch, src, root / "moved.pt", p["moved_seed"])
+        fleet["rotten"] = corrupt_copy(src, root / "rotten.pt")
+    except BaseException:
+        stop_fleet(fleet)
+        raise
+    return fleet
+
+
+def wait_fleet_ready(cfg, fleet):
+    """Both replicas ready, each registered before it was ready, and the
+    router routing to 2; the seconds since :func:`start_fleet` go to
+    ``fleet["startup_s"]``."""
+    router = fleet["router"]
+    router.wait_listening(cfg["ready_budget_s"])
+    for r in fleet["reps"]:
+        r.wait_ready(cfg["ready_budget_s"])
+    wait_until("2 routable", lambda: http("GET", router.base + "/readyz")[1].get(
+        "routable") == 2, 30)
+    fleet["startup_s"] = time.monotonic() - fleet["t0"]
+    for r in fleet["reps"]:
+        text = r.log_text()
+        if not 0 <= text.find("FLEET REGISTERED") < text.find("readiness -> true"):
+            raise AssertionError(f"{r.log_path.name}: not registered before ready")
+    log(f"fleet ready after {fleet['startup_s']:.1f}s: 2 routable")
+
+
+def stop_fleet(fleet):
+    for r in fleet["reps"]:
+        r.stop()
+    fleet["router"].stop()
+
+
+def drive_fleet(torch, cfg, fleet, fp32_serve, card, smi):
+    """Phase 14, after phase 4 on replica 0 (:func:`start_fleet`): 24
+    requests over every bucket and phase 4's two CPU-checked rows through
+    the router, half concurrent, all 200, both replicas serving, each replica's
+    launches exactly phase 4's per batch and nothing else, two answers
+    against phase 4's CPU reference, ``/metrics`` = ``/stats``; a moved
+    candidate rolled across both with requests in flight (all 200, equal new
+    digests, device memory within 5% across each swap), then a corrupt one
+    halted after one rollback (one replica never asked, digests kept, the
+    journal's halt record); traffic until replica 1 exits 74, the router's
+    REPLICA-LOSS verdict, every answer 200 or named and every one after the
+    verdict 200, 1 routable; SIGTERM on replica 0 -> exit 0 and ``FLEET
+    DEREGISTERED`` in both logs, the router's 503 ``no-ready-replica`` with
+    ``Retry-After``; SIGTERM on the router -> exit 0; phase 4's drain
+    (replica 0's exit 0) and the journal's start, slow-client shed and
+    drain.  Prints ``fleet_serve`` and returns the replicas' summed
+    launches."""
+    import threading
+
+    import numpy as np
+
+    p = cfg["phase14"]
+    reps, router, tele = fleet["reps"], fleet["router"], fleet["tele"]
+    path, moved, rotten, vocab = fleet["path"], fleet["moved"], fleet["rotten"], fleet["vocab"]
+    startup_s = fleet["startup_s"]
+    # 2. route: the first half one at a time, the rest concurrently
+    rng = np.random.default_rng(cfg["seed"] + 14)
+    reqs = [rng.integers(5, vocab, size=n).tolist() for n in p["lengths"]]
+    ref_rows = [row for row, _, _ in fp32_serve["cpu_ref"]]
+    reqs += ref_rows  # the two rows phase 4 held against the CPU
+
+    def send(toks):
+        t = time.monotonic()
+        code, body = http("POST", router.base + "/v1/infer", {"tokens": toks})
+        return code, body, (time.monotonic() - t) * 1e3
+
+    before = [http("GET", r.base + "/stats")[1] for r in reps]
+    half = len(reqs) // 2
+    results = [send(r) for r in reqs[:half]]
+    with ThreadPoolExecutor(max_workers=cfg["batch"]) as pool:
+        results += list(pool.map(send, reqs[half:]))
+    after = [http("GET", r.base + "/stats")[1] for r in reps]
+    buckets = set()
+    for toks, (code, body, _) in zip(reqs, results):
+        if code != 200 or len(body["output"]) != len(toks) or not math.isfinite(
+                body["score"]):
+            raise AssertionError(f"routed request of {len(toks)} tokens: {code} {body}")
+        buckets.add(body["bucket"])
+    if buckets != set(after[0]["buckets"]):
+        raise AssertionError(f"buckets hit {sorted(buckets)} != {after[0]['buckets']}")
+    launches, per_replica = {}, []
+    for name, b, a in zip(("r0", "r1"), before, after):
+        batches = a["batches"] - b["batches"]
+        got = {k: a["kernel_launches"][k] - b["kernel_launches"].get(k, 0)
+               for k in a["kernel_launches"]}
+        per_replica.append({"replica": name, "batches": batches, "launches": got})
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        if cfg["device"].type == "cuda":
+            want = {k: cfg["per_batch"].get(k, 0) * batches for k in got}
+            if got != want:
+                raise AssertionError(f"replica {name}: launches {got} for {batches} "
+                                     f"batches, want {cfg['per_batch']} a batch and "
+                                     "nothing else")
+    rstats = http("GET", router.base + "/stats")[1]
+    split = rstats["by_replica"]
+    if set(split) != {"r0", "r1"} or rstats["ok"] != len(reqs):
+        raise AssertionError(f"router /stats: {rstats}")
+    m = scrape_metrics(router.base)
+    for key, want in [("unicore_tpu_router_ok_total", rstats["ok"]),
+                      ("unicore_tpu_router_proxied_total", rstats["proxied"]),
+                      ("unicore_tpu_router_retries_total", rstats["retries"]),
+                      ("unicore_tpu_router_replicas_routable", 2)] + [
+            (f'unicore_tpu_router_replica_proxied_total{{replica="{n}"}}', c)
+            for n, c in split.items()]:
+        if m.get(key) != want:
+            raise AssertionError(f"/metrics {key} = {m.get(key)}, /stats {want}")
+    agree, total = 0, 0
+    for (row, ids, score), (_, body, _) in zip(fp32_serve["cpu_ref"], results[-2:]):
+        got = np.asarray(body["output"])
+        agree += int((got == np.asarray(ids)[: len(got)]).sum())
+        total += len(got)
+        if abs(body["score"] - score) / max(abs(score), 1e-6) > 1e-3:
+            raise AssertionError(f"routed score {body['score']} vs CPU {score}")
+    if agree < 0.99 * total:
+        raise AssertionError(f"routed ids agree with the CPU run on {agree}/{total}")
+    lat = np.asarray([r[2] for r in results])
+    log(f"routed {len(reqs)} requests: split {split}, per replica {per_replica}, "
+        f"CPU ids {agree}/{total}")
+
+    # 3. roll a moved candidate with requests in flight, then a rotten one
+    digests = lambda: {n: r["digest"] for n, r in http(  # noqa: E731
+        "GET", router.base + "/stats")[1]["fleet"]["replicas"].items()}
+    old = digests()
+    if len(set(old.values())) != 1:
+        raise AssertionError(f"digests before the roll: {old}")
+    mem_before = [a.get("device_memory_mib") for a in after]
+    in_flight = KeepSending(router.base + "/v1/infer", [{"tokens": r} for r in reqs],
+                            workers=2, pace_s=p["pace_s"])
+    t_pub = time.monotonic()
+    try:
+        publish(moved, path)
+        wait_log(router, "ROLLING RELOAD COMPLETE: 2/2")
+        roll_s = time.monotonic() - t_pub
+        time.sleep(1.0)  # requests on the swapped models
+    finally:
+        answered = in_flight.stop()
+    bad = [(c, b) for c, b in answered if c != 200]
+    if bad or not answered:
+        raise AssertionError(f"requests across the roll: {len(answered)} sent, not 200: "
+                             f"{bad[:5]}")
+    wait_until("new digests", lambda: set(digests().values()).isdisjoint(old.values()),
+               10)
+    new = digests()
+    if len(set(new.values())) != 1:
+        raise AssertionError(f"digests after the roll: {new}")
+    swapped = [http("GET", r.base + "/stats")[1] for r in reps]
+    mem_after = [s.get("device_memory_mib") for s in swapped]
+    if [s["reloads_applied"] for s in swapped] != [1, 1]:
+        raise AssertionError(f"reloads_applied {[s['reloads_applied'] for s in swapped]}")
+    if cfg["device"].type == "cuda" and not all(
+            abs(a - b) <= p["memory_rel"] * b for a, b in zip(mem_after, mem_before)):
+        raise AssertionError(f"device memory {mem_before} MiB before the swaps, "
+                             f"{mem_after} after")
+    t_pub = time.monotonic()
+    publish(rotten, path)
+    wait_log(router, "ROLLING RELOAD HALT")
+    halt_s = time.monotonic() - t_pub
+    rolled_back = [r.log_path.name for r in reps if "RELOAD ROLLBACK" in r.log_text()]
+    if rolled_back != ["fleet_r0.log"] or \
+            "1 remaining replica(s) were never asked" not in router.log_text():
+        raise AssertionError(f"the halt: rollbacks in {rolled_back}")
+    time.sleep(2 * p["interval"])
+    if digests() != new:
+        raise AssertionError(f"digests after the halt {digests()} != {new}")
+    r1_batches = http("GET", reps[1].base + "/stats")[1]["batches"]
+    if r1_batches >= p["loss_batch"]:
+        raise AssertionError(f"replica 1 ran {r1_batches} batches before step 4")
+    log(f"roll {roll_s:.2f}s ({len(answered)} in flight, all 200), halt {halt_s:.2f}s; "
+        f"memory {mem_before} -> {mem_after} MiB; r1 at batch {r1_batches}")
+
+    # 4. lose replica 1: traffic until it exits, and past the verdict
+    sent, lock, stop = [], threading.Lock(), threading.Event()
+
+    def drive(k):
+        i = k
+        while not stop.is_set():
+            t0 = time.monotonic()
+            code, body = http("POST", router.base + "/v1/infer", {"tokens": reqs[i % 8]})
+            with lock:
+                sent.append((t0, code, body.get("reason")))
+            i += 4
+
+    pool = [threading.Thread(target=drive, args=(k,), daemon=True) for k in range(4)]
+    for t in pool:
+        t.start()
+    try:
+        reps[1].proc.wait(timeout=300)
+        died = time.monotonic()
+        wait_until("the REPLICA-LOSS verdict",
+                   lambda: "FLEET REPLICA-LOSS: replica r1" in router.log_text(),
+                   p["timeout"] + 4 * p["interval"] + 10, poll_s=0.05)
+        verdict_s = time.monotonic() - died
+        verdict_at = time.monotonic()
+        time.sleep(1.0)
+    finally:
+        stop.set()
+        for t in pool:
+            t.join(timeout=300)
+    if reps[1].proc.returncode != 74 or "REPLICA LOSS" not in reps[1].log_text():
+        raise AssertionError(f"replica 1 exit {reps[1].proc.returncode}:\n"
+                             f"{reps[1].log_text()[-4000:]}")
+    # the verdict lands within the timeout plus one lease interval of the
+    # replica's last beat (which is at most one interval before its death)
+    # and one of the router's poll
+    if verdict_s > p["timeout"] + 2 * p["interval"] + 0.5:
+        raise AssertionError(f"verdict {verdict_s:.2f}s after the loss")
+    unnamed = [(c, r) for _, c, r in sent if c != 200 and not r]
+    late = [(c, r) for t0, c, r in sent if t0 > verdict_at and c != 200]
+    if unnamed or late or not any(t0 > verdict_at for t0, _, _ in sent):
+        raise AssertionError(f"the loss: unnamed {unnamed[:5]}, after the verdict {late[:5]}")
+    rstats = http("GET", router.base + "/stats")[1]
+    if rstats["fleet"]["routable"] != 1 or rstats["fleet"]["lost"] != ["r1"]:
+        raise AssertionError(f"after the loss: {rstats['fleet']}")
+    outcomes = {}
+    for _, c, r in sent:
+        outcomes[f"{c} {r}" if r else str(c)] = outcomes.get(f"{c} {r}" if r else str(c),
+                                                            0) + 1
+    log(f"replica 1 exited 74; verdict {verdict_s:.2f}s later; outcomes {outcomes}")
+
+    # 5. shut down: the goodbye, the router's shed, the router's exit
+    reps[0].proc.send_signal(signal.SIGTERM)
+    rc0 = reps[0].proc.wait(timeout=180)
+    if rc0 != 0 or "FLEET DEREGISTERED: replica r0" not in reps[0].log_text():
+        raise AssertionError(f"replica 0 exit {rc0}:\n{reps[0].log_text()[-4000:]}")
+    wait_log(router, "FLEET DEREGISTERED: replica r0", budget=30)
+    req = urllib.request.Request(router.base + "/v1/infer", data=b'{"tokens": [5, 6]}',
+                                 method="POST")
+    try:
+        urllib.request.urlopen(req, timeout=30)
+        raise AssertionError("the router answered with no replica")
+    except urllib.error.HTTPError as err:
+        shed = (err.code, err.headers.get("Retry-After"), json.loads(err.read()))
+    if shed[:2] != (503, "1") or shed[2].get("reason") != "no-ready-replica":
+        raise AssertionError(f"the empty fleet's answer: {shed}")
+    final = http("GET", router.base + "/stats")[1]
+    router.proc.send_signal(signal.SIGTERM)
+    if router.proc.wait(timeout=60) != 0:
+        raise AssertionError(f"router exit {router.proc.returncode}")
+
+    # 6. the journal: one file per replica index and the router's
+    events = {}
+    for name in ("events_rank0_router.jsonl", "events_rank0_serve.jsonl",
+                 "events_rank1_serve.jsonl"):
+        events[name] = [json.loads(x) for x in (tele / name).read_text().splitlines() if x]
+    rj = [(e["kind"], e.get("verdict") or e.get("event"), e.get("replica"))
+          for e in events["events_rank0_router.jsonl"]]
+    for want in (("fleet-verdict", "replica-loss", "r1"), ("fleet-reload", "complete", None),
+                 ("fleet-reload", "halt", "r0"), ("fleet-verdict", "deregistered", "r0")):
+        if want not in rj:
+            raise AssertionError(f"router journal lacks {want}: {rj}")
+    # phase 4's run on replica 0: its start, the slow client, its drain
+    kinds = [(e["kind"], e.get("role") or e.get("reason") or e.get("outcome"))
+             for e in journal_events(path)]
+    for want in (("run-start", "serve"), ("serve-shed", "slow-client"),
+                 ("serve-drain", "complete")):
+        if want not in kinds:
+            raise AssertionError(f"replica 0's journal lacks {want}: {kinds}")
+    res = {
+        "requests": len(reqs), "by_replica": split, "per_replica": per_replica,
+        "client_p50_ms": float(np.percentile(lat, 50)),
+        "client_p99_ms": float(np.percentile(lat, 99)),
+        "router_p50_ms": final.get("p50_ms"), "router_p99_ms": final.get("p99_ms"),
+        "phase4_client_p50_ms": fp32_serve["client_p50_ms"],
+        "phase4_client_p99_ms": fp32_serve["client_p99_ms"],
+        "cpu_ids": [agree, total], "startup_s": startup_s,
+        "roll_s": roll_s, "roll_in_flight_200": len(answered), "halt_s": halt_s,
+        "device_memory_mib_before": mem_before, "device_memory_mib_after": mem_after,
+        "verdict_s": verdict_s, "loss_outcomes": outcomes,
+        "router_shed": final["shed"], "router_retries": final["retries"],
+        "router_by_code": final["by_code"], "empty_fleet": [shed[0], shed[2]["reason"]],
+        "journal_events": {k: len(v) for k, v in events.items()},
+        "launches": launches, "arch": cfg["arch"], "card": card, "nvidia_smi": smi,
+    }
+    print("fleet_serve " + json.dumps(res), flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5113,6 +5533,7 @@ CHIP = {
     "phase11": PHASE11,
     "phase12": PHASE12,
     "phase13": PHASE13,
+    "phase14": PHASE14,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -5235,13 +5656,15 @@ REHEARSAL = {
                                     "--snapshot-keep", "2", "--sentinel-warmup", "4",
                                     "--loss-spike-window", "8"]),
     "phase13": PHASE13,
+    "phase14": dict(PHASE14, loss_batch=120,
+                    lengths=[1, 20, 32, 33, 64, 96, 97, 128, 5, 40, 70, 110]),
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 13 on the CPU at a tiny size, no card")
+                        help="phases 3 to 14 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -5400,9 +5823,18 @@ def main(argv=None):
     done("4a")
     drive_card_vs_cpu(torch, cfg, data)
     done("4b")
-    fp32_serve = drive_slice(torch, cfg, ckpt, card, smi)
-    serve_launches = fp32_serve["launches"]
-    done("4")
+    # 4. serving, on replica 0 of phase 14's fleet, which starts with it;
+    # 14. the fleet: routed, a rolling reload and a halted one, replica 1
+    # lost, replica 0's goodbye and drain (phase 4's), the router's exit
+    fleet = start_fleet(torch, cfg, ckpt)
+    try:
+        fp32_serve = drive_slice(torch, cfg, fleet, card, smi)
+        serve_launches = fp32_serve["launches"]
+        done("4")
+        fleet_launches = drive_fleet(torch, cfg, fleet, fp32_serve, card, smi)
+        done("14")
+    finally:
+        stop_fleet(fleet)
 
     # 5a. Uni-Mol training through the CLI; 5b. card against CPU
     um_data = write_conformers(cfg["unimol"])
@@ -5505,7 +5937,7 @@ def main(argv=None):
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 14. result lines: each kernel at its main path's shape (fp32, the
+    # 15. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -5517,7 +5949,7 @@ def main(argv=None):
                "decode_serve": decode_launches, "decode_serve_int8": decode8_launches,
                "quant_serve": quant_launches, "quant_serve_fp8": quant8_launches,
                "lm_train": lm_train_launches, "bf16_serve": bf16_serve_launches,
-               "lm_bf16_serve": lm_bf16_serve_launches,
+               "lm_bf16_serve": lm_bf16_serve_launches, "fleet_serve": fleet_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
                "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"],
                "robust_train": spike_stats["kernel_launches"]}

@@ -31,6 +31,7 @@ setup(
             "unicore-tpu-lint = unicore_tpu_cli.lint:main",
             "unicore-tpu-trace = unicore_tpu_cli.trace:main",
             "unicore-tpu-torch-serve = unicore_tpu_torch.cli.serve:cli_main",
+            "unicore-tpu-torch-router = unicore_tpu_torch.cli.router:cli_main",
             "unicore-tpu-torch-train = unicore_tpu_torch.cli.train:cli_main",
         ],
     },

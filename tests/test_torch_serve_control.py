@@ -182,12 +182,17 @@ def test_serve_fault_specs_parse_as_jax(spec):
     assert "drop the @RANK part" in str(got.value) and type(got.value) is type(want.value)
 
 
-@pytest.mark.parametrize("spec", ["replica-loss@3", "replica-stall:5@2@1"])
-def test_fleet_kinds_wait_for_the_fleet(spec):
-    jax_chaos.parse_fault_spec(spec)
-    with pytest.raises(NotImplementedError, match="fleet"):
-        chaos.parse_fault_spec(spec)
-    chaos.set_replica_index(2)  # recorded, as the JAX serve CLI records it
+@pytest.mark.parametrize("spec", ["replica-loss@3", "replica-stall:5@2@1", "replica-loss@2",
+                                  "replica-stall@1@0"])
+def test_fleet_kinds_parse_as_jax(spec):
+    port, ref = chaos.parse_fault_spec(spec), jax_chaos.parse_fault_spec(spec)
+    assert (port.kind, port.step, port.param, port._rank) == (
+        ref.kind, ref.step, ref.param, ref._rank)
+    assert repr(port) == repr(ref)
+    for idx in (0, 1, 2):  # @IDX against --replica-index, any replica without it
+        chaos.set_replica_index(idx)
+        jax_chaos.set_replica_index(idx)
+        assert port.on_this_rank() == ref.on_this_rank()
 
 
 class _Clock:

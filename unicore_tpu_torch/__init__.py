@@ -14,11 +14,18 @@ Ported so far: BERT masked-LM serving, ``unicore-tpu-torch-serve``
 (``python -m unicore_tpu_torch.cli.serve``); BERT masked-LM, Uni-Mol,
 Evoformer masked-MSA and causal-LM training, ``unicore-tpu-torch-train``
 (``python -m unicore_tpu_torch.cli.train``), with validation, an EMA, best
-and interval checkpoints, resume and fine-tune; and incremental-decode
-serving of the
-causal LM (``transformer_lm``: ``POST /v1/generate``, a paged KV cache,
-step-level continuous batching) and quantized BERT serving
-(``--serve-quantize int8|fp8``) through the same serving entry point.
+and interval checkpoints, resume and fine-tune, mixed precision, the fused
+optimizer kernels, and the robustness plane (the health sentinel's rewind,
+verified v2 checkpoints, emergency saves, the training fault kinds);
+incremental-decode serving of the causal LM (``transformer_lm``: ``POST
+/v1/generate``, a paged KV cache, step-level continuous batching) and
+quantized BERT serving (``--serve-quantize int8|fp8``) through the same
+serving entry point, with its control plane (hot reload, the event journal,
+``/metrics``, the serving fault kinds); and the serving fleet: replicas
+that ``--advertise`` heartbeat leases into a shared fleet KV directory,
+behind ``unicore-tpu-torch-router`` (``python -m
+unicore_tpu_torch.cli.router``: power-of-two-choices spread,
+deadline-bounded retries, replica-loss verdicts, rolling reload).
 """
 
 __version__ = "0.0.1"

@@ -30,8 +30,19 @@ Boot sequence, each stage with the JAX server's failure exit code:
 ``--reload-interval`` arms hot checkpoint reload (``serve/reload.py``:
 verify, probe, swap on a batch boundary, or roll back); ``--fault-inject``
 arms the serving chaos kinds (``request-flood``, ``slow-client``,
-``corrupt-reload``); the event journal goes to ``--telemetry-dir`` (default
-``<dirname(--path)>/telemetry``) and ``GET /metrics`` exposes the counters.
+``corrupt-reload``, and on a fleet replica ``replica-loss`` /
+``replica-stall``); the event journal goes to ``--telemetry-dir`` (default
+``<dirname(--path)>/telemetry``), as ``events_rank<--replica-index>_serve.jsonl``,
+and ``GET /metrics`` exposes the counters.
+
+``--advertise`` joins a serving fleet (:func:`start_fleet_registration`):
+the replica registers a heartbeat lease in ``--fleet-kv`` right after the
+bind and before warm-up (ready false until warm-up ends), answers ``POST
+/v1/reload`` on its own ``--path`` for the router's rolling reload,
+publishes ready=false before a drain's flush, and deletes its lease (the
+goodbye) on a clean exit or when the engine loop dies.  An unusable
+``--fleet-kv`` or an ``--advertise`` address without host:port exits
+**78**; a replica never serves unregistered.
 
 Precision: a checkpoint is served in its own dtype, as the JAX server
 applies the loaded tree as it is: the weights of a ``--bf16`` or ``--fp16``
@@ -58,12 +69,14 @@ EXIT_OK = 0
 EXIT_SERVE_BIND = 75            # HTTP bind/port failure at startup
 EXIT_SERVE_MODEL_LOAD = 76      # device / model load / warm-up failure
 EXIT_SERVE_DRAIN_DEADLINE = 77  # drain budget exceeded (or forced abort)
+EXIT_SERVE_FLEET_KV = 78        # --advertise with an unusable --fleet-kv
 
 SERVE_EXIT_CODE_NAMES = {
     EXIT_OK: "ok",
     EXIT_SERVE_BIND: "serve-bind-failure",
     EXIT_SERVE_MODEL_LOAD: "serve-model-load-failure",
     EXIT_SERVE_DRAIN_DEADLINE: "serve-drain-deadline-exceeded",
+    EXIT_SERVE_FLEET_KV: "fleet-kv-failure",
 }
 
 # signal plumbing: first signal requests a drain, the second aborts
@@ -384,6 +397,66 @@ def setup_quantized_serving(args, model, pad_idx, vocab_size, edges, device):
     return model_q, engine_kwargs, reload_kwargs
 
 
+def start_fleet_registration(args, server, engine):
+    """``--advertise``: register this replica in the fleet's heartbeat
+    lease plane.  Raises on an unusable root or address (the caller exits
+    78).
+
+    The lease's snapshot digest follows hot swaps: a hook chained onto the
+    engine's ``_swap_hook`` (which :func:`setup_quantized_serving` may
+    already own) hands the swapped-in model to the registrar, whose thread
+    hashes it at its next beat, off the serving loop."""
+    import threading
+
+    from unicore_tpu_torch.serve import fleet
+    from unicore_tpu_torch.serve.fleet.router import host_port
+
+    if not args.fleet_kv:
+        raise ValueError(
+            "--advertise requires --fleet-kv DIR (the coordination store the "
+            "router reads membership from)"
+        )
+    client = fleet.open_fleet_kv(args.fleet_kv)
+    name = args.replica_name or f"r{args.replica_index}"
+    address = args.advertise
+    if address == "auto":
+        host = args.host if args.host not in ("0.0.0.0", "::") else "127.0.0.1"
+        address = f"http://{host}:{server.server_address[1]}"
+    try:
+        host_port(address)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"--advertise {address!r} is not a routable address: the router "
+            "dials it, so it must carry host:port (or use 'auto')"
+        ) from None
+    lock = threading.Lock()
+    cell = {"digest": fleet.model_digest(engine.model.state_dict()), "swapped": None}
+    prev_hook = engine._swap_hook
+
+    def swap_hook(model, tag):
+        if prev_hook is not None:
+            prev_hook(model, tag)
+        with lock:
+            cell["swapped"] = model
+
+    def digest():
+        with lock:
+            swapped, cell["swapped"] = cell["swapped"], None
+        if swapped is not None:
+            cell["digest"] = fleet.model_digest(swapped.state_dict())
+        return cell["digest"]
+
+    engine._swap_hook = swap_hook
+    return fleet.ReplicaRegistrar(
+        client, name, address,
+        interval_s=args.fleet_interval,
+        ready_fn=engine.ready,
+        est_delay_fn=engine.queue.estimated_delay,
+        digest_fn=digest,
+        served_fn=lambda: engine.served,
+    ).start()
+
+
 def _start_flood_generator(args, engine, stop_event):
     """Synthetic traffic for the ``request-flood`` chaos kind: offers
     ``chaos.serve_flood_qps()`` requests a second straight into admission
@@ -430,6 +503,7 @@ def main(args) -> int:
         ServeEngine,
         build_infer_fn,
     )
+    from unicore_tpu_torch.serve.engine import PHASE_DRAINING
     from unicore_tpu_torch.serve.http import bind_server
 
     # an fp32 checkpoint runs in fp32: the JAX server runs at the
@@ -442,7 +516,7 @@ def main(args) -> int:
     except (ValueError, NotImplementedError) as err:
         logger.error(f"FATAL: --fault-inject {args.fault_inject!r}: {err}")
         return EXIT_SERVE_MODEL_LOAD
-    chaos.set_replica_index(0)
+    chaos.set_replica_index(args.replica_index)
     logger.info(args)
 
     # the serve plane's event journal (sheds, reload outcomes, drains),
@@ -450,7 +524,7 @@ def main(args) -> int:
     if not args.telemetry_dir:
         args.telemetry_dir = os.path.join(
             os.path.dirname(os.path.abspath(args.path)) or ".", "telemetry")
-    telemetry.configure(args, rank=0, role="serve")
+    telemetry.configure(args, rank=args.replica_index, role="serve")
 
     # 0. device ----------------------------------------------------------
     try:
@@ -531,6 +605,21 @@ def main(args) -> int:
         return EXIT_SERVE_BIND
     server.start()
 
+    # fleet membership: registered BEFORE warm-up, so the router sees the
+    # replica registered-but-not-ready while its buckets warm
+    registrar = None
+    if args.advertise:
+        try:
+            registrar = start_fleet_registration(args, server, engine)
+        except Exception as err:
+            logger.error(
+                f"FATAL: fleet registration failed ({type(err).__name__}: {err}) — "
+                f"exiting {EXIT_SERVE_FLEET_KV} "
+                f"({SERVE_EXIT_CODE_NAMES[EXIT_SERVE_FLEET_KV]})"
+            )
+            server.shutdown()
+            return EXIT_SERVE_FLEET_KV
+
     # 3. warm-up (readiness flips true inside) ---------------------------
     try:
         engine.warmup()
@@ -541,18 +630,29 @@ def main(args) -> int:
             f"({SERVE_EXIT_CODE_NAMES[EXIT_SERVE_MODEL_LOAD]})",
             exc_info=True,
         )
+        if registrar is not None:
+            registrar.stop(goodbye=True)
         server.shutdown()
         return EXIT_SERVE_MODEL_LOAD
+    if registrar is not None:
+        registrar.publish_now()  # readiness flipped: don't wait for the beat
 
     # 4. serve -----------------------------------------------------------
     engine.start()
-    reload_runner = None
-    if args.reload_interval > 0:
+    reloader = None
+    if args.reload_interval > 0 or registrar is not None:
         reloader = HotReloader(engine, checkpoint_utils.load_checkpoint_to_cpu,
                                make_model=make_model, **reload_kwargs)
+    reload_runner = None
+    if args.reload_interval > 0:
         reload_runner = ReloadRunner(CheckpointWatcher(args.path), reloader,
                                      args.reload_interval)
         reload_runner.start()
+    if registrar is not None:
+        # the router's rolling reload runs this replica's own verify -> probe
+        # -> swap through POST /v1/reload, always on its OWN --path
+        server.reloader = reloader
+        server.reload_path = args.path
     flood_stop = threading.Event()
     flood_thread = _start_flood_generator(args, engine, flood_stop)
 
@@ -570,6 +670,10 @@ def main(args) -> int:
                 f"{engine.fatal_error}) — exiting 1"
             )
             stop_planes()
+            if registrar is not None:
+                # a goodbye, not a rotting lease: the router drops this
+                # replica now instead of waiting for a loss verdict
+                registrar.stop(goodbye=True)
             server.shutdown()
             return 1
         if (
@@ -588,9 +692,17 @@ def main(args) -> int:
     # would race the readiness state, a flood would fight the flush for the
     # drain budget
     stop_planes()
+    if registrar is not None:
+        # the drain handshake: the lease says ready=false BEFORE the flush,
+        # so the router stops routing here within one beat (and at the
+        # first 503)
+        engine.set_ready(False, PHASE_DRAINING)
+        registrar.publish_now()
     deadline = Deadline(args.drain_deadline)
     with deadline_scope(deadline):
         drained = engine.drain(deadline)
+    if registrar is not None:
+        registrar.stop(goodbye=True)  # deregistered, not lost
     server.shutdown()
     flood_thread.join(timeout=2.0)
     logger.info(f"final serve stats: {engine.stats()}")

@@ -48,29 +48,40 @@ Kinds (persistent from STEP onward unless noted):
     batch STEP gets payload bytes flipped before the verified load reads it
     (the ``bit-flip-checkpoint`` machinery); verify-then-swap must roll back
     and keep serving the old snapshot.  Consumed after one candidate.
+``replica-loss@BATCH[@IDX]``
+    Serving fleet: the replica whose ``--replica-index`` is IDX (any
+    replica when omitted) hard-exits (``os._exit(74)``: no drain, no lease
+    goodbye, its key left in the store) once its BATCH-th serve batch has
+    dispatched.  The router must shed around it and name it with a
+    replica-loss verdict within the lease timeout.  One-shot.
+``replica-stall[:SECS]@BATCH[@IDX]``
+    Serving fleet: the targeted replica's ``/v1/infer`` handler wedges for
+    SECS (default 3600) from batch BATCH on while its lease keeps
+    publishing: the zombie whose lease looks healthy.  Only the router's
+    deadline-bounded proxy leg sheds around it.
 
 STEP counts updates: the hooks of an update read the counter before it
 (``fault_multipliers``, ``maybe_raise``), those of a checkpoint write the
 counter after the last update (:func:`note_step`).  The serving kinds count
 dispatched serve batches instead (:func:`note_serve_batch`; ``@0`` = from
-start-up) and take no RANK: serving is one process.  RANK defaults to 0,
-the one process the port runs; a fault aimed at another rank never fires.
+start-up); the single-process ones take no RANK, and the fleet ones take a
+replica index IDX, matched against :func:`set_replica_index` (the serve
+CLI's ``--replica-index``).  RANK defaults to 0, the one process the port
+runs; a fault aimed at another rank never fires.
 
 The JAX package's other kinds raise ``NotImplementedError`` naming where
 they are queued: the host-desync, collective and elastic kinds
 (``seed-skew``, ``geometry-skew``, ``collective-delay``,
 ``collective-order-skew``, ``host-loss``, ``heartbeat-stall``,
-``kv-outage``) wait for the parallelism slice (ROADMAP queue A item 4); the
-fleet kinds (``replica-loss``, ``replica-stall``) for the serving fleet and
-its router (queue A item 2's next slice).  :func:`set_replica_index` records
-which fleet replica this process is, as the JAX serve CLI does.  A plan is
-process-global (:func:`configure`); :func:`reset` clears it.  With no
-``--fault-inject`` every hook is a cheap no-op.
+``kv-outage``) wait for the parallelism slice (ROADMAP queue A item 4).  A
+plan is process-global (:func:`configure`); :func:`reset` clears it.  With
+no ``--fault-inject`` every hook is a cheap no-op.
 """
 
 import errno
 import logging
 import os
+import sys
 import time
 from typing import Optional
 
@@ -110,21 +121,25 @@ PORTED_KINDS = (
     "request-flood",
     "slow-client",
     "corrupt-reload",
+    "replica-loss",
+    "replica-stall",
 )
 
 #: where each kind that is not ported waits
 _QUEUED = {
-    **{k: "the parallelism slice (ROADMAP queue A item 4: cross-host agreement, "
-          "collectives and the elastic run control)"
-       for k in ("seed-skew", "geometry-skew", "collective-delay", "collective-order-skew",
-                 "host-loss", "heartbeat-stall", "kv-outage")},
-    **{k: "the serving fleet and its router (ROADMAP queue A item 2's next slice)"
-       for k in ("replica-loss", "replica-stall")},
+    k: "the parallelism slice (ROADMAP queue A item 4: cross-host agreement, "
+       "collectives and the elastic run control)"
+    for k in ("seed-skew", "geometry-skew", "collective-delay", "collective-order-skew",
+              "host-loss", "heartbeat-stall", "kv-outage")
 }
 
 # serving-plane kinds: serving is one process, so they fire on "this" rank
 # and @RANK is refused
 _SERVE_KINDS = ("request-flood", "slow-client", "corrupt-reload")
+
+# serving-fleet kinds: the third field is a replica index, matched against
+# set_replica_index, never a process rank
+_REPLICA_KINDS = ("replica-loss", "replica-stall")
 
 # metric faults feed every rank's update identically: @RANK is refused
 _ALL_RANK_KINDS = ("loss-spike", "grad-explosion")
@@ -167,6 +182,7 @@ class FaultPlan:
                 f"'{kind}' targets the single-process serving plane; drop the @RANK part")
         self.kind = kind
         self.step = step
+        # for _REPLICA_KINDS: the replica index (None = any replica)
         self._rank = rank
         self.param = param
         #: one-shot metric faults never refire after the counter has moved
@@ -182,6 +198,8 @@ class FaultPlan:
         return _WORLD_SIZE - 1
 
     def on_this_rank(self) -> bool:
+        if self.kind in _REPLICA_KINDS:
+            return self._rank is None or self._rank == _replica_index
         return self.kind in _ALL_RANK_KINDS or self.kind in _SERVE_KINDS or _RANK == self.rank
 
     def active(self, step: int) -> bool:
@@ -189,6 +207,9 @@ class FaultPlan:
         return step >= self.step and self.on_this_rank()
 
     def __repr__(self):
+        if self.kind in _REPLICA_KINDS:
+            idx = self._rank if self._rank is not None else "<any>"
+            return f"FaultPlan({self.kind}@{self.step}@replica{idx})"
         if self.kind in _SERVE_KINDS:
             return f"FaultPlan({self.kind}@{self.step}@serve)"
         if self.kind in _ALL_RANK_KINDS:
@@ -221,8 +242,8 @@ _plan: Optional[FaultPlan] = None
 _last_step: int = 0
 # the monotonic clock when the request-flood window opened
 _window_started: Optional[float] = None
-# which fleet replica this process is (the serve CLI's --replica-index, 0
-# until the fleet is ported)
+# which fleet replica this process is (the serve CLI's --replica-index): the
+# @IDX of the fleet kinds matches against it
 _replica_index: int = 0
 
 
@@ -249,8 +270,9 @@ def reset() -> None:
 
 
 def set_replica_index(index: int) -> None:
-    """Record which fleet replica this process is (the @IDX target of the
-    fleet kinds, which wait for the fleet slice)."""
+    """Record which fleet replica this process is (the serve CLI's
+    ``--replica-index``), so the ``@IDX``-targeted fleet kinds know whether
+    they fire here."""
     global _replica_index
     _replica_index = int(index)
 
@@ -366,6 +388,49 @@ def note_serve_batch(seq: int) -> None:
     serve batches."""
     global _last_step
     _last_step = seq
+    maybe_replica_loss(seq)
+
+
+#: the hard-exit status of a ``replica-loss`` kill (the JAX package's
+#: ``host-loss`` status, elastic.EXIT_WORKER_KILLED there)
+HOST_LOSS_EXIT_CODE = 74
+_DEFAULT_REPLICA_STALL_SECONDS = 3600.0
+
+
+def maybe_replica_loss(seq: int) -> None:
+    """``replica-loss``: hard-exit the targeted replica: ``os._exit``, no
+    drain, no lease goodbye, the key left in the store.  The router learns
+    of it only from connect failures and the silent lease."""
+    if (_plan is None or _plan.kind != "replica-loss" or _plan.consumed
+            or not _plan.active(seq)):
+        return
+    _plan.consumed = True
+    logger.warning(
+        f"chaos: REPLICA LOSS — replica {_replica_index} hard-exiting after serve "
+        f"batch {seq} (no drain, no lease goodbye; the router must shed around "
+        "the silence)")
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(HOST_LOSS_EXIT_CODE)
+
+
+def _windowed_active(kind: str, default_secs: float) -> bool:
+    """True while a wall-clock-windowed fault is live: from the first call
+    at or after STEP, for [:SECS] (default ``default_secs``) seconds."""
+    global _window_started
+    if _plan is None or _plan.kind != kind or not _plan.active(_last_step):
+        return False
+    window = float(_plan.param if _plan.param is not None else default_secs)
+    if _window_started is None:
+        _window_started = time.monotonic()
+        logger.warning(f"chaos: {kind} window OPEN at step {_last_step} (for {window:g}s)")
+    return time.monotonic() - _window_started < window
+
+
+def replica_stall_active() -> bool:
+    """``replica-stall``: True while the targeted replica's ``/v1/infer``
+    handler must wedge, its lease publisher beating all the while."""
+    return _windowed_active("replica-stall", _DEFAULT_REPLICA_STALL_SECONDS)
 
 
 def serve_flood_qps() -> float:

@@ -82,6 +82,12 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+def apart_sink() -> Optional[Dict[str, int]]:
+    """The sink this thread's launches go to under :func:`counted_apart`,
+    None outside one."""
+    return getattr(_apart, "sink", None)
+
+
 @contextlib.contextmanager
 def counted_apart(sink: Dict[str, int]):
     """This thread's launches go to ``sink`` (kernel name -> count), not to

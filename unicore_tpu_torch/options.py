@@ -1,6 +1,6 @@
 """Command-line options (counterpart of ``unicore_tpu/options.py``: the
-serving parser, the training parser and its two-phase
-``parse_args_and_arch``)."""
+serving parser with its fleet group, the fleet router's parser, the
+training parser and its two-phase ``parse_args_and_arch``)."""
 
 import argparse
 
@@ -92,8 +92,12 @@ def add_serving_args(parser):
                             "slow-client[:SECS] (one stalled body read, "
                             "proves the bounded read path), "
                             "corrupt-reload (bit rot on the next reload "
-                            "candidate, proves verify-then-swap rollback);"
-                            " STEP counts dispatched serve batches")
+                            "candidate, proves verify-then-swap rollback), "
+                            "replica-loss@STEP[@IDX] (a fleet replica "
+                            "hard-exits 74), replica-stall[:SECS]@STEP[@IDX] "
+                            "(its /v1/infer wedges while its lease beats; "
+                            "IDX is --replica-index); STEP counts "
+                            "dispatched serve batches")
     group.add_argument("--telemetry-dir", metavar="DIR", default=None,
                        help="per-process event journal for serve-plane "
                             "events (sheds, reload outcomes, drains); "
@@ -179,6 +183,119 @@ def add_serving_args(parser):
                         help="log every N-th decode step (bucket, live "
                              "rows, service ms, page occupancy; 0 "
                              "disables)")
+    fleet = parser.add_argument_group("fleet membership")
+    fleet.add_argument("--advertise", metavar="ADDR", default=None,
+                       help="join a serving fleet: publish a heartbeat "
+                            "lease (address, readiness, snapshot digest, "
+                            "/stats admission estimate) to --fleet-kv "
+                            "every --fleet-interval.  'auto' advertises "
+                            "http://<--host>:<bound port>; otherwise give "
+                            "the address the ROUTER should dial (e.g. "
+                            "http://10.0.0.7:8693).  Also enables POST "
+                            "/v1/reload for the router's rolling reload")
+    fleet.add_argument("--fleet-kv", metavar="DIR", default=None,
+                       help="fleet coordination KV root (a directory "
+                            "shared with the router; required with "
+                            "--advertise); an unusable root exits 78")
+    fleet.add_argument("--replica-name", metavar="NAME", default=None,
+                       help="stable replica identity in leases, verdicts "
+                            "and journals ([A-Za-z0-9._-]+; default "
+                            "r<replica-index>)")
+    fleet.add_argument("--replica-index", type=int, default=0,
+                       metavar="N",
+                       help="this replica's index (default replica name, "
+                            "journal rank, and the @IDX target of the "
+                            "replica-loss/replica-stall chaos kinds)")
+    fleet.add_argument("--fleet-interval", type=float, default=2.0,
+                       metavar="SECS",
+                       help="lease publish cadence; readiness flips also "
+                            "publish immediately (the drain handshake "
+                            "never waits out the interval)")
+    return group
+
+
+def get_router_parser():
+    """Parser for ``unicore-tpu-torch-router`` (``cli/router.py``): the JAX
+    router's flags and defaults."""
+    parser = argparse.ArgumentParser(
+        description="unicore-tpu-torch-router: shedding fleet router over "
+        "lease-registered unicore-tpu-torch-serve replicas (PyTorch/CUDA "
+        "port of unicore-tpu-router)",
+        allow_abbrev=False,
+    )
+    add_router_args(parser)
+    return parser
+
+
+def add_router_args(parser):
+    group = parser.add_argument_group("router")
+    group.add_argument("--fleet-kv", metavar="DIR", required=True,
+                       help="fleet coordination KV root (the directory "
+                            "replicas --advertise into); unusable root "
+                            "exits 78")
+    group.add_argument("--host", default="127.0.0.1",
+                       help="bind address for the router HTTP plane")
+    group.add_argument("--port", type=int, default=8793, metavar="N",
+                       help="bind port (0 = ephemeral, logged on the "
+                            "'ROUTER listening' line)")
+    group.add_argument("--fleet-interval", type=float, default=2.0,
+                       metavar="SECS",
+                       help="membership lease-round cadence")
+    group.add_argument("--fleet-timeout", type=float, default=10.0,
+                       metavar="SECS",
+                       help="service-confirmed silence after which a "
+                            "replica's lease expires into a named "
+                            "replica-loss verdict (a KV outage FREEZES "
+                            "these clocks — it never mints verdicts)")
+    group.add_argument("--retry-budget", type=int, default=2, metavar="N",
+                       help="re-route attempts per request on connect "
+                            "failure / replica 5xx (never after the "
+                            "request body streamed to a replica)")
+    group.add_argument("--default-deadline-ms", type=float, default=1000.0,
+                       metavar="MS",
+                       help="per-request deadline when the body carries "
+                            "none; carried end-to-end — proxy leg socket "
+                            "timeout AND the downstream deadline_ms are "
+                            "the remaining budget")
+    group.add_argument("--max-deadline-ms", type=float, default=60000.0,
+                       metavar="MS",
+                       help="ceiling clamped onto client deadlines")
+    group.add_argument("--request-read-timeout", type=float, default=10.0,
+                       metavar="SECS",
+                       help="budget for reading one request body (slow "
+                            "clients get 408, never a wedged worker)")
+    group.add_argument("--path", metavar="FILE", default=None,
+                       help="with --reload-interval: the published "
+                            "checkpoint to watch for ROLLING fleet "
+                            "reload (one replica at a time, halt on "
+                            "first RELOAD ROLLBACK)")
+    group.add_argument("--reload-interval", type=float, default=0.0,
+                       metavar="SECS",
+                       help="poll --path's publish signature this often "
+                            "and roll new candidates across the fleet "
+                            "(0 disables)")
+    group.add_argument("--reload-timeout", type=float, default=300.0,
+                       metavar="SECS",
+                       help="budget for ONE replica's verify→probe→swap "
+                            "during a roll; outrunning it halts the "
+                            "roll like a rollback")
+    group.add_argument("--max-seconds", type=float, default=0.0,
+                       metavar="SECS",
+                       help="exit cleanly after this long (0 = run until "
+                            "signalled)")
+    group.add_argument("--telemetry-dir", metavar="DIR", default=None,
+                       help="router event journal (fleet-verdict / "
+                            "router-shed / router-retry / fleet-reload "
+                            "kinds); default: <--fleet-kv>/telemetry — "
+                            "point replicas at the same directory and the "
+                            "JAX package's unicore-tpu-trace merges the "
+                            "whole fleet")
+    group.add_argument("--fault-inject", type=str, default=None,
+                       metavar="KIND[:PARAM]@STEP",
+                       help="chaos harness (the replica kinds arm on the "
+                            "REPLICAS, not here; kv-outage, which proves "
+                            "the membership freeze, waits for the "
+                            "parallelism slice)")
     return group
 
 

@@ -5,10 +5,12 @@ reasons, a SIGTERM drain under a deadline, and hot reload that verifies,
 probes and swaps a new checkpoint on a batch boundary or rolls it back
 (``reload.py``); and the incremental-decode plane (``decode.py``,
 ``kv_cache.py``): prefill, a paged KV cache and step-level continuous
-batching behind ``POST /v1/generate``.
+batching behind ``POST /v1/generate``; and the replica tier (``fleet/``):
+lease-registered replicas behind a shedding router.
 
-``unicore_tpu_torch/cli/serve.py`` (``unicore-tpu-torch-serve``) is the
-operator entry point.
+``unicore_tpu_torch/cli/serve.py`` (``unicore-tpu-torch-serve``) and
+``cli/router.py`` (``unicore-tpu-torch-router``) are the operator entry
+points.
 """
 
 from unicore_tpu_torch.serve.admission import AdmissionQueue

@@ -297,7 +297,7 @@ class DecodeEngine(ServeEngine):
 
     # -- probe -----------------------------------------------------------
 
-    def probe(self, model) -> None:
+    def _probe_forward(self, model) -> None:
         """Full-forward canary of ``model`` (the served one at warm-up, a
         reload candidate after) on the smallest bucket's
         :func:`~unicore_tpu_torch.serve.engine.probe_batch`: shape and

@@ -38,6 +38,7 @@ drift samples, swaps and drains are journalled (``quant-path``,
 as the JAX engine journals them.
 """
 
+import contextlib
 import logging
 import threading
 import time
@@ -150,6 +151,8 @@ class ServeEngine:
         #: kernel launches of the reload thread (candidates' probes and
         #: calibration), counted apart from the serving path's
         self.reload_launches = {}
+        #: calls another thread hands to the loop (:meth:`_call_on_loop`)
+        self._loop_calls: List[dict] = []
         self._phase = PHASE_WARMING
         self._ready = False
         self._stop = threading.Event()
@@ -245,9 +248,22 @@ class ServeEngine:
     # -- hot reload ------------------------------------------------------
 
     def probe(self, model) -> None:
-        """One dummy batch at the first bucket through the candidate
-        ``model`` (:func:`probe_batch`); raises on an ill-shaped output or a
-        non-finite score."""
+        """The candidate ``model``'s canary (:meth:`_probe_forward`); raises
+        on an ill-shaped output or a non-finite score.
+
+        Called from another thread while the loop runs (a hot reload), it
+        runs on the loop thread between two batches, its launches counted
+        where the caller's go: the forward then takes the serving thread's
+        cuBLAS handle, where the reload thread's own would keep a second
+        workspace allocated on the card for the life of the process."""
+        if self._thread is None or threading.current_thread() is self._thread:
+            self._probe_forward(model)
+        else:
+            self._call_on_loop(lambda: self._probe_forward(model))
+
+    def _probe_forward(self, model) -> None:
+        """One dummy batch at the first bucket through ``model``
+        (:func:`probe_batch`)."""
         edge = self.bucket_edges[0]
         dummy = probe_batch(self.batch_size, edge, self.pad_idx)
         ids, score = self.infer_fn(model, dummy)
@@ -312,6 +328,7 @@ class ServeEngine:
         try:
             while not self._stop.is_set():
                 self._apply_pending_swap()
+                self._run_loop_calls()
                 self.step(timeout=0.05)
         except Exception as err:
             logger.exception("serve engine loop died")
@@ -320,6 +337,40 @@ class ServeEngine:
                 self._ready = False
                 self._phase = PHASE_STOPPED
             raise
+        finally:
+            self._run_loop_calls(RuntimeError("the serving loop stopped"))
+
+    def _call_on_loop(self, fn, timeout: float = 600.0) -> None:
+        """Run ``fn`` on the loop thread at its next batch boundary and wait
+        for it; re-raises its error, or RuntimeError when the loop stops
+        first."""
+        call = {"fn": fn, "sink": _kernels.apart_sink(), "done": threading.Event(),
+                "error": None}
+        with self._lock:
+            self._loop_calls.append(call)
+        retry.bounded_wait(lambda: call["done"].is_set() or not self._thread.is_alive(),
+                           timeout, poll_s=0.01, describe="a call on the serving loop")
+        if not call["done"].is_set():
+            raise RuntimeError("the serving loop stopped before it ran the call")
+        if call["error"] is not None:
+            raise call["error"]
+
+    def _run_loop_calls(self, refuse: Optional[BaseException] = None) -> None:
+        """Run the calls handed to the loop (or fail them with ``refuse``)."""
+        with self._lock:
+            calls, self._loop_calls = self._loop_calls, []
+        for call in calls:
+            if refuse is not None:
+                call["error"] = refuse
+            else:
+                apart = (_kernels.counted_apart(call["sink"]) if call["sink"] is not None
+                         else contextlib.nullcontext())
+                try:
+                    with apart:
+                        call["fn"]()
+                except Exception as err:
+                    call["error"] = err
+            call["done"].set()
 
     def healthy(self) -> bool:
         """False once the loop thread has died (or recorded a fatal)."""

@@ -21,7 +21,7 @@ in the engine/admission layer; this module only maps outcomes onto HTTP:
 * ``POST /v1/reload`` → run this server's own verify→probe→swap on its
   served checkpoint now and answer the named outcome (200), 409 while
   another one is in flight; 404 unless a reloader is set (as in the JAX
-  server, only a fleet replica sets one: the fleet waits for its slice).
+  server, only a fleet replica sets one: the router's rolling reload).
 
 Every 503 carries ``Retry-After``.  The body read is deadline-bounded (a
 client that trickles its request, chaos ``slow-client``, gets a 408 with
@@ -43,6 +43,7 @@ import numpy as np
 from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.distributed import chaos
 from unicore_tpu_torch.serve import request as rq
+from unicore_tpu_torch.serve.engine import PHASE_DRAINING, PHASE_STOPPED
 from unicore_tpu_torch.telemetry import prometheus
 from unicore_tpu_torch.utils import retry
 
@@ -271,6 +272,18 @@ class ServeHandler(BaseHTTPRequestHandler):
                           "decoder-only checkpoint, e.g. transformer_lm)"},
             )
             return
+        # chaos 'replica-stall': wedge the inference plane while the lease
+        # keeps beating (the zombie replica).  The wait is sliced, so a
+        # closed window or a drain releases the worker.
+        if chaos.replica_stall_active():
+            logger.warning(
+                "chaos: replica-stall — /v1/infer handler WEDGED (lease stays "
+                "healthy; the router's deadline-bounded proxy leg must shed "
+                "around this replica)"
+            )
+            while (chaos.replica_stall_active()
+                   and engine.phase not in (PHASE_DRAINING, PHASE_STOPPED)):
+                time.sleep(0.1)
         try:
             tokens, deadline_ms, request_id, max_new = self._parse_infer()
             if generate:
@@ -331,7 +344,7 @@ class ServeHandler(BaseHTTPRequestHandler):
             self.close_connection = True
             self._send_json(
                 404, {"error": "this server is not reloadable on request "
-                               "(only a fleet replica is)"},
+                               "(only a fleet replica is: --advertise)"},
             )
             return
         try:

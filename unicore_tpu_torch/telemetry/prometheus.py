@@ -4,12 +4,11 @@ subset a scrape needs (gauges and counters with labels, ``# HELP`` /
 ``# TYPE`` lines, escaped label values).
 
 The serve HTTP plane's ``GET /metrics`` renders the engine's live stats
-(:func:`render_engine`) plus anything in the process registry;
+(:func:`render_engine`) plus anything in the process registry, the fleet
+router's renders its counters and the fleet view (:func:`render_router`);
 :func:`start_metrics_server` serves the registry alone on a port of its own.
 Names follow the Prometheus conventions: ``unicore_tpu_`` prefix,
-``_total`` suffix for counters, base units (seconds).  The fleet router's
-exposition (the JAX package's ``render_router``) waits for the fleet
-(ROADMAP queue A item 2).
+``_total`` suffix for counters, base units (seconds).
 """
 
 import logging
@@ -205,6 +204,69 @@ def render_engine(engine) -> str:
                         float(stats[pct]) / 1000.0,
                         labels={"quantile": "0." + pct.split("_")[1].lstrip("p")},
                         help="per-token decode-step latency percentiles")
+    return reg.render() + _registry.render()
+
+
+# ---------------------------------------------------------------------------
+# router-plane rendering
+# ---------------------------------------------------------------------------
+
+def render_router(engine) -> str:
+    """Exposition for one
+    :class:`~unicore_tpu_torch.serve.fleet.router.RouterEngine`: the router's
+    counters and the per-replica fleet view, under the JAX package's names,
+    labels and help texts."""
+    stats = engine.stats()
+    fleet = stats.get("fleet") or {}
+    reg = Registry()
+    reg.set("unicore_tpu_router_ready", 1.0 if stats.get("ready") else 0.0,
+            help="1 while >=1 replica is routable")
+    reg.set("unicore_tpu_router_proxied_total", stats.get("proxied", 0),
+            help="requests accepted for routing", type="counter")
+    reg.set("unicore_tpu_router_ok_total", stats.get("ok", 0),
+            help="requests answered 200 through a replica", type="counter")
+    reg.set("unicore_tpu_router_retries_total", stats.get("retries", 0),
+            help="proxy legs re-routed to a different replica",
+            type="counter")
+    for reason, count in (stats.get("shed") or {}).items():
+        reg.set("unicore_tpu_router_shed_total", count,
+                labels={"reason": str(reason)},
+                help="router-level sheds, by named reason", type="counter")
+    for code, count in (stats.get("by_code") or {}).items():
+        reg.set("unicore_tpu_router_responses_total", count,
+                labels={"code": str(code)},
+                help="responses by final HTTP code", type="counter")
+    reg.set("unicore_tpu_router_replicas_routable",
+            fleet.get("routable", 0),
+            help="replicas currently in the balance set")
+    reg.set("unicore_tpu_router_replicas_lost_total",
+            fleet.get("losses", 0),
+            help="replica-loss verdicts minted (monotone; the lost LIST "
+                 "shrinks on rejoin)", type="counter")
+    reg.set("unicore_tpu_router_membership_frozen",
+            1.0 if fleet.get("frozen") else 0.0,
+            help="1 while a KV outage freezes the verdict plane")
+    for name, rep in (fleet.get("replicas") or {}).items():
+        labels = {"replica": str(name)}
+        reg.set("unicore_tpu_router_replica_routable",
+                1.0 if rep.get("routable") else 0.0, labels=labels,
+                help="1 while this replica is in the balance set")
+        reg.set("unicore_tpu_router_replica_est_delay_seconds",
+                rep.get("est_delay_s", 0.0), labels=labels,
+                help="the replica's lease-published admission estimate")
+        reg.set("unicore_tpu_router_replica_inflight",
+                rep.get("inflight", 0), labels=labels,
+                help="router-local in-flight legs at this replica")
+    for name, count in (stats.get("by_replica") or {}).items():
+        reg.set("unicore_tpu_router_replica_proxied_total", count,
+                labels={"replica": str(name)},
+                help="requests answered by this replica", type="counter")
+    for pct in ("p50_ms", "p90_ms", "p99_ms"):
+        if pct in stats:
+            reg.set("unicore_tpu_router_latency_seconds",
+                    float(stats[pct]) / 1000.0,
+                    labels={"quantile": "0." + pct[1:-3]},
+                    help="router-side request latency percentiles")
     return reg.render() + _registry.render()
 
 
