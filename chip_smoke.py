@@ -165,8 +165,8 @@ result line):
    backwards and 14 norm dx and dw/db per micro-batch, a falling loss,
    ``checkpoint_best.pt`` and ``checkpoint_1_10.pt``, then one update of the
    same configuration in this process under ``torch.profiler``
-   (``lm_profile``, the groups of ``bert_profile``); 9b: a second process
-   resumed from 9a's ``checkpoint_1_10.pt`` (mid-epoch) into a fresh
+   (``lm_profile``, the groups of ``bert_profile``); 9b: a new run of the
+   CLI's ``main`` in this process (no start-up of its own) resumed from 9a's ``checkpoint_1_10.pt`` (mid-epoch) into a fresh
    ``--save-dir`` for updates 11-20: ``resumed_from_update`` 10, lrs equal
    to 9a's, per-update losses and the update-20 valid loss within 1e-4
    relative (the full-row backward sums dbias by atomics, so the card is
@@ -190,15 +190,17 @@ result line):
    exact launches, per-update and valid losses within 2% relative of 9a's,
    the fp32 master in ``checkpoint_1_10.pt`` (with the share of its
    elements that the bf16 weights do not hold), then resumed from that
-   checkpoint in a second process (``lm_bf16_resume``): lrs equal, losses
+   checkpoint in a new run (``lm_bf16_resume``, the CLI's ``main`` in this
+   process): lrs equal, losses
    and the update-20 valid loss within 1e-3 relative; 10c: 4a's run with
-   ``--fp16 --fp16-init-scale 128 --fp16-scale-window 4`` for 10 updates
-   (``fp16_train``): finite falling losses, the norms' launches and no
+   ``--fp16 --fp16-init-scale 128 --fp16-scale-window 4`` for 10 updates,
+   the CLI's ``main`` in this process (``fp16_train``): finite falling losses, the norms' launches and no
    attention or softmax kernel (the JAX package sends fp16 attention to its
    plain composition), each update's loss scale as the schedule gives it
    for the run's own overflows, grown at least once; then
-   ``--fp16-init-scale 2**120``: both of 2 updates overflow, are skipped
-   (no optimizer step in the checkpoint) and halve the scale; 10d: the
+   ``--fp16-init-scale 2**120`` (the CLI's trainer in this process): both
+   of 2 updates overflow, are skipped (no optimizer step) and halve the
+   scale; 10d: the
    card-against-CPU paths of 4b, 5b, 6b and 9d (L=256) with ``--bf16``
    (no SR), 3 updates each (``bf16_card_vs_cpu``): loss 1e-2 and gradient
    norm 5e-2 relative, each update's change to the fp32 master within 10%
@@ -216,15 +218,17 @@ result line):
    two losses within 1e-5 relative of each other and of the uninterrupted
    run); 11c: 9d's L=256 path with ``--grad-accum adama`` at 9d's
    tolerances, then 9a's full-width LM for 10 updates in buffer mode and in
-   adama (``adama_lm``: both peak memories, 9a's launches, falling losses);
+   adama, each the CLI's ``main`` in this process (``adama_lm``: both peak
+   memories, 9a's launches, falling losses);
    11d: 5a's Uni-Mol run plus ``--num-workers 4 --prefetch-to-device``
    (``unimol_loader``): each update's loss within 1e-4 relative of 5a's,
    the same consumed position after every update, the step median beside
    5a's; 11e: 4b's path at 4b's tolerances with ``--per-sample-clip-norm
    0.1`` (batch 4, dropout 0) and with ``--optimizer sgd --momentum 0.9``,
    then a 2-layer BERT-base checkpoint with a NaN in one named weight
-   fine-tuned by the train CLI with ``--nan-rerun`` on the card and on the
-   CPU: both exit non-zero naming that module (``nan_rerun``);
+   fine-tuned by the train CLI's ``main`` (in this process) with
+   ``--nan-rerun`` on the card and on the CPU: both raise
+   ``FloatingPointError`` naming that module (``nan_rerun``);
 12. the training robustness plane, on 11a's cell (BERT-base, ``--bf16
    --bf16-sr --fused-adam --num-workers 2 --prefetch-to-device``) for 20
    updates (25 an epoch), saving at updates 10 and 20 -- 12a: the control,
@@ -245,17 +249,18 @@ result line):
    ``checkpoint_last.pt``'s ``extra_state["sentinel"]``, 20 updates with
    finite losses, K-a and K-b once for every update run (``grad-explosion``
    is left to the CPU tests and the card runs that recorded it, for the
-   time limit); 12c: a second process
+   time limit); 12c: a new run (the CLI's ``main`` in this process)
    resuming 12a's unarmed run with ``--checkpoint-write-version 1``: the
    manifest mismatch of ``checkpoint_last.pt`` and ``checkpoint_1_20.pt``
    named, the fallback to ``checkpoint_1_10.pt``, 20 updates; v2 write
    seconds beside the v1 write, and the async publish's seconds
    (``robust_corrupt``); 12d: SIGTERM after update 15 under
    ``--preemption-save-deadline 60``: exit 0, one minimal
-   ``checkpoint_last.pt`` at the update it stopped at, resumed in a second
-   process to 20 with each loss within 1e-4 relative of 12a's;
-   ``--fault-inject raise@7 --emergency-save-on-error`` saving every 5: a
-   nonzero exit, ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``,
+   ``checkpoint_last.pt`` at the update it stopped at, resumed by a new run
+   to 20 with each loss within 1e-4 relative of 12a's;
+   ``--fault-inject raise@7 --emergency-save-on-error`` saving every 5: the
+   ``ChaosError`` out of the CLI's ``main``, ``checkpoint_emergency.pt``
+   beside ``checkpoint_last.pt``,
    and the train CLI's restore decision picks the latter (update 5)
    (``robust_preempt``);
 13. the serving control plane -- 13a: 10a's ``checkpoint_last.pt`` (bf16
@@ -321,7 +326,28 @@ result line):
    reason).  The JAX package's trace merger is held on this journal in
    the CPU tests (``tests/test_torch_fleet_cli.py``): this script runs
    nothing of the JAX package;
-15. a ``phase_seconds`` line (every phase's seconds), a
+15. data parallelism — 15a: 11a's train CLI run under a process group of
+   one rank (``--distributed-world-size 1 --distributed-init-method``:
+   NCCL on the card; its stats name the backend), and its in-process
+   profile's trainer under one too, whose first two updates hold every
+   reduction bit for bit against its input (the flat gradient buffers
+   after the NCCL all-reduce, the sample size and logging sums after
+   theirs), so the run under the group is the run without it; 15b: 4a's
+   BERT-base in fp32 with dropouts 0 and 4b's optimizer on two ranks of
+   the train CLI over gloo (``--distributed-world-size 2
+   --distributed-backend gloo``: NCCL refuses two ranks on one card), 3
+   updates of batch 8 a rank: the ranks' parameters the same bits, 4a's
+   launches per micro-batch on each rank, and against the one-rank
+   ``--update-freq 2`` run on the same batches (in this process) the
+   losses within 1e-4, the gradient norms within 1e-3 and rank 0's saved
+   parameters within 1e-5; 15c: ``python -m
+   unicore_tpu_torch.tools.dp_pair`` (one spawned pair) at ``--num-pods
+   2``, ``sum`` (every reduction the bits of the flat all-reduce of the
+   same buffers) then ``adasum`` (finite, the ranks the same bits), 2
+   updates each (``dp_train``: the update wall ms beside the one-rank
+   run's -- two ranks time-share one card, not a scaling figure --, each
+   reduction's ms and bytes, flat and two-level, the launches a rank);
+16. a ``phase_seconds`` line (every phase's seconds), a
    ``missing_device_times`` line naming any phase-3 check whose device
    time the profiler did not read (an empty profile is retried), the
    ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
@@ -401,7 +427,7 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 14 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 15 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
@@ -1861,24 +1887,71 @@ def train_argv(cfg, data, save_dir, device):
     ]
 
 
+def train_in_process(log_path, argv):
+    """The train CLI's ``main`` on ``argv`` in this process: no interpreter,
+    torch import or CUDA context of its own (what a start-up costs, ~11 s a
+    run on the card), the run's log and ``TRAIN stats`` line written to
+    ``log_path``.  Its peak memory counts what this process still holds.
+    Raises what the run raises."""
+    import contextlib
+    import gc
+    import logging
+
+    import torch
+
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.cli import train as cli
+    from unicore_tpu_torch.cli.serve import resolve_device
+
+    args = options.parse_args_and_arch(options.get_training_parser(), argv)
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    root = logging.getLogger()
+    level = root.level
+    with open(log_path, "w") as f:
+        handler = logging.StreamHandler(f)
+        handler.setFormatter(logging.Formatter(" | ".join(f"%({x})s" for x in cli._LOG_FIELDS)))
+        root.addHandler(handler)
+        root.setLevel(logging.INFO)
+        try:
+            with contextlib.redirect_stdout(f):
+                cli.main(args, resolve_device(args.device))
+        finally:
+            root.removeHandler(handler)
+            root.setLevel(level)
+            # the run's suspended loaders (their threads) go with it
+            gc.collect()
+
+
 def run_train_cli(tag, argv, device, t, timeout_s, falling=True,
-                  launcher=("-m", "unicore_tpu_torch.cli.train")):
+                  launcher=("-m", "unicore_tpu_torch.cli.train"), in_process=False):
     """``python -m unicore_tpu_torch.cli.train`` with ``argv`` (or
-    ``python`` + ``launcher`` + ``argv``): its stats line, checked -- the
-    update count, every loss finite, the mean of the last five below the
-    first five (``falling``), and the launches per micro-batch
-    (``t["per_micro_batch"]``; none at all on the CPU rehearsal)."""
+    ``python`` + ``launcher`` + ``argv``; with ``in_process`` the CLI's
+    ``main`` in this process, :func:`train_in_process`): its stats line,
+    checked -- the update count, every loss finite, the mean of the last
+    five below the first five (``falling``), and the launches per
+    micro-batch (``t["per_micro_batch"]``; none at all on the CPU
+    rehearsal)."""
     log_path = WORK / f"{tag}.log"
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.monotonic()
-    with open(log_path, "w") as f:
-        proc = subprocess.run([sys.executable, *launcher, *argv],
-                              stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
-                              env=env, timeout=timeout_s)
-    text = log_path.read_text()
-    if proc.returncode != 0:
-        raise RuntimeError(f"{tag}: train CLI exited {proc.returncode}:\n{text[-6000:]}")
+    if in_process:
+        try:
+            train_in_process(log_path, argv)
+        except Exception as err:
+            raise RuntimeError(f"{tag}: the train CLI's main raised {err!r}:\n"
+                               f"{log_path.read_text()[-6000:]}") from err
+        text = log_path.read_text()
+    else:
+        with open(log_path, "w") as f:
+            proc = subprocess.run([sys.executable, *launcher, *argv],
+                                  stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                                  env=env, timeout=timeout_s)
+        text = log_path.read_text()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag}: train CLI exited {proc.returncode}:\n{text[-6000:]}")
     lines = [ln for ln in text.splitlines() if ln.startswith("TRAIN stats ")]
     if not lines:
         raise AssertionError(f"{tag}: no TRAIN stats line:\n{text[-6000:]}")
@@ -2329,6 +2402,46 @@ def profile_update(torch, tr, samples, groups, card, smi, split_optimizer=True):
             "card": card, "nvidia_smi": smi}
 
 
+def watch_one_rank_reduction(torch, tr, samples):
+    """15a: two updates of ``tr`` (a trainer under a process group of one
+    rank) on ``samples``, each reduction held bit for bit against its
+    input: the flat gradient buffers after the group's all-reduce, the
+    sample size and the logging outputs' sums after theirs.  A run without
+    a group uses those inputs as they are, so equal bits make the run under
+    the group the run without it.  (Two runs of BERT on the card are not
+    compared: #2's dbias sums by atomics, ROADMAP.md C.)  The watch is
+    removed before returning."""
+    rec = {"reductions": 0, "buffers_equal": True, "stats_equal": True,
+           "backend": None, "buffer_bytes": None}
+    reducer = tr._reducer
+    real_reduce, real_stats = reducer.reduce_, tr._reduce_stats
+
+    def reduce_(bufs):
+        before = [b.clone() for b in bufs]
+        real_reduce(bufs)
+        rec["reductions"] += 1
+        rec["buffers_equal"] &= all(_bits_equal(torch, a, b) for a, b in zip(before, bufs))
+
+    def stats(sample_size, logs):
+        size, out = real_stats(sample_size, logs)
+        local = {k: sum(float(log[k]) for log in logs) for k in out[0]}
+        rec["stats_equal"] &= (float(size) == float(sample_size)
+                               and {k: float(v) for k, v in out[0].items()} == local)
+        return size, out
+
+    reducer.reduce_, tr._reduce_stats = reduce_, stats
+    try:
+        tr.begin_epoch(1)
+        tr.train_step(samples[:2])
+        tr.train_step(samples[2:4])
+    finally:
+        del reducer.reduce_, tr._reduce_stats
+    from unicore_tpu_torch.parallel import groups
+
+    rec.update(backend=groups.backend(), buffer_bytes=reducer.buffer_bytes)
+    return rec
+
+
 def range_device_us(prof, name):
     """Microseconds of the device kernels launched inside the profiler
     ranges called ``name`` (their CPU ops' kernels, summed down the op
@@ -2388,12 +2501,17 @@ BERT_GROUPS = (("fullrow_fwd", ("fullrow_fwd",)), ("fullrow_bwd_dq_dbias", ("ful
                ("fullrow_bwd_dk_dv", ("fullrow_dkv",))) + KERNEL_GROUPS[1:]
 
 
-def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None, split_optimizer=True):
+def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None, split_optimizer=True,
+                       one_rank_group=False):
     """:func:`profile_update` on the configuration the train CLI takes from
     ``argv`` (its model at full width, optimizer, EMA and dropouts; its
     first 4 batches of 8): the ``tag`` line.  BERT (4a): 2 micro-batches
-    of the 384/512 buckets; the LM (9a): of the 512 bucket."""
+    of the 384/512 buckets; the LM (9a): of the 512 bucket.  With
+    ``one_rank_group`` (15a) the trainer runs under a process group of one
+    rank (NCCL), first 2 updates under :func:`watch_one_rank_reduction`,
+    then the profile, whose update includes the group's reduction."""
     from unicore_tpu_torch import options, tasks
+    from unicore_tpu_torch.distributed import utils as distributed_utils
     from unicore_tpu_torch.trainer import Trainer
 
     dev = cfg["device"]
@@ -2405,14 +2523,27 @@ def profile_cli_update(torch, cfg, argv, tag, card, smi, groups=None, split_opti
     samples = list(itr.next_epoch_itr(shuffle=True))[:4]
     model = task.build_model(args, device=dev,
                              generator=torch.Generator(device=dev).manual_seed(args.seed))
-    tr = Trainer(args, task, model, task.build_loss(args), dev)
-    res = profile_update(torch, tr, samples, groups or BERT_GROUPS, card, smi,
-                         split_optimizer)
+    if one_rank_group:
+        args.distributed_init_method = f"tcp://localhost:{distributed_utils.free_port()}"
+        distributed_utils.distributed_init(args)
+    try:
+        tr = Trainer(args, task, model, task.build_loss(args), dev)
+        identity = watch_one_rank_reduction(torch, tr, samples) if one_rank_group else None
+        res = profile_update(torch, tr, samples, groups or BERT_GROUPS, card, smi,
+                             split_optimizer)
+        if identity is not None:
+            res["one_rank_group"] = identity
+            res["reduction"] = tr.reduction_stats()
+    finally:
+        if one_rank_group:
+            distributed_utils.destroy()
     res["micro_batch_shapes"] = [list(s["net_input"]["src_tokens"].shape)
                                  for s in samples[2:4]]
     print(f"{tag} " + json.dumps(res), flush=True)
     del tr, model
     torch.cuda.empty_cache()
+    if identity is not None and not (identity["buffers_equal"] and identity["stats_equal"]):
+        raise AssertionError(f"15a: the one-rank group changed an update: {identity}")
 
 
 def evoformer_card_vs_cpu_setup(torch, cfg, data, *flags):
@@ -3549,8 +3680,9 @@ def lm_launch_check(cfg, stats, valid_batches):
 
 def drive_lm_training(torch, cfg, data, card, smi):
     """9a: the train CLI on the full ``transformer_lm`` with validation, the
-    EMA and interval checkpoints; then 9b: a second process resumed from
-    9a's mid-epoch checkpoint.  Prints ``lm_train``, on the card
+    EMA and interval checkpoints; then 9b: a new run (the CLI's ``main`` in
+    this process, :func:`train_in_process`) resumed from 9a's mid-epoch
+    checkpoint.  Prints ``lm_train``, on the card
     ``lm_profile`` (one update of 9a's configuration in this process), and
     ``lm_resume``; returns (9a's save dir, 9a's launches)."""
     m = cfg["lm_train"]
@@ -3595,7 +3727,7 @@ def drive_lm_training(torch, cfg, data, card, smi):
     restore = save_dir / f"checkpoint_1_{interval}.pt"
     res = run_train_cli("lm_resume", lm_train_argv(
         cfg, data, resumed_dir, dev.type, "--restore-file", str(restore)), dev, t,
-        m["timeout_s"], falling=False)
+        m["timeout_s"], falling=False, in_process=True)
     ref_losses = stats["loss_per_update"][interval:]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(res["loss_per_update"], ref_losses))
     v_ref, v_res = stats["validations"][-1], res["validations"][-1]
@@ -3814,7 +3946,8 @@ def drive_bf16_training(torch, cfg, data, fp32_stats, card, smi):
 def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
     """10b: phase 9a's configuration plus ``--bf16``: its exact launches, a
     falling loss, each update's loss and the valid losses within ``tol``
-    relative of 9a's; then a second process resumed from its
+    relative of 9a's; then a new run (the CLI's ``main`` in this process)
+    resumed from its
     ``checkpoint_1_{interval}.pt`` (the fp32 master from the optimizer
     state: the low bits that a master rebuilt from the bf16 weights would
     lose, counted in the checkpoint) with 9a's lrs, losses and last valid
@@ -3857,7 +3990,8 @@ def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
 
     res = run_train_cli("lm_bf16_resume", lm_train_argv(
         cfg, data, fresh_dir(WORK / "lm_bf16_resume_ckpt"), dev.type, "--bf16",
-        "--restore-file", str(restore)), dev, t, m["timeout_s"], falling=False)
+        "--restore-file", str(restore)), dev, t, m["timeout_s"], falling=False,
+        in_process=True)
     r_rel = loss_rel_diffs(res["loss_per_update"], stats["loss_per_update"][interval:])
     v_ref, v_res = stats["validations"][-1], res["validations"][-1]
     valid_rel = abs(v_res["loss"] - v_ref["loss"]) / abs(v_ref["loss"])
@@ -3884,8 +4018,9 @@ def drive_fp16_training(torch, cfg, data, card, smi):
     package routes fp16 attention to its plain composition), and the loss
     scale of every update as the schedule gives it for the run's own
     overflows (non-finite gradient norms), grown at least once.  Then
-    ``--fp16-init-scale 2**120``: the first two updates overflow, are
-    skipped (no optimizer step in the checkpoint) and halve the scale.
+    ``--fp16-init-scale 2**120`` (:func:`in_process_run`, no start-up of
+    its own): the first two updates overflow, are skipped (no optimizer
+    step) and halve the scale, with the norms' launches of 4a.
     Prints ``fp16_train``; returns the first run's launches."""
     from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
 
@@ -3898,17 +4033,30 @@ def drive_fp16_training(torch, cfg, data, card, smi):
     stats = run_train_cli("fp16_train", train_argv(cfg, data, fresh_dir(WORK / "fp16_ckpt"),
                                                    dev.type)
                           + flags + ["--fp16-init-scale", str(init)],
-                          dev, t, cfg["train"]["timeout_s"])
+                          dev, t, cfg["train"]["timeout_s"], in_process=True)
     st, want = init_scale_state(init), []
     for g in stats["gnorm_per_update"]:
         want.append(float(st["scale"]))
         st, _ = scale_schedule(st, not math.isfinite(g), scale_window=window)
-    save_dir = fresh_dir(WORK / "fp16_overflow_ckpt")
-    t2 = {"updates": 2, "per_micro_batch": f["per_micro_batch"]}
-    over = run_train_cli("fp16_overflow", train_argv(cfg, data, save_dir, dev.type)
-                         + flags + ["--fp16-init-scale", str(2 ** 120), "--max-update", "2"],
-                         dev, t2, cfg["train"]["timeout_s"], falling=False)
-    steps = load_state(save_dir / "checkpoint_last.pt")["optimizer_state"]["num_steps"]
+    # the forced overflows in this process (no second start-up): the train
+    # CLI's trainer for the same arguments, its first two updates
+    from unicore_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    tr, _ = in_process_run(torch, cfg, train_argv(cfg, data, WORK / "unused", dev.type)
+                           + flags + ["--fp16-init-scale", str(2 ** 120), "--max-update", "2"],
+                           2)
+    over_launches = _kernels.launch_counts()
+    over = {"loss_scale": tr.update_loss_scales, "overflows": tr.overflows}
+    steps = tr._optimizer.num_steps
+    for k, n in f["per_micro_batch"].items():
+        need = n * tr.micro_batches if dev.type == "cuda" else 0
+        if over_launches.get(k, 0) != need:
+            raise AssertionError(f"fp16_overflow: {k}: {over_launches.get(k)} launches, "
+                                 f"want {need}")
+    del tr
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     line = {
         "arch": cfg["arch"], "dtype": stats["dtype"], "updates": stats["updates"],
         "loss_per_update": stats["loss_per_update"], "loss_scale": stats["loss_scale"],
@@ -4046,13 +4194,23 @@ def drive_fused_training(torch, cfg, data, bf16_stats, card, smi):
     ``torch.profiler`` (``fused_profile``: K-a and K-b, the optimizer's
     kernels, beside ``bf16_profile``'s ``optimizer`` range).  Returns the
     run's stats."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
     p = cfg["phase11"]
     dev = cfg["device"]
     flags = ["--bf16", "--bf16-sr", "--disable-validation", *p["fused_flags"]]
+    # 15a: under a process group of one rank (NCCL on the card)
+    group = ["--distributed-world-size", "1", "--distributed-init-method",
+             f"tcp://localhost:{distributed_utils.free_port()}"]
     stats = run_train_cli("fused_train", train_argv(cfg, data, fresh_dir(WORK / "fused_ckpt"),
-                                                    dev.type) + flags,
+                                                    dev.type) + flags + group,
                           dev, cfg["train"], cfg["train"]["timeout_s"])
     fused_launch_check("fused_train", stats, 1)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    red = stats.get("distributed") or {}
+    if red.get("backend") != want_backend or red.get("world_size") != 1:
+        raise AssertionError(f"15a: fused_train ran without a one-rank {want_backend} "
+                             f"group: {red}")
     rel = loss_rel_diffs(stats["loss_per_update"], bf16_stats["loss_per_update"])
     line = {
         "flags": flags, "updates": stats["updates"], "micro_batches": stats["micro_batches"],
@@ -4066,15 +4224,18 @@ def drive_fused_training(torch, cfg, data, bf16_stats, card, smi):
         "tokens_per_s": stats["tokens_per_s"], "bf16_tokens_per_s": bf16_stats["tokens_per_s"],
         "peak_memory_bytes": stats["peak_memory_bytes"],
         "bf16_peak_memory_bytes": bf16_stats["peak_memory_bytes"],
-        "step_ms": stats["step_ms"], "launches": stats["kernel_launches"], "card": card,
-        "nvidia_smi": smi,
+        "step_ms": stats["step_ms"], "launches": stats["kernel_launches"],
+        "distributed": red, "first_loss_equals_bf16": (stats["loss_per_update"][0]
+                                                      == bf16_stats["loss_per_update"][0]),
+        "card": card, "nvidia_smi": smi,
     }
     print("fused_train " + json.dumps(line), flush=True)
     if max(rel) > p["fused_loss_rel"]:
         raise AssertionError(f"fused_train: loss vs 10a {max(rel)} (tol {p['fused_loss_rel']})")
     if dev.type == "cuda":
         profile_cli_update(torch, cfg, train_argv(cfg, data, WORK / "unused", "cuda") + flags,
-                           "fused_profile", card, smi, FUSED_GROUPS, split_optimizer=False)
+                           "fused_profile", card, smi, FUSED_GROUPS, split_optimizer=False,
+                           one_rank_group=True)
     return stats
 
 
@@ -4127,8 +4288,10 @@ def drive_adama(torch, cfg, data, card, smi):
     """11c: 9d's LM path at L=256 with ``--grad-accum adama`` (its
     tolerances: the adama fold runs in the same torch ops on both sides);
     then the full-width LM (9a's arguments, no validation or checkpoint)
-    for ``adama_updates`` updates in buffer mode and in adama: both peak
-    memories (``adama_lm`` line), the launches of 9a, falling losses."""
+    for ``adama_updates`` updates in buffer mode and in adama, each the
+    CLI's ``main`` in this process (:func:`train_in_process`: the two peaks
+    both count what this process holds): both peak memories (``adama_lm``
+    line), the launches of 9a, falling losses."""
     p = cfg["phase11"]
     L = cfg["lm_train"]["card_vs_cpu"]["lengths"][0]
     drive_lm_card_vs_cpu(torch, cfg, data, "--grad-accum", "adama", lengths=[L],
@@ -4139,7 +4302,8 @@ def drive_adama(torch, cfg, data, card, smi):
         argv = lm_train_argv(cfg, data, fresh_dir(WORK / f"adama_{mode}"), cfg["device"].type,
                              "--max-update", str(p["adama_updates"]), "--grad-accum", mode,
                              "--disable-validation", "--no-save")
-        stats = run_train_cli(f"lm_{mode}", argv, cfg["device"], t, t["timeout_s"])
+        stats = run_train_cli(f"lm_{mode}", argv, cfg["device"], t, t["timeout_s"],
+                              in_process=True)
         lm_launch_check(cfg, stats, 0)
         runs[mode] = stats
     line = {m: {k: r[k] for k in ("median_step_ms", "tokens_per_s", "peak_memory_bytes",
@@ -4182,9 +4346,9 @@ def drive_loader(cfg, um_data, um_stats, card, smi):
 
 def drive_nan_rerun(torch, cfg, data):
     """11e (last part): a 2-layer BERT-base checkpoint with a NaN written
-    into one named weight, fine-tuned by the train CLI with ``--nan-rerun``
-    on the card and on the CPU: both exit non-zero, naming the same module
-    in their ``FloatingPointError``."""
+    into one named weight, fine-tuned by the train CLI's ``main`` (in this
+    process, :func:`train_in_process`) with ``--nan-rerun`` on the card and
+    on the CPU: both raise ``FloatingPointError`` naming the same module."""
     import re
 
     from unicore_tpu_torch import checkpoint_utils, options, tasks
@@ -4204,19 +4368,17 @@ def drive_nan_rerun(torch, cfg, data):
         argv = train_argv(cfg, data, fresh_dir(WORK / f"nan_{device}"), device) + extra + [
             "--finetune-from-model", str(path)]
         log_path = WORK / f"nan_rerun_{device}.log"
-        env = dict(os.environ)
-        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-        with open(log_path, "w") as f:
-            proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
-                                  stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
-                                  timeout=600)
-        text = log_path.read_text()
+        raised = None
+        try:
+            train_in_process(log_path, argv)
+        except FloatingPointError as err:
+            raised = f"FloatingPointError: {err}"
         found = re.findall(r"FloatingPointError: non-finite gradients detected: NaN/Inf "
-                           r"detected in forward output of (\S+?);", text)
-        if proc.returncode == 0 or not found:
-            raise AssertionError(f"nan_rerun on {device}: exit {proc.returncode}, "
-                                 f"{found}:\n{text[-4000:]}")
-        named[device] = {"exit": proc.returncode, "module": found[-1]}
+                           r"detected in forward output of (\S+?);", raised or "")
+        if not found:
+            raise AssertionError(f"nan_rerun on {device}: raised {raised!r}, {found}:\n"
+                                 f"{log_path.read_text()[-4000:]}")
+        named[device] = {"raised": "FloatingPointError", "module": found[-1]}
     line = dict(named, poisoned=p["poison"])
     print("nan_rerun " + json.dumps(line), flush=True)
     if {v["module"] for v in named.values()} != {p["poison"]}:
@@ -4474,7 +4636,8 @@ def drive_robust_corrupt(cfg, data, first, save_dir, card, smi):
     ``snapshot_every`` updates under ``--fault-inject
     bit-flip-checkpoint@flip_at``: the interval checkpoint of the last
     update and the ``checkpoint_last.pt`` published from it are rotten; a
-    resume in a second process (``--checkpoint-write-version 1``) names the
+    resume in a new run (the CLI's ``main`` in this process,
+    ``--checkpoint-write-version 1``) names the
     manifest mismatch of both, falls back to the newest intact checkpoint,
     resumes from its update and reaches ``--max-update``.  The v2 write
     seconds of the first run beside the v1 write of the second, and the
@@ -4487,7 +4650,7 @@ def drive_robust_corrupt(cfg, data, first, save_dir, card, smi):
     resumed = run_train_cli("robust_fallback", robust_argv(
         cfg, data, save_dir, "--save-interval-updates", str(every), "--save-interval", "1000",
         "--checkpoint-write-version", "1", sentinel=False), cfg["device"], robust_t(cfg),
-        cfg["train"]["timeout_s"], falling=False)
+        cfg["train"]["timeout_s"], falling=False, in_process=True)
     text = (WORK / "robust_fallback.log").read_text()
     corrupt = re.findall(r"CHECKPOINT CORRUPT: (\S+) failed to load \(CorruptCheckpointError: "
                          r"[^)]*digest mismatch", text)
@@ -4514,15 +4677,17 @@ def drive_robust_preempt(cfg, data, control, card, smi):
     """12d: the armed cell with ``--preemption-save-deadline 60``, SIGTERM
     once update ``sigterm_after`` is logged: exit 0, a minimal
     ``checkpoint_last.pt`` (its ``emergency_save`` kind ``preempt``) at
-    the update the run stopped at, nothing staged left behind; a second
-    process resumes it to ``--max-update``, each of its losses within
+    the update the run stopped at, nothing staged left behind; a new run
+    (the CLI's ``main`` in this process) resumes it to ``--max-update``,
+    each of its losses within
     ``loss_rel`` of 12a's control at the same update (phase 9's resume
     gate).  The resumes run unarmed: the detectors restart cold after a
     resume (their bands are not checkpointed, as in the JAX package), and a
     band of the few observations past the shortened warmup is too narrow
     to judge.  Then ``--fault-inject raise@raise_at
-    --emergency-save-on-error`` saving every ``snapshot_every``: a nonzero
-    exit and ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``; the
+    --emergency-save-on-error`` saving every ``snapshot_every`` (the CLI's
+    ``main`` in this process): the injected ``ChaosError`` out of it and
+    ``checkpoint_emergency.pt`` beside ``checkpoint_last.pt``; the
     train CLI's restore decision for the next resume picks
     ``checkpoint_last.pt`` (the last save's) and never lists the emergency
     file among its fallbacks (``robust_preempt``)."""
@@ -4569,7 +4734,8 @@ def drive_robust_preempt(cfg, data, control, card, smi):
                              + text[-4000:])
     resumed = run_train_cli("robust_resume", robust_argv(cfg, data, save_dir, "--no-save",
                                                          sentinel=False),
-                            dev, robust_t(cfg), cfg["train"]["timeout_s"], falling=False)
+                            dev, robust_t(cfg), cfg["train"]["timeout_s"], falling=False,
+                            in_process=True)
     want = by_update(control)
     rel = loss_rel_diffs([v for u, v in by_update(resumed).items() if u > stopped],
                          [want[u] for u in by_update(resumed) if u > stopped])
@@ -4577,11 +4743,13 @@ def drive_robust_preempt(cfg, data, control, card, smi):
     err_dir = fresh_dir(WORK / "robust_error")
     err_argv = robust_argv(cfg, data, err_dir, "--save-interval-updates", str(p["snapshot_every"]),
                            "--emergency-save-on-error", "--fault-inject", f"raise@{p['raise_at']}")
-    err_log = WORK / "robust_error.log"
-    with open(err_log, "w") as f:
-        err_rc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.train", *err_argv],
-                                stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT), env=env,
-                                timeout=cfg["train"]["timeout_s"]).returncode
+    # the train CLI's main in this process: the injected error must
+    # propagate out of it (the CLI then exits nonzero)
+    err_rc = 0
+    try:
+        train_in_process(WORK / "robust_error.log", err_argv)
+    except Exception as err:  # noqa: BLE001 -- the fault injected
+        err_rc = type(err).__name__
     err_files = sorted(n for n in os.listdir(err_dir) if not n.endswith(".tmp"))
     emergency = load_state(err_dir / "checkpoint_emergency.pt") \
         if "checkpoint_emergency.pt" in err_files else {}
@@ -4610,7 +4778,7 @@ def drive_robust_preempt(cfg, data, control, card, smi):
             "card": card, "nvidia_smi": smi}
     print("robust_preempt " + json.dumps(line), flush=True)
     if not (resumed["resumed_from_update"] == stopped and rel and max(rel) <= p["loss_rel"]
-            and err_rc != 0 and "checkpoint_emergency.pt" in err_files
+            and err_rc == "ChaosError" and "checkpoint_emergency.pt" in err_files
             and "checkpoint_last.pt" in err_files and line["emergency_kind"] == "error"
             and line["error_resume_picks"] == ["checkpoint_last.pt", last_good]
             and "checkpoint_emergency.pt" not in fallbacks):
@@ -5346,6 +5514,182 @@ def drive_fleet(torch, cfg, fleet, fp32_serve, card, smi):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 15: data-parallel training (15a rides 11a: see drive_fused_training)
+# ---------------------------------------------------------------------------
+
+#: phase 15's settings: 4a's BERT-base and corpus in fp32 with the dropouts
+#: 0 and 4b's optimizer (lr 1e-4, eps 1e-6), so the tolerances of 4b hold
+PHASE15 = {"updates": 3, "pair_updates": 2, "lr": 1e-4, "loss_rel": 1e-4,
+           "gnorm_rel": 1e-3, "param_tol": 1e-5, "timeout_s": 600}
+
+
+def dp_argv(cfg, data, save_dir, device, updates, *extra):
+    """4a's train arguments at phase 15's settings: ``updates`` updates,
+    no validation, the weights alone saved at the end."""
+    p = cfg["phase15"]
+    return train_argv(cfg, data, save_dir, device) + [
+        "--max-update", str(updates), "--total-num-update", str(updates),
+        "--update-freq", "1", "--warmup-updates", "1", "--lr", str(p["lr"]), "--dropout", "0",
+        "--attention-dropout", "0", "--emb-dropout", "0", "--activation-dropout", "0",
+        "--disable-validation", "--no-save-optimizer-state", *extra]
+
+
+def in_process_run(torch, cfg, argv, updates):
+    """The first ``updates`` updates of the train CLI's run for ``argv``
+    (its model from ``--seed``, its trainer, its epoch-1 batches in the
+    CLI's order, ``--update-freq`` of them an update) in this process, with
+    no start-up of its own: (trainer, wall ms from one update's end to the
+    next's, the batches' loading included)."""
+    from unicore_tpu_torch import options, tasks
+    from unicore_tpu_torch.data import iterators
+    from unicore_tpu_torch.trainer import Trainer
+
+    dev = cfg["device"]
+    args = options.parse_args_and_arch(options.get_training_parser(), argv)
+    task = tasks.setup_task(args)
+    task.load_dataset("train")
+    model = task.build_model(args, device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(args.seed))
+    tr = Trainer(args, task, model, task.build_loss(args), dev)
+    tr.begin_epoch(1)
+    itr = iterators.GroupedIterator(tr.get_train_iterator(1).next_epoch_itr(shuffle=True),
+                                    args.update_freq[0])
+    ends = []
+    for _ in range(updates):
+        tr.train_step(next(itr))
+        ends.append(time.perf_counter())
+    return tr, [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+
+
+def one_process_reference(torch, cfg, data, updates):
+    """The one-rank ``--update-freq 2`` run on the batches the two ranks
+    take (rank r the epoch's batches r, r + 2, ...: update u's pair is
+    batches 2u and 2u + 1), in this process (:func:`in_process_run`)."""
+    return in_process_run(torch, cfg, dp_argv(cfg, data, WORK / "unused", cfg["device"].type,
+                                              updates, "--update-freq", "2"), updates)
+
+
+def rank_launch_check(tag, cfg, stats):
+    """Every rank launched 4a's kernels per micro-batch (none on the CPU)."""
+    want = cfg["train"]["per_micro_batch"]
+    for r in stats["ranks"]:
+        for k, n in want.items():
+            need = n * r["micro_batches"] if cfg["device"].type == "cuda" else 0
+            if r["kernel_launches"].get(k, 0) != need:
+                raise AssertionError(f"{tag}: rank {r['rank']}: {k}: "
+                                     f"{r['kernel_launches'].get(k)} launches, want {need}")
+
+
+def drive_dp_training(torch, cfg, data, card, smi):
+    """15b: BERT-base on two ranks of the train CLI over gloo (one card:
+    NCCL refuses two ranks on it), fp32, dropouts 0, ``updates`` updates of
+    batch 8 a rank: the ranks' parameters the same bits (their sha256),
+    4a's launches per micro-batch on each rank, and against the one-rank
+    ``--update-freq 2`` run on the same batches the losses within 1e-4, the
+    gradient norms within 1e-3 (relative) and rank 0's saved parameters
+    within 1e-5.  15c: ``tools/dp_pair.py`` (one spawned pair) runs
+    ``--num-pods 2`` with ``sum``, each reduction the bits of the flat
+    all-reduce of the same buffers, then ``adasum``: finite, the ranks the
+    same bits.  The ``dp_train`` line: the update wall ms beside the
+    one-rank run's (two ranks time-share one card: not a scaling figure),
+    the reductions' ms and bytes, flat and two-level, the launches a rank.
+    Returns rank 0's launches."""
+    import numpy as np
+
+    from unicore_tpu_torch import checkpoint_utils
+
+    p = cfg["phase15"]
+    dev = cfg["device"]
+    save_dir = fresh_dir(WORK / "dp_ckpt")
+    dist_flags = ["--distributed-world-size", "2", "--distributed-backend", "gloo"]
+    stats = run_train_cli("dp_train", dp_argv(cfg, data, save_dir, dev.type, p["updates"],
+                                              *dist_flags),
+                          dev, {"updates": p["updates"],
+                                "per_micro_batch": cfg["train"]["per_micro_batch"]},
+                          p["timeout_s"], falling=False)
+    rank_launch_check("dp_train", cfg, stats)
+    digests = {r["param_sha256"] for r in stats["ranks"]}
+    one, one_wall = one_process_reference(torch, cfg, data, p["updates"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(stats["loss_per_update"],
+                                                          one.update_losses))
+    gnorm_rel = max(abs(a - b) / abs(b) for a, b in zip(stats["gnorm_per_update"],
+                                                           one.update_gnorms))
+    saved = checkpoint_utils.load_checkpoint_to_cpu(str(save_dir / "checkpoint_last.pt"))
+    param_err = max((saved["model"][n].float() - q.detach().float().cpu()).abs().max().item()
+                    for n, q in one.model.named_parameters())
+    one_losses, one_gnorms = list(one.update_losses), list(one.update_gnorms)
+    del one, saved
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    pair_out = fresh_dir(WORK / "dp_pair")
+    argv = ["--out", str(pair_out), "--combines", "sum,adasum", "--",
+            *dp_argv(cfg, data, WORK / "dp_pair_ckpt", dev.type, p["pair_updates"],
+                     *dist_flags, "--num-pods", "2", "--no-save")]
+    t0 = time.monotonic()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    with open(WORK / "dp_pair.log", "w") as f:
+        proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.tools.dp_pair",
+                               *argv], stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                              env=env, timeout=p["timeout_s"])
+    if proc.returncode != 0:
+        raise RuntimeError(f"15c: dp_pair exited {proc.returncode}:\n"
+                           f"{(WORK / 'dp_pair.log').read_text()[-6000:]}")
+    pair = [json.loads((pair_out / f"dp_pair_rank{r}.json").read_text()) for r in range(2)]
+    pair_s = time.monotonic() - t0
+    runs = pair[0]["runs"]
+    pair_res = {}
+    for mode, rec in runs.items():
+        st = rec["stats"]
+        rank_launch_check(f"dp_pair {mode}", cfg, st)
+        pair_res[mode] = {
+            "losses": rec["losses"], "gnorms": rec["gnorms"], "plan": rec["plan"],
+            "ranks_equal": len({r["param_sha256"] for r in st["ranks"]}) == 1,
+            "finite": all(x["runs"][mode]["finite"] for x in pair) and all(
+                math.isfinite(v) for v in rec["losses"] + rec["gnorms"]),
+            "sum_equals_flat": [x["runs"][mode]["sum_equals_flat"] for x in pair],
+            "reduction": st["distributed"], "median_update_wall_ms":
+                st["median_update_wall_ms"]}
+    line = {
+        "arch": cfg["arch"], "ranks": 2, "backend": stats["distributed"]["backend"],
+        "batch_per_rank": cfg["batch"], "updates": stats["updates"],
+        "loss_per_update": stats["loss_per_update"],
+        "one_process_loss_per_update": one_losses,
+        "gnorm_per_update": stats["gnorm_per_update"],
+        "one_process_gnorm_per_update": one_gnorms,
+        "loss_max_rel_diff": loss_rel, "gnorm_max_rel_diff": gnorm_rel,
+        "param_max_abs_diff": param_err,
+        "tolerances": {"loss_rel": p["loss_rel"], "gnorm_rel": p["gnorm_rel"],
+                       "param_abs": p["param_tol"]},
+        "ranks_equal": len(digests) == 1,
+        "median_update_wall_ms": stats["median_update_wall_ms"],
+        "update_wall_ms": stats["update_wall_ms"],
+        "one_process_median_update_wall_ms": float(np.median(one_wall)),
+        "one_process_update_wall_ms": one_wall,
+        "reduction": stats["distributed"],
+        "launches_per_rank": [{"rank": r["rank"], "micro_batches": r["micro_batches"],
+                               "kernel_launches": {k: v for k, v in r["kernel_launches"].items()
+                                                   if v}} for r in stats["ranks"]],
+        "two_level": pair_res, "pair_seconds": pair_s, "card": card, "nvidia_smi": smi,
+    }
+    print("dp_train " + json.dumps(line), flush=True)
+    if len(digests) != 1:
+        raise AssertionError(f"15b: the ranks' parameters differ: {stats['ranks']}")
+    if not (loss_rel <= p["loss_rel"] and gnorm_rel <= p["gnorm_rel"]
+            and param_err <= p["param_tol"]):
+        raise AssertionError(f"15b: two ranks against the one-rank --update-freq 2 run: "
+                             f"loss {loss_rel}, gnorm {gnorm_rel}, params {param_err}")
+    for mode, r in pair_res.items():
+        if not (r["finite"] and r["ranks_equal"]):
+            raise AssertionError(f"15c: {mode}: {r}")
+    sums = pair_res["sum"]["sum_equals_flat"]
+    if not (all(all(v) for v in sums) and all(len(v) == p["pair_updates"] for v in sums)):
+        raise AssertionError(f"15c: the two-level sum left the flat all-reduce's bits: {sums}")
+    return stats["ranks"][0]["kernel_launches"]
+
+
 CHIP = {
     # the training path's buckets: 512 and 384 (documents of 380-510 words)
     # and the serving path's smallest, 128
@@ -5534,6 +5878,7 @@ CHIP = {
     "phase12": PHASE12,
     "phase13": PHASE13,
     "phase14": PHASE14,
+    "phase15": PHASE15,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -5658,13 +6003,14 @@ REHEARSAL = {
     "phase13": PHASE13,
     "phase14": dict(PHASE14, loss_batch=120,
                     lengths=[1, 20, 32, 33, 64, 96, 97, 128, 5, 40, 70, 110]),
+    "phase15": PHASE15,
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 14 on the CPU at a tiny size, no card")
+                        help="phases 3 to 15 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -5932,12 +6278,18 @@ def main(argv=None):
     done("13a")
     lm_bf16_serve_launches = drive_lm_bf16_serving(torch, cfg, lm, fp32_decode, card, smi)
     done("13b")
+
+    # 15. data parallelism: 11a and its profile ran under a one-rank NCCL
+    # group (15a); two ranks of the train CLI over gloo against the one-rank
+    # --update-freq 2 run (15b); --num-pods 2, sum and adasum, in one pair (15c)
+    dp_launches = drive_dp_training(torch, cfg, data, card, smi)
+    done("15b-15c")
     print("phase_seconds " + json.dumps(phase_seconds), flush=True)
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 15. result lines: each kernel at its main path's shape (fp32, the
+    # 16. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the
@@ -5952,7 +6304,7 @@ def main(argv=None):
                "lm_bf16_serve": lm_bf16_serve_launches, "fleet_serve": fleet_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
                "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"],
-               "robust_train": spike_stats["kernel_launches"]}
+               "robust_train": spike_stats["kernel_launches"], "dp_train": dp_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

@@ -68,3 +68,17 @@ def test_serve_imports_with_jax_blocked():
         capture_output=True, text=True, timeout=120, cwd=str(REPO), env=env,
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr[-4000:]
+
+
+#: the data-parallel modules, which must stand alone like the rest
+DP_MODULES = ("unicore_tpu_torch/parallel/__init__.py", "unicore_tpu_torch/parallel/plan.py",
+              "unicore_tpu_torch/parallel/groups.py", "unicore_tpu_torch/parallel/hierarchy.py",
+              "unicore_tpu_torch/distributed/utils.py", "unicore_tpu_torch/tools/dp_pair.py")
+
+
+@pytest.mark.parametrize("rel", DP_MODULES)
+def test_data_parallel_modules_are_scanned(rel):
+    """Each data-parallel module exists and is among the scanned files (a
+    copy of what it needs of the JAX package, not an import of it)."""
+    assert REPO / rel in _port_files()
+    test_no_jax_imports_in_source(REPO / rel)

@@ -29,6 +29,11 @@ error under ``--emergency-save-on-error`` take the minimal path
 (:func:`_emergency_save_checkpoint`).  :func:`load_checkpoint` falls back
 to the newest retained checkpoint when the ``checkpoint_last`` it resumes
 is corrupt.
+
+Under data parallelism every rank calls both: rank 0 alone stages, writes
+and publishes (the ranks hold the same state), and a barrier follows
+before any rank goes on; every rank loads the same file, and a torn file on
+one rank sends every rank to the fallback rank 0 names.
 """
 
 import argparse
@@ -416,6 +421,25 @@ def _checkpoint_names(args, suffix, epoch, updates, end_of_epoch, val_loss,
 
 def save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread=None,
                     do_save=True, emergency=None):
+    """:func:`_save_checkpoint` on rank 0, the best score on every rank,
+    then a barrier (none after the ``"error"`` emergency save: the failing
+    rank may be alone).  Other ranks return None."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
+    if distributed_utils.is_master():
+        names = _save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread,
+                                 do_save, emergency)
+    else:
+        names = None
+        if emergency is None:
+            _track_best(args, val_loss)
+    if emergency != "error":
+        distributed_utils.barrier("save_checkpoint")
+    return names
+
+
+def _save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread=None,
+                     do_save=True, emergency=None):
     """Fold ``val_loss`` into the best score, write the checkpoint under
     the first of its names in the staging directory (:func:`_staging_dir`),
     and publish it under the others and prune (:func:`ckp_copy_fun`), on
@@ -614,15 +638,17 @@ def _fallback_checkpoints(save_dir, suffix):
 
 def _gather_load_outcomes(outcome: str):
     """Every rank's load outcome ("loaded" / "missing" / "corrupt"): a file
-    torn on one host must send every host to the same fallback.  At world
-    size 1, this rank's alone (the gather waits for the parallelism slice)."""
-    return [outcome]
+    torn on one rank must send every rank to the same fallback."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
+    return distributed_utils.all_gather_list(outcome)
 
 
 def _agree_fallback_name(basename):
-    """Rank 0's fallback choice binds every rank; at world size 1 it is
-    this rank's."""
-    return basename
+    """Rank 0's fallback choice binds every rank."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
+    return distributed_utils.broadcast_object(basename, 0)
 
 
 def load_checkpoint(args, trainer):

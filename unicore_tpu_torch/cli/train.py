@@ -58,7 +58,21 @@ published on a copy thread under ``--async-checkpoint``.  The stats line
 adds the update counter after each update (``update_ids``: a rewind steps
 it back), the sentinel's ``sentinel_events``, each snapshot's bytes and
 times (``snapshots``), the checkpoint write and publish seconds and the
-stop signal.  The JAX CLI's elastic restarts and telemetry are not ported.
+stop signal.
+
+Data parallelism, as the JAX CLI's: ``--distributed-world-size N`` spawns N
+ranks (``distributed/utils.py`` ``call_main``; or one rank each under
+``torchrun`` / ``--distributed-no-spawn``), NCCL on the card and gloo on the
+CPU (``--distributed-backend``; two ranks on one card need gloo), each
+with ``--batch-size`` rows a micro-batch on its shard of the batches
+(``Trainer``).  Every rank runs the same cadence: the stop flag is agreed
+after each update, validation is sharded and its sums reduced, rank 0
+writes the checkpoints and every rank loads them.  Only rank 0 logs the
+progress lines and prints ``TRAIN stats``, its values the reduced ones;
+the line adds ``distributed`` (world size, backend, plan and the gradient
+reduction's milliseconds and bytes) and ``ranks``: each rank's launches,
+micro-batches, tokens and a sha256 of its parameters after the run.  The
+JAX CLI's elastic restarts and telemetry are not ported.
 """
 
 import json
@@ -119,9 +133,12 @@ class TrainSession:
                                            args.maximize_best_checkpoint_metric)
         self.valid_subsets = args.valid_subset.split(",")
         self.validations: List[dict] = []
-        #: the publish thread of --async-checkpoint
+        #: the publish thread of --async-checkpoint (rank 0 publishes)
+        from unicore_tpu_torch.distributed import utils as distributed_utils
+
         self.copy_pool = (checkpoint_utils.make_copy_pool()
-                          if getattr(args, "async_checkpoint", False) else None)
+                          if getattr(args, "async_checkpoint", False)
+                          and distributed_utils.is_master() else None)
         self.stop_signal: Optional[str] = None
 
     def hard_stop_reason(self, preempt_sig: Optional[str] = None) -> Optional[str]:
@@ -309,12 +326,14 @@ def train_epoch(args, session, epoch_itr):
 
 def validate(args, trainer, task, subsets, records):
     """Every batch of each validation subset in corpus order, in eval mode
-    (on the EMA's weights with ``--validate-with-ema``); the logging
-    outputs are summed over the batches before the loss reduces them.
+    (on the EMA's weights with ``--validate-with-ema``), each rank its shard;
+    the logging outputs are summed over the batches and the ranks before
+    the loss reduces them.
     Returns the ``--best-checkpoint-metric`` of each subset (None for a
     subset with no data on disk) and appends a record of each to
     ``records`` (its update, unrounded loss and metric)."""
     from unicore_tpu_torch import checkpoint_utils
+    from unicore_tpu_torch.distributed import utils as distributed_utils
     from unicore_tpu_torch.logging import metrics
 
     results = []
@@ -336,6 +355,13 @@ def validate(args, trainer, task, subsets, records):
                 out = trainer.valid_step(sample)
                 for k, v in (out or {}).items():
                     totals[k] = totals.get(k, 0) + v
+            if distributed_utils.get_world_size() > 1:
+                shards = distributed_utils.all_gather_list(
+                    {k: float(v) for k, v in totals.items()})
+                totals = {}
+                for shard in shards:
+                    for k, v in shard.items():
+                        totals[k] = totals.get(k, 0.0) + v
             if not totals:
                 results.append(None)
                 continue
@@ -358,13 +384,20 @@ def validate(args, trainer, task, subsets, records):
 
 def main(args, device) -> dict:
     from unicore_tpu_torch.distributed import guard
+    from unicore_tpu_torch.distributed import utils as distributed_utils
 
     # SIGTERM/SIGINT: finish the update in flight, save, exit 0 (a second
     # SIGINT aborts); the caller's handlers come back when the run ends
     guard.install_signal_handlers()
+    # only rank 0 logs below warnings
+    root = logging.getLogger()
+    level = root.level
+    if not distributed_utils.is_master():
+        root.setLevel(logging.WARNING)
     try:
         return _train(args, device)
     finally:
+        root.setLevel(level)
         guard.restore_signal_handlers()
 
 
@@ -373,8 +406,10 @@ def _train(args, device) -> dict:
     import torch
 
     from unicore_tpu_torch import checkpoint_utils, tasks
+    from unicore_tpu_torch.distributed import utils as distributed_utils
     from unicore_tpu_torch.logging import metrics
     from unicore_tpu_torch.ops import _kernels
+    from unicore_tpu_torch.telemetry import journal
     from unicore_tpu_torch.trainer import Trainer
 
     assert args.batch_size is not None, "Must specify --batch-size"
@@ -389,6 +424,7 @@ def _train(args, device) -> dict:
     checkpoint_utils.set_best_score(None)
     checkpoint_utils.reset_save_seconds()
     logger.info(args)
+    journal.sync_run_id()
 
     task = tasks.setup_task(args)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -465,29 +501,71 @@ def _train(args, device) -> dict:
         "stop_signal": session.stop_signal,
         "wall_s": wall,
     }
+    reduction = trainer.reduction_stats()
+    if reduction is not None:
+        stats["distributed"] = {"world_size": distributed_utils.get_world_size(),
+                                "dp_world_size": trainer.dp_world_size, **reduction}
+        stats["ranks"] = distributed_utils.all_gather_list({
+            "rank": trainer.dp_rank, "kernel_launches": stats["kernel_launches"],
+            "micro_batches": trainer.micro_batches, "tokens": trainer.tokens,
+            "samples": trainer.samples, "median_step_ms": stats["median_step_ms"],
+            "param_sha256": param_digest(trainer.model),
+        })
     logger.info(f"done training in {wall:.1f} seconds")
-    print("TRAIN stats " + json.dumps(stats), flush=True)
+    if distributed_utils.is_master():
+        print("TRAIN stats " + json.dumps(stats), flush=True)
     return stats
 
 
-def cli_main(argv=None) -> int:
-    from unicore_tpu_torch import options
-    from unicore_tpu_torch.cli.serve import resolve_device
+def param_digest(model) -> str:
+    """sha256 over the model's parameters' raw bytes in order: equal on two
+    ranks exactly when their parameters are the same bits."""
+    import hashlib
 
+    import torch
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        t = p.detach().contiguous().cpu()
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return h.hexdigest()
+
+
+def configure_logging() -> None:
     logging.basicConfig(
         format=" | ".join(f"%({f})s" for f in _LOG_FIELDS),
         datefmt="%Y-%m-%d %H:%M:%S",
         level=logging.INFO,
         stream=sys.stdout,
     )
+
+
+def _rank_main(args) -> dict:
+    """One rank's run, inside its process group (the device is the one
+    ``distributed_init`` set)."""
+    from unicore_tpu_torch.cli.serve import resolve_device
+
+    return main(args, resolve_device(args.device))
+
+
+def cli_main(argv=None) -> int:
+    from unicore_tpu_torch import options
+    from unicore_tpu_torch.cli.serve import resolve_device
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
+    configure_logging()
     parser = options.get_training_parser()
     args = options.parse_args_and_arch(parser, argv)
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as err:
-        logger.error(str(err))
-        return EXIT_NO_DEVICE
-    main(args, device)
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        # asked without a CUDA context: the spawned ranks make their own
+        try:
+            resolve_device(args.device)
+        except RuntimeError as err:
+            logger.error(str(err))
+            return EXIT_NO_DEVICE
+    distributed_utils.call_main(args, _rank_main, setup=configure_logging)
     return 0
 
 

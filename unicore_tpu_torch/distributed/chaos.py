@@ -66,14 +66,16 @@ counter after the last update (:func:`note_step`).  The serving kinds count
 dispatched serve batches instead (:func:`note_serve_batch`; ``@0`` = from
 start-up); the single-process ones take no RANK, and the fleet ones take a
 replica index IDX, matched against :func:`set_replica_index` (the serve
-CLI's ``--replica-index``).  RANK defaults to 0, the one process the port
-runs; a fault aimed at another rank never fires.
+CLI's ``--replica-index``).  RANK is a data-parallel rank (:func:`set_rank`):
+``raise`` fires on the last rank by default, the storage kinds on rank 0,
+which writes the checkpoints.
 
 The JAX package's other kinds raise ``NotImplementedError`` naming where
 they are queued: the host-desync, collective and elastic kinds
 (``seed-skew``, ``geometry-skew``, ``collective-delay``,
 ``collective-order-skew``, ``host-loss``, ``heartbeat-stall``,
-``kv-outage``) wait for the parallelism slice (ROADMAP queue A item 4).  A
+``kv-outage``) wait for the rest of the parallelism queue (ROADMAP queue A
+item 4: the collective watchdog and the elastic run control).  A
 plan is process-global (:func:`configure`); :func:`reset` clears it.  With
 no ``--fault-inject`` every hook is a cheap no-op.
 """
@@ -127,8 +129,8 @@ PORTED_KINDS = (
 
 #: where each kind that is not ported waits
 _QUEUED = {
-    k: "the parallelism slice (ROADMAP queue A item 4: cross-host agreement, "
-       "collectives and the elastic run control)"
+    k: "the rest of the parallelism queue (ROADMAP queue A item 4: the collective "
+       "watchdog, the consistency guard and the elastic run control)"
     for k in ("seed-skew", "geometry-skew", "collective-delay", "collective-order-skew",
               "host-loss", "heartbeat-stall", "kv-outage")
 }
@@ -151,10 +153,17 @@ _DEFAULT_FAULT_MAGNITUDE = 100.0
 _DEFAULT_FLIP_BYTES = 1
 _DEFAULT_SLOW_DISK_SECONDS = 5.0
 
-#: this process's rank and the world's size (one process until the
-#: parallelism slice)
+#: this process's rank and the world's size (``set_rank``, from the
+#: process group)
 _RANK = 0
 _WORLD_SIZE = 1
+
+
+def set_rank(rank: int, world_size: int) -> None:
+    """This process's data-parallel rank and the world size: a fault
+    without ``@RANK`` fires on the last rank, a storage fault on rank 0."""
+    global _RANK, _WORLD_SIZE
+    _RANK, _WORLD_SIZE = int(rank), int(world_size)
 
 
 class ChaosError(RuntimeError):

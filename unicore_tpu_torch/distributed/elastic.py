@@ -9,7 +9,7 @@ lease that the store answers about but that stops advancing is evidence
 against the REPLICA; a store that does not answer is evidence against the
 CONTROL PLANE and ages no lease.  The training side of the JAX module (the
 heartbeat runtime, the supervised restart loop, the membership state file)
-waits for the parallelism slice (ROADMAP queue A item 4).
+waits for the rest of the parallelism queue (ROADMAP queue A item 4).
 """
 
 import dataclasses

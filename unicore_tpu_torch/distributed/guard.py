@@ -3,10 +3,12 @@
 to finish the update in flight, save a checkpoint and exit 0, so a
 preemption loses no work; a second SIGINT aborts at once.
 
-``stop_requested_global`` is the decision every rank must share.  At world
-size 1 it is the local flag; the cross-host agreement (the stop flag riding
-the per-update slot-plan gather) waits for the parallelism slice (ROADMAP
-queue A item 4), as do the consistency guard and the collective watchdog.
+``stop_requested_global`` is the decision every rank must share: called by
+every rank after each update, it is a MAX all-reduce of the local flags
+(the JAX guard's agreed stop), so a SIGTERM on any rank stops every rank
+after the same update.  Without a process group it is the local flag.  The
+consistency guard and the collective watchdog are not ported (ROADMAP queue
+A item 4).
 """
 
 import logging
@@ -81,7 +83,28 @@ def stop_requested() -> Optional[str]:
     return _stop_signal if _stop_event.is_set() else None
 
 
+#: the codes of the stop flag's all-reduce (the highest wins)
+_STOP_CODES = {None: 0, "SIGTERM": 1, "SIGINT": 2}
+
+
 def stop_requested_global() -> Optional[str]:
-    """The stop decision every rank shares: at world size 1, the local
-    flag."""
-    return stop_requested()
+    """The stop decision every rank shares: a MAX all-reduce of each rank's
+    flag (a collective: every rank calls it after the same update).  The
+    signal's name, this rank's own reason when it has one, or "SIGTERM" /
+    "SIGINT" / "stop requested on another rank" as the flag that won; None
+    when no rank asked to stop.  Without a process group, the local flag."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+    from unicore_tpu_torch.parallel import groups
+
+    local = stop_requested()
+    if not groups.active():
+        return local
+    code = _STOP_CODES.get(local, 3)
+    agreed = int(distributed_utils.all_reduce([code], op="max")[0])
+    if agreed == 0:
+        return None
+    if local is not None:
+        return local
+    names = {v: k for k, v in _STOP_CODES.items() if k is not None}
+    return names.get(agreed, "stop requested on another rank")
+

@@ -16,6 +16,7 @@ from unicore_tpu_torch.health.detectors import (  # noqa: F401
     LossSpikeDetector,
 )
 from unicore_tpu_torch.health.sentinel import (  # noqa: F401
+    ConsistencyError,
     TrainingHealthError,
     TrainingHealthSentinel,
     build_sentinel,

@@ -24,10 +24,10 @@ escalation ladder applied when an anomaly is confirmed:
                       naming the detector, step and statistic.
 
 The recovery history is saved in the checkpoint's ``extra_state`` and
-restored on resume.  The JAX sentinel all-gathers the recovery decision
-before any host applies it (:meth:`TrainingHealthSentinel._agree`); at
-world size 1 that is a no-op here, and the cross-host agreement waits for
-the parallelism slice (ROADMAP queue A item 4).  Its events are logger
+restored on resume.  As in the JAX sentinel, every rank's recovery
+proposal is all-gathered before any rank applies it
+(:meth:`TrainingHealthSentinel._agree`), and a divergent one aborts with
+:class:`ConsistencyError`; the snapshot ring stays per rank.  Its events are logger
 lines (the JAX package also journals them; telemetry is queue A item 5).
 """
 
@@ -45,6 +45,9 @@ from unicore_tpu_torch.health.snapshot import SnapshotRing
 
 logger = logging.getLogger(__name__)
 
+#: tags a recovery proposal in the agreement's all-gather (the JAX tag)
+_AGREEMENT_TAG = "unicore-tpu-sentinel-recovery-v1"
+
 # _macc keys the sentinel reads (the trainer's running sums since the last
 # flush: update count, loss in the loss's own units, gradient norm, loss
 # scale, overflows, sample size)
@@ -54,6 +57,11 @@ _METRIC_KEYS = ("_n", "loss", "gnorm", "loss_scale", "overflow", "sample_size")
 class TrainingHealthError(RuntimeError):
     """The escalation ladder's terminal level: recovery is not possible
     (or no longer credible) and the run aborts with a diagnosis."""
+
+
+class ConsistencyError(RuntimeError):
+    """The ranks proposed different recoveries (the JAX guard's
+    ``ConsistencyError``), with the divergent ranks named."""
 
 
 def build_sentinel(args) -> Optional["TrainingHealthSentinel"]:
@@ -332,10 +340,28 @@ class TrainingHealthSentinel:
 
     def _agree(self, anomaly: Anomaly, target_step: int, action: str) -> None:
         """Every rank must propose the SAME recovery before any applies it
-        (the JAX sentinel all-gathers the proposals and aborts on a
-        divergent one).  At world size 1 there is nothing to agree; the
-        cross-host step waits for the parallelism slice (ROADMAP queue A
-        item 4)."""
+        (the JAX sentinel's agreement).  Detection runs on the sums reduced
+        over the ranks, so proposals agree by construction; this all-gather
+        (on the rare anomaly path only) turns a violation of that into an
+        abort that names the ranks, instead of rewinds to different
+        states.  Without a process group there is nothing to agree."""
+        from unicore_tpu_torch.distributed import utils as distributed_utils
+
+        if distributed_utils.get_world_size() <= 1:
+            return
+        proposal = (anomaly.detector, int(anomaly.step), int(target_step), action)
+        mine = (_AGREEMENT_TAG, proposal)
+        gathered = distributed_utils.all_gather_list(mine)
+        divergent = [(rank, row) for rank, row in enumerate(gathered) if row != mine]
+        if divergent:
+            detail = "; ".join(f"rank {rank} proposed {row!r}" for rank, row in divergent)
+            raise ConsistencyError(
+                f"sentinel recovery proposals DIVERGED across ranks at anomaly step "
+                f"{anomaly.step}: this rank proposed {proposal!r} but {detail}.  Ranks "
+                "are observing different metrics: aborting instead of rewinding to "
+                "different states.")
+        logger.info(f"sentinel: all {len(gathered)} rank(s) agreed on {action} -> "
+                    f"snapshot @update {target_step}")
 
     # ------------------------------------------------------------------
     # persistence + fingerprint

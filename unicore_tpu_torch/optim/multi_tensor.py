@@ -34,8 +34,10 @@ bit the per-tensor Adam of ``optim/adam.py``.  The norm sums in another
 order than the per-tensor ``total_norm`` and may differ from it in the
 last ulp, as the JAX package documents for its own.
 
-ZeRO sharding of the flat buffers (the JAX ``_zero_shard``, ``pad_to``)
-is not ported: the port has no data parallelism yet.
+ZeRO sharding of the flat buffers (the JAX ``_zero_shard``) is not
+ported (ROADMAP queue A item 4): under data parallelism every rank keeps
+the whole state, and ``parallel/hierarchy.py`` reduces the gradient
+buffers whole (:func:`pad_to` pads them for its reduce-scatter).
 """
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -110,6 +112,15 @@ def chunk_table(segments, device) -> torch.Tensor:
         for a in range(start, start + size, CHUNK):
             rows.append((a, 2 * min(CHUNK, start + size - a) + int(decay)))
     return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+def pad_to(buf: torch.Tensor, mult: int) -> torch.Tensor:
+    """Zero-pad a 1-D flat buffer so its length divides ``mult`` (the JAX
+    ``pad_to``): ``buf`` itself when it already does."""
+    rem = (-buf.numel()) % mult
+    if rem == 0:
+        return buf
+    return torch.cat([buf, buf.new_zeros(rem)])
 
 
 class FlatPlan:

@@ -294,8 +294,8 @@ def add_router_args(parser):
                        metavar="KIND[:PARAM]@STEP",
                        help="chaos harness (the replica kinds arm on the "
                             "REPLICAS, not here; kv-outage, which proves "
-                            "the membership freeze, waits for the "
-                            "parallelism slice)")
+                            "the membership freeze, waits for the rest "
+                            "of the parallelism queue)")
     return group
 
 
@@ -341,6 +341,8 @@ def get_training_parser():
                         help="where the model trains: 'cuda' (default) needs "
                              "a visible CUDA card and exits non-zero without "
                              "one; 'cpu' runs the kernels' plain versions")
+    parser.add_argument("--cpu", action="store_true",
+                        help="the JAX CLI's spelling of --device cpu")
     parser.add_argument("--log-interval", type=int, default=100, metavar="N",
                         help="log progress every N updates")
     parser.add_argument("--log-format", default="simple", choices=["simple"],
@@ -479,13 +481,7 @@ def get_training_parser():
                        help="activation rematerialisation: accepted for the "
                             "JAX CLI's scripts; only 'none' is ported")
 
-    group = parser.add_argument_group("distributed_training")
-    group.add_argument("--pipeline-parallel-size", type=int, default=1, metavar="N",
-                       help="pipeline stages: accepted for the JAX CLI's "
-                            "scripts; only 1 is ported")
-    group.add_argument("--seq-parallel-size", type=int, default=1, metavar="N",
-                       help="sequence-parallel shards: accepted for the JAX "
-                            "CLI's scripts; only 1 is ported")
+    add_distributed_training_args(parser)
 
     group = parser.add_argument_group("checkpoint")
     group.add_argument("--save-dir", metavar="DIR", default="checkpoints",
@@ -610,6 +606,83 @@ def get_training_parser():
     return parser
 
 
+def add_distributed_training_args(parser):
+    """Data-parallel training over ``torch.distributed`` (the JAX CLI's
+    group, ``unicore_tpu/options.py`` ``add_distributed_training_args``):
+    one process per rank, ``--batch-size`` per rank."""
+    group = parser.add_argument_group("distributed_training")
+    group.add_argument("--distributed-world-size", type=int, default=1, metavar="N",
+                       help="data-parallel ranks, one process each; the train "
+                            "CLI spawns them unless --distributed-no-spawn is "
+                            "set or a launcher (torchrun) set RANK/WORLD_SIZE")
+    group.add_argument("--distributed-rank", default=0, type=int,
+                       help="rank of this process (set by the spawn or the "
+                            "launcher)")
+    group.add_argument("--distributed-backend", default="xla",
+                       choices=["xla", "nccl", "gloo"],
+                       help="collectives backend: 'nccl' (one card a rank) or "
+                            "'gloo' (the CPU; also several ranks on one card, "
+                            "staged through host memory); the JAX CLI's "
+                            "default 'xla' means nccl with --device cuda and "
+                            "gloo with --device cpu")
+    group.add_argument("--distributed-init-method", default=None, type=str,
+                       help="rendezvous address of the process group "
+                            "(tcp://host:port); inferred from MASTER_ADDR / "
+                            "MASTER_PORT or --distributed-port when unset.  "
+                            "Given at world size 1, the run still forms a "
+                            "one-rank group and reduces through it")
+    group.add_argument("--distributed-port", default=-1, type=int,
+                       help="rendezvous port on localhost (-1: a free one "
+                            "when the CLI spawns the ranks)")
+    group.add_argument("--device-id", "--local_rank", default=0, type=int,
+                       help="process index on this host (set by the spawn or "
+                            "from LOCAL_RANK)")
+    group.add_argument("--distributed-no-spawn", action="store_true",
+                       help="do not spawn --distributed-world-size processes: "
+                            "this process is one rank of a group formed by "
+                            "--distributed-init-method and --distributed-rank")
+    group.add_argument("--ddp-backend", default="c10d", type=str,
+                       choices=["c10d", "apex", "no_c10d", "legacy_ddp"],
+                       help="accepted for the JAX CLI's scripts: the port "
+                            "reduces the flat gradient buffers itself")
+    group.add_argument("--data-parallel-size", type=int, default=-1, metavar="N",
+                       help="in-pod data-parallel ranks (-1: every rank not "
+                            "taken by --num-pods)")
+    group.add_argument("--num-pods", type=int, default=1, metavar="N",
+                       help="the outer (DCN) tier of the data-parallel ranks: "
+                            "with N > 1 the gradient reduction is two-level, "
+                            "a reduce-scatter inside each pod, the "
+                            "--xpod-combine across pods on 1/pod_size of the "
+                            "bytes, an all-gather inside the pod")
+    group.add_argument("--xpod-combine", default="sum", choices=["sum", "adasum"],
+                       help="cross-pod gradient combine when --num-pods > 1: "
+                            "'sum' (bit-identical to the flat all-reduce at "
+                            "pod_size 1) or 'adasum' (arXiv 2006.02924)")
+    group.add_argument("--deterministic-reductions", action="store_true",
+                       help="the two-level reduction gathers and folds in rank "
+                            "order inside a pod and in pod-index order across "
+                            "pods, instead of the backend's reduction order")
+    group.add_argument("--zero-stage", type=int, default=0, choices=[0, 1, 2, 3],
+                       metavar="N",
+                       help="ZeRO optimizer-state sharding: only 0 is ported "
+                            "(ROADMAP A.4)")
+    group.add_argument("--zero-shard-optimizer", action="store_true",
+                       help="alias for --zero-stage 1: not ported (ROADMAP A.4)")
+    group.add_argument("--model-parallel-size", type=int, default=1, metavar="N",
+                       help="tensor-parallel shards: accepted for the JAX "
+                            "CLI's scripts; only 1 is ported")
+    group.add_argument("--expert-parallel-size", type=int, default=1, metavar="N",
+                       help="expert-parallel shards: accepted for the JAX "
+                            "CLI's scripts; only 1 is ported")
+    group.add_argument("--pipeline-parallel-size", type=int, default=1, metavar="N",
+                       help="pipeline stages: accepted for the JAX CLI's "
+                            "scripts; only 1 is ported")
+    group.add_argument("--seq-parallel-size", type=int, default=1, metavar="N",
+                       help="sequence-parallel shards: accepted for the JAX "
+                            "CLI's scripts; only 1 is ported")
+    return group
+
+
 def add_training_health_args(parser):
     """The training-health sentinel (``health/``): loss-spike /
     grad-explosion / loss-scale-collapse detection with an in-memory rewind
@@ -696,5 +769,7 @@ def parse_args_and_arch(parser, input_args=None):
         args.batch_size_valid = args.batch_size
     if getattr(args, "memory_efficient_fp16", False):
         args.fp16 = True
+    if getattr(args, "cpu", False):
+        args.device = "cpu"
     ARCH_CONFIG_REGISTRY[args.arch](args)
     return args

@@ -144,7 +144,7 @@ def kv_list(client, prefix: str):
     listing is evidence about the control plane and must freeze the
     membership clocks, never age a replica's lease.  (The JAX helper also
     darkens the listing under the ``kv-outage`` chaos kind, which waits for
-    the parallelism slice.)"""
+    the rest of the parallelism queue.)"""
     from unicore_tpu_torch.utils import retry
 
     try:

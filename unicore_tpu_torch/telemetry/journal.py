@@ -18,10 +18,11 @@ a journal this package wrote:
   trainer context exists (the serve plane);
 * event fields never collide with the envelope.
 
-The port runs one process: ``membership_epoch`` is 0 and the run id is the
-process's own (the JAX package's ``sync_run_id`` adopts rank 0's id across
-hosts and its ``attempt`` counts elastic restarts; both wait for the
-parallelism slice, ROADMAP queue A item 4).
+Each process writes its own file and stamps its rank on every record
+(:func:`configure`); :func:`sync_run_id` adopts rank 0's run id on every
+rank of a process group, as the JAX journal does.  ``membership_epoch`` is
+0 and ``attempt`` too: the elastic restarts that count them are not ported
+(ROADMAP queue A item 4).
 
 ``emit()`` is safe everywhere: before :func:`configure` it drops the record
 (debug-logged), and a failed write is warned about once.  Writes are
@@ -62,10 +63,18 @@ def ensure_run_id() -> str:
 
 
 def sync_run_id(timeout: float = 30.0) -> str:
-    """The cluster-consistent run id: at one process, the process's own
-    (:func:`ensure_run_id`).  Adoption of rank 0's id across hosts waits for
-    the parallelism slice."""
-    return ensure_run_id()
+    """The run id every rank shares: rank 0's, broadcast over the process
+    group (a collective: every rank calls it) and exported; without a
+    group, the process's own (:func:`ensure_run_id`)."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+
+    rid = ensure_run_id()
+    if distributed_utils.get_world_size() > 1:
+        rid = distributed_utils.broadcast_object(rid, 0)
+        os.environ[ENV_RUN_ID] = rid
+        if _journal is not None:
+            _journal.run_id = rid
+    return rid
 
 
 def run_id() -> Optional[str]:
@@ -78,7 +87,7 @@ def run_id() -> Optional[str]:
 
 def attempt() -> int:
     """Elastic incarnation counter: 0, the port has no elastic restarts
-    (they wait for the parallelism slice)."""
+    (ROADMAP queue A item 4)."""
     return 0
 
 

@@ -71,7 +71,23 @@ snapshots the training state into pinned host buffers on a side stream
 (:meth:`restore_health_snapshot`) and scales the lr during a cooldown;
 its history rides the checkpoint's ``extra_state["sentinel"]``.
 
-The JAX trainer's parallel, telemetry and orbax machinery is not ported.
+Data parallelism, as the JAX trainer's (one process a rank,
+``parallel/``): with a process group (``distributed/utils.py``) rank 0's
+weights are broadcast at initialisation, each rank runs its own shard of the
+batches (``--batch-size`` per rank) with dropout keyed on (``--seed``,
+update, micro-batch, rank) -- the rank folded in only at world size above 1,
+so a run of one rank draws the stream it draws without a group -- and after
+the last micro-batch the gradients are reduced once over the ranks
+(``parallel/hierarchy.py``: flat, or two-level under ``--num-pods``; under
+``--grad-accum adama`` each micro-batch's, before its fold), and the sample
+size and the logging outputs are summed over the ranks before the
+normalisation.  So the clip, K-a's norm, the update, the overflow decision
+and the sentinel's sums are the same bits on every rank.  A rank whose shard
+ran out (the epoch's tail) runs the cached first batch with weight 0, so
+every rank takes part in every reduction.
+
+The JAX trainer's tensor, pipeline and sequence parallelism, ZeRO sharding,
+telemetry and orbax machinery are not ported.
 """
 
 import contextlib
@@ -98,6 +114,8 @@ from unicore_tpu_torch.nan_detector import NanDetector
 from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
 from unicore_tpu_torch.optim.multi_tensor import clip_coef
 from unicore_tpu_torch.optim.unicore_optimizer import clip_grad_norm
+from unicore_tpu_torch.parallel import groups, hierarchy
+from unicore_tpu_torch.parallel import plan as plan_mod
 
 #: folded into the SR noise's key, apart from the dropout's (the JAX
 #: trainer's ``fold_in(rng, 1337)``)
@@ -135,10 +153,24 @@ class Trainer(object):
         else:
             self.compute_dtype = torch.float32
         self.use_loss_scale = bool(getattr(args, "fp16", False))
+        plan_mod.refuse_unported(args)
         with torch.no_grad():
             for p in self.model.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(self.compute_dtype)
+        #: the data-parallel tier (one rank without a process group) and its
+        #: gradient reduction (None without a group)
+        self.dp_world_size = groups.dp_world_size()
+        self.dp_rank = groups.dp_rank()
+        self._reducer = hierarchy.GradReducer(groups.plan()) if groups.active() else None
+        if self._reducer is not None:
+            # every rank starts from rank 0's weights
+            from unicore_tpu_torch.distributed import utils as distributed_utils
+
+            distributed_utils.broadcast_tensors(list(self.model.state_dict().values()))
+        #: a rank whose shard ran out runs this (its first batch, and its
+        #: padded length) with weight 0
+        self._dummy_batch = None
         self.params: Dict[str, torch.Tensor] = OrderedDict(
             (n, p) for n, p in self.model.named_parameters() if p.requires_grad
         )
@@ -222,22 +254,29 @@ class Trainer(object):
                     data_stall_timeout=getattr(a, "data_stall_timeout", 0.0))
 
     def get_train_iterator(self, epoch):
+        """This rank's shard of the epoch's batches (round-robin over the
+        data-parallel ranks, the JAX trainer's sharding by process; a shard
+        that runs out first is padded with empty batches)."""
         return self.task.get_batch_iterator(
             dataset=self.task.dataset(self.args.train_subset),
             batch_size=self.args.batch_size,
             seed=self.args.seed,
             epoch=epoch,
+            num_shards=self.dp_world_size,
+            shard_id=self.dp_rank,
             **self._loader_args(),
         )
 
     def get_valid_iterator(self, subset):
-        """Every batch of ``subset`` in corpus order (call
-        ``next_epoch_itr(shuffle=False)``)."""
+        """This rank's shard of the batches of ``subset`` in corpus order
+        (call ``next_epoch_itr(shuffle=False)``)."""
         return self.task.get_batch_iterator(
             dataset=self.task.dataset(subset),
             batch_size=getattr(self.args, "batch_size_valid", None) or self.args.batch_size,
             seed=self.args.seed,
             epoch=1,
+            num_shards=self.dp_world_size,
+            shard_id=self.dp_rank,
             **self._loader_args(),
         )
 
@@ -273,7 +312,10 @@ class Trainer(object):
     # -- the update ------------------------------------------------------------
 
     def host_counts(self, sample):
-        """(non-pad tokens, rows, padded length) of a host micro-batch."""
+        """(non-pad tokens, rows, padded length) of a host micro-batch;
+        zeros for the empty batch of a shard that ran out."""
+        if not sample:
+            return 0, 0, 0
         src = np.asarray(self.task.token_array(sample))
         pad = self.task.dictionary.pad()
         return int((src != pad).sum()), int(src.shape[0]), int(src.shape[-1])
@@ -303,27 +345,44 @@ class Trainer(object):
             else:
                 acc[n] = g.float()
 
-    def _forward_backward(self, sample, micro_i, acc):
+    def _rng(self, micro_i, *fold):
+        """The dropout stream of micro-batch ``micro_i`` of this update (and
+        ``fold``: a row), with the rank folded in last at world size above 1
+        (the JAX ``fold_in(seed, update, micro, shard)``)."""
+        if self.dp_world_size > 1:
+            fold = fold + (self.dp_rank,)
+        return DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i, *fold)
+
+    def _forward_backward(self, sample, micro_i, acc, weight=1.0):
         """One micro-batch: forward, the backward of the fp32 loss times
-        the loss scale, and its gradient folded into ``acc``; under
-        ``--per-sample-clip-norm`` row by row (:meth:`_per_sample`)."""
+        the loss scale (and ``weight``: 0 for a shard's dummy batch), and
+        its gradient folded into ``acc``; under ``--per-sample-clip-norm``
+        row by row (:meth:`_per_sample`).  Under ``--grad-accum adama``
+        with a process group each micro-batch's gradient is reduced over
+        the ranks before its fold (the moments are not linear in it)."""
         if getattr(self.args, "per_sample_clip_norm", 0.0) > 0:
-            return self._per_sample(sample, micro_i, acc)
-        rng = DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i)
-        sample_size, logging_output = self._backward(sample, rng)
-        self._fold(acc, self._take_grads(fp32=self.grad_accum == "adama"))
+            return self._per_sample(sample, micro_i, acc, weight)
+        sample_size, logging_output = self._backward(sample, self._rng(micro_i), weight)
+        grads = self._take_grads(fp32=self.grad_accum == "adama")
+        if self.grad_accum == "adama" and self._reducer is not None:
+            grads = self._reducer.reduce_grads(grads)
+        self._fold(acc, grads)
         return sample_size, logging_output
 
-    def _backward(self, sample, rng):
+    def _backward(self, sample, rng, weight=1.0):
         loss, sample_size, logging_output = self.loss(self.model, sample, rng=rng)
         loss = loss.float()
+        if weight != 1.0:
+            loss = loss * weight
+            sample_size = sample_size * weight
+            logging_output = {k: v * weight for k, v in logging_output.items()}
         if self.use_loss_scale:
             loss = loss * torch.tensor(self.get_loss_scale(), dtype=torch.float32,
                                        device=loss.device)
         loss.backward()
         return sample_size, logging_output
 
-    def _per_sample(self, sample, micro_i, acc):
+    def _per_sample(self, sample, micro_i, acc, weight=1.0):
         """Per-sample gradient clipping (the JAX
         ``_forward_backward_per_sample``; the reference loops row by row, as
         here): one batch-1 forward and backward per row of the micro-batch,
@@ -335,8 +394,7 @@ class Trainer(object):
         sample_size, logs = 0.0, []
         for r in range(rows):
             row = _rows(sample, r, r + 1)
-            rng = DropoutRng(self.args.seed, self.device, self.get_num_updates(), micro_i, r)
-            ss, log = self._backward(row, rng)
+            ss, log = self._backward(row, self._rng(micro_i, r), weight)
             grads = self._take_grads()
             clip_grad_norm(grads, max_norm)
             self._fold(acc, grads)
@@ -387,10 +445,20 @@ class Trainer(object):
         logging_outputs = []
         loss_scale = self.get_loss_scale()
         for i, (sample, (tokens, rows, length)) in enumerate(zip(batches, counts)):
+            weight = 1.0
+            if not sample:
+                # this rank's shard ran out: its first batch at weight 0
+                if self._dummy_batch is None:
+                    raise RuntimeError(
+                        f"rank {self.dp_rank}: an empty batch before any real one; "
+                        "the epoch has fewer batches than data-parallel ranks")
+                (sample, length), weight = self._dummy_batch, 0.0
+            elif self._dummy_batch is None:
+                self._dummy_batch = sample, length
             self.tokens += tokens
             self.samples += rows
             self.micro_batch_lengths.append(length)
-            ss, log = self._forward_backward(sample, i, acc)
+            ss, log = self._forward_backward(sample, i, acc, weight)
             sample_size = sample_size + ss
             logging_outputs.append(log)
             self.micro_batches += 1
@@ -401,18 +469,24 @@ class Trainer(object):
             # the post-rewind cooldown (ladder level 2); 1.0 outside it
             lr = lr * self.sentinel.lr_scale(step)
         clip = getattr(self.args, "clip_norm", 0.0) or 0.0
-        denom = torch.clamp(sample_size, min=1e-8)
-        if self.use_loss_scale:
-            denom = denom * loss_scale
         # --fault-inject loss-spike / grad-explosion: folded into the
         # denominator (no work when healthy); a loss spike scales the logged
-        # loss too, so the sentinel sees what a real divergence shows
+        # loss too (before the sum over the ranks), so the sentinel sees what
+        # a real divergence shows
         loss_mul, grad_mul = chaos.fault_multipliers(step)
-        if loss_mul * grad_mul != 1.0:
-            denom = denom / (loss_mul * grad_mul)
         if loss_mul != 1.0:
             for log in logging_outputs:
                 log["loss"] = log["loss"] * loss_mul
+        if self._reducer is not None:
+            # the ranks' sums: every rank normalises, clips and steps alike
+            sample_size, logging_outputs = self._reduce_stats(sample_size, logging_outputs)
+            if self.grad_accum != "adama":
+                self._reduce_grads(acc)
+        denom = torch.clamp(sample_size, min=1e-8)
+        if self.use_loss_scale:
+            denom = denom * loss_scale
+        if loss_mul * grad_mul != 1.0:
+            denom = denom / (loss_mul * grad_mul)
         self._await_snapshot()  # the optimizer writes what a capture reads
         if self.grad_accum == "adama":
             gnorm_t = opt.accum_gnorm(acc) / denom
@@ -478,6 +552,47 @@ class Trainer(object):
             raise FloatingPointError("non-finite gradients detected"
                                      + (f": {detail}" if detail else ""))
         return gnorm
+
+    def _reduce_stats(self, sample_size, logging_outputs):
+        """The update's sample size and logging outputs summed over the
+        micro-batches and the ranks: one float64 all-reduce on the device,
+        with no host sync (the values stay device scalars); the sample size
+        comes back in fp32, the outputs as one dict."""
+        from unicore_tpu_torch.distributed import utils as distributed_utils
+
+        def f64(v):
+            return torch.as_tensor(v, dtype=torch.float64, device=self.device)
+
+        keys = sorted({k for log in logging_outputs for k in log})
+        vec = torch.stack([sum(f64(log.get(k, 0.0)) for log in logging_outputs)
+                           for k in keys] + [f64(sample_size)])
+        distributed_utils.all_reduce_tensor(vec)
+        return vec[-1].float(), [dict(zip(keys, vec[:-1].unbind()))]
+
+    def _reduce_grads(self, acc) -> None:
+        """Sum the update's gradients over the ranks in place: the flat
+        gradient buffers of ``--fused-adam``, else every parameter's
+        accumulator (zeros for one without a gradient, so every rank sends
+        the same layout) through one flat buffer."""
+        if self._fused:
+            self._reducer.reduce_([b["g"] for b in self._optimizer.flat])
+            return
+        full = OrderedDict(
+            (n, acc[n] if n in acc else torch.zeros_like(p, dtype=torch.float32))
+            for n, p in self.params.items())
+        acc.clear()
+        acc.update(self._reducer.reduce_grads(full))
+
+    def reduction_stats(self) -> Optional[dict]:
+        """The gradient reduction's record (None without a process group):
+        flat or two-level, each update's milliseconds, each flat buffer's
+        bytes and the bytes of it that crossed the pod tier."""
+        r = self._reducer
+        if r is None:
+            return None
+        return {"two_level": r.two_level, "plan": r.plan.describe(),
+                "backend": groups.backend(), "ms_per_update": r.timings_ms(),
+                "buffer_bytes": r.buffer_bytes, "dcn_bytes": r.dcn_bytes}
 
     def _localize_nan(self, batches):
         """Re-run the update's first micro-batch: a forward in eval mode

@@ -6,7 +6,7 @@ the checkpoint writes and the fleet router's re-routes),
 waits), and :func:`kv_fetch`, the classified KV probe (value /
 :data:`ABSENT` / :data:`UNREACHABLE`) the serving fleet's membership keys
 on.  The blocking ``kv_wait`` and the coordination-service client wait for
-the parallelism slice."""
+the rest of the parallelism queue."""
 
 import dataclasses
 import random
@@ -122,8 +122,9 @@ def kv_fetch(client, key: str, *, poll_ms: int = 100):
     :data:`UNREACHABLE` when the service did not answer at all.  Membership
     keys on the distinction: silence from a PEER is evidence, silence from
     the SERVICE is not.  The JAX package's helper also honours the
-    ``kv-outage`` chaos kind here; that kind waits for the parallelism slice
-    (ROADMAP queue A item 4), so this probe has no chaos hook yet."""
+    ``kv-outage`` chaos kind here; that kind waits for the rest of the
+    parallelism queue (ROADMAP queue A item 4), so this probe has no chaos
+    hook yet."""
     try:
         return client.blocking_key_value_get(key, max(1, int(poll_ms)))
     except Exception as err:
