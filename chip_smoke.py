@@ -142,11 +142,15 @@ result line):
    flight: the ``QUANT-PATH ... reload candidate re-calibrated`` line,
    ``RELOAD SWAPPED``, ``reloads_applied`` 1, the candidate's calibration
    drift below 0.05, every request in flight answered 200, phase 8's int8
-   launches in each of 4 batches after the swap, two answers after the
-   swap against the candidate quantized on the CPU (scores 5e-3 relative,
-   above the 1.25e-3 measured on the card; the distance from the fp32
-   candidate is printed beside it; ids 99% where the CPU's top-2 gap
-   exceeds twice that of the logit absmax), the journal's ``reload-calibrated``, ``swapped`` and
+   launches in each of 4 batches after the swap, those 4 answers bit for
+   bit (ids and score) against the candidate quantized in the smoke's
+   process on the card from the re-derived sidecar, on the batch the
+   engine formed, two of them against it quantized on the CPU (scores 5e-3
+   relative, above the 1.25e-3 measured on the card; the distance from the
+   fp32 candidate is printed beside it; each twin's logits within the
+   int8 drift bound 0.05 of the logit absmax of its own device's fp32
+   candidate, the two twins within twice it; the ids where the CPU's top-2
+   gap exceeds twice the score bound of the logit absmax are printed), the journal's ``reload-calibrated``, ``swapped`` and
    ``swapped-in``, the device memory's peak (``quant_serve_int8``'s
    ``reload``);
 9. causal-LM training with the run control — 9a: ``python -m
@@ -347,7 +351,29 @@ result line):
    updates each (``dp_train``: the update wall ms beside the one-rank
    run's -- two ranks time-share one card, not a scaling figure --, each
    reduction's ms and bytes, flat and two-level, the launches a rank);
-16. a ``phase_seconds`` line (every phase's seconds), a
+16. training telemetry -- 16a: phase 11a's run with ``--log-format json
+   --log-interval 5 --telemetry-sample-interval 4 --profile-steps 8:10
+   --metrics-port <free> --tensorboard-logdir <dir>`` (no process of its
+   own): every JSON progress line parses, each ``train_inner`` line holds
+   the JAX trainer's stat names in its order (``TRAIN_INNER_KEYS``) and one
+   ``train`` line ends each epoch; the journal holds one ``comm-plan``, the
+   sampled updates' ``data_wait`` / ``dispatch`` spans and lag-1
+   ``device_busy`` (with its ``upper_bound`` flag), ``profile-start`` at 8
+   and ``profile-stop`` at 10, a ``checkpoint-save`` for each write and
+   ``fused-norm-path`` naming the CUDA kernel; the window's Chrome trace
+   holds exactly the CLI's launches per update times 2 of #1, #2 (its two
+   kernels), #7, #8/#9, K-a and K-b (``PROFILE_KERNELS``); a ``/metrics``
+   scrape during the run shows ``unicore_tpu_train_updates_total`` >= 5 and
+   the span gauges; TensorBoard's ``loss`` scalars equal the JSON lines'
+   (or, with no writer installed, the one warning); read, not gated: the
+   walls of the sampled, profiled and other updates, ``dispatch`` past
+   ``device_busy``, 11a's medians beside ``PERF.md``'s
+   (``train_telemetry``); 16b: ``python -m unicore_tpu_torch.cli.trace``
+   on phase 12's one journal directory names 12b's rewind to its snapshot,
+   12c's fallback to the intact checkpoint, 12d's SIGTERM stop and its
+   emergency save, and writes a Chrome trace that parses
+   (``trace_merge``);
+17. a ``phase_seconds`` line (every phase's seconds), a
    ``missing_device_times`` line naming any phase-3 check whose device
    time the profiler did not read (an empty profile is retried), the
    ``nvidia-smi`` line (name, power limit), the ``kernels`` JSON line and,
@@ -427,10 +453,18 @@ causal triangle, dropout 0.1; the flash kernels at the triangle shape
 its input's type (dw, db and dbias in bf16 or fp16).
 
 Without a CUDA card, or without the port beside it, it exits non-zero.
-``--cpu-rehearsal`` runs phases 3 to 15 on the CPU at ``bert_tiny``,
+``--cpu-rehearsal`` runs phases 3 to 16 on the CPU at ``bert_tiny``,
 ``unimol_tiny``, an Evoformer whose attentions take the flash route and
 ``transformer_lm_tiny``, through the plain versions (no card, no kernels,
 no profile, no result line) to check the script's own control flow.
+
+A ``python -m unicore_tpu_torch.cli.train`` run above is a process of its
+own where its start matters or another process must watch it (4a, 10a,
+11a with its ``/metrics`` scrapes, 12b, 12d's SIGTERM, 15b's ranks); the
+others call the CLI's ``main`` with the same arguments in this process
+(``train_in_process``: no interpreter, torch import or CUDA context of
+their own, ~7-15 s each on the card; their peak memory counts what this
+process still holds).
 """
 
 import argparse
@@ -1925,10 +1959,12 @@ def train_in_process(log_path, argv):
 
 
 def run_train_cli(tag, argv, device, t, timeout_s, falling=True,
-                  launcher=("-m", "unicore_tpu_torch.cli.train"), in_process=False):
+                  launcher=("-m", "unicore_tpu_torch.cli.train"), in_process=False,
+                  watch=None):
     """``python -m unicore_tpu_torch.cli.train`` with ``argv`` (or
     ``python`` + ``launcher`` + ``argv``; with ``in_process`` the CLI's
-    ``main`` in this process, :func:`train_in_process`): its stats line,
+    ``main`` in this process, :func:`train_in_process`; ``watch`` is
+    called every 0.2 s while the process runs): its stats line,
     checked -- the update count, every loss finite, the mean of the last
     five below the first five (``falling``), and the launches per
     micro-batch (``t["per_micro_batch"]``; none at all on the CPU
@@ -1946,9 +1982,20 @@ def run_train_cli(tag, argv, device, t, timeout_s, falling=True,
         text = log_path.read_text()
     else:
         with open(log_path, "w") as f:
-            proc = subprocess.run([sys.executable, *launcher, *argv],
-                                  stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
-                                  env=env, timeout=timeout_s)
+            proc = subprocess.Popen([sys.executable, *launcher, *argv],
+                                    stdout=f, stderr=subprocess.STDOUT, cwd=str(ROOT),
+                                    env=env)
+            try:
+                while proc.poll() is None:
+                    if time.monotonic() - t0 > timeout_s:
+                        raise RuntimeError(f"{tag}: train CLI over its {timeout_s} s")
+                    if watch is not None:
+                        watch()
+                    time.sleep(0.2)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         text = log_path.read_text()
         if proc.returncode != 0:
             raise RuntimeError(f"{tag}: train CLI exited {proc.returncode}:\n{text[-6000:]}")
@@ -1957,7 +2004,7 @@ def run_train_cli(tag, argv, device, t, timeout_s, falling=True,
         raise AssertionError(f"{tag}: no TRAIN stats line:\n{text[-6000:]}")
     stats = json.loads(lines[-1][len("TRAIN stats "):])
     for ln in text.splitlines():
-        if "| update " in ln:
+        if "| train_inner | " in ln or "| train | " in ln:
             log(f"{tag} " + ln.split(" | ", 3)[-1])
     losses = stats["loss_per_update"]
     micro = stats["micro_batches"]
@@ -2157,7 +2204,7 @@ def drive_unimol_training(cfg, data, card, smi):
     stats = run_train_cli("unimol_train",
                           unimol_argv(u, data, fresh_dir(WORK / "unimol_ckpt"),
                                       cfg["device"].type),
-                          cfg["device"], t, t["timeout_s"])
+                          cfg["device"], t, t["timeout_s"], in_process=True)
     lengths = stats["micro_batch_lengths"]
     if set(lengths) != {u["length"]}:
         raise AssertionError(f"unimol_train: micro-batch lengths {lengths}, want all "
@@ -2315,7 +2362,7 @@ def drive_evoformer_training(torch, cfg, data, card, smi):
     stats = run_train_cli("evoformer_train",
                           evoformer_argv(e, data, fresh_dir(WORK / "evoformer_ckpt"),
                                          cfg["device"].type),
-                          cfg["device"], t, t["timeout_s"])
+                          cfg["device"], t, t["timeout_s"], in_process=True)
     lengths = stats["micro_batch_lengths"]
     if set(lengths) != {e["length"]}:
         raise AssertionError(f"evoformer_train: micro-batch lengths {lengths}, want all "
@@ -3135,7 +3182,8 @@ def quant_per_batch(layers, mode):
 
 def load_quantized(torch, path, mode, device):
     """(fp32 model, quantized model) of the checkpoint on ``device``, the
-    latter from the server's sidecar (its digest verified)."""
+    latter from the server's sidecar (its digest verified), its weights
+    quantized on ``device`` as the server quantizes them on its own."""
     from unicore_tpu_torch import checkpoint_utils, tasks
     from unicore_tpu_torch.quant import calibrate
 
@@ -3148,10 +3196,11 @@ def load_quantized(torch, path, mode, device):
     if doc is None or doc["mode"] != mode or not calibrate.digest_matches(
             doc, model.state_dict()):
         raise AssertionError(f"the {mode} sidecar beside {path} does not verify")
+    model = model.to(device)
     model_q = calibrate.load_prepared(
         model.clone(quantize=mode),
         calibrate.prepare(model.state_dict(), doc["sites"], mode))
-    return model.to(device), model_q.to(device)
+    return model, model_q
 
 
 def cpu_logits(torch, model, rows, bucket, pad_idx):
@@ -3284,10 +3333,13 @@ def quant_reload(torch, cfg, server, path, reqs, vocab, pad):
     seeded 0.01 N(0, 1), published onto ``--path`` while requests are in
     flight; the candidate re-calibrated on the card while the old twin
     serves, swapped on a batch boundary; every request in flight answered
-    200; the int8 path's launches in each batch after the swap; two answers
-    after the swap against the candidate quantized on the CPU from the
-    re-derived sidecar.  Returns the ``reload`` record."""
+    200; the int8 path's launches in each batch after the swap; four
+    answers after the swap bit for bit against the candidate quantized in
+    this process on the same device from the re-derived sidecar, two of
+    them against it quantized on the CPU.  Returns the ``reload`` record."""
     import numpy as np
+
+    from unicore_tpu_torch.serve import build_infer_fn
 
     q = cfg["quant_serve"]
     cand = write_moved_checkpoint(torch, path, Path(path).parent / "candidate.pt",
@@ -3321,8 +3373,8 @@ def quant_reload(torch, cfg, server, path, reqs, vocab, pad):
     small = sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:2]
     more = sorted(range(len(reqs)), key=lambda i: -len(reqs[i]))[:2]
     code, before = http("GET", server.base + "/stats")
-    after = [http("POST", server.base + "/v1/infer", {"tokens": reqs[i]})[1]
-             for i in small + more][:2]
+    picked = small + more
+    served = [http("POST", server.base + "/v1/infer", {"tokens": reqs[i]})[1] for i in picked]
     code, st2 = http("GET", server.base + "/stats")
     batches = st2["batches"] - before["batches"]
     launches = {k: n - before["kernel_launches"].get(k, 0)
@@ -3333,28 +3385,72 @@ def quant_reload(torch, cfg, server, path, reqs, vocab, pad):
             if batches <= 0 or launches.get(k, 0) != n * batches:
                 raise AssertionError(f"after the swap {k}: {launches.get(k, 0)} launches for "
                                      f"{batches} batches, want {n} per batch")
-    # the candidate's answers against it quantized on the CPU from the
-    # sidecar the reload re-derived (ids where the CPU's top-2 gap exceeds
-    # twice the score bound of the logit absmax; the score relative), and
-    # their distance from the fp32 candidate on the CPU, for the record
+    # every answer after the swap against the candidate quantized from the
+    # sidecar the reload re-derived, built in this process as the server
+    # builds it (weights quantized on the same device), on the batch the
+    # engine formed (each request alone, rows padded to the batch): ids and
+    # score bit for bit
+    dev = cfg["device"]
+    model, model_q = load_quantized(torch, path, "int8", dev)
+    infer = build_infer_fn(dev)
+    for i, body in zip(picked, served):
+        arr = np.full((cfg["batch"], body["bucket"]), pad, np.int32)
+        arr[0, : len(reqs[i])] = reqs[i]
+        ids_t, score_t = infer(model_q, arr)
+        if body["output"] != ids_t[0, : len(reqs[i])].tolist() \
+                or body["score"] != float(score_t[0]):
+            same = int((np.asarray(body["output"]) == ids_t[0, : len(reqs[i])]).sum())
+            raise AssertionError(f"after the reload, a request of {len(reqs[i])} tokens: ids "
+                                 f"{same}/{len(reqs[i])} and score {body['score']} against "
+                                 f"the re-derived twin's {float(score_t[0])}")
+    # the card's twin against the same quantized on the CPU through the
+    # plain versions, on the two shortest rows at their bucket: the served
+    # scores within ``reload_score_rel`` of the CPU's; each twin's logits
+    # within the JAX package's int8 drift bound (of the fp32 logit absmax)
+    # of its own device's fp32 candidate, and so the two twins within twice
+    # it of each other.  A W8A8 network re-rounds its activations at every
+    # site, so two twins whose sums differ in a last bit drift apart about
+    # as far as either drifts from fp32, and no top-2 gap below that
+    # separates a near tie from a fault: the ids against the CPU's past a
+    # gap of twice the score bound of the logit absmax are recorded.
+    after = served[:2]
     bucket = min(b["bucket"] for b in after)
-    model, model_q = load_quantized(torch, path, "int8", "cpu")
     rows = [reqs[i] for i in small]
-    logits, ids, score = cpu_logits(torch, model_q, rows, bucket, pad)
-    score_fp32 = cpu_logits(torch, model, rows, bucket, pad)[2]
+    arr = np.full((len(rows), bucket), pad, np.int32)
+    for r, toks in enumerate(rows):
+        arr[r, : len(toks)] = toks
+    with torch.inference_mode():
+        tokens = torch.as_tensor(arr, dtype=torch.long, device=dev)
+        card_q = model_q(tokens).float().cpu().numpy()
+        card_f = model(tokens).float().cpu().numpy()
     del model, model_q
-    bound = q["reload_score_rel"]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    model, model_q = load_quantized(torch, path, "int8", "cpu")
+    logits, ids, score = cpu_logits(torch, model_q, rows, bucket, pad)
+    logits_f, _, score_fp32 = cpu_logits(torch, model, rows, bucket, pad)
+    del model, model_q
+    bound, drift_bound = q["reload_score_rel"], q["rel_drift_bound"]["int8"]
+    absmax = float(np.abs(logits_f).max())
+    valid = np.zeros(arr.shape, bool)
+    for r, toks in enumerate(rows):
+        valid[r, : len(toks)] = True
+    dist = {name: float(np.abs(a - b)[valid].max()) / absmax for name, a, b in (
+        ("card_int8_vs_cpu_int8", card_q, logits), ("card_int8_vs_card_fp32", card_q, card_f),
+        ("cpu_int8_vs_cpu_fp32", logits, logits_f), ("card_fp32_vs_cpu_fp32", card_f, logits_f))}
     gap = 2 * bound * float(np.abs(logits).max())
     agree, total, excluded = gapped_agreement(after, logits, ids, gap)
     rel = [abs(b["score"] - float(score[row])) / max(abs(float(score[row])), 1e-6)
            for row, b in enumerate(after)]
     rel_fp32 = [abs(b["score"] - float(score_fp32[row])) / max(abs(float(score_fp32[row])), 1e-6)
                 for row, b in enumerate(after)]
-    if not total or agree < 0.99 * total or max(rel) > bound:
-        raise AssertionError(f"after the reload vs the CPU: ids {agree}/{total} past a "
-                             f"top-2 gap of {gap} ({excluded} closer), score rel err "
-                             f"{max(rel)} (bound {bound}; the fp32 candidate's "
-                             f"{max(rel_fp32)})")
+    if max(rel) > bound or dist["card_int8_vs_cpu_int8"] > 2 * drift_bound \
+            or dist["card_int8_vs_card_fp32"] > drift_bound \
+            or dist["cpu_int8_vs_cpu_fp32"] > drift_bound:
+        raise AssertionError(f"after the reload vs the CPU: score rel err {max(rel)} (bound "
+                             f"{bound}; the fp32 candidate's {max(rel_fp32)}), max |logit "
+                             f"distance| / absmax {dist} (bound {drift_bound}, twice it "
+                             f"between the int8 twins)")
     swapped = next(ln for ln in text.splitlines() if "RELOAD SWAPPED" in ln)
     events = [e.get("event") or e.get("outcome") for e in journal_events(path)
               if e["kind"] in ("quant-path", "serve-reload")]
@@ -3365,10 +3461,14 @@ def quant_reload(torch, cfg, server, path, reqs, vocab, pad):
            "rel_drift": quant["rel_drift"], "max_abs_logit_drift": quant["max_abs_logit_drift"],
            "launches_after_swap": launches, "batches_after_swap": batches,
            "per_batch_want": per_batch,
+           "twin_bit_equal": {"requests": len(served),
+                              "ids": sum(len(reqs[i]) for i in picked)},
            "cpu_agreement": {"ids_equal": agree, "ids": total, "ids_within_gap": excluded,
                              "gap": gap, "score_rel_err": max(rel),
                              "score_rel_bound": bound,
-                             "score_rel_err_vs_fp32_candidate": max(rel_fp32)},
+                             "score_rel_err_vs_fp32_candidate": max(rel_fp32),
+                             "max_abs_logit_distance_over_absmax": dist,
+                             "drift_bound": drift_bound},
            "recalibrated": recal.split("QUANT-PATH", 1)[1].strip(),
            "swapped": swapped.split("RELOAD SWAPPED: ", 1)[1].strip(),
            "device_memory_mib": st.get("device_memory_mib"),
@@ -3692,7 +3792,7 @@ def drive_lm_training(torch, cfg, data, card, smi):
     t = {"updates": m["updates"], "per_micro_batch": {}}
     save_dir = fresh_dir(WORK / "lm_ckpt")
     stats = run_train_cli("lm_train", lm_train_argv(cfg, data, save_dir, dev.type), dev,
-                          t, m["timeout_s"])
+                          t, m["timeout_s"], in_process=True)
     launches = lm_launch_check(cfg, stats, valid_batches)
     interval = m["interval"]
     names = sorted(os.listdir(save_dir))
@@ -3960,7 +4060,8 @@ def drive_lm_bf16_training(torch, cfg, data, fp32_stats, card, smi):
     t = {"updates": m["updates"], "per_micro_batch": {}}
     save_dir = fresh_dir(WORK / "lm_bf16_ckpt")
     stats = run_train_cli("lm_bf16_train", lm_train_argv(cfg, data, save_dir, dev.type,
-                                                         "--bf16"), dev, t, m["timeout_s"])
+                                                         "--bf16"), dev, t, m["timeout_s"],
+                          in_process=True)
     launches = lm_launch_check(cfg, stats, valid_batches)
     rel = loss_rel_diffs(stats["loss_per_update"], fp32_stats["loss_per_update"])
     v_rel = loss_rel_diffs([v["loss"] for v in stats["validations"]],
@@ -4202,9 +4303,31 @@ def drive_fused_training(torch, cfg, data, bf16_stats, card, smi):
     # 15a: under a process group of one rank (NCCL on the card)
     group = ["--distributed-world-size", "1", "--distributed-init-method",
              f"tcp://localhost:{distributed_utils.free_port()}"]
-    stats = run_train_cli("fused_train", train_argv(cfg, data, fresh_dir(WORK / "fused_ckpt"),
-                                                    dev.type) + flags + group,
-                          dev, cfg["train"], cfg["train"]["timeout_s"])
+    # 16a: the telemetry flags; /metrics scraped while the run goes on
+    t = cfg["phase16"]
+    port = distributed_utils.free_port()
+    tele = ["--log-format", "json", "--log-interval", str(t["log_interval"]),
+            "--telemetry-sample-interval", str(t["sample_interval"]),
+            "--profile-steps", f"{t['profile'][0]}:{t['profile'][1]}",
+            "--metrics-port", str(port),
+            "--tensorboard-logdir", str(fresh_dir(WORK / "fused_tb"))]
+    scrapes = []
+
+    def scrape():
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                text = r.read().decode()
+        except OSError:
+            return  # not bound yet, or gone
+        if "unicore_tpu_train_updates_total" in text:
+            scrapes.append(text)
+
+    save_dir = fresh_dir(WORK / "fused_ckpt")
+    stats = run_train_cli("fused_train", train_argv(cfg, data, save_dir, dev.type)
+                          + flags + group + tele, dev, cfg["train"], cfg["train"]["timeout_s"],
+                          watch=scrape)
+    stats["telemetry"] = {"flags": tele, "scrapes": scrapes, "save_dir": str(save_dir),
+                          "log": str(WORK / "fused_train.log")}
     fused_launch_check("fused_train", stats, 1)
     want_backend = "nccl" if dev.type == "cuda" else "gloo"
     red = stats.get("distributed") or {}
@@ -4213,7 +4336,8 @@ def drive_fused_training(torch, cfg, data, bf16_stats, card, smi):
                              f"group: {red}")
     rel = loss_rel_diffs(stats["loss_per_update"], bf16_stats["loss_per_update"])
     line = {
-        "flags": flags, "updates": stats["updates"], "micro_batches": stats["micro_batches"],
+        "flags": flags, "telemetry_flags": tele, "updates": stats["updates"],
+        "micro_batches": stats["micro_batches"],
         "loss_per_update": stats["loss_per_update"],
         "bf16_loss_per_update": bf16_stats["loss_per_update"],
         "loss_max_rel_diff_vs_bf16": max(rel), "tolerance": p["fused_loss_rel"],
@@ -4327,7 +4451,7 @@ def drive_loader(cfg, um_data, um_stats, card, smi):
     argv = unimol_argv(u, um_data, fresh_dir(WORK / "unimol_loader"),
                        cfg["device"].type) + p["loader_flags"]
     stats = run_train_cli("unimol_loader", argv, cfg["device"], u["train"],
-                          u["train"]["timeout_s"])
+                          u["train"]["timeout_s"], in_process=True)
     rel = loss_rel_diffs(stats["loss_per_update"], um_stats["loss_per_update"])
     line = {"flags": p["loader_flags"], "loss_max_rel_diff_vs_5a": max(rel),
             "tolerance": p["loader_loss_rel"],
@@ -4467,12 +4591,15 @@ def robust_argv(cfg, data, save_dir, *extra, sentinel=True):
     """Phase 11a's cell (BERT-base, ``--bf16 --bf16-sr --fused-adam
     --num-workers 2 --prefetch-to-device``, no validation) for
     ``p["updates"]`` updates, with the sentinel's flags unless
-    ``sentinel`` is False (``--sentinel-interval 0``)."""
+    ``sentinel`` is False (``--sentinel-interval 0``), journaling into
+    the phase's one ``--telemetry-dir``."""
     p = cfg["phase12"]
     n = str(p["updates"])
     return (train_argv(cfg, data, save_dir, cfg["device"].type)
             + ["--bf16", "--bf16-sr", "--disable-validation", *cfg["phase11"]["fused_flags"],
-               "--max-update", n, "--total-num-update", n]
+               "--max-update", n, "--total-num-update", n,
+               # one journal directory for the phase (16b merges it)
+               "--telemetry-dir", str(WORK / "robust_telemetry")]
             + (p["sentinel_flags"] if sentinel else ["--sentinel-interval", "0"])
             + list(extra))
 
@@ -4519,7 +4646,8 @@ def drive_robust_control(cfg, data):
     off = run_train_cli("robust_flip", robust_argv(
         cfg, data, flip_dir, "--save-interval-updates", str(2 * p["snapshot_every"]),
         "--save-interval", "1000", "--fault-inject", f"bit-flip-checkpoint@{p['flip_at']}",
-        sentinel=False), cfg["device"], robust_t(cfg), cfg["train"]["timeout_s"])
+        sentinel=False), cfg["device"], robust_t(cfg), cfg["train"]["timeout_s"],
+        in_process=True)
     robust_launch_check("robust_flip", off)
     return off, flip_dir
 
@@ -4698,7 +4826,7 @@ def drive_robust_preempt(cfg, data, control, card, smi):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     log_path = WORK / "robust_sigterm.log"
-    mark = f"| update {p['sigterm_after']} |"
+    mark = f"num_updates={p['sigterm_after']},"
     t0 = time.monotonic()
     with open(log_path, "w") as f:
         proc = subprocess.Popen([sys.executable, "-m", "unicore_tpu_torch.cli.train", *argv],
@@ -4783,6 +4911,279 @@ def drive_robust_preempt(cfg, data, control, card, smi):
             and line["error_resume_picks"] == ["checkpoint_last.pt", last_good]
             and "checkpoint_emergency.pt" not in fallbacks):
         raise AssertionError(f"robust_preempt: {line}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training telemetry (the progress bars, the journal, the step
+# spans, the --profile-steps window, /metrics, TensorBoard, the trace merger)
+# ---------------------------------------------------------------------------
+
+#: a train_inner line's stats, the JAX trainer's names in its order (by
+#: priority) for 11a's flags: bf16 (no loss_scale), --clip-norm,
+#: --prefetch-to-device; gb_free on a card only; the JAX recompiles stat
+#: has no counterpart in eager PyTorch
+TRAIN_INNER_KEYS = ["loss", "seq_len", "ups", "bsz", "num_updates", "lr", "gnorm", "clip",
+                    "train_wall", "gb_free", "transfer_wall", "prefetch_wall", "host_blocked",
+                    "device_busy"]
+
+#: the CUDA kernels a BERT update launches on the main path, by their
+#: launch counters: (counter, kernel function names, kernel launches a
+#: counted call).  #2 is one call of two launches; #8/#9 one call of the
+#: row pass and, with dw/db, the partials' sum; K-a a stage-1 launch per
+#: buffer and one stage 2
+PROFILE_KERNELS = (
+    ("fullrow_attention_fwd", ("fullrow_fwd_kernel",), 1),
+    ("fullrow_attention_bwd", ("fullrow_dq_kernel",), 1),
+    ("fullrow_attention_bwd", ("fullrow_dkv_kernel",), 1),
+    ("fused_norm_fwd", ("fused_norm_fwd_kernel", "fused_norm_fwd_wide_kernel"), 1),
+    ("fused_norm_dx", ("fused_norm_bwd_kernel", "fused_norm_bwd_wide_kernel"), 1),
+    ("fused_norm_dwdb", ("fused_norm_bwd_finish_kernel",), 1),
+    ("multi_tensor_l2norm", ("l2norm_final_kernel",), 1),
+    ("fused_adam", ("fused_adam_kernel",), 1),
+)
+
+
+def kernel_events(trace_path, names):
+    """The CUDA kernel events of a ``torch.profiler`` Chrome trace whose
+    (demangled) name holds each kernel function name of ``names`` as a
+    whole identifier, counted by that name."""
+    import re
+
+    events = [ev.get("name", "") for ev in json.loads(Path(trace_path).read_text())["traceEvents"]
+              if ev.get("cat") == "kernel"]
+    return {n: sum(1 for ev in events
+                   if re.search(rf"(?<![A-Za-z0-9_]){n}(?![A-Za-z0-9_])", ev))
+            for n in names}
+
+
+def tb_scalars(logdir, tag):
+    """(step, value) of every ``tag`` scalar in the TensorBoard event files
+    under ``logdir``, read as TFRecords with the Event proto of
+    ``tensorboard`` or ``tensorboardX``, whichever is installed."""
+    import struct
+
+    try:
+        from tensorboard.compat.proto.event_pb2 import Event
+    except ImportError:
+        from tensorboardX.proto.event_pb2 import Event
+    out = []
+    for path in sorted(Path(logdir).glob("events.out.tfevents.*")):
+        data = path.read_bytes()
+        pos = 0
+        while pos + 12 <= len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            ev = Event()
+            ev.ParseFromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            for v in ev.summary.value:
+                if v.tag == tag and v.HasField("simple_value"):
+                    out.append((ev.step, v.simple_value))
+    return out
+
+
+def check_train_telemetry(torch, cfg, stats, card, smi):
+    """16a: the telemetry of 11a's run (``stats``, which carries the flags,
+    the ``/metrics`` scrapes taken during the run and where it wrote): every
+    JSON progress line parses, each ``train_inner`` line holds
+    :data:`TRAIN_INNER_KEYS` and one ``train`` line ends each epoch; the
+    journal holds one ``comm-plan``, the ``data_wait`` and ``dispatch``
+    spans of every sampled update and its ``device_busy`` with the
+    ``upper_bound`` flag (the last sampled update's probe excepted: it is
+    collected at the next update's wait), ``h2d`` where the update's
+    batches were copied on the training thread (the epoch's first: the
+    prefetcher copies the others), ``profile-start`` at START and
+    ``profile-stop`` at END, a ``checkpoint-save`` for each write and a
+    ``fused-norm-path`` naming the CUDA kernel; the window's Chrome trace
+    holds, for each kernel of :data:`PROFILE_KERNELS`, exactly the CLI's
+    launches per update times the window's updates; a scrape shows
+    ``unicore_tpu_train_updates_total`` of at least ``log_interval`` and
+    the span gauges; TensorBoard: the ``loss`` scalars equal the JSON
+    lines' values, or, with no writer installed, the one warning.  Read,
+    not gated: the wall of the sampled, the profiled and the other updates,
+    how far ``dispatch`` runs past ``device_busy``, and 11a's step and
+    update-wall medians beside ``PERF.md``'s (``train_telemetry``)."""
+    import numpy as np
+
+    p = cfg["phase16"]
+    dev = cfg["device"]
+    tele = stats["telemetry"]
+    start, end = p["profile"]
+    n = stats["updates"]
+    problems = []
+    # the progress lines
+    lines = []
+    for ln in Path(tele["log"]).read_text().splitlines():
+        parts = ln.split(" | ", 3)
+        if len(parts) == 4 and parts[2] in ("train_inner", "train", "valid"):
+            lines.append((parts[2], json.loads(parts[3])))
+    want_keys = ["epoch", "update"] + [k for k in TRAIN_INNER_KEYS
+                                       if k != "gb_free" or dev.type == "cuda"] + ["wall"]
+    inner = [s for tag, s in lines if tag == "train_inner"]
+    if len(inner) != n // p["log_interval"]:
+        problems.append(f"{len(inner)} train_inner lines for {n} updates")
+    bad_keys = [list(s) for s in inner if list(s) != want_keys]
+    if bad_keys:
+        problems.append(f"train_inner keys {bad_keys[0]} != {want_keys}")
+    epochs = [s["epoch"] for tag, s in lines if tag == "train"]
+    if not inner or epochs != list(range(1, inner[-1]["epoch"] + 1)):
+        problems.append(f"train lines of epochs {epochs}: not one at each epoch's end")
+    # the journal
+    journal = [json.loads(x) for x in
+               (Path(tele["save_dir"]) / "telemetry" / "events_rank0.jsonl").read_text()
+               .splitlines()]
+    kinds = [r["kind"] for r in journal]
+    spans = {}
+    for r in journal:
+        if r["kind"] == "span":
+            spans.setdefault(r["update"], {})[r["name"]] = r
+    sampled = list(range(0, n, p["sample_interval"]))
+    for u in sampled:
+        got = spans.get(u, {})
+        need = ["data_wait", "dispatch"] + (["device_busy"] if u != n - 1 else [])
+        if u == 0:
+            need.append("h2d")
+        if any(k not in got for k in need) or ("device_busy" in got
+                                               and "upper_bound" not in got["device_busy"]):
+            problems.append(f"update {u}: spans {sorted(got)}, want {need}")
+    if set(spans) - set(sampled):
+        problems.append(f"spans of unsampled updates {sorted(set(spans) - set(sampled))}")
+    edges = [(r["kind"], r["update"]) for r in journal if r["kind"].startswith("profile-")]
+    if edges != [("profile-start", start), ("profile-stop", end)]:
+        problems.append(f"profile edges {edges}")
+    if kinds.count("comm-plan") != 1:
+        problems.append(f"{kinds.count('comm-plan')} comm-plan records")
+    if kinds.count("checkpoint-save") != len(stats["checkpoint_seconds"]["write"]):
+        problems.append(f"{kinds.count('checkpoint-save')} checkpoint-save for "
+                        f"{len(stats['checkpoint_seconds']['write'])} writes")
+    norms = {(r["module"], r["dim"], r["path"]) for r in journal
+             if r["kind"] == "fused-norm-path"}
+    want_path = "cuda" if dev.type == "cuda" else "plain"
+    if not norms or any(path != want_path for _, _, path in norms):
+        problems.append(f"fused-norm-path {sorted(norms)}, want path {want_path}")
+    # the profile window's kernels against the CLI's counters
+    trace = next((Path(tele["save_dir"]) / "telemetry" / "profile_rank0").glob(
+        "*.pt.trace.json"), None)
+    window = {"trace": str(trace) if trace else None, "updates": end - start}
+    if trace is None:
+        problems.append("no profile trace")
+    else:
+        events = kernel_events(trace, [k for _, names, _ in PROFILE_KERNELS for k in names]
+                               + ["l2norm_partial_kernel"])
+        launches = stats["kernel_launches"]
+        rows = []
+        for counter, names, per_call in PROFILE_KERNELS:
+            per_update = launches.get(counter, 0) / n
+            want = per_update * per_call * (end - start)
+            got = sum(events.get(k, 0) for k in names)
+            rows.append({"counter": counter, "kernels": list(names),
+                         "launches_per_update": per_update, "want": want, "events": got})
+            if got != want or (dev.type == "cuda" and want == 0):
+                problems.append(f"profile window: {names} {got} events, want {want}")
+        window["kernels"] = rows
+        window["l2norm_partial_kernel"] = events.get("l2norm_partial_kernel", 0)
+    # /metrics during the run
+    scraped = []
+    for text in tele["scrapes"]:
+        samples = dict(x.rsplit(" ", 1) for x in text.splitlines() if x and x[0] != "#")
+        scraped.append({k[len("unicore_tpu_train_"):]: float(v) for k, v in samples.items()
+                        if k.startswith("unicore_tpu_train_")})
+    best = max(scraped, key=lambda d: d.get("updates_total", 0), default={})
+    gauges = [f"{k}_seconds" for k in ("host_blocked", "device_busy", "data_wait", "h2d",
+                                       "dispatch")]
+    if best.get("updates_total", 0) < p["log_interval"] or any(g not in best for g in gauges):
+        problems.append(f"/metrics: {len(scraped)} scrapes, best {best}")
+    # TensorBoard
+    log_text = Path(tele["log"]).read_text()
+    warned = log_text.count("tensorboard not found, please install with: pip install "
+                            "tensorboardX")
+    tb_dir = WORK / "fused_tb" / "train_inner"
+    if warned:
+        tb = {"case": "no writer installed: the warning", "warnings": warned}
+        if warned != 1:
+            problems.append(f"the missing-writer warning {warned} times")
+    else:
+        scalars = tb_scalars(tb_dir, "loss")
+        want = [(int(s["num_updates"]), float(s["loss"])) for s in inner]
+        got = [(step, round(v, 3)) for step, v in scalars]
+        tb = {"case": "writer installed: loss scalars against the JSON lines",
+              "scalars": got, "json": want}
+        if got != want:
+            problems.append(f"TensorBoard loss {got} != JSON {want}")
+    # read, not gated: what the flags cost
+    walls = dict(zip(range(1, n), stats["update_wall_ms"]))
+    profiled = [u for u in range(start, end) if u in walls]
+    sampled_walls = [walls[u] for u in sampled if u in walls and u not in profiled]
+    others = [w for u, w in walls.items() if u not in sampled and u not in profiled]
+    past = [spans[u]["dispatch"]["dur"] - spans[u]["device_busy"]["dur"]
+            for u in sampled if "device_busy" in spans.get(u, {})]
+    med = lambda xs: float(np.median(xs)) if xs else None  # noqa: E731
+    line = {
+        "flags": tele["flags"], "updates": n, "progress_lines": len(lines),
+        "train_inner_keys": want_keys, "journal_kinds": sorted(set(kinds)),
+        "sampled_updates": sampled,
+        "device_busy_upper_bound": [spans[u]["device_busy"]["upper_bound"] for u in sampled
+                                    if "device_busy" in spans.get(u, {})],
+        "dispatch_minus_device_busy_s": past, "median_dispatch_minus_device_busy_s": med(past),
+        "profile_window": window, "metrics_scrapes": len(scraped), "metrics_best": best,
+        "tensorboard": tb,
+        "wall_ms_sampled": sampled_walls, "wall_ms_profiled": [walls[u] for u in profiled],
+        "median_wall_ms_other": med(others),
+        "median_step_ms": stats["median_step_ms"],
+        "median_update_wall_ms": stats["median_update_wall_ms"],
+        "perf_md_11a": p["perf_md_11a"], "card": card, "nvidia_smi": smi,
+    }
+    print("train_telemetry " + json.dumps(line), flush=True)
+    if problems:
+        raise AssertionError(f"train_telemetry: {problems}")
+
+
+def drive_trace_merger(cfg, card, smi):
+    """16b: ``python -m unicore_tpu_torch.cli.trace`` on phase 12's journal
+    directory (12a-12d's runs, each appending its records) with ``--out``:
+    exit 0; the post-mortem summary names 12b's rewind by ``loss-spike`` to
+    the snapshot it targeted, 12c's fallback to the intact interval
+    checkpoint and 12d's SIGTERM stop; the timeline holds 12d's preemption
+    emergency save (``save_kind=preempt``); the Chrome trace parses
+    (``trace_merge``)."""
+    p = cfg["phase12"]
+    every = p["snapshot_every"]
+    target = p["spike_at"] // every * every
+    intact = (p["flip_at"] - 1) // (2 * every) * (2 * every)
+    out = WORK / "robust_trace.json"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "unicore_tpu_torch.cli.trace",
+                           str(WORK / "robust_telemetry"), "--out", str(out)],
+                          capture_output=True, text=True, cwd=str(ROOT), timeout=300)
+    seconds = time.monotonic() - t0
+    summary = proc.stdout.split("== post-mortem summary ==")[-1].strip().splitlines()
+    rewind = [x for x in summary if "SENTINEL REWIND" in x]
+    fallback = [x for x in summary if "CHECKPOINT FALLBACK" in x]
+    stops = [x for x in summary if "agreed stop" in x and "SIGTERM" in x]
+    emergency = [x for x in proc.stdout.splitlines()
+                 if " checkpoint-emergency " in x and "save_kind=preempt" in x]
+    events = json.loads(out.read_text())["traceEvents"] if out.exists() else []
+    line = {"exit": proc.returncode, "seconds": seconds, "summary": summary,
+            "rewind": rewind, "fallback": fallback, "sigterm_stop": stops,
+            "emergency_save": emergency, "trace_events": len(events),
+            "span_slices": sum(1 for e in events if e.get("ph") == "X"),
+            "card": card, "nvidia_smi": smi}
+    print("trace_merge " + json.dumps(line), flush=True)
+    if not (proc.returncode == 0
+            and any(f"-> snapshot @update {target}" in x for x in rewind)
+            and any(x.endswith(f"checkpoint_{(intact - 1) // p['epoch_updates'] + 1}_"
+                               f"{intact}.pt") for x in fallback)
+            and stops and emergency and events):
+        raise AssertionError(f"trace_merge: {line}\n{proc.stderr[-3000:]}")
+
+
+#: phase 16's settings (16a rides on 11a's run, 16b on phase 12's)
+PHASE16 = {
+    "log_interval": 5, "sample_interval": 4, "profile": (8, 10),
+    # 11a's figures in PERF.md (NVIDIA H100 80GB HBM3, 700.00 W): its
+    # update wall median (§6) and the wall of its profiled update (§5)
+    # before the telemetry flags
+    "perf_md_11a": {"median_update_wall_ms": 169.2, "fused_profile_wall_ms": 81.0},
+}
 
 
 #: phase 12's settings on the card (the rehearsal scales the updates down):
@@ -5879,6 +6280,7 @@ CHIP = {
     "phase13": PHASE13,
     "phase14": PHASE14,
     "phase15": PHASE15,
+    "phase16": PHASE16,
 }
 REHEARSAL = {
     "attention": [(2, 2, 128, 16)],
@@ -6004,13 +6406,14 @@ REHEARSAL = {
     "phase14": dict(PHASE14, loss_batch=120,
                     lengths=[1, 20, 32, 33, 64, 96, 97, 128, 5, 40, 70, 110]),
     "phase15": PHASE15,
+    "phase16": PHASE16,
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--cpu-rehearsal", action="store_true",
-                        help="phases 3 to 15 on the CPU at a tiny size, no card")
+                        help="phases 3 to 16 on the CPU at a tiny size, no card")
     opts = parser.parse_args(argv)
     if not (ROOT / "unicore_tpu_torch" / "__init__.py").exists():
         print("chip_smoke: unicore_tpu_torch/ is not beside this script; run "
@@ -6247,6 +6650,9 @@ def main(argv=None):
     # and the prefetcher (11d); per-sample clip, sgd, --nan-rerun (11e)
     fused_stats = drive_fused_training(torch, cfg, data, bf16_stats, card, smi)
     done("11a")
+    # 16a: 11a's run's telemetry
+    check_train_telemetry(torch, cfg, fused_stats, card, smi)
+    done("16a")
     drive_fused_card_vs_cpu(torch, cfg, data)
     done("11b")
     drive_adama(torch, cfg, data, card, smi)
@@ -6260,6 +6666,7 @@ def main(argv=None):
     # the armed run, healthy up to an injected loss spike and rewound (12b),
     # the corrupt-checkpoint fallback (12c), the preemption and on-error
     # emergency saves (12d)
+    fresh_dir(WORK / "robust_telemetry")
     flip_stats, flip_dir = drive_robust_control(cfg, data)
     done("12a")
     spike_stats = drive_robust_rewind(cfg, data, flip_stats, card, smi)
@@ -6268,6 +6675,9 @@ def main(argv=None):
     done("12c")
     drive_robust_preempt(cfg, data, flip_stats, card, smi)
     done("12d")
+    # 16b: the port's trace merger on phase 12's journals
+    drive_trace_merger(cfg, card, smi)
+    done("16b")
 
     # 13. the serving control plane: 10a's bf16 checkpoint served in bf16
     # under a request flood (13a); 10b's bf16 LM served over /v1/generate
@@ -6289,7 +6699,7 @@ def main(argv=None):
         log("CPU rehearsal complete (no card: no kernels, no result line)")
         return 0
 
-    # 16. result lines: each kernel at its main path's shape (fp32, the
+    # 17. result lines: each kernel at its main path's shape (fp32, the
     # first check of each) with every check beside it; ``launches`` is the
     # count of the run its slice ported it for (BERT training for the
     # attention and norm kernels, Uni-Mol for the fused softmax, the

@@ -33,6 +33,7 @@ setup(
             "unicore-tpu-torch-serve = unicore_tpu_torch.cli.serve:cli_main",
             "unicore-tpu-torch-router = unicore_tpu_torch.cli.router:cli_main",
             "unicore-tpu-torch-train = unicore_tpu_torch.cli.train:cli_main",
+            "unicore-tpu-torch-trace = unicore_tpu_torch.cli.trace:main",
         ],
     },
     python_requires=">=3.9",

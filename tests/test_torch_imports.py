@@ -82,3 +82,20 @@ def test_data_parallel_modules_are_scanned(rel):
     copy of what it needs of the JAX package, not an import of it)."""
     assert REPO / rel in _port_files()
     test_no_jax_imports_in_source(REPO / rel)
+
+
+#: the logging and telemetry modules of the training side
+TELEMETRY_MODULES = (
+    "unicore_tpu_torch/logging/meters.py", "unicore_tpu_torch/logging/metrics.py",
+    "unicore_tpu_torch/logging/progress_bar.py", "unicore_tpu_torch/telemetry/__init__.py",
+    "unicore_tpu_torch/telemetry/spans.py", "unicore_tpu_torch/telemetry/profiler.py",
+    "unicore_tpu_torch/telemetry/prometheus.py", "unicore_tpu_torch/telemetry/trace.py",
+    "unicore_tpu_torch/cli/trace.py")
+
+
+@pytest.mark.parametrize("rel", TELEMETRY_MODULES)
+def test_telemetry_modules_are_scanned(rel):
+    """Each logging and telemetry module exists and is among the scanned
+    files (its own copy of what it needs of the JAX package)."""
+    assert REPO / rel in _port_files()
+    test_no_jax_imports_in_source(REPO / rel)

@@ -267,8 +267,8 @@ def test_lm_train_cli_checkpoint_serves_generate(tmp_path):
     assert set(stats["micro_batch_lengths"]) <= {32, 64, 96, 128}
     assert [v["update"] for v in stats["validations"]] == [2, 4]
     assert stats["best"] == min(stats["valid_losses"])
-    assert sorted(os.listdir(save_dir)) == ["checkpoint_1_2.pt", "checkpoint_1_4.pt",
-                                            "checkpoint_best.pt", "checkpoint_last.pt"]
+    assert sorted(set(os.listdir(save_dir)) - {"telemetry"}) == [
+        "checkpoint_1_2.pt", "checkpoint_1_4.pt", "checkpoint_best.pt", "checkpoint_last.pt"]
     state = checkpoint_utils.load_checkpoint_to_cpu(
         os.path.join(save_dir, "checkpoint_last.pt"))
     assert state["ema"] and set(state["ema"]) <= set(state["model"])

@@ -164,8 +164,9 @@ def test_train_cli_checkpoint_serves(tmp_path):
     # 3 updates per epoch, saved as the JAX CLI names them: checkpoint_1_2
     # (update 2), checkpoint1 (the end of epoch 1), checkpoint_2_4 (update
     # 4, the last) pruning checkpoint_1_2 (--keep-interval-updates 1)
-    assert sorted(os.listdir(save_dir)) == ["checkpoint1.pt", "checkpoint_2_4.pt",
-                                            "checkpoint_last.pt"]
+    # (beside the run's event journal, <save-dir>/telemetry)
+    assert sorted(set(os.listdir(save_dir)) - {"telemetry"}) == [
+        "checkpoint1.pt", "checkpoint_2_4.pt", "checkpoint_last.pt"]
 
     ckpt = os.path.join(save_dir, "checkpoint_last.pt")
     state = checkpoint_utils.load_checkpoint_to_cpu(ckpt)

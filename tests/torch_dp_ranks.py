@@ -176,7 +176,8 @@ def train_main(args, out_dir, data, tail_data, init):
         return stats, holder["trainer"]
 
     def listing(d):
-        return sorted(os.listdir(d)) if os.path.isdir(d) else []
+        # the checkpoints (every rank journals into <save-dir>/telemetry)
+        return sorted(set(os.listdir(d)) - {"telemetry"}) if os.path.isdir(d) else []
 
     # dp: 3 updates from the JAX weights, dropouts 0, the parameters'
     # digest after each; each rank its own --save-dir, so only rank 0's may

@@ -25,7 +25,11 @@ serving entry point, with its control plane (hot reload, the event journal,
 that ``--advertise`` heartbeat leases into a shared fleet KV directory,
 behind ``unicore-tpu-torch-router`` (``python -m
 unicore_tpu_torch.cli.router``: power-of-two-choices spread,
-deadline-bounded retries, replica-loss verdicts, rolling reload).
+deadline-bounded retries, replica-loss verdicts, rolling reload).  Training
+logs through the JAX progress bars and stat set (with a TensorBoard sink)
+and has the JAX telemetry: the event journal, sampled step spans,
+``--profile-steps`` windows on ``torch.profiler``, a trainer ``/metrics``
+port, and ``unicore-tpu-torch-trace`` to merge the journals.
 """
 
 __version__ = "0.0.1"

@@ -34,6 +34,10 @@ Under data parallelism every rank calls both: rank 0 alone stages, writes
 and publishes (the ranks hold the same state), and a barrier follows
 before any rank goes on; every rank loads the same file, and a torn file on
 one rank sends every rank to the fallback rank 0 names.
+
+Each outcome is journaled with the JAX package's fields:
+``checkpoint-save``, ``checkpoint-publish``, ``checkpoint-emergency`` and
+``checkpoint-fallback``.
 """
 
 import argparse
@@ -50,6 +54,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.checkpoint import durable as _durable
 from unicore_tpu_torch.checkpoint import emergency as _emergency
 from unicore_tpu_torch.checkpoint import format as _format
@@ -380,6 +385,8 @@ def ckp_copy_fun(src, checkpoints, end_of_epoch, args):
         except Exception as e:
             _durable.tracker().note_failure(dst, e, from_async=True)
             logger.info("copy failed, please copy it manually")
+    telemetry.emit("checkpoint-publish", staged=src, published=published,
+                   names=[str(p) for p in checkpoints])
     try:
         staged_apart = (os.path.abspath(os.path.dirname(src))
                         != os.path.abspath(args.save_dir))
@@ -497,6 +504,8 @@ def _save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread=None,
         ckp_copy_fun(*publish)
     logger.info(f"saved checkpoint {staged} (epoch {epoch} @ {updates} updates, score "
                 f"{val_loss}) (writing took {seconds} seconds)")
+    telemetry.emit("checkpoint-save", update=int(updates), epoch=int(epoch), path=staged,
+                   names=list(names), val_loss=val_loss, write_seconds=round(seconds, 3))
     return final
 
 
@@ -541,6 +550,9 @@ def _emergency_save_checkpoint(args, trainer, epoch_itr, val_loss, kind,
             ckp_copy_thread.join()
         os.replace(staged, dest)  # the previous file stays until this one lands
         _durable.fsync_dir(args.save_dir)
+    telemetry.emit("checkpoint-emergency", save_kind=kind, path=dest,
+                   landed=saved is not False, seconds=round(elapsed, 3),
+                   budget=deadline.budget)
     if saved is False:
         logger.error(f"EMERGENCY SAVE FAILED: {name} did not land after {elapsed:.1f}s — "
                      "exiting WITHOUT a final checkpoint")
@@ -693,10 +705,17 @@ def load_checkpoint(args, trainer):
                          f"checkpoint exists in {args.save_dir}")
             raise err
         nxt = os.path.join(args.save_dir, choice)
+        if err is not None:
+            detail = f"failed to load ({type(err).__name__}: {err})"
+        elif outcome == "missing":
+            detail = "is missing on this host while peers have a checkpoint"
+        else:
+            detail = "was reported corrupt/missing by a peer host"
         logger.warning(
-            f"CHECKPOINT CORRUPT: {current} failed to load ({type(err).__name__}: {err}); "
+            f"CHECKPOINT CORRUPT: {current} {detail}; "
             f"falling back to the next-newest retained checkpoint {nxt} — training "
             "resumes from an OLDER state than the torn file recorded")
+        telemetry.emit("checkpoint-fallback", corrupt=current, fallback=nxt, detail=detail)
         current = nxt
     if extra_state is None:
         return None

@@ -72,7 +72,22 @@ progress lines and prints ``TRAIN stats``, its values the reduced ones;
 the line adds ``distributed`` (world size, backend, plan and the gradient
 reduction's milliseconds and bytes) and ``ranks``: each rank's launches,
 micro-batches, tokens and a sha256 of its parameters after the run.  The
-JAX CLI's elastic restarts and telemetry are not ported.
+JAX CLI's elastic restarts are not ported.
+
+Logging and telemetry, as the JAX CLI's: progress goes through the JAX
+progress bars (``--log-format json|simple|tqdm|none``; tqdm, the default
+unless ``--no-progress-bar``, turns into simple lines off a TTY): a
+``train_inner`` line of the JAX stat set every ``--log-interval`` updates,
+a ``train`` line at each epoch's end and a line for each validation subset,
+mirrored to TensorBoard under ``--tensorboard-logdir`` on rank 0.  The
+event journal (``--telemetry-dir``, default ``<save-dir>/telemetry``)
+gets the run's events with the JAX package's fields (``comm-plan``,
+``checkpoint-*``, ``sentinel-*``, ``agreed-stop`` at every stop, sampled
+``span`` records under ``--telemetry-sample-interval``, ``profile-start`` /
+``profile-stop`` around a ``--profile-steps`` window); rank 0 serves the
+trainer's ``/metrics`` on ``--metrics-port``; ``--profile`` traces the
+whole run into ``<save-dir>/torch_trace/``.  ``unicore-tpu-torch-trace``
+merges the journals.
 """
 
 import json
@@ -198,10 +213,15 @@ class TrainSession:
         from unicore_tpu_torch import checkpoint_utils
         from unicore_tpu_torch.distributed import guard
 
+        from unicore_tpu_torch import telemetry
+
         preempt_sig = guard.stop_requested_global()
         reason = self.hard_stop_reason(preempt_sig)
         if reason:
             logger.info(f"stopping training: {reason}")
+            # the agreed stop point: every rank journals the SAME update
+            telemetry.emit("agreed-stop", update=self.trainer.get_num_updates(),
+                           reason=reason, signal=str(preempt_sig) if preempt_sig else None)
         stopping = reason is not None
         do_save, do_validate = self.cadence(epoch_itr.epoch, end_of_epoch, stopping)
         if preempt_sig:
@@ -209,9 +229,10 @@ class TrainSession:
             do_validate = False
         valid_losses: List[Optional[float]] = [None]
         if do_validate:
-            self.trainer.flush_metric_sums()
+            self.trainer.flush_metrics()
             valid_losses = validate(self.args, self.trainer, self.task,
-                                    self.valid_subsets, self.validations)
+                                    self.valid_subsets, self.validations,
+                                    epoch=epoch_itr.epoch)
         if self.early_stop.should_stop(valid_losses[0]):
             stopping = True
         if self.lr_floor_reached():
@@ -275,60 +296,105 @@ def restore_session(args, trainer):
     return epoch_itr
 
 
+_EPOCH_DONE = object()
+
+
 def train_epoch(args, session, epoch_itr):
-    """One epoch of updates (the rest of it, when resumed mid-epoch);
-    returns True when training should stop."""
+    """One epoch of updates (the rest of it, when resumed mid-epoch), as
+    the JAX CLI's loop: the update's wait on the iterator is the next
+    update's ``data_wait`` span, each update runs in the ``train_inner``
+    aggregator, and every ``--log-interval`` updates the trainer's sums are
+    flushed and logged; returns True when training should stop."""
+    from unicore_tpu_torch import telemetry
     from unicore_tpu_torch.data import iterators
+    from unicore_tpu_torch.distributed import utils as distributed_utils
     from unicore_tpu_torch.logging import metrics
 
     trainer = session.trainer
-    epoch = epoch_itr.next_epoch_idx
-    itr = epoch_itr.next_epoch_itr(shuffle=epoch > args.curriculum)
-    update_freq = args.update_freq[min(epoch, len(args.update_freq)) - 1]
-    itr = iterators.GroupedIterator(itr, update_freq)
-    trainer.begin_epoch(epoch)
-    itr = trainer.maybe_prefetch(itr, epoch_itr)
-    stop = False
-    try:
-        for samples in itr:
-            gnorm = trainer.train_step(samples)
-            # the sentinel's tick: before the sums' flush, so they hold
-            # this update; a rewind skips `itr` ahead
-            trainer.health_check(epoch_itr, itr)
-            trainer.update_done.append(time.perf_counter())
-            trainer.flush_metrics()
-            num_updates = trainer.get_num_updates()
-            if num_updates % args.log_interval == 0:
-                trainer.flush_metric_sums()
-                stats = metrics.get_smoothed_values("train_inner")
-                scale = (f" | loss_scale {stats['loss_scale']:.4f}"
-                         if "loss_scale" in stats else "")
-                logger.info(
-                    f"epoch {epoch:03d} | update {num_updates} | loss "
-                    f"{stats['loss']:.3f} | lr {trainer.get_lr():.6g} | gnorm "
-                    f"{gnorm:.3f} | bsz {stats.get('bsz', 0):.0f} | step "
-                    f"{trainer.step_ms[-1]:.1f} ms{scale}"
-                )
-                metrics.reset_meters("train_inner")
-            trainer.iterations_per_update.append(epoch_itr.iterations_in_epoch)
-            _, stop = session.checkpoint_and_validate(epoch_itr,
-                                                      end_of_epoch=not itr.has_next())
-            if stop:
-                break
-    finally:
-        trainer.finish_prefetch(itr)
-    trainer.flush_metric_sums()
-    stats = metrics.get_smoothed_values("train")
-    logger.info(f"end of epoch {epoch}: loss {stats.get('loss', float('nan')):.3f}")
+    with metrics.aggregate(name="train"):
+        epoch = epoch_itr.next_epoch_idx
+        itr = epoch_itr.next_epoch_itr(shuffle=epoch > args.curriculum)
+        update_freq = args.update_freq[min(epoch, len(args.update_freq)) - 1]
+        itr = iterators.GroupedIterator(itr, update_freq)
+        trainer.begin_epoch(epoch)
+        itr = trainer.maybe_prefetch(itr, epoch_itr)
+        progress = _make_progress(
+            args, itr, epoch,
+            wandb_project=args.wandb_project if distributed_utils.is_master() else None,
+            wandb_name=args.wandb_name)
+        # the run identity into the external sinks, so a TensorBoard run is
+        # joinable with its journals
+        progress.log_config(telemetry.log_config_payload(args))
+        stop = False
+        num_updates = trainer.get_num_updates()
+        try:
+            progress_iter = iter(progress)
+            while True:
+                # how long the training thread waits on the iterator, the
+                # NEXT update's data_wait; entering it also collects a
+                # pending lag-1 device probe
+                with telemetry.spans.recorder().between_span("data_wait"):
+                    samples = next(progress_iter, _EPOCH_DONE)
+                if samples is _EPOCH_DONE:
+                    break
+                with metrics.aggregate("train_inner"):
+                    trainer.train_step(samples)
+                    # the sentinel's tick: before the flush, so the sums
+                    # hold this update; a rewind skips `itr` ahead
+                    trainer.health_check(epoch_itr, itr)
+                    trainer.update_done.append(time.perf_counter())
+                    num_updates = trainer.get_num_updates()
+                    at_log_point = num_updates % args.log_interval == 0
+                    if at_log_point:
+                        trainer.flush_metrics()
+                if at_log_point:
+                    progress.log(_with_wall(metrics.get_smoothed_values("train_inner")),
+                                 tag="train_inner", step=num_updates)
+                    metrics.reset_meters("train_inner")
+                trainer.iterations_per_update.append(epoch_itr.iterations_in_epoch)
+                _, stop = session.checkpoint_and_validate(epoch_itr,
+                                                          end_of_epoch=not itr.has_next())
+                if stop:
+                    break
+        finally:
+            trainer.finish_prefetch(itr)
+    logger.info(f"end of epoch {epoch} (average epoch stats below)")
+    trainer.flush_metrics()
+    progress.print(_with_wall(metrics.get_smoothed_values("train")), tag="train",
+                   step=num_updates)
     metrics.reset_meters("train")
     return stop
 
 
-def validate(args, trainer, task, subsets, records):
+def _make_progress(args, itr, epoch, **extra):
+    """The progress bar around a batch iterator; TensorBoard from rank 0
+    only."""
+    from unicore_tpu_torch.distributed import utils as distributed_utils
+    from unicore_tpu_torch.logging import progress_bar
+
+    tb_dir = (getattr(args, "tensorboard_logdir", "") or None
+              if distributed_utils.is_master() else None)
+    fmt = "simple" if getattr(args, "no_progress_bar", False) else "tqdm"
+    return progress_bar.progress_bar(
+        itr, log_format=getattr(args, "log_format", None),
+        log_interval=getattr(args, "log_interval", 100), epoch=epoch,
+        tensorboard_logdir=tb_dir, default_log_format=fmt, **extra)
+
+
+def _with_wall(stats):
+    from unicore_tpu_torch.logging import metrics
+
+    stats["wall"] = round(metrics.get_meter("default", "wall").elapsed_time, 0)
+    return stats
+
+
+def validate(args, trainer, task, subsets, records, epoch=None):
     """Every batch of each validation subset in corpus order, in eval mode
     (on the EMA's weights with ``--validate-with-ema``), each rank its shard;
     the logging outputs are summed over the batches and the ranks before
-    the loss reduces them.
+    the loss reduces them, and the subset's stats (the JAX CLI's: the
+    loss's, ``num_updates`` and ``best_<metric>``) are printed through a
+    progress bar tagged with the subset's name.
     Returns the ``--best-checkpoint-metric`` of each subset (None for a
     subset with no data on disk) and appends a record of each to
     ``records`` (its update, unrounded loss and metric)."""
@@ -348,8 +414,9 @@ def validate(args, trainer, task, subsets, records):
                     continue
             logger.info(f'begin validation on "{subset}" subset')
             itr = trainer.get_valid_iterator(subset).next_epoch_itr(shuffle=False)
+            progress = _make_progress(args, itr, epoch, prefix=f"valid on '{subset}' subset")
             totals = {}
-            for i, sample in enumerate(itr):
+            for i, sample in enumerate(progress):
                 if args.max_valid_steps is not None and i > args.max_valid_steps:
                     break
                 out = trainer.valid_step(sample)
@@ -368,13 +435,13 @@ def validate(args, trainer, task, subsets, records):
             with metrics.aggregate(new_root=True) as agg:
                 task.reduce_metrics([totals], trainer.loss, subset)
             stats = agg.get_smoothed_values()
+            stats["num_updates"] = trainer.get_num_updates()
             metric = args.best_checkpoint_metric
             best = checkpoint_utils.best_score()
             if best is not None and metric in stats:
                 pick = max if args.maximize_best_checkpoint_metric else min
                 stats[f"best_{metric}"] = pick(best, stats[metric])
-            logger.info(f'valid on "{subset}" | update {trainer.get_num_updates()} | '
-                        + " | ".join(f"{k} {v}" for k, v in stats.items()))
+            progress.print(stats, tag=subset, step=trainer.get_num_updates())
             results.append(stats.get(metric))
             records.append({"update": trainer.get_num_updates(), "subset": subset,
                             "loss": agg["loss"].val if "loss" in agg else None,
@@ -405,11 +472,12 @@ def _train(args, device) -> dict:
     import numpy as np
     import torch
 
-    from unicore_tpu_torch import checkpoint_utils, tasks
+    import os
+
+    from unicore_tpu_torch import checkpoint_utils, tasks, telemetry
     from unicore_tpu_torch.distributed import utils as distributed_utils
     from unicore_tpu_torch.logging import metrics
     from unicore_tpu_torch.ops import _kernels
-    from unicore_tpu_torch.telemetry import journal
     from unicore_tpu_torch.trainer import Trainer
 
     assert args.batch_size is not None, "Must specify --batch-size"
@@ -424,7 +492,9 @@ def _train(args, device) -> dict:
     checkpoint_utils.set_best_score(None)
     checkpoint_utils.reset_save_seconds()
     logger.info(args)
-    journal.sync_run_id()
+    # a flag error fails the launch, not update START
+    telemetry.profiler.parse_profile_steps(getattr(args, "profile_steps", None))
+    telemetry.reset()
 
     task = tasks.setup_task(args)
     generator = torch.Generator(device=device).manual_seed(args.seed)
@@ -437,25 +507,54 @@ def _train(args, device) -> dict:
         f"{type(loss).__name__}, device {device}"
     )
 
+    # the telemetry plane: the event journal, the step spans and the
+    # --profile-steps window (a collective: every rank adopts rank 0's run
+    # id), and rank 0's /metrics port
+    telemetry.configure(args, rank=distributed_utils.get_global_rank(),
+                        step_provider=trainer.get_num_updates, role="trainer")
+    metrics_server = (telemetry.prometheus.start_metrics_server(args.metrics_port)
+                      if distributed_utils.is_master() else None)
+    if args.tensorboard_logdir and distributed_utils.is_master():
+        os.makedirs(args.tensorboard_logdir, exist_ok=True)
+
     task.load_dataset(args.train_subset)
-    epoch_itr = restore_session(args, trainer)
-    session = TrainSession(args, trainer, task)
-    _kernels.reset_launch_counts()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
-    started = time.time()
-    last_epoch = args.max_epoch or math.inf
+    session = None
+    whole_run = None
     try:
-        while epoch_itr.next_epoch_idx <= last_epoch:
-            if train_epoch(args, session, epoch_itr):
-                break
-            epoch_itr = trainer.get_train_iterator(epoch_itr.next_epoch_idx)
-    except Exception as err:
-        _maybe_emergency_save_on_error(args, trainer, epoch_itr, err)
-        raise
+        epoch_itr = restore_session(args, trainer)
+        session = TrainSession(args, trainer, task)
+        _kernels.reset_launch_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        if args.profile:
+            whole_run = telemetry.profiler.start_profiler(device.type == "cuda")
+        started = time.time()
+        last_epoch = args.max_epoch or math.inf
+        try:
+            while epoch_itr.next_epoch_idx <= last_epoch:
+                if train_epoch(args, session, epoch_itr):
+                    break
+                epoch_itr = trainer.get_train_iterator(epoch_itr.next_epoch_idx)
+        except Exception as err:
+            _maybe_emergency_save_on_error(args, trainer, epoch_itr, err)
+            raise
+        wall = time.time() - started
     finally:
-        session.close()
-    wall = time.time() - started
+        if whole_run is not None:
+            telemetry.profiler.stop_profiler(whole_run, os.path.join(
+                args.save_dir, "torch_trace",
+                f"rank{distributed_utils.get_global_rank()}.pt.trace.json"))
+        # a --profile-steps window still open at run end (or at an error
+        # unwind) closes cleanly, not as a torn trace
+        telemetry.profiler.close(trainer.get_num_updates())
+        if session is not None:
+            session.close()
+        if metrics_server is not None:
+            metrics_server.shutdown()
+            metrics_server.server_close()
+        # the journal closes with the run (an in-process caller's next run
+        # configures its own)
+        telemetry.reset()
 
     steady = trainer.step_ms[1:] or trainer.step_ms or [float("nan")]
     # between the ends of consecutive updates: the step, the batches'

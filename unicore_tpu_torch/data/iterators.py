@@ -333,6 +333,14 @@ class BufferedIterator(object):
                 alive = self._producer is not None and self._producer.is_alive()
                 relaxed = (" (relaxed x10 budget: this happened DURING a skip "
                            "fast-forward)" if budget > self._stall_timeout else "")
+                from unicore_tpu_torch import telemetry
+
+                telemetry.emit(
+                    "data-stall", budget=round(budget, 1),
+                    position=self._delivered, total=self.total,
+                    context=str(self._context) if self._context else None,
+                    producer_alive=alive,
+                )
                 raise DataStallError(
                     f"data pipeline stalled: the prefetch producer delivered nothing for "
                     f"{budget:.0f}s (--data-stall-timeout){relaxed} at position "

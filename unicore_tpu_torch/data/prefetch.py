@@ -21,14 +21,18 @@ updates as consumed (the health sentinel's skip-ahead).  :meth:`close` stops
 the producer on every exit path; the trainer's ``finish_prefetch`` calls
 it.
 
-The multi-host slot-plan exchange of the JAX prefetcher is not ported: at
-one process it skips it too.
+The producer's wall preparing each update is the trainer's
+``prefetch_wall`` stat, its copies count in ``transfer_wall``, as in the
+JAX trainer.  The multi-host slot-plan exchange of the JAX prefetcher is
+not ported: at one process it skips it too.
 """
 
+import contextlib
 import itertools
 import logging
 import queue
 import threading
+import time
 import traceback
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -46,10 +50,13 @@ class PrefetchError(RuntimeError):
 
 
 class PreparedUpdate(NamedTuple):
-    """One update's micro-batches on the device and their host counts."""
+    """One update's micro-batches on the device and their host counts, and
+    the producer's wall seconds preparing them (the ``prefetch_wall``
+    stat)."""
     samples: List[dict]
     counts: List[Tuple[int, int, int]]  # (non-pad tokens, rows, padded length)
     n_batches: int
+    prefetch_wall: float = 0.0
 
 
 class _ProducerError(NamedTuple):
@@ -200,7 +207,8 @@ class DevicePrefetcher:
                 for s in item.samples:
                     for t in _tensors(s):
                         t.record_stream(current)
-            return PreparedUpdate(item.samples, item.counts, item.n_batches)
+            return PreparedUpdate(item.samples, item.counts, item.n_batches,
+                                  item.prefetch_wall)
         self._consumed_batches += len(item)
         self.synchronous_updates += 1
         return item
@@ -234,15 +242,21 @@ class DevicePrefetcher:
     def _build(self, samples, seq: int):
         if seq == self._first_seq:
             return samples  # the epoch's first update runs synchronously
+        t0 = time.perf_counter()
         counts = [self.trainer.host_counts(s) for s in samples]
-        if self._stream is None:
-            prepared = [_pinned_to_device(s, self.device) for s in samples]
-            return _Staged(prepared, counts, len(samples), None)
-        with torch.cuda.stream(self._stream):
-            prepared = [_pinned_to_device(s, self.device) for s in samples]
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        return _Staged(prepared, counts, len(samples), event)
+        event = None
+        # the copies count in the trainer's transfer_wall (not in its h2d
+        # span: this is the host work the training thread no longer pays)
+        timer = getattr(self.trainer, "transfer_timer", contextlib.nullcontext)
+        with timer():
+            if self._stream is None:
+                prepared = [_pinned_to_device(s, self.device) for s in samples]
+            else:
+                with torch.cuda.stream(self._stream):
+                    prepared = [_pinned_to_device(s, self.device) for s in samples]
+                    event = torch.cuda.Event()
+                    event.record(self._stream)
+        return _Staged(prepared, counts, len(samples), event, time.perf_counter() - t0)
 
 
 class _Staged(NamedTuple):
@@ -251,3 +265,4 @@ class _Staged(NamedTuple):
     counts: List[Tuple[int, int, int]]
     n_batches: int
     event: Optional["torch.cuda.Event"]
+    prefetch_wall: float

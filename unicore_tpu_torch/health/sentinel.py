@@ -27,14 +27,16 @@ The recovery history is saved in the checkpoint's ``extra_state`` and
 restored on resume.  As in the JAX sentinel, every rank's recovery
 proposal is all-gathered before any rank applies it
 (:meth:`TrainingHealthSentinel._agree`), and a divergent one aborts with
-:class:`ConsistencyError`; the snapshot ring stays per rank.  Its events are logger
-lines (the JAX package also journals them; telemetry is queue A item 5).
+:class:`ConsistencyError`; the snapshot ring stays per rank.  Its verdicts are
+logger lines and journal events (``sentinel-rewind``, ``sentinel-abort``,
+with the JAX package's fields).
 """
 
 import logging
 import math
 from typing import Any, Dict, List, Optional
 
+from unicore_tpu_torch import telemetry
 from unicore_tpu_torch.health.detectors import (
     Anomaly,
     GradNormExplosionDetector,
@@ -297,6 +299,11 @@ class TrainingHealthSentinel:
 
         if action == "abort":
             logger.error(f"SENTINEL ABORT: {anomaly.describe()}; {why}")
+            telemetry.emit(
+                "sentinel-abort", update=int(anomaly.step),
+                detector=anomaly.detector, stat=anomaly.stat,
+                value=float(anomaly.value), message=str(why),
+            )
             raise TrainingHealthError(
                 f"training-health sentinel ABORT: {anomaly.describe()}; "
                 f"{why}.  Recovery history: "
@@ -336,6 +343,14 @@ class TrainingHealthSentinel:
             f"chunk(s) past the offending window{cooldown_note} "
             f"(rewind {self.rewind_count}/{self.max_rewinds}"
             f"{', dropped ' + str(dropped) + ' stale snapshot(s)' if dropped else ''})"
+        )
+        telemetry.emit(
+            "sentinel-rewind", update=int(anomaly.step),
+            detector=anomaly.detector, stat=anomaly.stat,
+            value=float(anomaly.value), threshold=float(anomaly.threshold),
+            action=action, target_step=int(target.step),
+            skipped_chunks=int(skipped),
+            rewind_count=int(self.rewind_count),
         )
 
     def _agree(self, anomaly: Anomaly, target_step: int, action: str) -> None:

@@ -18,10 +18,13 @@ the statistics pass, fp32 out, as the JAX ``LayerNorm`` routes it.
 
 Semantics on every path: eps defaults (1e-5 LN / 1e-6 RMS),
 elementwise affine (weight=1, bias=0 init), fp32 statistics whatever the
-input type, output cast back to the input type.  The JAX package also
-journals each module's chosen path once a trace (``fused-norm-path``); the
-port's journal does not carry it (the choice follows the flag and the
-tensor's device on every call).
+input type, output cast back to the input type.
+
+The chosen path is journaled (``fused-norm-path``, the JAX package's
+fields: ``module``, ``dim``, ``path``, ``source``) once per (module kind,
+width, path) and journal, as the JAX package journals it once a trace:
+``path`` is ``cuda`` where the wrappers launch the kernel (a CUDA tensor)
+and ``plain`` where the plain version runs (a CPU tensor, or ``off``).
 """
 
 from typing import Optional
@@ -32,6 +35,7 @@ from torch import nn
 from unicore_tpu_torch.ops.fused_norm import fused_layer_norm, fused_rms_norm
 from unicore_tpu_torch.ops.quant_norm import quant_layer_norm
 from unicore_tpu_torch.quant import QTensor
+from unicore_tpu_torch.telemetry import journal as _journal_mod
 
 _MODES = ("auto", "on", "off")
 _mode = "auto"
@@ -49,6 +53,35 @@ def configure_fused_norm(mode: Optional[str]):
 
 def _use_kernel() -> bool:
     return _mode != "off"
+
+
+#: (module kind, width, path) already journaled into the journal
+#: ``_journaled_for[0]`` (a new journal starts the set afresh)
+_journaled = set()
+_journaled_for = [None]
+
+
+def norm_path(x: torch.Tensor) -> str:
+    """The path a forward on ``x`` takes: the CUDA kernel or the plain
+    version."""
+    return "cuda" if _use_kernel() and x.is_cuda else "plain"
+
+
+def journal_choice(kind: str, dim: int, path: str) -> None:
+    """Journal one norm module's path, once per (kind, dim, path) and
+    journal; nothing before the journal is configured."""
+    j = _journal_mod.active()
+    if j is None:
+        return
+    if _journaled_for[0] is not j:
+        _journaled.clear()
+        _journaled_for[0] = j
+    key = (kind, dim, path)
+    if key in _journaled:
+        return
+    _journaled.add(key)
+    _journal_mod.emit("fused-norm-path", module=kind, dim=dim, path=path,
+                      source=f"flag:{_mode}")
 
 
 class LayerNorm(nn.Module):
@@ -69,6 +102,7 @@ class LayerNorm(nn.Module):
         if isinstance(x, QTensor):
             return quant_layer_norm(x.values, x.scale, self.weight, self.bias,
                                     eps=self.eps, out_dtype=torch.float32)
+        journal_choice("LayerNorm", self.normalized_shape, norm_path(x))
         if _use_kernel():
             # the kernel reads rows in place: a transposed view is copied
             return fused_layer_norm(x.contiguous(), self.weight, self.bias, eps=self.eps)
@@ -94,6 +128,7 @@ class RMSNorm(nn.Module):
         )
 
     def forward(self, x):
+        journal_choice("RMSNorm", self.normalized_shape, norm_path(x))
         if _use_kernel():
             return fused_rms_norm(x, self.weight, eps=self.eps)
         xf = x.float()

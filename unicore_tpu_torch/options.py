@@ -343,10 +343,20 @@ def get_training_parser():
                              "one; 'cpu' runs the kernels' plain versions")
     parser.add_argument("--cpu", action="store_true",
                         help="the JAX CLI's spelling of --device cpu")
+    parser.add_argument("--no-progress-bar", action="store_true", help="disable progress bar")
     parser.add_argument("--log-interval", type=int, default=100, metavar="N",
-                        help="log progress every N updates")
-    parser.add_argument("--log-format", default="simple", choices=["simple"],
-                        help="log format")
+                        help="log progress every N batches (when progress bar is disabled)")
+    parser.add_argument("--log-format", default=None, help="log format to use",
+                        choices=["json", "none", "simple", "tqdm"])
+    parser.add_argument("--tensorboard-logdir", metavar="DIR", default="",
+                        help="path to save logs for tensorboard")
+    parser.add_argument("--wandb-project", metavar="WANDB", default="",
+                        help="name of wandb project (empty = no wandb logging)")
+    parser.add_argument("--wandb-name", metavar="WANDBNAME", default="",
+                        help="wandb run name")
+    parser.add_argument("--profile", action="store_true",
+                        help="enable torch.profiler trace collection during training "
+                             "(the whole run, into <save-dir>/torch_trace/)")
     parser.add_argument("--task", default="bert", choices=TASK_REGISTRY.keys())
     parser.add_argument("--loss", default="masked_lm", choices=LOSS_REGISTRY.keys())
     parser.add_argument("--optimizer", default="adam",
@@ -602,8 +612,44 @@ def get_training_parser():
                             "and heals")
 
     add_training_health_args(parser)
+    add_telemetry_args(parser)
     add_model_args(parser)
     return parser
+
+
+def add_telemetry_args(parser):
+    """The training telemetry plane (``telemetry/``, the JAX package's
+    ``add_telemetry_args``): the per-process JSONL event journal, step-time
+    spans, the Prometheus export and on-demand profiling."""
+    group = parser.add_argument_group("telemetry")
+    group.add_argument("--telemetry-dir", metavar="DIR", default=None,
+                       help="where the per-process event journals "
+                            "(events_rank<r>.jsonl) and profiler traces "
+                            "land (default: <save-dir>/telemetry); merge "
+                            "them with unicore-tpu-torch-trace")
+    group.add_argument("--telemetry-sample-interval", type=int, default=0,
+                       metavar="N",
+                       help="sample step-time spans every N updates: the "
+                            "sampled update journals its data_wait/"
+                            "plan_exchange/h2d/dispatch spans and runs the "
+                            "lag-1 device_busy probe (ONE synchronize on the "
+                            "PREVIOUS sampled update's CUDA event -- unsampled "
+                            "updates make zero sync calls; 0 disables the "
+                            "probe, host spans still feed the host_blocked "
+                            "metric)")
+    group.add_argument("--metrics-port", type=int, default=0, metavar="N",
+                       help="trainer-side Prometheus /metrics port "
+                            "(text exposition refreshed once per "
+                            "--log-interval; 0 disables).  The serve plane "
+                            "always exposes /metrics on its own HTTP port")
+    group.add_argument("--profile-steps", type=str, default=None,
+                       metavar="START:END",
+                       help="programmatic torch.profiler capture window: "
+                            "each process traces updates START..END into "
+                            "<telemetry-dir>/profile_rank<r>/ and journals "
+                            "profile-start/profile-stop events (bounded "
+                            "alternative to whole-run --profile)")
+    return group
 
 
 def add_distributed_training_args(parser):

@@ -6,7 +6,9 @@ subset a scrape needs (gauges and counters with labels, ``# HELP`` /
 The serve HTTP plane's ``GET /metrics`` renders the engine's live stats
 (:func:`render_engine`) plus anything in the process registry, the fleet
 router's renders its counters and the fleet view (:func:`render_router`);
-:func:`start_metrics_server` serves the registry alone on a port of its own.
+the trainer refreshes the registry once per metrics flush
+(:func:`export_trainer`), and :func:`start_metrics_server` serves the
+registry alone on a port of its own (the train CLI's ``--metrics-port``).
 Names follow the Prometheus conventions: ``unicore_tpu_`` prefix,
 ``_total`` suffix for counters, base units (seconds).
 """
@@ -268,6 +270,36 @@ def render_router(engine) -> str:
                     labels={"quantile": "0." + pct[1:-3]},
                     help="router-side request latency percentiles")
     return reg.render() + _registry.render()
+
+
+# ---------------------------------------------------------------------------
+# the trainer's exposition
+# ---------------------------------------------------------------------------
+
+#: the step-span totals the trainer exports, one gauge each
+TRAIN_SPAN_GAUGES = ("host_blocked", "device_busy", "data_wait", "plan_exchange", "h2d",
+                     "dispatch")
+
+
+def export_trainer(updates: int, interval_updates: float, span_totals: Dict[str, float],
+                   step_wall: float) -> None:
+    """Refresh the process registry with the trainer's metrics (the JAX
+    trainer's ``_export_prometheus``: its names and help texts), once per
+    metrics flush -- a scrape reads host memory only, never the device.
+    The JAX trainer's ``unicore_tpu_train_recompiles_total`` has no
+    counterpart: eager PyTorch compiles no step programs."""
+    set_counter("unicore_tpu_train_updates_total", float(updates),
+                help="trainer update counter")
+    set_gauge("unicore_tpu_train_interval_updates", float(interval_updates),
+              help="updates folded into the last metrics flush")
+    for name in TRAIN_SPAN_GAUGES:
+        set_gauge(f"unicore_tpu_train_{name}_seconds", float(span_totals.get(name, 0.0)),
+                  help=f"interval seconds in the {name} phase "
+                  "(device_busy is lag-1 sampled)")
+    if step_wall > 0:
+        set_gauge("unicore_tpu_train_step_wall_seconds", step_wall,
+                  help="smoothed wall seconds per update (the value "
+                  "heartbeat leases publish for straggler attribution)")
 
 
 # ---------------------------------------------------------------------------

@@ -86,14 +86,35 @@ and the sentinel's sums are the same bits on every rank.  A rank whose shard
 ran out (the epoch's tail) runs the cached first batch with weight 0, so
 every rank takes part in every reduction.
 
-The JAX trainer's tensor, pipeline and sequence parallelism, ZeRO sharding,
-telemetry and orbax machinery are not ported.
+Logging and telemetry, as the JAX trainer's: each update folds its
+logging outputs, gradient norm, clip and overflow into running sums
+(``_macc``: the floats the sentinel reads are host floats, the loss's other
+outputs stay device scalars), and :meth:`flush_metrics` (the CLI's
+``--log-interval``, before a validation, at an epoch's end) turns them into
+the JAX stat set -- the loss's stats, ``ups``, ``gnorm``, ``clip``,
+``loss_scale``, ``gb_free`` on a card, ``transfer_wall``,
+``prefetch_wall``, ``host_blocked`` and ``device_busy`` -- beside ``lr``
+and ``num_updates`` (logged as the update count moves), ``train_wall``
+(the seconds inside :meth:`train_step`) and ``wall`` (since the trainer
+was built), and refreshes the Prometheus registry.  Each update opens and
+closes a step-span bracket (``telemetry/spans.py``): ``h2d`` is the
+training thread's host-to-device copies, ``dispatch`` the rest of the
+update's wall (its host syncs included), and a sampled update hands the
+lag-1 probe a CUDA event recorded after its last kernel.  The
+``--profile-steps`` window ticks before and after each update.  The journal
+gets ``checkpoint-load``, and ``fused-norm-path`` and ``comm-plan`` at the
+first update (where the JAX trainer initialises its state).
+
+The JAX trainer's tensor, pipeline and sequence parallelism, ZeRO sharding
+and orbax machinery are not ported; nor is its ``recompiles`` stat (eager
+PyTorch compiles no step programs).
 """
 
 import contextlib
 import copy
 import logging
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -101,7 +122,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from unicore_tpu_torch import checkpoint_utils, health, optim
+from unicore_tpu_torch import checkpoint_utils, health, optim, telemetry
 from unicore_tpu_torch.checkpoint import durable
 from unicore_tpu_torch.data.prefetch import DevicePrefetcher, PreparedUpdate
 from unicore_tpu_torch.distributed import chaos
@@ -109,6 +130,7 @@ from unicore_tpu_torch.ema import EMA
 from unicore_tpu_torch.logging import metrics
 from unicore_tpu_torch.modules import DropoutRng
 from unicore_tpu_torch.modules.dropout import fold_key
+from unicore_tpu_torch.modules.layer_norm import LayerNorm, RMSNorm, journal_choice, norm_path
 from unicore_tpu_torch.optim import lr_scheduler as lr_sched_mod
 from unicore_tpu_torch.nan_detector import NanDetector
 from unicore_tpu_torch.optim.dynamic_loss_scaler import init_scale_state, scale_schedule
@@ -235,6 +257,15 @@ class Trainer(object):
         self._snap_pending = None
         #: (update, bytes, host enqueue ms, start event, end event) per capture
         self._snap_records: List[tuple] = []
+        #: host-to-device copy seconds (the training thread's and the
+        #: prefetcher's) and the prefetcher's preparation seconds since the
+        #: last flush: the transfer_wall and prefetch_wall stats
+        self._wall_lock = threading.Lock()
+        self._transfer_wall = 0.0
+        self._prefetch_wall = 0.0
+        #: fused-norm-path and comm-plan journaled (at the first update)
+        self._state_noted = False
+        metrics.log_start_time("wall", priority=790, round=2)
 
     def _master(self) -> Dict[str, torch.Tensor]:
         """The fp32 weights the optimizer updates and the EMA averages: the
@@ -293,7 +324,9 @@ class Trainer(object):
         return self.lr_step_update()
 
     def lr_step_update(self):
-        return self._lr_scheduler.step_update(self.get_num_updates())
+        new_lr = self._lr_scheduler.step_update(self.get_num_updates())
+        metrics.log_scalar("lr", new_lr, weight=0, priority=300, round=9)
+        return new_lr
 
     def get_lr(self):
         return self._lr_scheduler.get_lr()
@@ -304,6 +337,7 @@ class Trainer(object):
     def set_num_updates(self, num_updates):
         self._num_updates = num_updates
         self.lr_step_update()
+        metrics.log_scalar("num_updates", self._num_updates, weight=0, priority=200)
 
     def cumulative_training_time(self):
         """Seconds trained, this process's and every run it resumed."""
@@ -418,20 +452,86 @@ class Trainer(object):
             return None
         return torch.Generator(device=self.device).manual_seed(key[0] | key[1] << 32)
 
+    @contextlib.contextmanager
+    def transfer_timer(self):
+        """Add the block's wall to ``transfer_wall`` (the training thread's
+        copies and the device prefetcher's both count) and, on the training
+        thread, to the open update's ``h2d`` span (the prefetcher's copies
+        are the host work the hot loop no longer pays)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            with self._wall_lock:
+                self._transfer_wall += dt
+            if threading.current_thread().name != "device-prefetcher":
+                telemetry.spans.add("h2d", dt)
+
+    def _note_state_init(self) -> None:
+        """Journal what the JAX trainer journals when it initialises its
+        state: each norm module's path (``fused-norm-path``) and the
+        parallel plan (``comm-plan``); once, at the first update."""
+        if self._state_noted:
+            return
+        self._state_noted = True
+        for m in self.model.modules():
+            if isinstance(m, (LayerNorm, RMSNorm)):
+                journal_choice(type(m).__name__, m.normalized_shape, norm_path(m.weight))
+        plan = groups.plan() or plan_mod.ParallelPlan().validate(1)
+        telemetry.emit("comm-plan", **plan.to_json(),
+                       two_level=bool(self._reducer is not None and self._reducer.two_level))
+
+    def _probe_handle(self):
+        """The lag-1 device probe's handle: a CUDA event recorded on the
+        compute stream after the update's last kernel (a no-op on the
+        CPU)."""
+        if self.device.type != "cuda":
+            return telemetry.spans.HostProbe()
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
     def train_step(self, samples):
         """One update from a list of micro-batches (a GroupedIterator
         chunk) or a :class:`~unicore_tpu_torch.data.prefetch.PreparedUpdate`
         (already on the device, counted on the host); returns the update's
-        gradient norm (a float)."""
+        gradient norm (a float).  The update is one step-span bracket and
+        its wall the ``train_wall`` stat."""
         t0 = time.perf_counter()
+        self._note_state_init()
         chaos.maybe_raise(self.get_num_updates())
+        metrics.log_start_time("train_wall", priority=800, round=2)
+        try:
+            # begin_update collects a pending lag-1 probe (the ONLY sync in
+            # the spans path, sampled updates only); the pre-update tick
+            # opens a --profile-steps window whose START is this update
+            spans = telemetry.spans.recorder()
+            spans.begin_update(self.get_num_updates())
+            telemetry.profiler.tick(self.get_num_updates())
+            hot_t0 = time.perf_counter()
+            gnorm = self._train_step(samples, t0, spans)
+            finished = self.get_num_updates() - 1
+            # dispatch = the update's wall past its h2d: the enqueues and the
+            # host syncs the update makes
+            spans.add_dispatch_residual(time.perf_counter() - hot_t0)
+            spans.end_update(finished)
+            # the post-update tick closes the window at END promptly
+            telemetry.profiler.tick(finished + 1)
+        finally:
+            metrics.log_stop_time("train_wall")
+        return gnorm
+
+    def _train_step(self, samples, t0, spans):
         self.model.train()
         for p in self.params.values():
             p.grad = None
         if isinstance(samples, PreparedUpdate):
             batches, counts = samples.samples, samples.counts
+            self._prefetch_wall += samples.prefetch_wall
         else:
-            batches = [_to_device(s, self.device) for s in samples]
+            with self.transfer_timer():
+                batches = [_to_device(s, self.device) for s in samples]
             counts = [self.host_counts(s) for s in samples]
         opt = self._optimizer
         if self.grad_accum == "adama":
@@ -526,17 +626,17 @@ class Trainer(object):
             self.overflows += 1
             if not self.use_loss_scale:
                 logger.warning(f"non-finite gradient norm {gnorm}: update skipped")
+        if spans.enabled and spans.sampled(step):
+            # sampled updates only: an unsampled update records nothing to
+            # wait on, so it can never sync
+            spans.note_dispatched(step, self._probe_handle())
         self.set_num_updates(self.get_num_updates() + 1)
         chaos.note_step(self.get_num_updates())
         self.update_ids.append(self.get_num_updates())
 
-        with metrics.aggregate("train"), metrics.aggregate("train_inner"):
-            self.task.reduce_metrics(logging_outputs, self.loss)
-            metrics.log_scalar("gnorm", gnorm, priority=400, round=3)
-            if self.use_loss_scale:
-                metrics.log_scalar("loss_scale", loss_scale, priority=700, round=4)
         loss_sum = sum(float(log["loss"]) for log in logging_outputs)
-        self._accumulate_metrics(loss_sum, float(sample_size), gnorm, loss_scale, overflow)
+        self._accumulate_metrics(logging_outputs, loss_sum, float(sample_size), gnorm,
+                                 loss_scale, overflow)
         self.update_losses.append(loss_sum / max(float(sample_size), 1e-8) / np.log(2))
         self.update_lrs.append(lr)
         self.update_loss_scales.append(loss_scale)
@@ -663,10 +763,18 @@ class Trainer(object):
         self._nan_updates += int(np.isnan(gnorm))
 
     def flush_metrics(self) -> None:
-        """The JAX trainer's flush checks: under ``--fp16`` a NaN gradient
-        norm is reported apart from the scale's routine overflows, and a
-        scale pinned at ``--min-loss-scale`` since the last flush raises
-        ``FloatingPointError``."""
+        """The JAX trainer's flush (the CLI's ``--log-interval``, before a
+        validation, at an epoch's end): the running sums since the last
+        flush become the interval's stats in the aggregators active now --
+        ``ups``, ``gnorm``, ``clip`` (with ``--clip-norm``), ``loss_scale``
+        (under ``--fp16``), ``gb_free`` (on a card), ``transfer_wall``,
+        ``prefetch_wall`` (with ``--prefetch-to-device``), ``host_blocked``
+        and ``device_busy`` (once telemetry is configured) and the loss's
+        stats -- and the Prometheus registry is refreshed.  Under
+        ``--fp16`` a NaN gradient norm is reported apart from the scale's
+        routine overflows, and a scale pinned at ``--min-loss-scale`` since
+        the last flush raises ``FloatingPointError``."""
+        macc, self._macc = self._macc, None
         nan, self._nan_updates = self._nan_updates, 0
         if nan and self.use_loss_scale:
             logger.warning(
@@ -678,15 +786,63 @@ class Trainer(object):
                 f"Minimum loss scale reached ({self.args.min_loss_scale}). "
                 "Your loss is probably exploding. Try lowering the learning "
                 "rate, using gradient clipping or increasing the batch size.")
+        if macc is None:
+            return
+        delta = {k: float(v) for k, v in macc.items()}
+        n = delta.pop("_n", 0.0)
+        if n <= 0:
+            return
+        gnorm_sum = delta.pop("gnorm", None)
+        loss_scale_sum = delta.pop("loss_scale", None)
+        clip_cnt = delta.pop("clip", 0.0)
+        delta.pop("overflow", None)
+        metrics.log_speed("ups", n, priority=100, round=2)
+        if gnorm_sum is not None:
+            metrics.log_scalar("gnorm", gnorm_sum / n, n, priority=400, round=3)
+            if (getattr(self.args, "clip_norm", 0.0) or 0.0) > 0:
+                metrics.log_scalar("clip", 100.0 * clip_cnt / n, n, priority=500, round=1)
+        if self.use_loss_scale and loss_scale_sum is not None:
+            metrics.log_scalar("loss_scale", loss_scale_sum / n, n, priority=700, round=4)
+        with self._wall_lock:
+            transfer_wall, self._transfer_wall = self._transfer_wall, 0.0
+        prefetch_wall, self._prefetch_wall = self._prefetch_wall, 0.0
+        metrics.log_scalar("transfer_wall", transfer_wall, weight=0, priority=1610, round=3)
+        if getattr(self.args, "prefetch_to_device", False):
+            metrics.log_scalar("prefetch_wall", prefetch_wall, weight=0, priority=1620,
+                               round=3)
+        # the interval's step-span totals: how long the training thread was
+        # blocked on host work, and the sampled device-busy seconds
+        rec = telemetry.spans.recorder()
+        span_totals = rec.drain()
+        if rec.enabled:
+            metrics.log_scalar("host_blocked", span_totals.get("host_blocked", 0.0),
+                               weight=0, priority=1630, round=3)
+            if span_totals.get("device_samples", 0.0) > 0:
+                metrics.log_scalar("device_busy", span_totals.get("device_busy", 0.0),
+                                   weight=0, priority=1640, round=3)
+            telemetry.prometheus.export_trainer(self.get_num_updates(), n, span_totals,
+                                                rec.avg_step_wall())
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            metrics.log_scalar("gb_free", free / 1024 ** 3, weight=0, priority=1500, round=1)
+        self.task.reduce_metrics([delta], self.loss)
 
-    def _accumulate_metrics(self, loss: float, sample_size: float, gnorm: float,
-                            loss_scale: float, overflow: bool) -> None:
-        """Fold one update into the running sums the sentinel reads (the
-        JAX ``accumulate`` of ``_macc``: the update count, the loss in the
-        loss's own units, the norm, the loss scale, the overflow count, the
-        sample size); a new dict each time, so a held one keeps its values."""
-        upd = {"_n": 1.0, "loss": loss, "gnorm": gnorm, "loss_scale": loss_scale,
-               "overflow": float(overflow), "sample_size": sample_size}
+    def _accumulate_metrics(self, logging_outputs, loss: float, sample_size: float,
+                            gnorm: float, loss_scale: float, overflow: bool) -> None:
+        """Fold one update into the running sums (the JAX ``accumulate`` of
+        ``_macc``): the update count, the loss's logging outputs summed over
+        the micro-batches (device scalars stay on the device until a flush),
+        and as host floats the ones the sentinel reads -- the loss in the
+        loss's own units, the sample size, the norm, the loss scale, the
+        overflow count -- and the clip count; a new dict each time, so a
+        held one keeps its values."""
+        upd = {"_n": 1.0}
+        for log in logging_outputs:
+            for k, v in log.items():
+                upd[k] = upd.get(k, 0.0) + v
+        clip = getattr(self.args, "clip_norm", 0.0) or 0.0
+        upd.update(loss=loss, sample_size=sample_size, gnorm=gnorm, loss_scale=loss_scale,
+                   overflow=float(overflow), clip=float(clip > 0 and gnorm > clip))
         old = self._macc
         self._macc = upd if old is None else {k: old.get(k, 0.0) + v for k, v in upd.items()}
 
@@ -815,7 +971,9 @@ class Trainer(object):
         if not sample:
             return None
         self.model.eval()
-        _, _, logging_output = self.loss(self.model, _to_device(sample, self.device))
+        with self.transfer_timer():
+            sample = _to_device(sample, self.device)
+        _, _, logging_output = self.loss(self.model, sample)
         return logging_output
 
     @contextlib.contextmanager
@@ -958,4 +1116,5 @@ class Trainer(object):
             self._previous_training_time = extra_state.get("previous_training_time", 0.0)
             self._start_time = time.time()
         logger.info(f"Loaded checkpoint {filename} (@ {self.get_num_updates()} updates)")
+        telemetry.emit("checkpoint-load", path=filename, loaded_updates=self.get_num_updates())
         return extra_state
