@@ -34,7 +34,8 @@ result line):
    over the type's peak rate, whichever is larger; fp32 attention at the
    3xTF32 rate, 495 / 3 TFLOP/s, the least for fp32 accuracy on tensor
    cores);
-4a. training — ``python -m unicore_tpu_torch.cli.train --device cuda`` on a
+4a. training — the train CLI's ``main`` (``python -m
+   unicore_tpu_torch.cli.train --device cuda``'s, in this process) on a
    full-width BERT-base (12 layers, 768 wide, 12 heads, max_seq_len 512;
    weights from ``--seed``) over an indexed corpus written from a seed
    (a ~30k-word dictionary, documents of 380-510 words so batches fill the
@@ -351,6 +352,24 @@ result line):
    updates each (``dp_train``: the update wall ms beside the one-rank
    run's -- two ranks time-share one card, not a scaling figure --, each
    reduction's ms and bytes, flat and two-level, the launches a rank);
+   15d: in the same spawned pair, ZeRO legs at ``--num-pods 1`` of 4a's
+   model and corpus with ``--fused-adam --clip-norm 0``, 2 updates each:
+   fp32 stages 0, 1 and 2, ``--bf16 --bf16-sr`` stages 0 and 3, each
+   sharded leg updating from its stage-0 leg's reduced gradients (two
+   training runs on the card differ in the gradient's last bits: #2 sums
+   the bias gradient with atomics); each leg's state is gathered to rank
+   0's host as a checkpoint gathers it, and the stage-2 leg's is saved by
+   rank 0 and loaded back by every rank (``dp_zero``: each leg's ranks'
+   parameter digests -- equal, and equal to its dtype's stage-0 leg --,
+   the gathered state's digests -- equal to the stage-0 leg's, on rank 0
+   alone --, the gradient norms -- the stage-0 leg's bits --, how far each
+   rank's own reduced gradient was from stage 0's -- within 1e-5 in fp32,
+   1e-3 in bf16 --, each rank's optimizer-state bytes -- at a sharded
+   stage half of stage 0's plus at most half the padding --, its peak
+   allocated bytes and the bytes the gather added on its card -- less than
+   the whole state, and on rank 1 no more than its share --, the update
+   walls, the reduction's ms and bytes, 4a's launches plus one K-a and one
+   K-b an update on each rank, the reload's verdict);
 16. training telemetry -- 16a: phase 11a's run with ``--log-format json
    --log-interval 5 --telemetry-sample-interval 4 --profile-steps 8:10
    --metrics-port <free> --tensorboard-logdir <dir>`` (no process of its
@@ -438,7 +457,14 @@ a second call, its yardstick ``vector_norm`` of the buffer; K-b (two
 segments, the first decayed; the clip read from K-a's norm) with fp32
 parameters, bf16 parameters rounded to nearest even and bf16 under SR,
 bit for bit on m, v, the master and the parameters, its yardstick the
-per-tensor path's torch calls for the same update.
+per-tensor path's torch calls for the same update.  At the first two sizes
+it also holds the ZeRO segment modes (``segments``, timed at 110,000,000):
+the buffer zero-padded and cut in two as two ranks' segments, K-a's
+sum-of-squares mode on each, the partials in order, and its stage 2 alone
+give the whole buffer's norm bit for bit (and the plain versions the plain
+whole's); K-b on each segment (its offset, the clipped chunk table) gives
+the whole buffer's m, v, master and parameters bit for bit, SR included,
+and each segment equals its plain version.
 
 Phase 3 also holds the full-row forward and backward at the causal LM's
 attention, (8, 12, 512, 64): the rel-pos bias plus the ``triu`` of
@@ -459,8 +485,8 @@ Without a CUDA card, or without the port beside it, it exits non-zero.
 no profile, no result line) to check the script's own control flow.
 
 A ``python -m unicore_tpu_torch.cli.train`` run above is a process of its
-own where its start matters or another process must watch it (4a, 10a,
-11a with its ``/metrics`` scrapes, 12b, 12d's SIGTERM, 15b's ranks); the
+own where another process must watch it or its ranks spawn (11a with its
+``/metrics`` scrapes, 12b, 12d's SIGTERM, 15b's ranks); the
 others call the CLI's ``main`` with the same arguments in this process
 (``train_in_process``: no interpreter, torch import or CUDA context of
 their own, ~7-15 s each on the card; their peak memory counts what this
@@ -1783,7 +1809,41 @@ def check_l2norm(torch, device, n, iters, lean=False):
         timed(res, "plain_ms", torch, plain, device, iters, lean=lean)
         timed(res, "library_ms", torch, lib, device, iters)
     res["bound_ms"], res["bound_by"] = bound_ms(4 * n, 2 * n, "float32")
+    if n >= 1_000_000 or (device.type != "cuda" and n > 1):
+        res["segments"] = check_l2norm_segments(torch, device, x, denom, got, iters)
     log(f"multi_tensor_l2norm n={n}: {json.dumps(res)}")
+    return res
+
+
+def check_l2norm_segments(torch, device, x, denom, whole, iters):
+    """K-a's ZeRO mode on ``x`` cut as two ranks' segments (padded to
+    2 * NORM_SPAN): each segment's partials (the sum-of-squares mode), in
+    rank order, cut to the whole buffer's count, then stage 2 alone -- the
+    bits of ``whole`` (K-a on ``x``); the plain versions the same way give
+    the plain whole's bits.  Times: one segment's partials, stage 2 alone."""
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    n = x.numel()
+    padded = mt.pad_to(x, 2 * mt.NORM_SPAN)
+    half = padded.numel() // 2
+    segs = [padded[:half], padded[half:]]
+    keep = mt.norm_partials(n)
+    parts = torch.cat([mt.l2norm_partials([s], denom) for s in segs])[:keep]
+    got = mt.l2norm_final(parts)
+    plain_parts = torch.cat([mt.l2norm_partials_plain([s], denom) for s in segs])[:keep]
+    plain = mt.l2norm_final_plain(plain_parts)
+    res = {"segments": [half, half], "partials": keep, "tolerance": "bit for bit",
+           "bit_equal_whole": _bits_equal(torch, got, whole),
+           "plain_bit_equal_plain_whole": _bits_equal(
+               torch, plain, mt.multi_tensor_l2norm_plain([x], denom)),
+           "max_abs_err": abs(float(got) - float(plain))}
+    if not (res["bit_equal_whole"] and res["plain_bit_equal_plain_whole"]):
+        raise AssertionError(f"multi_tensor_l2norm segments n={n}: {res}")
+    if n >= 100_000_000 or device.type != "cuda":
+        iters = min(iters, 20)
+        timed(res, "ms", torch, lambda: mt.l2norm_partials([segs[0]], denom), device, iters)
+        timed(res, "final_ms", torch, lambda: mt.l2norm_final(parts), device, iters)
+        res["bound_ms"], res["bound_by"] = bound_ms(4 * half, 2 * half, "float32")
     return res
 
 
@@ -1857,12 +1917,62 @@ def check_fused_adam(torch, device, n, kind, iters, lean=False):
     # g read; m, v, master read and written; a bf16 parameter written
     nbytes = n * (4 + 8 + 8 + 8 + (2 if param is not None else 0))
     res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 20 * n, "float32")
+    if n >= 1_000_000 or (device.type != "cuda" and n > 1):
+        res["segments"] = check_fused_adam_segments(
+            torch, device, (master, m, v, param, grad), got, segs, hp, kw, iters)
     log(f"fused_adam n={n} {kind}: {json.dumps(res)}")
     return res
 
 
+def check_fused_adam_segments(torch, device, inputs, whole, segs, hp, kw, iters):
+    """K-b's ZeRO mode: the group of ``segs`` padded to 2 * NORM_SPAN and cut
+    as two ranks' segments, K-b on each (its offset, the clipped chunk
+    table) -- the bits of ``whole`` (K-b on the whole buffer) in m, v, the
+    master and the parameters, SR included -- and each segment against its
+    plain version, bit for bit.  Time: one segment's call."""
+    from unicore_tpu_torch.optim import multi_tensor as mt
+
+    master, m, v, param, grad = inputs
+    n = master.numel()
+    group = mt.FlatGroup(torch.float32, [mt.Segment(f"s{i}", a, size, (size,), d)
+                                         for i, (a, size, d) in enumerate(segs)],
+                         n, -(-n // (2 * mt.NORM_SPAN)) * 2 * mt.NORM_SPAN)
+    half = group.padded // 2
+    pad = [mt.pad_to(t, group.padded) if t is not None else None
+           for t in (master, m, v, param, grad)]
+    got = [t.clone() if t is not None else None for t in pad[:4]]
+    ref = [t.clone() if t is not None else None for t in pad[:4]]
+
+    def seg(ts, a):
+        return [t[a:a + half] if t is not None else None for t in ts]
+
+    for a in (0, half):
+        g, r = seg(got, a), seg(ref, a)
+        mt.adam_group(g[0], g[1], g[2], pad[4][a:a + half], group, hp, g[3], offset=a, **kw)
+        mt.fused_adam_plain(r[0], r[1], r[2], pad[4][a:a + half], group.clipped(a, half), hp,
+                            r[3], offset=a, **kw)
+    same_whole = [_bits_equal(torch, a[:n] if a is not None else None, b)
+                  for a, b in zip(got, whole)]
+    same_plain = [_bits_equal(torch, a, b) for a, b in zip(got, ref)]
+    res = {"segments": [half, half], "tolerance": "bit for bit",
+           "bit_equal_whole_master_m_v_param": same_whole,
+           "bit_equal_plain_master_m_v_param": same_plain,
+           "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, ref) if a is not None)}
+    if not (all(same_whole) and all(same_plain)):
+        raise AssertionError(f"fused_adam segments n={n}: {res}")
+    if n >= 100_000_000 or device.type != "cuda":
+        g = seg(got, 0)
+        timed(res, "ms", torch, lambda: mt.adam_group(g[0], g[1], g[2], pad[4][:half], group,
+                                                        hp, g[3], offset=0, **kw),
+              device, min(iters, 20))
+        nbytes = half * (4 + 8 + 8 + 8 + (2 if param is not None else 0))
+        res["bound_ms"], res["bound_by"] = bound_ms(nbytes, 20 * half, "float32")
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phase 4a: training, a subprocess of the train CLI
+# phase 4a: training through the train CLI's main
 # ---------------------------------------------------------------------------
 
 def fresh_dir(path):
@@ -2036,7 +2146,7 @@ def drive_training(torch, cfg, data, card, smi):
     save_dir = fresh_dir(WORK / "train_ckpt")
     t = cfg["train"]
     stats = run_train_cli("train", train_argv(cfg, data, save_dir, cfg["device"].type),
-                          cfg["device"], t, t["timeout_s"])
+                          cfg["device"], t, t["timeout_s"], in_process=True)
     train = {
         "arch": cfg["arch"], "updates": stats["updates"],
         "micro_batches": stats["micro_batches"], "batch": cfg["batch"],
@@ -4016,7 +4126,7 @@ def drive_bf16_training(torch, cfg, data, fp32_stats, card, smi):
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
     stats = run_train_cli("bf16_train", train_argv(cfg, data, fresh_dir(WORK / "bf16_ckpt"),
                                                    dev.type) + flags,
-                          dev, cfg["train"], cfg["train"]["timeout_s"])
+                          dev, cfg["train"], cfg["train"]["timeout_s"], in_process=True)
     rel = loss_rel_diffs(stats["loss_per_update"], fp32_stats["loss_per_update"])
     line = {
         "arch": cfg["arch"], "flags": flags, "dtype": stats["dtype"],
@@ -5921,6 +6031,14 @@ def drive_fleet(torch, cfg, fleet, fp32_serve, card, smi):
 
 #: phase 15's settings: 4a's BERT-base and corpus in fp32 with the dropouts
 #: 0 and 4b's optimizer (lr 1e-4, eps 1e-6), so the tolerances of 4b hold
+#: 15d's ZeRO legs ([dtype:]stage), run after 15c's modes in its pair
+ZERO_LEGS = ("0", "1", "2", "bf16:0", "bf16:3")
+#: how far a sharded leg's own reduced gradient may lie from its stage-0
+#: leg's, by dtype: two training runs on the card differ in the gradient's
+#: last bits (#2's atomics); seen at most 7.6e-7 (fp32) and 1.2e-4 (bf16),
+#: where a wrong reduce-scatter is off by the gradient itself
+#: (``grad_max_abs``, which must lie above the bound on some rank)
+ZERO_GRAD_ABS = {"fp32": 1e-5, "bf16": 1e-3}
 PHASE15 = {"updates": 3, "pair_updates": 2, "lr": 1e-4, "loss_rel": 1e-4,
            "gnorm_rel": 1e-3, "param_tol": 1e-5, "timeout_s": 600}
 
@@ -6025,7 +6143,8 @@ def drive_dp_training(torch, cfg, data, card, smi):
         torch.cuda.empty_cache()
 
     pair_out = fresh_dir(WORK / "dp_pair")
-    argv = ["--out", str(pair_out), "--combines", "sum,adasum", "--",
+    argv = ["--out", str(pair_out), "--combines", "sum,adasum",
+            "--zero-stages", ",".join(ZERO_LEGS), "--",
             *dp_argv(cfg, data, WORK / "dp_pair_ckpt", dev.type, p["pair_updates"],
                      *dist_flags, "--num-pods", "2", "--no-save")]
     t0 = time.monotonic()
@@ -6088,7 +6207,103 @@ def drive_dp_training(torch, cfg, data, card, smi):
     sums = pair_res["sum"]["sum_equals_flat"]
     if not (all(all(v) for v in sums) and all(len(v) == p["pair_updates"] for v in sums)):
         raise AssertionError(f"15c: the two-level sum left the flat all-reduce's bits: {sums}")
-    return stats["ranks"][0]["kernel_launches"]
+    zero_launches = check_zero_legs(cfg, pair, card, smi)
+    return stats["ranks"][0]["kernel_launches"], zero_launches
+
+
+def check_zero_legs(cfg, pair, card, smi):
+    """15d: the ZeRO legs of the pair (``pair``: each rank's record; each
+    sharded leg updated from its stage-0 leg's gradients): each leg's ranks
+    the same parameters, and its dtype's stage-0 leg's; its gradient norms
+    the stage-0 leg's bits (the gathered partials of stages 2/3); each
+    rank's own reduced gradient (the reduce-scatter's segment at stages
+    2/3) within ``ZERO_GRAD_ABS`` of the stage-0 leg's; the optimizer state
+    gathered to rank 0 the stage-0 leg's, and no other rank given it; each
+    rank's state bytes at a sharded stage 1/world of stage 0's plus at most
+    1/world of the padding, and the gather adding on no card the whole
+    state, on a rank other than 0 no more than its share; 4a's launches per
+    micro-batch plus one K-a and one K-b an update on each rank; the stage-2
+    leg's save and reload bit for bit on every rank.  Prints the
+    ``dp_zero`` line; returns rank 0's launches in the stage-2 leg."""
+    from unicore_tpu_torch.optim.multi_tensor import NORM_SPAN
+
+    p = cfg["phase15"]
+    legs = pair[0]["zero"]
+    world = len(pair)
+    lines, problems = {}, []
+    for leg in ZERO_LEGS:
+        rec, st = legs[leg], legs[leg]["stats"]
+        dtype = "bf16" if leg.startswith("bf16") else "fp32"
+        base = legs["bf16:0" if dtype == "bf16" else "0"]
+        rank_launch_check(f"dp_zero {leg}", cfg, st)
+        on_card = cfg["device"].type == "cuda"
+        for r in st["ranks"]:
+            for k in ("multi_tensor_l2norm", "fused_adam"):
+                want = p["pair_updates"] if on_card else 0
+                if r["kernel_launches"].get(k, 0) != want:
+                    problems.append(f"{leg}: rank {r['rank']}: {k} "
+                                    f"{r['kernel_launches'].get(k)}, want {want}")
+        shas = [r["param_sha256"] for r in st["ranks"]]
+        whole = base["stats"]["ranks"][0]["memory"]["optimizer_state_bytes"]
+        buffers = 3 if leg.startswith("bf16") else 2
+        numel = whole // (4 * buffers)
+        pad = -(-numel // (world * NORM_SPAN)) * world * NORM_SPAN - numel
+        state_bytes = [r["memory"]["optimizer_state_bytes"] for r in st["ranks"]]
+        line = {
+            "zero_stage": rec["zero_stage"], "param_sha256": shas,
+            "ranks_equal": len(set(shas)) == 1,
+            "params_equal_stage0": shas[0] == base["stats"]["ranks"][0]["param_sha256"],
+            "state_equal_stage0": rec["state"] == base["state"],
+            "state_bytes": state_bytes, "stage0_state_bytes": whole,
+            "padding_bytes": pad * 4 * buffers,
+            "peak_allocated_bytes": [r["memory"]["peak_allocated_bytes"] for r in st["ranks"]],
+            "losses": rec["losses"], "gnorms": rec["gnorms"],
+            "median_update_wall_ms": st["median_update_wall_ms"],
+            "update_wall_ms": st["update_wall_ms"], "step_ms": st["step_ms"],
+            "reduction": {k: st["distributed"][k] for k in
+                          ("ms_per_update", "buffer_bytes", "reduce_scatter", "backend")},
+            "seconds": rec["seconds"]}
+        line["gnorms_equal_stage0"] = rec["gnorms"] == base["gnorms"]
+        line["state_on_ranks"] = [x["zero"][leg]["rank_got_state"] for x in pair]
+        ok_share = True
+        if rec["zero_stage"] > 0:
+            line["state_bytes_share_plus_padding"] = all(
+                0 <= b - whole / world <= pad * 4 * buffers / world for b in state_bytes)
+            line["own_grad_max_abs_diff"] = [x["zero"][leg]["grad_max_abs_diff"] for x in pair]
+            line["grad_max_abs"] = [x["zero"][leg]["grad_max_abs"] for x in pair]
+            line["grad_abs_tolerance"] = ZERO_GRAD_ABS[dtype]
+            ok_share = (line["state_bytes_share_plus_padding"]
+                        and line["state_on_ranks"] == [r == 0 for r in range(world)]
+                        and all(d <= ZERO_GRAD_ABS[dtype]
+                                for x in line["own_grad_max_abs_diff"] for d in x)
+                        and max(max(x) for x in line["grad_max_abs"]) > ZERO_GRAD_ABS[dtype])
+        else:
+            line["state_bytes_share_plus_padding"] = None
+        if cfg["device"].type == "cuda":
+            before = [x["zero"][leg]["allocated_before_save_bytes"] for x in pair]
+            peak = [x["zero"][leg]["save_peak_allocated_bytes"] for x in pair]
+            line["allocated_before_save_bytes"], line["save_peak_allocated_bytes"] = before, peak
+            line["save_added_bytes"] = [b - a for a, b in zip(before, peak)]
+            if rec["zero_stage"] > 0:
+                ok_share = ok_share and all(
+                    added < whole and (r == 0 or added <= state_bytes[r])
+                    for r, added in enumerate(line["save_added_bytes"]))
+        if "reload_equal" in rec:
+            line["reload_equal"] = [x["zero"][leg]["reload_equal"] for x in pair]
+        lines[leg] = line
+        if not (line["ranks_equal"] and line["params_equal_stage0"]
+                and line["state_equal_stage0"] and line["gnorms_equal_stage0"] and ok_share
+                and all(line.get("reload_equal", [True]))):
+            problems.append(f"{leg}: {json.dumps(line)}")
+    reloads = [leg for leg, line in lines.items() if "reload_equal" in line]
+    if reloads != ["2"]:
+        problems.append(f"the save and reload ran in {reloads}, want the stage-2 leg")
+    print("dp_zero " + json.dumps({"arch": cfg["arch"], "ranks": world, "legs": lines,
+                                   "seconds": sum(legs[leg]["seconds"] for leg in ZERO_LEGS),
+                                   "card": card, "nvidia_smi": smi}), flush=True)
+    if problems:
+        raise AssertionError("dp_zero: " + "; ".join(problems))
+    return legs["2"]["stats"]["ranks"][0]["kernel_launches"]
 
 
 CHIP = {
@@ -6691,9 +6906,10 @@ def main(argv=None):
 
     # 15. data parallelism: 11a and its profile ran under a one-rank NCCL
     # group (15a); two ranks of the train CLI over gloo against the one-rank
-    # --update-freq 2 run (15b); --num-pods 2, sum and adasum, in one pair (15c)
-    dp_launches = drive_dp_training(torch, cfg, data, card, smi)
-    done("15b-15c")
+    # --update-freq 2 run (15b); --num-pods 2, sum and adasum, in one pair
+    # (15c), then in the same pair the ZeRO legs (15d)
+    dp_launches, zero_launches = drive_dp_training(torch, cfg, data, card, smi)
+    done("15b-15d")
     print("phase_seconds " + json.dumps(phase_seconds), flush=True)
     if opts.cpu_rehearsal:
         log("CPU rehearsal complete (no card: no kernels, no result line)")
@@ -6714,7 +6930,8 @@ def main(argv=None):
                "lm_bf16_serve": lm_bf16_serve_launches, "fleet_serve": fleet_launches,
                "bf16_train": bf16_launches, "lm_bf16_train": lm_bf16_launches,
                "fp16_train": fp16_launches, "fused_train": fused_stats["kernel_launches"],
-               "robust_train": spike_stats["kernel_launches"], "dp_train": dp_launches}
+               "robust_train": spike_stats["kernel_launches"], "dp_train": dp_launches,
+               "dp_zero": zero_launches}
     kernels = []
     for name, rows in checks.items():
         main_row = rows[0]

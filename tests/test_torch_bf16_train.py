@@ -43,6 +43,7 @@ from unicore_tpu.losses.masked_msa import MaskedMSALoss as JaxMSALoss
 from unicore_tpu.losses.unimol import UniMolLoss as JaxUniMolLoss
 from unicore_tpu.models.bert import BertModel as JaxBert
 from unicore_tpu.models.unimol import UniMolModel as JaxUniMol
+from unicore_tpu.parallel.mesh import get_global_mesh, set_global_mesh
 from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.msa_pretrain import MSAPretrainTask as JaxMSATask
 from unicore_tpu.tasks.unicore_task import UnicoreTask as JaxTask
@@ -73,11 +74,13 @@ from test_torch_unimol import write_conformers
 
 @pytest.fixture(autouse=True)
 def _restore_parallel_plan():
-    # a JAX Trainer sets the JAX package's process-global parallel plan:
-    # put back what was there, so later tests in this process see it
-    plan = get_global_plan()
+    # a JAX Trainer sets the JAX package's process-global parallel plan and
+    # mesh: put back what was there, so later tests in this process see it
+    # (a plan and a mesh left together shard test_decode's KV pools)
+    plan, mesh = get_global_plan(), get_global_mesh()
     yield
     set_global_plan(plan)
+    set_global_mesh(mesh)
 
 
 STEPS, UPDATE_FREQ = 3, 2

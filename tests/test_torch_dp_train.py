@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from unicore_tpu.parallel.mesh import get_global_mesh, set_global_mesh
 from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 
 from unicore_tpu_torch import checkpoint_utils
@@ -78,7 +79,7 @@ def _jax_dp2(args, task, variables):
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    plan = get_global_plan()
+    plan, mesh = get_global_plan(), get_global_mesh()
     root = tmp_path_factory.mktemp("dp")
     args, task, samples, jax_init, variables = pair.setup(root, 2 * UPDATES, n_docs=48)
     # the epoch's batches in the CLI's order: rank r takes those at r, r + 2, ...
@@ -129,6 +130,7 @@ def job(tmp_path_factory):
             totals[k] = totals.get(k, 0.0) + float(v)
     one_valid = totals["loss"] / totals["sample_size"] / math.log(2)
     set_global_plan(plan)
+    set_global_mesh(mesh)
     return dict(out=out, ranks=ranks, params=params, jax_losses=jax_losses,
                 jax_gnorms=jax_gnorms, jax_params=jax_params, one=one, one_valid=one_valid,
                 data=args.data, root=root)

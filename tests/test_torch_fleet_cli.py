@@ -151,7 +151,11 @@ def test_fleet_routes_rolls_survives_a_loss_and_deregisters(tmp_path):
               "--default-deadline-ms", "30000", "--drain-deadline", "30",
               "--advertise", "auto", "--fleet-kv", str(kv), "--fleet-interval", "0.5",
               "--telemetry-dir", str(tele)]
-    loss_batch = 30
+    # replica 1's loss must land in the loss section below, not earlier: the
+    # roll's in-flight requests alone took it past 28 batches on a loaded
+    # CPU, and a replica that dies with a request's body read answers a
+    # named 502 (upstream-incomplete), never a 200
+    loss_batch = 120
     reps = [Proc(tmp_path / "r0.log", "serve", common + ["--replica-index", "0"]),
             Proc(tmp_path / "r1.log", "serve", common + [
                 "--replica-index", "1", "--fault-inject", f"replica-loss@{loss_batch}@1"])]
@@ -209,8 +213,10 @@ def test_fleet_routes_rolls_survives_a_loss_and_deregisters(tmp_path):
         in_flight, stop_sending = [], threading.Event()
 
         def keep_sending():
+            # each answer's code and the router's named reason
             while not stop_sending.is_set():
-                in_flight.append(_post(router.base + "/v1/infer", {"tokens": reqs[0]})[0])
+                code, body = _post(router.base + "/v1/infer", {"tokens": reqs[0]})
+                in_flight.append((code, body.get("reason"), body.get("detail")))
                 stop_sending.wait(0.05)
 
         sender = threading.Thread(target=keep_sending)
@@ -221,7 +227,9 @@ def test_fleet_routes_rolls_survives_a_loss_and_deregisters(tmp_path):
         finally:
             stop_sending.set()
             sender.join(timeout=60)
-        assert in_flight and set(in_flight) == {200}, in_flight
+        assert in_flight and {c for c, _, _ in in_flight} == {200}, (
+            [a for a in in_flight if a[0] != 200], router.log()[-3000:],
+            [r.log()[-3000:] for r in reps])
         deadline = time.monotonic() + 10
         while not set(_digests(router).values()).isdisjoint(before.values()):
             assert time.monotonic() < deadline, _digests(router)
@@ -230,7 +238,7 @@ def test_fleet_routes_rolls_survives_a_loss_and_deregisters(tmp_path):
         assert len(set(after.values())) == 1
         toks = reqs[1]
         code, body = _post(router.base + "/v1/infer", {"tokens": toks})
-        assert code == 200
+        assert code == 200, (body, router.log()[-3000:], [r.log()[-3000:] for r in reps])
         _check_against_jax(jax_model, moved, toks, body)
         _publish(cand, live, corrupt=True)
         router.wait_log("ROLLING RELOAD HALT")

@@ -34,6 +34,7 @@ from unicore_tpu import health as jax_health
 from unicore_tpu.data import iterators as jax_iterators
 from unicore_tpu.distributed import chaos as jax_chaos
 from unicore_tpu.distributed import guard as jax_guard
+from unicore_tpu.parallel.mesh import get_global_mesh, set_global_mesh
 from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 
 from unicore_tpu_torch import health as port_health
@@ -45,11 +46,13 @@ import torch_trainer_pair as pair
 
 @pytest.fixture(autouse=True)
 def _reset_chaos():
-    # a JAX Trainer sets the JAX package's process-global parallel plan:
-    # put back what was there, so later tests in this process see it
-    plan = get_global_plan()
+    # a JAX Trainer sets the JAX package's process-global parallel plan and
+    # mesh: put back what was there, so later tests in this process see it
+    # (a plan and a mesh left together shard test_decode's KV pools)
+    plan, mesh = get_global_plan(), get_global_mesh()
     yield
     set_global_plan(plan)
+    set_global_mesh(mesh)
     jax_chaos.reset()
     jax_guard.reset()
     port_chaos.reset()

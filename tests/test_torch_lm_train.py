@@ -29,6 +29,7 @@ import torch
 
 from unicore_tpu.losses import LOSS_REGISTRY as JAX_LOSSES
 from unicore_tpu.models.transformer_lm import TransformerLMModel as JaxLM
+from unicore_tpu.parallel.mesh import get_global_mesh, set_global_mesh
 from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 from unicore_tpu.tasks.bert import BertTask as JaxBertTask
 from unicore_tpu.tasks.causal_lm import CausalLMTask as JaxCausalLMTask
@@ -49,11 +50,13 @@ from test_torch_train_data import VOCAB, WORDS, batches, task_args
 
 @pytest.fixture(autouse=True)
 def _restore_parallel_plan():
-    # a JAX Trainer sets the JAX package's process-global parallel plan:
-    # put back what was there, so later tests in this process see it
-    plan = get_global_plan()
+    # a JAX Trainer sets the JAX package's process-global parallel plan and
+    # mesh: put back what was there, so later tests in this process see it
+    # (a plan and a mesh left together shard test_decode's KV pools)
+    plan, mesh = get_global_plan(), get_global_mesh()
     yield
     set_global_plan(plan)
+    set_global_mesh(mesh)
 
 
 LR, STEPS, UPDATE_FREQ = 1e-3, 3, 2

@@ -5,7 +5,8 @@ Over the same plans, both give the same legality verdict and rule name
 (message text included), the same resolved ``data`` / ``pod_size`` /
 ``has_dcn`` / ``dp_axes``, the same ``describe()`` and ``to_json()``,
 exactly; ``plan_from_args`` and ``resolve_deterministic_reductions`` read
-the same flags.  Beside it: what the port refuses (``refuse_unported``),
+the same flags.  Beside it: what the port refuses (``refuse_unported``;
+the ZeRO flags resolve, ``parallel/zero.py``),
 the groups' rank layout and the backend choice of ``distributed/utils.py``
 (no process group needed)."""
 
@@ -100,8 +101,19 @@ def test_global_plan_round_trip():
     ("seq_parallel_size", 2, "--seq-parallel-size"),
 ])
 def test_unported_parallelism_names_the_queue(flag, value, name):
-    args = _args(zero_stage=0, zero_shard_optimizer=False)
+    """The model, expert and seq axes raise, naming the queue; the ZeRO
+    flags, ported since, pass and resolve to the JAX package's stage."""
+    from unicore_tpu.parallel.sharding import resolve_zero_stage as jax_resolve
+
+    from unicore_tpu_torch.parallel import zero
+
+    args = _args(zero_stage=0, zero_shard_optimizer=False, fused_adam=True)
     setattr(args, flag, value)
+    if flag.startswith("zero"):
+        port_plan.refuse_unported(args)
+        want = value if flag == "zero_stage" else 1
+        assert zero.resolve_zero_stage(args) == jax_resolve(args) == want
+        return
     with pytest.raises(NotImplementedError, match=name) as err:
         port_plan.refuse_unported(args)
     assert "ROADMAP queue A item 4" in str(err.value)

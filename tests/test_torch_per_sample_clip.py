@@ -14,6 +14,7 @@ import copy
 
 import pytest
 
+from unicore_tpu.parallel.mesh import get_global_mesh, set_global_mesh
 from unicore_tpu.parallel.plan import get_global_plan, set_global_plan
 
 from torch_trainer_pair import (assert_close_losses, max_param_diff, port_trainer, run_both,
@@ -22,11 +23,13 @@ from torch_trainer_pair import (assert_close_losses, max_param_diff, port_traine
 
 @pytest.fixture(autouse=True)
 def _restore_parallel_plan():
-    # a JAX Trainer sets the JAX package's process-global parallel plan:
-    # put back what was there, so later tests in this process see it
-    plan = get_global_plan()
+    # a JAX Trainer sets the JAX package's process-global parallel plan and
+    # mesh: put back what was there, so later tests in this process see it
+    # (a plan and a mesh left together shard test_decode's KV pools)
+    plan, mesh = get_global_plan(), get_global_mesh()
     yield
     set_global_plan(plan)
+    set_global_mesh(mesh)
 
 
 UPDATES = 2

@@ -15,6 +15,11 @@ Jobs:
   through the train CLI's ``main``, one after the other in the same group:
   ``dp``, the dropout masks, ``tail``, ``spike``, the divergent proposals,
   ``stop`` and its resume, the journal.
+* ``zero`` (2 ranks): the ZeRO legs of ``tests/test_torch_zero.py``
+  (:data:`ZERO_LEGS`) through the train CLI's ``main``, each from the same
+  weights; per leg the losses, norms, parameters' and gathered optimizer
+  state's digests and each rank's memory; the stage-2 save reloaded at two
+  ranks and stage 1; a sentinel rewind at stages 0 and 2.
 """
 
 import json
@@ -285,6 +290,162 @@ def train_main(args, out_dir, data, tail_data, init):
 
 
 # ---------------------------------------------------------------------------
+# the ZeRO job
+# ---------------------------------------------------------------------------
+
+#: leg name -> the train CLI's extra arguments (3 updates each, from the
+#: same weights; clip 1.0 unless a leg sets --clip-norm)
+ZERO_LEGS = {
+    "fused_clip0_s0": ["--fused-adam", "--clip-norm", "0", "--zero-stage", "0"],
+    "fused_clip0_s1": ["--fused-adam", "--clip-norm", "0", "--zero-stage", "1"],
+    "fused_clip0_s2": ["--fused-adam", "--clip-norm", "0", "--zero-stage", "2"],
+    "fused_clip0_s3": ["--fused-adam", "--clip-norm", "0", "--zero-stage", "3"],
+    "fused_clip1_s0": ["--fused-adam", "--zero-stage", "0"],
+    "fused_clip1_s1": ["--fused-adam", "--zero-shard-optimizer"],
+    "fused_clip1_s2": ["--fused-adam", "--zero-stage", "2"],
+    "bf16sr_s0": ["--fused-adam", "--clip-norm", "0", "--bf16", "--bf16-sr"],
+    "bf16sr_s3": ["--fused-adam", "--clip-norm", "0", "--bf16", "--bf16-sr",
+                  "--zero-stage", "3"],
+    "tensor_s0": ["--ema-decay", "0.9", "--zero-stage", "0"],
+    "tensor_s1": ["--ema-decay", "0.9", "--zero-stage", "1"],
+    "adama_s0": ["--grad-accum", "adama", "--update-freq", "2", "--fused-adam",
+                 "--clip-norm", "0"],
+    "adama_s2": ["--grad-accum", "adama", "--update-freq", "2", "--fused-adam",
+                 "--clip-norm", "0", "--zero-stage", "2"],
+    # saved with its optimizer state and EMA: the reshard cases' checkpoint
+    "save_s2": ["--fused-adam", "--bf16", "--ema-decay", "0.9", "--zero-stage", "2"],
+}
+#: the rewind legs: the spike scenario of the ``train`` job (a loss spike on
+#: rank 1 at update SPIKE_AT) under --fused-adam
+REWIND_FLAGS = ["--fused-adam", "--sentinel-interval", "1", "--snapshot-interval", "3",
+                "--snapshot-keep", "2", "--sentinel-warmup", "4", "--loss-spike-window", "8",
+                "--loss-spike-zmax", "6", "--spike-skip-updates", "2"]
+
+
+def _ema_digest(ema):
+    from unicore_tpu_torch.tools.dp_pair import state_digests
+
+    return state_digests({"state": {n: {"m": t} for n, t in ema.items()}, "num_steps": 0})["m"]
+
+
+def zero_main(args, out_dir, data, init):
+    import torch
+    import torch.distributed as dist
+
+    from unicore_tpu_torch.cli import train as cli
+    from unicore_tpu_torch.distributed import chaos
+    from unicore_tpu_torch.parallel import zero
+    from unicore_tpu_torch.tools.dp_pair import replay_gradients, state_digests
+    from unicore_tpu_torch.trainer import Trainer
+
+    # gathers to rank 0 (the checkpoints' and ``dst0_state``) in several
+    # pieces, one not a divisor of a segment
+    zero.HOST_GATHER_CHUNK = 4099
+    rank = dist.get_rank()
+    res = {"rank": rank, "legs": {}}
+    device = torch.device("cpu")
+    holder = {}
+    real_init, real_restore = Trainer.__init__, Trainer.restore_health_snapshot
+
+    def keep(self, *a, **kw):
+        real_init(self, *a, **kw)
+        holder["trainer"] = self
+
+    recorded = {}
+
+    def run(tag, extra, updates=3, save=False):
+        """One leg; a ``*_s0`` leg keeps its reduced gradients, a sharded
+        leg with a ``*_s0`` twin updates from them (``replay_gradients``)."""
+        save_dir = os.path.join(out_dir, f"{tag}_rank{rank}")
+        argv = train_argv(data, save_dir, "--finetune-from-model", init, *extra,
+                          *([] if save else ["--no-save"]), updates=updates)
+        a = _parse(argv)
+        a.distributed_world_size = args.distributed_world_size
+        base = tag.rsplit("_s", 1)[0]
+        replay = {}
+        undo = (replay_gradients(replay, None if tag.endswith("_s0") else recorded[base])
+                if tag.endswith("_s0") or base in recorded else (lambda: None))
+        try:
+            stats = cli.main(a, device)
+        finally:
+            undo()
+        if "grads" in replay:
+            recorded[base] = replay["grads"]
+        tr = holder["trainer"]
+        state = tr._optimizer.state_dict()  # a collective under ZeRO
+        leg = {"losses": stats["loss_per_update"], "gnorms": stats["gnorm_per_update"],
+               "update_ids": stats["update_ids"],
+               "param_sha256": cli.param_digest(tr.model), "state": state_digests(state),
+               "ranks": stats.get("ranks"), "memory": tr.memory_stats(),
+               "reduction": stats.get("distributed"),
+               "local_keys": sorted(tr._optimizer.state),
+               "grad_max_abs_diff": replay.get("grad_max_abs_diff")}
+        # a checkpoint's gather: to rank 0 alone
+        dst0 = tr._optimizer.state_dict(dst=0)
+        leg["dst0_state"] = None if dst0 is None else state_digests(dst0)
+        if tr.ema is not None:
+            ema = tr._ema_whole()
+            leg["ema_sha256"] = _ema_digest(ema)
+            ema0 = tr._ema_whole(dst=0)
+            leg["dst0_ema_sha256"] = None if ema0 is None else _ema_digest(ema0)
+        res["legs"][tag] = leg
+        return tr, state, save_dir
+
+    Trainer.__init__ = keep
+    try:
+        for tag, extra in ZERO_LEGS.items():
+            tr, state, save_dir = run(tag, extra, save=tag == "save_s2")
+            if tag == "fused_clip1_s2":
+                np.savez(os.path.join(out_dir, f"zero_params_rank{rank}.npz"), **_params(tr.model))
+            if tag == "save_s2":
+                saved = os.path.join(save_dir.replace(f"_rank{rank}", "_rank0"),
+                                     "checkpoint_last.pt")
+        # the stage-2 save loaded at two ranks, stage 1: each rank's share of
+        # the saved state, gathered back whole
+        a = _parse(train_argv(data, os.path.join(out_dir, "reload"), "--fused-adam", "--bf16",
+                              "--ema-decay", "0.9", "--zero-stage", "1"))
+        from unicore_tpu_torch import tasks
+
+        task = tasks.setup_task(a)
+        model = task.build_model(a)
+        tr = Trainer(a, task, model, task.build_loss(a), device)
+        tr.load_checkpoint(saved)
+        res["reload_s1"] = {"state": state_digests(tr._optimizer.state_dict()),
+                            "ema_sha256": _ema_digest(tr._ema_whole()),
+                            "memory": tr.memory_stats(), "updates": tr.get_num_updates()}
+
+        # rewinds: the state each stage restores, gathered whole
+        real_mult = chaos.fault_multipliers
+        for stage in (0, 2):
+            fired, restored = [], []
+
+            def spike(step):
+                if rank == 1 and step == SPIKE_AT and not fired:
+                    fired.append(step)
+                    return 1000.0, 1.0
+                return real_mult(step)
+
+            def restore(self, snap):
+                real_restore(self, snap)
+                restored.append({"step": snap.step, "param_sha256": cli.param_digest(self.model),
+                                 "state": state_digests(self._optimizer.state_dict())})
+
+            chaos.fault_multipliers = spike
+            Trainer.restore_health_snapshot = restore
+            try:
+                run(f"rewind_s{stage}", REWIND_FLAGS + ["--zero-stage", str(stage)],
+                    updates=SPIKE_UPDATES)
+            finally:
+                chaos.fault_multipliers = real_mult
+                Trainer.restore_health_snapshot = real_restore
+            res["legs"][f"rewind_s{stage}"]["restored"] = restored
+    finally:
+        Trainer.__init__ = real_init
+    with open(os.path.join(out_dir, f"zero_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+# ---------------------------------------------------------------------------
 
 def _setup():
     import logging
@@ -299,6 +460,10 @@ def main(argv):
     if job == "hierarchy":
         args = _rank_args(4, num_pods=2, xpod_combine="adasum")
         distributed_utils.call_main(args, hierarchy_main, setup=_setup, out_dir=out_dir)
+    elif job == "zero":
+        args = _rank_args(2)
+        distributed_utils.call_main(args, zero_main, setup=_setup, out_dir=out_dir,
+                                    data=argv[2], init=argv[3])
     elif job == "train":
         args = _rank_args(2)
         distributed_utils.call_main(args, train_main, setup=_setup, out_dir=out_dir,

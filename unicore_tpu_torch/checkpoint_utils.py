@@ -430,16 +430,27 @@ def save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread=None,
                     do_save=True, emergency=None):
     """:func:`_save_checkpoint` on rank 0, the best score on every rank,
     then a barrier (none after the ``"error"`` emergency save: the failing
-    rank may be alone).  Other ranks return None."""
+    rank may be alone).  Under ZeRO every rank first gathers the sharded
+    state whole for rank 0 (``trainer.consolidate_state``; not on the
+    ``"error"`` path, which then saves the weights without it).  Other
+    ranks return None."""
     from unicore_tpu_torch.distributed import utils as distributed_utils
 
-    if distributed_utils.is_master():
-        names = _save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread,
-                                 do_save, emergency)
-    else:
-        names = None
-        if emergency is None:
-            _track_best(args, val_loss)
+    consolidate = getattr(trainer, "consolidate_state", None)
+    if consolidate is not None and emergency != "error" and do_save and not args.no_save:
+        consolidate()
+    try:
+        if distributed_utils.is_master():
+            names = _save_checkpoint(args, trainer, epoch_itr, val_loss, ckp_copy_thread,
+                                     do_save, emergency)
+        else:
+            names = None
+            if emergency is None:
+                _track_best(args, val_loss)
+    finally:
+        release = getattr(trainer, "release_consolidated", None)
+        if release is not None:
+            release()
     if emergency != "error":
         distributed_utils.barrier("save_checkpoint")
     return names

@@ -71,8 +71,10 @@ writes the checkpoints and every rank loads them.  Only rank 0 logs the
 progress lines and prints ``TRAIN stats``, its values the reduced ones;
 the line adds ``distributed`` (world size, backend, plan and the gradient
 reduction's milliseconds and bytes) and ``ranks``: each rank's launches,
-micro-batches, tokens and a sha256 of its parameters after the run.  The
-JAX CLI's elastic restarts are not ported.
+micro-batches, tokens, memory (``memory``: the ``--zero-stage``, the
+optimizer-state bytes the rank holds, its peak allocated bytes on a card)
+and a sha256 of its parameters after the run.  The JAX CLI's elastic
+restarts are not ported.
 
 Logging and telemetry, as the JAX CLI's: progress goes through the JAX
 progress bars (``--log-format json|simple|tqdm|none``; tqdm, the default
@@ -583,6 +585,7 @@ def _train(args, device) -> dict:
         "samples_per_s": trainer.samples / train_s if train_s else None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
+        "memory": trainer.memory_stats(),
         "kernel_launches": _kernels.launch_counts(),
         "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
                    else "cpu"),
@@ -608,7 +611,7 @@ def _train(args, device) -> dict:
             "rank": trainer.dp_rank, "kernel_launches": stats["kernel_launches"],
             "micro_batches": trainer.micro_batches, "tokens": trainer.tokens,
             "samples": trainer.samples, "median_step_ms": stats["median_step_ms"],
-            "param_sha256": param_digest(trainer.model),
+            "param_sha256": param_digest(trainer.model), "memory": stats["memory"],
         })
     logger.info(f"done training in {wall:.1f} seconds")
     if distributed_utils.is_master():

@@ -12,22 +12,33 @@
 // BERT-base: 0.13 ms at 3.35 TB/s).  K-b reads g, m, v and the fp32 master
 // and writes m, v, the master and, for a bf16/fp16 parameter, the rounded
 // parameter: 28 B an element in fp32, 30 B with a bf16 parameter (~1 ms).
-// The design is the simple one: grid-stride (K-a) or one block per chunk
+// The design is the simple one: one block per fixed span (K-a) or per chunk
 // of the segment table (K-b), 16-byte loads of four elements.
 //
 // K-a runs in two stages and has no atomics: stage 1 writes one fp32
-// partial sum of squares per block (a fixed grid for a given length, a
-// fixed tree within the block); stage 2 sums every buffer's partials in
-// index order in one block and writes the norm.  The same inputs give the
-// same bits every run.  Each element is divided by the device scalar
-// `denom` (the sample size times the loss scale) inside the reduction, so
-// the gradient accumulator is not rewritten before the norm.
+// partial sum of squares per span of kNormSpan elements (block b covers
+// elements [b * kNormSpan, (b + 1) * kNormSpan), a fixed tree within the
+// block); stage 2 sums every buffer's partials in index order in one block
+// and writes the norm.  The same inputs give the same bits every run.  Each
+// element is divided by the device scalar `denom` (the sample size times
+// the loss scale) inside the reduction, so the gradient accumulator is not
+// rewritten before the norm.  Because a partial is a fixed span of the
+// buffer and an absent element adds an exact zero, the partials of a
+// buffer cut at multiples of kNormSpan (one data-parallel rank's segment
+// under --zero-stage 2, zero-padded at the end) are the whole buffer's
+// partials: stage 1 alone (the sum-of-squares mode, `out` null) on each
+// segment, the partials gathered in rank order, then stage 2 alone
+// (`unicore_l2norm_final`) give the whole buffer's norm bit for bit.
 //
 // K-b reads the norm and `denom` from device memory: no host round trip
-// between the two.  A non-finite norm (an overflow) makes it return at
-// once, leaving every buffer as it was: the trainer skips the update.  The
-// arithmetic is the JAX op order with every operation rounded on its own
-// (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn): nvcc may not contract
+// between the two.  It runs on a whole group or on one rank's segment of
+// it (--zero-stage >= 1): `offset` is the segment's first element in the
+// group, which the chunk table is rebased on and the SR counter adds back,
+// so a segment rounds as the whole buffer does.  A non-finite norm (an
+// overflow) makes it return at once, leaving every buffer as it was: the
+// trainer skips the update.  The arithmetic is the JAX op order with every
+// operation rounded on its own (__fmul_rn, __fadd_rn, __fdiv_rn,
+// __fsqrt_rn): nvcc may not contract
 // any pair into an FMA, so the kernel and `fused_adam_plain` (torch ops,
 // each rounded) agree bit for bit.  Decoupled decay applies per chunk
 // from the segment table (each chunk lies in one parameter), not from a
@@ -40,7 +51,22 @@ namespace unicore {
 namespace {
 
 constexpr int kNormThreads = 256;
-constexpr int kNormMaxBlocks = 1024;
+// elements of one stage-1 partial (a multiple of 4 * kNormThreads *
+// kNormBatch), and the float4 loads a thread keeps in flight, which do not
+// change the bits.  8,192 and 8 (48 registers a thread) were the fastest of
+// spans 8,192-131,072 with 4, 8 or 16 loads at 110M elements on an H100,
+// level with a grid-stride grid; tools/l2norm_ab.py builds others with
+// -DUNICORE_NORM_SPAN and -DUNICORE_NORM_BATCH.
+#ifndef UNICORE_NORM_SPAN
+#define UNICORE_NORM_SPAN 8192
+#endif
+#ifndef UNICORE_NORM_BATCH
+#define UNICORE_NORM_BATCH 8
+#endif
+constexpr long long kNormSpan = UNICORE_NORM_SPAN;
+constexpr int kNormVecs = (int)(kNormSpan / 4 / kNormThreads);  // float4 loads a thread
+constexpr int kNormBatch = UNICORE_NORM_BATCH;
+static_assert(kNormVecs % kNormBatch == 0, "the span must be a whole number of batches");
 constexpr int kAdamThreads = 256;
 
 // The block's sum in a fixed order: each warp's butterfly, then warp 0
@@ -60,25 +86,45 @@ __device__ __forceinline__ float sq_scaled(float x, float d) {
   return __fmul_rn(y, y);
 }
 
-// stage 1: partial[blockIdx.x] = sum over the block's elements of (x / d)^2
+__device__ __forceinline__ float add_sq4(float acc, const float4 q, float d) {
+  acc = __fadd_rn(acc, sq_scaled(q.x, d));
+  acc = __fadd_rn(acc, sq_scaled(q.y, d));
+  acc = __fadd_rn(acc, sq_scaled(q.z, d));
+  return __fadd_rn(acc, sq_scaled(q.w, d));
+}
+
+// stage 1: partial[b] = sum over elements [b * kNormSpan, (b + 1) *
+// kNormSpan) of x of (x / d)^2.  Thread t adds the float4 groups t, t +
+// kNormThreads, ... of its span in order, each group's four elements in
+// order; an element past n adds nothing (a zero would add an exact zero).
 __global__ void __launch_bounds__(kNormThreads)
     l2norm_partial_kernel(const float* __restrict__ x, long long n,
                           const float* __restrict__ denom, float* __restrict__ partial) {
   __shared__ float smem[32];
   const float d = denom != nullptr ? *denom : 1.f;
-  const long long n4 = n >> 2;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const long long base = (long long)blockIdx.x * kNormSpan;
   float acc = 0.f;
-  for (long long i = tid; i < n4; i += stride) {
-    const float4 q = x4[i];
-    acc = __fadd_rn(acc, sq_scaled(q.x, d));
-    acc = __fadd_rn(acc, sq_scaled(q.y, d));
-    acc = __fadd_rn(acc, sq_scaled(q.z, d));
-    acc = __fadd_rn(acc, sq_scaled(q.w, d));
+  if (base + kNormSpan <= n) {
+    // batches of kNormBatch loads in flight, added in order
+    const float4* x4 = reinterpret_cast<const float4*>(x + base) + threadIdx.x;
+    for (int h = 0; h < kNormVecs; h += kNormBatch) {
+      float4 q[kNormBatch];
+#pragma unroll
+      for (int i = 0; i < kNormBatch; ++i) q[i] = x4[(h + i) * kNormThreads];
+#pragma unroll
+      for (int i = 0; i < kNormBatch; ++i) acc = add_sq4(acc, q[i], d);
+    }
+  } else {
+    for (int i = 0; i < kNormVecs; ++i) {
+      const long long e = base + 4LL * (i * kNormThreads + threadIdx.x);
+      if (e >= n) break;
+      if (e + 4 <= n) {
+        acc = add_sq4(acc, *reinterpret_cast<const float4*>(x + e), d);
+      } else {
+        for (long long k = e; k < n; ++k) acc = __fadd_rn(acc, sq_scaled(x[k], d));
+      }
+    }
   }
-  for (long long i = (n4 << 2) + tid; i < n; i += stride) acc = __fadd_rn(acc, sq_scaled(x[i], d));
   acc = block_sum(acc, smem);
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
@@ -94,9 +140,8 @@ __global__ void __launch_bounds__(1024)
 }
 
 long long norm_blocks(long long n) {
-  const long long per_block = (long long)kNormThreads * 4 * 4;
-  long long b = (n + per_block - 1) / per_block;
-  return b < 1 ? 1 : (b > kNormMaxBlocks ? kNormMaxBlocks : b);
+  const long long b = (n + kNormSpan - 1) / kNormSpan;
+  return b < 1 ? 1 : b;
 }
 
 struct AdamArgs {
@@ -107,6 +152,7 @@ struct AdamArgs {
   float max_norm, clip_eps;
   int sr;              // stochastic rounding of a bf16 parameter
   uint32_t k0, k1, buffer_id;
+  long long offset4;   // the segment's first element in the group, over 4
 };
 
 struct Elem {
@@ -141,7 +187,10 @@ __device__ __forceinline__ __nv_bfloat16 round_param<__nv_bfloat16>(float x, uin
   return __nv_bfloat16(r);
 }
 
+// the noise of element e of the segment: counted from its element in the
+// whole group, (e + offset) / 4
 __device__ __forceinline__ uint4 sr_words(const AdamArgs& a, long long e4) {
+  e4 += a.offset4;
   return philox4x32_10(make_uint4((uint32_t)e4, (uint32_t)(e4 >> 32), a.buffer_id, 0u), a.k0,
                        a.k1);
 }
@@ -212,8 +261,10 @@ __global__ void __launch_bounds__(kAdamThreads)
 
 using namespace unicore;
 
-// The stage-1 block count (fp32 partials) of a buffer of n elements.
+// The stage-1 block count (fp32 partials) of a buffer of n elements, and
+// the elements of one partial.
 extern "C" long long unicore_l2norm_blocks(long long n) { return norm_blocks(n); }
+extern "C" long long unicore_l2norm_span() { return kNormSpan; }
 
 // The global L2 norm of `nbuf` fp32 buffers (device pointers in `bufs`,
 // lengths in `sizes`, both host arrays), each element divided by the
@@ -236,26 +287,38 @@ extern "C" int unicore_multi_tensor_l2norm(const void* const* bufs, const long l
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  if (out == nullptr) return (int)cudaSuccess;
   if (total > (1LL << 30)) return (int)cudaErrorInvalidValue;
   l2norm_final_kernel<<<1, 1024, 0, s>>>(part, (int)total, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+// Stage 2 alone: `out` = sqrt of the sum of `n` fp32 partials (stage 1's,
+// gathered from the ranks' segments in rank order).
+extern "C" int unicore_l2norm_final(const void* partial, long long n, void* out, void* stream) {
+  if (n <= 0 || n > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  l2norm_final_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), (int)n, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
 // One Adam(W) pass over a flat group: master, m, v, g fp32; param null (the
 // master is the parameters) or the group's parameters in `param_dtype`
 // (0 fp32, 1 bf16, 4 fp16); chunks: (n_chunks, 2) int64 on the device;
-// denom, gnorm: device scalars or null.
+// denom, gnorm: device scalars or null; offset: the segment's first element
+// in the group (a multiple of 4; 0 for a whole group), which SR counts
+// from.
 extern "C" int unicore_fused_adam(void* master, void* param, int param_dtype, void* m, void* v,
                                  const void* g, const void* chunks, int n_chunks,
                                  const void* denom, const void* gnorm, float beta1, float beta2,
                                  float omb1, float omb2, float eps, float step_size,
                                  float decay_factor, int decay_on, float max_norm,
                                  float clip_eps, int sr, unsigned k0, unsigned k1,
-                                 unsigned buffer_id, void* stream) {
-  if (n_chunks <= 0) return (int)cudaErrorInvalidValue;
+                                 unsigned buffer_id, long long offset, void* stream) {
+  if (n_chunks <= 0 || offset < 0 || (offset & 3)) return (int)cudaErrorInvalidValue;
   if (sr && (param == nullptr || param_dtype != kBFloat16)) return (int)cudaErrorInvalidValue;
-  const AdamArgs a{beta1,    beta2,     omb1,    omb2, eps, step_size, decay_factor,
-                   decay_on, max_norm, clip_eps, sr,   k0,  k1,        buffer_id};
+  const AdamArgs a{beta1,    beta2,    omb1, omb2, eps, step_size, decay_factor,
+                   decay_on, max_norm, clip_eps, sr, k0, k1, buffer_id, offset >> 2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ch = static_cast<const long long*>(chunks);
   const auto* dn = static_cast<const float*>(denom);

@@ -6,8 +6,11 @@ step as ``e <- e - (1 - decay) (e - p)``; a skipped update (non-finite
 gradient norm) leaves it as it was, as the JAX trainer keeps the old EMA
 on an overflow.  Under ``--bf16`` / ``--fp16`` the trainer hands it the
 optimizer's fp32 master, not the rounded parameters, as the JAX trainer
-averages its master.  Plain ``torch._foreach_*`` ops over all tensors at once;
-the JAX package has no Pallas kernel here either.
+averages its master.  Under ``--zero-stage`` >= 1 the trainer hands it the
+rank's share of the master (``parallel/zero.py``), as the JAX trainer
+shards its EMA like the master, and gathers it whole for a checkpoint and
+``--validate-with-ema``.  Plain ``torch._foreach_*`` ops over all tensors at
+once; the JAX package has no Pallas kernel here either.
 """
 
 from collections import OrderedDict

@@ -215,16 +215,21 @@ def _bind(lib) -> None:
         p, p, p, desc, p, desc, p, ll, i, i, i, u, u, f, i, p,
     ]
     # csrc/multi_tensor.cu: the L2 norm (host arrays of buffer pointers and
-    # lengths, their count, denom, partials, out, stream) and the Adam pass
-    # (master, param, its dtype, m, v, g, chunks, their count, denom, gnorm,
-    # beta1, beta2, 1 - beta1, 1 - beta2, eps, step size, decay factor,
-    # decay on, max norm, clip eps, sr, k0, k1, buffer id, stream)
+    # lengths, their count, denom, partials, out -- null: the partials alone
+    # --, stream), its stage 2 alone (partials, their count, out, stream) and
+    # the Adam pass (master, param, its dtype, m, v, g, chunks, their count,
+    # denom, gnorm, beta1, beta2, 1 - beta1, 1 - beta2, eps, step size, decay
+    # factor, decay on, max norm, clip eps, sr, k0, k1, buffer id, the
+    # segment's offset, stream)
     lib.unicore_l2norm_blocks.argtypes = [ll]
     lib.unicore_l2norm_blocks.restype = ll
+    lib.unicore_l2norm_span.argtypes = []
+    lib.unicore_l2norm_span.restype = ll
     lib.unicore_multi_tensor_l2norm.argtypes = [
         ctypes.POINTER(p), ctypes.POINTER(ll), i, p, p, p, p]
+    lib.unicore_l2norm_final.argtypes = [p, ll, p, p]
     lib.unicore_fused_adam.argtypes = [p, p, i, p, p, p, p, i, p, p] + [f] * 7 + [
-        i, f, f, i, u, u, u, p]
+        i, f, f, i, u, u, u, ll, p]
     for fn in ("unicore_fullrow_attention_fwd", "unicore_fullrow_attention_bwd",
                "unicore_fused_norm_fwd", "unicore_fused_norm_bwd",
                "unicore_softmax_dropout_fwd",
@@ -233,7 +238,7 @@ def _bind(lib) -> None:
                "unicore_decode_attention",
                "unicore_quant_matmul", "unicore_quant_layer_norm_fwd",
                "unicore_quant_softmax_dropout_fwd", "unicore_multi_tensor_l2norm",
-               "unicore_fused_adam"):
+               "unicore_l2norm_final", "unicore_fused_adam"):
         getattr(lib, fn).restype = i
     lib.unicore_fused_norm_bwd_scratch.argtypes = [ll, i, i, i, i]
     lib.unicore_fused_norm_bwd_scratch.restype = ll

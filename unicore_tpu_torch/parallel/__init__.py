@@ -1,6 +1,7 @@
 """Data parallelism (counterpart of ``unicore_tpu/parallel/``): the plan
 (``plan.py``), the process groups of its two tiers (``groups.py``) and the
-flat and two-level gradient reductions (``hierarchy.py``).  Tensor,
+flat and two-level gradient reductions (``hierarchy.py``) and ZeRO's
+share of the optimizer state (``zero.py``).  Tensor,
 expert, pipeline and sequence parallelism are not ported (ROADMAP queue A
 item 4)."""
 
@@ -21,3 +22,4 @@ from .plan import (  # noqa: F401
     resolve_deterministic_reductions,
     set_global_plan,
 )
+from .zero import resolve_zero_stage  # noqa: F401

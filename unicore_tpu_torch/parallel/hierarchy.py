@@ -30,6 +30,11 @@ else one fp32 buffer the per-name gradients are flattened into.
 in-pod reduction gathers and folds in rank order instead of the backend's
 reduce-scatter, and the cross-pod sum folds in pod-index order.
 
+Under ``--zero-stage`` 2/3 on a flat tier (``parallel/zero.py``) the
+reduction is :meth:`GradReducer.reduce_scatter_`: each flat buffer summed
+into this rank's segment only (gathered and folded in rank order under
+``--deterministic-reductions``).
+
 The adasum dots and norms run as plain torch reductions over the flat
 buffers, as the JAX ``adasum_pair`` runs jnp: no kernel of its own.
 """
@@ -204,16 +209,27 @@ class GradReducer:
         self.buffer_bytes: List[int] = []
         self.dcn_bytes: List[int] = []
 
-    def reduce_(self, bufs: Sequence[torch.Tensor]) -> None:
-        import torch.distributed as dist
-
-        cuda = bufs[0].is_cuda
-        if cuda:
+    def _timed(self, bufs):
+        """Start the timing of a reduction of ``bufs``; returns its stop."""
+        if bufs[0].is_cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
+
+            def stop():
+                end.record()
+                self._timings.append((start, end))
         else:
             t0 = time.perf_counter()
+
+            def stop():
+                self._timings.append((time.perf_counter() - t0) * 1e3)
+        return stop
+
+    def reduce_(self, bufs: Sequence[torch.Tensor]) -> None:
+        import torch.distributed as dist
+
+        stop = self._timed(bufs)
         plan = self.plan
         if self.two_level:
             reduced = two_level_reduce(
@@ -226,15 +242,31 @@ class GradReducer:
         else:
             for b in bufs:
                 dist.all_reduce(b)
-        if cuda:
-            end.record()
-            self._timings.append((start, end))
-        else:
-            self._timings.append((time.perf_counter() - t0) * 1e3)
+        stop()
         self.buffer_bytes = [b.numel() * b.element_size() for b in bufs]
         self.dcn_bytes = [
             (-(-b.numel() // plan.pod_size)) * b.element_size() if self.two_level else 0
             for b in bufs]
+
+    def reduce_scatter_(self, bufs: Sequence[torch.Tensor],
+                        segs: Sequence[torch.Tensor]) -> None:
+        """ZeRO stages 2/3: each flat buffer (``world`` equal segments)
+        summed over the ranks into this rank's segment in ``segs`` (a view
+        of the buffer's own segment: the sum is written in place, which
+        NCCL and gloo take); the backend's reduce-scatter, or under
+        ``--deterministic-reductions`` every rank's buffer gathered and
+        folded in rank order."""
+        stop = self._timed(bufs)
+        world, rank = groups.dp_world_size(), groups.dp_rank()
+        for b, s in zip(bufs, segs):
+            if self.plan.deterministic_reductions:
+                total = _ordered_fold_sum(_gather(b, world, None))
+                s.copy_(total[rank * s.numel():(rank + 1) * s.numel()])
+            else:
+                _collective("reduce_scatter_single", "reduce_scatter_tensor")(s, b)
+        stop()
+        self.buffer_bytes = [b.numel() * b.element_size() for b in bufs]
+        self.dcn_bytes = [0 for _ in bufs]
 
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """``grads`` (name -> fp32 gradient) summed over the ranks: views

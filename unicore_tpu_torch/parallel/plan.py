@@ -9,8 +9,9 @@ data-parallel tier only -- ``pod x data`` ranks, one process each
 order, rank = pod * pod_size + data index).  When ``pods > 1`` the
 gradient reduction is two-level (``parallel/hierarchy.py``).  The model,
 expert, pipe and seq axes are declared so a plan describes itself as the
-JAX plan does; :func:`refuse_unported` raises for any of them above 1, as
-for ``--zero-stage`` above 0 (ROADMAP queue A item 4).
+JAX plan does; :func:`refuse_unported` raises for any of them above 1
+(ROADMAP queue A item 4).  ``--zero-stage`` shards the optimizer state
+over the data-parallel tier (``parallel/zero.py``).
 
 Axis order (outermost first)::
 
@@ -287,8 +288,7 @@ def get_global_plan() -> Optional[ParallelPlan]:
 
 def refuse_unported(args) -> None:
     """Raise ``NotImplementedError`` for what the port does not run: a
-    model, expert, pipe or seq axis above 1 and ZeRO sharding
-    (``--zero-stage`` above 0, ``--zero-shard-optimizer``)."""
+    model, expert, pipe or seq axis above 1."""
     for flag, name in (("model_parallel_size", "--model-parallel-size"),
                        ("expert_parallel_size", "--expert-parallel-size"),
                        ("pipeline_parallel_size", "--pipeline-parallel-size"),
@@ -298,8 +298,3 @@ def refuse_unported(args) -> None:
                 f"{name} {getattr(args, flag)}: tensor, expert, pipeline and "
                 "sequence parallelism are not ported (ROADMAP queue A item 4); "
                 "the port runs the data-parallel tier only")
-    if (getattr(args, "zero_stage", 0) or 0) > 0 or getattr(args, "zero_shard_optimizer", False):
-        raise NotImplementedError(
-            f"--zero-stage {getattr(args, 'zero_stage', 0) or 1}: ZeRO sharding of "
-            "the optimizer state over the flat buffers is not ported (ROADMAP queue "
-            "A item 4); every rank keeps the whole state (--zero-stage 0)")

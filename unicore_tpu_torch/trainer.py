@@ -105,9 +105,21 @@ lag-1 probe a CUDA event recorded after its last kernel.  The
 gets ``checkpoint-load``, and ``fused-norm-path`` and ``comm-plan`` at the
 first update (where the JAX trainer initialises its state).
 
-The JAX trainer's tensor, pipeline and sequence parallelism, ZeRO sharding
-and orbax machinery are not ported; nor is its ``recompiles`` stat (eager
-PyTorch compiles no step programs).
+ZeRO, as the JAX trainer's ``--zero-stage`` (``parallel/zero.py``): from
+stage 1 each rank keeps and updates only its share of the optimizer state
+(the moments, the fp32 master) and of the EMA -- its segment of the flat
+buffers under ``--fused-adam``, else each tensor's slice -- and the
+updated shares are all-gathered into every rank's parameters; stages 2/3
+reduce-scatter the flat gradient buffers into the segments instead of
+all-reducing them.  The norm is stage 0's bits at every stage.  Every
+collective stays on the device: the ZeRO path adds no host read.  A
+checkpoint holds the state whole (:meth:`consolidate_state`, which every
+rank runs before rank 0 writes), and a load keeps each rank's share, so a
+run resumes at another world size and stage.
+
+The JAX trainer's tensor, pipeline and sequence parallelism and orbax
+machinery are not ported; nor is its ``recompiles`` stat (eager PyTorch
+compiles no step programs).
 """
 
 import contextlib
@@ -138,6 +150,7 @@ from unicore_tpu_torch.optim.multi_tensor import clip_coef
 from unicore_tpu_torch.optim.unicore_optimizer import clip_grad_norm
 from unicore_tpu_torch.parallel import groups, hierarchy
 from unicore_tpu_torch.parallel import plan as plan_mod
+from unicore_tpu_torch.parallel import zero as zero_mod
 
 #: folded into the SR noise's key, apart from the dropout's (the JAX
 #: trainer's ``fold_in(rng, 1337)``)
@@ -205,7 +218,18 @@ class Trainer(object):
                 f"{type(self._optimizer).__name__} does not support — use "
                 "--optimizer adam or --grad-accum buffer")
         self._jax_names = checkpoint_utils.jax_param_names(self.model)
+        #: ZeRO: the resolved stage and this rank's spec (None: every rank
+        #: keeps the whole state)
+        self.zero_stage = zero_mod.resolve_zero_stage(args)
+        zero_mod.log_preset(args, self.dp_world_size)
+        self.zero = zero_mod.spec_for(
+            self.zero_stage, self.dp_world_size, self.dp_rank,
+            two_level=bool(self._reducer is not None and self._reducer.two_level))
+        self._optimizer.configure_zero(self.zero)
         self._optimizer.init_state(self.params, self._jax_names)
+        #: the whole optimizer state and EMA that consolidate_state gathered
+        #: for the next state_dict (rank 0 under ZeRO)
+        self._consolidated = None
         #: --fused-adam (not under adama, whose accumulators stay per
         #: tensor): gradients accumulate in the flat buffers
         self._fused = (getattr(self._optimizer, "use_fused", False)
@@ -221,7 +245,7 @@ class Trainer(object):
         self._nan_updates = 0
         self.overflows = 0
         ema_decay = getattr(args, "ema_decay", -1.0)
-        self.ema = EMA(self._master(), ema_decay) if ema_decay > 0 else None
+        self.ema = EMA(self._ema_source(), ema_decay) if ema_decay > 0 else None
         self._num_updates = 0
         self._start_time = time.time()
         self._previous_training_time = 0.0
@@ -267,11 +291,16 @@ class Trainer(object):
         self._state_noted = False
         metrics.log_start_time("wall", priority=790, round=2)
 
-    def _master(self) -> Dict[str, torch.Tensor]:
+    def _ema_source(self) -> Dict[str, torch.Tensor]:
         """The fp32 weights the optimizer updates and the EMA averages: the
-        optimizer's master, or the parameters in an fp32 run."""
-        master = self._optimizer.master
-        return self.params if master is None else master
+        optimizer's master, or the parameters in an fp32 run; under ZeRO
+        this rank's share of them (the EMA follows the master's layout)."""
+        return self._optimizer.local_weights(self.params)
+
+    def _ema_whole(self, dst: Optional[int] = None) -> Optional[Dict[str, torch.Tensor]]:
+        """The EMA by parameter name, whole (a collective under ZeRO; with
+        ``dst``, on rank ``dst``'s host alone, None on the others)."""
+        return self._optimizer.gather_local(self.ema.shadow, dst)
 
     def get_loss_scale(self) -> float:
         return float(self.scale_state["scale"])
@@ -619,7 +648,7 @@ class Trainer(object):
                 elif not self._fused:
                     opt.step(self.params, grads, lr, self._sr_generator())
                 if self.ema is not None:
-                    self.ema.update(self._master())
+                    self.ema.update(self._ema_source())
         else:
             if self._fused:
                 opt.unstep()
@@ -674,6 +703,9 @@ class Trainer(object):
         gradient buffers of ``--fused-adam``, else every parameter's
         accumulator (zeros for one without a gradient, so every rank sends
         the same layout) through one flat buffer."""
+        if self._fused and self.zero is not None and self.zero.scatter:
+            self._reducer.reduce_scatter_(*self._optimizer.scatter_buffers())
+            return
         if self._fused:
             self._reducer.reduce_([b["g"] for b in self._optimizer.flat])
             return
@@ -692,7 +724,19 @@ class Trainer(object):
             return None
         return {"two_level": r.two_level, "plan": r.plan.describe(),
                 "backend": groups.backend(), "ms_per_update": r.timings_ms(),
-                "buffer_bytes": r.buffer_bytes, "dcn_bytes": r.dcn_bytes}
+                "buffer_bytes": r.buffer_bytes, "dcn_bytes": r.dcn_bytes,
+                "reduce_scatter": bool(self.zero is not None and self.zero.scatter)}
+
+    def memory_stats(self) -> dict:
+        """This rank's memory: the ZeRO stage, the optimizer state it holds
+        (its share of the moments and the fp32 master) and the EMA's, and on
+        a card ``torch.cuda.max_memory_allocated``."""
+        ema = sum(t.numel() * t.element_size() for t in self.ema.shadow.values()) \
+            if self.ema is not None else 0
+        return {"zero_stage": self.zero_stage, "zero_sharded": self.zero is not None,
+                "optimizer_state_bytes": self._optimizer.state_bytes(), "ema_bytes": ema,
+                "peak_allocated_bytes": (torch.cuda.max_memory_allocated(self.device)
+                                         if self.device.type == "cuda" else None)}
 
     def _localize_nan(self, batches):
         """Re-run the update's first micro-batch: a forward in eval mode
@@ -866,17 +910,16 @@ class Trainer(object):
 
     def _live_state(self) -> Dict[str, torch.Tensor]:
         """Every tensor of the training state a rewind restores, by a
-        stable name: under ``--fused-adam`` the flat buffers (master,
-        low-precision parameters, moments; the parameters and slots are
-        views into them), else each parameter, slot and master tensor; and
-        the EMA's shadow."""
+        stable name: under ``--fused-adam`` the flat buffers (the whole
+        parameter buffer, the moments and a low-precision master; the
+        parameters and slots are views into them), else each parameter,
+        slot and master tensor; and the EMA's shadow.  Under ZeRO the
+        state is this rank's share: each rank captures and restores its
+        own."""
         live: Dict[str, torch.Tensor] = OrderedDict()
         opt = self._optimizer
         if self._fused:
-            for i, bufs in enumerate(opt.flat):
-                for k in ("master", "param", "m", "v"):
-                    if bufs.get(k) is not None:
-                        live[f"flat.{i}.{k}"] = bufs[k]
+            live.update(opt.live_buffers())
         else:
             for n, p in self.params.items():
                 live[f"param.{n}"] = p.data
@@ -988,9 +1031,10 @@ class Trainer(object):
         self._await_snapshot()
         params = list(self.params.values())
         saved = [p.detach().clone() for p in params]
+        ema = self._ema_whole()
         with torch.no_grad():
-            for p, e in zip(params, self.ema.shadow.values()):
-                p.copy_(e)
+            for n, p in self.params.items():
+                p.copy_(ema[n])
         try:
             yield
         finally:
@@ -1000,17 +1044,53 @@ class Trainer(object):
 
     # -- checkpoint ----------------------------------------------------------
 
+    def consolidate_state(self) -> None:
+        """Under ZeRO, gather the optimizer state and the EMA whole to rank
+        0's host for the next :meth:`state_dict`, one flat group (or one
+        dtype's slices) at a time: a collective, which every rank runs
+        before rank 0 writes a checkpoint (``checkpoint_utils.
+        save_checkpoint``).  No other rank holds the state whole.  A no-op
+        without ZeRO."""
+        if self.zero is None:
+            return
+        save_opt = not getattr(self.args, "no_save_optimizer_state", False)
+        opt_state = self._optimizer.state_dict(dst=0) if save_opt else None
+        ema = self._ema_whole(dst=0) if self.ema is not None else None
+        self._consolidated = (opt_state, ema) if self.dp_rank == 0 else None
+
+    def release_consolidated(self) -> None:
+        """Drop what :meth:`consolidate_state` gathered and no save used."""
+        self._consolidated = None
+
+    def _whole_state(self):
+        """(optimizer state, EMA) whole for a checkpoint: gathered by
+        :meth:`consolidate_state` under ZeRO (neither when it did not run:
+        the on-error emergency save, which a rank may make alone), else the
+        rank's own."""
+        save_opt = not getattr(self.args, "no_save_optimizer_state", False)
+        if self.zero is None:
+            return (self._optimizer.state_dict() if save_opt else None,
+                    self.ema.state_dict() if self.ema is not None else None)
+        got, self._consolidated = self._consolidated, None
+        if got is None:
+            logger.warning("ZeRO: the optimizer state and the EMA were not gathered for "
+                           "this checkpoint (no consolidate_state on every rank); it "
+                           "holds the weights without them")
+            return None, None
+        return got
+
     def state_dict(self):
         """The checkpoint, in the JAX package's layout: ``args``, ``model``,
         ``optimizer_state``, ``optimizer_history`` (the lr scheduler and the
         update count), ``extra_state`` (meters, training time) and, with
-        ``--ema-decay``, ``ema``.  ``unicore-tpu-torch-serve`` reads ``args``
-        and ``model``."""
-        save_opt = not getattr(self.args, "no_save_optimizer_state", False)
+        ``--ema-decay``, ``ema``; the optimizer state and the EMA whole at
+        every ZeRO stage.  ``unicore-tpu-torch-serve`` reads ``args`` and
+        ``model``."""
+        opt_state, ema = self._whole_state()
         state = {
             "args": self.args,
             "model": self.model.state_dict(),
-            "optimizer_state": self._optimizer.state_dict() if save_opt else None,
+            "optimizer_state": opt_state,
             "optimizer_history": [{
                 "optimizer_name": type(self._optimizer).__name__,
                 "lr_scheduler_state": self._lr_scheduler.state_dict(),
@@ -1028,8 +1108,8 @@ class Trainer(object):
                              else None),
             },
         }
-        if self.ema is not None:
-            state["ema"] = self.ema.state_dict()
+        if ema is not None:
+            state["ema"] = ema
         return state
 
     def save_checkpoint(self, filename, extra_state):
@@ -1044,6 +1124,19 @@ class Trainer(object):
         if saved:
             logger.info(f"saved checkpoint {filename} (update {self.get_num_updates()})")
         return saved
+
+    def _log_reshard(self, saved_args) -> None:
+        """Name the reshard when the checkpoint was saved at another world
+        size or ZeRO stage (its state is whole: each rank keeps its share)."""
+        if saved_args is None:
+            return
+        saved_stage = zero_mod.resolve_zero_stage(saved_args)
+        saved_world = int(getattr(saved_args, "distributed_world_size", 1) or 1)
+        if (saved_world, saved_stage) != (self.dp_world_size, self.zero_stage):
+            logger.info(f"checkpoint saved by {saved_world} rank(s) at --zero-stage "
+                        f"{saved_stage}, loaded by {self.dp_world_size} at --zero-stage "
+                        f"{self.zero_stage}: the optimizer state and EMA resharded (rank "
+                        f"{self.dp_rank} keeps its share)")
 
     def load_checkpoint(self, filename, reset_optimizer=False, reset_lr_scheduler=False,
                         reset_dataloader=False, optimizer_overrides=None,
@@ -1084,6 +1177,7 @@ class Trainer(object):
                 for n, p in self.params.items():
                     p.copy_(state["ema"][n])
         self._optimizer.refresh_master(self.params)
+        self._log_reshard(state.get("args"))
         if not reset_optimizer and state.get("optimizer_state") is not None:
             if not self._optimizer.load_state_dict(state["optimizer_state"],
                                                    optimizer_overrides):
@@ -1093,9 +1187,10 @@ class Trainer(object):
                     "from zero)")
         if self.ema is not None:
             if state.get("ema") is not None:
-                self.ema.load_state_dict(state["ema"])
+                self.ema.load_state_dict(self._optimizer.local_copy(
+                    {n: state["ema"][n] for n in self.params}))
             else:  # start the average at the loaded weights
-                self.ema = EMA(self._master(), self.ema.decay)
+                self.ema = EMA(self._ema_source(), self.ema.decay)
         if (not reset_optimizer and self.use_loss_scale and extra_state is not None
                 and extra_state.get("loss_scale") is not None):
             saved = extra_state.get("loss_scale_state") or {}
